@@ -1,10 +1,12 @@
 """mgvae_tpu_torch: the PyTorch + CUDA port of mgvae_tpu, for NVIDIA Hopper.
 
-This slice runs the DG_AE encode path (``Model.forward`` / ``encode_many``):
-the numpy data layer, the struct encoder and level statics in PyTorch, and
-the level recurrence as a hand-written CUDA kernel (``csrc/level_scan.cu``).
-The JAX package ``mgvae_tpu`` is the reference it is tested against; this
-package never imports jax.
+It runs the DG_AE encode path (``Model.forward`` / ``encode_many``) and one
+DG_AE training step (``train.step.make_train_step``: forward, the recon,
+prob and func losses, backward, Adam): the numpy data layer, the struct
+encoder, level statics and losses in PyTorch, and the level recurrence
+forward and backward as hand-written CUDA kernels (``csrc/level_scan.cu``,
+``csrc/level_scan_bwd.cu``). The JAX package ``mgvae_tpu`` is the reference
+it is tested against; this package never imports jax.
 """
 
 from .api import Model

@@ -4,6 +4,8 @@
     graph = BenchParser().read_bench(path)
     hs, hf = model(graph)
     pairs = model.encode_many(graphs, batch_size=16)       # serving path
+    prob = model.pred_prob(hf)                              # [N, 1] in [0, 1]
+    loss, metrics = model.recon_loss(hs, graph.edge_index)
 
 On CUDA the level recurrence runs the hand-written kernel
 (``ops/level_kernel.level_scan``). The constructor sets
@@ -19,6 +21,8 @@ from .data.batching import collate
 from .data.graph import CircuitGraph
 from .models import dg_ae
 from .models.dg_ae import DGConfig, init_params
+from .ops.mlp import mlp_apply
+from .train import losses
 
 
 class Model:
@@ -97,3 +101,31 @@ class Model:
                 out[start + i] = (hs[off : off + n], hf[off : off + n])
                 off += n
         return out
+
+    @torch.inference_mode()
+    def pred_prob(self, hf):
+        """Probability readout in eval mode (running BatchNorm statistics, no
+        dropout), clipped to [0, 1]: [N, 1]."""
+        hf = torch.as_tensor(hf, device=self.device)
+        out, _ = mlp_apply(self.params["readout_prob"], self.state["readout_prob"], hf,
+                           train=False)
+        return out[:, 0:1].clamp(0.0, 1.0)
+
+    @torch.inference_mode()
+    def recon_loss(self, hs, pos_edge_index, gen: torch.Generator | None = None,
+                   neg_edges=None):
+        """Recon loss and its count metrics on an explicit positive edge set
+        [2, E]. Negatives: ``neg_edges`` (src, dst), or E pairs drawn from
+        ``gen`` (default: a CPU generator seeded 0)."""
+        hs = torch.as_tensor(hs, device=self.device)
+        pos = torch.as_tensor(np.asarray(pos_edge_index), device=self.device).to(torch.int32)
+        e = pos.shape[1]
+        b = {
+            "edge_src": pos[0], "edge_dst": pos[1],
+            "edge_valid": torch.ones(e, dtype=torch.bool, device=self.device),
+            "n_edges": torch.tensor(e, dtype=torch.int32, device=self.device),
+            "n_nodes": torch.tensor(hs.shape[0], dtype=torch.int32, device=self.device),
+        }
+        if neg_edges is None and gen is None:
+            gen = torch.Generator().manual_seed(0)
+        return losses.recon_loss(self.params, hs, b, gen, neg_edges=neg_edges)

@@ -1,9 +1,9 @@
 // Fused level-recurrence forward of DG_AE (num_rounds == 1), fp32, for
 // Hopper (sm_90a).
 //
-// Replaces mgvae_tpu/ops/pallas/level_kernel.py::fused_level_scan (the
-// C == 1, no-residual forward). Per DAG level and per destination slot:
-// gather hf[src] of the slot's in-edges, the hf-side key/value of the
+// Replaces mgvae_tpu/ops/pallas/level_kernel.py::fused_level_scan (C == 1),
+// with and without its residual outputs. Per DAG level and per destination
+// slot: gather hf[src] of the slot's in-edges, the hf-side key/value of the
 // destination's expert, the masked segment softmax over the in-edges,
 // msg = sum attn * v, then a GRU step with h = 0, written to hf[node].
 //
@@ -26,6 +26,13 @@
 //     memory, one persistent launch with a grid-wide barrier, CUDA graphs
 //     and wgmma are left for later work.
 //
+// Residuals (training): with res_e / res_n given, each updated slot also
+// writes, for the backward kernel (level_scan_bwd.cu), per in-edge
+// res_e [Ep, 3D+1] = hf_src | khf | v | attn and per slot
+// res_n [Np, 4D] = msg | r | z | nw, unpadded. Rows of slots that are not
+// updated, of padding edges and of padding levels are left as the caller
+// gave them (zeroed) and are never read.
+//
 // Thread d of a block owns feature d (blockDim = D rounded up to a warp).
 // An edge's expert is its destination's, so every in-edge of a slot uses the
 // slot's expert e_n[slot] (the pack's expert column holds the same value).
@@ -34,56 +41,9 @@
 
 #include <cuda_runtime.h>
 
+#include "level_common.cuh"
+
 namespace {
-
-constexpr int kMaxDim = 128;
-constexpr int kMaxExperts = 5;
-constexpr int kMaxWarps = kMaxDim / 32;
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Sum of x over the block, returned to every thread. Two barriers.
-__device__ __forceinline__ float block_sum(float x, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  x = warp_sum(x);
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < nwarps; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
-// Calls f(j) for every valid row j of the level's edge table whose
-// destination slot is `slot`, in row order. Every thread of the block sees
-// the same sequence, so f may hold barriers.
-template <class F>
-__device__ __forceinline__ void for_each_in_edge(const int* __restrict__ dslot,
-                                                 const int* __restrict__ evalid,
-                                                 int ep, int slot, unsigned* masks, F f) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int base = 0; base < ep; base += blockDim.x) {
-    const int j = base + threadIdx.x;
-    const bool hit = j < ep && evalid[j] != 0 && dslot[j] == slot;
-    const unsigned m = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) masks[warp] = m;
-    __syncthreads();
-    for (int w = 0; w < nwarps; ++w) {
-      unsigned mw = masks[w];
-      while (mw) {
-        const int b = __ffs(mw) - 1;
-        mw &= mw - 1;
-        f(base + w * 32 + b);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // One level. Grid: one block per destination slot of the level.
 __global__ void __launch_bounds__(kMaxDim) level_kernel(
@@ -102,6 +62,8 @@ __global__ void __launch_bounds__(kMaxDim) level_kernel(
     float* hf,                         // [N, D]: sources read, this level's rows written
     float* __restrict__ score_buf,     // [Ep] scratch
     float* __restrict__ v_buf,         // [Ep, D] scratch
+    float* __restrict__ res_e,         // [Ep, 3D+1] or null
+    float* __restrict__ res_n,         // [Np, 4D] or null
     int ep, int dim, int num_experts) {
   const int slot = blockIdx.x;
   if (upd[slot] == 0) return;  // block-uniform, before any barrier
@@ -116,6 +78,7 @@ __global__ void __launch_bounds__(kMaxDim) level_kernel(
   const bool own = d < D;
   const int e = e_n[slot];
   const size_t pw = D + 2;
+  const size_t ew = 3 * (size_t)D + 1;
   const size_t kv_stride = 2 * (size_t)T * D;
   const float* wk = wkv_hf + (size_t)e * D;           // expert e's key columns
   const float* wv = wkv_hf + (size_t)(T + e) * D;     // expert e's value columns
@@ -136,7 +99,16 @@ __global__ void __launch_bounds__(kMaxDim) level_kernel(
     }
     // block_sum's barriers also keep h_src alive until every thread read it
     const float score = pack[j * pw + D] + block_sum(own ? k * wa : 0.f, red);
-    if (own) v_buf[(size_t)j * D + d] = pack[j * pw + d] + v;
+    if (own) {
+      v += pack[j * pw + d];
+      v_buf[(size_t)j * D + d] = v;
+      if (res_e) {
+        float* re = res_e + j * ew;
+        re[d] = h_src[d];   // this thread's own write: no barrier needed
+        re[D + d] = k;
+        re[2 * D + d] = v;
+      }
+    }
     if (d == 0) score_buf[j] = score;
     smax = fmaxf(smax, score);
   });
@@ -149,7 +121,17 @@ __global__ void __launch_bounds__(kMaxDim) level_kernel(
     den += ex;
     if (own) acc = fmaf(ex, v_buf[(size_t)j * D + d], acc);
   });
-  if (own) msg_s[d] = acc / (den + 1e-16f);
+  const float msg = acc / (den + 1e-16f);
+  if (own) msg_s[d] = msg;
+  if (res_e) {  // block-uniform: every thread takes part in the row scan
+    // pass 3 (training only): each in-edge's softmax weight
+    for_each_in_edge(dslot, evalid, ep, slot, masks, [&](int j) {
+      if (d == 0) {
+        res_e[j * ew + 3 * D] = expf(fminf(fmaxf(score_buf[j] - smax, -80.f), 0.f)) /
+                                (den + 1e-16f);
+      }
+    });
+  }
   __syncthreads();
 
   // GRU step with h = 0: gi = msg @ w_ih[:, e] + b_ih[e], gh = b_hh[e]
@@ -170,6 +152,13 @@ __global__ void __launch_bounds__(kMaxDim) level_kernel(
     const float z = 1.f / (1.f + expf(-(gz + bi[D + d] + bh[D + d])));
     const float n = tanhf(gn + bi[2 * D + d] + r * bh[2 * D + d]);
     hf[(size_t)nodes[slot] * D + d] = (1.f - z) * n;
+    if (res_n) {
+      float* rn = res_n + (size_t)slot * 4 * D;
+      rn[d] = msg;
+      rn[D + d] = r;
+      rn[2 * D + d] = z;
+      rn[3 * D + d] = n;
+    }
   }
 }
 
@@ -179,25 +168,30 @@ extern "C" {
 
 // Runs levels [0, num_levels) of the level tables, one launch per level on
 // `stream`. Tables are [L, Ep] / [L, Np] row-major int32, pack_lv is
-// [L, Ep, D+2]. Returns 0, or the cudaError_t of the first failed launch.
+// [L, Ep, D+2]. res_e [L, Ep, 3D+1] and res_n [L, Np, 4D] are both given
+// (training) or both null. Returns 0, or the cudaError_t of the first
+// failed launch.
 int mgvae_level_scan_forward(
     const float* pack_lv, const int* lv_src, const int* lv_dslot, const int* lv_evalid,
     const int* lv_nodes, const int* lv_upd, const int* lv_e_n,
     const float* wkv_hf, const float* w_ih, const float* b_ih, const float* b_hh,
-    const float* wa_k, float* hf, float* score_buf, float* v_buf,
+    const float* wa_k, float* hf, float* score_buf, float* v_buf, float* res_e, float* res_n,
     int num_levels, int ep, int np, int dim, int num_experts, void* stream) {
   if (dim < 1 || dim > kMaxDim || num_experts < 1 || num_experts > kMaxExperts ||
-      ep < 1 || np < 1 || num_levels < 0) {
+      ep < 1 || np < 1 || num_levels < 0 || (res_e == nullptr) != (res_n == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = (dim + 31) / 32 * 32;
+  const size_t ew = 3 * static_cast<size_t>(dim) + 1, nw = 4 * static_cast<size_t>(dim);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   for (int l = 0; l < num_levels; ++l) {
     const size_t eo = static_cast<size_t>(l) * ep, no = static_cast<size_t>(l) * np;
     level_kernel<<<np, threads, 0, s>>>(
         pack_lv + eo * (dim + 2), lv_src + eo, lv_dslot + eo, lv_evalid + eo,
         lv_nodes + no, lv_upd + no, lv_e_n + no,
-        wkv_hf, w_ih, b_ih, b_hh, wa_k, hf, score_buf, v_buf, ep, dim, num_experts);
+        wkv_hf, w_ih, b_ih, b_hh, wa_k, hf, score_buf, v_buf,
+        res_e ? res_e + eo * ew : nullptr, res_n ? res_n + no * nw : nullptr,
+        ep, dim, num_experts);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

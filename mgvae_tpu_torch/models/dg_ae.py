@@ -1,4 +1,4 @@
-"""DG_AE encode path: the multi-gate auto-encoder's forward.
+"""DG_AE: the multi-gate auto-encoder's forward and its decoder heads.
 
 Counterpart of ``mgvae_tpu/models/dg_ae.py`` for ``num_rounds == 1`` in
 fp32. The per-gate-type attention aggregators and GRUs ("experts") are
@@ -11,7 +11,8 @@ The forward:
      depend on hf (with one round, a node's hf is zero until its own level
      runs), packed per edge as [vhs | score_static | expert].
   3. The level recurrence over DAG depth: ``ops.level_kernel.level_scan``
-     (the CUDA kernel on the card, the plain version on the CPU).
+     (the CUDA kernels on the card, the plain version on the CPU), which
+     autograd differentiates, so the forward trains (``train/step.py``).
 
 Parity mode is full fp32: set ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False on the card (``api.Model``
@@ -31,6 +32,7 @@ import torch
 from ..data.graph import MODALITY_GATES, NUM_GATE_TYPES
 from ..ops.init import gru_cell_init, linear_apply, linear_init
 from ..ops.level_kernel import level_scan, select_expert
+from ..ops.mlp import mlp_init
 from .encoder import direct_multigcn_apply, direct_multigcn_init
 
 
@@ -47,6 +49,8 @@ class DGConfig:
     variational: bool = False
     dim_mlp: int = 32
     compute_dtype: str = "float32"
+    # mask sampled negatives that hit a real edge (train/losses.recon_loss)
+    neg_collision_mask: bool = False
 
     @property
     def gate_types(self) -> tuple:
@@ -86,15 +90,9 @@ def init_params(cfg: DGConfig, seed: int = 0, device="cpu"):
         "experts": _experts_init(gen, cfg),
     }
     # probability readout MLP (D -> dim_mlp -> dim_mlp -> 1, BatchNorm after
-    # the hidden layers); not used by the encode path
-    dims = [D, cfg.dim_mlp, cfg.dim_mlp, 1]
-    params["readout_prob"] = {
-        "layers": [linear_init(gen, dims[i], dims[i + 1]) for i in range(3)],
-        "bn": [{"w": torch.ones(cfg.dim_mlp), "b": torch.zeros(cfg.dim_mlp)} for _ in range(2)],
-    }
-    state = {"readout_prob": {"bn": [
-        {"mean": torch.zeros(cfg.dim_mlp), "var": torch.ones(cfg.dim_mlp)} for _ in range(2)
-    ]}}
+    # the hidden layers); read by the prob loss, not by the encode path
+    params["readout_prob"], readout_state = mlp_init(gen, D, cfg.dim_mlp)
+    state = {"readout_prob": readout_state}
     return _to(params, device), _to(state, device)
 
 
@@ -141,17 +139,21 @@ def struct_input(gate: torch.Tensor, cfg: DGConfig) -> torch.Tensor:
 DEVICE_KEYS = ("gate", "edge_src", "edge_dst", "edge_valid", "deg_in", "deg_out",
                "lv_nodes", "lv_node_valid", "lv_edge_src", "lv_edge_dst_slot",
                "lv_edge_valid", "lv_edge_id")
+# and the ones the losses read (train/losses.py)
+LOSS_KEYS = ("node_valid", "prob", "tt_pair_a", "tt_pair_b", "tt_valid", "tt_dis",
+             "n_nodes", "n_edges", "n_tt")
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """The host batch's arrays that the encode path reads, as tensors on
-    ``device`` (numpy dtypes kept: int32 indices, bool masks, f32 degrees)."""
+    """The host batch's arrays that the encode path and the losses read, as
+    tensors on ``device`` (numpy dtypes kept: int32 indices, bool masks, f32
+    values; the counts become 0-d int32 tensors)."""
     if "groups" in batch:
         raise NotImplementedError("split batches are not ported yet")
     if np.ndim(batch["lv_nodes"]) != 2:
         raise NotImplementedError("chunked batches ([C, L] level tables) are not ported yet")
     return {k: torch.as_tensor(np.asarray(batch[k])).to(device, non_blocking=True)
-            for k in DEVICE_KEYS}
+            for k in DEVICE_KEYS + LOSS_KEYS}
 
 
 def num_levels(batch: dict) -> int:
@@ -209,11 +211,30 @@ def forward(params, batch: dict, cfg: DGConfig):
     """Model forward on a host batch (``data.batching.collate``); returns
     (hs, hf, aux) on the params' device, rows in the batch's level-major
     order. ``aux`` is empty (it holds the posterior stats of the
-    variational mode, which is not ported yet)."""
-    check_supported(cfg)
+    variational mode, which is not ported yet). Differentiable with respect
+    to the params; ``api.Model`` runs it under ``inference_mode``."""
     device = params["hs_linear"]["w"].device
-    b = batch_to_device(batch, device)
+    return forward_device(params, batch_to_device(batch, device), cfg, num_levels(batch))
+
+
+def forward_device(params, b: dict, cfg: DGConfig, n_levels: int):
+    """``forward`` on a batch already on the device (``batch_to_device``),
+    with its real level count (``num_levels``)."""
+    check_supported(cfg)
     hs = struct_hs(params, b, cfg)
     hf = level_scan(*level_scan_inputs(params, b, cfg, hs), num_nodes=hs.shape[0],
-                    num_levels=num_levels(batch))
+                    num_levels=n_levels)
     return hs, hf, {}
+
+
+def hs_decompose(params, hs: torch.Tensor):
+    """hs -> (s, t) for the directed inner-product decoder."""
+    st = linear_apply(params["hs_decompose"], hs)
+    return st.chunk(2, dim=-1)
+
+
+def decode_edges(s, t, src, dst, sigmoid: bool = True):
+    """Directed inner-product decoder: sigmoid(s[src] . t[dst]), or the
+    logits."""
+    logits = (s[src.long()] * t[dst.long()]).sum(-1)
+    return torch.sigmoid(logits) if sigmoid else logits

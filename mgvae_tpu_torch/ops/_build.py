@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into one shared
-library with a plain C interface, at first use, and loaded with ``ctypes``.
-The library is keyed by a hash of the sources and flags and lives in
-``mgvae_tpu_torch/_build/`` (git-ignored), so an unchanged checkout builds
-once. A failed build raises with nvcc's output.
+library with a plain C interface, at first use, and loaded with ``ctypes``:
+one ``nvcc -c`` per source, all started together, then one link. The
+library is keyed by a hash of the sources, the headers (``csrc/*.cuh``) and
+the flags, and lives in ``mgvae_tpu_torch/_build/`` (git-ignored), so an
+unchanged checkout builds once. A failed build raises with nvcc's output.
 
 nvcc is found through ``CUDA_HOME``, then ``PATH``, then
 ``/usr/local/cuda/bin``.
@@ -25,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,24 +58,45 @@ def build() -> BuildResult:
     """Compile the kernels unless the library for these sources exists."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in sorted(srcs + list(CSRC_DIR.glob("*.cuh"))):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libmgvae_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    procs, logs = [], []
+    try:
+        for s, o in zip(srcs, objs):  # one compiler per source, all at once
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            logs.append(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{logs[-1]}")
+        os.replace(tmp, out)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return BuildResult(out, seconds, log)
+    return BuildResult(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.cache
@@ -85,7 +107,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.mgvae_level_scan_forward
-    fn.argtypes = [p] * 15 + [i] * 5 + [p]
+    fn.argtypes = [p] * 17 + [i] * 5 + [p]
+    fn.restype = i
+    fn = lib.mgvae_level_scan_backward
+    fn.argtypes = [p] * 23 + [i] * 5 + [p]
     fn.restype = i
     lib.mgvae_cuda_error_string.argtypes = [i]
     lib.mgvae_cuda_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,12 @@
-"""Bridge from the JAX package's params tree to the port's tensors.
+"""Bridge between the JAX package's params and state trees and the port's
+tensors.
 
 Both packages keep the same tree and the same [in, out] layouts, so the
 bridge is a plain copy. It takes the tree as nested dicts and lists of numpy
 arrays (``jax.tree.map(np.asarray, params)``) and raises on any key it does
 not know, so a tree from a configuration the port does not run yet (e.g.
 the variational heads) is refused instead of silently dropped.
+``params_to_numpy`` goes the other way, for comparing updated trees.
 """
 from __future__ import annotations
 
@@ -22,12 +24,28 @@ _SCHEMA = {
                           "w_ih", "w_hh", "b_ih", "b_hh"}),
     "readout_prob": {"layers": [_LINEAR], "bn": [_LINEAR]},
 }
+_STATE_SCHEMA = {"readout_prob": {"bn": [frozenset({"mean", "var"})]}}
 
 
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """JAX params tree (numpy leaves) -> the port's params (f32 tensors on
     ``device``). Raises KeyError on an unknown key."""
     return _convert(tree, _SCHEMA, "params", torch.device(device))
+
+
+def state_from_jax(tree: dict, device="cpu") -> dict:
+    """JAX state tree (the BatchNorm running statistics, numpy leaves) ->
+    the port's state. Raises KeyError on an unknown key."""
+    return _convert(tree, _STATE_SCHEMA, "state", torch.device(device))
+
+
+def params_to_numpy(tree):
+    """A params or state tree of tensors -> the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()
 
 
 def _convert(node, schema, path: str, device):

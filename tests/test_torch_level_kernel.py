@@ -116,3 +116,87 @@ def test_slot_without_expert_is_not_updated():
     and_row = int(np.asarray(batch["node_inv"])[2])
     assert (hf[xor_row] == 0).all() and (np.abs(hf[and_row]) > 0).any()
     np.testing.assert_allclose(hf, hf_xla, rtol=0, atol=HF_ATOL)
+
+
+def _torch_args(args, grad=False):
+    t = [torch.tensor(a) for a in args]
+    if grad:
+        for i in level_kernel.FLOAT_ARGS:
+            t[i].requires_grad_(True)
+    return t
+
+
+def _bwd_args(t):
+    """level_scan_bwd_reference's tables and weights from the 12 level_scan
+    args (b_ih is not read by the backward)."""
+    return (*t[:9], t[10], t[11])
+
+
+@pytest.mark.parametrize("modality", ["mig", "xag"])
+def test_level_scan_bwd_matches_pallas_vjp_interpret(modality):
+    """The plain backward on the port's residuals against jax.vjp of the
+    JAX package's custom VJP ``pallas_level_scan`` (kernels 1 and 2 in
+    interpret mode), on the same 12 arguments and cotangent. Tolerance
+    1e-4 * the largest entry of each gradient (tests/test_pallas_kernel.py)."""
+    from mgvae_tpu.ops.pallas.level_kernel import LANE, pallas_level_scan
+
+    cfg, params, batch = _small_batch(modality, seed=6)
+    hs, _, args = _jax_inputs(cfg, params, batch)
+    N, D, T = hs.shape[0], cfg.dim_hidden, cfg.num_experts
+    n_lv = int(np.asarray(batch["forward_level"]).max())
+    # the JAX package pads the pack to a lane-aligned width (dg_ae.py:574)
+    jpack = np.pad(args[0], ((0, 0), (0, 0), (0, LANE - D - 2)))
+    tables = [jnp.asarray(a) for a in args[1:7]]
+
+    def scan(pack, wkv, wih, bih, bhh, wak):
+        return pallas_level_scan(pack, *tables, wkv, wih, bih, bhh, wak, N, D, T, 1, True,
+                                 "highest")
+
+    hf_j, vjp = jax.vjp(scan, jnp.asarray(jpack), *map(jnp.asarray, args[7:]))
+    ghf = np.random.default_rng(7).normal(size=(N, D)).astype(np.float32)
+    grads_j = [np.asarray(g) for g in vjp(jnp.asarray(ghf))]
+
+    t = _torch_args(args)
+    hf_p, res_e, res_n = level_kernel.level_scan_reference(*t, num_nodes=N, num_levels=n_lv,
+                                                           with_residuals=True)
+    np.testing.assert_allclose(hf_p.numpy(), np.asarray(hf_j), rtol=0, atol=HF_ATOL)
+    grads_p = level_kernel.level_scan_bwd_reference(torch.tensor(ghf), res_e, res_n,
+                                                    *_bwd_args(t), num_levels=n_lv)
+    assert (grads_j[0][..., D + 2 :] == 0).all()
+    grads_j[0] = grads_j[0][..., : D + 2]
+    names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak")
+    for name, p, j in zip(names, grads_p, grads_j):
+        assert p.shape == j.shape, name
+        scale = float(np.abs(j).max())
+        assert scale > 0 and float(np.abs(p.numpy() - j).max()) <= 1e-4 * scale, name
+    assert (grads_p[0][..., D + 1] == 0).all()            # the expert column
+
+
+@pytest.mark.parametrize("modality", ["aig", "xmg"])
+def test_level_scan_autograd_on_cpu_matches_bwd_reference(modality):
+    """On CPU tensors ``level_scan`` is differentiated by autograd through
+    the plain forward; that must equal the written-out backward, and the
+    residuals must be zero exactly on the rows the kernels never write."""
+    cfg, params, batch = _small_batch(modality, seed=8)
+    hs, _, args = _jax_inputs(cfg, params, batch)
+    N, D = hs.shape[0], cfg.dim_hidden
+    n_lv = int(np.asarray(batch["forward_level"]).max())
+    t = _torch_args(args, grad=True)
+    hf = level_kernel.level_scan(*t, num_nodes=N, num_levels=n_lv)
+    ghf = torch.tensor(np.random.default_rng(9).normal(size=(N, D)).astype(np.float32))
+    auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
+
+    plain = _torch_args(args)
+    hf_r, res_e, res_n = level_kernel.level_scan_reference(*plain, num_nodes=N, num_levels=n_lv,
+                                                           with_residuals=True)
+    assert torch.equal(hf_r, hf.detach())
+    upd = plain[5] > 0
+    live = (plain[3] > 0) & torch.gather(upd, 1, plain[2].long())
+    assert (res_n[~upd] == 0).all() and (res_e[~live] == 0).all()
+    assert (res_n[n_lv:] == 0).all() and (res_e[n_lv:] == 0).all()
+    assert (res_e[live][:, 3 * D] > 0).all()              # attn of every live edge
+    manual = level_kernel.level_scan_bwd_reference(ghf, res_e, res_n, *_bwd_args(plain),
+                                                   num_levels=n_lv)
+    for a, m in zip(auto, manual):
+        scale = float(a.abs().max())
+        assert float((a - m).abs().max()) <= 1e-5 * max(scale, 1e-30)

@@ -131,8 +131,18 @@ def test_port_imports_and_encodes_without_jax():
         "import mgvae_tpu_torch as m\n"
         "rng = np.random.default_rng(0)\n"
         "gs = [m.random_circuit(rng, 'xag', num_inputs=4, num_gates=12) for _ in range(2)]\n"
-        "out = m.Model(dim_hidden=16, s_rounds=1, t_rounds=1, device='cpu').encode_many(gs)\n"
+        "model = m.Model(dim_hidden=16, s_rounds=1, t_rounds=1, device='cpu')\n"
+        "out = model.encode_many(gs)\n"
         "assert [o[1].shape for o in out] == [(g.num_nodes, 16) for g in gs]\n"
+        "assert model.pred_prob(model(gs[0])[1]).shape == (gs[0].num_nodes, 1)\n"
+        "from mgvae_tpu_torch.train import losses, step\n"
+        "from mgvae_tpu_torch.ops import mlp, level_kernel\n"
+        "from mgvae_tpu_torch.utils import params\n"
+        "opt = step.make_optimizer(model.params, 1e-3)\n"
+        "train_step, eval_step = step.make_train_step(model.cfg, opt)\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "state, met = train_step(model.params, model.state, m.collate(gs), gen, [1, 4, 4, 0])\n"
+        "assert all(float(met[k]) == float(met[k]) for k in step.METRIC_KEYS)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'mgvae_tpu.')) or k == 'mgvae_tpu'\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ok')\n"
