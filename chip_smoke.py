@@ -8,43 +8,51 @@ Phases (any failure raises and the script exits nonzero):
      ptxas' report.
   3. kernel vs plain: for aig/mig/xag/xmg, a bs16 batch of synthetic
      circuits (16 inputs, 264 gates) at D=64, s/t_rounds 4, layernorm; the
-     level-scan kernel and its plain PyTorch version on the same inputs on
-     the card; max |dhf| must be <= 1e-4 (fp32, TF32 off; only the order of
-     sums differs).
+     struct-tower kernel and the level-scan kernel each against its plain
+     PyTorch version on the same inputs on the card; max |d state| and
+     max |dhf| must be <= 1e-4 (fp32, TF32 off; only the order of sums
+     differs).
   4. main path: Model(modality="mig", ...).encode_many over 64 circuits
-     (four bs16 requests): shapes, finite values, the kernel's launch count
-     equal to the real levels of the batches, and the first request against
-     the same model run on the CPU.
+     (four bs16 requests): shapes, finite values, the struct kernel's
+     launches equal to 2 * s_rounds per request and the level kernel's to
+     the real levels of the batches, and the first request against the same
+     model run on the CPU.
   5. timing (informational): median wall time of one bs16 MIG encode with
-     the kernel and with the plain version, its stages, and the level scan
-     alone (CUDA events), each with the card's name and power limit.
-  6. backward kernel vs plain: for the phase-3 batches, the forward kernel
-     with residuals against level_scan_reference(with_residuals=True), and
-     the backward kernels against level_scan_bwd_reference on the same
-     residuals and a fixed random hf cotangent: max |d| of each of the six
-     gradients <= 1e-4 * max(scale, 1), the JAX package's bound; the
-     backward's launches equal to two per real level plus one (the
-     weight-gradient kernel).
+     the kernels and with the plain versions, its stages, and by CUDA
+     events the struct towers (forward, kernel vs plain) and the level scan
+     alone, each with the card's name and power limit.
+  6. backward kernels vs plain: for the phase-3 batches, each forward
+     kernel with residuals against its plain version (struct towers:
+     struct_towers_reference(with_residuals=True); level scan:
+     level_scan_reference(with_residuals=True)), and each backward against
+     its plain version (struct_towers_bwd_reference,
+     level_scan_bwd_reference) on the same residuals and a fixed random
+     cotangent: max |d| of each of the six outputs <= 1e-4 * max(scale, 1),
+     the JAX package's bound; the struct backward's launches equal to
+     2 * s_rounds + 2 (a row launch per half-round, two reductions), the
+     level backward's to two per real level plus one.
   7. training main path: MIG, four bs16 batches, stage-3 weights
      [1, 4, 4, 0], Adam lr 1e-4, 20 train_steps: every loss and metric
-     finite, each step's forward launches equal to its batch's real levels
-     and its backward launches to two per real level plus one. Then one
-     step's losses and gradients on the card against the same step on the
-     CPU (same params, batch, negatives and dropout masks): each gradient
-     leaf within 1e-4 * its own scale (floored at 2e-2 of the largest).
+     finite; each step's struct launches 2 * s_rounds forward and
+     2 * s_rounds + 2 backward, its level forward launches equal to its
+     batch's real levels and its level backward launches to two per real
+     level plus one. Then one step's losses and gradients on the card
+     against the same step on the CPU (same params, batch, negatives and
+     dropout masks): each gradient leaf within 1e-4 * its own scale
+     (floored at 2e-2 of the largest).
   8. timing (informational): median wall time of one bs16 MIG train step
      and of its stages (forward, losses, backward, Adam), and by CUDA
-     events the level-scan forward with residuals (kernel vs plain) and the
-     level-scan backward alone (kernel vs autograd through the plain
-     version).
+     events the struct towers and the level scan, each forward with
+     residuals (kernel vs plain) and backward alone (kernel vs autograd
+     through the plain version).
   9. profile (informational): torch.profiler over 10 MIG bs16 train
      steps; device time per step, busy share, device kernels per step, and
      the kernels by device time.
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
-encode path's level scan, the training path's level scan with residuals,
-the level-scan backward), the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}.
+encode path's struct towers and level scan, the training path's struct
+towers and level scan with residuals, and the two backwards), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -61,10 +69,12 @@ BATCH, N_CIRCUITS = 16, 64
 DIM, ROUNDS = 64, 4
 MODALITIES = ("aig", "mig", "xag", "xmg")
 # kernel vs plain on the card: fp32, TF32 off; only the order of sums
-# differs (the plain version's index_add_ sums use atomics on the card)
+# differs (the kernels sum in a fixed order, the plain versions' index_add_
+# with atomics)
 KERNEL_TOL = 1e-4
-# card vs CPU, whole model: fp32 matmuls and atomic index_add_ sums in
-# another order over 8 struct half-rounds and ~50 levels
+# card vs CPU, whole model: the same fp32 math with sums in another order
+# (the kernels' and cuBLAS' against the CPU's) over 8 struct half-rounds
+# and ~50 levels
 CPU_TOL = 1e-4
 # gradients, kernel vs plain and card vs CPU: relative to each gradient's
 # own largest entry; card vs CPU floors a leaf's scale at GRAD_FLOOR of the
@@ -152,8 +162,12 @@ def main() -> int:
         return 2
     from mgvae_tpu_torch import Model, collate, random_circuit
     from mgvae_tpu_torch.models import dg_ae
-    from mgvae_tpu_torch.ops import _build, level_kernel
+    from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
+    from mgvae_tpu_torch.ops.init import linear_apply
     from mgvae_tpu_torch.ops.level_kernel import level_scan, level_scan_reference
+    from mgvae_tpu_torch.ops.struct_kernel import (struct_inputs, struct_tables,
+                                                   struct_towers_bwd_reference,
+                                                   struct_towers_reference)
     from mgvae_tpu_torch.train import step as train_step_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -175,7 +189,7 @@ def main() -> int:
     _build.library()
 
     # ---- 3. kernel vs plain, per modality ---------------------------------
-    enc_err = 0.0
+    enc_err = struct_err = 0.0
     phase3 = []   # (modality, cfg, params, batch) for phase 6
     for i, mod in enumerate(MODALITIES):
         cfg = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
@@ -183,6 +197,20 @@ def main() -> int:
         params, _ = dg_ae.init_params(cfg, seed=SEED, device=dev)
         batch = collate(dataset(random_circuit, mod, 100 + i, BATCH))
         b = dg_ae.batch_to_device(batch, dev)
+        sargs = struct_inputs(params["struct"], dg_ae.struct_input(b["gate"], cfg), b, True)
+        tables = struct_tables(b)
+        st_k = struct_kernel._forward_cuda(sargs, tables, ROUNDS, True, residuals=False)
+        st_r = struct_towers_reference(*sargs, tables, ROUNDS, True)
+        sync()
+        if not (torch.isfinite(st_k).all() and torch.isfinite(st_r).all()):
+            raise RuntimeError(f"[kernel] {mod}: non-finite struct state")
+        s_err = (st_k - st_r).abs().max().item()
+        log(f"[kernel] {mod}: struct towers {2 * ROUNDS} half-rounds x 2 towers, N={st_k.shape[1]} "
+            f"D={DIM}: max|d state| all rows={s_err:.3e}")
+        if not s_err <= KERNEL_TOL:
+            raise RuntimeError(f"[kernel] {mod}: struct kernel disagrees with plain version "
+                               f"(max|d state|={s_err}, tol {KERNEL_TOL})")
+        struct_err = max(struct_err, s_err)
         hs = dg_ae.struct_hs(params, b, cfg)
         args = dg_ae.level_scan_inputs(params, b, cfg, hs)
         n_lv, N = dg_ae.num_levels(batch), hs.shape[0]
@@ -210,14 +238,19 @@ def main() -> int:
     graphs = dataset(random_circuit, "mig", 7, N_CIRCUITS)
     requests = [graphs[s : s + BATCH] for s in range(0, N_CIRCUITS, BATCH)]
     expected = sum(dg_ae.num_levels(collate(r)) for r in requests)
-    level_kernel.launches = 0
+    s_expected = 2 * ROUNDS * len(requests)
+    level_kernel.launches = struct_kernel.launches = 0
     out = model.encode_many(graphs, batch_size=BATCH)
     sync()
     launched = enc_launches = level_kernel.launches
+    enc_struct = struct_kernel.launches
     log(f"[main] encode_many: {len(graphs)} circuits in {len(requests)} bs{BATCH} requests; "
+        f"struct_towers launches={enc_struct}, 2 * s_rounds * requests={s_expected}; "
         f"level_scan launches={launched}, real levels={expected}")
     if launched != expected or launched == 0:
         raise RuntimeError(f"[main] kernel launches {launched} != real levels {expected}")
+    if enc_struct != s_expected:
+        raise RuntimeError(f"[main] struct kernel launches {enc_struct} != {s_expected}")
     if len(out) != len(graphs):
         raise RuntimeError(f"[main] {len(out)} outputs for {len(graphs)} circuits")
     for g, (hs, hf) in zip(graphs, out):
@@ -227,7 +260,8 @@ def main() -> int:
         if not (np.isfinite(hs).all() and np.isfinite(hf).all()):
             raise RuntimeError("[main] non-finite embeddings")
     # the same model (same seed, so the same weights) on the CPU, where the
-    # level scan runs its plain version, for the first request
+    # struct towers and the level scan run their plain versions, for the
+    # first request
     cpu_model = Model(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
                       layernorm=True, seed=SEED, device="cpu")
     d_hs = d_hf = 0.0
@@ -246,25 +280,33 @@ def main() -> int:
     batch = collate(requests[0])
     n_lv = dg_ae.num_levels(batch)
 
-    def encode(scan):
+    def encode(plain: bool):
         b = dg_ae.batch_to_device(batch, dev)
-        hs = dg_ae.struct_hs(params, b, cfg)
+        if plain:  # the plain struct towers and level scan
+            st = struct_towers_reference(
+                *struct_inputs(params["struct"], dg_ae.struct_input(b["gate"], cfg), b,
+                               cfg.layernorm), struct_tables(b), cfg.s_rounds, cfg.layernorm)
+            hs = linear_apply(params["hs_linear"], torch.cat([st[0], st[1]], dim=-1))
+            scan = level_scan_reference
+        else:
+            hs, scan = dg_ae.struct_hs(params, b, cfg), level_scan
         return hs, scan(*dg_ae.level_scan_inputs(params, b, cfg, hs),
                         num_nodes=hs.shape[0], num_levels=n_lv)
 
     b = dg_ae.batch_to_device(batch, dev)
     hs = dg_ae.struct_hs(params, b, cfg)
     args = dg_ae.level_scan_inputs(params, b, cfg, hs)
+    sargs = struct_inputs(params["struct"], dg_ae.struct_input(b["gate"], cfg), b, True)
+    tables = struct_tables(b)
     with torch.inference_mode():
         for _ in range(3):  # warm-up
-            encode(level_scan)
-            encode(level_scan_reference)
+            encode(False)
+            encode(True)
         reps = 20
         t = {"plain": [], "kernel": []}
         for order in (("plain", "kernel"), ("kernel", "plain")):
             for name in order:
-                scan = level_scan if name == "kernel" else level_scan_reference
-                t[name].append(median_wall(lambda: encode(scan), reps, sync))
+                t[name].append(median_wall(lambda: encode(name == "plain"), reps, sync))
         enc_k, enc_p = statistics.mean(t["kernel"]), statistics.mean(t["plain"])
         collate_s = median_wall(lambda: collate(requests[0]), 5, lambda: None)
         h2d_s = median_wall(lambda: dg_ae.batch_to_device(batch, dev), reps, sync)
@@ -275,11 +317,18 @@ def main() -> int:
         ms_k1 = event_ms(torch, lambda: level_scan(*args, **scan), reps)
         ms_k2 = event_ms(torch, lambda: level_scan(*args, **scan), reps)
         ms_p2 = event_ms(torch, lambda: level_scan_reference(*args, **scan), reps)
+        skern = lambda: struct_kernel._forward_cuda(sargs, tables, ROUNDS, True, residuals=False)
+        splain = lambda: struct_towers_reference(*sargs, tables, ROUNDS, True)
+        sms_p1 = event_ms(torch, splain, reps)
+        sms_k1 = event_ms(torch, skern, reps)
+        sms_k2 = event_ms(torch, skern, reps)
+        sms_p2 = event_ms(torch, splain, reps)
     ms_k, ms_p = (ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2
+    sms_k, sms_p = (sms_k1 + sms_k2) / 2, (sms_p1 + sms_p2) / 2
     log(f"[time] card: {card}")
     log(f"[time] MIG bs{BATCH} encode (host batch -> hs, hf on card), median of {reps}: "
-        f"kernel {enc_k * 1e3:.3f} ms = {BATCH / enc_k:.1f} graphs/s; "
-        f"plain {enc_p * 1e3:.3f} ms = {BATCH / enc_p:.1f} graphs/s "
+        f"kernels {enc_k * 1e3:.3f} ms = {BATCH / enc_k:.1f} graphs/s; "
+        f"plain versions {enc_p * 1e3:.3f} ms = {BATCH / enc_p:.1f} graphs/s "
         f"(runs {[round(x * 1e3, 3) for x in t['kernel']]} / "
         f"{[round(x * 1e3, 3) for x in t['plain']]} ms)")
     log(f"[time] stages: collate (host) {collate_s * 1e3:.3f} ms; to device {h2d_s * 1e3:.3f} ms; "
@@ -287,12 +336,60 @@ def main() -> int:
         f"{statics_s * 1e3:.3f} ms; level scan kernel {ms_k:.3f} ms")
     log(f"[time] level scan alone ({n_lv} levels), CUDA events over {reps} calls: "
         f"kernel {ms_k1:.4f}/{ms_k2:.4f} ms, plain {ms_p1:.4f}/{ms_p2:.4f} ms")
+    log(f"[time] struct towers alone ({2 * ROUNDS} half-rounds, no residuals), CUDA events over "
+        f"{reps} calls: kernel {sms_k1:.4f}/{sms_k2:.4f} ms, plain {sms_p1:.4f}/{sms_p2:.4f} ms")
 
-    # ---- 6. backward kernel vs plain, per modality ------------------------
-    res_err = bwd_err = 0.0
+    # ---- 6. backward kernels vs plain, per modality -----------------------
+    res_err = bwd_err = sres_err = sbwd_err = 0.0
     grad_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak")
+    sgrad_names = ("dxi", "dwfold", "dwhh", "dbhh", "dlnw", "dlnb")
+
+    def held(mod, names, grads_k, grads_r):
+        """max |d| / scale of each output; raises past 1e-4 * max(scale, 1)."""
+        report, worst = [], 0.0
+        for name, k, r in zip(names, grads_k, grads_r):
+            if not (torch.isfinite(k).all() and torch.isfinite(r).all()):
+                raise RuntimeError(f"[bwd] {mod}: non-finite {name}")
+            err, scale = (k - r).abs().max().item(), r.abs().max().item()
+            report.append(f"{name} {err:.3e}/{scale:.3e}")
+            if not err <= GRAD_TOL * max(scale, 1.0):
+                raise RuntimeError(f"[bwd] {mod}: {name} kernel disagrees with plain version: "
+                                   f"max|d|={err}, scale={scale}")
+            worst = max(worst, err)
+        return "; ".join(report), worst
+
     for mod, cfg, params, batch in phase3:
         b = dg_ae.batch_to_device(batch, dev)
+        with torch.no_grad():
+            sargs = struct_inputs(params["struct"], dg_ae.struct_input(b["gate"], cfg), b, True)
+            tables = struct_tables(b)
+            st_k, sres_k = struct_kernel._forward_cuda(sargs, tables, ROUNDS, True, residuals=True)
+            st_r, sres_r = struct_towers_reference(*sargs, tables, ROUNDS, True,
+                                                   with_residuals=True)
+            sync()
+            sfwd = [(st_k - st_r).abs().max().item(), (sres_k - sres_r).abs().max().item()]
+            if not max(sfwd) <= KERNEL_TOL:
+                raise RuntimeError(f"[bwd] {mod}: struct residual forward disagrees: max|d| "
+                                   f"state, res = {sfwd} (tol {KERNEL_TOL})")
+            sres_err = max(sres_err, *sfwd)
+            dstate = torch.randn(st_k.shape, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED + 4))
+            struct_kernel.bwd_launches = 0
+            sgrads_k = struct_kernel._backward_cuda(dstate, sres_k, sargs[1], sargs[2], sargs[4],
+                                                    tables, ROUNDS, True)
+            sync()
+            n_sbwd = struct_kernel.bwd_launches
+            sgrads_r = struct_towers_bwd_reference(dstate, sres_k, sargs[1], sargs[2], sargs[4],
+                                                   tables, ROUNDS, True)
+            sync()
+        report, worst = held(mod, sgrad_names, sgrads_k, sgrads_r)
+        sbwd_err = max(sbwd_err, worst)
+        log(f"[bwd] {mod}: struct residual forward max|d| state/res = {sfwd[0]:.3e}/"
+            f"{sfwd[1]:.3e}; struct backward max|d|/scale: {report}; struct bwd launches="
+            f"{n_sbwd}")
+        if n_sbwd != 2 * ROUNDS + 2:
+            raise RuntimeError(f"[bwd] {mod}: struct backward launches {n_sbwd} != "
+                               f"{2 * ROUNDS + 2}")
         with torch.no_grad():
             hs = dg_ae.struct_hs(params, b, cfg)
             args = dg_ae.level_scan_inputs(params, b, cfg, hs)
@@ -315,19 +412,11 @@ def main() -> int:
         n_bwd = level_kernel.bwd_launches
         grads_r = level_kernel.level_scan_bwd_reference(ghf, re_k, rn_k, *bargs, num_levels=n_lv)
         sync()
-        report = []
-        for name, k, r in zip(grad_names, grads_k, grads_r):
-            if not (torch.isfinite(k).all() and torch.isfinite(r).all()):
-                raise RuntimeError(f"[bwd] {mod}: non-finite {name}")
-            err, scale = (k - r).abs().max().item(), r.abs().max().item()
-            report.append(f"{name} {err:.3e}/{scale:.3e}")
-            if not err <= GRAD_TOL * max(scale, 1.0):
-                raise RuntimeError(f"[bwd] {mod}: {name} kernel disagrees with plain version: "
-                                   f"max|d|={err}, scale={scale}")
-            bwd_err = max(bwd_err, err)
-        log(f"[bwd] {mod}: residual forward max|d| hf/res_e/res_n = "
-            f"{fwd[0]:.3e}/{fwd[1]:.3e}/{fwd[2]:.3e}; backward max|d|/scale: {'; '.join(report)}; "
-            f"bwd launches={n_bwd}, real levels={n_lv}")
+        report, worst = held(mod, grad_names, grads_k, grads_r)
+        bwd_err = max(bwd_err, worst)
+        log(f"[bwd] {mod}: level residual forward max|d| hf/res_e/res_n = "
+            f"{fwd[0]:.3e}/{fwd[1]:.3e}/{fwd[2]:.3e}; level backward max|d|/scale: {report}; "
+            f"level bwd launches={n_bwd}, real levels={n_lv}")
         if n_bwd != 2 * n_lv + 1:
             raise RuntimeError(f"[bwd] {mod}: backward launches {n_bwd} != 2 * real levels "
                                f"{n_lv} + 1")
@@ -342,27 +431,33 @@ def main() -> int:
     levels = [dg_ae.num_levels(bt) for bt in batches]
     keys = train_step_mod.METRIC_KEYS + ("loss",)
     per_step, rows = [], []
-    level_kernel.launches = level_kernel.bwd_launches = 0
+    kernels = (level_kernel, struct_kernel)
+    for m in kernels:
+        m.launches = m.bwd_launches = 0
     for i in range(TRAIN_STEPS):
-        f0, b0 = level_kernel.launches, level_kernel.bwd_launches
+        before = [n for m in kernels for n in (m.launches, m.bwd_launches)]
         state, metrics = train_step(params, state, batches[i % len(batches)], gen, WEIGHTS)
-        per_step.append((level_kernel.launches - f0, level_kernel.bwd_launches - b0))
+        after = [n for m in kernels for n in (m.launches, m.bwd_launches)]
+        per_step.append(tuple(a - z for a, z in zip(after, before)))
         rows.append(torch.stack([metrics[k] for k in keys]))
     sync()
     train_fwd, train_bwd = level_kernel.launches, level_kernel.bwd_launches
+    train_sfwd, train_sbwd = struct_kernel.launches, struct_kernel.bwd_launches
     rows = torch.stack(rows).cpu()
     log(f"[train] {TRAIN_STEPS} train_steps over {len(batches)} bs{BATCH} MIG batches "
-        f"(real levels {levels}), lr {TRAIN_LR}, weights {WEIGHTS}: level_scan launches="
+        f"(real levels {levels}), lr {TRAIN_LR}, weights {WEIGHTS}: struct_towers launches="
+        f"{train_sfwd}, struct_towers_bwd launches={train_sbwd}, level_scan launches="
         f"{train_fwd}, level_scan_bwd launches={train_bwd}")
     for i in (0, 1, TRAIN_STEPS - 1):
         log(f"[train] step {i}: " + ", ".join(
             f"{k}={v:.6g}" for k, v in zip(keys, rows[i].tolist())))
     if not torch.isfinite(rows).all():
         raise RuntimeError("[train] non-finite loss or metric")
-    want = [(n, 2 * n + 1) for n in (levels[i % len(batches)] for i in range(TRAIN_STEPS))]
+    want = [(n, 2 * n + 1, 2 * ROUNDS, 2 * ROUNDS + 2)
+            for n in (levels[i % len(batches)] for i in range(TRAIN_STEPS))]
     if per_step != want or train_fwd == 0 or train_bwd == 0:
         raise RuntimeError(f"[train] per-step launches {per_step} != (real levels, 2 * real "
-                           f"levels + 1) {want}")
+                           f"levels + 1, 2 * s_rounds, 2 * s_rounds + 2) {want}")
     for leaf in train_step_mod.param_leaves(params):
         if not torch.isfinite(leaf).all():
             raise RuntimeError("[train] non-finite parameter after training")
@@ -473,6 +568,39 @@ def main() -> int:
     bms_k2 = event_ms(torch, kern, reps)
     bms_p2 = event_ms(torch, plain, reps)
     bms_k, bms_p = (bms_k1 + bms_k2) / 2, (bms_p1 + bms_p2) / 2
+    # the struct towers, likewise: the forward with residuals, and the
+    # backward alone against autograd through the plain version
+    with torch.no_grad():
+        sargs = [a.detach().clone() for a in struct_inputs(
+            params["struct"], dg_ae.struct_input(b["gate"], cfg), b, cfg.layernorm)]
+        tables = struct_tables(b)
+        skern = lambda: struct_kernel._forward_cuda(sargs, tables, ROUNDS, True, residuals=True)
+        splain = lambda: struct_towers_reference(*sargs, tables, ROUNDS, True, with_residuals=True)
+        for _ in range(3):
+            skern()
+            splain()
+        srms_p1 = event_ms(torch, splain, reps)
+        srms_k1 = event_ms(torch, skern, reps)
+        srms_k2 = event_ms(torch, skern, reps)
+        srms_p2 = event_ms(torch, splain, reps)
+        _, sres = skern()
+    srms_k, srms_p = (srms_k1 + srms_k2) / 2, (srms_p1 + srms_p2) / 2
+    dstate = torch.randn((2, N, DIM), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    for a in sargs:
+        a.requires_grad_(True)
+    st_plain = struct_towers_reference(*sargs, tables, ROUNDS, True)
+    skern = lambda: struct_kernel._backward_cuda(dstate, sres, sargs[1], sargs[2], sargs[4],
+                                                 tables, ROUNDS, True)
+    splain = lambda: torch.autograd.grad(st_plain, sargs, dstate, retain_graph=True)
+    for _ in range(3):
+        skern()
+        splain()
+    sbms_p1 = event_ms(torch, splain, reps)
+    sbms_k1 = event_ms(torch, skern, reps)
+    sbms_k2 = event_ms(torch, skern, reps)
+    sbms_p2 = event_ms(torch, splain, reps)
+    sbms_k, sbms_p = (sbms_k1 + sbms_k2) / 2, (sbms_p1 + sbms_p2) / 2
     log(f"[time] card: {card}")
     log(f"[time] MIG bs{BATCH} train step (host batch -> Adam update, synchronised), median of "
         f"{reps}: {step_s * 1e3:.3f} ms = {BATCH / step_s:.1f} graphs/s")
@@ -483,11 +611,44 @@ def main() -> int:
     log(f"[time] level scan backward alone ({n_lv} levels), CUDA events over {reps} calls: "
         f"kernel {bms_k1:.4f}/{bms_k2:.4f} ms, autograd through the plain version "
         f"{bms_p1:.4f}/{bms_p2:.4f} ms")
+    log(f"[time] struct towers forward with residuals ({2 * ROUNDS} half-rounds), CUDA events "
+        f"over {reps} calls: kernel {srms_k1:.4f}/{srms_k2:.4f} ms, plain "
+        f"{srms_p1:.4f}/{srms_p2:.4f} ms")
+    log(f"[time] struct towers backward alone, CUDA events over {reps} calls: kernel "
+        f"{sbms_k1:.4f}/{sbms_k2:.4f} ms, autograd through the plain version "
+        f"{sbms_p1:.4f}/{sbms_p2:.4f} ms")
 
     # ---- 9. train-step profile (informational) ----------------------------
     profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card)
 
     print(json.dumps({"kernels": [{
+        "name": "struct_towers",               # encode path (phases 3-5)
+        "route": "cuda",
+        "source": "mgvae_tpu_torch/csrc/struct_towers.cu",
+        "replaces": "mgvae_tpu/ops/pallas/struct_kernel.py:175",
+        "launches": enc_struct,
+        "max_abs_err": struct_err,
+        "ms": sms_k,
+        "plain_ms": sms_p,
+    }, {
+        "name": "struct_towers_residuals",     # training path's forward (phases 6-8)
+        "route": "cuda",
+        "source": "mgvae_tpu_torch/csrc/struct_towers.cu",
+        "replaces": "mgvae_tpu/ops/pallas/struct_kernel.py:175",
+        "launches": train_sfwd,
+        "max_abs_err": sres_err,
+        "ms": srms_k,
+        "plain_ms": srms_p,
+    }, {
+        "name": "struct_towers_bwd",
+        "route": "cuda",
+        "source": "mgvae_tpu_torch/csrc/struct_towers_bwd.cu",
+        "replaces": "mgvae_tpu/ops/pallas/struct_kernel.py:338",
+        "launches": train_sbwd,
+        "max_abs_err": sbwd_err,
+        "ms": sbms_k,
+        "plain_ms": sbms_p,
+    }, {
         "name": "level_scan",                  # encode path (phases 3-5)
         "route": "cuda",
         "source": "mgvae_tpu_torch/csrc/level_scan.cu",

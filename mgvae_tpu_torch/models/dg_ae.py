@@ -7,6 +7,10 @@ package, so one params tree serves both packages.
 
 The forward:
   1. ``struct_input`` and the two struct towers, then ``hs_linear`` -> hs.
+     With s_rounds == t_rounds the towers run through
+     ``ops.struct_kernel.struct_towers`` (the CUDA kernels on the card, an
+     autograd Function when training), which reads the batch's blocked
+     ``fa_src`` / ``ra_src`` tables.
   2. ``level_statics``: everything the level recurrence needs that does not
      depend on hf (with one round, a node's hf is zero until its own level
      runs), packed per edge as [vhs | score_static | expert].
@@ -137,8 +141,8 @@ def struct_input(gate: torch.Tensor, cfg: DGConfig) -> torch.Tensor:
 
 # batch keys the encode path reads on the device
 DEVICE_KEYS = ("gate", "edge_src", "edge_dst", "edge_valid", "deg_in", "deg_out",
-               "lv_nodes", "lv_node_valid", "lv_edge_src", "lv_edge_dst_slot",
-               "lv_edge_valid", "lv_edge_id")
+               "fa_src", "ra_src", "lv_nodes", "lv_node_valid", "lv_edge_src",
+               "lv_edge_dst_slot", "lv_edge_valid", "lv_edge_id")
 # and the ones the losses read (train/losses.py)
 LOSS_KEYS = ("node_valid", "prob", "tt_pair_a", "tt_pair_b", "tt_valid", "tt_dis",
              "n_nodes", "n_edges", "n_tt")

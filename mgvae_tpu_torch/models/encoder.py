@@ -4,18 +4,27 @@ Counterpart of ``direct_multigcn_apply`` in ``mgvae_tpu/models/encoder.py``.
 Per round, a sum-aggregation of linearly transformed neighbor states
 (AggConv) feeds a one-step GRU together with the node's input feature, then
 optionally LayerNorm; then the same again over reversed edges. Each tower
-has ONE LayerNorm, applied after both half-rounds.
+has ONE LayerNorm instance, shared by both directions and applied after
+every half-round.
+
+When both towers run the same number of rounds and the batch carries the
+blocked tables (``fa_src`` / ``ra_src``), as in the JAX package's kernel
+route (``mgvae_tpu/models/dg_ae.py:287-289``), the towers run together
+through ``ops.struct_kernel.struct_towers``: the CUDA kernels on the card,
+their plain version on the CPU. Otherwise they run here, eagerly and one
+after the other, as in the reference model.
 
 AggConv uses sum_j (W x_j + b) == W (sum_j x_j) + deg * b, so the linear
-runs once per node; the neighbor sum is an ``index_add_`` over the valid
-edges (atomics on CUDA: the order of the sum changes from run to run).
-The towers run one after the other, as in the reference model.
+runs once per node. The eager neighbor sum is an ``index_add_`` over the
+valid edges (atomics on CUDA: the order of the sum changes from run to
+run); the kernels sum in a fixed order.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.init import gru_cell_apply, gru_cell_init, layernorm_apply, layernorm_init, linear_init
+from ..ops.struct_kernel import struct_towers
 
 
 def multigcn_init(gen: torch.Generator, dim_hidden: int, dim_feature: int, layernorm: bool) -> dict:
@@ -73,6 +82,8 @@ def multigcn_apply(params, x_feat, batch, num_rounds: int, layernorm: bool) -> t
 def direct_multigcn_apply(params, x_feat, batch, s_rounds: int, t_rounds: int,
                           layernorm: bool):
     """Both towers: returns (s, t), each [N, D]."""
+    if s_rounds == t_rounds and "fa_src" in batch and "ra_src" in batch:
+        return struct_towers(params, x_feat, batch, s_rounds, layernorm)
     s = multigcn_apply(params["source"], x_feat, batch, s_rounds, layernorm)
     t = multigcn_apply(params["target"], x_feat, batch, t_rounds, layernorm)
     return s, t

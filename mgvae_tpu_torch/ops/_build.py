@@ -112,6 +112,12 @@ def library() -> ctypes.CDLL:
     fn = lib.mgvae_level_scan_backward
     fn.argtypes = [p] * 23 + [i] * 5 + [p]
     fn.restype = i
+    fn = lib.mgvae_struct_towers_forward
+    fn.argtypes = [p] * 12 + [i] * 4 + [p]
+    fn.restype = i
+    fn = lib.mgvae_struct_towers_backward
+    fn.argtypes = [p] * 18 + [i] * 5 + [p]
+    fn.restype = i
     lib.mgvae_cuda_error_string.argtypes = [i]
     lib.mgvae_cuda_error_string.restype = ctypes.c_char_p
     return lib

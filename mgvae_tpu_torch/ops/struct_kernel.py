@@ -1,0 +1,337 @@
+"""Struct-encoder towers, forward and backward: the CUDA kernels' wrappers
+and their plain PyTorch versions.
+
+Counterpart of ``mgvae_tpu/ops/pallas/struct_kernel.py`` in fp32:
+``fused_struct_towers`` (with and without residuals) is
+``csrc/struct_towers.cu``; ``fused_struct_towers_bwd`` is
+``csrc/struct_towers_bwd.cu``; the custom VJP ``pallas_struct_core`` that
+joins them is the autograd Function behind ``struct_core``; and
+``struct_towers`` is ``struct_towers_pallas``: it folds AggConv into the GRU
+input product in plain torch *outside* the core,
+
+    gi = msg @ w_ihD + x_feat @ w_ihX + b_ih,  msg = nbr @ w_aggr + deg * b_aggr
+       = nbr @ (w_aggr @ w_ihD) + XI,  XI = x_feat @ w_ihX + b_ih + (deg * b_aggr) @ w_ihD,
+
+so autograd recovers the gradients of w_aggr, b_aggr, w_ih and b_ih from
+those of W_fold and XI. These products run at the global matmul precision:
+parity mode keeps TF32 off (``api.Model`` and ``train.step.make_train_step``
+set it), and the recurrence would amplify a TF32 fold or XI over the
+half-rounds (``struct_kernel.py:453-459``).
+
+Dispatch of ``struct_core``, with no hidden fallback:
+  * CUDA tensors: the forward kernel (one launch per half-round) or raise.
+    When grad is enabled and a float input requires grad it goes through
+    ``_StructTowers``: the forward kernel also writes the residuals, and the
+    backward launches the backward kernels. Otherwise (serving) it takes the
+    launch without residuals.
+  * CPU tensors: ``struct_towers_reference``; autograd differentiates it.
+
+``struct_towers_reference(..., with_residuals=True)`` and
+``struct_towers_bwd_reference`` are the plain versions of the two kernels
+that the tests and ``chip_smoke.py`` hold them against; ``_forward_cuda``
+and ``_backward_cuda`` are the kernels' wrappers (CUDA tensors only,
+arguments as ``struct_core`` checks them).
+
+``launches`` counts forward kernel launches (2 * num_rounds per call),
+``bwd_launches`` backward kernel launches (2 * num_rounds row launches, then
+two weight-gradient launches per call).
+
+Layouts (dir 0 = forward edges, 1 = reversed; tower 0 = source, 1 = target):
+xi [2 dir, 2 tower, N, 3D], wfold / w_hh [2, 2, D, 3D], b_hh [2, 2, 3D],
+ln_w / ln_b [2 tower, D]. The neighbor lists (``struct_tables``) are
+(src [2 dir, S], start [2 dir, N], count [2 dir, N]) int32: node v's
+neighbors in direction d are ``src[d, start[d, v] : start[d, v] + count[d, v]]``.
+Residuals [2R, 2, N, 7D] = nbr | state_in | r | z | nw | gh_n | pre-LN h.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..data.batching import BLOCK_D
+from . import _build
+
+MAX_DIM = 128      # the kernels' limit (csrc/level_common.cuh kMaxDim)
+SPLIT_ROWS = 512   # rows per partial sum of the backward's weight gradients
+
+launches = 0
+bwd_launches = 0
+
+
+def struct_tables(b: dict) -> tuple:
+    """Neighbor lists of both directions from a device batch, no host sync.
+
+    The batch's blocked tables group edges by 128-node block of the
+    destination (``fa_src``: the sources of each block's in-edges) or of the
+    source (``ra_src``: the destinations of its out-edges), and within a
+    block by node, in edge order (``data/batching._blocked_tables``). So
+    node v's list starts at its block's row plus the in- (out-) degrees of
+    the block's earlier nodes; padding rows are never reached."""
+    fa, ra = b["fa_src"], b["ra_src"]
+    nb, n = fa.shape[0], b["deg_in"].shape[0]
+    if n != nb * BLOCK_D or ra.shape[0] != nb:
+        raise ValueError(f"struct_tables: {nb} blocks of fa/ra tables for {n} nodes")
+    eb = max(fa.shape[1], ra.shape[1])
+    pad = lambda a: torch.nn.functional.pad(a, (0, eb - a.shape[1]))
+    src = torch.stack([pad(fa), pad(ra)]).reshape(2, nb * eb).to(torch.int32)
+    count = torch.stack([b["deg_in"], b["deg_out"]]).to(torch.int32)       # [2, N]
+    c = count.view(2, nb, BLOCK_D)
+    base = torch.arange(nb, dtype=torch.int32, device=c.device)[:, None] * eb
+    start = (c.cumsum(2, dtype=torch.int32) - c + base).view(2, n)
+    return src.contiguous(), start.contiguous(), count.contiguous()
+
+
+def struct_inputs(params, x_feat, b: dict, layernorm: bool) -> tuple:
+    """(xi, wfold, w_hh, b_hh, ln_w, ln_b) of both towers and directions,
+    with AggConv folded into the GRU input product (``struct_kernel.py:465-497``).
+    ``params`` is the encoder tree with "source" / "target" towers."""
+    st = {k: {n: torch.stack([params["source"][k][n], params["target"][k][n]])
+              for n in params["source"][k]} for k in params["source"]}
+    D = st["aggr"]["w"].shape[-1]
+    deg = (b["deg_in"].to(x_feat.dtype), b["deg_out"].to(x_feat.dtype))
+    xi, wfold, w_hh, b_hh = [], [], [], []
+    for d, (aggr, gru) in enumerate(((st["aggr"], st["update"]), (st["aggr_r"], st["update_r"]))):
+        w_ihD, w_ihX = gru["w_ih"][:, :D], gru["w_ih"][:, D:]     # [2, D, 3D], [2, F, 3D]
+        wfold.append(aggr["w"] @ w_ihD)
+        degb = deg[d][None, :, None] * aggr["b"][:, None, :]      # [2, N, D]
+        xi.append(x_feat @ w_ihX + gru["b_ih"][:, None, :] + degb @ w_ihD)
+        w_hh.append(gru["w_hh"])
+        b_hh.append(gru["b_hh"])
+    if layernorm:
+        ln_w, ln_b = st["ln"]["w"], st["ln"]["b"]
+    else:
+        ln_w = x_feat.new_ones((2, D))
+        ln_b = x_feat.new_zeros((2, D))
+    return (torch.stack(xi), torch.stack(wfold), torch.stack(w_hh), torch.stack(b_hh),
+            ln_w, ln_b)
+
+
+def struct_towers(params, x_feat, b: dict, num_rounds: int, layernorm: bool):
+    """Both towers over ``num_rounds`` rounds; returns (s, t), each [N, D].
+    ``b`` is a device batch with fa_src / ra_src / deg_in / deg_out."""
+    state = struct_core(*struct_inputs(params, x_feat, b, layernorm), struct_tables(b),
+                        num_rounds, layernorm)
+    return state[0], state[1]
+
+
+def struct_core(xi, wfold, w_hh, b_hh, ln_w, ln_b, tables, num_rounds: int,
+                layernorm: bool) -> torch.Tensor:
+    """2 * num_rounds half-rounds of both towers; returns the state
+    [2, N, D], differentiable with respect to the six float inputs."""
+    floats = (xi, wfold, w_hh, b_hh, ln_w, ln_b)
+    _check(floats, tables, num_rounds)
+    dev = xi.device
+    if dev.type == "cpu":
+        return struct_towers_reference(*floats, tables, num_rounds, layernorm)
+    if dev.type != "cuda":
+        raise ValueError(f"struct_towers: no kernel for device {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in floats):
+        return _StructTowers.apply(num_rounds, layernorm, *floats, *tables)
+    return _forward_cuda(floats, tables, num_rounds, layernorm, residuals=False)
+
+
+def _neighbor_rows(start, count):
+    """(row, node) of every list entry, nodes ascending, rows in list order."""
+    cnt = count.long()
+    node = torch.repeat_interleave(torch.arange(cnt.shape[0], device=cnt.device), cnt)
+    first = start.long() - (cnt.cumsum(0) - cnt)
+    rows = torch.repeat_interleave(first, cnt) + torch.arange(node.shape[0], device=cnt.device)
+    return rows, node
+
+
+def _neighbor_sum(x, src, rows, node):
+    """out[:, v] = sum of x[:, u] over v's neighbors u; x [2, N, D]."""
+    return torch.zeros_like(x).index_add_(1, node, x[:, src[rows].long()])
+
+
+def _layernorm_stats(h):
+    mean = h.mean(dim=-1, keepdim=True)
+    var = (h - mean).square().mean(dim=-1, keepdim=True)
+    return mean, torch.rsqrt(var + 1e-5)
+
+
+def struct_towers_reference(xi, wfold, w_hh, b_hh, ln_w, ln_b, tables, num_rounds: int,
+                            layernorm: bool, with_residuals: bool = False):
+    """The forward kernel's math, eager: returns the state [2, N, D], or
+    with ``with_residuals`` (state, res [2R, 2, N, 7D]), res detached."""
+    src, start, count = tables
+    D = wfold.shape[2]
+    lists = [_neighbor_rows(start[d], count[d]) for d in (0, 1)]
+    state = xi.new_ones((2, xi.shape[2], D))
+    res = []
+    for k in range(2 * num_rounds):
+        d = k % 2
+        nbr = _neighbor_sum(state, src[d], *lists[d])
+        gi = nbr @ wfold[d] + xi[d]
+        gh = state @ w_hh[d] + b_hh[d][:, None, :]
+        r = torch.sigmoid(gi[..., :D] + gh[..., :D])
+        z = torch.sigmoid(gi[..., D : 2 * D] + gh[..., D : 2 * D])
+        gh_n = gh[..., 2 * D :]
+        nw = torch.tanh(gi[..., 2 * D :] + r * gh_n)
+        h = (1.0 - z) * nw + z * state
+        if with_residuals:
+            res.append(torch.cat([nbr, state, r, z, nw, gh_n, h], dim=-1))
+        if layernorm:
+            mean, rstd = _layernorm_stats(h)
+            h = (h - mean) * rstd * ln_w[:, None, :] + ln_b[:, None, :]
+        state = h
+    if with_residuals:
+        return state, torch.stack(res).detach()
+    return state
+
+
+def struct_towers_bwd_reference(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int,
+                                layernorm: bool):
+    """The backward kernels' math, written out as the JAX package's
+    ``_struct_bwd_kernel`` (``struct_kernel.py:234-335``): a reverse sweep over
+    the residuals with the state's cotangent carried back, the transposed
+    neighbor sum over the opposite direction's lists. Returns (dxi, dwfold,
+    dwhh, dbhh, dlnw, dlnb) in the forward's layouts (dlnw / dlnb zero
+    without LayerNorm)."""
+    src, start, count = tables
+    wfold, w_hh, ln_w = wfold.detach(), w_hh.detach(), ln_w.detach()
+    D = wfold.shape[2]
+    lists = [_neighbor_rows(start[d], count[d]) for d in (0, 1)]
+    dh = dstate.detach().clone()
+    dxi = dh.new_zeros((2, 2, dh.shape[1], 3 * D))
+    dwfold, dwhh = torch.zeros_like(wfold), torch.zeros_like(w_hh)
+    dbhh = dh.new_zeros((2, 2, 3 * D))
+    dlnw, dlnb = dh.new_zeros((2, D)), dh.new_zeros((2, D))
+    for k in reversed(range(2 * num_rounds)):
+        d = k % 2
+        nbr, state_in, r, z, nw, gh_n, pre = res[k].split(D, dim=-1)
+        if layernorm:
+            mean, rstd = _layernorm_stats(pre)
+            xhat = (pre - mean) * rstd
+            dlnw += (dh * xhat).sum(1)
+            dlnb += dh.sum(1)
+            dxh = dh * ln_w[:, None, :]
+            dh = rstd * (dxh - dxh.mean(-1, keepdim=True)
+                         - xhat * (dxh * xhat).mean(-1, keepdim=True))
+        # h = (1 - z) * nw + z * state_in
+        dz = dh * (state_in - nw)
+        dnw = dh * (1.0 - z)
+        dnu = dnw * (1.0 - nw * nw)                   # pre-tanh
+        drho = dnu * gh_n * r * (1.0 - r)             # pre-sigmoid r
+        dzeta = dz * z * (1.0 - z)                    # pre-sigmoid z
+        dgi = torch.cat([drho, dzeta, dnu], dim=-1)
+        dgh = torch.cat([drho, dzeta, dnu * r], dim=-1)
+        dxi[d] += dgi
+        dwfold[d] += nbr.transpose(1, 2) @ dgi
+        dwhh[d] += state_in.transpose(1, 2) @ dgh
+        dbhh[d] += dgh.sum(1)
+        if k > 0:   # the initial state is a constant
+            dnbr = dgi @ wfold[d].transpose(1, 2)
+            dh = dh * z + dgh @ w_hh[d].transpose(1, 2)
+            dh.index_add_(1, lists[1 - d][1], dnbr[:, src[1 - d][lists[1 - d][0]].long()])
+    return dxi, dwfold, dwhh, dbhh, dlnw, dlnb
+
+
+class _StructTowers(torch.autograd.Function):
+    """CUDA only: the forward kernel with residuals, and the backward
+    kernels. Counterpart of the JAX package's custom VJP
+    ``pallas_struct_core``."""
+
+    @staticmethod
+    def forward(ctx, num_rounds, layernorm, xi, wfold, w_hh, b_hh, ln_w, ln_b, *tables):
+        floats = (xi, wfold, w_hh, b_hh, ln_w, ln_b)
+        state, res = _forward_cuda(floats, tables, num_rounds, layernorm, residuals=True)
+        ctx.num_rounds, ctx.layernorm = num_rounds, layernorm
+        ctx.save_for_backward(res, wfold, w_hh, ln_w, *tables)
+        return state
+
+    @staticmethod
+    def backward(ctx, dstate):
+        res, wfold, w_hh, ln_w, *tables = ctx.saved_tensors
+        grads = _backward_cuda(dstate, res, wfold, w_hh, ln_w, tuple(tables), ctx.num_rounds,
+                               ctx.layernorm)
+        # (num_rounds, layernorm, xi, wfold, w_hh, b_hh, ln_w, ln_b, src, start, count)
+        return (None, None, *grads, None, None, None)
+
+
+def _forward_cuda(floats, tables, num_rounds: int, layernorm: bool, residuals: bool):
+    global launches
+    xi, wfold, w_hh, b_hh, ln_w, ln_b = floats
+    src, start, count = tables
+    N, D = xi.shape[2], wfold.shape[2]
+    _kernel_dim(D)
+    dev = xi.device
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = torch.ones((2, N, D), **f32)
+    scratch = torch.empty((2, N, D), **f32)
+    res = torch.empty((2 * num_rounds, 2, N, 7 * D), **f32) if residuals else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_struct_towers_forward(
+            *(t.data_ptr() for t in (xi, wfold, w_hh, b_hh)),
+            ln_w.data_ptr() if layernorm else None, ln_b.data_ptr() if layernorm else None,
+            *(t.data_ptr() for t in (src, start, count, state, scratch)),
+            res.data_ptr() if residuals else None, num_rounds, N, D, src.shape[1], stream)
+    _build.check(lib, code, "struct_towers kernel launch")
+    launches += 2 * num_rounds
+    return (state, res) if residuals else state
+
+
+def _backward_cuda(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int, layernorm: bool):
+    global bwd_launches
+    src, start, count = tables
+    N, D = dstate.shape[1], wfold.shape[2]
+    _kernel_dim(D)
+    dev = dstate.device
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    R2 = 2 * num_rounds
+    # a contiguous copy: autograd may hand over an expanded cotangent
+    g = torch.empty((2, N, D), **f32)
+    g.copy_(dstate)
+    dxi = torch.empty((2, 2, N, 3 * D), **f32)
+    dwfold, dwhh = torch.empty_like(wfold), torch.empty_like(w_hh)
+    dbhh = torch.empty((2, 2, 3 * D), **f32)
+    dlnw, dlnb = torch.empty((2, D), **f32), torch.empty((2, D), **f32)
+    dg = torch.empty((R2, 2, N, 6 * D), **f32)
+    dln = torch.empty((R2, 2, N, 2 * D) if layernorm else (1,), **f32)
+    carry = torch.empty((2, 2, 2, N, D), **f32)
+    splits = -(-N // SPLIT_ROWS)
+    part = torch.empty((R2, 2, splits, 6 * D * D + 5 * D), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_struct_towers_backward(
+            g.data_ptr(), res.data_ptr(), wfold.data_ptr(), w_hh.data_ptr(),
+            ln_w.data_ptr() if layernorm else None,
+            *(t.data_ptr() for t in (src, start, count, dxi, dwfold, dwhh, dbhh, dlnw, dlnb,
+                                     dg, dln, carry, part)),
+            num_rounds, N, D, src.shape[1], splits, stream)
+    _build.check(lib, code, "struct_towers_bwd kernel launch")
+    bwd_launches += R2 + 2
+    return dxi, dwfold, dwhh, dbhh, dlnw, dlnb
+
+
+def _kernel_dim(D: int) -> None:
+    if D > MAX_DIM:
+        raise ValueError(f"struct_towers kernels take D <= {MAX_DIM}, got D={D}")
+
+
+def _check(floats, tables, num_rounds: int) -> None:
+    """Device, dtype, shape and contiguity checks of ``struct_core``'s
+    arguments, for both routes."""
+    xi = floats[0]
+    if xi.dim() != 4 or xi.shape[:2] != (2, 2) or xi.shape[3] % 3:
+        raise ValueError(f"struct_towers: xi must be [2, 2, N, 3D], got {tuple(xi.shape)}")
+    N, D = xi.shape[2], xi.shape[3] // 3
+    S = tables[0].shape[-1]
+    want = {
+        "xi": (2, 2, N, 3 * D), "wfold": (2, 2, D, 3 * D), "w_hh": (2, 2, D, 3 * D),
+        "b_hh": (2, 2, 3 * D), "ln_w": (2, D), "ln_b": (2, D),
+        "src": (2, S), "start": (2, N), "count": (2, N),
+    }
+    for (name, shape), t in zip(want.items(), (*floats, *tables)):
+        dtype = torch.float32 if name not in ("src", "start", "count") else torch.int32
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"struct_towers: {name} must be {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != xi.device:
+            raise ValueError(f"struct_towers: {name} is on {t.device}, xi on {xi.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"struct_towers: {name} must be contiguous")
+    if num_rounds < 1 or N < 1 or S < 1:
+        raise ValueError(f"struct_towers: num_rounds {num_rounds}, N {N}, table width {S}")

@@ -10,7 +10,7 @@ import torch
 
 from mgvae_tpu_torch import Model, collate, random_circuit
 from mgvae_tpu_torch.models import dg_ae
-from mgvae_tpu_torch.ops import level_kernel
+from mgvae_tpu_torch.ops import level_kernel, struct_kernel
 from mgvae_tpu_torch.train import step
 
 pytestmark = pytest.mark.cuda
@@ -54,18 +54,82 @@ def test_encode_on_card_matches_cpu(cuda):
     cpu = Model(modality="mig", dim_hidden=64, layernorm=True, device="cpu")
     for (hs_g, hf_g), (hs_c, hf_c) in zip(gpu.encode_many(graphs, batch_size=2),
                                           cpu.encode_many(graphs, batch_size=2)):
-        # atomic index_add_ sums on the card: run-to-run order differences
+        # the card's kernels sum in a fixed order, but not the CPU's order,
+        # and its matmuls (level statics, hs_linear) block their sums otherwise
         np.testing.assert_allclose(hs_g, hs_c, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(hf_g, hf_c, rtol=0, atol=1e-4)
 
 
 def test_kernel_rejects_unsupported_width(cuda):
+    # the struct-tower kernels run first and refuse D > 128 as the level scan does
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=160, s_rounds=1, t_rounds=1)
     params, _ = dg_ae.init_params(cfg, device=cuda)
     batch = collate([random_circuit(np.random.default_rng(0), "mig", num_inputs=4,
                                     num_gates=20)])
     with pytest.raises(ValueError, match="D <= 128"):
         dg_ae.forward(params, batch, cfg)
+
+
+def _struct_case(cuda, modality, dim, layernorm=True, seed=7):
+    cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
+                         layernorm=layernorm)
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(seed)
+    batch = collate([random_circuit(rng, modality, num_inputs=8, num_gates=120)
+                     for _ in range(4)])
+    b = dg_ae.batch_to_device(batch, cuda)
+    x = dg_ae.struct_input(b["gate"], cfg)
+    with torch.no_grad():
+        args = struct_kernel.struct_inputs(params["struct"], x, b, layernorm)
+    return args, struct_kernel.struct_tables(b)
+
+
+@pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
+def test_struct_kernels_match_plain_versions_on_card(cuda, modality, dim):
+    args, tables = _struct_case(cuda, modality, dim)
+    struct_kernel.launches = struct_kernel.bwd_launches = 0
+    st_k = struct_kernel._forward_cuda(args, tables, 2, True, residuals=False)
+    st_kr, res_k = struct_kernel._forward_cuda(args, tables, 2, True, residuals=True)
+    torch.cuda.synchronize()
+    assert struct_kernel.launches == 2 * 4          # one launch per half-round
+    st_r, res_r = struct_kernel.struct_towers_reference(*args, tables, 2, True,
+                                                        with_residuals=True)
+    # fp32, TF32 off: only the order of sums differs
+    for k, r in ((st_k, st_r), (st_kr, st_r), (res_k, res_r)):
+        assert (k - r).abs().max().item() <= 1e-4
+    dstate = torch.randn(st_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    grads_k = struct_kernel._backward_cuda(dstate, res_k, args[1], args[2], args[4], tables, 2,
+                                           True)
+    torch.cuda.synchronize()
+    assert struct_kernel.bwd_launches == 4 + 2      # a row launch per half-round, two reductions
+    grads_r = struct_kernel.struct_towers_bwd_reference(dstate, res_k, args[1], args[2], args[4],
+                                                        tables, 2, True)
+    for k, r in zip(grads_k, grads_r):
+        assert (k - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("layernorm", [True, False])
+def test_struct_kernels_deterministic_and_autograd_on_card(cuda, layernorm):
+    args, tables = _struct_case(cuda, "mig", 64, layernorm, seed=8)
+    st1, res1 = struct_kernel._forward_cuda(args, tables, 2, layernorm, residuals=True)
+    st2, res2 = struct_kernel._forward_cuda(args, tables, 2, layernorm, residuals=True)
+    assert torch.equal(st1, st2) and torch.equal(res1, res2)
+    assert torch.equal(struct_kernel._forward_cuda(args, tables, 2, layernorm, residuals=False),
+                       st1)
+    dstate = torch.randn(st1.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    raw = [struct_kernel._backward_cuda(dstate, res1, args[1], args[2], args[4], tables, 2,
+                                        layernorm) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*raw))
+    # the autograd Function launches the residual forward and the backward kernels
+    t = [a.detach().clone().requires_grad_(True) for a in args]
+    struct_kernel.launches = struct_kernel.bwd_launches = 0
+    st = struct_kernel.struct_core(*t, tables, 2, layernorm)
+    auto = torch.autograd.grad(st, t if layernorm else t[:4], dstate)
+    torch.cuda.synchronize()
+    assert struct_kernel.launches == 4 and struct_kernel.bwd_launches == 6
+    assert torch.equal(st.detach(), st1)
+    for a, k in zip(auto, raw[0]):
+        torch.testing.assert_close(a, k, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])

@@ -1,0 +1,186 @@
+"""The port's struct towers (mgvae_tpu_torch.ops.struct_kernel) against the
+JAX package: the fused tower kernel ``struct_towers_pallas`` in interpret
+mode and the XLA towers ``direct_multigcn_apply``, forward and every encoder
+parameter's gradient; the written-out backward against autograd; the whole
+forward against ``forward(use_pallas=True, pallas_interpret=True)``.
+Tolerances are the JAX package's own (tests/test_struct_kernel.py): s and t
+rtol 1e-4 / atol 1e-5 on valid rows, gradients 1e-5 relative to each leaf's
+largest entry; hs rtol 1e-4 / atol 1e-5, hf atol 1e-4.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mgvae_tpu.data.batching import collate
+from mgvae_tpu.data.synthetic import random_circuit
+from mgvae_tpu.models import dg_ae as J
+from mgvae_tpu.models import encoder as jencoder
+from mgvae_tpu.ops.pallas.struct_kernel import struct_towers_pallas
+from mgvae_tpu_torch.models import dg_ae as P
+from mgvae_tpu_torch.models import encoder
+from mgvae_tpu_torch.ops import struct_kernel
+from mgvae_tpu_torch.utils.params import params_from_jax
+
+torch.set_num_threads(1)
+DIM, ROUNDS = 32, 2
+
+
+def _setup(layernorm, modality="mig", seed=0, circuits=3, gates=44):
+    """JAX params and host batch (3 circuits of 44 gates by default), and the
+    port's params, device batch and x_feat made from them."""
+    kw = dict(modality=modality, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+              layernorm=layernorm)
+    jcfg, pcfg = J.DGConfig(**kw), P.DGConfig(**kw)
+    params, _ = J.init_params(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed + 1)
+    hb = collate([random_circuit(rng, modality, num_inputs=5, num_gates=gates)
+                  for _ in range(circuits)])
+    pparams = params_from_jax(jax.tree.map(np.asarray, params))
+    b = P.batch_to_device(hb, "cpu")
+    return jcfg, pcfg, params, hb, pparams, b, P.struct_input(b["gate"], pcfg)
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+
+@pytest.mark.parametrize("layernorm", [True, False])
+def test_struct_towers_match_pallas_interpret_and_xla(layernorm):
+    jcfg, _, params, hb, pparams, b, x = _setup(layernorm)
+    batch = jax.tree.map(jnp.asarray, hb)
+    jx = jnp.asarray(x.numpy())
+    n = int(hb["n_nodes"])
+    enc = params["struct"]
+    w = np.random.default_rng(3).normal(size=(hb["gate"].shape[0], DIM)).astype(np.float32)
+    w[n:] = 0.0    # the cotangent is zero on padding rows
+
+    struct_kernel.launches = 0
+    leaves = _flat(pparams["struct"])
+    for t in leaves.values():
+        t.requires_grad_(True)
+    s_p, t_p = struct_kernel.struct_towers(pparams["struct"], x, b, ROUNDS, layernorm)
+    assert struct_kernel.launches == 0          # CPU tensors: the plain version
+    wt = torch.tensor(w)
+    (s_p * wt).sum().add((t_p * wt).sum() * 0.5).backward()
+    g_p = {k: t.grad.numpy() for k, t in leaves.items()}
+
+    def loss(fn):
+        def f(e):
+            s, t = fn(e)
+            return jnp.sum(s * w) + 0.5 * jnp.sum(t * w)
+        return f
+
+    towers = {
+        "pallas": lambda e: struct_towers_pallas(e, jx, batch, ROUNDS, layernorm, interpret=True,
+                                                 precision="highest"),
+        "xla": lambda e: jencoder.direct_multigcn_apply(e, jx, batch, ROUNDS, ROUNDS, layernorm),
+    }
+    for name, fn in towers.items():
+        s_j, t_j = jax.jit(fn)(enc)
+        np.testing.assert_allclose(s_p.detach().numpy()[:n], np.asarray(s_j)[:n], rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(t_p.detach().numpy()[:n], np.asarray(t_j)[:n], rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+        g_j = _flat(jax.tree.map(np.asarray, jax.jit(jax.grad(loss(fn)))(enc)))
+        assert g_j.keys() == g_p.keys()
+        rel = {k: _rel(g_p[k], g_j[k]) for k in g_j}
+        assert max(rel.values()) <= 1e-5, (name, rel)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("layernorm", [True, False])
+def test_bwd_reference_matches_autograd(layernorm):
+    _, _, _, _, pparams, b, x = _setup(layernorm, modality="xmg", seed=4)
+    args = [a.detach().requires_grad_(True)
+            for a in struct_kernel.struct_inputs(pparams["struct"], x, b, layernorm)]
+    tables = struct_kernel.struct_tables(b)
+    state, res = struct_kernel.struct_towers_reference(*args, tables, ROUNDS, layernorm,
+                                                       with_residuals=True)
+    assert res.shape == (2 * ROUNDS, 2, x.shape[0], 7 * DIM) and not res.requires_grad
+    dstate = torch.tensor(np.random.default_rng(5).normal(size=state.shape).astype(np.float32))
+    auto = torch.autograd.grad(state, args, dstate, allow_unused=True)
+    manual = struct_kernel.struct_towers_bwd_reference(dstate, res, args[1], args[2], args[4],
+                                                       tables, ROUNDS, layernorm)
+    for i, (a, m) in enumerate(zip(auto, manual)):
+        if a is None:   # ln_w / ln_b without LayerNorm: constants
+            assert not layernorm and i >= 4 and (m == 0).all()
+            continue
+        assert a.shape == m.shape
+        assert float((a - m).abs().max()) <= 1e-5 * float(a.abs().max()), i
+
+
+@pytest.mark.parametrize("modality", ["aig", "mig", "xag", "xmg"])
+def test_forward_matches_jax_use_pallas(modality):
+    jcfg, pcfg, params, hb, pparams, _, _ = _setup(True, modality=modality, seed=6, circuits=2,
+                                                   gates=24)
+    fwd = jax.jit(lambda p, b: J.forward(p, b, jcfg, use_pallas=True, pallas_interpret=True)[:2])
+    hs_j, hf_j = fwd(params, jax.tree.map(jnp.asarray, hb))
+    hs_p, hf_p, _ = P.forward(pparams, hb, pcfg)
+    n = int(hb["n_nodes"])
+    np.testing.assert_allclose(hs_p.numpy()[:n], np.asarray(hs_j)[:n], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(hf_p.numpy()[:n], np.asarray(hf_j)[:n], rtol=0, atol=1e-4)
+
+
+def test_unequal_rounds_take_eager_towers(monkeypatch):
+    _, _, params, hb, pparams, b, x = _setup(True, modality="xag", seed=7)
+    calls = []
+    real = encoder.struct_towers
+    monkeypatch.setattr(encoder, "struct_towers", lambda *a: calls.append(a[3]) or real(*a))
+    for rounds in ((2, 3), (2, 2)):
+        s_p, t_p = encoder.direct_multigcn_apply(pparams["struct"], x, b, *rounds, True)
+        s_j, t_j = jencoder.direct_multigcn_apply(
+            params["struct"], jnp.asarray(x.numpy()), jax.tree.map(jnp.asarray, hb), *rounds,
+            True)
+        n = int(hb["n_nodes"])
+        np.testing.assert_allclose(s_p.numpy()[:n], np.asarray(s_j)[:n], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(t_p.numpy()[:n], np.asarray(t_j)[:n], rtol=1e-4, atol=1e-5)
+    assert calls == [2]       # only s_rounds == t_rounds takes the kernel route
+
+
+def test_tables_list_each_nodes_edges():
+    """Node v's forward list holds the sources of its in-edges and its
+    reverse list the destinations of its out-edges, in edge order, for a
+    batch and for an edge-less graph."""
+    rng = np.random.default_rng(8)
+    graphs = [random_circuit(rng, "aig", num_inputs=4, num_gates=30) for _ in range(3)]
+    from mgvae_tpu_torch import build_graph
+
+    for hb in (collate(graphs), collate([build_graph("pi", np.zeros(3, np.int32),
+                                                     np.zeros((2, 0), np.int64))])):
+        src, start, count = struct_kernel.struct_tables(P.batch_to_device(hb, "cpu"))
+        e = int(hb["n_edges"])
+        es, ed = hb["edge_src"][:e], hb["edge_dst"][:e]
+        for v in range(hb["gate"].shape[0]):
+            for d, (by, other) in enumerate(((ed, es), (es, ed))):
+                got = src[d, start[d, v] : start[d, v] + count[d, v]].numpy()
+                np.testing.assert_array_equal(got, other[by == v])
+        assert int(count.sum()) == 2 * e
+
+
+def test_core_checks_its_arguments():
+    _, _, _, _, pparams, b, x = _setup(False, seed=9)
+    args = list(struct_kernel.struct_inputs(pparams["struct"], x, b, False))
+    tables = struct_kernel.struct_tables(b)
+    ref = struct_kernel.struct_towers_reference(*args, tables, ROUNDS, False)
+    assert torch.equal(struct_kernel.struct_core(*args, tables, ROUNDS, False), ref)
+    bad = [(1, args[1].double()), (2, args[2].transpose(2, 3).contiguous()),
+           (0, args[0][:, :, :-1]), (3, args[3].mT.contiguous().mT)]
+    for i, t in bad:
+        a = list(args)
+        a[i] = t
+        with pytest.raises(ValueError, match="struct_towers"):
+            struct_kernel.struct_core(*a, tables, ROUNDS, False)
+    with pytest.raises(ValueError, match="int32"):
+        struct_kernel.struct_core(*args, (tables[0].long(), *tables[1:]), ROUNDS, False)
+    with pytest.raises(ValueError, match="num_rounds"):
+        struct_kernel.struct_core(*args, tables, 0, False)
