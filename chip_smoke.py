@@ -49,10 +49,44 @@ Phases (any failure raises and the script exits nonzero):
      steps; device time per step, busy share, device kernels per step, and
      the kernels by device time.
 
+ 10. step kernels vs plain: for aig/mig/xag/xmg, 64 circuits collated with
+     collate_chunked(graphs, 2) (per-chunk N_sub > 8192, so the chunks fail
+     the fused route's size gate); on every real level of both chunks, the
+     single-level step kernel with residuals against level_step_reference
+     (h_new, res_e, res_n: max |d| <= 1e-4) and its backward against
+     level_step_bwd_reference on the same residuals and a fixed random
+     cotangent (each of the seven outputs, d_hf included, within
+     1e-4 * max(scale, 1)).
+ 11. bs64 encode: Model.forward(list of 64 MIG circuits), which collates
+     with collate_fit (C and the per-chunk dims are printed): struct
+     launches 2 * s_rounds, level-scan launches equal to the real (chunk,
+     level) rows, no step launch; rows against the same model on the CPU
+     (max |d| <= 1e-4).
+ 12. step route: the forward and 5 train steps (lr 1e-3, fixed negatives
+     and dropout masks, so that the loss must fall) on the MIG
+     collate_chunked(graphs, 2) batch: per step, step launches equal to the
+     real (chunk, level) rows and step backward launches to three times
+     that (slots, sources, weight gradients), no fused level launch; losses
+     finite and falling; one step card vs CPU as in phase 7, without the
+     prob loss (see SMOOTH_WEIGHTS).
+ 13. split batch: the same on collate_split(graphs, 4): per step, struct
+     launches 2 * s_rounds per group forward and 2 * s_rounds + 2 backward,
+     level-scan launches equal to the groups' real levels forward and two
+     per real level plus one per group backward.
+ 14. timing (informational): by CUDA events the step kernel (with and
+     without residuals) and its backward against their plain versions on
+     the widest level of the phase-12 batch; median wall time of one bs64
+     MIG train step by its three layouts (collate_fit's chunks on the fused
+     route, two chunks on the step route, four split groups), in turns.
+
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers and level scan, the training path's struct
-towers and level scan with residuals, and the two backwards), the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+towers and level scan with residuals, the two backwards, and the step
+kernel and its backward; each with its launches on its main path, its
+time, its plain version's, and its bound: the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s, computed from this run's
+inputs), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -83,8 +117,19 @@ CPU_TOL = 1e-4
 GRAD_TOL = 1e-4
 GRAD_FLOOR = 2e-2
 TRAIN_STEPS, TRAIN_LR = 20, 1e-4
+LARGE_STEPS, LARGE_LR = 5, 1e-3   # the bs64 phases: few steps, fixed draws, the loss must fall
+CHUNKS, GROUPS = 2, 4             # collate_chunked / collate_split of the 64 circuits
+# the card's published peaks (H100 SXM): device memory and fp32 outside the tensor cores
+PEAK_BYTES_S, PEAK_FLOP_S = 3.35e12, 67e12
 PROFILE_STEPS = 10
 WEIGHTS = [1.0, 4.0, 4.0, 0.0]    # stage-3 loss weights (train.py)
+# The bs64 card-vs-CPU steps leave the prob loss out. Its readout MLP has
+# ~1.1M ReLU units per bs64 step, and about one of them per step has a
+# pre-activation within the card-CPU rounding difference (~1e-6) of 0: the
+# unit is then on for one device and off for the other, which moves its
+# gradients by ~1e-4, far past a tolerance made for rounding. The bs16 step
+# of phase 7 (a quarter of the units) keeps the prob loss.
+SMOOTH_WEIGHTS = [1.0, 0.0, 4.0, 0.0]
 SEED = 0
 DEVICE = "cuda"
 
@@ -119,6 +164,19 @@ def event_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, or the operations at
+    the fp32 rate, whichever is larger."""
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def profile_train(torch, step, card: str) -> None:
@@ -160,7 +218,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 2
-    from mgvae_tpu_torch import Model, collate, random_circuit
+    from mgvae_tpu_torch import (Model, collate, collate_chunked, collate_fit, collate_split,
+                                 random_circuit)
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
     from mgvae_tpu_torch.ops.init import linear_apply
@@ -168,6 +227,7 @@ def main() -> int:
     from mgvae_tpu_torch.ops.struct_kernel import (struct_inputs, struct_tables,
                                                    struct_towers_bwd_reference,
                                                    struct_towers_reference)
+    from mgvae_tpu_torch.train import losses as losses_mod
     from mgvae_tpu_torch.train import step as train_step_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,6 +240,53 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; devices={torch.cuda.device_count()}; {card}")
     dev = torch.device(DEVICE)
     sync = torch.cuda.synchronize
+
+    # The bounds of the "kernels" line. Bytes: every input array read once
+    # and every output array written once, as the wrapper takes and returns
+    # them (level tables and residuals over the real levels only; of the
+    # step's hf only the rows of the level's distinct sources, its d_hf
+    # whole). Operations: what this run's data needs with each slot reading
+    # its own expert only: 2 * D * 2D per valid edge (key and value) and
+    # 2 * D * 3D per updated slot (GRU input) forward; in the backward the
+    # transposed products and the weight gradients, twice that and more.
+    def struct_bound(sargs, tables, n_edges, residuals, backward=False):
+        N, D, hr = sargs[0].shape[2], sargs[1].shape[2], 2 * ROUNDS
+        state, res = 2 * N * D * 4, hr * 2 * N * 7 * D * 4
+        if backward:   # in: dstate, res, wfold, w_hh, ln_w, lists; out: the six gradients
+            moved = state + res + nbytes(sargs[1], sargs[2], sargs[4], *tables) + nbytes(*sargs)
+            return bound(moved, hr * 2 * (24 * N * D * D + n_edges * D))
+        moved = nbytes(*sargs, *tables) + state + (res if residuals else 0)
+        return bound(moved, hr * 2 * (12 * N * D * D + n_edges * D))
+
+    def level_work(evalid, upd, D, backward):
+        e, u = int((evalid > 0).sum()), int((upd > 0).sum())
+        if backward:
+            return u * 12 * D * D + e * 8 * D * D
+        return e * (4 * D * D + 6 * D) + u * (6 * D * D + 12 * D)
+
+    def level_bound(args, n_lv, N, residuals, backward=False):
+        D, ep, np_ = args[0].shape[2] - 2, args[0].shape[1], args[4].shape[1]
+        tabs = [a[:n_lv] for a in args[:7]]
+        res = n_lv * (ep * (3 * D + 1) + np_ * 4 * D) * 4
+        flops = level_work(tabs[3], tabs[5], D, backward)
+        if backward:   # in: ghf, residuals, tables, weights; out: d_pack, five weight gradients
+            moved = (N * D * 4 + res + nbytes(*tabs[1:], args[7], args[8], args[10], args[11])
+                     + nbytes(tabs[0], *args[7:]))
+            return bound(moved, flops)
+        return bound(nbytes(*tabs, *args[7:]) + N * D * 4 + (res if residuals else 0), flops)
+
+    def step_bound(step_args, residuals, backward=False):
+        hf, pack, src, dslot, evalid, upd, e_n, *w = step_args
+        D, ep, np_ = pack.shape[1] - 2, pack.shape[0], upd.shape[0]
+        res = (ep * (3 * D + 1) + np_ * 4 * D) * 4
+        flops = level_work(evalid, upd, D, backward)
+        if backward:   # in: g, residuals, tables, weights; out: d_pack, weight gradients, d_hf
+            moved = (np_ * D * 4 + res + nbytes(src, dslot, evalid, upd, e_n, w[0], w[1], w[3], w[4])
+                     + nbytes(pack, *w) + hf.shape[0] * D * 4)
+            return bound(moved, flops)
+        sources = int(torch.unique(src[evalid > 0]).numel())
+        moved = sources * D * 4 + nbytes(*step_args[1:]) + np_ * D * 4 + (res if residuals else 0)
+        return bound(moved, flops)
 
     # ---- 2. build ---------------------------------------------------------
     built = _build.build()
@@ -325,6 +432,9 @@ def main() -> int:
         sms_p2 = event_ms(torch, splain, reps)
     ms_k, ms_p = (ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2
     sms_k, sms_p = (sms_k1 + sms_k2) / 2, (sms_p1 + sms_p2) / 2
+    n_edges = int(batch["n_edges"])
+    bounds = {"struct_towers": struct_bound(sargs, tables, n_edges, False),
+              "level_scan": level_bound(args, n_lv, hs.shape[0], False)}
     log(f"[time] card: {card}")
     log(f"[time] MIG bs{BATCH} encode (host batch -> hs, hf on card), median of {reps}: "
         f"kernels {enc_k * 1e3:.3f} ms = {BATCH / enc_k:.1f} graphs/s; "
@@ -427,9 +537,9 @@ def main() -> int:
     optimizer = train_step_mod.make_optimizer(params, TRAIN_LR)
     train_step, eval_step = train_step_mod.make_train_step(cfg, optimizer)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    keys = train_step_mod.METRIC_KEYS + ("loss",)
     batches = [collate(r) for r in requests]
     levels = [dg_ae.num_levels(bt) for bt in batches]
-    keys = train_step_mod.METRIC_KEYS + ("loss",)
     per_step, rows = [], []
     kernels = (level_kernel, struct_kernel)
     for m in kernels:
@@ -462,44 +572,55 @@ def main() -> int:
         if not torch.isfinite(leaf).all():
             raise RuntimeError("[train] non-finite parameter after training")
 
-    # one step on the card and on the CPU: same params, batch, negatives and
-    # dropout masks; losses and gradients must agree
-    batch = batches[0]
-    cpu_gen = torch.Generator().manual_seed(SEED + 2)
-    n_real, e_pad, n_pad = int(batch["n_nodes"]), batch["edge_src"].shape[0], batch["gate"].shape[0]
-    neg = tuple(t.to(torch.int32) for t in torch.randint(0, n_real, (2, e_pad), generator=cpu_gen))
-    keep = [torch.rand(n_pad, cfg.dim_mlp, generator=cpu_gen) < 0.8 for _ in range(2)]
-    one = {}
-    for where in ("cpu", DEVICE):
-        p1, s1 = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
-        leaves = train_step_mod.param_leaves(p1)
-        for t in leaves:
-            t.requires_grad_(True)
-        total, (_, m1) = train_step_mod.loss_and_metrics(
-            p1, s1, batch, None, WEIGHTS, cfg, True, neg_edges=tuple(t.to(where) for t in neg),
-            drop_keep=[k.to(where) for k in keep])
-        total.backward()
-        one[where] = ({k: float(m1[k]) for k in keys},
-                      [torch.zeros(t.shape) if t.grad is None else t.grad.cpu() for t in leaves])
-    (m_c, g_c), (m_g, g_g) = one["cpu"], one[DEVICE]
-    # the losses, not the counts: a logit within rounding of 0 may flip one
-    loss_keys = ("recon_loss", "prob_loss", "func_loss", "loss")
-    loss_err = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1.0) for k in loss_keys)
-    g_scale = max(g.abs().max().item() for g in g_c)
-    # per leaf: (|d| / tol, |d|, leaf scale); the worst leaf is reported
-    g_leaf = max(((a - c).abs().max().item() / (GRAD_TOL * max(c.abs().max().item(),
-                                                                GRAD_FLOOR * g_scale)),
-                  (a - c).abs().max().item(), c.abs().max().item())
-                 for a, c in zip(g_g, g_c))
-    log(f"[train] card vs CPU, one step: losses {m_g['recon_loss']:.6f}/{m_g['prob_loss']:.6f}/"
-        f"{m_g['func_loss']:.6f} vs {m_c['recon_loss']:.6f}/{m_c['prob_loss']:.6f}/"
-        f"{m_c['func_loss']:.6f}; max rel |d| of the losses {loss_err:.3e}; tp/fp "
-        f"{m_g['tp']:.0f}/{m_g['fp']:.0f} vs {m_c['tp']:.0f}/{m_c['fp']:.0f}; "
-        f"gradients, worst leaf against its own scale: max|d| {g_leaf[1]:.3e} at scale "
-        f"{g_leaf[2]:.3e}, {g_leaf[0]:.3f} of its tolerance (tol {GRAD_TOL} * max(leaf scale, "
-        f"{GRAD_FLOOR} * {g_scale:.3e}))")
-    if not (loss_err <= CPU_TOL and g_leaf[0] <= 1.0):
-        raise RuntimeError("[train] card and CPU disagree on one training step")
+    def fixed_draws(batch, seed):
+        """Negatives over the batch's valid rows and dropout keep masks, on
+        the CPU, for runs that must see the same draws."""
+        g = torch.Generator().manual_seed(seed)
+        n_real, e_pad, n_pad = (int(batch["n_nodes"]), batch["edge_src"].shape[0],
+                                batch["gate"].shape[0])
+        neg = tuple(losses_mod.to_valid_runs(t.to(torch.int32), batch)
+                    for t in torch.randint(0, n_real, (2, e_pad), generator=g))
+        keep = [torch.rand(n_pad, cfg.dim_mlp, generator=g) < 0.8 for _ in range(2)]
+        return neg, keep
+
+    def card_vs_cpu_step(tag, batch, weights):
+        """One step's losses and gradients on the card and on the CPU: same
+        params, batch, loss weights, negatives and dropout masks."""
+        neg, keep = fixed_draws(batch, SEED + 2)
+        one = {}
+        for where in ("cpu", DEVICE):
+            p1, s1 = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
+            leaves = train_step_mod.param_leaves(p1)
+            for t in leaves:
+                t.requires_grad_(True)
+            total, (_, m1) = train_step_mod.loss_and_metrics(
+                p1, s1, batch, None, weights, cfg, True,
+                neg_edges=tuple(t.to(where) for t in neg), drop_keep=[k.to(where) for k in keep])
+            total.backward()
+            one[where] = ({k: float(m1[k]) for k in keys},
+                          [torch.zeros(t.shape) if t.grad is None else t.grad.cpu()
+                           for t in leaves])
+        (m_c, g_c), (m_g, g_g) = one["cpu"], one[DEVICE]
+        # the losses, not the counts: a logit within rounding of 0 may flip one
+        loss_keys = ("recon_loss", "prob_loss", "func_loss", "loss")
+        loss_err = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1.0) for k in loss_keys)
+        g_scale = max(g.abs().max().item() for g in g_c)
+        # per leaf: (|d| / tol, |d|, leaf scale); the worst leaf is reported
+        g_leaf = max(((a - c).abs().max().item() / (GRAD_TOL * max(c.abs().max().item(),
+                                                                    GRAD_FLOOR * g_scale)),
+                      (a - c).abs().max().item(), c.abs().max().item())
+                     for a, c in zip(g_g, g_c))
+        log(f"[{tag}] card vs CPU, one step, weights {weights}: losses {m_g['recon_loss']:.6f}/"
+            f"{m_g['prob_loss']:.6f}/{m_g['func_loss']:.6f} vs {m_c['recon_loss']:.6f}/"
+            f"{m_c['prob_loss']:.6f}/{m_c['func_loss']:.6f}; max rel |d| of the losses "
+            f"{loss_err:.3e}; tp/fp {m_g['tp']:.0f}/{m_g['fp']:.0f} vs {m_c['tp']:.0f}/"
+            f"{m_c['fp']:.0f}; gradients, worst leaf against its own scale: max|d| "
+            f"{g_leaf[1]:.3e} at scale {g_leaf[2]:.3e}, {g_leaf[0]:.3f} of its tolerance "
+            f"(tol {GRAD_TOL} * max(leaf scale, {GRAD_FLOOR} * {g_scale:.3e}))")
+        if not (loss_err <= CPU_TOL and g_leaf[0] <= 1.0):
+            raise RuntimeError(f"[{tag}] card and CPU disagree on one training step")
+
+    card_vs_cpu_step("train", batches[0], WEIGHTS)
 
     # ---- 8. training timing (informational) -------------------------------
     batch = batches[0]
@@ -601,6 +722,11 @@ def main() -> int:
     sbms_k2 = event_ms(torch, skern, reps)
     sbms_p2 = event_ms(torch, splain, reps)
     sbms_k, sbms_p = (sbms_k1 + sbms_k2) / 2, (sbms_p1 + sbms_p2) / 2
+    bounds.update(
+        struct_towers_residuals=struct_bound(sargs, tables, n_edges, True),
+        struct_towers_bwd=struct_bound(sargs, tables, n_edges, True, backward=True),
+        level_scan_residuals=level_bound(args, n_lv, N, True),
+        level_scan_bwd=level_bound(args, n_lv, N, True, backward=True))
     log(f"[time] card: {card}")
     log(f"[time] MIG bs{BATCH} train step (host batch -> Adam update, synchronised), median of "
         f"{reps}: {step_s * 1e3:.3f} ms = {BATCH / step_s:.1f} graphs/s")
@@ -621,61 +747,249 @@ def main() -> int:
     # ---- 9. train-step profile (informational) ----------------------------
     profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card)
 
-    print(json.dumps({"kernels": [{
-        "name": "struct_towers",               # encode path (phases 3-5)
-        "route": "cuda",
-        "source": "mgvae_tpu_torch/csrc/struct_towers.cu",
-        "replaces": "mgvae_tpu/ops/pallas/struct_kernel.py:175",
-        "launches": enc_struct,
-        "max_abs_err": struct_err,
-        "ms": sms_k,
-        "plain_ms": sms_p,
-    }, {
-        "name": "struct_towers_residuals",     # training path's forward (phases 6-8)
-        "route": "cuda",
-        "source": "mgvae_tpu_torch/csrc/struct_towers.cu",
-        "replaces": "mgvae_tpu/ops/pallas/struct_kernel.py:175",
-        "launches": train_sfwd,
-        "max_abs_err": sres_err,
-        "ms": srms_k,
-        "plain_ms": srms_p,
-    }, {
-        "name": "struct_towers_bwd",
-        "route": "cuda",
-        "source": "mgvae_tpu_torch/csrc/struct_towers_bwd.cu",
-        "replaces": "mgvae_tpu/ops/pallas/struct_kernel.py:338",
-        "launches": train_sbwd,
-        "max_abs_err": sbwd_err,
-        "ms": sbms_k,
-        "plain_ms": sbms_p,
-    }, {
-        "name": "level_scan",                  # encode path (phases 3-5)
-        "route": "cuda",
-        "source": "mgvae_tpu_torch/csrc/level_scan.cu",
-        "replaces": "mgvae_tpu/ops/pallas/level_kernel.py:173",
-        "launches": enc_launches,
-        "max_abs_err": enc_err,
-        "ms": ms_k,
-        "plain_ms": ms_p,
-    }, {
-        "name": "level_scan_residuals",        # training path's forward (phases 6-8)
-        "route": "cuda",
-        "source": "mgvae_tpu_torch/csrc/level_scan.cu",
-        "replaces": "mgvae_tpu/ops/pallas/level_kernel.py:173",
-        "launches": train_fwd,
-        "max_abs_err": res_err,
-        "ms": rms_k,
-        "plain_ms": rms_p,
-    }, {
-        "name": "level_scan_bwd",
-        "route": "cuda",
-        "source": "mgvae_tpu_torch/csrc/level_scan_bwd.cu",
-        "replaces": "mgvae_tpu/ops/pallas/level_kernel.py:487",
-        "launches": train_bwd,
-        "max_abs_err": bwd_err,
-        "ms": bms_k,
-        "plain_ms": bms_p,
-    }]}), flush=True)
+    # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
+    step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")
+    step_err = step_bwd_err = 0.0
+    for i, mod in enumerate(MODALITIES):
+        cfg_m = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                               layernorm=True)
+        params_m, _ = dg_ae.init_params(cfg_m, seed=SEED, device=dev)
+        batch = collate_chunked(dataset(random_circuit, mod, 200 + i, N_CIRCUITS), CHUNKS)
+        b = dg_ae.batch_to_device(batch, dev)
+        counts = dg_ae.level_counts(batch)
+        with torch.no_grad():
+            hs = dg_ae.struct_hs(params_m, b, cfg_m)
+            args = dg_ae.level_scan_inputs(params_m, b, cfg_m, hs)
+            n_sub, L = hs.shape[0] // CHUNKS, args[0].shape[0] // CHUNKS
+            hf = dg_ae.level_scan_step(args, counts, n_sub)
+            g = torch.randn((args[4].shape[1], DIM), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+            fwd_w, bwd_w, bwd_rep = [0.0, 0.0, 0.0], 0.0, ""
+            for k in range(CHUNKS):
+                hf_c = hf.narrow(0, k * n_sub, n_sub)
+                for lv in range(counts[k]):
+                    row = k * L + lv
+                    sa = (hf_c, *(args[j][row] for j in (0, 1, 2, 3, 5, 6)), *args[7:])
+                    out_k = level_kernel._step_forward_cuda(sa, residuals=True)
+                    out_r = level_kernel.level_step_reference(*sa, with_residuals=True)
+                    for j, (x, r) in enumerate(zip(out_k, out_r)):
+                        if not torch.isfinite(x).all():
+                            raise RuntimeError(f"[step] {mod}: non-finite output, level {lv}")
+                        fwd_w[j] = max(fwd_w[j], (x - r).abs().max().item())
+                    grads_k = level_kernel._step_backward_cuda(g, out_k[1], out_k[2], sa[1:], n_sub)
+                    grads_r = level_kernel.level_step_bwd_reference(
+                        g, out_k[1], out_k[2], *sa[1:9], sa[10], sa[11], num_nodes=n_sub)
+                    report, worst = held(mod, step_names, grads_k, grads_r)
+                    if worst >= bwd_w:
+                        bwd_w, bwd_rep = worst, report
+        sync()
+        n_rows = sum(counts)
+        log(f"[step] {mod}: {N_CIRCUITS} circuits in {CHUNKS} chunks, N_sub={n_sub} L={L} "
+            f"real levels {counts} Np={args[4].shape[1]} Ep={args[0].shape[1]}; over {n_rows} "
+            f"levels: step forward max|d| h_new/res_e/res_n = {fwd_w[0]:.3e}/{fwd_w[1]:.3e}/"
+            f"{fwd_w[2]:.3e}; step backward, worst level, max|d|/scale: {bwd_rep}")
+        if not max(fwd_w) <= KERNEL_TOL:
+            raise RuntimeError(f"[step] {mod}: step kernel disagrees with plain version: "
+                               f"{fwd_w} (tol {KERNEL_TOL})")
+        step_err, step_bwd_err = max(step_err, *fwd_w), max(step_bwd_err, bwd_w)
+
+    # ---- 11. bs64 encode: Model.forward(list) through collate_fit ----------
+    cfg = model.cfg
+    level_mods = (level_kernel, struct_kernel)
+
+    def zero_counts():
+        for m in level_mods:
+            m.launches = m.bwd_launches = 0
+        level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+
+    def read_counts():
+        """(struct fwd, struct bwd, level fwd, level bwd, step fwd, step bwd)"""
+        return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
+                level_kernel.bwd_launches, level_kernel.step_launches,
+                level_kernel.step_bwd_launches)
+
+    fit = collate_fit(graphs)
+    C_fit = fit["lv_nodes"].shape[0] if fit["lv_nodes"].ndim == 3 else 1
+    fit_levels = dg_ae.level_counts(fit)
+    zero_counts()
+    hs_g, hf_g = model(graphs)
+    sync()
+    got = read_counts()
+    log(f"[encode64] Model.forward(list of {len(graphs)}): collate_fit gives C={C_fit}, per chunk "
+        f"N_sub={fit['gate'].shape[0] // C_fit} L={fit['lv_nodes'].shape[-2]} "
+        f"Ep={fit['lv_edge_src'].shape[-1]} Np={fit['lv_nodes'].shape[-1]}, real levels "
+        f"{fit_levels}; launches (struct, struct bwd, level, level bwd, step, step bwd) = {got}")
+    if got != (2 * ROUNDS, 0, sum(fit_levels), 0, 0, 0) or C_fit < 2:
+        raise RuntimeError(f"[encode64] launches {got} != (2 * s_rounds, 0, real (chunk, level) "
+                           f"rows {sum(fit_levels)}, 0, 0, 0), or the list was not chunked")
+    hs_c, hf_c = cpu_model(graphs)
+    total_nodes = sum(g.num_nodes for g in graphs)
+    d_hs, d_hf = (hs_g.cpu() - hs_c).abs().max().item(), (hf_g.cpu() - hf_c).abs().max().item()
+    log(f"[encode64] card vs CPU (the plain versions), {total_nodes} rows in input order: "
+        f"max|dhs|={d_hs:.3e} max|dhf|={d_hf:.3e} (tol {CPU_TOL})")
+    if hs_g.shape != (total_nodes, DIM) or not (d_hs <= CPU_TOL and d_hf <= CPU_TOL):
+        raise RuntimeError("[encode64] card and CPU disagree")
+
+    # ---- 12 and 13. bs64 train steps: the step route, and a split batch ----
+    def train_large(tag, batch, want):
+        """LARGE_STEPS train steps from fresh params with fixed draws; the
+        per-step launch counts must equal ``want``; returns their sum."""
+        p2, s2 = dg_ae.init_params(cfg, seed=SEED, device=dev)
+        step2, _ = train_step_mod.make_train_step(cfg, train_step_mod.make_optimizer(p2, LARGE_LR))
+        neg, keep = fixed_draws(batch, SEED + 8)
+        neg, keep = tuple(t.to(dev) for t in neg), [k.to(dev) for k in keep]
+        rows, totals = [], [0] * 6
+        for _ in range(LARGE_STEPS):
+            zero_counts()
+            s2, met = step2(p2, s2, batch, None, WEIGHTS, neg_edges=neg, drop_keep=keep)
+            got = read_counts()
+            if got != want:
+                raise RuntimeError(f"[{tag}] per-step launches (struct, struct bwd, level, level "
+                                   f"bwd, step, step bwd) {got} != {want}")
+            totals = [a + z for a, z in zip(totals, got)]
+            rows.append(torch.stack([met[k] for k in keys]))
+        sync()
+        rows = torch.stack(rows).cpu()
+        losses = rows[:, keys.index("loss")].tolist()
+        log(f"[{tag}] {LARGE_STEPS} train_steps, lr {LARGE_LR}, weights {WEIGHTS}, fixed draws: "
+            f"per-step launches (struct, struct bwd, level, level bwd, step, step bwd) = {want}; "
+            f"loss {[round(x, 6) for x in losses]}")
+        if not torch.isfinite(rows).all():
+            raise RuntimeError(f"[{tag}] non-finite loss or metric")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"[{tag}] the loss did not fall: {losses}")
+        card_vs_cpu_step(tag, batch, SMOOTH_WEIGHTS)
+        return totals
+
+    chunked = collate_chunked(graphs, CHUNKS)
+    ch_levels = dg_ae.level_counts(chunked)
+    n_sub = chunked["gate"].shape[0] // CHUNKS
+    ep, np_ = chunked["lv_edge_src"].shape[2], chunked["lv_nodes"].shape[2]
+    failed = [name for name, v, lim in (
+        ("N_sub", n_sub, level_kernel.KERNEL_MAX_NODES), ("Ep", ep, level_kernel.KERNEL_MAX_EP),
+        ("Np", np_, level_kernel.KERNEL_MAX_NP)) if v > lim]
+    log(f"[step64] collate_chunked(graphs, {CHUNKS}): N_sub={n_sub} Ep={ep} Np={np_}, real "
+        f"levels {ch_levels}; kernel_fits fails on {failed}, step_kernel_fits "
+        f"{dg_ae.step_kernel_fits(n_sub, ep, np_, DIM)}")
+    if not failed:
+        raise RuntimeError("[step64] the chunks pass kernel_fits: the step route is not taken")
+    zero_counts()
+    with torch.inference_mode():
+        _, hf_s, _ = dg_ae.forward(model.params, chunked, cfg)
+    sync()
+    got = read_counts()
+    inv = torch.as_tensor(chunked["node_inv"]).long()
+    d_hf = (hf_s[inv.to(dev)][:total_nodes] - hf_g).abs().max().item()
+    log(f"[step64] forward: launches {got}; max|dhf| against the bs64 encode (fused route, "
+        f"C={C_fit}) = {d_hf:.3e}")
+    if got != (2 * ROUNDS, 0, 0, 0, sum(ch_levels), 0) or not d_hf <= KERNEL_TOL:
+        raise RuntimeError(f"[step64] forward: launches {got} != step launches "
+                           f"{sum(ch_levels)} alone, or the routes disagree ({d_hf})")
+    n_rows = sum(ch_levels)
+    step_totals = train_large(
+        "step64", chunked, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, n_rows, 3 * n_rows))
+
+    split = collate_split(graphs, GROUPS)
+    sp_levels = [c[0] for c in dg_ae.level_counts(split)]
+    dims = [(g["gate"].shape[0], g["lv_nodes"].shape[0], g["lv_edge_src"].shape[1],
+             g["lv_nodes"].shape[1]) for g in split["groups"]]
+    log(f"[split64] collate_split(graphs, {GROUPS}): per group (N, L, Ep, Np) = {dims}, real "
+        f"levels {sp_levels}")
+    train_large("split64", split, (
+        2 * ROUNDS * GROUPS, (2 * ROUNDS + 2) * GROUPS, sum(sp_levels),
+        2 * sum(sp_levels) + GROUPS, 0, 0))
+
+    # ---- 14. timing (informational) ----------------------------------------
+    b = dg_ae.batch_to_device(chunked, dev)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(model.params, b, cfg)
+        args = [a.detach().clone() for a in dg_ae.level_scan_inputs(model.params, b, cfg, hs)]
+        hf = dg_ae.level_scan_step(args, ch_levels, n_sub)
+    L = args[0].shape[0] // CHUNKS
+    wide = max(range(ch_levels[0]), key=lambda lv: int(args[3][lv].sum()))   # chunk 0's widest
+    sa = [hf[:n_sub].clone(), *(args[j][wide].clone() for j in (0, 1, 2, 3, 5, 6)), *args[7:]]
+    reps = 50
+    with torch.no_grad():
+        kern = lambda: level_kernel._step_forward_cuda(sa, residuals=False)
+        rkern = lambda: level_kernel._step_forward_cuda(sa, residuals=True)
+        plain = lambda: level_kernel.level_step_reference(*sa)
+        rplain = lambda: level_kernel.level_step_reference(*sa, with_residuals=True)
+        for f in (kern, rkern, plain, rplain):
+            for _ in range(3):
+                f()
+        st_p1, st_k1 = event_ms(torch, plain, reps), event_ms(torch, kern, reps)
+        st_k2, st_p2 = event_ms(torch, kern, reps), event_ms(torch, plain, reps)
+        sr_p1, sr_k1 = event_ms(torch, rplain, reps), event_ms(torch, rkern, reps)
+        sr_k2, sr_p2 = event_ms(torch, rkern, reps), event_ms(torch, rplain, reps)
+        _, re_k, rn_k = rkern()
+    g = torch.randn((sa[5].shape[0], DIM), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 9))
+    for j in level_kernel.STEP_FLOAT_ARGS:
+        sa[j].requires_grad_(True)
+    h_plain = level_kernel.level_step_reference(*sa)
+    diff = [sa[j] for j in level_kernel.STEP_FLOAT_ARGS]
+    bkern = lambda: level_kernel._step_backward_cuda(g, re_k, rn_k, sa[1:], n_sub)
+    bplain = lambda: torch.autograd.grad(h_plain, diff, g, retain_graph=True)
+    for _ in range(3):
+        bkern()
+        bplain()
+    sb_p1, sb_k1 = event_ms(torch, bplain, reps), event_ms(torch, bkern, reps)
+    sb_k2, sb_p2 = event_ms(torch, bkern, reps), event_ms(torch, bplain, reps)
+    sr_k, sr_p = (sr_k1 + sr_k2) / 2, (sr_p1 + sr_p2) / 2
+    sb_k, sb_p = (sb_k1 + sb_k2) / 2, (sb_p1 + sb_p2) / 2
+    bounds.update(level_step=step_bound(sa, True), level_step_bwd=step_bound(sa, True, True))
+    log(f"[time] card: {card}")
+    log(f"[time] level step alone, level {wide} of chunk 0 ({int(sa[4].sum())} edges, "
+        f"{int(sa[5].sum())} slots of Ep={sa[1].shape[0]} Np={sa[5].shape[0]}, N_sub={n_sub}), "
+        f"CUDA events over {reps} calls: kernel {st_k1:.4f}/{st_k2:.4f} ms, plain "
+        f"{st_p1:.4f}/{st_p2:.4f} ms; with residuals: kernel {sr_k1:.4f}/{sr_k2:.4f} ms, plain "
+        f"{sr_p1:.4f}/{sr_p2:.4f} ms")
+    log(f"[time] level step backward alone, the same level: kernel {sb_k1:.4f}/{sb_k2:.4f} ms, "
+        f"autograd through the plain version {sb_p1:.4f}/{sb_p2:.4f} ms")
+    layouts = {f"fit C={C_fit} (fused)": fit, f"chunked C={CHUNKS} (step)": chunked,
+               f"split G={GROUPS} (fused)": split}
+    p3, s3 = dg_ae.init_params(cfg, seed=SEED, device=dev)
+    step3, _ = train_step_mod.make_train_step(cfg, train_step_mod.make_optimizer(p3, TRAIN_LR))
+    wall = {name: [] for name in layouts}
+    for name, bt in layouts.items():
+        for _ in range(2):  # warm-up
+            step3(p3, s3, bt, gen, WEIGHTS)
+    for order in (list(layouts), list(layouts)[::-1]):
+        for name in order:
+            wall[name].append(median_wall(
+                lambda: step3(p3, s3, layouts[name], gen, WEIGHTS), 10, sync))
+    log(f"[time] MIG bs{N_CIRCUITS} train step (host batch -> Adam update, synchronised), median "
+        f"of 10, two turns: " + "; ".join(
+            f"{name} {w[0] * 1e3:.3f}/{w[1] * 1e3:.3f} ms" for name, w in wall.items()))
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms):
+        # library_ms: no single PyTorch call computes any of these functions
+        return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
+                "replaces": f"mgvae_tpu/ops/pallas/{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bounds[name],
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        # encode path (phases 3-5)
+        entry("struct_towers", "struct_towers.cu", "struct_kernel.py:175", enc_struct,
+              struct_err, sms_k, sms_p),
+        # training path's forward (phases 6-8)
+        entry("struct_towers_residuals", "struct_towers.cu", "struct_kernel.py:175", train_sfwd,
+              sres_err, srms_k, srms_p),
+        entry("struct_towers_bwd", "struct_towers_bwd.cu", "struct_kernel.py:338", train_sbwd,
+              sbwd_err, sbms_k, sbms_p),
+        entry("level_scan", "level_scan.cu", "level_kernel.py:173", enc_launches, enc_err,
+              ms_k, ms_p),
+        entry("level_scan_residuals", "level_scan.cu", "level_kernel.py:173", train_fwd,
+              res_err, rms_k, rms_p),
+        entry("level_scan_bwd", "level_scan_bwd.cu", "level_kernel.py:487", train_bwd, bwd_err,
+              bms_k, bms_p),
+        # the step route's training path (phases 10, 12, 14)
+        entry("level_step", "level_step.cu", "level_kernel.py:1636", step_totals[4], step_err,
+              sr_k, sr_p),
+        entry("level_step_bwd", "level_step_bwd.cu", "level_kernel.py:1706", step_totals[5],
+              step_bwd_err, sb_k, sb_p),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

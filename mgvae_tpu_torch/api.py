@@ -7,8 +7,8 @@
     prob = model.pred_prob(hf)                              # [N, 1] in [0, 1]
     loss, metrics = model.recon_loss(hs, graph.edge_index)
 
-On CUDA the level recurrence runs the hand-written kernel
-(``ops/level_kernel.level_scan``). The constructor sets
+On CUDA the struct towers and the level recurrence run the hand-written
+kernels (``ops/struct_kernel``, ``ops/level_kernel``). The constructor sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.allow_tf32``
 to False: parity mode is full fp32.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .data.batching import collate
+from .data.batching import collate, collate_fit
 from .data.graph import CircuitGraph
 from .models import dg_ae
 from .models.dg_ae import DGConfig, init_params
@@ -65,18 +65,20 @@ class Model:
     def forward(self, graph):
         """graph: CircuitGraph | list[CircuitGraph] | collated host batch.
         Returns (hs, hf) tensors with row i = input node i, cropped to the
-        real nodes for a graph or a list."""
+        real nodes for a graph or a list. A list goes through
+        ``collate_fit``; a batch may be plain, chunked or split."""
         crop = None
         if isinstance(graph, CircuitGraph):
             crop = graph.num_nodes
             batch = collate([graph])
         elif isinstance(graph, (list, tuple)):
-            batch = collate(list(graph))
+            # a large list is chunked, so that each chunk takes the fused route
+            batch = collate_fit(list(graph))
             crop = int(batch["n_nodes"])
         else:
             batch = graph
         hs, hf, _ = dg_ae.forward(self.params, batch, self.cfg)
-        # undo the batcher's level-major renumbering
+        # undo the batcher's renumbering (level-major, per chunk or group)
         inv = torch.as_tensor(batch["node_inv"]).to(hs.device).long()
         hs, hf = hs[inv], hf[inv]
         if crop is not None:

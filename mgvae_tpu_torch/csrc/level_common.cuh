@@ -1,7 +1,8 @@
-// Block-level helpers shared by the level-scan kernels (level_scan.cu,
-// level_scan_bwd.cu). Thread d of a block owns feature d; blockDim.x is the
-// feature width rounded up to a warp, at most kMaxDim. The struct-tower
-// kernels use kMaxDim and warp_sum (struct_common.cuh).
+// Block-level helpers shared by the level kernels (level_slot.cuh,
+// level_slot_bwd.cuh and the four level_*.cu that include them). Thread d of
+// a block owns feature d; blockDim.x is the feature width rounded up to a
+// warp, at most kMaxDim. The struct-tower kernels use kMaxDim and warp_sum
+// (struct_common.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -22,6 +22,8 @@
 //   * CUDA blocks run in no order, so the level dependency is explicit: one
 //     launch per real level on the caller's stream (the host loop below).
 //     hf lives in global memory; the caller zeroes it.
+//   * What a slot computes lives in level_slot.cuh, shared with the
+//     single-level step (level_step.cu).
 //   * Weights are read from global memory (L2). Staging them in shared
 //     memory, one persistent launch with a grid-wide barrier, CUDA graphs
 //     and wgmma are left for later work.
@@ -41,7 +43,7 @@
 
 #include <cuda_runtime.h>
 
-#include "level_common.cuh"
+#include "level_slot.cuh"
 
 namespace {
 
@@ -67,99 +69,9 @@ __global__ void __launch_bounds__(kMaxDim) level_kernel(
     int ep, int dim, int num_experts) {
   const int slot = blockIdx.x;
   if (upd[slot] == 0) return;  // block-uniform, before any barrier
-
-  __shared__ float h_src[kMaxDim];
-  __shared__ float msg_s[kMaxDim];
-  __shared__ float red[kMaxWarps];
-  __shared__ unsigned masks[kMaxWarps];
-
-  const int D = dim, T = num_experts;
-  const int d = threadIdx.x;
-  const bool own = d < D;
-  const int e = e_n[slot];
-  const size_t pw = D + 2;
-  const size_t ew = 3 * (size_t)D + 1;
-  const size_t kv_stride = 2 * (size_t)T * D;
-  const float* wk = wkv_hf + (size_t)e * D;           // expert e's key columns
-  const float* wv = wkv_hf + (size_t)(T + e) * D;     // expert e's value columns
-  const float wa = own ? wa_k[(size_t)e * D + d] : 0.f;
-
-  // pass 1: score and value of each in-edge, and their max
-  float smax = -1e30f;
-  for_each_in_edge(dslot, evalid, ep, slot, masks, [&](int j) {
-    if (own) h_src[d] = hf[(size_t)src[j] * D + d];
-    __syncthreads();
-    float k = 0.f, v = 0.f;
-    if (own) {
-      for (int i = 0; i < D; ++i) {
-        const float h = h_src[i];
-        k = fmaf(h, wk[i * kv_stride + d], k);
-        v = fmaf(h, wv[i * kv_stride + d], v);
-      }
-    }
-    // block_sum's barriers also keep h_src alive until every thread read it
-    const float score = pack[j * pw + D] + block_sum(own ? k * wa : 0.f, red);
-    if (own) {
-      v += pack[j * pw + d];
-      v_buf[(size_t)j * D + d] = v;
-      if (res_e) {
-        float* re = res_e + j * ew;
-        re[d] = h_src[d];   // this thread's own write: no barrier needed
-        re[D + d] = k;
-        re[2 * D + d] = v;
-      }
-    }
-    if (d == 0) score_buf[j] = score;
-    smax = fmaxf(smax, score);
-  });
-
-  // pass 2: masked softmax over the slot's in-edges (shift clipped to
-  // [-80, 0], +1e-16 on the normalizer) and the message
-  float den = 0.f, acc = 0.f;
-  for_each_in_edge(dslot, evalid, ep, slot, masks, [&](int j) {
-    const float ex = expf(fminf(fmaxf(score_buf[j] - smax, -80.f), 0.f));
-    den += ex;
-    if (own) acc = fmaf(ex, v_buf[(size_t)j * D + d], acc);
-  });
-  const float msg = acc / (den + 1e-16f);
-  if (own) msg_s[d] = msg;
-  if (res_e) {  // block-uniform: every thread takes part in the row scan
-    // pass 3 (training only): each in-edge's softmax weight
-    for_each_in_edge(dslot, evalid, ep, slot, masks, [&](int j) {
-      if (d == 0) {
-        res_e[j * ew + 3 * D] = expf(fminf(fmaxf(score_buf[j] - smax, -80.f), 0.f)) /
-                                (den + 1e-16f);
-      }
-    });
-  }
-  __syncthreads();
-
-  // GRU step with h = 0: gi = msg @ w_ih[:, e] + b_ih[e], gh = b_hh[e]
-  if (own) {
-    const size_t g_stride = 3 * (size_t)T * D;
-    const float* wi = w_ih + (size_t)e * 3 * D;
-    float gr = 0.f, gz = 0.f, gn = 0.f;
-    for (int i = 0; i < D; ++i) {
-      const float m = msg_s[i];
-      const float* row = wi + i * g_stride;
-      gr = fmaf(m, row[d], gr);
-      gz = fmaf(m, row[D + d], gz);
-      gn = fmaf(m, row[2 * D + d], gn);
-    }
-    const float* bi = b_ih + (size_t)e * 3 * D;
-    const float* bh = b_hh + (size_t)e * 3 * D;
-    const float r = 1.f / (1.f + expf(-(gr + bi[d] + bh[d])));
-    const float z = 1.f / (1.f + expf(-(gz + bi[D + d] + bh[D + d])));
-    const float n = tanhf(gn + bi[2 * D + d] + r * bh[2 * D + d]);
-    hf[(size_t)nodes[slot] * D + d] = (1.f - z) * n;
-    if (res_n) {
-      float* rn = res_n + (size_t)slot * 4 * D;
-      rn[d] = msg;
-      rn[D + d] = r;
-      rn[2 * D + d] = z;
-      rn[3 * D + d] = n;
-    }
-  }
+  level_slot_forward(pack, src, dslot, evalid, slot, e_n[slot], wkv_hf, w_ih, b_ih, b_hh, wa_k,
+                     hf, hf + (size_t)nodes[slot] * dim, score_buf, v_buf, res_e, res_n,
+                     ep, dim, num_experts);
 }
 
 }  // namespace

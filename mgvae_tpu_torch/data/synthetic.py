@@ -1,7 +1,8 @@
 """Synthetic circuit generation with simulated labels.
 
-Copy of ``random_circuit`` from ``mgvae_tpu/data/synthetic.py``: the same
-``np.random.Generator`` gives the same circuits in both packages. Labels
+Copy of ``random_circuit`` and ``layered_circuit`` from
+``mgvae_tpu/data/synthetic.py``: the same ``np.random.Generator`` gives the
+same circuits in both packages. Labels
 come from a 64-pattern bit-parallel logic simulation over uint64 words.
 
 Gate arities: NOT=1 input, AND/OR/XOR=2, MAJ=3.
@@ -46,6 +47,55 @@ def random_circuit(
     prob = popcount64(sig) / 64.0
 
     # sample labeled pairs among non-PI nodes
+    pool = np.arange(num_inputs, n)
+    a = rng.choice(pool, size=num_tt_pairs)
+    b = rng.choice(pool, size=num_tt_pairs)
+    tt_dis = popcount64(sig[a] ^ sig[b]) / 64.0
+    tt_pair_index = np.stack([a, b]).astype(np.int64)
+    return build_graph(name, gate, edge_index, prob, tt_pair_index, tt_dis.astype(np.float32))
+
+
+def layered_circuit(
+    rng: np.random.Generator,
+    modality: str = "mig",
+    width: int = 512,
+    depth: int = 200,
+    num_inputs: int | None = None,
+    num_tt_pairs: int = 256,
+    name: str = "layered",
+) -> CircuitGraph:
+    """Deep circuit with bounded level width: ``depth`` layers of exactly
+    ``width`` gates, each drawing its fanins from the two preceding layers.
+    Total nodes = width * depth + inputs; every level holds ``width`` nodes,
+    so the level tables' Np / Ep are set by ``width`` alone."""
+    num_inputs = width if num_inputs is None else num_inputs
+    gates_avail = list(MODALITY_GATES[modality])
+    arity = _ARITY_AIG if modality == "aig" else _ARITY
+    n = num_inputs + width * depth
+    gate = np.zeros(n, dtype=np.int32)
+    src_list, dst_list = [], []
+    prev2 = np.arange(num_inputs)  # candidate fanins: the previous two layers
+    prev1 = np.arange(num_inputs)
+    base = num_inputs
+    for _ in range(depth):
+        ids = np.arange(base, base + width)
+        g = np.asarray(gates_avail)[rng.integers(len(gates_avail), size=width)]
+        gate[ids] = g
+        pool = np.unique(np.concatenate([prev1, prev2]))
+        for v, gv in zip(ids, g):
+            k = min(arity[int(gv)], len(pool))
+            fanins = rng.choice(pool, size=k, replace=False)
+            # at least one fanin from the layer just before keeps the
+            # circuit exactly ``depth`` levels deep
+            if fanins.max() < prev1.min():
+                fanins[0] = prev1[rng.integers(len(prev1))]
+            src_list.extend(fanins.tolist())
+            dst_list.extend([v] * k)
+        prev2, prev1 = prev1, ids
+        base += width
+    edge_index = np.array([src_list, dst_list], dtype=np.int64)
+    sig = simulate(gate, edge_index, rng, modality)
+    prob = popcount64(sig) / 64.0
     pool = np.arange(num_inputs, n)
     a = rng.choice(pool, size=num_tt_pairs)
     b = rng.choice(pool, size=num_tt_pairs)

@@ -14,17 +14,27 @@ The forward:
   2. ``level_statics``: everything the level recurrence needs that does not
      depend on hf (with one round, a node's hf is zero until its own level
      runs), packed per edge as [vhs | score_static | expert].
-  3. The level recurrence over DAG depth: ``ops.level_kernel.level_scan``
-     (the CUDA kernels on the card, the plain version on the CPU), which
-     autograd differentiates, so the forward trains (``train/step.py``).
+  3. The level recurrence over DAG depth (``level_recurrence``), by the
+     route the batch's shapes select, as ``_level_scan_pallas`` does in the
+     JAX package: the fused ``ops.level_kernel.level_scan`` for a plain
+     batch and, chunk by chunk, for a chunked batch whose chunks pass
+     ``kernel_fits``; else ``level_scan_step``, one
+     ``ops.level_kernel.level_step`` per (chunk, level). Both are the CUDA
+     kernels on the card and their plain versions on the CPU, and autograd
+     differentiates both, so the forward trains (``train/step.py``).
+
+Batches larger than one bucket come chunked (``data.batching.collate_chunked``
+/ ``collate_fit``: [C, L] level tables with chunk-local node ids) or split
+(``collate_split``: ``batch["groups"]``, each group a plain batch with its
+own dims that runs the whole forward; hs and hf are concatenated in group
+order, the layout the batch's top-level loss arrays index).
 
 Parity mode is full fp32: set ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False on the card (``api.Model``
 does so).
 
 Not ported yet, and raising ``NotImplementedError``: ``variational``,
-``num_rounds > 1``, ``compute_dtype="bfloat16"``, chunked ([C, L] level
-tables) and split batches.
+``num_rounds > 1``, ``compute_dtype="bfloat16"``.
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ import torch
 
 from ..data.graph import MODALITY_GATES, NUM_GATE_TYPES
 from ..ops.init import gru_cell_init, linear_apply, linear_init
-from ..ops.level_kernel import level_scan, select_expert
+from ..ops.level_kernel import kernel_fits, level_scan, level_step, select_expert
 from ..ops.mlp import mlp_init
 from .encoder import direct_multigcn_apply, direct_multigcn_init
 
@@ -81,9 +91,10 @@ def check_supported(cfg: DGConfig) -> None:
         raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported")
 
 
-def init_params(cfg: DGConfig, seed: int = 0, device="cpu"):
+def init_params(cfg: DGConfig, seed: int = 0, device="cuda"):
     """(params, state) with the JAX package's tree and shapes, drawn with
-    torch's default init from ``torch.Generator().manual_seed(seed)``."""
+    torch's default init from ``torch.Generator().manual_seed(seed)`` on the
+    CPU and moved to ``device``."""
     check_supported(cfg)
     D = cfg.dim_hidden
     gen = torch.Generator().manual_seed(seed)
@@ -143,26 +154,47 @@ def struct_input(gate: torch.Tensor, cfg: DGConfig) -> torch.Tensor:
 DEVICE_KEYS = ("gate", "edge_src", "edge_dst", "edge_valid", "deg_in", "deg_out",
                "fa_src", "ra_src", "lv_nodes", "lv_node_valid", "lv_edge_src",
                "lv_edge_dst_slot", "lv_edge_valid", "lv_edge_id")
-# and the ones the losses read (train/losses.py)
+# the ones the losses read (train/losses.py)
 LOSS_KEYS = ("node_valid", "prob", "tt_pair_a", "tt_pair_b", "tt_valid", "tt_dis",
              "n_nodes", "n_edges", "n_tt")
+# and the valid-node runs of a chunked or split batch, for the negatives
+RUN_KEYS = ("chunk_counts", "chunk_offsets")
 
 
 def batch_to_device(batch: dict, device) -> dict:
     """The host batch's arrays that the encode path and the losses read, as
     tensors on ``device`` (numpy dtypes kept: int32 indices, bool masks, f32
-    values; the counts become 0-d int32 tensors)."""
+    values; the counts become 0-d int32 tensors). A split batch keeps its
+    loss arrays at the top and gets ``"groups"``: a tuple of the groups'
+    encode arrays."""
+    def put(src: dict, keys) -> dict:
+        return {k: torch.as_tensor(np.asarray(src[k])).to(device, non_blocking=True)
+                for k in keys}
+
+    runs = tuple(k for k in RUN_KEYS if k in batch)
     if "groups" in batch:
-        raise NotImplementedError("split batches are not ported yet")
-    if np.ndim(batch["lv_nodes"]) != 2:
-        raise NotImplementedError("chunked batches ([C, L] level tables) are not ported yet")
-    return {k: torch.as_tensor(np.asarray(batch[k])).to(device, non_blocking=True)
-            for k in DEVICE_KEYS + LOSS_KEYS}
+        out = put(batch, ("edge_src", "edge_dst", "edge_valid") + LOSS_KEYS + runs)
+        out["groups"] = tuple(put(g, DEVICE_KEYS) for g in batch["groups"])
+        return out
+    return put(batch, DEVICE_KEYS + LOSS_KEYS + runs)
 
 
 def num_levels(batch: dict) -> int:
-    """Real level count of a host batch (update levels are 1..max level)."""
+    """Real level count of a host batch (update levels are 1..max level):
+    the deepest chunk's or group's, for a chunked or split batch."""
     return int(np.max(batch["forward_level"]))
+
+
+def level_counts(batch: dict) -> tuple:
+    """Real level counts of a host batch, read on the host: one int per
+    chunk (a plain batch is one chunk), or for a split batch one such tuple
+    per group."""
+    if "groups" in batch:
+        return tuple(level_counts(g) for g in batch["groups"])
+    lv = np.asarray(batch["lv_nodes"])
+    chunks = lv.shape[0] if lv.ndim == 3 else 1
+    deepest = np.asarray(batch["forward_level"]).reshape(chunks, -1).max(axis=1)
+    return tuple(int(x) for x in deepest)
 
 
 def struct_hs(params, b: dict, cfg: DGConfig) -> torch.Tensor:
@@ -196,39 +228,134 @@ def level_statics(params, b: dict, cfg: DGConfig, hs: torch.Tensor, expert: torc
     return pack, wkv_hf
 
 
+LV_KEYS = ("lv_nodes", "lv_node_valid", "lv_edge_src", "lv_edge_dst_slot",
+           "lv_edge_valid", "lv_edge_id")
+
+
+def lv_views(b: dict):
+    """Level tables as flat [C * L, ...] rows, each row's offset of its
+    chunk-local node ids into the global node space [C * L], and C.
+
+    A chunked batch carries a leading [C, L] axis with local node ids; chunk
+    k's nodes live at global rows [k * N_sub, (k + 1) * N_sub). A plain batch
+    is the C == 1 case (offset 0)."""
+    lv_nodes = b["lv_nodes"]
+    if lv_nodes.dim() == 2:
+        return {k: b[k] for k in LV_KEYS}, lv_nodes.new_zeros(lv_nodes.shape[0]), 1
+    C, L = lv_nodes.shape[:2]
+    n_sub = b["gate"].shape[0] // C
+    tabs = {k: b[k].reshape((C * L,) + b[k].shape[2:]) for k in LV_KEYS}
+    off = (torch.arange(C, dtype=lv_nodes.dtype, device=lv_nodes.device) * n_sub)
+    return tabs, off.repeat_interleave(L), C
+
+
 def level_scan_inputs(params, b: dict, cfg: DGConfig, hs: torch.Tensor) -> tuple:
-    """The 12 tensor arguments of ``level_scan`` for a device batch."""
+    """The 12 tensor arguments of ``level_scan`` for a device batch; for a
+    chunked batch the tables are its flat [C * L, ...] rows with chunk-local
+    node ids (chunk k's are rows [k * L, (k + 1) * L))."""
     ex = params["experts"]
     expert = cfg.expert_of_gate(hs.device)[b["gate"].long()]   # [N], -1: no expert
     pack, wkv_hf = level_statics(params, b, cfg, hs, expert)
-    pack_lv = pack[b["lv_edge_id"].long()]                      # [L, Ep, D+2]
-    lv_nodes = b["lv_nodes"]
-    e_nodes = expert[lv_nodes.long()]
-    lv_upd = (b["lv_node_valid"] & (e_nodes >= 0)).to(torch.int32)
+    tabs, off, _ = lv_views(b)
+    pack_lv = pack[tabs["lv_edge_id"].long()]                   # [C*L, Ep, D+2]
+    lv_nodes = tabs["lv_nodes"]
+    e_nodes = expert[(lv_nodes + off[:, None]).long()]
+    lv_upd = (tabs["lv_node_valid"] & (e_nodes >= 0)).to(torch.int32)
     lv_e_n = e_nodes.clamp(min=0).to(torch.int32)
-    return (pack_lv, b["lv_edge_src"], b["lv_edge_dst_slot"],
-            b["lv_edge_valid"].to(torch.int32), lv_nodes, lv_upd, lv_e_n,
+    return (pack_lv, tabs["lv_edge_src"], tabs["lv_edge_dst_slot"],
+            tabs["lv_edge_valid"].to(torch.int32), lv_nodes, lv_upd, lv_e_n,
             wkv_hf, ex["w_ih"], ex["b_ih"], ex["b_hh"], ex["wa_k"])
 
 
+def step_kernel_fits(n_sub: int, ep: int, np_: int, dim: int) -> bool:
+    """The JAX package's size gate of its single-level step kernel
+    (``mgvae_tpu/models/dg_ae.py:623``): shape arithmetic, kept so that both
+    packages route a batch the same way."""
+    return n_sub <= 65536 and ep <= 2048 and np_ <= 2048 and dim <= 128
+
+
+def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tensor:
+    """hf [num_nodes, D] from ``level_scan_inputs``' arguments and the real
+    level count of each chunk, by the route the shapes select, as the JAX
+    package's ``_level_scan_pallas`` does:
+
+      * one chunk: the fused scan;
+      * C chunks that pass ``kernel_fits``: the fused scan per chunk (they
+        are independent sub-batches with chunk-local ids) on its own rows of
+        the tables and its own real levels, concatenated;
+      * C chunks that fail it and pass ``step_kernel_fits``:
+        ``level_scan_step``;
+      * C chunks that fail both, where the JAX package falls back to its XLA
+        scan: the fused scan per chunk, which takes any Ep and Np.
+    """
+    C = len(n_levels)
+    if C == 1:
+        return level_scan(*args, num_nodes=num_nodes, num_levels=n_levels[0])
+    pack_lv, lv_nodes = args[0], args[4]
+    n_sub, L = num_nodes // C, pack_lv.shape[0] // C
+    ep, np_, D = pack_lv.shape[1], lv_nodes.shape[1], pack_lv.shape[2] - 2
+    if not kernel_fits(n_sub, ep, np_, D) and step_kernel_fits(n_sub, ep, np_, D):
+        return level_scan_step(args, n_levels, n_sub)
+    return torch.cat([
+        level_scan(*(t[k * L : (k + 1) * L] for t in args[:7]), *args[7:],
+                   num_nodes=n_sub, num_levels=n_levels[k])
+        for k in range(C)])
+
+
+def level_scan_step(args: tuple, n_levels: tuple, n_sub: int) -> torch.Tensor:
+    """The level recurrence of a chunked batch as one ``level_step`` per real
+    (chunk, level) row, each on its chunk's rows of hf, with the scatter
+    hf[nodes + off] = where(upd, h_new, 0) in plain torch between the calls
+    (``mgvae_tpu/models/dg_ae.py:629-652``, which scans the padding levels
+    too; they write zeros to the dump rows, so skipping them changes
+    nothing). hf is written in place: ``level_step`` saves none of it."""
+    (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, *weights) = args
+    C = len(n_levels)
+    L, D = pack_lv.shape[0] // C, pack_lv.shape[2] - 2
+    hf = pack_lv.new_zeros((C * n_sub, D))
+    for k in range(C):
+        nodes_g = lv_nodes[k * L : (k + 1) * L].long() + k * n_sub
+        for lv in range(n_levels[k]):
+            row = k * L + lv
+            h_new = level_step(hf.narrow(0, k * n_sub, n_sub), pack_lv[row], lv_src[row],
+                               lv_dslot[row], lv_evalid[row], lv_upd[row], lv_e_n[row],
+                               *weights)
+            hf[nodes_g[lv]] = torch.where(lv_upd[row][:, None] > 0, h_new, 0.0)
+    return hf
+
+
 def forward(params, batch: dict, cfg: DGConfig):
-    """Model forward on a host batch (``data.batching.collate``); returns
-    (hs, hf, aux) on the params' device, rows in the batch's level-major
-    order. ``aux`` is empty (it holds the posterior stats of the
+    """Model forward on a host batch (``data.batching.collate``,
+    ``collate_chunked`` / ``collate_fit`` or ``collate_split``); returns
+    (hs, hf, aux) on the params' device, rows in the batch's own order
+    (level-major per chunk or group; ``batch["node_inv"]`` maps input order
+    to it). ``aux`` is empty (it holds the posterior stats of the
     variational mode, which is not ported yet). Differentiable with respect
     to the params; ``api.Model`` runs it under ``inference_mode``."""
     device = params["hs_linear"]["w"].device
-    return forward_device(params, batch_to_device(batch, device), cfg, num_levels(batch))
+    return forward_device(params, batch_to_device(batch, device), cfg, level_counts(batch))
 
 
-def forward_device(params, b: dict, cfg: DGConfig, n_levels: int):
+def forward_device(params, b: dict, cfg: DGConfig, n_levels):
     """``forward`` on a batch already on the device (``batch_to_device``),
-    with its real level count (``num_levels``)."""
+    with its real level counts (``level_counts``; an int will do for a plain
+    batch). Level counts come from the host so that no launch waits for the
+    device."""
     check_supported(cfg)
+    if "groups" in b:
+        return forward_split(params, b, cfg, n_levels)
+    if isinstance(n_levels, int):
+        n_levels = (n_levels,)
     hs = struct_hs(params, b, cfg)
-    hf = level_scan(*level_scan_inputs(params, b, cfg, hs), num_nodes=hs.shape[0],
-                    num_levels=n_levels)
+    hf = level_recurrence(level_scan_inputs(params, b, cfg, hs), hs.shape[0], tuple(n_levels))
     return hs, hf, {}
+
+
+def forward_split(params, b: dict, cfg: DGConfig, n_levels):
+    """A split batch: each group runs the whole forward at its own padded
+    dims; hs and hf are concatenated in group order."""
+    outs = [forward_device(params, g, cfg, n) for g, n in zip(b["groups"], n_levels, strict=True)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), {}
 
 
 def hs_decompose(params, hs: torch.Tensor):

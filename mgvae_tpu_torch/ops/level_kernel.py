@@ -1,36 +1,50 @@
-"""Fused level recurrence, forward and backward: the CUDA kernels' wrappers
+"""The level recurrence, forward and backward: the CUDA kernels' wrappers
 and their plain PyTorch versions.
 
-Counterpart of ``mgvae_tpu/ops/pallas/level_kernel.py`` at C == 1, fp32:
-``fused_level_scan`` (with and without residuals) is ``csrc/level_scan.cu``;
-``fused_level_scan_bwd`` is ``csrc/level_scan_bwd.cu``; the custom VJP
-``pallas_level_scan`` that joins them is the autograd Function behind
-``level_scan``.
+Counterpart of ``mgvae_tpu/ops/pallas/level_kernel.py`` in fp32, in two
+forms that share one level's arithmetic:
 
-Dispatch, with no hidden fallback:
-  * CUDA tensors: ``level_scan`` launches the forward kernel (one launch per
-    level) or raises. When grad is enabled and a float input requires grad
-    it goes through ``_LevelScan``: the forward kernel also writes the
-    residuals, and the backward launches the backward kernels. Otherwise
-    (serving) it takes the launch without residuals.
-  * CPU tensors: ``level_scan`` runs ``level_scan_reference``; autograd
-    differentiates it.
+  * the fused scan over all levels of one (sub-)batch, hf kept inside:
+    ``fused_level_scan`` (with and without residuals) is
+    ``csrc/level_scan.cu``, ``fused_level_scan_bwd`` is
+    ``csrc/level_scan_bwd.cu``, and the custom VJP ``pallas_level_scan`` that
+    joins them is the autograd Function behind ``level_scan``;
+  * the single-level step from an explicit hf, for chunks too large for the
+    fused route: ``level_step_call`` is ``csrc/level_step.cu``,
+    ``level_step_bwd_call`` is ``csrc/level_step_bwd.cu``, and the custom VJP
+    ``pallas_level_step`` is the autograd Function behind ``level_step``. It
+    returns the level's new rows h_new [Np, D] unscattered; the caller
+    (``models/dg_ae.level_scan_step``) writes them into hf between calls.
 
-``level_scan_reference(..., with_residuals=True)`` and
-``level_scan_bwd_reference`` are the plain versions of the two kernels that
-the tests and ``chip_smoke.py`` hold them against; ``_forward_cuda`` and
-``_backward_cuda`` are the kernels' wrappers (CUDA tensors only, arguments
-as ``level_scan`` checks them).
+Dispatch of ``level_scan`` and ``level_step``, with no hidden fallback:
+  * CUDA tensors: the forward kernel or raise. When grad is enabled and a
+    float input requires grad it goes through the autograd Function: the
+    forward kernel also writes the residuals, and the backward launches the
+    backward kernels. Otherwise (serving) it takes the launch without
+    residuals.
+  * CPU tensors: the plain version; autograd differentiates it.
 
-``launches`` counts forward kernel launches (one per level),
-``bwd_launches`` backward kernel launches (a slot and a source kernel per
-level, then one weight-gradient kernel per call); a run shows that it went
-through the kernels by resetting them to 0 and reading them afterwards.
+``level_scan_reference`` / ``level_step_reference`` (``with_residuals=True``
+for the training forward) and ``level_scan_bwd_reference`` /
+``level_step_bwd_reference`` are the plain versions of the four kernels that
+the tests and ``chip_smoke.py`` hold them against; ``_forward_cuda``,
+``_backward_cuda``, ``_step_forward_cuda`` and ``_step_backward_cuda`` are
+the kernels' wrappers (CUDA tensors only, arguments as the public functions
+check them).
+
+Launch counts, so that a run can show that it went through the kernels by
+setting them to 0 and reading them afterwards: ``launches`` (the fused
+forward: one per level), ``bwd_launches`` (the fused backward: a slot and a
+source kernel per level, then one weight-gradient kernel per call),
+``step_launches`` (one per ``level_step`` call) and ``step_bwd_launches``
+(three per backward of a ``level_step`` call: slots, sources, weight
+gradients).
 
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
 hf_src | khf | v | attn per edge, res_n [L, Np, 4D] = msg | r | z | nw per
-slot. Rows of padding levels, padding edges and slots that are not updated
-are 0 and are never read.
+slot; the step's are one level's, [Ep, 3D+1] and [Np, 4D]. Rows of padding
+levels, padding edges and slots that are not updated are 0 and are never
+read.
 """
 from __future__ import annotations
 
@@ -44,10 +58,29 @@ MAX_EXPERTS = 5
 
 launches = 0
 bwd_launches = 0
+step_launches = 0
+step_bwd_launches = 0
+
+# Size gate of the fused route for a chunk of a chunked batch, copied from the
+# JAX package (``level_kernel.py:145-158``), where it is the TPU kernel's VMEM
+# gate. The CUDA kernels have no such limit: this is shape arithmetic only,
+# kept so that ``collate_fit`` chunks a batch, and ``models/dg_ae`` routes it,
+# the same way in both packages.
+KERNEL_MAX_NODES = 8192
+KERNEL_MAX_EP = 512
+KERNEL_MAX_NP = 512
+
+
+def kernel_fits(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
+    return (num_nodes <= KERNEL_MAX_NODES and ep <= KERNEL_MAX_EP
+            and np_ <= KERNEL_MAX_NP and dim <= 128)
+
 
 # positions of the float (differentiable) arguments among level_scan's 12:
 # pack_lv, wkv_hf, w_ih, b_ih, b_hh, wa_k
 FLOAT_ARGS = (0, 7, 8, 9, 10, 11)
+# and among level_step's 12: hf, pack, wkv_hf, w_ih, b_ih, b_hh, wa_k
+STEP_FLOAT_ARGS = (0, 1, 7, 8, 9, 10, 11)
 
 
 def select_expert(stacked: torch.Tensor, expert: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -58,19 +91,101 @@ def select_expert(stacked: torch.Tensor, expert: torch.Tensor, num_experts: int)
     return stacked.view(m, num_experts, w).gather(1, idx).squeeze(1)
 
 
+def _level_forward(hf, pk, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k,
+                   with_residuals: bool):
+    """One level from hf [N, D] with the math of the JAX package's
+    ``_level_scan_fast`` (``mgvae_tpu/models/dg_ae.py``): src / dslot / e_n
+    int64, evalid / upd bool. Returns (h_new [Np, D], 0 on the slots that
+    are not updated, res_e [Ep, 3D+1] or None, res_n [Np, 4D] or None)."""
+    D = pk.shape[1] - 2
+    T = wa_k.shape[0]
+    np_ = upd.shape[0]
+    e_edge = pk[:, D + 1].long()
+    hf_src = hf[src]
+    kv = hf_src @ wkv_hf                                        # [Ep, 2TD]
+    khf = select_expert(kv[:, : T * D], e_edge, T)
+    vhf = select_expert(kv[:, T * D :], e_edge, T)
+    score = pk[:, D] + (khf * wa_k[e_edge]).sum(-1)
+    v = pk[:, :D] + vhf
+    attn = segment_softmax(score, dslot, np_, valid=evalid)
+    msg = segment_sum(v * attn[:, None], dslot, np_)            # [Np, D]
+
+    gi = select_expert(msg @ w_ih, e_n, T) + b_ih[e_n]
+    gh = b_hh[e_n]                                              # h == 0
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    h_new = torch.where(upd[:, None], (1.0 - z) * n, 0.0)
+    if not with_residuals:
+        return h_new, None, None
+    live = (evalid & upd[dslot])[:, None]
+    res_e = torch.where(live, torch.cat([hf_src, khf, v, attn[:, None]], 1), 0.0)
+    res_n = torch.where(upd[:, None], torch.cat([msg, r, z, n], 1), 0.0)
+    return h_new, res_e.detach(), res_n.detach()
+
+
+def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa_k):
+    """One level's backward, written out as the JAX package's
+    ``_level_bwd_body`` (``level_kernel.py:645-778``): g [Np, D] is the
+    cotangent of h_new, already 0 on the slots that are not updated; evf the
+    edge mask as float. Returns (d_pack [Ep, D+2], d_wkv, d_wih, d_bih,
+    d_bhh, d_wak, dhf_src [Ep, D]: the sources' gradients per edge, masked)."""
+    ep, pw = pk.shape
+    D, T = pw - 2, wa_k.shape[0]
+    np_ = g.shape[0]
+    hf_src, khf, v, attn = res_e.split([D, D, D, 1], dim=1)
+    attn = attn[:, 0]
+    msg, r, z, nw = res_n.split(D, dim=1)
+
+    # cotangent of h_new = (1 - z) * nw
+    dnw = g * (1.0 - z)
+    dz = -g * nw
+    dnu = dnw * (1.0 - nw * nw)                                 # pre-tanh
+    dr = dnu * b_hh[e_n][:, 2 * D :]
+    dzeta = dz * z * (1.0 - z)                                  # pre-sigmoid z
+    drho = dr * r * (1.0 - r)                                   # pre-sigmoid r
+    dgi = torch.cat([drho, dzeta, dnu], 1)                      # [Np, 3D]
+    dbh = torch.cat([drho, dzeta, dnu * r], 1)
+    onehot_n = torch.nn.functional.one_hot(e_n, T).to(g.dtype)  # [Np, T]
+    dgi_all = (onehot_n[:, :, None] * dgi[:, None, :]).reshape(np_, 3 * T * D)
+    d_wih = msg.T @ dgi_all
+    d_bih = onehot_n.T @ dgi
+    d_bhh = onehot_n.T @ dbh
+    dmsg = dgi_all @ w_ih.T                                     # [Np, D]
+
+    # attention backward over the in-edges
+    per_edge = dmsg[dslot] * evf[:, None]
+    dv = attn[:, None] * per_edge
+    dattn = (v * per_edge).sum(-1)
+    s_grp = segment_sum(attn * dattn * evf, dslot, np_)
+    dscore = attn * (dattn - s_grp[dslot]) * evf
+    e_edge = pk[:, D + 1].long()
+    onehot_e = torch.nn.functional.one_hot(e_edge, T).to(g.dtype) * evf[:, None]
+    dkhf = dscore[:, None] * wa_k[e_edge]
+    d_wak = onehot_e.T @ (dscore[:, None] * khf)
+    dkv = torch.cat([(onehot_e[:, :, None] * dkhf[:, None, :]).reshape(ep, T * D),
+                     (onehot_e[:, :, None] * dv[:, None, :]).reshape(ep, T * D)], 1)
+    d_wkv = hf_src.T @ dkv
+    dhf_src = (dkv @ wkv_hf.T) * evf[:, None]                   # [Ep, D]
+    d_pack = torch.zeros_like(pk)                               # no gradient for the expert column
+    d_pack[:, :D] = dv
+    d_pack[:, D] = dscore
+    return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, dhf_src
+
+
 def level_scan_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
                          wkv_hf, w_ih, b_ih, b_hh, wa_k, num_nodes: int,
                          num_levels: int, with_residuals: bool = False):
-    """Eager loop over levels with the math of the JAX package's
-    ``_level_scan_fast`` (``mgvae_tpu/models/dg_ae.py``); returns hf [N, D],
-    or with ``with_residuals`` (hf, res_e, res_n), the residuals detached.
+    """Eager loop over levels; returns hf [N, D], or with ``with_residuals``
+    (hf, res_e, res_n), the residuals detached.
 
     Every slot is written: ``h_new`` where ``lv_upd`` is set, else 0 (the
     padding slots all point at the dump row, which so stays 0). Autograd
     differentiates the loop: the in-place row write is legal because the
     earlier reads ``hf[src]`` save only their indices, not hf."""
     D = pack_lv.shape[2] - 2
-    T = wa_k.shape[0]
     L, ep, _ = pack_lv.shape
     np_ = lv_nodes.shape[1]
     hf = pack_lv.new_zeros((num_nodes, D))
@@ -78,101 +193,62 @@ def level_scan_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
         res_e = pack_lv.new_zeros((L, ep, 3 * D + 1))
         res_n = pack_lv.new_zeros((L, np_, 4 * D))
     for lv in range(num_levels):
-        pk = pack_lv[lv]
-        src = lv_src[lv].long()
-        dslot = lv_dslot[lv].long()
-        evalid = lv_evalid[lv] > 0
-        e_edge = pk[:, D + 1].long()
-        hf_src = hf[src]
-        kv = hf_src @ wkv_hf                                    # [Ep, 2TD]
-        khf = select_expert(kv[:, : T * D], e_edge, T)
-        vhf = select_expert(kv[:, T * D :], e_edge, T)
-        score = pk[:, D] + (khf * wa_k[e_edge]).sum(-1)
-        v = pk[:, :D] + vhf
-        attn = segment_softmax(score, dslot, np_, valid=evalid)
-        msg = segment_sum(v * attn[:, None], dslot, np_)        # [Np, D]
-
-        e_n = lv_e_n[lv].long()
-        gi = select_expert(msg @ w_ih, e_n, T) + b_ih[e_n]
-        gh = b_hh[e_n]                                          # h == 0
-        i_r, i_z, i_n = gi.chunk(3, dim=-1)
-        h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * h_n)
-        h_new = (1.0 - z) * n
-        upd = (lv_upd[lv] > 0)[:, None]
-        hf[lv_nodes[lv].long()] = torch.where(upd, h_new, 0.0)
+        h_new, re, rn = _level_forward(
+            hf, pack_lv[lv], lv_src[lv].long(), lv_dslot[lv].long(), lv_evalid[lv] > 0,
+            lv_upd[lv] > 0, lv_e_n[lv].long(), wkv_hf, w_ih, b_ih, b_hh, wa_k, with_residuals)
+        hf[lv_nodes[lv].long()] = h_new
         if with_residuals:
-            live = (evalid & upd[dslot, 0])[:, None]
-            res_e[lv] = torch.where(live, torch.cat([hf_src, khf, v, attn[:, None]], 1), 0.0)
-            res_n[lv] = torch.where(upd, torch.cat([msg, r, z, n], 1), 0.0)
+            res_e[lv], res_n[lv] = re, rn
     if with_residuals:
-        return hf, res_e.detach(), res_n.detach()
+        return hf, res_e, res_n
     return hf
 
 
 def level_scan_bwd_reference(ghf, res_e, res_n, pack_lv, lv_src, lv_dslot, lv_evalid,
                              lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k,
                              num_levels: int):
-    """The backward kernel's math, written out as the JAX package's
-    ``_level_bwd_body`` (``level_kernel.py:645-778``): a reverse sweep over
-    the saved residuals with hf's cotangent ``ghf`` [N, D] carried back to
-    the sources. Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh,
-    d_wak); the pack's expert column gets no gradient."""
-    L, ep, pw = pack_lv.shape
-    D, T = pw - 2, wa_k.shape[0]
-    np_ = lv_nodes.shape[1]
+    """The fused backward's math: a reverse sweep over the saved residuals
+    with hf's cotangent ``ghf`` [N, D] carried back to the sources. Returns
+    (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh, d_wak); the pack's
+    expert column gets no gradient."""
     ghf = ghf.detach().clone()
     d_pack = torch.zeros_like(pack_lv)
-    d_wkv, d_wih = torch.zeros_like(wkv_hf), torch.zeros_like(w_ih)
-    d_bih, d_bhh = torch.zeros_like(b_hh), torch.zeros_like(b_hh)
-    d_wak = torch.zeros_like(wa_k)
+    sums = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
     for lv in reversed(range(num_levels)):
-        src = lv_src[lv].long()
-        dslot = lv_dslot[lv].long()
-        evf = (lv_evalid[lv] > 0).to(ghf.dtype)
-        upd = lv_upd[lv] > 0
-        e_n = lv_e_n[lv].long()
-        hf_src, khf, v, attn = res_e[lv].split([D, D, D, 1], dim=1)
-        attn = attn[:, 0]
-        msg, r, z, nw = res_n[lv].split(D, dim=1)
+        g = torch.where((lv_upd[lv] > 0)[:, None], ghf[lv_nodes[lv].long()], 0.0)
+        d_pack[lv], *grads, dhf_src = _level_backward(
+            g, res_e[lv], res_n[lv], pack_lv[lv], lv_dslot[lv].long(),
+            (lv_evalid[lv] > 0).to(ghf.dtype), lv_e_n[lv].long(), wkv_hf, w_ih, b_hh, wa_k)
+        for acc, x in zip(sums, grads):
+            acc += x
+        ghf.index_add_(0, lv_src[lv].long(), dhf_src)
+    return (d_pack, *sums)
 
-        # cotangent of h_new = (1 - z) * nw on the updated slots
-        g = torch.where(upd[:, None], ghf[lv_nodes[lv].long()], 0.0)
-        dnw = g * (1.0 - z)
-        dz = -g * nw
-        dnu = dnw * (1.0 - nw * nw)                             # pre-tanh
-        dr = dnu * b_hh[e_n][:, 2 * D :]
-        dzeta = dz * z * (1.0 - z)                              # pre-sigmoid z
-        drho = dr * r * (1.0 - r)                               # pre-sigmoid r
-        dgi = torch.cat([drho, dzeta, dnu], 1)                  # [Np, 3D]
-        dbh = torch.cat([drho, dzeta, dnu * r], 1)
-        onehot_n = torch.nn.functional.one_hot(e_n, T).to(ghf.dtype)   # [Np, T]
-        dgi_all = (onehot_n[:, :, None] * dgi[:, None, :]).reshape(np_, 3 * T * D)
-        d_wih += msg.T @ dgi_all
-        d_bih += onehot_n.T @ dgi
-        d_bhh += onehot_n.T @ dbh
-        dmsg = dgi_all @ w_ih.T                                 # [Np, D]
 
-        # attention backward over the in-edges
-        per_edge = dmsg[dslot] * evf[:, None]
-        dv = attn[:, None] * per_edge
-        dattn = (v * per_edge).sum(-1)
-        s_grp = segment_sum(attn * dattn * evf, dslot, np_)
-        dscore = attn * (dattn - s_grp[dslot]) * evf
-        e_edge = pack_lv[lv, :, D + 1].long()
-        onehot_e = torch.nn.functional.one_hot(e_edge, T).to(ghf.dtype) * evf[:, None]
-        dkhf = dscore[:, None] * wa_k[e_edge]
-        d_wak += onehot_e.T @ (dscore[:, None] * khf)
-        dkv = torch.cat([(onehot_e[:, :, None] * dkhf[:, None, :]).reshape(ep, T * D),
-                         (onehot_e[:, :, None] * dv[:, None, :]).reshape(ep, T * D)], 1)
-        d_wkv += hf_src.T @ dkv
-        dhf_src = dkv @ wkv_hf.T                                # [Ep, D]
-        d_pack[lv, :, :D] = dv
-        d_pack[lv, :, D] = dscore
-        ghf.index_add_(0, src, dhf_src * evf[:, None])
-    return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak
+def level_step_reference(hf, pack, src, dslot, evalid, upd, e_n,
+                         wkv_hf, w_ih, b_ih, b_hh, wa_k, with_residuals: bool = False):
+    """The step kernel's math: h_new [Np, D] of one level from hf [N, D],
+    0 on the slots where ``upd`` is 0 and not scattered; with
+    ``with_residuals`` (h_new, res_e [Ep, 3D+1], res_n [Np, 4D]), the
+    residuals detached. Autograd differentiates it, hf included."""
+    h_new, res_e, res_n = _level_forward(
+        hf, pack, src.long(), dslot.long(), evalid > 0, upd > 0, e_n.long(),
+        wkv_hf, w_ih, b_ih, b_hh, wa_k, with_residuals)
+    return (h_new, res_e, res_n) if with_residuals else h_new
+
+
+def level_step_bwd_reference(g, res_e, res_n, pack, src, dslot, evalid, upd, e_n,
+                             wkv_hf, w_ih, b_hh, wa_k, num_nodes: int):
+    """The step backward's math: from the cotangent g [Np, D] of h_new and
+    one level's residuals, (d_pack [Ep, D+2], d_wkv, d_wih, d_bih, d_bhh,
+    d_wak, d_hf [num_nodes, D]); d_hf holds the sources' gradients, summed
+    per source."""
+    g = torch.where((upd > 0)[:, None], g.detach(), 0.0)
+    *grads, dhf_src = _level_backward(
+        g, res_e, res_n, pack, dslot.long(), (evalid > 0).to(g.dtype), e_n.long(),
+        wkv_hf, w_ih, b_hh, wa_k)
+    d_hf = g.new_zeros((num_nodes, g.shape[1])).index_add_(0, src.long(), dhf_src)
+    return (*grads, d_hf)
 
 
 def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
@@ -221,9 +297,9 @@ class _LevelScan(torch.autograd.Function):
 
 
 def _kernel_dims(pack_lv, wa_k):
-    D, T = pack_lv.shape[2] - 2, wa_k.shape[0]
+    D, T = pack_lv.shape[-1] - 2, wa_k.shape[0]
     if D > MAX_DIM or T > MAX_EXPERTS:
-        raise ValueError(f"level_scan kernels take D <= {MAX_DIM} and T <= "
+        raise ValueError(f"the level kernels take D <= {MAX_DIM} and T <= "
                          f"{MAX_EXPERTS}, got D={D}, T={T}")
     return D, T
 
@@ -288,6 +364,135 @@ def _backward_cuda(ghf, res_e, res_n, args, num_levels: int):
     return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak
 
 
+def level_step(hf, pack, src, dslot, evalid, upd, e_n,
+               wkv_hf, w_ih, b_ih, b_hh, wa_k) -> torch.Tensor:
+    """One level from an explicit hf.
+
+    hf [N, D] f32 (read only; a contiguous row range of a larger hf will
+    do), pack [Ep, D+2] f32: per edge [vhs | score_static | expert];
+    src / dslot / evalid [Ep] and upd / e_n [Np] int32, src indexing hf's
+    rows; the weights as ``level_scan``'s. Returns h_new [Np, D] f32 in slot
+    order, 0 where ``upd`` is 0, not scattered; differentiable with respect
+    to hf (through the source gathers), pack and the weights.
+
+    The JAX function's ``nodes`` argument only feeds its source windows and
+    has no counterpart here.
+    """
+    args = (hf, pack, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+    _check_step(args)
+    dev = pack.device
+    if dev.type == "cpu":
+        return level_step_reference(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"level_step: no kernel for device {dev}")
+    if torch.is_grad_enabled() and any(args[i].requires_grad for i in STEP_FLOAT_ARGS):
+        return _LevelStep.apply(*args)
+    return _step_forward_cuda(args, residuals=False)
+
+
+class _LevelStep(torch.autograd.Function):
+    """CUDA only: the step kernel with residuals, and its backward kernels.
+    Counterpart of the JAX package's custom VJP ``pallas_level_step``.
+
+    hf itself is not saved (res_e holds the gathered source rows), only its
+    row count: the caller writes the new rows into hf in place between
+    calls, and a saved hf would fail autograd's version check at the next
+    write."""
+
+    @staticmethod
+    def forward(ctx, hf, *rest):
+        h_new, res_e, res_n = _step_forward_cuda((hf, *rest), residuals=True)
+        ctx.num_nodes = hf.shape[0]
+        ctx.save_for_backward(*rest, res_e, res_n)
+        return h_new
+
+    @staticmethod
+    def backward(ctx, g):
+        *rest, res_e, res_n = ctx.saved_tensors
+        grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes)
+        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf = grads
+        # (hf, pack, 5 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+        return (d_hf, d_pack) + (None,) * 5 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
+
+
+def _step_forward_cuda(args, residuals: bool):
+    global step_launches
+    hf, pack, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k = args
+    ep, np_ = pack.shape[0], upd.shape[0]
+    D, T = _kernel_dims(pack, wa_k)
+    dev = pack.device
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_new = torch.zeros((np_, D), **f32)
+    score_buf = torch.empty((ep,), **f32)
+    v_buf = torch.empty((ep, D), **f32)
+    res_e = torch.zeros((ep, 3 * D + 1), **f32) if residuals else None
+    res_n = torch.zeros((np_, 4 * D), **f32) if residuals else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_step_forward(
+            *(t.data_ptr() for t in args), h_new.data_ptr(), score_buf.data_ptr(),
+            v_buf.data_ptr(), res_e.data_ptr() if residuals else None,
+            res_n.data_ptr() if residuals else None, ep, np_, D, T, stream)
+    _build.check(lib, code, "level_step kernel launch")
+    step_launches += 1
+    return (h_new, res_e, res_n) if residuals else h_new
+
+
+def _step_backward_cuda(g, res_e, res_n, rest, num_nodes: int):
+    """``rest``: level_step's arguments after hf."""
+    global step_bwd_launches
+    pack, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, _, b_hh, wa_k = rest
+    ep, pw = pack.shape
+    np_ = upd.shape[0]
+    D, T = _kernel_dims(pack, wa_k)
+    dev = pack.device
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    g = g.contiguous()   # autograd may hand over an expanded cotangent; only read
+    d_pack = torch.zeros((ep, pw), **f32)
+    dkv = torch.zeros((ep, 2 * D), **f32)
+    dg = torch.zeros((np_, 6 * D), **f32)
+    d_hf = torch.zeros((num_nodes, D), **f32)
+    dhf_buf = torch.empty((ep, D), **f32)
+    dattn_buf = torch.empty((ep,), **f32)
+    d_wkv, d_wih = torch.empty_like(wkv_hf), torch.empty_like(w_ih)
+    d_bih, d_bhh = torch.empty_like(b_hh), torch.empty_like(b_hh)
+    d_wak = torch.empty_like(wa_k)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_step_backward(
+            *(t.data_ptr() for t in (g, res_e, res_n, src, dslot, evalid, upd, e_n, wkv_hf, w_ih,
+                                     b_hh, wa_k, d_pack, dkv, dg, dhf_buf, dattn_buf, d_wkv,
+                                     d_wih, d_bih, d_bhh, d_wak, d_hf)),
+            ep, np_, D, T, stream)
+    _build.check(lib, code, "level_step_bwd kernel launch")
+    step_bwd_launches += 3
+    return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf
+
+
+def _check_step(args) -> None:
+    """Device, dtype, shape and contiguity checks of ``level_step``'s
+    arguments, for both routes."""
+    hf, pack = args[0], args[1]
+    names = ("hf", "pack", "src", "dslot", "evalid", "upd", "e_n",
+             "wkv_hf", "w_ih", "b_ih", "b_hh", "wa_k")
+    if pack.dim() != 2 or pack.shape[1] < 3:
+        raise ValueError(f"level_step: pack must be [Ep, D+2], got {tuple(pack.shape)}")
+    ep, pw = pack.shape
+    np_ = args[5].shape[-1]
+    D, T = pw - 2, args[11].shape[0]
+    if hf.dim() != 2 or hf.shape[0] < 1 or ep < 1 or np_ < 1:
+        raise ValueError(f"level_step: hf must be [N, D] with N >= 1, got {tuple(hf.shape)}; "
+                         f"Ep={ep}, Np={np_}")
+    i32 = torch.int32
+    want = [((hf.shape[0], D), torch.float32), ((ep, pw), torch.float32),
+            ((ep,), i32), ((ep,), i32), ((ep,), i32), ((np_,), i32), ((np_,), i32),
+            ((D, 2 * T * D), torch.float32), ((D, 3 * T * D), torch.float32),
+            ((T, 3 * D), torch.float32), ((T, 3 * D), torch.float32), ((T, D), torch.float32)]
+    _check_tensors("level_step", names, args, want, pack.device)
+
+
 def _check(args, num_nodes: int, num_levels: int) -> None:
     """Device, dtype, shape and contiguity checks of ``level_scan``'s
     arguments, for both routes."""
@@ -310,16 +515,19 @@ def _check(args, num_nodes: int, num_levels: int) -> None:
         "b_ih": ((T, 3 * D), torch.float32), "b_hh": ((T, 3 * D), torch.float32),
         "wa_k": ((T, D), torch.float32),
     }
-    for name, t in zip(names, args):
-        shape, dtype = want[name]
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"level_scan: {name} must be {dtype} {shape}, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-        if t.device != pack_lv.device:
-            raise ValueError(f"level_scan: {name} is on {t.device}, pack_lv on {pack_lv.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"level_scan: {name} must be contiguous")
+    _check_tensors("level_scan", names, args, [want[n] for n in names], pack_lv.device)
     if not 0 <= num_levels <= L:
         raise ValueError(f"level_scan: num_levels {num_levels} outside [0, {L}]")
     if num_nodes < 1 or ep < 1 or np_ < 1:
         raise ValueError("level_scan: empty node or level tables")
+
+
+def _check_tensors(op: str, names, tensors, want, device) -> None:
+    for name, t, (shape, dtype) in zip(names, tensors, want):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{op}: {name} must be {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{op}: {name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")

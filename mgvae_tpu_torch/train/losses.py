@@ -55,12 +55,31 @@ def _count(b: dict, key: str, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(b[key], device=like.device).to(like.dtype).clamp(min=1.0)
 
 
+def to_valid_runs(ids: torch.Tensor, b: dict) -> torch.Tensor:
+    """Ids over the valid-node count [0, n_nodes) mapped into the batch's
+    node rows. The valid nodes of a chunked batch lie in C runs (chunk k at
+    [k * N_sub, k * N_sub + chunk_counts[k])), those of a split batch at
+    ``chunk_offsets``; ids are mapped into the runs, so that a negative
+    never hits an interior padding row. A plain batch has one run at 0."""
+    counts = b.get("chunk_counts")
+    if counts is None or counts.shape[0] < 2:
+        return ids
+    counts = torch.as_tensor(counts, device=ids.device)
+    cum = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(ids.dtype)
+    offsets = b.get("chunk_offsets")
+    if offsets is None:
+        n_sub = b["gate"].shape[0] // counts.shape[0]
+        offsets = n_sub * torch.arange(counts.shape[0], dtype=ids.dtype, device=ids.device)
+    offsets = torch.as_tensor(offsets, device=ids.device)
+    k = torch.searchsorted(cum, ids, right=True) - 1
+    return (offsets[k] + ids - cum[k]).to(torch.int32)
+
+
 def sample_negative_edges(gen: torch.Generator, num_samples: int, b: dict):
-    """Uniform negative pairs over the valid node range [0, n_nodes), self
-    loop free by construction: dst = (src + 1 + u * (n - 1)) % n. Drawn on
-    the generator's device, returned on n_nodes' device as int32."""
-    if "chunk_counts" in b:
-        raise NotImplementedError("chunked batches are not ported yet")
+    """Uniform negative pairs over the valid nodes, self loop free by
+    construction: dst = (src + 1 + u * (n - 1)) % n over [0, n_nodes), then
+    ``to_valid_runs``. Drawn on the generator's device, returned on
+    n_nodes' device as int32."""
     n_nodes = torch.as_tensor(b["n_nodes"])
     n = n_nodes.to(gen.device).clamp(min=2).to(torch.float32)
     u1 = torch.rand(num_samples, generator=gen, device=gen.device)
@@ -68,7 +87,7 @@ def sample_negative_edges(gen: torch.Generator, num_samples: int, b: dict):
     src = (u1 * n).to(torch.int32)
     off = (u2 * (n - 1)).to(torch.int32)
     dst = (src + 1 + off) % n.to(torch.int32)
-    return src.to(n_nodes.device), dst.to(n_nodes.device)
+    return tuple(to_valid_runs(x.to(n_nodes.device), b) for x in (src, dst))
 
 
 def recon_loss(params, hs, b: dict, gen: torch.Generator | None = None, neg_edges=None,

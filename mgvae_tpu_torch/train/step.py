@@ -1,13 +1,18 @@
 """Train and eval steps on one device.
 
 Counterpart of the single-device path of ``mgvae_tpu/train/step.py``: one
-step is the forward (struct towers, level statics, level scan), the recon,
-prob and func losses, the backward and an Adam update. PyTorch runs it
-eagerly; on CUDA the level scan's forward and backward are the hand-written
-kernels (``ops/level_kernel.level_scan``, an autograd Function).
+step is the forward (struct towers, level statics, level recurrence), the
+recon, prob and func losses, the backward and an Adam update, on a plain, a
+chunked or a split host batch (``models/dg_ae.forward``); the losses read
+the batch's top-level arrays and stay global. PyTorch runs it eagerly; on
+CUDA the struct towers and the level recurrence, forward and backward, are
+the hand-written kernels (autograd Functions in ``ops/struct_kernel`` and
+``ops/level_kernel``).
 
 Loss weights are [w_recon, w_prob, w_func, w_kl]; the KL term waits for the
-variational mode and is 0. The data-parallel (mesh) path is not ported yet.
+variational mode and is 0. Not ported: the data-parallel (mesh) path, and
+``rehydrate`` / ``rehydrate_split``, which rebuild on the device what the
+JAX package's thin host-to-device wire drops (the port sends whole batches).
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ def loss_and_metrics(params, state, batch: dict, gen, weights, cfg: DGConfig, tr
     ``gen`` (the parity tests pass the JAX package's)."""
     device = params["hs_linear"]["w"].device
     b = dg_ae.batch_to_device(batch, device)
-    hs, hf, _ = dg_ae.forward_device(params, b, cfg, dg_ae.num_levels(batch))
+    hs, hf, _ = dg_ae.forward_device(params, b, cfg, dg_ae.level_counts(batch))
     return losses_from_forward(params, state, b, hs, hf, gen, weights, cfg, train,
                                neg_edges=neg_edges, drop_keep=drop_keep)
 

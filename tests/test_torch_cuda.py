@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from mgvae_tpu_torch import Model, collate, random_circuit
+from mgvae_tpu_torch import Model, collate, collate_chunked, collate_split, random_circuit
 from mgvae_tpu_torch.models import dg_ae
 from mgvae_tpu_torch.ops import level_kernel, struct_kernel
 from mgvae_tpu_torch.train import step
@@ -173,6 +173,125 @@ def test_backward_kernel_matches_plain_version_on_card(cuda, modality, dim):
     assert level_kernel.launches == n_lv and level_kernel.bwd_launches == 2 * n_lv + 1
     for a, k in zip(auto, grads_k):
         torch.testing.assert_close(a, k, rtol=0, atol=0)   # the same kernels, deterministic
+
+
+def _step_case(cuda, modality, dim, seed=9):
+    """level_step's 12 arguments for a mid level of chunk 1 of a chunked
+    batch, with hf as the fused scan leaves it, and the chunk's node count."""
+    cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
+                         layernorm=True)
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(seed)
+    batch = collate_chunked([random_circuit(rng, modality, num_inputs=8, num_gates=120)
+                             for _ in range(6)], 2)
+    b = dg_ae.batch_to_device(batch, cuda)
+    counts = dg_ae.level_counts(batch)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = dg_ae.level_scan_inputs(params, b, cfg, hs)
+        hf = dg_ae.level_recurrence(args, hs.shape[0], counts)     # the fused route
+    n_sub, L = hs.shape[0] // 2, args[0].shape[0] // 2
+    row = L + counts[1] // 2
+    step = (hf[n_sub:].contiguous(), *(args[i][row] for i in (0, 1, 2, 3, 5, 6)), *args[7:])
+    return step, n_sub
+
+
+@pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
+def test_step_kernels_match_plain_versions_on_card(cuda, modality, dim):
+    step_args, n_sub = _step_case(cuda, modality, dim)
+    level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    h_k = level_kernel._step_forward_cuda(step_args, residuals=False)
+    h_kr, re_k, rn_k = level_kernel._step_forward_cuda(step_args, residuals=True)
+    torch.cuda.synchronize()
+    assert level_kernel.step_launches == 2
+    h_r, re_r, rn_r = level_kernel.level_step_reference(*step_args, with_residuals=True)
+    assert h_r.abs().max().item() > 0
+    # fp32, TF32 off: only the order of sums differs
+    for k, r in ((h_k, h_r), (h_kr, h_r), (re_k, re_r), (rn_k, rn_r)):
+        torch.testing.assert_close(k, r, rtol=0, atol=1e-4)
+    assert (h_k[step_args[5] == 0] == 0).all()
+    g = torch.randn(h_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    raw = [level_kernel._step_backward_cuda(g, re_k, rn_k, step_args[1:], n_sub)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert level_kernel.step_bwd_launches == 2 * 3     # slots, sources, weight gradients
+    assert all(torch.equal(a, b) for a, b in zip(*raw))              # no atomics
+    bargs = (*step_args[1:9], step_args[10], step_args[11])
+    grads_r = level_kernel.level_step_bwd_reference(g, re_k, rn_k, *bargs, num_nodes=n_sub)
+    assert grads_r[6].abs().max().item() > 0                           # d_hf
+    for k, r in zip(raw[0], grads_r):
+        assert (k - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+    # the same through autograd: the Function launches the residual forward
+    # and the backward kernels, and saves no hf
+    t = [a.detach().clone() for a in step_args]
+    for i in level_kernel.STEP_FLOAT_ARGS:
+        t[i].requires_grad_(True)
+    level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    h = level_kernel.level_step(*t)
+    auto = torch.autograd.grad(h, [t[i] for i in level_kernel.STEP_FLOAT_ARGS], g)
+    torch.cuda.synchronize()
+    assert level_kernel.step_launches == 1 and level_kernel.step_bwd_launches == 3
+    d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf = raw[0]
+    for a, k in zip(auto, (d_hf, d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak)):
+        torch.testing.assert_close(a, k, rtol=0, atol=0)
+
+
+def _one_step(cfg, batch, dev, neg, keep, seed=4):
+    params, state = dg_ae.init_params(cfg, seed=seed, device=dev)
+    leaves = step.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    total, (_, metrics) = step.loss_and_metrics(
+        params, state, batch, None, [1.0, 4.0, 4.0, 0.0], cfg, True,
+        neg_edges=tuple(t.to(dev) for t in neg), drop_keep=[k.to(dev) for k in keep])
+    total.backward()
+    return metrics, [None if t.grad is None else t.grad.cpu() for t in leaves]
+
+
+@pytest.mark.parametrize("layout", ["chunked_fused", "chunked_step", "split"])
+def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
+    """One training step on a chunked batch by both routes and on a split
+    batch: the card's kernels against the CPU's plain versions."""
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True)
+    rng = np.random.default_rng(11)
+    graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=60 + 20 * i) for i in range(6)]
+    batch = collate_split(graphs, 3) if layout == "split" else collate_chunked(graphs, 2)
+    if layout == "chunked_step":
+        monkeypatch.setattr(dg_ae, "kernel_fits", lambda *a: False)
+    gen = torch.Generator().manual_seed(3)
+    e_pad, n_pad = batch["edge_src"].shape[0], batch["gate"].shape[0]
+    valid = torch.as_tensor(np.flatnonzero(batch["node_valid"]))
+    neg = tuple(valid[torch.randint(0, len(valid), (e_pad,), generator=gen)].to(torch.int32)
+                for _ in range(2))
+    keep = [torch.rand(n_pad, cfg.dim_mlp, generator=gen) < 0.8 for _ in range(2)]
+    for m in (level_kernel, struct_kernel):
+        m.launches = m.bwd_launches = 0
+    level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    m_c, g_c = _one_step(cfg, batch, "cpu", neg, keep)
+    assert level_kernel.launches == level_kernel.step_launches == 0
+    m_g, g_g = _one_step(cfg, batch, cuda, neg, keep)
+    torch.cuda.synchronize()
+    counts = dg_ae.level_counts(batch)
+    if layout == "split":
+        real, calls = sum(c[0] for c in counts), len(counts)
+    else:
+        real, calls = sum(counts), len(counts)
+    if layout == "chunked_step":
+        assert (level_kernel.step_launches, level_kernel.step_bwd_launches) == (real, 3 * real)
+        assert level_kernel.launches == level_kernel.bwd_launches == 0
+    else:
+        assert (level_kernel.launches, level_kernel.bwd_launches) == (real, 2 * real + calls)
+        assert level_kernel.step_launches == level_kernel.step_bwd_launches == 0
+    groups = len(counts) if layout == "split" else 1
+    assert struct_kernel.launches == 4 * groups and struct_kernel.bwd_launches == 6 * groups
+    for k in ("recon_loss", "prob_loss", "func_loss"):
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-4 * max(abs(float(m_c[k])), 1.0), k
+    scale = max(g.abs().max().item() for g in g_c if g is not None)
+    for a, c in zip(g_g, g_c):
+        assert (a is None) == (c is None)
+        if c is not None:
+            tol = 1e-4 * max(c.abs().max().item(), GRAD_FLOOR * scale)
+            assert (a - c).abs().max().item() <= tol
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -132,9 +132,12 @@ def test_sample_negative_edges_in_range_without_self_loops():
     assert src.dtype == dst.dtype == torch.int32
     assert (src != dst).all() and src.min() >= 0 and src.max() < 37 and dst.max() < 37
     assert len(torch.unique(src)) == 37          # uniform over the whole range
-    with pytest.raises(NotImplementedError, match="chunked"):
-        PL.sample_negative_edges(gen, 8, {"n_nodes": np.int32(9),
-                                          "chunk_counts": np.array([5, 4], np.int32)})
+    # two valid runs, [0, 5) and [128, 132): nothing lands between them
+    src, dst = PL.sample_negative_edges(gen, 512, {
+        "n_nodes": np.int32(9), "chunk_counts": np.array([5, 4], np.int32),
+        "chunk_offsets": np.array([0, 128], np.int32)})
+    assert (src != dst).all()
+    assert set(torch.unique(torch.cat([src, dst])).tolist()) == {0, 1, 2, 3, 4, 128, 129, 130, 131}
 
 
 @pytest.mark.parametrize("train", [True, False])
@@ -235,3 +238,52 @@ def test_model_pred_prob_and_recon_loss_match_jax():
         assert m_p[k].item() == float(m_j[k]), k
     l_g, _ = pmodel.recon_loss(hs_p, g.edge_index)          # negatives from a generator
     assert np.isfinite(l_g.item())
+
+
+# ---- negatives on chunked and split batches ---------------------------------
+
+def _large_batch(layout):
+    from mgvae_tpu.data.batching import collate_chunked, collate_split
+
+    rng = np.random.default_rng(12)
+    graphs = [random_circuit(rng, "mig", num_inputs=5, num_gates=14 + 9 * i) for i in range(7)]
+    return collate_chunked(graphs, 3) if layout == "chunked" else collate_split(graphs, 3)
+
+
+@pytest.mark.parametrize("layout", ["chunked", "split"])
+def test_negative_edges_on_large_batches_match_jax_mapping(layout):
+    """Uniform ids over the valid-node count are mapped into the chunks' /
+    groups' valid runs exactly as the JAX package maps them, and never hit
+    an interior padding row."""
+    hb = _large_batch(layout)
+    n, valid = int(hb["n_nodes"]), hb["node_valid"]
+    assert not valid[:n].all()                                  # interior padding exists
+    num = 4096
+    keys = [k for k in ("n_nodes", "gate", "chunk_counts", "chunk_offsets") if k in hb]
+    jb = {k: jnp.asarray(hb[k]) for k in keys}
+    key = jax.random.PRNGKey(9)
+    src_j, dst_j = (np.asarray(x) for x in JL.sample_negative_edges(key, num, jb))
+    # the same draws before the mapping: a batch without the runs
+    raw = [np.asarray(x) for x in JL.sample_negative_edges(
+        key, num, {"n_nodes": jb["n_nodes"]})]
+    assert max(r.max() for r in raw) < n
+    b = P.batch_to_device(hb, "cpu")
+    for r, want in zip(raw, (src_j, dst_j)):
+        got = PL.to_valid_runs(torch.tensor(r), b).numpy()
+        assert got.dtype == np.int32 and np.array_equal(got, want)
+        assert valid[got].all()
+    # every valid row is the image of exactly one id
+    all_ids = PL.to_valid_runs(torch.arange(n, dtype=torch.int32), b).numpy()
+    assert np.array_equal(np.sort(all_ids), np.flatnonzero(valid))
+    # the port's own draws: valid rows, no self loops
+    src, dst = PL.sample_negative_edges(torch.Generator().manual_seed(1), num, b)
+    assert src.dtype == dst.dtype == torch.int32
+    assert valid[src.numpy()].all() and valid[dst.numpy()].all() and (src != dst).all()
+    assert len(np.unique(src.numpy() // 128)) > 1               # more than one run is hit
+
+
+def test_plain_batch_negatives_are_not_remapped():
+    _, _, hb, _, _, _ = _setup()
+    b = P.batch_to_device(hb, "cpu")
+    ids = torch.arange(int(hb["n_nodes"]), dtype=torch.int32)
+    assert PL.to_valid_runs(ids, b) is ids

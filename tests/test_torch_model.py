@@ -1,6 +1,7 @@
 """The port's whole encode slice against the JAX package: forward (hs, hf)
-for the four modalities, Model.encode_many / Model.forward, the params
-bridge, and the port's independence from jax. Tolerances are the JAX
+for the four modalities on plain, chunked (both routes of the level
+recurrence) and split batches, Model.encode_many / Model.forward, the
+params bridge, and the port's independence from jax. Tolerances are the JAX
 package's own: hs rtol 1e-4 / atol 1e-5, hf atol 1e-4
 (tests/test_model_parity.py, tests/test_pallas_kernel.py)."""
 import os
@@ -14,11 +15,12 @@ import pytest
 import torch
 
 import mgvae_tpu
-from mgvae_tpu.data.batching import collate, collate_chunked
+from mgvae_tpu.data.batching import collate, collate_chunked, collate_split
 from mgvae_tpu.data.synthetic import random_circuit
 from mgvae_tpu.models import dg_ae as J
 import mgvae_tpu_torch
 from mgvae_tpu_torch.models import dg_ae as P
+from mgvae_tpu_torch.ops import level_kernel
 from mgvae_tpu_torch.utils.params import params_from_jax
 
 torch.set_num_threads(1)
@@ -79,7 +81,7 @@ def test_model_encode_many_and_forward_match_jax():
 def test_init_params_same_tree_and_shapes_as_jax(modality, layernorm):
     kw = dict(modality=modality, dim_hidden=16, layernorm=layernorm)
     jp, js = J.init_params(jax.random.PRNGKey(0), J.DGConfig(**kw))
-    pp, ps = P.init_params(P.DGConfig(**kw), seed=0)
+    pp, ps = P.init_params(P.DGConfig(**kw), seed=0, device="cpu")
     shape_tree = lambda t: jax.tree.map(lambda a: tuple(a.shape), t)
     assert jax.tree.structure(jp) == jax.tree.structure(pp)
     assert shape_tree(jp) == shape_tree(pp)
@@ -104,15 +106,145 @@ def test_params_from_jax_raises_on_unknown_key():
 def test_unported_options_raise_not_implemented():
     for kw in (dict(variational=True), dict(num_rounds=2), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
-            P.init_params(P.DGConfig(dim_hidden=8, **kw))
+            P.init_params(P.DGConfig(dim_hidden=8, **kw), device="cpu")
     with pytest.raises(NotImplementedError):
         mgvae_tpu_torch.Model(dim_hidden=8, num_rounds=2, device="cpu")
-    rng = np.random.default_rng(3)
-    graphs = [random_circuit(rng, "mig", num_inputs=4, num_gates=12) for _ in range(2)]
-    cfg = P.DGConfig(dim_hidden=8)
-    params, _ = P.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        P.forward(params, collate_chunked(graphs, 2), cfg)
+
+
+def _large_batch_setup(modality, seed, n=6):
+    kw = dict(modality=modality, dim_hidden=32, s_rounds=2, t_rounds=2, layernorm=True)
+    jcfg, pcfg = J.DGConfig(**kw), P.DGConfig(**kw)
+    params, _ = J.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(seed)
+    graphs = [random_circuit(rng, modality, num_inputs=6, num_gates=24 + 8 * i)
+              for i in range(n)]
+    return jcfg, pcfg, params, graphs
+
+
+_jax_forward = jax.jit(J.forward, static_argnames=("cfg", "use_pallas", "pallas_interpret"))
+
+
+@pytest.mark.parametrize("route", ["fused", "step"])
+@pytest.mark.parametrize("modality", ["mig", "xag"])
+def test_chunked_forward_matches_jax_both_routes(modality, route, monkeypatch):
+    """The port's forward on a two-chunk batch, by each route of the level
+    recurrence, against the JAX package's XLA scan and against its Pallas
+    route in interpret mode (for the step route with ``kernel_fits`` forced
+    False, as tests/test_pallas_kernel.py:217-221 does)."""
+    import mgvae_tpu.ops.pallas.level_kernel as JK
+
+    jcfg, pcfg, params, graphs = _large_batch_setup(modality, 4)
+    batch = collate_chunked(graphs, 2)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    valid = batch["node_valid"]
+    hs_x, hf_x, _ = _jax_forward(params, jbatch, cfg=jcfg)
+    calls = {"scan": 0, "step": 0}
+    spy = lambda name, fn: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), fn(*a, **k))[1]
+    monkeypatch.setattr(P, "level_scan", spy("scan", P.level_scan))
+    monkeypatch.setattr(P, "level_step", spy("step", P.level_step))
+    if route == "step":
+        monkeypatch.setattr(JK, "kernel_fits", lambda *a: False)
+        monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
+    hs_k, hf_k, _ = J.forward(params, jbatch, jcfg, use_pallas=True, pallas_interpret=True)
+    hs_p, hf_p, _ = P.forward(params_from_jax(_np_tree(params)), batch, pcfg)
+    counts = P.level_counts(batch)
+    assert calls == ({"scan": 2, "step": 0} if route == "fused"
+                     else {"scan": 0, "step": sum(counts)})
+    for hs_j, hf_j in ((hs_x, hf_x), (hs_k, hf_k)):
+        _assert_embeddings_close(hs_p.numpy()[valid], hf_p.numpy()[valid],
+                                 np.asarray(hs_j)[valid], np.asarray(hf_j)[valid])
+    assert (hf_p.numpy()[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("limits,step_gate,want", [
+    ({}, True, "fused"),                              # the chunks pass kernel_fits
+    ({"KERNEL_MAX_NODES": 64}, True, "step"),        # too many nodes for it
+    ({"KERNEL_MAX_EP": 8}, True, "step"),             # a level's edges too wide
+    ({"KERNEL_MAX_NP": 4}, True, "step"),             # a level's slots too wide
+    ({"KERNEL_MAX_NODES": 64}, False, "fused"),      # neither gate holds: fused per chunk
+])
+def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, monkeypatch):
+    """For C > 1 the port takes the step route exactly where
+    ``_level_scan_pallas`` does: ``kernel_fits`` false and
+    ``step_kernel_fits`` true. A plain batch always takes the fused scan."""
+    rng = np.random.default_rng(5)
+    graphs = [mgvae_tpu_torch.random_circuit(rng, "mig", num_inputs=4, num_gates=16 + 4 * i)
+              for i in range(4)]
+    cfg = P.DGConfig(dim_hidden=8, s_rounds=1, t_rounds=1)
+    params, _ = P.init_params(cfg, device="cpu")
+    for k, v in limits.items():
+        monkeypatch.setattr(level_kernel, k, v)
+    if not step_gate:
+        monkeypatch.setattr(P, "step_kernel_fits", lambda *a: False)
+    calls = []
+    real_scan, real_step = P.level_scan, P.level_step
+    monkeypatch.setattr(P, "level_scan",
+                        lambda *a, **k: (calls.append("fused"), real_scan(*a, **k))[1])
+    monkeypatch.setattr(P, "level_step",
+                        lambda *a, **k: (calls.append("step"), real_step(*a, **k))[1])
+    batch = mgvae_tpu_torch.collate_chunked(graphs, 2)
+    _, hf, _ = P.forward(params, batch, cfg)
+    counts = P.level_counts(batch)
+    assert calls == [want] * (2 if want == "fused" else sum(counts))
+    calls.clear()
+    _, hf1, _ = P.forward(params, mgvae_tpu_torch.collate(graphs), cfg)
+    assert calls == ["fused"]
+    inv_c, inv_1 = batch["node_inv"], mgvae_tpu_torch.collate(graphs)["node_inv"]
+    n = int(batch["n_nodes"])
+    np.testing.assert_allclose(hf.numpy()[inv_c][:n], hf1.numpy()[inv_1][:n], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("modality", ["aig", "xmg"])
+def test_split_forward_matches_jax(modality):
+    jcfg, pcfg, params, graphs = _large_batch_setup(modality, 6, n=7)
+    batch = collate_split(graphs, 3)
+    assert len({g["lv_nodes"].shape for g in batch["groups"]}) > 1
+    hs_j, hf_j, _ = J.forward(params, jax.tree.map(jnp.asarray, batch), jcfg)
+    hs_p, hf_p, aux = P.forward(params_from_jax(_np_tree(params)), batch, pcfg)
+    assert aux == {} and hs_p.shape == hf_p.shape == (batch["gate"].shape[0], 32)
+    valid = batch["node_valid"]
+    _assert_embeddings_close(hs_p.numpy()[valid], hf_p.numpy()[valid],
+                             np.asarray(hs_j)[valid], np.asarray(hf_j)[valid])
+    assert P.level_counts(batch) == tuple(
+        (int(g["forward_level"].max()),) for g in batch["groups"])
+
+
+def test_model_forward_list_goes_through_collate_fit(monkeypatch):
+    """A list too large for one chunk is chunked by ``collate_fit`` and the
+    rows come back in input order, equal to the JAX package's and to the
+    unchunked batch's."""
+    kw = dict(modality="mig", dim_hidden=32, s_rounds=2, t_rounds=2, layernorm=True)
+    jmodel = mgvae_tpu.Model(**kw)
+    pmodel = mgvae_tpu_torch.Model(**kw, params=params_from_jax(_np_tree(jmodel.params)),
+                                   device="cpu")
+    rng = np.random.default_rng(7)
+    jgraphs = [random_circuit(rng, "mig", num_inputs=5, num_gates=30 + 5 * i) for i in range(6)]
+    rng = np.random.default_rng(7)
+    graphs = [mgvae_tpu_torch.random_circuit(rng, "mig", num_inputs=5, num_gates=30 + 5 * i)
+              for i in range(6)]
+    total = sum(g.num_nodes for g in graphs)
+    hs_1, hf_1 = pmodel(mgvae_tpu_torch.collate(graphs))        # one plain batch
+    hs_j, hf_j = jmodel(jgraphs)                                 # fits the JAX gate: unchunked
+    # the gate's node limit shrunk so that this small list needs chunks
+    monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 128)
+    seen = []
+    import mgvae_tpu_torch.api as api
+    real = api.collate_fit
+    monkeypatch.setattr(api, "collate_fit", lambda g: (seen.append(real(g)), seen[-1])[1])
+    hs_p, hf_p = pmodel(graphs)
+    assert len(seen) == 1 and seen[0]["lv_nodes"].ndim == 3 and seen[0]["lv_nodes"].shape[0] > 1
+    assert seen[0]["gate"].shape[0] // seen[0]["lv_nodes"].shape[0] <= 128
+    assert hs_p.shape == hf_p.shape == (total, 32)
+    _assert_embeddings_close(hs_p.numpy(), hf_p.numpy(), np.asarray(hs_j), np.asarray(hf_j))
+    _assert_embeddings_close(hs_p.numpy(), hf_p.numpy(), hs_1.numpy()[:total],
+                             hf_1.numpy()[:total])
+
+
+def test_init_params_defaults_to_the_card():
+    import inspect
+
+    assert inspect.signature(P.init_params).parameters["device"].default == "cuda"
+    assert inspect.signature(mgvae_tpu_torch.Model.__init__).parameters["device"].default == "cuda"
 
 
 def test_edgeless_graph_gives_zero_hf():
@@ -135,6 +267,10 @@ def test_port_imports_and_encodes_without_jax():
         "out = model.encode_many(gs)\n"
         "assert [o[1].shape for o in out] == [(g.num_nodes, 16) for g in gs]\n"
         "assert model.pred_prob(model(gs[0])[1]).shape == (gs[0].num_nodes, 1)\n"
+        "hs, hf = model(m.collate_chunked(gs, 2))\n"
+        "assert hf.shape[1] == 16 and bool(torch.isfinite(hf).all())\n"
+        "hs, hf = model(m.collate_split(gs, 2))\n"
+        "assert hf.shape == (sum(g.num_nodes for g in gs), 16)\n"
         "from mgvae_tpu_torch.train import losses, step\n"
         "from mgvae_tpu_torch.ops import mlp, level_kernel\n"
         "from mgvae_tpu_torch.utils import params\n"

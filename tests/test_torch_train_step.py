@@ -2,7 +2,8 @@
 package's: whole-model gradients of ``loss_and_metrics`` against
 ``jax.grad`` (the XLA path on the CPU) for the four modalities, and one full
 ``train_step`` against ``make_train_step(cfg, make_optimizer(lr),
-mesh=None)``. JAX's negatives and dropout masks are rebuilt from its key
+mesh=None)``, on plain batches and on chunked (the step route of the level
+recurrence) and split ones. JAX's negatives and dropout masks are rebuilt from its key
 (``step.py:142``) and handed to the port.
 
 Tolerances: losses and metrics rtol 1e-5; each gradient leaf 1e-4 * its
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from mgvae_tpu.data.batching import collate
+from mgvae_tpu.data.batching import collate, collate_chunked, collate_split
 from mgvae_tpu.data.synthetic import random_circuit
 from mgvae_tpu.models import dg_ae as J
 from mgvae_tpu.train import losses as JL
@@ -159,7 +160,7 @@ def test_train_and_eval_step_with_generator_on_cpu():
     """The step's own draws: metrics finite, the CPU route takes no kernel,
     lr settable, eval changes nothing."""
     cfg = P.DGConfig(modality="xmg", dim_hidden=16, s_rounds=1, t_rounds=1)
-    params, state = P.init_params(cfg, seed=3)
+    params, state = P.init_params(cfg, seed=3, device="cpu")
     rng = np.random.default_rng(4)
     hb = mgvae_tpu_torch.collate([mgvae_tpu_torch.random_circuit(rng, "xmg", num_inputs=5,
                                                                  num_gates=30)
@@ -180,3 +181,94 @@ def test_train_and_eval_step_with_generator_on_cpu():
     assert np.isfinite(float(m["loss"]))
     assert all(torch.equal(a, b) for a, b in zip(snap, PS.param_leaves(params)))
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ---- chunked and split batches ----------------------------------------------
+
+def _large_setup(layout, seed=3):
+    kw = dict(modality="mig", dim_hidden=32, s_rounds=2, t_rounds=2, layernorm=True)
+    jcfg, pcfg = J.DGConfig(**kw), P.DGConfig(**kw)
+    params, state = J.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(seed)
+    graphs = [random_circuit(rng, "mig", num_inputs=6, num_gates=20 + 8 * i, num_tt_pairs=16)
+              for i in range(5)]
+    hb = collate_chunked(graphs, 2) if layout == "chunked" else collate_split(graphs, 2)
+    return jcfg, pcfg, params, state, hb
+
+
+def _spy_step_route(monkeypatch):
+    """Send chunked batches down the step route (their chunks are too small
+    to fail ``kernel_fits`` by themselves) and count the steps."""
+    calls = []
+    real = P.level_step
+    monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
+    monkeypatch.setattr(P, "level_step", lambda *a: (calls.append(1), real(*a))[1])
+    return calls
+
+
+@pytest.mark.parametrize("layout", ["chunked", "split"])
+def test_model_gradients_on_large_batches_match_jax(layout, monkeypatch):
+    """Whole-model gradients on a chunked batch, the level recurrence by the
+    step route (the scatter between steps under autograd), and on a split
+    batch, against jax.grad."""
+    jcfg, pcfg, params, state, hb = _large_setup(layout)
+    steps = _spy_step_route(monkeypatch)
+    key = jax.random.PRNGKey(6)
+    (tot_j, (st_j, m_j)), g_j = _jax_value_and_grad(jcfg)(
+        params, state, jax.tree.map(jnp.asarray, hb), key, jnp.asarray(WEIGHTS))
+
+    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    leaves = PS.param_leaves(pp)
+    for t in leaves:
+        t.requires_grad_(True)
+    neg, keep = _jax_draws(key, hb, pcfg.dim_mlp)
+    assert hb["node_valid"][neg[0].numpy()].all() and hb["node_valid"][neg[1].numpy()].all()
+    tot_p, (st_p, m_p) = PS.loss_and_metrics(pp, ps, hb, None, WEIGHTS, pcfg, True,
+                                             neg_edges=neg, drop_keep=keep)
+    tot_p.backward()
+    counts = P.level_counts(hb)
+    assert len(steps) == (sum(counts) if layout == "chunked" else 0)
+    np.testing.assert_allclose(tot_p.item(), float(tot_j), rtol=RTOL)
+    for k in PS.METRIC_KEYS:
+        np.testing.assert_allclose(float(m_p[k]), float(m_j[k]), rtol=RTOL, err_msg=k)
+    for a, c in zip(_leaves(params_to_numpy(st_p)), _leaves(st_j)):
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-6)
+    g_p = [np.zeros(t.shape, np.float32) if t.grad is None else t.grad.numpy() for t in leaves]
+    g_jl = _leaves(g_j)
+    scale = max(float(np.abs(g).max()) for g in g_jl)
+    for i, (a, c) in enumerate(zip(g_p, g_jl)):
+        err, leaf = float(np.abs(a - c).max()), float(np.abs(c).max())
+        assert np.isfinite(a).all()
+        assert err <= 1e-4 * max(leaf, GRAD_FLOOR * scale), (i, err, leaf, scale)
+
+
+def test_train_step_on_chunked_batch_matches_jax_make_train_step(monkeypatch):
+    lr = 1e-3
+    jcfg, pcfg, params, state, hb = _large_setup("chunked", seed=4)
+    steps = _spy_step_route(monkeypatch)
+    key = jax.random.PRNGKey(9)
+    batch = jax.tree.map(jnp.asarray, hb)
+    w = jnp.asarray(WEIGHTS)
+    _, g_j = _jax_value_and_grad(jcfg)(params, state, batch, key, w)
+    opt = JS.make_optimizer(lr)
+    j_step, _ = JS.make_train_step(jcfg, opt, mesh=None, donate=False)
+    p1_j, s1_j, _, m_j = j_step(params, state, opt.init(params), batch, key, w)
+
+    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    p_step, p_eval = PS.make_train_step(pcfg, PS.make_optimizer(pp, lr))
+    neg, keep = _jax_draws(key, hb, pcfg.dim_mlp)
+    s1_p, m_p = p_step(pp, ps, hb, None, WEIGHTS, neg_edges=neg, drop_keep=keep)
+    assert len(steps) == sum(P.level_counts(hb))
+    for k in PS.METRIC_KEYS:
+        np.testing.assert_allclose(float(m_p[k]), float(m_j[k]), rtol=RTOL, err_msg=k)
+    for a, c in zip(_leaves(params_to_numpy(s1_p)), _leaves(s1_j)):
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-6)
+    g = _leaves(g_j)
+    scale = max(float(np.abs(x).max()) for x in g)
+    for a, c, gj in zip(_leaves(params_to_numpy(pp)), _leaves(p1_j), g):
+        d = np.abs(a - c)
+        assert d.max() <= 2 * lr
+        assert (d[np.abs(gj) > 1e-5 * scale] <= 1e-3 * lr).all()
+    # the step's own draws on the chunked batch: negatives stay in the valid runs
+    m = p_eval(pp, s1_p, hb, torch.Generator().manual_seed(0), WEIGHTS)
+    assert all(np.isfinite(float(m[k])) for k in PS.METRIC_KEYS)
