@@ -79,10 +79,43 @@ Phases (any failure raises and the script exits nonzero):
      MIG train step by its three layouts (collate_fit's chunks on the fused
      route, two chunks on the step route, four split groups), in turns.
 
+ 15. giant kernels vs plain: one layered circuit of width 512 collated alone
+     (MIG at depth 200: the giant example's circuit, N = 114,688 padded;
+     aig/xag/xmg at depth 24): the giant forward kernel against
+     level_scan_giant_reference (max |dhf| <= 1e-4) and the giant backward
+     kernel, which recomputes from hf, against level_scan_giant_bwd_reference
+     on the same hf and a fixed random cotangent (each of the six outputs
+     within 1e-4 * max(scale, 1)); the giant forward's hf against the fused
+     kernel's on the same inputs, and the giant backward's outputs against
+     the fused backward's from saved residuals (<= 1e-4 * max(scale, 1));
+     launches: real levels forward, four per real level backward.
+ 16. giant encode: Model.forward(g) on the depth-200 circuit: shapes, finite,
+     struct launches 2 * s_rounds, giant launches equal to the real levels,
+     no fused or step launch; rows against the same model on the CPU.
+ 17. giant training: 4 train_steps on collate([g]) with the example's weights
+     [1, 4, 2, 0] and lr 1e-4, fixed negatives and dropout masks: per step
+     giant launches = real levels forward and four per real level backward,
+     no fused or step launch; loss finite and lower at the end; one step card
+     vs CPU with SMOOTH_WEIGHTS; one step with remat_struct=True against
+     False (struct forward launches doubled, gradients equal); the peak
+     device memory of one step on the giant route, with the remat, and with
+     the route forced to the fused kernels and their residuals, and of the
+     level recurrence alone (forward and backward) by both routes: the giant
+     route's must stay within 1.25 x (hf + ghf's copy + d_pack_lv). Then a plain
+     collate of the 64 bs64 MIG circuits (N = 20480, C == 1, which fails the
+     fused route's size gate): one forward (hf equal to phase 11's rows) and
+     one train step, both on the giant route.
+ 18. timing (informational): by CUDA events the giant forward and backward
+     kernels alone against their plain versions and against the fused
+     kernels on the same batch; median wall time of the giant encode and of
+     the giant train step with its stages; torch.profiler over 3 giant train
+     steps.
+
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers and level scan, the training path's struct
-towers and level scan with residuals, the two backwards, and the step
-kernel and its backward; each with its launches on its main path, its
+towers and level scan with residuals, the two backwards, the step kernel and
+its backward, and the giant forward and backward; each with its launches on
+its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s, computed from this run's
 inputs), the nvidia-smi line, and as the last line
@@ -90,6 +123,7 @@ inputs), the nvidia-smi line, and as the last line
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -130,6 +164,17 @@ WEIGHTS = [1.0, 4.0, 4.0, 0.0]    # stage-3 loss weights (train.py)
 # gradients by ~1e-4, far past a tolerance made for rounding. The bs16 step
 # of phase 7 (a quarter of the units) keeps the prob loss.
 SMOOTH_WEIGHTS = [1.0, 0.0, 4.0, 0.0]
+# the giant example: one layered MIG circuit collated alone (phases 15-18);
+# the other modalities check the kernels at a smaller depth
+GIANT_WIDTH, GIANT_DEPTH, GIANT_SMALL_DEPTH = 512, 200, 24
+GIANT_STEPS, GIANT_LR, GIANT_WEIGHTS = 4, 1e-4, [1.0, 4.0, 2.0, 0.0]
+# The giant backward recomputes what the fused backward reads from saved
+# residuals, with the same device functions; the two differ in the order of
+# the weight gradients' sums: the fused backward carries each entry through
+# all L * Ep rows in one fp32 accumulator, the giant sums per level and then
+# across levels. At 257k rows that is ~1e-5 of an output's scale, so the pair
+# is held to the tolerance each is held to against its plain version.
+RECOMPUTE_TOL = GRAD_TOL
 SEED = 0
 DEVICE = "cuda"
 
@@ -179,11 +224,12 @@ def bound(bytes_moved: float, flops: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def profile_train(torch, step, card: str) -> None:
-    """torch.profiler over PROFILE_STEPS calls of ``step`` (after 3 warm-up
+def profile_train(torch, step, card: str, label: str, steps: int = PROFILE_STEPS,
+                  rows: int = 25) -> None:
+    """torch.profiler over ``steps`` calls of ``step`` (after 3 warm-up
     calls): wall and device time per step, the card's busy share, device
-    kernels and copies per step, and the 25 entries with the most device
-    time."""
+    kernels and copies per step, and the ``rows`` entries with the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -191,21 +237,21 @@ def profile_train(torch, step, card: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
     # device-side events only: an operator's self device time repeats its kernels'
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / PROFILE_STEPS
+    dev_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / steps
     log(f"[profile] card: {card}")
-    wall_ms = wall / PROFILE_STEPS * 1e3
-    log(f"[profile] MIG bs{BATCH} train step over {PROFILE_STEPS} steps under torch.profiler: "
+    wall_ms = wall / steps * 1e3
+    log(f"[profile] {label} over {steps} steps under torch.profiler: "
         f"wall {wall_ms:.3f} ms per step; device time {dev_ms:.3f} ms per step; busy share "
         f"{dev_ms / wall_ms:.3f}; device kernels and copies per step "
-        f"{len(on_card) / PROFILE_STEPS:.1f}")
-    for line in ka.table(sort_by="self_device_time_total", row_limit=25,
+        f"{len(on_card) / steps:.1f}")
+    for line in ka.table(sort_by="self_device_time_total", row_limit=rows,
                          max_name_column_width=60).splitlines():
         log(f"[profile] {line}")
 
@@ -219,7 +265,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from mgvae_tpu_torch import (Model, collate, collate_chunked, collate_fit, collate_split,
-                                 random_circuit)
+                                 layered_circuit, random_circuit)
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
     from mgvae_tpu_torch.ops.init import linear_apply
@@ -274,6 +320,16 @@ def main() -> int:
                      + nbytes(tabs[0], *args[7:]))
             return bound(moved, flops)
         return bound(nbytes(*tabs, *args[7:]) + N * D * 4 + (res if residuals else 0), flops)
+
+    def giant_bwd_bound(args, n_lv, N):
+        # in: ghf, hf, tables, pack_lv, weights; out: d_pack, five weight gradients;
+        # operations: the backward's and the recomputed forward's
+        D = args[0].shape[2] - 2
+        tabs = [a[:n_lv] for a in args[:7]]
+        flops = level_work(tabs[3], tabs[5], D, True) + level_work(tabs[3], tabs[5], D, False)
+        moved = (2 * N * D * 4 + nbytes(*tabs, *args[7:])
+                 + nbytes(tabs[0], args[7], args[8], args[9], args[10], args[11]))
+        return bound(moved, flops)
 
     def step_bound(step_args, residuals, backward=False):
         hf, pack, src, dslot, evalid, upd, e_n, *w = step_args
@@ -625,34 +681,33 @@ def main() -> int:
     # ---- 8. training timing (informational) -------------------------------
     batch = batches[0]
     n_lv = dg_ae.num_levels(batch)
-    stage = {"forward": [], "losses": [], "backward": [], "adam": []}
-
-    def staged_step():
-        t = [time.perf_counter()]
-        optimizer.zero_grad(set_to_none=True)
-        b = dg_ae.batch_to_device(batch, dev)
-        hs, hf, _ = dg_ae.forward_device(params, b, cfg, n_lv)
-        sync(); t.append(time.perf_counter())
-        total, _ = train_step_mod.losses_from_forward(params, state, b, hs, hf, gen, WEIGHTS,
-                                                      cfg, True)
-        sync(); t.append(time.perf_counter())
-        total.backward()
-        sync(); t.append(time.perf_counter())
-        optimizer.step()
-        sync(); t.append(time.perf_counter())
-        for name, a, z in zip(stage, t, t[1:]):
-            stage[name].append(z - a)
+    def staged_ms(params, state, optimizer, batch, weights, warm: int, reps: int) -> dict:
+        """Median milliseconds of a train step's stages over ``reps`` steps
+        (after ``warm`` more), with a synchronise after each stage."""
+        stage = {"forward": [], "losses": [], "backward": [], "adam": []}
+        for i in range(warm + reps):
+            t = [time.perf_counter()]
+            optimizer.zero_grad(set_to_none=True)
+            b = dg_ae.batch_to_device(batch, dev)
+            hs, hf, _ = dg_ae.forward_device(params, b, cfg, dg_ae.level_counts(batch))
+            sync(); t.append(time.perf_counter())
+            total, _ = train_step_mod.losses_from_forward(params, state, b, hs, hf, gen, weights,
+                                                          cfg, True)
+            sync(); t.append(time.perf_counter())
+            total.backward()
+            sync(); t.append(time.perf_counter())
+            optimizer.step()
+            sync(); t.append(time.perf_counter())
+            if i >= warm:
+                for name, a, z in zip(stage, t, t[1:]):
+                    stage[name].append(z - a)
+        return {k: statistics.median(v) * 1e3 for k, v in stage.items()}
 
     for _ in range(3):  # warm-up
         train_step(params, state, batch, gen, WEIGHTS)
-        staged_step()
-    for v in stage.values():
-        v.clear()
     reps = 20
     step_s = median_wall(lambda: train_step(params, state, batch, gen, WEIGHTS), reps, sync)
-    for _ in range(reps):
-        staged_step()
-    stage_ms = {k: statistics.median(v) * 1e3 for k, v in stage.items()}
+    stage_ms = staged_ms(params, state, optimizer, batch, WEIGHTS, 3, reps)
     b = dg_ae.batch_to_device(batch, dev)
     with torch.no_grad():
         hs = dg_ae.struct_hs(params, b, cfg)
@@ -745,7 +800,8 @@ def main() -> int:
         f"{sbms_p1:.4f}/{sbms_p2:.4f} ms")
 
     # ---- 9. train-step profile (informational) ----------------------------
-    profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card)
+    profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card,
+                  f"MIG bs{BATCH} train step")
 
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
     step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")
@@ -801,12 +857,16 @@ def main() -> int:
         for m in level_mods:
             m.launches = m.bwd_launches = 0
         level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+        level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+
+    COUNT_NAMES = "(struct, struct bwd, level, level bwd, step, step bwd, giant, giant bwd)"
 
     def read_counts():
-        """(struct fwd, struct bwd, level fwd, level bwd, step fwd, step bwd)"""
+        """The launch counts in COUNT_NAMES' order."""
         return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
                 level_kernel.bwd_launches, level_kernel.step_launches,
-                level_kernel.step_bwd_launches)
+                level_kernel.step_bwd_launches, level_kernel.giant_launches,
+                level_kernel.giant_bwd_launches)
 
     fit = collate_fit(graphs)
     C_fit = fit["lv_nodes"].shape[0] if fit["lv_nodes"].ndim == 3 else 1
@@ -818,10 +878,10 @@ def main() -> int:
     log(f"[encode64] Model.forward(list of {len(graphs)}): collate_fit gives C={C_fit}, per chunk "
         f"N_sub={fit['gate'].shape[0] // C_fit} L={fit['lv_nodes'].shape[-2]} "
         f"Ep={fit['lv_edge_src'].shape[-1]} Np={fit['lv_nodes'].shape[-1]}, real levels "
-        f"{fit_levels}; launches (struct, struct bwd, level, level bwd, step, step bwd) = {got}")
-    if got != (2 * ROUNDS, 0, sum(fit_levels), 0, 0, 0) or C_fit < 2:
+        f"{fit_levels}; launches {COUNT_NAMES} = {got}")
+    if got != (2 * ROUNDS, 0, sum(fit_levels), 0, 0, 0, 0, 0) or C_fit < 2:
         raise RuntimeError(f"[encode64] launches {got} != (2 * s_rounds, 0, real (chunk, level) "
-                           f"rows {sum(fit_levels)}, 0, 0, 0), or the list was not chunked")
+                           f"rows {sum(fit_levels)}, 0, ...), or the list was not chunked")
     hs_c, hf_c = cpu_model(graphs)
     total_nodes = sum(g.num_nodes for g in graphs)
     d_hs, d_hf = (hs_g.cpu() - hs_c).abs().max().item(), (hf_g.cpu() - hf_c).abs().max().item()
@@ -831,32 +891,32 @@ def main() -> int:
         raise RuntimeError("[encode64] card and CPU disagree")
 
     # ---- 12 and 13. bs64 train steps: the step route, and a split batch ----
-    def train_large(tag, batch, want):
-        """LARGE_STEPS train steps from fresh params with fixed draws; the
-        per-step launch counts must equal ``want``; returns their sum."""
+    def train_large(tag, batch, want, steps=LARGE_STEPS, lr=LARGE_LR, weights=WEIGHTS):
+        """``steps`` train steps from fresh params with fixed draws; the
+        per-step launch counts must equal ``want`` (COUNT_NAMES' order) and,
+        over more than one step, the loss must fall; then one step card vs
+        CPU. Returns the counts' sums."""
         p2, s2 = dg_ae.init_params(cfg, seed=SEED, device=dev)
-        step2, _ = train_step_mod.make_train_step(cfg, train_step_mod.make_optimizer(p2, LARGE_LR))
+        step2, _ = train_step_mod.make_train_step(cfg, train_step_mod.make_optimizer(p2, lr))
         neg, keep = fixed_draws(batch, SEED + 8)
         neg, keep = tuple(t.to(dev) for t in neg), [k.to(dev) for k in keep]
-        rows, totals = [], [0] * 6
-        for _ in range(LARGE_STEPS):
+        rows, totals = [], [0] * len(want)
+        for _ in range(steps):
             zero_counts()
-            s2, met = step2(p2, s2, batch, None, WEIGHTS, neg_edges=neg, drop_keep=keep)
+            s2, met = step2(p2, s2, batch, None, weights, neg_edges=neg, drop_keep=keep)
             got = read_counts()
             if got != want:
-                raise RuntimeError(f"[{tag}] per-step launches (struct, struct bwd, level, level "
-                                   f"bwd, step, step bwd) {got} != {want}")
+                raise RuntimeError(f"[{tag}] per-step launches {COUNT_NAMES} {got} != {want}")
             totals = [a + z for a, z in zip(totals, got)]
             rows.append(torch.stack([met[k] for k in keys]))
         sync()
         rows = torch.stack(rows).cpu()
         losses = rows[:, keys.index("loss")].tolist()
-        log(f"[{tag}] {LARGE_STEPS} train_steps, lr {LARGE_LR}, weights {WEIGHTS}, fixed draws: "
-            f"per-step launches (struct, struct bwd, level, level bwd, step, step bwd) = {want}; "
-            f"loss {[round(x, 6) for x in losses]}")
+        log(f"[{tag}] {steps} train_steps, lr {lr}, weights {weights}, fixed draws: "
+            f"per-step launches {COUNT_NAMES} = {want}; loss {[round(x, 6) for x in losses]}")
         if not torch.isfinite(rows).all():
             raise RuntimeError(f"[{tag}] non-finite loss or metric")
-        if not losses[-1] < losses[0]:
+        if steps > 1 and not losses[-1] < losses[0]:
             raise RuntimeError(f"[{tag}] the loss did not fall: {losses}")
         card_vs_cpu_step(tag, batch, SMOOTH_WEIGHTS)
         return totals
@@ -882,12 +942,12 @@ def main() -> int:
     d_hf = (hf_s[inv.to(dev)][:total_nodes] - hf_g).abs().max().item()
     log(f"[step64] forward: launches {got}; max|dhf| against the bs64 encode (fused route, "
         f"C={C_fit}) = {d_hf:.3e}")
-    if got != (2 * ROUNDS, 0, 0, 0, sum(ch_levels), 0) or not d_hf <= KERNEL_TOL:
+    if got != (2 * ROUNDS, 0, 0, 0, sum(ch_levels), 0, 0, 0) or not d_hf <= KERNEL_TOL:
         raise RuntimeError(f"[step64] forward: launches {got} != step launches "
                            f"{sum(ch_levels)} alone, or the routes disagree ({d_hf})")
     n_rows = sum(ch_levels)
     step_totals = train_large(
-        "step64", chunked, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, n_rows, 3 * n_rows))
+        "step64", chunked, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, n_rows, 3 * n_rows, 0, 0))
 
     split = collate_split(graphs, GROUPS)
     sp_levels = [c[0] for c in dg_ae.level_counts(split)]
@@ -897,7 +957,7 @@ def main() -> int:
         f"levels {sp_levels}")
     train_large("split64", split, (
         2 * ROUNDS * GROUPS, (2 * ROUNDS + 2) * GROUPS, sum(sp_levels),
-        2 * sum(sp_levels) + GROUPS, 0, 0))
+        2 * sum(sp_levels) + GROUPS, 0, 0, 0, 0))
 
     # ---- 14. timing (informational) ----------------------------------------
     b = dg_ae.batch_to_device(chunked, dev)
@@ -962,6 +1022,260 @@ def main() -> int:
         f"of 10, two turns: " + "; ".join(
             f"{name} {w[0] * 1e3:.3f}/{w[1] * 1e3:.3f} ms" for name, w in wall.items()))
 
+    # ---- 15. giant kernels vs plain, per modality ---------------------------
+    giant_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak")
+    giant_err = giant_bwd_err = 0.0
+    t0 = time.perf_counter()
+    giant_graph = layered_circuit(np.random.default_rng(0), "mig", width=GIANT_WIDTH,
+                                  depth=GIANT_DEPTH, num_tt_pairs=512)
+    t1 = time.perf_counter()
+    giant_batch = collate([giant_graph])
+    log(f"[giant] layered MIG circuit width {GIANT_WIDTH} x depth {GIANT_DEPTH}: "
+        f"{giant_graph.num_nodes} nodes, {giant_graph.num_edges} edges, "
+        f"{giant_graph.num_levels} levels; generated in {t1 - t0:.2f} s, collated in "
+        f"{time.perf_counter() - t1:.2f} s (host)")
+    giant_args = None     # the MIG circuit's scan arguments, for phase 18
+    for i, mod in enumerate(MODALITIES):
+        cfg_m = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                               layernorm=True)
+        params_m, _ = dg_ae.init_params(cfg_m, seed=SEED, device=dev)
+        batch = giant_batch if mod == "mig" else collate([layered_circuit(
+            np.random.default_rng(300 + i), mod, width=GIANT_WIDTH, depth=GIANT_SMALL_DEPTH,
+            num_tt_pairs=64)])
+        b = dg_ae.batch_to_device(batch, dev)
+        n_lv = dg_ae.num_levels(batch)
+        with torch.no_grad():
+            hs = dg_ae.struct_hs(params_m, b, cfg_m)
+            args = tuple(a.detach().clone()
+                         for a in dg_ae.level_scan_inputs(params_m, b, cfg_m, hs))
+        N, (L, ep, _), np_ = hs.shape[0], args[0].shape, args[4].shape[1]
+        fits = (level_kernel.kernel_fits(N, ep, np_, DIM),
+                level_kernel.kernel_fits_hbm_bwd(N, ep, np_, DIM))
+        if fits != (False, True):
+            raise RuntimeError(f"[giant] {mod}: (kernel_fits, kernel_fits_hbm_bwd) = {fits}: "
+                               f"the batch would not take the giant route")
+        zero_counts()
+        hf_k = level_kernel._giant_forward_cuda(args, N, n_lv)
+        ghf = torch.randn(hf_k.shape, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 10))
+        grads_k = level_kernel._giant_backward_cuda(ghf, hf_k, args, n_lv)
+        sync()
+        got = read_counts()
+        if got != (0, 0, 0, 0, 0, 0, n_lv, 4 * n_lv):
+            raise RuntimeError(f"[giant] {mod}: launches {COUNT_NAMES} {got} != giant {n_lv} "
+                               f"forward and {4 * n_lv} backward alone")
+        hf_r = level_kernel.level_scan_giant_reference(*args, num_nodes=N, num_levels=n_lv)
+        grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv)
+        # the fused kernels on the same inputs: residuals saved against recomputed
+        hf_1, re_1, rn_1 = level_kernel._forward_cuda(args, N, n_lv, residuals=True)
+        grads_2 = level_kernel._backward_cuda(ghf, re_1, rn_1, args, n_lv)
+        sync()
+        if not (torch.isfinite(hf_k).all() and torch.isfinite(hf_r).all()):
+            raise RuntimeError(f"[giant] {mod}: non-finite hf")
+        valid = torch.as_tensor(batch["node_valid"], device=dev)
+        err = (hf_k - hf_r)[valid].abs().max().item()
+        pad = hf_k[~valid].abs().max().item()
+        d_fused = (hf_k - hf_1).abs().max().item()
+        pad_levels = grads_k[0][n_lv:].abs().max().item() if n_lv < L else 0.0
+        report, worst = held(mod, giant_names, grads_k, grads_r)
+        d_saved = max((k - f).abs().max().item() / max(f.abs().max().item(), 1.0)
+                      for k, f in zip(grads_k, grads_2))
+        log(f"[giant] {mod}: N={N} n={int(batch['n_nodes'])} E={batch['edge_src'].shape[0]} L={L} "
+            f"real_levels={n_lv} Np={np_} Ep={ep} T={cfg_m.num_experts}: giant forward "
+            f"max|dhf| valid rows={err:.3e}, padding rows {pad:.3e}, against the fused kernel "
+            f"{d_fused:.3e}; giant backward max|d|/scale: {report}; d_pack of padding levels "
+            f"{pad_levels:.3e}; against the fused backward from saved residuals, worst output "
+            f"{d_saved:.3e} of max(scale, 1)")
+        if not (err <= KERNEL_TOL and d_fused <= KERNEL_TOL) or pad != 0.0 or pad_levels != 0.0:
+            raise RuntimeError(f"[giant] {mod}: the giant forward disagrees with its plain "
+                               f"version or the fused kernel, or wrote a padding row")
+        if not d_saved <= RECOMPUTE_TOL:
+            raise RuntimeError(f"[giant] {mod}: the giant backward disagrees with the fused "
+                               f"backward: {d_saved} of scale (tol {RECOMPUTE_TOL})")
+        giant_err, giant_bwd_err = max(giant_err, err), max(giant_bwd_err, worst)
+        if mod == "mig":
+            giant_args, giant_ghf = args, ghf
+        del hf_1, re_1, rn_1, grads_2, grads_r, grads_k
+
+    # ---- 16. giant encode: Model.forward(g) ----------------------------------
+    giant_levels = dg_ae.num_levels(giant_batch)
+    zero_counts()
+    hs_gi, hf_gi = model(giant_graph)
+    sync()
+    got = read_counts()
+    log(f"[giant-encode] Model.forward(g), {giant_graph.num_nodes} nodes: launches "
+        f"{COUNT_NAMES} = {got}, real levels {giant_levels}")
+    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, giant_levels, 0):
+        raise RuntimeError(f"[giant-encode] launches {got} != struct {2 * ROUNDS} and giant "
+                           f"{giant_levels} alone")
+    want = (giant_graph.num_nodes, DIM)
+    if hs_gi.shape != want or hf_gi.shape != want or not (
+            torch.isfinite(hs_gi).all() and torch.isfinite(hf_gi).all()):
+        raise RuntimeError(f"[giant-encode] shapes {tuple(hs_gi.shape)} {tuple(hf_gi.shape)}, "
+                           f"want {want}, or non-finite rows")
+    hs_c, hf_c = cpu_model(giant_graph)
+    d_hs, d_hf = (hs_gi.cpu() - hs_c).abs().max().item(), (hf_gi.cpu() - hf_c).abs().max().item()
+    nz = int((hf_gi.abs() > 0).any(dim=1).sum())
+    log(f"[giant-encode] card vs CPU (the plain versions): max|dhs|={d_hs:.3e} "
+        f"max|dhf|={d_hf:.3e} (tol {CPU_TOL}); rows with nonzero hf: {nz}")
+    if not (d_hs <= CPU_TOL and d_hf <= CPU_TOL):
+        raise RuntimeError("[giant-encode] card and CPU disagree")
+    del hs_c, hf_c
+
+    # ---- 17. giant training ----------------------------------------------------
+    giant_want = (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, giant_levels, 4 * giant_levels)
+    giant_totals = train_large("giant-train", giant_batch, giant_want, steps=GIANT_STEPS,
+                               lr=GIANT_LR, weights=GIANT_WEIGHTS)
+
+    def one_giant_step(tag, remat=None, force_fused=False):
+        """Forward, losses and backward of the giant batch from fresh params
+        with fixed draws: the gradients, the launch counts and the peak
+        device memory, in all and above what was allocated before."""
+        cfg_x = dataclasses.replace(cfg, remat_struct=remat)
+        p4, s4 = dg_ae.init_params(cfg_x, seed=SEED, device=dev)
+        leaves = train_step_mod.param_leaves(p4)
+        for t in leaves:
+            t.requires_grad_(True)
+        neg, keep = fixed_draws(giant_batch, SEED + 11)
+        neg, keep = tuple(t.to(dev) for t in neg), [k.to(dev) for k in keep]
+        fits = dg_ae.kernel_fits
+        if force_fused:   # the route of kernels 1 and 2, whatever the size
+            dg_ae.kernel_fits = lambda *a: True
+        try:
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            total, _ = train_step_mod.loss_and_metrics(
+                p4, s4, giant_batch, None, GIANT_WEIGHTS, cfg_x, True, neg_edges=neg,
+                drop_keep=keep)
+            total.backward()
+            sync()
+        finally:
+            dg_ae.kernel_fits = fits
+        peak, got = torch.cuda.max_memory_allocated(), read_counts()
+        log(f"[giant-train] one step, {tag}: launches {COUNT_NAMES} = {got}; peak device memory "
+            f"{peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+            f"GiB held before the step")
+        return [None if t.grad is None else t.grad for t in leaves], got, peak - base
+
+    g_plain, got_plain, peak_giant = one_giant_step("giant route")
+    g_remat, got_remat, peak_remat = one_giant_step("giant route, remat_struct=True", remat=True)
+    _, got_fused, peak_fused = one_giant_step("forced to the fused kernels (1 and 2)",
+                                              force_fused=True)
+    if got_plain != giant_want or got_remat != (4 * ROUNDS, *giant_want[1:]):
+        raise RuntimeError(f"[giant-train] launches {got_plain} / with remat {got_remat}: want "
+                           f"{giant_want} and the struct forward doubled")
+    if got_fused != (2 * ROUNDS, 2 * ROUNDS + 2, giant_levels, 2 * giant_levels + 1, 0, 0, 0, 0):
+        raise RuntimeError(f"[giant-train] forced fused route: launches {got_fused}")
+    d_remat = max(0.0 if a is None else (a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+                  for a, c in zip(g_remat, g_plain))
+    log(f"[giant-train] remat_struct=True against False: worst gradient leaf differs by "
+        f"{d_remat:.3e} of its scale; peak above baseline: giant {peak_giant / 2**30:.3f} GiB, "
+        f"giant with remat {peak_remat / 2**30:.3f} GiB, fused kernels {peak_fused / 2**30:.3f} "
+        f"GiB")
+    if not d_remat <= 1e-6:
+        raise RuntimeError(f"[giant-train] remat changes the gradients: {d_remat}")
+    del g_plain, g_remat
+
+    def scan_alone_peak(scan):
+        """Peak device memory, above what is held before, of the level
+        recurrence alone on the giant batch: forward and backward through
+        ``scan``'s autograd Function."""
+        t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS)
+             for i, a in enumerate(giant_args)]
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hf = scan(*t, num_nodes=giant_batch["gate"].shape[0], num_levels=giant_levels)
+        torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], giant_ghf)
+        sync()
+        return torch.cuda.max_memory_allocated() - base
+
+    scan_giant = scan_alone_peak(level_kernel.level_scan_giant)
+    scan_fused = scan_alone_peak(level_scan)
+    # hf, ghf's working copy and d_pack_lv, beside one level's scratch and the weight gradients
+    law = 2 * giant_batch["gate"].shape[0] * DIM * 4 + nbytes(giant_args[0])
+    log(f"[giant-train] level recurrence alone (forward and backward through the autograd "
+        f"Function), peak above what is held before: giant route {scan_giant / 2**20:.1f} MiB "
+        f"(hf + ghf's copy + d_pack_lv = {law / 2**20:.1f} MiB), fused route with residuals "
+        f"{scan_fused / 2**20:.1f} MiB")
+    if not (scan_giant <= 1.25 * law and scan_giant < scan_fused):
+        raise RuntimeError("[giant-train] the giant route's working memory is not O(N D + Ep D)")
+
+    # a plain (unchunked) collate of the 64 circuits fails the fused route's
+    # size gate on N and takes the giant route too
+    plain64 = collate(graphs)
+    p64_levels = dg_ae.num_levels(plain64)
+    zero_counts()
+    _, hf_p64 = model(plain64)
+    sync()
+    got = read_counts()
+    d_hf = (hf_p64[:total_nodes] - hf_g).abs().max().item()
+    log(f"[plain64] collate(graphs): N={plain64['gate'].shape[0]} "
+        f"Ep={plain64['lv_edge_src'].shape[1]} Np={plain64['lv_nodes'].shape[1]}, real levels "
+        f"{p64_levels}; forward launches {COUNT_NAMES} = {got}; max|dhf| against the bs64 encode "
+        f"(fused route, C={C_fit}) = {d_hf:.3e}")
+    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, p64_levels, 0) or not d_hf <= KERNEL_TOL:
+        raise RuntimeError(f"[plain64] launches {got} != giant {p64_levels} alone, or the routes "
+                           f"disagree ({d_hf})")
+    train_large("plain64", plain64, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, p64_levels,
+                                     4 * p64_levels), steps=1)
+
+    # ---- 18. timing (informational) ----------------------------------------------
+    args, ghf, n_lv = giant_args, giant_ghf, giant_levels
+    N = giant_batch["gate"].shape[0]
+    with torch.no_grad():
+        g3 = lambda: level_kernel._giant_forward_cuda(args, N, n_lv)
+        p3 = lambda: level_kernel.level_scan_giant_reference(*args, num_nodes=N, num_levels=n_lv)
+        k1 = lambda: level_kernel._forward_cuda(args, N, n_lv, residuals=False)
+        k1r = lambda: level_kernel._forward_cuda(args, N, n_lv, residuals=True)
+        hf_k, re_1, rn_1 = k1r()
+        g4 = lambda: level_kernel._giant_backward_cuda(ghf, hf_k, args, n_lv)
+        p4 = lambda: level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args,
+                                                                 num_levels=n_lv)
+        k2 = lambda: level_kernel._backward_cuda(ghf, re_1, rn_1, args, n_lv)
+        for f in (g3, p3, k1, g4, p4, k2):
+            f()
+        kr, pr = 10, 2
+        g3_p1, g3_k1, g3_f1 = event_ms(torch, p3, pr), event_ms(torch, g3, kr), event_ms(torch, k1, kr)
+        g3_r1 = event_ms(torch, k1r, kr)
+        g3_r2 = event_ms(torch, k1r, kr)
+        g3_f2, g3_k2, g3_p2 = event_ms(torch, k1, kr), event_ms(torch, g3, kr), event_ms(torch, p3, pr)
+        g4_p1, g4_k1, g4_f1 = event_ms(torch, p4, pr), event_ms(torch, g4, kr), event_ms(torch, k2, kr)
+        g4_f2, g4_k2, g4_p2 = event_ms(torch, k2, kr), event_ms(torch, g4, kr), event_ms(torch, p4, pr)
+    g3_k, g3_p = (g3_k1 + g3_k2) / 2, (g3_p1 + g3_p2) / 2
+    g4_k, g4_p = (g4_k1 + g4_k2) / 2, (g4_p1 + g4_p2) / 2
+    bounds.update(level_scan_giant=level_bound(args, n_lv, N, False),
+                  level_scan_giant_bwd=giant_bwd_bound(args, n_lv, N))
+    del re_1, rn_1
+    with torch.inference_mode():
+        enc = lambda: dg_ae.forward(model.params, giant_batch, cfg)
+        for _ in range(2):
+            enc()
+        genc_s = median_wall(enc, 5, sync)
+    p5, s5 = dg_ae.init_params(cfg, seed=SEED, device=dev)
+    opt5 = train_step_mod.make_optimizer(p5, GIANT_LR)
+    step5, _ = train_step_mod.make_train_step(cfg, opt5)
+    for _ in range(2):
+        step5(p5, s5, giant_batch, gen, GIANT_WEIGHTS)
+    gstep_s = median_wall(lambda: step5(p5, s5, giant_batch, gen, GIANT_WEIGHTS), 5, sync)
+    gstage_ms = staged_ms(p5, s5, opt5, giant_batch, GIANT_WEIGHTS, 1, 5)
+    log(f"[time] card: {card}")
+    log(f"[time] giant level scan alone ({n_lv} levels, N={N} Ep={args[0].shape[1]} "
+        f"Np={args[4].shape[1]}), CUDA events over {kr} calls (plain: {pr}): giant kernel "
+        f"{g3_k1:.4f}/{g3_k2:.4f} ms, plain {g3_p1:.4f}/{g3_p2:.4f} ms, fused kernel without "
+        f"residuals {g3_f1:.4f}/{g3_f2:.4f} ms, with residuals {g3_r1:.4f}/{g3_r2:.4f} ms")
+    log(f"[time] giant level scan backward alone: giant kernel (recomputes) {g4_k1:.4f}/"
+        f"{g4_k2:.4f} ms, plain (recomputes) {g4_p1:.4f}/{g4_p2:.4f} ms, fused backward from "
+        f"saved residuals {g4_f1:.4f}/{g4_f2:.4f} ms")
+    profile_train(torch, lambda: step5(p5, s5, giant_batch, gen, GIANT_WEIGHTS), card,
+                  f"giant MIG train step (N={N})", steps=3, rows=16)
+    log(f"[time] giant MIG encode (host batch -> hs, hf on card), median of 5: "
+        f"{genc_s * 1e3:.3f} ms; giant MIG train step (host batch -> Adam update, synchronised), "
+        f"median of 5: {gstep_s * 1e3:.3f} ms; stages: " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in gstage_ms.items()))
+
     def entry(name, source, replaces, launches, err, ms, plain_ms):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
@@ -989,6 +1303,11 @@ def main() -> int:
               sr_k, sr_p),
         entry("level_step_bwd", "level_step_bwd.cu", "level_kernel.py:1706", step_totals[5],
               step_bwd_err, sb_k, sb_p),
+        # the giant route's training path (phases 15, 17, 18)
+        entry("level_scan_giant", "level_scan_giant.cu", "level_kernel.py:911", giant_totals[6],
+              giant_err, g3_k, g3_p),
+        entry("level_scan_giant_bwd", "level_scan_giant_bwd.cu", "level_kernel.py:1195",
+              giant_totals[7], giant_bwd_err, g4_k, g4_p),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,37 +47,6 @@
 
 #include "level_slot_bwd.cuh"
 
-namespace {
-
-// Phase A, first launch of a level: one block per destination slot.
-__global__ void __launch_bounds__(kMaxDim) level_bwd_slot_kernel(
-    const float* __restrict__ ghf,     // [N, D] cotangent of hf (this level's nodes read)
-    const float* __restrict__ res_e,   // [Ep, 3D+1] hf_src | khf | v | attn
-    const float* __restrict__ res_n,   // [Np, 4D] msg | r | z | nw
-    const int* __restrict__ dslot,     // [Ep]
-    const int* __restrict__ evalid,    // [Ep]
-    const int* __restrict__ nodes,     // [Np]
-    const int* __restrict__ upd,       // [Np]
-    const int* __restrict__ e_n,       // [Np]
-    const float* __restrict__ wkv_hf,  // [D, 2TD]
-    const float* __restrict__ w_ih,    // [D, 3TD]
-    const float* __restrict__ b_hh,    // [T, 3D]
-    const float* __restrict__ wa_k,    // [T, D]
-    float* __restrict__ d_pack,        // [Ep, D+2]: dv | dscore written
-    float* __restrict__ dkv,           // [Ep, 2D]: dk | dv, for phase B
-    float* __restrict__ dg,            // [Np, 6D]: dgi | dbh, for phase B
-    float* __restrict__ dhf_buf,       // [Ep, D]: dhf_src, for the source sums
-    float* dattn_buf,                  // [Ep] scratch
-    int ep, int dim, int num_experts) {
-  const int slot = blockIdx.x;
-  if (upd[slot] == 0) return;  // block-uniform, before any barrier
-  level_slot_backward(ghf + (size_t)nodes[slot] * dim, res_e, res_n, dslot, evalid, slot,
-                      e_n[slot], wkv_hf, w_ih, b_hh, wa_k, d_pack, dkv, dg, dhf_buf, dattn_buf,
-                      ep, dim, num_experts);
-}
-
-}  // namespace
-
 extern "C" {
 
 // Backward of mgvae_level_scan_forward over levels [0, num_levels), on
@@ -118,7 +87,7 @@ int mgvae_level_scan_backward(
   }
   return static_cast<int>(launch_weight_grads(
       res_e, res_n, d_pack, dkv, dg, lv_dslot, lv_e_n, d_wkv, d_wih, d_bih, d_bhh, d_wak,
-      num_levels, ep, np, D, T, s));
+      num_levels, ep, np, D, T, false, s));
 }
 
 }  // extern "C"

@@ -14,8 +14,10 @@ namespace {
 // feature d; blockDim = D rounded up to a warp), with `e` the slot's expert.
 // Reads the sources' rows from `hf` and writes the slot's new row to
 // `out_row` [D]; `hf` and `out_row` may lie in one array (the fused scan
-// writes a row of a higher level than any it reads). With res_e / res_n
-// given it also writes the slot's residual rows (see level_scan.cu).
+// writes a row of a higher level than any it reads); a null `out_row` drops
+// the row (the giant backward recomputes a level for its residuals only,
+// level_scan_giant_bwd.cu). With res_e / res_n given it also writes the
+// slot's residual rows (see level_scan.cu).
 __device__ __forceinline__ void level_slot_forward(
     const float* __restrict__ pack,    // [Ep, D+2]: [vhs | score_static | expert]
     const int* __restrict__ src,       // [Ep] source node of each in-edge
@@ -28,7 +30,7 @@ __device__ __forceinline__ void level_slot_forward(
     const float* __restrict__ b_hh,    // [T, 3D]
     const float* __restrict__ wa_k,    // [T, D]
     const float* hf,                   // [N, D]
-    float* out_row,                    // [D]
+    float* out_row,                    // [D] or null
     float* __restrict__ score_buf,     // [Ep] scratch
     float* __restrict__ v_buf,         // [Ep, D] scratch
     float* __restrict__ res_e,         // [Ep, 3D+1] or null
@@ -115,7 +117,7 @@ __device__ __forceinline__ void level_slot_forward(
     const float r = 1.f / (1.f + expf(-(gr + bi[d] + bh[d])));
     const float z = 1.f / (1.f + expf(-(gz + bi[D + d] + bh[D + d])));
     const float n = tanhf(gn + bi[2 * D + d] + r * bh[2 * D + d]);
-    out_row[d] = (1.f - z) * n;
+    if (out_row) out_row[d] = (1.f - z) * n;
     if (res_n) {
       float* rn = res_n + (size_t)slot * 4 * D;
       rn[d] = msg;

@@ -5,7 +5,9 @@
 // kernel that runs over saved rows. The two backwards differ in where a
 // slot's cotangent comes from (a row of the carried ghf, or the step's own
 // g [Np, D]) and in where the sources' gradients go (added into the carried
-// ghf, or into a zeroed d_hf).
+// ghf, or into a zeroed d_hf). The giant backward (level_scan_giant_bwd.cu)
+// uses the same three on one level's recomputed rows at a time and adds each
+// level's weight gradients into its outputs.
 #pragma once
 
 #include "level_common.cuh"
@@ -120,6 +122,35 @@ __device__ __forceinline__ void level_slot_backward(
   });
 }
 
+// The reverse sweep's first launch of a level, for a backward that carries
+// ghf (the fused scan's and the giant's): one block per destination slot, its
+// cotangent the row of ghf at the slot's node.
+__global__ void __launch_bounds__(kMaxDim) level_bwd_slot_kernel(
+    const float* __restrict__ ghf,     // [N, D] cotangent of hf (this level's nodes read)
+    const float* __restrict__ res_e,   // [Ep, 3D+1] hf_src | khf | v | attn
+    const float* __restrict__ res_n,   // [Np, 4D] msg | r | z | nw
+    const int* __restrict__ dslot,     // [Ep]
+    const int* __restrict__ evalid,    // [Ep]
+    const int* __restrict__ nodes,     // [Np]
+    const int* __restrict__ upd,       // [Np]
+    const int* __restrict__ e_n,       // [Np]
+    const float* __restrict__ wkv_hf,  // [D, 2TD]
+    const float* __restrict__ w_ih,    // [D, 3TD]
+    const float* __restrict__ b_hh,    // [T, 3D]
+    const float* __restrict__ wa_k,    // [T, D]
+    float* __restrict__ d_pack,        // [Ep, D+2]: dv | dscore written
+    float* __restrict__ dkv,           // [Ep, 2D]: dk | dv, for the weight gradients
+    float* __restrict__ dg,            // [Np, 6D]: dgi | dbh, for the weight gradients
+    float* __restrict__ dhf_buf,       // [Ep, D]: dhf_src, for the source sums
+    float* dattn_buf,                  // [Ep] scratch
+    int ep, int dim, int num_experts) {
+  const int slot = blockIdx.x;
+  if (upd[slot] == 0) return;  // block-uniform, before any barrier
+  level_slot_backward(ghf + (size_t)nodes[slot] * dim, res_e, res_n, dslot, evalid, slot,
+                      e_n[slot], wkv_hf, w_ih, b_hh, wa_k, d_pack, dkv, dg, dhf_buf, dattn_buf,
+                      ep, dim, num_experts);
+}
+
 // ghf[src] += a level's dhf_src rows. Several slots of a level can share a
 // source, so one block per edge row, of which only the first live row of
 // each distinct source works: it sums all live rows of that source in row
@@ -165,6 +196,7 @@ struct ExpertGemms {
   ExpertGemm g[kMaxGemms];
   const int* e_n;        // [L, Np]
   int count, ep, np, num_experts;
+  int accumulate;        // 0: out = the sum; else out += the sum
 };
 
 constexpr int kTileI = 8, kTileC = 32, kChunk = 64;
@@ -212,8 +244,9 @@ __global__ void __launch_bounds__(kTileI * kTileC) expert_gemm_kernel(const Expe
   }
   const int i = i0 + ti, c = c0 + tc;
   if (i < g.wa && c < g.wb) {
-    g.out[(size_t)i * g.ldo + (size_t)(c / g.seg) * p.num_experts * g.seg +
-          (size_t)e * g.seg + c % g.seg] = acc;
+    float* o = g.out + (size_t)i * g.ldo + (size_t)(c / g.seg) * p.num_experts * g.seg +
+               (size_t)e * g.seg + c % g.seg;
+    *o = p.accumulate ? *o + acc : acc;
   }
 }
 
@@ -232,18 +265,21 @@ ExpertGemm gemm(const float* a, int lda, int wa, const float* b, int ldb, int wb
 // The five weight gradients over `levels` saved levels of the sweep, in one
 // launch: each block owns one (product, expert, output tile) and reduces
 // over all saved rows in a fixed order, masking rows of other experts. No
-// atomics, deterministic. The gradients are written whole.
+// atomics, deterministic. The gradients are written whole, or with
+// `accumulate` added into what the outputs hold: every entry belongs to one
+// thread of one block, so calls on one stream add in call order.
 cudaError_t launch_weight_grads(
     const float* res_e, const float* res_n, const float* d_pack, const float* dkv,
     const float* dg, const int* lv_dslot, const int* lv_e_n,
     float* d_wkv, float* d_wih, float* d_bih, float* d_bhh, float* d_wak,
-    int levels, int ep, int np, int D, int T, cudaStream_t s) {
+    int levels, int ep, int np, int D, int T, bool accumulate, cudaStream_t s) {
   const int erows = levels * ep, nrows = levels * np;
   ExpertGemms p{};
   p.e_n = lv_e_n;
   p.ep = ep;
   p.np = np;
   p.num_experts = T;
+  p.accumulate = accumulate ? 1 : 0;
   // d_wkv[:, k | v block of expert e] = hf_src^T (dk | dv)
   p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, lv_dslot, erows, d_wkv, 2 * T * D, D);
   // d_wak[e] = sum dscore * khf

@@ -88,7 +88,7 @@ int mgvae_level_step_backward(
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_weight_grads(
       res_e, res_n, d_pack, dkv, dg, dslot, e_n, d_wkv, d_wih, d_bih, d_bhh, d_wak,
-      1, ep, np, dim, num_experts, s));
+      1, ep, np, dim, num_experts, false, s));
 }
 
 }  // extern "C"

@@ -16,18 +16,32 @@ The forward:
      runs), packed per edge as [vhs | score_static | expert].
   3. The level recurrence over DAG depth (``level_recurrence``), by the
      route the batch's shapes select, as ``_level_scan_pallas`` does in the
-     JAX package: the fused ``ops.level_kernel.level_scan`` for a plain
-     batch and, chunk by chunk, for a chunked batch whose chunks pass
-     ``kernel_fits``; else ``level_scan_step``, one
-     ``ops.level_kernel.level_step`` per (chunk, level). Both are the CUDA
-     kernels on the card and their plain versions on the CPU, and autograd
-     differentiates both, so the forward trains (``train/step.py``).
+     JAX package (``mgvae_tpu/models/dg_ae.py:600-620``). A plain batch
+     (C == 1) that passes ``kernel_fits`` (N <= 8192, Ep and Np <= 512)
+     takes the fused ``ops.level_kernel.level_scan``; one that fails it, a
+     giant single graph or any large unchunked batch, takes
+     ``ops.level_kernel.level_scan_giant``, which keeps no residuals and
+     recomputes from hf in the backward, while ``kernel_fits_hbm`` holds
+     (``kernel_fits_hbm_bwd`` when gradients are needed, the trainer's gate,
+     ``mgvae_tpu/train/step.py:47-82``); past those gates, where the JAX
+     package leaves its kernels, the fused scan again. A chunked batch takes
+     the fused scan chunk by chunk where its chunks pass ``kernel_fits``;
+     else ``level_scan_step``, one ``ops.level_kernel.level_step`` per
+     (chunk, level). All are the CUDA kernels on the card and their plain
+     versions on the CPU, and autograd differentiates all, so the forward
+     trains (``train/step.py``).
 
 Batches larger than one bucket come chunked (``data.batching.collate_chunked``
 / ``collate_fit``: [C, L] level tables with chunk-local node ids) or split
 (``collate_split``: ``batch["groups"]``, each group a plain batch with its
 own dims that runs the whole forward; hs and hf are concatenated in group
 order, the layout the batch's top-level loss arrays index).
+
+Past ``REMAT_STRUCT_NODES`` nodes the struct towers are rematerialised in the
+backward (``DGConfig.remat_struct``, ``struct_hs``): their residuals
+[2R, 2, N, 7D], the largest arrays of a giant graph's step, are then not held
+from the forward to the struct backward. The struct backward itself still
+holds them beside its own scratch, and that moment is the step's peak.
 
 Parity mode is full fp32: set ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False on the card (``api.Model``
@@ -42,10 +56,12 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.graph import MODALITY_GATES, NUM_GATE_TYPES
 from ..ops.init import gru_cell_init, linear_apply, linear_init
-from ..ops.level_kernel import kernel_fits, level_scan, level_step, select_expert
+from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, kernel_fits_hbm, kernel_fits_hbm_bwd,
+                                level_scan, level_scan_giant, level_step, select_expert)
 from ..ops.mlp import mlp_init
 from .encoder import direct_multigcn_apply, direct_multigcn_init
 
@@ -61,6 +77,11 @@ class DGConfig:
     num_rounds: int = 1
     input_quirk: bool = True
     variational: bool = False
+    # Recompute the struct towers in the backward instead of keeping their
+    # residuals [2R, 2, N, 7D] (3.3 GB at N = 114,688, D = 64, 4 rounds) from
+    # the forward on. None: on when the batch has more than
+    # REMAT_STRUCT_NODES nodes.
+    remat_struct: bool | None = None
     dim_mlp: int = 32
     compute_dtype: str = "float32"
     # mask sampled negatives that hit a real edge (train/losses.recon_loss)
@@ -80,6 +101,12 @@ class DGConfig:
         for i, g in enumerate(self.gate_types):
             table[g] = i
         return torch.tensor(table, dtype=torch.int64, device=device)
+
+
+# The node count past which ``remat_struct=None`` turns the remat on: the JAX
+# package's threshold (``mgvae_tpu/models/dg_ae.py:304-313``), here a plain
+# constant.
+REMAT_STRUCT_NODES = 131_072
 
 
 def check_supported(cfg: DGConfig) -> None:
@@ -197,11 +224,29 @@ def level_counts(batch: dict) -> tuple:
     return tuple(int(x) for x in deepest)
 
 
+def remat_struct(cfg: DGConfig, num_nodes: int) -> bool:
+    """Whether the struct towers of a batch of ``num_nodes`` (padded) nodes
+    are rematerialised in the backward."""
+    if cfg.remat_struct is None:
+        return num_nodes > REMAT_STRUCT_NODES
+    return cfg.remat_struct
+
+
 def struct_hs(params, b: dict, cfg: DGConfig) -> torch.Tensor:
-    """hs [N, D] of a device batch."""
+    """hs [N, D] of a device batch. With ``remat_struct`` and grad enabled
+    the towers run under ``torch.utils.checkpoint``: the backward runs them
+    a second time, in place of keeping their residuals. The struct kernels
+    sum in a fixed order, so the second run equals the first bit for bit."""
     x_feat = struct_input(b["gate"], cfg)
-    s, t = direct_multigcn_apply(params["struct"], x_feat, b, cfg.s_rounds, cfg.t_rounds,
-                                 cfg.layernorm)
+
+    def towers(struct_params):
+        return direct_multigcn_apply(struct_params, x_feat, b, cfg.s_rounds, cfg.t_rounds,
+                                     cfg.layernorm)
+
+    if remat_struct(cfg, x_feat.shape[0]) and torch.is_grad_enabled():
+        s, t = checkpoint(towers, params["struct"], use_reentrant=False)
+    else:
+        s, t = towers(params["struct"])
     return linear_apply(params["hs_linear"], torch.cat([s, t], dim=-1))
 
 
@@ -277,9 +322,17 @@ def step_kernel_fits(n_sub: int, ep: int, np_: int, dim: int) -> bool:
 def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tensor:
     """hf [num_nodes, D] from ``level_scan_inputs``' arguments and the real
     level count of each chunk, by the route the shapes select, as the JAX
-    package's ``_level_scan_pallas`` does:
+    package's ``_level_scan_pallas`` does (``mgvae_tpu/models/dg_ae.py:600-620``):
 
-      * one chunk: the fused scan;
+      * one chunk that passes ``kernel_fits``: the fused scan
+        (``dg_ae.py:600-602``);
+      * one chunk that fails it and passes ``kernel_fits_hbm``: the giant
+        scan ``level_scan_giant`` (``dg_ae.py:605-610``). When gradients are
+        needed the gate is ``kernel_fits_hbm_bwd``, as in the JAX trainer's
+        ``_auto_pallas`` (``mgvae_tpu/train/step.py:80-82``), which leaves
+        the kernel route past it;
+      * one chunk that fails those gates, where the JAX package falls back
+        to its XLA scan: the fused scan, which takes any Ep and Np;
       * C chunks that pass ``kernel_fits``: the fused scan per chunk (they
         are independent sub-batches with chunk-local ids) on its own rows of
         the tables and its own real levels, concatenated;
@@ -289,11 +342,16 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
         scan: the fused scan per chunk, which takes any Ep and Np.
     """
     C = len(n_levels)
-    if C == 1:
-        return level_scan(*args, num_nodes=num_nodes, num_levels=n_levels[0])
     pack_lv, lv_nodes = args[0], args[4]
     n_sub, L = num_nodes // C, pack_lv.shape[0] // C
     ep, np_, D = pack_lv.shape[1], lv_nodes.shape[1], pack_lv.shape[2] - 2
+    if C == 1:
+        training = torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS)
+        giant_fits = kernel_fits_hbm_bwd if training else kernel_fits_hbm
+        scan = level_scan
+        if not kernel_fits(n_sub, ep, np_, D) and giant_fits(n_sub, ep, np_, D):
+            scan = level_scan_giant
+        return scan(*args, num_nodes=num_nodes, num_levels=n_levels[0])
     if not kernel_fits(n_sub, ep, np_, D) and step_kernel_fits(n_sub, ep, np_, D):
         return level_scan_step(args, n_levels, n_sub)
     return torch.cat([

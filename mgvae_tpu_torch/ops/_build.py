@@ -112,6 +112,12 @@ def library() -> ctypes.CDLL:
     fn = lib.mgvae_level_scan_backward
     fn.argtypes = [p] * 23 + [i] * 5 + [p]
     fn.restype = i
+    fn = lib.mgvae_level_scan_giant_forward
+    fn.argtypes = [p] * 15 + [i] * 5 + [p]
+    fn.restype = i
+    fn = lib.mgvae_level_scan_giant_backward
+    fn.argtypes = [p] * 28 + [i] * 5 + [p]
+    fn.restype = i
     fn = lib.mgvae_level_step_forward
     fn.argtypes = [p] * 17 + [i] * 4 + [p]
     fn.restype = i

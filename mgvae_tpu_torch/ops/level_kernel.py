@@ -1,7 +1,7 @@
 """The level recurrence, forward and backward: the CUDA kernels' wrappers
 and their plain PyTorch versions.
 
-Counterpart of ``mgvae_tpu/ops/pallas/level_kernel.py`` in fp32, in two
+Counterpart of ``mgvae_tpu/ops/pallas/level_kernel.py`` in fp32, in three
 forms that share one level's arithmetic:
 
   * the fused scan over all levels of one (sub-)batch, hf kept inside:
@@ -14,31 +14,46 @@ forms that share one level's arithmetic:
     ``level_step_bwd_call`` is ``csrc/level_step_bwd.cu``, and the custom VJP
     ``pallas_level_step`` is the autograd Function behind ``level_step``. It
     returns the level's new rows h_new [Np, D] unscattered; the caller
-    (``models/dg_ae.level_scan_step``) writes them into hf between calls.
+    (``models/dg_ae.level_scan_step``) writes them into hf between calls;
+  * the scan of one batch of any size that keeps no residuals, for giant
+    single graphs and every plain batch too large for the fused route's size
+    gate: ``fused_level_scan_hbm`` is ``csrc/level_scan_giant.cu``,
+    ``fused_level_scan_hbm_bwd`` is ``csrc/level_scan_giant_bwd.cu``, and the
+    custom VJP ``pallas_level_scan_hbm`` is the autograd Function behind
+    ``level_scan_giant``. Its forward saves hf alone and its backward
+    recomputes each level's intermediates from it, so training needs
+    O(N * D + Ep * D) working memory where the fused route's residuals need
+    O(L * Ep * D).
 
-Dispatch of ``level_scan`` and ``level_step``, with no hidden fallback:
+Dispatch of ``level_scan``, ``level_step`` and ``level_scan_giant``, with no
+hidden fallback:
   * CUDA tensors: the forward kernel or raise. When grad is enabled and a
     float input requires grad it goes through the autograd Function: the
-    forward kernel also writes the residuals, and the backward launches the
-    backward kernels. Otherwise (serving) it takes the launch without
-    residuals.
+    forward kernel also writes the residuals (the giant route has none: it
+    saves hf), and the backward launches the backward kernels. Otherwise
+    (serving) it takes the launch without residuals.
   * CPU tensors: the plain version; autograd differentiates it.
 
 ``level_scan_reference`` / ``level_step_reference`` (``with_residuals=True``
 for the training forward) and ``level_scan_bwd_reference`` /
-``level_step_bwd_reference`` are the plain versions of the four kernels that
-the tests and ``chip_smoke.py`` hold them against; ``_forward_cuda``,
-``_backward_cuda``, ``_step_forward_cuda`` and ``_step_backward_cuda`` are
-the kernels' wrappers (CUDA tensors only, arguments as the public functions
-check them).
+``level_step_bwd_reference`` are the plain versions of the first four
+kernels, ``level_scan_giant_reference`` (hf only) and
+``level_scan_giant_bwd_reference`` (which recomputes from hf, as its kernel
+does) those of the giant route's, that the tests and ``chip_smoke.py`` hold
+them against; ``_forward_cuda``, ``_backward_cuda``, ``_step_forward_cuda``,
+``_step_backward_cuda``, ``_giant_forward_cuda`` and ``_giant_backward_cuda``
+are the kernels' wrappers (CUDA tensors only, arguments as the public
+functions check them).
 
 Launch counts, so that a run can show that it went through the kernels by
 setting them to 0 and reading them afterwards: ``launches`` (the fused
 forward: one per level), ``bwd_launches`` (the fused backward: a slot and a
 source kernel per level, then one weight-gradient kernel per call),
-``step_launches`` (one per ``level_step`` call) and ``step_bwd_launches``
+``step_launches`` (one per ``level_step`` call), ``step_bwd_launches``
 (three per backward of a ``level_step`` call: slots, sources, weight
-gradients).
+gradients), ``giant_launches`` (the giant forward: one per level) and
+``giant_bwd_launches`` (the giant backward: four per level: recompute,
+slots, sources, the level's weight gradients).
 
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
 hf_src | khf | v | attn per edge, res_n [L, Np, 4D] = msg | r | z | nw per
@@ -60,6 +75,8 @@ launches = 0
 bwd_launches = 0
 step_launches = 0
 step_bwd_launches = 0
+giant_launches = 0
+giant_bwd_launches = 0
 
 # Size gate of the fused route for a chunk of a chunked batch, copied from the
 # JAX package (``level_kernel.py:145-158``), where it is the TPU kernel's VMEM
@@ -76,7 +93,22 @@ def kernel_fits(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
             and np_ <= KERNEL_MAX_NP and dim <= 128)
 
 
-# positions of the float (differentiable) arguments among level_scan's 12:
+# Size gates of the giant route for an unchunked batch that fails
+# ``kernel_fits``, forward and with its backward, copied from the JAX package
+# (``level_kernel.py:851, 1189``: the VMEM gates of its HBM-streamed
+# kernels). The CUDA kernels have no such limit either: shape arithmetic,
+# kept so that ``models/dg_ae.level_recurrence`` routes alike in both
+# packages.
+def kernel_fits_hbm(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
+    return ep <= 4096 and np_ <= 2048 and dim <= 128
+
+
+def kernel_fits_hbm_bwd(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
+    return ep <= 2048 and np_ <= 1024 and dim <= 128
+
+
+# positions of the float (differentiable) arguments among level_scan's (and
+# level_scan_giant's) 12:
 # pack_lv, wkv_hf, w_ih, b_ih, b_hh, wa_k
 FLOAT_ARGS = (0, 7, 8, 9, 10, 11)
 # and among level_step's 12: hf, pack, wkv_hf, w_ih, b_ih, b_hh, wa_k
@@ -204,25 +236,63 @@ def level_scan_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
     return hf
 
 
-def level_scan_bwd_reference(ghf, res_e, res_n, pack_lv, lv_src, lv_dslot, lv_evalid,
-                             lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k,
-                             num_levels: int):
-    """The fused backward's math: a reverse sweep over the saved residuals
-    with hf's cotangent ``ghf`` [N, D] carried back to the sources. Returns
-    (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh, d_wak); the pack's
-    expert column gets no gradient."""
+def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
+                   lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels: int):
+    """The reverse sweep over levels with hf's cotangent ``ghf`` [N, D]
+    carried back to the sources; ``residuals_of(lv)`` gives level lv's
+    (res_e, res_n). Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih,
+    d_bhh, d_wak); the pack's expert column gets no gradient."""
     ghf = ghf.detach().clone()
     d_pack = torch.zeros_like(pack_lv)
     sums = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
     for lv in reversed(range(num_levels)):
         g = torch.where((lv_upd[lv] > 0)[:, None], ghf[lv_nodes[lv].long()], 0.0)
         d_pack[lv], *grads, dhf_src = _level_backward(
-            g, res_e[lv], res_n[lv], pack_lv[lv], lv_dslot[lv].long(),
+            g, *residuals_of(lv), pack_lv[lv], lv_dslot[lv].long(),
             (lv_evalid[lv] > 0).to(ghf.dtype), lv_e_n[lv].long(), wkv_hf, w_ih, b_hh, wa_k)
         for acc, x in zip(sums, grads):
             acc += x
         ghf.index_add_(0, lv_src[lv].long(), dhf_src)
     return (d_pack, *sums)
+
+
+def level_scan_bwd_reference(ghf, res_e, res_n, pack_lv, lv_src, lv_dslot, lv_evalid,
+                             lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k,
+                             num_levels: int):
+    """The fused backward's math: the reverse sweep over the saved
+    residuals. Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh,
+    d_wak)."""
+    return _reverse_sweep(ghf, lambda lv: (res_e[lv], res_n[lv]), pack_lv, lv_src, lv_dslot,
+                          lv_evalid, lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k,
+                          num_levels)
+
+
+def level_scan_giant_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                               wkv_hf, w_ih, b_ih, b_hh, wa_k, num_nodes: int,
+                               num_levels: int) -> torch.Tensor:
+    """The giant forward's math: hf [N, D] and nothing else. The same eager
+    loop as ``level_scan_reference``; autograd differentiates it."""
+    return level_scan_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                                wkv_hf, w_ih, b_ih, b_hh, wa_k, num_nodes, num_levels)
+
+
+def level_scan_giant_bwd_reference(ghf, hf, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes,
+                                   lv_upd, lv_e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k,
+                                   num_levels: int):
+    """The giant backward's math: the reverse sweep with each level's
+    residuals recomputed from the forward's final hf [N, D] (exact: a
+    level's sources all lie at lower levels, and with one round their rows
+    are final before it runs). Returns (d_pack [L, Ep, D+2], d_wkv, d_wih,
+    d_bih, d_bhh, d_wak)."""
+    def recompute(lv):
+        with torch.no_grad():
+            _, res_e, res_n = _level_forward(
+                hf, pack_lv[lv], lv_src[lv].long(), lv_dslot[lv].long(), lv_evalid[lv] > 0,
+                lv_upd[lv] > 0, lv_e_n[lv].long(), wkv_hf, w_ih, b_ih, b_hh, wa_k, True)
+        return res_e, res_n
+
+    return _reverse_sweep(ghf, recompute, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes,
+                          lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels)
 
 
 def level_step_reference(hf, pack, src, dslot, evalid, upd, e_n,
@@ -364,6 +434,102 @@ def _backward_cuda(ghf, res_e, res_n, args, num_levels: int):
     return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak
 
 
+def level_scan_giant(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                     wkv_hf, w_ih, b_ih, b_hh, wa_k, num_nodes: int,
+                     num_levels: int) -> torch.Tensor:
+    """Level recurrence over levels [0, num_levels) of one batch's tables at
+    any size, keeping no residuals: arguments and result as ``level_scan``'s.
+    Training saves hf alone; the backward recomputes each level from it."""
+    args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+            wkv_hf, w_ih, b_ih, b_hh, wa_k)
+    _check(args, num_nodes, num_levels, op="level_scan_giant")
+    dev = pack_lv.device
+    if dev.type == "cpu":
+        return level_scan_giant_reference(*args, num_nodes, num_levels)
+    if dev.type != "cuda":
+        raise ValueError(f"level_scan_giant: no kernel for device {dev}")
+    if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
+        return _LevelScanGiant.apply(num_nodes, num_levels, *args)
+    return _giant_forward_cuda(args, num_nodes, num_levels)
+
+
+class _LevelScanGiant(torch.autograd.Function):
+    """CUDA only: the giant forward kernel, which saves its result hf and no
+    residuals, and the giant backward kernels, which recompute from it.
+    Counterpart of the JAX package's custom VJP ``pallas_level_scan_hbm``."""
+
+    @staticmethod
+    def forward(ctx, num_nodes, num_levels, *args):
+        hf = _giant_forward_cuda(args, num_nodes, num_levels)
+        ctx.num_levels = num_levels
+        ctx.save_for_backward(*args, hf)
+        return hf
+
+    @staticmethod
+    def backward(ctx, ghf):
+        *args, hf = ctx.saved_tensors
+        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _giant_backward_cuda(
+            ghf, hf, tuple(args), ctx.num_levels)
+        # (num_nodes, num_levels, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+        return (None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
+
+
+def _giant_forward_cuda(args, num_nodes: int, num_levels: int) -> torch.Tensor:
+    global giant_launches
+    pack_lv, lv_nodes, wa_k = args[0], args[4], args[11]
+    ep, np_ = pack_lv.shape[1], lv_nodes.shape[1]
+    D, T = _kernel_dims(pack_lv, wa_k)
+    dev = pack_lv.device
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    hf = torch.zeros((num_nodes, D), **f32)
+    score_buf = torch.empty((ep,), **f32)
+    v_buf = torch.empty((ep, D), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_scan_giant_forward(
+            *(t.data_ptr() for t in args), hf.data_ptr(), score_buf.data_ptr(),
+            v_buf.data_ptr(), num_levels, ep, np_, D, T, stream)
+    _build.check(lib, code, "level_scan_giant kernel launch")
+    giant_launches += num_levels
+    return hf
+
+
+def _giant_backward_cuda(ghf, hf, args, num_levels: int):
+    """Apart from its outputs (d_pack_lv is the only float buffer with a
+    leading L axis) the working memory is ghf's copy and one level's
+    scratch."""
+    global giant_bwd_launches
+    pack_lv, lv_nodes, wkv_hf, w_ih, b_hh, wa_k = (args[i] for i in (0, 4, 7, 8, 10, 11))
+    ep, np_ = pack_lv.shape[1], lv_nodes.shape[1]
+    D, T = _kernel_dims(pack_lv, wa_k)
+    dev = pack_lv.device
+    lib = _build.library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    # a contiguous working copy: autograd may hand over an expanded or shared
+    # cotangent, and the kernel adds the sources' gradients into it
+    g = torch.empty((hf.shape[0], D), **f32)
+    g.copy_(ghf)
+    d_pack = torch.zeros_like(pack_lv)
+    # one level's recomputed residuals; rows a level does not write are only
+    # ever multiplied by zeroed rows, so they are zeroed once
+    res_e = torch.zeros((ep, 3 * D + 1), **f32)
+    res_n = torch.zeros((np_, 4 * D), **f32)
+    scratch = [torch.empty(shape, **f32) for shape in (
+        (ep, 2 * D), (np_, 6 * D),              # dkv, dg: zeroed before each level by the callee
+        (ep,), (ep, D), (ep, D), (ep,))]        # score_buf, v_buf, dhf_buf, dattn_buf
+    # the weight gradients are added into, level by level
+    grads = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_scan_giant_backward(
+            *(t.data_ptr() for t in (g, hf, *args, d_pack, res_e, res_n, *scratch, *grads)),
+            num_levels, ep, np_, D, T, stream)
+    _build.check(lib, code, "level_scan_giant_bwd kernel launch")
+    giant_bwd_launches += 4 * num_levels
+    return (d_pack, *grads)
+
+
 def level_step(hf, pack, src, dslot, evalid, upd, e_n,
                wkv_hf, w_ih, b_ih, b_hh, wa_k) -> torch.Tensor:
     """One level from an explicit hf.
@@ -493,15 +659,15 @@ def _check_step(args) -> None:
     _check_tensors("level_step", names, args, want, pack.device)
 
 
-def _check(args, num_nodes: int, num_levels: int) -> None:
-    """Device, dtype, shape and contiguity checks of ``level_scan``'s
-    arguments, for both routes."""
+def _check(args, num_nodes: int, num_levels: int, op: str = "level_scan") -> None:
+    """Device, dtype, shape and contiguity checks of ``level_scan``'s (and
+    ``level_scan_giant``'s) arguments, for both routes."""
     (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
      wkv_hf, w_ih, b_ih, b_hh, wa_k) = args
     names = ("pack_lv", "lv_src", "lv_dslot", "lv_evalid", "lv_nodes", "lv_upd",
              "lv_e_n", "wkv_hf", "w_ih", "b_ih", "b_hh", "wa_k")
     if pack_lv.dim() != 3 or pack_lv.shape[2] < 3:
-        raise ValueError(f"level_scan: pack_lv must be [L, Ep, D+2], got {tuple(pack_lv.shape)}")
+        raise ValueError(f"{op}: pack_lv must be [L, Ep, D+2], got {tuple(pack_lv.shape)}")
     L, ep, pw = pack_lv.shape
     np_ = lv_nodes.shape[-1]
     D, T = pw - 2, wa_k.shape[0]
@@ -515,11 +681,11 @@ def _check(args, num_nodes: int, num_levels: int) -> None:
         "b_ih": ((T, 3 * D), torch.float32), "b_hh": ((T, 3 * D), torch.float32),
         "wa_k": ((T, D), torch.float32),
     }
-    _check_tensors("level_scan", names, args, [want[n] for n in names], pack_lv.device)
+    _check_tensors(op, names, args, [want[n] for n in names], pack_lv.device)
     if not 0 <= num_levels <= L:
-        raise ValueError(f"level_scan: num_levels {num_levels} outside [0, {L}]")
+        raise ValueError(f"{op}: num_levels {num_levels} outside [0, {L}]")
     if num_nodes < 1 or ep < 1 or np_ < 1:
-        raise ValueError("level_scan: empty node or level tables")
+        raise ValueError(f"{op}: empty node or level tables")
 
 
 def _check_tensors(op: str, names, tensors, want, device) -> None:

@@ -4,11 +4,14 @@ with the same step on the CPU. Marked ``cuda``; without a card these tests
 skip. On a machine with one:
 python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from mgvae_tpu_torch import Model, collate, collate_chunked, collate_split, random_circuit
+from mgvae_tpu_torch import (Model, collate, collate_chunked, collate_split, layered_circuit,
+                             random_circuit)
 from mgvae_tpu_torch.models import dg_ae
 from mgvae_tpu_torch.ops import level_kernel, struct_kernel
 from mgvae_tpu_torch.train import step
@@ -236,13 +239,102 @@ def test_step_kernels_match_plain_versions_on_card(cuda, modality, dim):
         torch.testing.assert_close(a, k, rtol=0, atol=0)
 
 
-def _one_step(cfg, batch, dev, neg, keep, seed=4):
+@pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
+def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
+    """Kernels 3 and 4 on a small layered circuit whose shape takes the giant
+    route (N > 8192): forward against the plain scan, backward (recomputed
+    from hf) against the plain recompute and against the residual route's
+    kernel, twice for bitwise repeatability, and through autograd."""
+    cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=1, t_rounds=1,
+                         layernorm=True)
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(5)
+    batch = collate([layered_circuit(rng, modality, width=96, depth=90, num_tt_pairs=16)])
+    b = dg_ae.batch_to_device(batch, cuda)
+    n_lv = dg_ae.num_levels(batch)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = [a.detach().clone() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
+    N, L = hs.shape[0], args[0].shape[0]
+    assert not level_kernel.kernel_fits(N, args[0].shape[1], args[4].shape[1], dim)
+    level_kernel.giant_launches = level_kernel.giant_bwd_launches = level_kernel.launches = 0
+    hf_k = level_kernel.level_scan_giant(*args, num_nodes=N, num_levels=n_lv)
+    torch.cuda.synchronize()
+    assert (level_kernel.giant_launches, level_kernel.launches) == (n_lv, 0)
+    hf_r = level_kernel.level_scan_giant_reference(*args, num_nodes=N, num_levels=n_lv)
+    assert hf_r.abs().max().item() > 0
+    # fp32, TF32 off: only the order of sums differs
+    torch.testing.assert_close(hf_k, hf_r, rtol=0, atol=1e-4)
+    ghf = torch.randn(hf_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    raw = [level_kernel._giant_backward_cuda(ghf, hf_k, tuple(args), n_lv) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert level_kernel.giant_bwd_launches == 2 * 4 * n_lv
+    assert all(torch.equal(a, c) for a, c in zip(*raw))              # no atomics
+    assert n_lv == L or (raw[0][0][n_lv:] == 0).all()                # padding levels
+    grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv)
+    _, res_e, res_n = level_kernel._forward_cuda(args, N, n_lv, residuals=True)
+    grads_2 = level_kernel._backward_cuda(ghf, res_e, res_n, tuple(args), n_lv)
+    for k, r, k2 in zip(raw[0], grads_r, grads_2):
+        scale = max(r.abs().max().item(), 1.0)
+        assert (k - r).abs().max().item() <= 1e-4 * scale
+        assert (k - k2).abs().max().item() <= 1e-5 * scale         # recomputed vs saved
+    t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS) for i, a in enumerate(args)]
+    level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+    hf = level_kernel.level_scan_giant(*t, num_nodes=N, num_levels=n_lv)
+    auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
+    torch.cuda.synchronize()
+    assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (n_lv, 4 * n_lv)
+    assert torch.equal(hf, hf_k)
+    for a, k in zip(auto, raw[0]):
+        torch.testing.assert_close(a, k, rtol=0, atol=0)
+
+
+def test_giant_train_step_on_card_matches_cpu_with_and_without_remat(cuda):
+    """One training step on a layered circuit by the giant route, card vs
+    CPU, and the struct remat on the card against the step without it. The
+    prob loss is left out: among the readout's ~0.6M ReLU units one may sit
+    within rounding of 0 and be on for one device and off for the other."""
+    smooth = (1.0, 0.0, 2.0, 0.0)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True)
+    rng = np.random.default_rng(13)
+    batch = collate([layered_circuit(rng, "mig", width=64, depth=140, num_tt_pairs=64)])
+    assert batch["gate"].shape[0] > level_kernel.KERNEL_MAX_NODES
+    g = torch.Generator().manual_seed(5)
+    n_real, e_pad, n_pad = int(batch["n_nodes"]), batch["edge_src"].shape[0], batch["gate"].shape[0]
+    neg = tuple(torch.randint(0, n_real, (2, e_pad), generator=g).to(torch.int32))
+    keep = [torch.rand(n_pad, cfg.dim_mlp, generator=g) < 0.8 for _ in range(2)]
+    m_c, g_c = _one_step(cfg, batch, "cpu", neg, keep, weights=smooth)
+    for mod in (level_kernel, struct_kernel):
+        mod.launches = mod.bwd_launches = 0
+    level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+    m_g, g_g = _one_step(cfg, batch, cuda, neg, keep, weights=smooth)
+    n_lv = dg_ae.num_levels(batch)
+    assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (n_lv, 4 * n_lv)
+    assert (level_kernel.launches, level_kernel.bwd_launches) == (0, 0)
+    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (4, 6)
+    struct_kernel.launches = struct_kernel.bwd_launches = 0
+    m_r, g_r = _one_step(dataclasses.replace(cfg, remat_struct=True), batch, cuda, neg, keep,
+                         weights=smooth)
+    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (8, 6)   # the towers ran twice
+    for k in ("recon_loss", "func_loss"):
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-4 * max(abs(float(m_c[k])), 1.0)
+        assert float(m_r[k]) == float(m_g[k])
+    scale = max(c.abs().max().item() for c in g_c if c is not None)
+    for a, c, r in zip(g_g, g_c, g_r):
+        if c is None:
+            assert a is None and r is None
+            continue
+        assert (a - c).abs().max().item() <= 1e-4 * max(c.abs().max().item(), GRAD_FLOOR * scale)
+        assert torch.equal(a, r)            # the struct kernels are bitwise deterministic
+
+
+def _one_step(cfg, batch, dev, neg, keep, seed=4, weights=(1.0, 4.0, 4.0, 0.0)):
     params, state = dg_ae.init_params(cfg, seed=seed, device=dev)
     leaves = step.param_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     total, (_, metrics) = step.loss_and_metrics(
-        params, state, batch, None, [1.0, 4.0, 4.0, 0.0], cfg, True,
+        params, state, batch, None, list(weights), cfg, True,
         neg_edges=tuple(t.to(dev) for t in neg), drop_keep=[k.to(dev) for k in keep])
     total.backward()
     return metrics, [None if t.grad is None else t.grad.cpu() for t in leaves]

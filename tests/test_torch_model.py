@@ -166,7 +166,8 @@ def test_chunked_forward_matches_jax_both_routes(modality, route, monkeypatch):
 def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, monkeypatch):
     """For C > 1 the port takes the step route exactly where
     ``_level_scan_pallas`` does: ``kernel_fits`` false and
-    ``step_kernel_fits`` true. A plain batch always takes the fused scan."""
+    ``step_kernel_fits`` true. A plain batch takes the fused scan where it
+    passes ``kernel_fits`` and the giant scan where it fails it."""
     rng = np.random.default_rng(5)
     graphs = [mgvae_tpu_torch.random_circuit(rng, "mig", num_inputs=4, num_gates=16 + 4 * i)
               for i in range(4)]
@@ -177,9 +178,11 @@ def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, mon
     if not step_gate:
         monkeypatch.setattr(P, "step_kernel_fits", lambda *a: False)
     calls = []
-    real_scan, real_step = P.level_scan, P.level_step
+    real_scan, real_step, real_giant = P.level_scan, P.level_step, P.level_scan_giant
     monkeypatch.setattr(P, "level_scan",
                         lambda *a, **k: (calls.append("fused"), real_scan(*a, **k))[1])
+    monkeypatch.setattr(P, "level_scan_giant",
+                        lambda *a, **k: (calls.append("giant"), real_giant(*a, **k))[1])
     monkeypatch.setattr(P, "level_step",
                         lambda *a, **k: (calls.append("step"), real_step(*a, **k))[1])
     batch = mgvae_tpu_torch.collate_chunked(graphs, 2)
@@ -188,7 +191,7 @@ def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, mon
     assert calls == [want] * (2 if want == "fused" else sum(counts))
     calls.clear()
     _, hf1, _ = P.forward(params, mgvae_tpu_torch.collate(graphs), cfg)
-    assert calls == ["fused"]
+    assert calls == (["giant"] if limits else ["fused"])
     inv_c, inv_1 = batch["node_inv"], mgvae_tpu_torch.collate(graphs)["node_inv"]
     n = int(batch["n_nodes"])
     np.testing.assert_allclose(hf.numpy()[inv_c][:n], hf1.numpy()[inv_1][:n], rtol=0, atol=1e-6)
