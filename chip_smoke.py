@@ -11,32 +11,38 @@ Phases (any failure raises and the script exits nonzero):
      struct-tower kernel and the level-scan kernel each against its plain
      PyTorch version on the same inputs on the card; max |d state| and
      max |dhf| must be <= 1e-4 (fp32, TF32 off; only the order of sums
-     differs).
+     differs); the level-list kernel against the torch sorts, entry for
+     entry.
   4. main path: Model(modality="mig", ...).encode_many over 64 circuits
      (four bs16 requests): shapes, finite values, the struct kernel's
-     launches equal to 2 * s_rounds per request and the level kernel's to
+     launches equal to 2 * s_rounds per request, the level kernel's to one
+     persistent launch per request and the levels those launches walked to
      the real levels of the batches, and the first request against the same
      model run on the CPU.
   5. timing (informational): median wall time of one bs16 MIG encode with
-     the kernels and with the plain versions, its stages, and by CUDA
-     events the struct towers (forward, kernel vs plain) and the level scan
-     alone, each with the card's name and power limit.
+     the kernels and with the plain versions, its stages (the level lists'
+     build on its own line), and by CUDA events the struct towers (forward,
+     kernel vs plain) and the level scan alone (its list build included, as
+     its wrapper builds them), each with the card's name and power limit.
   6. backward kernels vs plain: for the phase-3 batches, each forward
      kernel with residuals against its plain version (struct towers:
      struct_towers_reference(with_residuals=True); level scan:
-     level_scan_reference(with_residuals=True)), and each backward against
+     level_scan_reference(with_residuals=True), on the rows the kernel
+     writes: live edges and updated slots), and each backward against
      its plain version (struct_towers_bwd_reference,
      level_scan_bwd_reference) on the same residuals and a fixed random
      cotangent: max |d| of each of the six outputs <= 1e-4 * max(scale, 1),
      the JAX package's bound; the struct backward's launches equal to
      2 * s_rounds + 2 (a row launch per half-round, two reductions), the
-     level backward's to two per real level plus one.
+     level backward's to three (the persistent sweep, the weight gradients'
+     partials, their sums) with the real levels walked; both level kernels
+     twice, bit for bit the same.
   7. training main path: MIG, four bs16 batches, stage-3 weights
      [1, 4, 4, 0], Adam lr 1e-4, 20 train_steps: every loss and metric
      finite; each step's struct launches 2 * s_rounds forward and
-     2 * s_rounds + 2 backward, its level forward launches equal to its
-     batch's real levels and its level backward launches to two per real
-     level plus one. Then one step's losses and gradients on the card
+     2 * s_rounds + 2 backward, one level forward launch and three level
+     backward launches, each having walked its batch's real levels. Then one
+     step's losses and gradients on the card
      against the same step on the CPU (same params, batch, negatives and
      dropout masks): each gradient leaf within 1e-4 * its own scale
      (floored at 2e-2 of the largest).
@@ -59,20 +65,23 @@ Phases (any failure raises and the script exits nonzero):
      1e-4 * max(scale, 1)).
  11. bs64 encode: Model.forward(list of 64 MIG circuits), which collates
      with collate_fit (C and the per-chunk dims are printed): struct
-     launches 2 * s_rounds, level-scan launches equal to the real (chunk,
-     level) rows, no step launch; rows against the same model on the CPU
-     (max |d| <= 1e-4).
+     launches 2 * s_rounds, one level-scan launch per chunk which together
+     walk the real (chunk, level) rows, no step launch; rows against the
+     same model on the CPU (max |d| <= 1e-4).
  12. step route: the forward and 5 train steps (lr 1e-3, fixed negatives
      and dropout masks, so that the loss must fall) on the MIG
      collate_chunked(graphs, 2) batch: per step, step launches equal to the
      real (chunk, level) rows and step backward launches to three times
      that (slots, sources, weight gradients), no fused level launch; losses
      finite and falling; one step card vs CPU as in phase 7, without the
-     prob loss (see SMOOTH_WEIGHTS).
+     prob loss (see SMOOTH_WEIGHTS), and beside it the prob loss alone card
+     vs CPU with the units of its readout that lie within rounding of a kink
+     masked on both sides (the readout's pre-activations and the gradients
+     of every leaf).
  13. split batch: the same on collate_split(graphs, 4): per step, struct
      launches 2 * s_rounds per group forward and 2 * s_rounds + 2 backward,
-     level-scan launches equal to the groups' real levels forward and two
-     per real level plus one per group backward.
+     one level-scan launch per group forward and three backward, which walk
+     the groups' real levels.
  14. timing (informational): by CUDA events the step kernel (with and
      without residuals) and its backward against their plain versions on
      the widest level of the phase-12 batch; median wall time of one bs64
@@ -96,7 +105,8 @@ Phases (any failure raises and the script exits nonzero):
      [1, 4, 2, 0] and lr 1e-4, fixed negatives and dropout masks: per step
      giant launches = real levels forward and four per real level backward,
      no fused or step launch; loss finite and lower at the end; one step card
-     vs CPU with SMOOTH_WEIGHTS; one step with remat_struct=True against
+     vs CPU with SMOOTH_WEIGHTS and the masked prob loss beside it, as in
+     phase 12; one step with remat_struct=True against
      False (struct forward launches doubled, gradients equal); the peak
      device memory of one step on the giant route, with the remat, and with
      the route forced to the fused kernels and their residuals, and of the
@@ -112,7 +122,7 @@ Phases (any failure raises and the script exits nonzero):
      steps.
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
-encode path's struct towers and level scan, the training path's struct
+encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step kernel and
 its backward, and the giant forward and backward; each with its launches on
 its main path, its
@@ -170,11 +180,11 @@ GIANT_WIDTH, GIANT_DEPTH, GIANT_SMALL_DEPTH = 512, 200, 24
 GIANT_STEPS, GIANT_LR, GIANT_WEIGHTS = 4, 1e-4, [1.0, 4.0, 2.0, 0.0]
 # The giant backward recomputes what the fused backward reads from saved
 # residuals, with the same device functions; the two differ in the order of
-# the weight gradients' sums: the fused backward carries each entry through
-# all L * Ep rows in one fp32 accumulator, the giant sums per level and then
-# across levels. At 257k rows that is ~1e-5 of an output's scale, so the pair
-# is held to the tolerance each is held to against its plain version.
-RECOMPUTE_TOL = GRAD_TOL
+# the weight gradients' sums: the fused backward sums chunks of levels into
+# partials and those pairwise, the giant sums per level and then across
+# levels in launch order. At 257k rows they agree to ~1e-6 of an output's
+# scale (a single fp32 accumulator over all rows had cost 1.06e-5).
+RECOMPUTE_TOL = 1e-5
 SEED = 0
 DEVICE = "cuda"
 
@@ -268,6 +278,7 @@ def main() -> int:
                                  layered_circuit, random_circuit)
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
+    from mgvae_tpu_torch.ops import mlp as mlp_mod
     from mgvae_tpu_torch.ops.init import linear_apply
     from mgvae_tpu_torch.ops.level_kernel import level_scan, level_scan_reference
     from mgvae_tpu_torch.ops.struct_kernel import (struct_inputs, struct_tables,
@@ -353,6 +364,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain, per modality ---------------------------------
     enc_err = struct_err = 0.0
+    lists_err = 0
     phase3 = []   # (modality, cfg, params, batch) for phase 6
     for i, mod in enumerate(MODALITIES):
         cfg = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
@@ -377,6 +389,17 @@ def main() -> int:
         hs = dg_ae.struct_hs(params, b, cfg)
         args = dg_ae.level_scan_inputs(params, b, cfg, hs)
         n_lv, N = dg_ae.num_levels(batch), hs.shape[0]
+        # the index lists that the level kernels read: the kernel against the torch sorts
+        tabs = [args[j] for j in (1, 2, 3, 5, 6)]
+        lists_k = level_kernel.level_lists(*tabs, cfg.num_experts)
+        lists_r = level_kernel.level_lists_reference(*tabs, cfg.num_experts)
+        l_err = max(int((k.long() - r.long()).abs().max()) for k, r in zip(lists_k, lists_r))
+        log(f"[kernel] {mod}: level lists of {args[1].shape[0]} levels (Ep={args[1].shape[1]}, "
+            f"Np={args[4].shape[1]}): max|d| against the plain version, any entry = {l_err}")
+        if l_err != 0:
+            raise RuntimeError(f"[kernel] {mod}: the level-list kernel disagrees with its plain "
+                               f"version")
+        lists_err = max(lists_err, l_err)
         hf_k = level_scan(*args, num_nodes=N, num_levels=n_lv)
         hf_r = level_scan_reference(*args, num_nodes=N, num_levels=n_lv)
         sync()
@@ -402,16 +425,21 @@ def main() -> int:
     requests = [graphs[s : s + BATCH] for s in range(0, N_CIRCUITS, BATCH)]
     expected = sum(dg_ae.num_levels(collate(r)) for r in requests)
     s_expected = 2 * ROUNDS * len(requests)
-    level_kernel.launches = struct_kernel.launches = 0
+    level_kernel.launches = level_kernel.levels_walked = struct_kernel.launches = 0
+    level_kernel.lists_launches = 0
     out = model.encode_many(graphs, batch_size=BATCH)
     sync()
-    launched = enc_launches = level_kernel.launches
+    enc_launches, walked = level_kernel.launches, level_kernel.levels_walked
+    enc_lists = level_kernel.lists_launches
     enc_struct = struct_kernel.launches
     log(f"[main] encode_many: {len(graphs)} circuits in {len(requests)} bs{BATCH} requests; "
         f"struct_towers launches={enc_struct}, 2 * s_rounds * requests={s_expected}; "
-        f"level_scan launches={launched}, real levels={expected}")
-    if launched != expected or launched == 0:
-        raise RuntimeError(f"[main] kernel launches {launched} != real levels {expected}")
+        f"level_scan launches={enc_launches} (one per request), levels walked={walked}, real "
+        f"levels={expected}; level_lists launches={enc_lists}")
+    if enc_launches != len(requests) or walked != expected or enc_lists != len(requests):
+        raise RuntimeError(f"[main] level_scan launches {enc_launches} != requests "
+                           f"{len(requests)}, or levels walked {walked} != real levels "
+                           f"{expected}")
     if enc_struct != s_expected:
         raise RuntimeError(f"[main] struct kernel launches {enc_struct} != {s_expected}")
     if len(out) != len(graphs):
@@ -475,6 +503,16 @@ def main() -> int:
         h2d_s = median_wall(lambda: dg_ae.batch_to_device(batch, dev), reps, sync)
         struct_s = median_wall(lambda: dg_ae.struct_hs(params, b, cfg), reps, sync)
         statics_s = median_wall(lambda: dg_ae.level_scan_inputs(params, b, cfg, hs), reps, sync)
+        build_lists = lambda: level_kernel.level_lists(args[1], args[2], args[3], args[5],
+                                                       args[6], cfg.num_experts)
+        plain_lists = lambda: level_kernel.level_lists_reference(
+            args[1], args[2], args[3], args[5], args[6], cfg.num_experts)
+        lists_s = median_wall(build_lists, reps, sync)
+        lists_p1 = event_ms(torch, plain_lists, reps)
+        lists_k1 = event_ms(torch, build_lists, reps)
+        lists_k2 = event_ms(torch, build_lists, reps)
+        lists_p2 = event_ms(torch, plain_lists, reps)
+        lists_ms, lists_plain_ms = (lists_k1 + lists_k2) / 2, (lists_p1 + lists_p2) / 2
         scan = dict(num_nodes=hs.shape[0], num_levels=n_lv)
         ms_p1 = event_ms(torch, lambda: level_scan_reference(*args, **scan), reps)
         ms_k1 = event_ms(torch, lambda: level_scan(*args, **scan), reps)
@@ -489,8 +527,12 @@ def main() -> int:
     ms_k, ms_p = (ms_k1 + ms_k2) / 2, (ms_p1 + ms_p2) / 2
     sms_k, sms_p = (sms_k1 + sms_k2) / 2, (sms_p1 + sms_p2) / 2
     n_edges = int(batch["n_edges"])
+    lists_now = build_lists()
     bounds = {"struct_towers": struct_bound(sargs, tables, n_edges, False),
-              "level_scan": level_bound(args, n_lv, hs.shape[0], False)}
+              "level_scan": level_bound(args, n_lv, hs.shape[0], False),
+              # in: five int tables; out: five lists; no arithmetic to speak of
+              "level_lists": bound(nbytes(args[1], args[2], args[3], args[5], args[6],
+                                          *lists_now), 0.0)}
     log(f"[time] card: {card}")
     log(f"[time] MIG bs{BATCH} encode (host batch -> hs, hf on card), median of {reps}: "
         f"kernels {enc_k * 1e3:.3f} ms = {BATCH / enc_k:.1f} graphs/s; "
@@ -499,7 +541,11 @@ def main() -> int:
         f"{[round(x * 1e3, 3) for x in t['plain']]} ms)")
     log(f"[time] stages: collate (host) {collate_s * 1e3:.3f} ms; to device {h2d_s * 1e3:.3f} ms; "
         f"struct towers + hs_linear {struct_s * 1e3:.3f} ms; level statics "
-        f"{statics_s * 1e3:.3f} ms; level scan kernel {ms_k:.3f} ms")
+        f"{statics_s * 1e3:.3f} ms; level scan {ms_k:.3f} ms")
+    log(f"[time] level lists (built once per batch), CUDA events over {reps} builds: kernel "
+        f"{lists_k1:.4f}/{lists_k2:.4f} ms, plain (torch sorts) {lists_p1:.4f}/{lists_p2:.4f} ms; "
+        f"kernel {lists_s * 1e3:.3f} ms median wall synchronised; counted in the level scan's "
+        f"time, whose wrapper builds them here")
     log(f"[time] level scan alone ({n_lv} levels), CUDA events over {reps} calls: "
         f"kernel {ms_k1:.4f}/{ms_k2:.4f} ms, plain {ms_p1:.4f}/{ms_p2:.4f} ms")
     log(f"[time] struct towers alone ({2 * ROUNDS} half-rounds, no residuals), CUDA events over "
@@ -509,6 +555,16 @@ def main() -> int:
     res_err = bwd_err = sres_err = sbwd_err = 0.0
     grad_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak")
     sgrad_names = ("dxi", "dwfold", "dwhh", "dbhh", "dlnw", "dlnb")
+
+    def written_rows(dslot, evalid, upd, n_lv, res_e, res_n):
+        """The residuals with every row that the kernels leave unwritten
+        set to 0, as the plain versions have them: the tables are all
+        levels', of which the first ``n_lv`` ran, or one level's."""
+        e_live, s_live = level_kernel.live_rows(dslot, evalid, upd)
+        if e_live.dim() == 2:
+            e_live[n_lv:], s_live[n_lv:] = False, False
+        return (torch.where(e_live[..., None], res_e, 0.0),
+                torch.where(s_live[..., None], res_n, 0.0))
 
     def held(mod, names, grads_k, grads_r):
         """max |d| / scale of each output; raises past 1e-4 * max(scale, 1)."""
@@ -564,6 +620,7 @@ def main() -> int:
         hf_r, re_r, rn_r = level_scan_reference(*args, num_nodes=N, num_levels=n_lv,
                                                 with_residuals=True)
         sync()
+        re_k, rn_k = written_rows(args[2], args[3], args[5], n_lv, re_k, rn_k)
         fwd = [(k - r).abs().max().item() for k, r in ((hf_k, hf_r), (re_k, re_r), (rn_k, rn_r))]
         if not max(fwd) <= KERNEL_TOL:
             raise RuntimeError(f"[bwd] {mod}: residual forward disagrees: max|d| hf, res_e, "
@@ -572,20 +629,24 @@ def main() -> int:
         ghf = torch.randn(hf_k.shape, device=dev,
                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
         bargs = (*args[:9], args[10], args[11])
-        level_kernel.bwd_launches = 0
+        level_kernel.bwd_launches = level_kernel.bwd_levels_walked = 0
         grads_k = level_kernel._backward_cuda(ghf, re_k, rn_k, args, n_lv)
         sync()
-        n_bwd = level_kernel.bwd_launches
+        n_bwd, bwd_walked = level_kernel.bwd_launches, level_kernel.bwd_levels_walked
         grads_r = level_kernel.level_scan_bwd_reference(ghf, re_k, rn_k, *bargs, num_levels=n_lv)
+        again = (level_kernel._forward_cuda(args, N, n_lv, residuals=True)[0],
+                 *level_kernel._backward_cuda(ghf, re_k, rn_k, args, n_lv))
         sync()
         report, worst = held(mod, grad_names, grads_k, grads_r)
         bwd_err = max(bwd_err, worst)
         log(f"[bwd] {mod}: level residual forward max|d| hf/res_e/res_n = "
             f"{fwd[0]:.3e}/{fwd[1]:.3e}/{fwd[2]:.3e}; level backward max|d|/scale: {report}; "
-            f"level bwd launches={n_bwd}, real levels={n_lv}")
-        if n_bwd != 2 * n_lv + 1:
-            raise RuntimeError(f"[bwd] {mod}: backward launches {n_bwd} != 2 * real levels "
-                               f"{n_lv} + 1")
+            f"level bwd launches={n_bwd}, levels walked={bwd_walked}, real levels={n_lv}")
+        if n_bwd != 3 or bwd_walked != n_lv:
+            raise RuntimeError(f"[bwd] {mod}: backward launches {n_bwd} != 3 (sweep, partials, "
+                               f"sums), or levels walked {bwd_walked} != real levels {n_lv}")
+        if not all(torch.equal(a, c) for a, c in zip(again, (hf_k, *grads_k))):
+            raise RuntimeError(f"[bwd] {mod}: a second run of the level kernels differs")
 
     # ---- 7. training main path: MIG bs16 train steps ---------------------
     cfg = model.cfg
@@ -597,33 +658,41 @@ def main() -> int:
     batches = [collate(r) for r in requests]
     levels = [dg_ae.num_levels(bt) for bt in batches]
     per_step, rows = [], []
-    kernels = (level_kernel, struct_kernel)
-    for m in kernels:
+    def main_counts():
+        return (level_kernel.launches, level_kernel.bwd_launches, struct_kernel.launches,
+                struct_kernel.bwd_launches, level_kernel.levels_walked,
+                level_kernel.bwd_levels_walked)
+
+    for m in (level_kernel, struct_kernel):
         m.launches = m.bwd_launches = 0
+    level_kernel.levels_walked = level_kernel.bwd_levels_walked = 0
     for i in range(TRAIN_STEPS):
-        before = [n for m in kernels for n in (m.launches, m.bwd_launches)]
+        before = main_counts()
         state, metrics = train_step(params, state, batches[i % len(batches)], gen, WEIGHTS)
-        after = [n for m in kernels for n in (m.launches, m.bwd_launches)]
+        after = main_counts()
         per_step.append(tuple(a - z for a, z in zip(after, before)))
         rows.append(torch.stack([metrics[k] for k in keys]))
     sync()
     train_fwd, train_bwd = level_kernel.launches, level_kernel.bwd_launches
+    train_walked = (level_kernel.levels_walked, level_kernel.bwd_levels_walked)
     train_sfwd, train_sbwd = struct_kernel.launches, struct_kernel.bwd_launches
     rows = torch.stack(rows).cpu()
     log(f"[train] {TRAIN_STEPS} train_steps over {len(batches)} bs{BATCH} MIG batches "
         f"(real levels {levels}), lr {TRAIN_LR}, weights {WEIGHTS}: struct_towers launches="
         f"{train_sfwd}, struct_towers_bwd launches={train_sbwd}, level_scan launches="
-        f"{train_fwd}, level_scan_bwd launches={train_bwd}")
+        f"{train_fwd} having walked {train_walked[0]} levels, level_scan_bwd launches="
+        f"{train_bwd} having walked {train_walked[1]}")
     for i in (0, 1, TRAIN_STEPS - 1):
         log(f"[train] step {i}: " + ", ".join(
             f"{k}={v:.6g}" for k, v in zip(keys, rows[i].tolist())))
     if not torch.isfinite(rows).all():
         raise RuntimeError("[train] non-finite loss or metric")
-    want = [(n, 2 * n + 1, 2 * ROUNDS, 2 * ROUNDS + 2)
+    want = [(1, 3, 2 * ROUNDS, 2 * ROUNDS + 2, n, n)
             for n in (levels[i % len(batches)] for i in range(TRAIN_STEPS))]
     if per_step != want or train_fwd == 0 or train_bwd == 0:
-        raise RuntimeError(f"[train] per-step launches {per_step} != (real levels, 2 * real "
-                           f"levels + 1, 2 * s_rounds, 2 * s_rounds + 2) {want}")
+        raise RuntimeError(f"[train] per-step counts {per_step} != (1 level launch, 3 backward, "
+                           f"2 * s_rounds, 2 * s_rounds + 2, real levels walked, and backward) "
+                           f"{want}")
     for leaf in train_step_mod.param_leaves(params):
         if not torch.isfinite(leaf).all():
             raise RuntimeError("[train] non-finite parameter after training")
@@ -675,6 +744,82 @@ def main() -> int:
             f"(tol {GRAD_TOL} * max(leaf scale, {GRAD_FLOOR} * {g_scale:.3e}))")
         if not (loss_err <= CPU_TOL and g_leaf[0] <= 1.0):
             raise RuntimeError(f"[{tag}] card and CPU disagree on one training step")
+
+    def card_vs_cpu_prob(tag, batch, near=1e-4):
+        """The prob loss alone on the card and on the CPU at a size where
+        some ReLU unit of its readout lies within rounding of 0 (see
+        SMOOTH_WEIGHTS): the readout's pre-activations are compared as they
+        are, and the loss's gradients with the units within ``near`` of a
+        kink on either device masked on both: hidden units near 0, and
+        nodes whose prediction is near 0, 1 or its target."""
+        _, keep = fixed_draws(batch, SEED + 2)
+        side = {}
+        for where in ("cpu", DEVICE):
+            p1, s1 = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
+            leaves = train_step_mod.param_leaves(p1)
+            for t in leaves:
+                t.requires_grad_(True)
+            b1 = dg_ae.batch_to_device(batch, where)
+            _, hf, _ = dg_ae.forward_device(p1, b1, cfg, dg_ae.level_counts(batch))
+            side[where] = (p1["readout_prob"], s1["readout_prob"], b1, hf, leaves,
+                           [k.to(where) for k in keep])
+
+        def readout(where, masks, x=None):
+            """(pre-activations so far, prediction or None): the readout as
+            ``ops.mlp.mlp_apply`` in train mode, through ``len(masks)``
+            hidden layers, a masked unit's output 0."""
+            rp, rs, b1, hf, _, kp = side[where]
+            x, pre = hf if x is None else x, []
+            for i, m in enumerate(masks):
+                x, _ = mlp_mod.batchnorm_apply(rp["bn"][i], rs["bn"][i],
+                                               linear_apply(rp["layers"][i], x),
+                                               valid=b1["node_valid"], train=True)
+                pre.append(x)
+                if m is None:
+                    return pre, None
+                x = mlp_mod.dropout(torch.where(m.to(x.device), 0.0, torch.relu(x)),
+                                    mlp_mod.P_DROP, True, None, kp[i])
+            return pre, linear_apply(rp["layers"][-1], x)[:, 0]
+
+        masks, pre_err = [], []
+        with torch.no_grad():
+            for i in range(2):       # a layer's mask needs the masks of the layers before it
+                z_c, z_g = (readout(w, masks + [None])[0][i] for w in ("cpu", DEVICE))
+                rows = side["cpu"][2]["node_valid"]
+                pre_err.append((z_g.cpu() - z_c)[rows].abs().max().item())
+                masks.append((z_c.abs() < near) | (z_g.cpu().abs() < near))
+            kinks = []
+            for where in ("cpu", DEVICE):
+                pred, prob = readout(where, masks)[1].cpu(), side["cpu"][2]["prob"]
+                kinks.append((pred.abs() < near) | ((pred - 1).abs() < near)
+                             | ((pred - prob).abs() < near))
+            smooth = ~(kinks[0] | kinks[1])
+        out = {}
+        for where in ("cpu", DEVICE):
+            _, _, b1, _, leaves, _ = side[where]
+            pred = readout(where, masks)[1].clamp(0.0, 1.0)
+            rows = b1["node_valid"] & smooth.to(pred.device)
+            loss = losses_mod.masked_mean((pred - b1["prob"]).abs(), rows,
+                                          b1["n_nodes"].to(pred.dtype))
+            loss.backward()
+            out[where] = (float(loss), [torch.zeros(t.shape) if t.grad is None else t.grad.cpu()
+                                        for t in leaves])
+        (l_c, g_c), (l_g, g_g) = out["cpu"], out[DEVICE]
+        g_scale = max(g.abs().max().item() for g in g_c)
+        g_leaf = max(((a - c).abs().max().item() / (GRAD_TOL * max(c.abs().max().item(),
+                                                                    GRAD_FLOOR * g_scale)),
+                      (a - c).abs().max().item(), c.abs().max().item())
+                     for a, c in zip(g_g, g_c))
+        hidden = sum(int(m.sum()) for m in masks)
+        log(f"[{tag}] card vs CPU, the prob loss alone: readout pre-activations max|d| "
+            f"{pre_err[0]:.3e}/{pre_err[1]:.3e} (tol {CPU_TOL}); masked within {near} of a kink "
+            f"on either device: {hidden} of {sum(m.numel() for m in masks)} hidden units, "
+            f"{int((~smooth).sum())} of {smooth.numel()} predictions; loss {l_g:.6f} vs "
+            f"{l_c:.6f}; gradients, worst leaf against its own scale: max|d| {g_leaf[1]:.3e} at "
+            f"scale {g_leaf[2]:.3e}, {g_leaf[0]:.3f} of its tolerance")
+        if not (max(pre_err) <= CPU_TOL and abs(l_g - l_c) <= CPU_TOL * max(abs(l_c), 1.0)
+                and g_leaf[0] <= 1.0 and g_scale > 0):
+            raise RuntimeError(f"[{tag}] card and CPU disagree on the prob loss")
 
     card_vs_cpu_step("train", batches[0], WEIGHTS)
 
@@ -734,7 +879,9 @@ def main() -> int:
         args[i].requires_grad_(True)
     hf_plain = level_scan_reference(*args, num_nodes=N, num_levels=n_lv)
     diff = [args[i] for i in level_kernel.FLOAT_ARGS]
-    kern = lambda: level_kernel._backward_cuda(ghf, re_k, rn_k, args, n_lv)
+    # as on the training path: the lists and the expert-major weights come from the forward
+    prepared = level_kernel._prepared(args, backward=True)
+    kern = lambda: level_kernel._backward_cuda(ghf, re_k, rn_k, args, n_lv, *prepared)
     plain = lambda: torch.autograd.grad(hf_plain, diff, ghf, retain_graph=True)
     for _ in range(3):
         kern()
@@ -827,6 +974,7 @@ def main() -> int:
                     row = k * L + lv
                     sa = (hf_c, *(args[j][row] for j in (0, 1, 2, 3, 5, 6)), *args[7:])
                     out_k = level_kernel._step_forward_cuda(sa, residuals=True)
+                    out_k = (out_k[0], *written_rows(sa[3], sa[4], sa[5], 1, out_k[1], out_k[2]))
                     out_r = level_kernel.level_step_reference(*sa, with_residuals=True)
                     for j, (x, r) in enumerate(zip(out_k, out_r)):
                         if not torch.isfinite(x).all():
@@ -858,15 +1006,18 @@ def main() -> int:
             m.launches = m.bwd_launches = 0
         level_kernel.step_launches = level_kernel.step_bwd_launches = 0
         level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+        level_kernel.levels_walked = level_kernel.bwd_levels_walked = 0
 
-    COUNT_NAMES = "(struct, struct bwd, level, level bwd, step, step bwd, giant, giant bwd)"
+    COUNT_NAMES = ("(struct, struct bwd, level, level bwd, step, step bwd, giant, giant bwd, "
+                   "levels walked by level, by level bwd)")
 
     def read_counts():
         """The launch counts in COUNT_NAMES' order."""
         return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
                 level_kernel.bwd_launches, level_kernel.step_launches,
                 level_kernel.step_bwd_launches, level_kernel.giant_launches,
-                level_kernel.giant_bwd_launches)
+                level_kernel.giant_bwd_launches, level_kernel.levels_walked,
+                level_kernel.bwd_levels_walked)
 
     fit = collate_fit(graphs)
     C_fit = fit["lv_nodes"].shape[0] if fit["lv_nodes"].ndim == 3 else 1
@@ -879,9 +1030,10 @@ def main() -> int:
         f"N_sub={fit['gate'].shape[0] // C_fit} L={fit['lv_nodes'].shape[-2]} "
         f"Ep={fit['lv_edge_src'].shape[-1]} Np={fit['lv_nodes'].shape[-1]}, real levels "
         f"{fit_levels}; launches {COUNT_NAMES} = {got}")
-    if got != (2 * ROUNDS, 0, sum(fit_levels), 0, 0, 0, 0, 0) or C_fit < 2:
-        raise RuntimeError(f"[encode64] launches {got} != (2 * s_rounds, 0, real (chunk, level) "
-                           f"rows {sum(fit_levels)}, 0, ...), or the list was not chunked")
+    if got != (2 * ROUNDS, 0, C_fit, 0, 0, 0, 0, 0, sum(fit_levels), 0) or C_fit < 2:
+        raise RuntimeError(f"[encode64] launches {got} != (2 * s_rounds, 0, one per chunk, 0, "
+                           f"..., real (chunk, level) rows {sum(fit_levels)} walked, 0), or the "
+                           f"list was not chunked")
     hs_c, hf_c = cpu_model(graphs)
     total_nodes = sum(g.num_nodes for g in graphs)
     d_hs, d_hf = (hs_g.cpu() - hs_c).abs().max().item(), (hf_g.cpu() - hf_c).abs().max().item()
@@ -891,11 +1043,13 @@ def main() -> int:
         raise RuntimeError("[encode64] card and CPU disagree")
 
     # ---- 12 and 13. bs64 train steps: the step route, and a split batch ----
-    def train_large(tag, batch, want, steps=LARGE_STEPS, lr=LARGE_LR, weights=WEIGHTS):
+    def train_large(tag, batch, want, steps=LARGE_STEPS, lr=LARGE_LR, weights=WEIGHTS,
+                    prob_check=True):
         """``steps`` train steps from fresh params with fixed draws; the
         per-step launch counts must equal ``want`` (COUNT_NAMES' order) and,
         over more than one step, the loss must fall; then one step card vs
-        CPU. Returns the counts' sums."""
+        CPU without the prob loss and, with ``prob_check``, the prob loss
+        alone. Returns the counts' sums."""
         p2, s2 = dg_ae.init_params(cfg, seed=SEED, device=dev)
         step2, _ = train_step_mod.make_train_step(cfg, train_step_mod.make_optimizer(p2, lr))
         neg, keep = fixed_draws(batch, SEED + 8)
@@ -919,6 +1073,8 @@ def main() -> int:
         if steps > 1 and not losses[-1] < losses[0]:
             raise RuntimeError(f"[{tag}] the loss did not fall: {losses}")
         card_vs_cpu_step(tag, batch, SMOOTH_WEIGHTS)
+        if prob_check:
+            card_vs_cpu_prob(tag, batch)
         return totals
 
     chunked = collate_chunked(graphs, CHUNKS)
@@ -942,12 +1098,12 @@ def main() -> int:
     d_hf = (hf_s[inv.to(dev)][:total_nodes] - hf_g).abs().max().item()
     log(f"[step64] forward: launches {got}; max|dhf| against the bs64 encode (fused route, "
         f"C={C_fit}) = {d_hf:.3e}")
-    if got != (2 * ROUNDS, 0, 0, 0, sum(ch_levels), 0, 0, 0) or not d_hf <= KERNEL_TOL:
+    if got != (2 * ROUNDS, 0, 0, 0, sum(ch_levels), 0, 0, 0, 0, 0) or not d_hf <= KERNEL_TOL:
         raise RuntimeError(f"[step64] forward: launches {got} != step launches "
                            f"{sum(ch_levels)} alone, or the routes disagree ({d_hf})")
     n_rows = sum(ch_levels)
     step_totals = train_large(
-        "step64", chunked, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, n_rows, 3 * n_rows, 0, 0))
+        "step64", chunked, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, n_rows, 3 * n_rows, 0, 0, 0, 0))
 
     split = collate_split(graphs, GROUPS)
     sp_levels = [c[0] for c in dg_ae.level_counts(split)]
@@ -956,8 +1112,8 @@ def main() -> int:
     log(f"[split64] collate_split(graphs, {GROUPS}): per group (N, L, Ep, Np) = {dims}, real "
         f"levels {sp_levels}")
     train_large("split64", split, (
-        2 * ROUNDS * GROUPS, (2 * ROUNDS + 2) * GROUPS, sum(sp_levels),
-        2 * sum(sp_levels) + GROUPS, 0, 0, 0, 0))
+        2 * ROUNDS * GROUPS, (2 * ROUNDS + 2) * GROUPS, GROUPS, 3 * GROUPS, 0, 0, 0, 0,
+        sum(sp_levels), sum(sp_levels)), prob_check=False)
 
     # ---- 14. timing (informational) ----------------------------------------
     b = dg_ae.batch_to_device(chunked, dev)
@@ -970,8 +1126,10 @@ def main() -> int:
     sa = [hf[:n_sub].clone(), *(args[j][wide].clone() for j in (0, 1, 2, 3, 5, 6)), *args[7:]]
     reps = 50
     with torch.no_grad():
-        kern = lambda: level_kernel._step_forward_cuda(sa, residuals=False)
-        rkern = lambda: level_kernel._step_forward_cuda(sa, residuals=True)
+        # as on the step route: the lists and the weights' copies are built once per batch
+        prep = level_kernel._prepared(sa[1:], backward=True)
+        kern = lambda: level_kernel._step_forward_cuda(sa, False, *prep)
+        rkern = lambda: level_kernel._step_forward_cuda(sa, True, *prep)
         plain = lambda: level_kernel.level_step_reference(*sa)
         rplain = lambda: level_kernel.level_step_reference(*sa, with_residuals=True)
         for f in (kern, rkern, plain, rplain):
@@ -988,7 +1146,7 @@ def main() -> int:
         sa[j].requires_grad_(True)
     h_plain = level_kernel.level_step_reference(*sa)
     diff = [sa[j] for j in level_kernel.STEP_FLOAT_ARGS]
-    bkern = lambda: level_kernel._step_backward_cuda(g, re_k, rn_k, sa[1:], n_sub)
+    bkern = lambda: level_kernel._step_backward_cuda(g, re_k, rn_k, sa[1:], n_sub, *prep)
     bplain = lambda: torch.autograd.grad(h_plain, diff, g, retain_graph=True)
     for _ in range(3):
         bkern()
@@ -1049,11 +1207,9 @@ def main() -> int:
             args = tuple(a.detach().clone()
                          for a in dg_ae.level_scan_inputs(params_m, b, cfg_m, hs))
         N, (L, ep, _), np_ = hs.shape[0], args[0].shape, args[4].shape[1]
-        fits = (level_kernel.kernel_fits(N, ep, np_, DIM),
-                level_kernel.kernel_fits_hbm_bwd(N, ep, np_, DIM))
-        if fits != (False, True):
-            raise RuntimeError(f"[giant] {mod}: (kernel_fits, kernel_fits_hbm_bwd) = {fits}: "
-                               f"the batch would not take the giant route")
+        if level_kernel.kernel_fits(N, ep, np_, DIM):
+            raise RuntimeError(f"[giant] {mod}: the batch passes kernel_fits and would not take "
+                               f"the giant route")
         zero_counts()
         hf_k = level_kernel._giant_forward_cuda(args, N, n_lv)
         ghf = torch.randn(hf_k.shape, device=dev,
@@ -1061,7 +1217,7 @@ def main() -> int:
         grads_k = level_kernel._giant_backward_cuda(ghf, hf_k, args, n_lv)
         sync()
         got = read_counts()
-        if got != (0, 0, 0, 0, 0, 0, n_lv, 4 * n_lv):
+        if got != (0, 0, 0, 0, 0, 0, n_lv, 4 * n_lv, 0, 0):
             raise RuntimeError(f"[giant] {mod}: launches {COUNT_NAMES} {got} != giant {n_lv} "
                                f"forward and {4 * n_lv} backward alone")
         hf_r = level_kernel.level_scan_giant_reference(*args, num_nodes=N, num_levels=n_lv)
@@ -1105,7 +1261,7 @@ def main() -> int:
     got = read_counts()
     log(f"[giant-encode] Model.forward(g), {giant_graph.num_nodes} nodes: launches "
         f"{COUNT_NAMES} = {got}, real levels {giant_levels}")
-    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, giant_levels, 0):
+    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, giant_levels, 0, 0, 0):
         raise RuntimeError(f"[giant-encode] launches {got} != struct {2 * ROUNDS} and giant "
                            f"{giant_levels} alone")
     want = (giant_graph.num_nodes, DIM)
@@ -1123,7 +1279,7 @@ def main() -> int:
     del hs_c, hf_c
 
     # ---- 17. giant training ----------------------------------------------------
-    giant_want = (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, giant_levels, 4 * giant_levels)
+    giant_want = (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, giant_levels, 4 * giant_levels, 0, 0)
     giant_totals = train_large("giant-train", giant_batch, giant_want, steps=GIANT_STEPS,
                                lr=GIANT_LR, weights=GIANT_WEIGHTS)
 
@@ -1166,7 +1322,7 @@ def main() -> int:
     if got_plain != giant_want or got_remat != (4 * ROUNDS, *giant_want[1:]):
         raise RuntimeError(f"[giant-train] launches {got_plain} / with remat {got_remat}: want "
                            f"{giant_want} and the struct forward doubled")
-    if got_fused != (2 * ROUNDS, 2 * ROUNDS + 2, giant_levels, 2 * giant_levels + 1, 0, 0, 0, 0):
+    if got_fused != (2 * ROUNDS, 2 * ROUNDS + 2, 1, 3, 0, 0, 0, 0, giant_levels, giant_levels):
         raise RuntimeError(f"[giant-train] forced fused route: launches {got_fused}")
     d_remat = max(0.0 if a is None else (a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
                   for a, c in zip(g_remat, g_plain))
@@ -1216,11 +1372,11 @@ def main() -> int:
         f"Ep={plain64['lv_edge_src'].shape[1]} Np={plain64['lv_nodes'].shape[1]}, real levels "
         f"{p64_levels}; forward launches {COUNT_NAMES} = {got}; max|dhf| against the bs64 encode "
         f"(fused route, C={C_fit}) = {d_hf:.3e}")
-    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, p64_levels, 0) or not d_hf <= KERNEL_TOL:
+    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, p64_levels, 0, 0, 0) or not d_hf <= KERNEL_TOL:
         raise RuntimeError(f"[plain64] launches {got} != giant {p64_levels} alone, or the routes "
                            f"disagree ({d_hf})")
     train_large("plain64", plain64, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, p64_levels,
-                                     4 * p64_levels), steps=1)
+                                     4 * p64_levels, 0, 0), steps=1, prob_check=False)
 
     # ---- 18. timing (informational) ----------------------------------------------
     args, ghf, n_lv = giant_args, giant_ghf, giant_levels
@@ -1276,12 +1432,12 @@ def main() -> int:
         f"median of 5: {gstep_s * 1e3:.3f} ms; stages: " + "; ".join(
             f"{k} {v:.3f} ms" for k, v in gstage_ms.items()))
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, **more):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
                 "replaces": f"mgvae_tpu/ops/pallas/{replaces}", "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bounds[name],
-                "library_ms": None}
+                "library_ms": None, **more}
 
     print(json.dumps({"kernels": [
         # encode path (phases 3-5)
@@ -1292,12 +1448,14 @@ def main() -> int:
               sres_err, srms_k, srms_p),
         entry("struct_towers_bwd", "struct_towers_bwd.cu", "struct_kernel.py:338", train_sbwd,
               sbwd_err, sbms_k, sbms_p),
+        entry("level_lists", "level_lists.cu", "level_kernel.py:404", enc_lists, lists_err,
+              lists_ms, lists_plain_ms),
         entry("level_scan", "level_scan.cu", "level_kernel.py:173", enc_launches, enc_err,
-              ms_k, ms_p),
+              ms_k, ms_p, levels_walked=walked, lists_ms=lists_ms),
         entry("level_scan_residuals", "level_scan.cu", "level_kernel.py:173", train_fwd,
-              res_err, rms_k, rms_p),
+              res_err, rms_k, rms_p, levels_walked=train_walked[0], lists_ms=lists_ms),
         entry("level_scan_bwd", "level_scan_bwd.cu", "level_kernel.py:487", train_bwd, bwd_err,
-              bms_k, bms_p),
+              bms_k, bms_p, levels_walked=train_walked[1]),
         # the step route's training path (phases 10, 12, 14)
         entry("level_step", "level_step.cu", "level_kernel.py:1636", step_totals[4], step_err,
               sr_k, sr_p),

@@ -2,12 +2,17 @@
 
 It runs the DG_AE encode path (``Model.forward`` / ``encode_many``) and one
 DG_AE training step (``train.step.make_train_step``: forward, the recon,
-prob and func losses, backward, Adam) on plain, chunked and split batches:
-the numpy data layer, level statics and losses in PyTorch, and the struct
-towers and the level recurrence, forward and backward, as hand-written CUDA
-kernels (``csrc/struct_towers*.cu``, ``csrc/level_scan*.cu`` and, for chunks
-too large for the fused scan, ``csrc/level_step*.cu``). The JAX package ``mgvae_tpu`` is the reference
-it is tested against; this package never imports jax.
+prob and func losses, backward, Adam) on plain, chunked and split batches
+and on one giant graph collated alone: the numpy data layer, level statics
+and losses in PyTorch, and the struct towers and the level recurrence,
+forward and backward, as hand-written CUDA kernels: ``csrc/struct_towers*.cu``;
+``csrc/level_scan.cu`` / ``level_scan_bwd.cu``, the fused scan of a batch or
+chunk that passes the size gate, one persistent launch per pass; for chunks
+too large for it ``csrc/level_step*.cu``, one level per call; and for a
+giant graph or any unchunked batch past the gate ``csrc/level_scan_giant*.cu``,
+which keeps no residuals and recomputes from hf in the backward. The JAX
+package ``mgvae_tpu`` is the reference it is tested against; this package
+never imports jax.
 """
 
 from .api import Model

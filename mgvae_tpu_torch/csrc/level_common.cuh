@@ -1,67 +1,165 @@
-// Block-level helpers shared by the level kernels (level_slot.cuh,
-// level_slot_bwd.cuh and the four level_*.cu that include them). Thread d of
-// a block owns feature d; blockDim.x is the feature width rounded up to a
-// warp, at most kMaxDim. The struct-tower kernels use kMaxDim and warp_sum
-// (struct_common.cuh).
+// Helpers shared by the level kernels (level_slot.cuh, level_slot_bwd.cuh and
+// the six level_*.cu that include them).
+//
+// The unit of work is a warp: one warp computes one destination slot, lane l
+// owning features l, l + 32, ... (NF = ceil(D / 32) <= 4 of them, a template
+// argument so that they live in registers). A block serves ONE expert for
+// its whole life: it copies that expert's weight slices into shared memory
+// once (stage, staged) and its warps walk the expert's slots of each level
+// from the level lists (ops/level_kernel.level_lists). What bounds a level is
+// the chain of dependent loads and products inside one slot, so the bodies
+// load a slot's indices a lane per in-edge, compute kBatch in-edges together,
+// and split into a part that can run before the level below is done
+// (indices, the static inputs) and a part that cannot. The struct-tower
+// kernels use kMaxDim and warp_sum (struct_common.cuh).
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxDim = 128;
 constexpr int kMaxExperts = 5;
-constexpr int kMaxWarps = kMaxDim / 32;
+constexpr int kLevelWarps = 4;           // warps (slots in flight) per block
+constexpr int kLevelThreads = kLevelWarps * 32;
+constexpr int kBatch = 4;                // in-edges a warp computes together
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-// Sum of x over the block, returned to every thread. Two barriers.
-__device__ __forceinline__ float block_sum(float x, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  x = warp_sum(x);
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < nwarps; ++w) s += red[w];
-  __syncthreads();
-  return s;
-}
-
-// Calls f(j) for every row j in [begin, end) with pred(j), in row order.
-// Every thread of the block sees the same sequence, so f may hold barriers.
-template <class P, class F>
-__device__ __forceinline__ void for_each_row(int begin, int end, unsigned* masks, P pred, F f) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int base = begin; base < end; base += blockDim.x) {
-    const int j = base + threadIdx.x;
-    const bool hit = j < end && pred(j);
-    const unsigned m = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) masks[warp] = m;
-    __syncthreads();
-    for (int w = 0; w < nwarps; ++w) {
-      unsigned mw = masks[w];
-      while (mw) {
-        const int b = __ffs(mw) - 1;
-        mw &= mw - 1;
-        f(base + w * 32 + b);
-      }
-    }
-    __syncthreads();
+// warp_sum of each of N values, the shuffles of one round issued together.
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&x)[N]) {
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) x[n] += __shfl_xor_sync(0xffffffffu, x[n], o);
   }
 }
 
-// Calls f(j) for every valid row j of a level's edge table whose
-// destination slot is `slot`, in row order.
-template <class F>
-__device__ __forceinline__ void for_each_in_edge(const int* __restrict__ dslot,
-                                                 const int* __restrict__ evalid,
-                                                 int ep, int slot, unsigned* masks, F f) {
-  for_each_row(0, ep, masks, [&](int j) { return evalid[j] != 0 && dslot[j] == slot; }, f);
+// acc[g][q] += sum over r < ROWS of x[r] * m[r * LD + g * GROUP + lane + 32 q]:
+// a vector in shared memory times G column groups of a row-major matrix, this
+// lane's columns. Bounds and strides are constants, so the loop unrolls into
+// loads at fixed offsets with no address arithmetic and no predicates (the
+// matrices are zero-padded to 32 NF columns).
+template <int NF, int G, int ROWS, int LD, int GROUP>
+__device__ __forceinline__ void vector_matrix(const float* x, const float* m,
+                                              float (&acc)[G][NF]) {
+  const float* col = m + (threadIdx.x & 31);
+#pragma unroll 8
+  for (int r = 0; r < ROWS; ++r) {
+    const float xr = x[r];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int q = 0; q < NF; ++q) {
+        acc[g][q] = fmaf(xr, col[r * LD + g * GROUP + 32 * q], acc[g][q]);
+      }
+    }
+  }
 }
+
+// Three matrices of one expert as the slot bodies read them, row-major and
+// zero-padded to DP = 32 NF rows and columns (the wrapper's expert-major
+// copies, ops/level_kernel.repack_expert_major): every product puts lane l
+// on columns l, l + 32, ... of a row, so a warp reads 32 neighbouring floats
+// at a time, from shared memory without bank conflicts and from device
+// memory coalesced, and the padding lets every loop run to a constant bound
+// with no predicate. The forward reads a = wk_e and b = wv_e [DP, DP] (rows:
+// the input feature) and c = w_ih_e [DP, 3 DP]; the backward's transposed
+// products read copies that the wrapper transposed, b = wv_e^T [DP, DP]
+// (rows: the output feature) and c = w_ih_e^T [3 DP, DP].
+//
+// A block copies its expert's matrices into shared memory once, at its
+// start. Up to DP = 96 all of them fit (the forward at D = 64: 5 D^2 floats =
+// 80 KB, two blocks per SM). At DP = 128 the forward keeps wk and wv (128 KB)
+// and reads w_ih, used once per slot against twice per edge, from device
+// memory through L2; the backward keeps w_ih^T (192 KB) and reads wv^T so
+// (a block can have 227 KB). Which it is, is a constant of NF, so the
+// compiler knows each pointer's address space.
+struct ExpertWeights {
+  const float* a;
+  const float* b;
+  const float* c;
+};
+
+template <int NF>
+struct Staged {
+  static constexpr int DP = 32 * NF;
+  static constexpr bool all = NF < 4;   // DP <= 96: every matrix fits
+};
+
+// Copies n floats from device to shared memory with 16-byte asynchronous
+// copies (n a multiple of 4, both 16-byte aligned), all threads of the block.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
+  for (int idx = 4 * threadIdx.x; idx < n; idx += 4 * blockDim.x) {
+    __pipeline_memcpy_async(dst + idx, src + idx, 4 * sizeof(float));
+  }
+}
+
+// Ends a block's staging: every copy has landed and every thread sees it.
+__device__ __forceinline__ void staged() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// Barrier over all blocks of a cooperative launch (the launch guarantees
+// that they are co-resident). `counter` is zeroed before the launch and only
+// grows; `target` is the count that ends this barrier: the barrier's number
+// (from 1) times gridDim.x. Every thread's writes before the barrier are
+// visible to every thread after it, for loads that do not go through L1
+// (__ldcg) or the read-only path.
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(counter, 1u);
+    while (*reinterpret_cast<volatile unsigned*>(counter) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Blocks per expert of a launch whose blocks need not be co-resident. A
+// slot's warp streams its expert's matrices out of shared memory, whose
+// bandwidth one SM's warps share, so a level's slots are dealt out over as
+// many blocks as there are slots, up to 64 (the slot loops stride past that).
+inline int blocks_per_expert(int np) { return np < 64 ? np : 64; }
+
+// The positions of an expert's slot list that one warp takes: the expert's
+// k-th slot goes to block k % nbe (be: the block's number among the nbe
+// blocks of its expert), so that a level's slots spread over all blocks
+// before any block gets a second one, and within the block to warp
+// (k / nbe) % kLevelWarps.
+__device__ __forceinline__ int first_slot(int be, int nbe) {
+  return be + nbe * (threadIdx.x >> 5);
+}
+__device__ __forceinline__ int slot_stride(int nbe) { return nbe * kLevelWarps; }
+
+// Lets `kernel` have `bytes` of dynamic shared memory. The attribute sticks to
+// the function, so each launcher sets it on its first call only (`done`: a
+// static of the launcher's own): setting it again per launch costs the host
+// tens of microseconds, which a route of a launch per level pays per level.
+template <class Kernel>
+cudaError_t allow_shared_memory(Kernel kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  *done = err == cudaSuccess;
+  return err;
+}
+
+// Runs the statement, which names NF, with NF = ceil(D / 32) a constant.
+#define MGVAE_WITH_NF(D, ...)                                  \
+  switch (((D) + 31) / 32) {                                   \
+    case 1: { constexpr int NF = 1; __VA_ARGS__; } break;      \
+    case 2: { constexpr int NF = 2; __VA_ARGS__; } break;      \
+    case 3: { constexpr int NF = 3; __VA_ARGS__; } break;      \
+    default: { constexpr int NF = 4; __VA_ARGS__; } break;     \
+  }
 
 }  // namespace

@@ -7,39 +7,55 @@
 // destination's expert, the masked segment softmax over the in-edges,
 // msg = sum attn * v, then a GRU step with h = 0, written to hf[node].
 //
-// What bounds it on this card: latency and launches. At bs16 / D = 64 a
-// level has ~100 destinations of fan-in 1-3: a few hundred KFLOP and a few
-// hundred KB of weights (L2-resident) per level, one launch per level, ~50
-// launches per batch. Neither FLOPs nor bytes come near the card's limits.
+// What bounds it on this card: latency, not bytes or operations. At bs16 /
+// D = 64 a level has ~100 destinations of fan-in 1-3, a few hundred KFLOP,
+// and ~45 levels each wait for the one below. What a level costs is the
+// longest dependent chain inside one slot plus whatever separates two
+// levels: round trips to device memory (about 1000 cycles each), and the
+// matrix products of one slot, which a warp alone issues at well under one
+// instruction a cycle.
 //
 // What the design does about it:
+//   * One persistent launch walks all real levels. Blocks are co-resident
+//     (a cooperative launch, the grid no larger than the occupancy allows)
+//     and meet at a barrier in device memory between two levels
+//     (grid_barrier, level_common.cuh), which costs about 1.4 microseconds
+//     where a launch per level cost the launch and a cold start of every
+//     block.
+//     A level reads hf rows that the same launch wrote on other SMs: those
+//     loads go past L1 (__ldcg) and never take the read-only path, and every
+//     thread fences its writes before the barrier.
+//   * A block serves one expert for the whole scan and keeps that expert's
+//     slices wk, wv [D, D] and w_ih [D, 3D] in shared memory, copied once at
+//     its start from the wrapper's expert-major, zero-padded copy (5 D^2
+//     floats: 80 KB at D = 64; past D = 96 wk and wv alone, see
+//     level_common.cuh). Block b serves expert b % T. A warp streams the
+//     matrices out of shared memory, whose bandwidth an SM's warps share
+//     (measured: with eight busy warps in a block the two products took 15k
+//     cycles a slot, with one 9k), so a level's slots are dealt out one to a
+//     block before any block gets a second, and the grid is as large as can
+//     be co-resident, up to a block per slot.
+//   * A warp computes a slot, with no block barrier inside a level, and
+//     finds the slot's in-edges in the level's list instead of scanning the
+//     level's edge table (level_slot.cuh; the lists come from
+//     ops/level_kernel.level_lists, one launch of level_lists.cu per batch).
+//     Inside a slot, four in-edges are gathered and multiplied together; the
+//     products' loops run to constant bounds over the padded matrices, so
+//     they unroll into loads at fixed offsets; and whatever does not depend
+//     on hf (the next level's slot: its indices and static inputs, three
+//     dependent round trips) is loaded between the phases of the current
+//     slot, so that when the barrier opens a warp has only hf left to read.
 //   * The TPU kernel computed all T experts and selected with a mask, and
 //     gathered/scattered rows with one-hot matmuls (Mosaic has no dynamic
-//     row gather). Here a block owns one destination slot and so one
-//     expert: it reads only that expert's [D, 2D] and [D, 3D] weight
-//     columns (T times fewer FLOPs), gathers hf rows with plain indexed
-//     loads and writes its row directly.
-//   * CUDA blocks run in no order, so the level dependency is explicit: one
-//     launch per real level on the caller's stream (the host loop below).
-//     hf lives in global memory; the caller zeroes it.
-//   * What a slot computes lives in level_slot.cuh, shared with the
-//     single-level step (level_step.cu).
-//   * Weights are read from global memory (L2). Staging them in shared
-//     memory, one persistent launch with a grid-wide barrier, CUDA graphs
-//     and wgmma are left for later work.
+//     row gather). Here a slot reads only its own expert and gathers rows
+//     with indexed loads. fp32 FMA: tensor cores would mean TF32 or bf16.
 //
 // Residuals (training): with res_e / res_n given, each updated slot also
-// writes, for the backward kernel (level_scan_bwd.cu), per in-edge
+// writes, for the backward kernel (level_scan_bwd.cu), per live in-edge
 // res_e [Ep, 3D+1] = hf_src | khf | v | attn and per slot
 // res_n [Np, 4D] = msg | r | z | nw, unpadded. Rows of slots that are not
-// updated, of padding edges and of padding levels are left as the caller
-// gave them (zeroed) and are never read.
-//
-// Thread d of a block owns feature d (blockDim = D rounded up to a warp).
-// An edge's expert is its destination's, so every in-edge of a slot uses the
-// slot's expert e_n[slot] (the pack's expert column holds the same value).
-// Each slot's in-edges are visited in row order, the same on every thread,
-// so the result does not depend on scheduling.
+// updated, of edges that are not live and of padding levels are not written
+// and never read: the buffers need no zero fill.
 
 #include <cuda_runtime.h>
 
@@ -47,67 +63,141 @@
 
 namespace {
 
-// One level. Grid: one block per destination slot of the level.
-__global__ void __launch_bounds__(kMaxDim) level_kernel(
-    const float* __restrict__ pack,    // [Ep, D+2]: [vhs | score_static | expert]
-    const int* __restrict__ src,       // [Ep] source node of each in-edge
-    const int* __restrict__ dslot,     // [Ep] destination slot
-    const int* __restrict__ evalid,    // [Ep] edge valid
-    const int* __restrict__ nodes,     // [Np] node id of each slot
-    const int* __restrict__ upd,       // [Np] update mask
-    const int* __restrict__ e_n,       // [Np] expert of each slot
-    const float* __restrict__ wkv_hf,  // [D, 2TD] = [wk_hf (TD) | wv_hf (TD)]
-    const float* __restrict__ w_ih,    // [D, 3TD]
-    const float* __restrict__ b_ih,    // [T, 3D]
-    const float* __restrict__ b_hh,    // [T, 3D]
-    const float* __restrict__ wa_k,    // [T, D]
-    float* hf,                         // [N, D]: sources read, this level's rows written
-    float* __restrict__ score_buf,     // [Ep] scratch
-    float* __restrict__ v_buf,         // [Ep, D] scratch
-    float* __restrict__ res_e,         // [Ep, 3D+1] or null
-    float* __restrict__ res_n,         // [Np, 4D] or null
-    int ep, int dim, int num_experts) {
-  const int slot = blockIdx.x;
-  if (upd[slot] == 0) return;  // block-uniform, before any barrier
-  level_slot_forward(pack, src, dslot, evalid, slot, e_n[slot], wkv_hf, w_ih, b_ih, b_hh, wa_k,
-                     hf, hf + (size_t)nodes[slot] * dim, score_buf, v_buf, res_e, res_n,
-                     ep, dim, num_experts);
+struct ScanForward {
+  const float* pack_lv;   // [L, Ep, D+2]
+  const int* lv_src;      // [L, Ep]
+  const int* lv_nodes;    // [L, Np] node id of each slot
+  const int* slot_rows;   // [L, Np]
+  const int* slot_off;    // [L, T+1]
+  const int* in_rows;     // [L, Ep]
+  const int* in_off;      // [L, Np+1]
+  const float* wkv_e;     // [T, 2, DP, DP], DP = D rounded up to 32
+  const float* wih_e;     // [T, DP, 3 DP]
+  const float* b_ih;      // [T, 3D]
+  const float* b_hh;      // [T, 3D]
+  const float* wa_k;      // [T, D]
+  float* hf;              // [N, D] zeroed; sources read, each level's rows written
+  float* score_buf;       // [Ep] scratch
+  float* v_buf;           // [Ep, D] scratch
+  float* res_e;           // [L, Ep, 3D+1] or null
+  float* res_n;           // [L, Np, 4D] or null
+  unsigned* barrier;      // zeroed
+  int num_levels, ep, np, dim, num_experts;
+};
+
+__device__ __forceinline__ LevelFwd level_of(const ScanForward& p, int l) {
+  const size_t eo = (size_t)l * p.ep, no = (size_t)l * p.np;
+  return LevelFwd{p.pack_lv + eo * (p.dim + 2), p.lv_src + eo, p.slot_rows + no,
+                  p.slot_off + (size_t)l * (p.num_experts + 1), p.in_rows + eo,
+                  p.in_off + (size_t)l * (p.np + 1)};
+}
+
+// Cooperative launch: T * nbe blocks of kLevelThreads; block b serves expert
+// b % T as the (b / T)-th of its nbe blocks.
+template <int NF>
+__global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanForward p) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = p.dim, T = p.num_experts;
+  const int e = blockIdx.x % T, be = blockIdx.x / T, nbe = gridDim.x / T;
+  float* scratch;
+  const ExpertVec<NF> x = load_expert_vec<NF>(p.b_ih, p.b_hh, p.wa_k, e, D);
+  const ExpertWeights w = stage_forward_weights<NF>(smem, p.wkv_e, p.wih_e, e, &scratch);
+  const size_t ew = 3 * (size_t)D + 1;
+  // Two levels ahead of the one it computes a warp holds its expert's range
+  // of the slot list, one level ahead its own slot, prepared in stages
+  // (NextSlot) that are issued between the phases of the current slot: by
+  // the time a level's barrier opens, all that is left to load is hf.
+  const int first = first_slot(be, nbe), stride = slot_stride(nbe);
+  const int* so = p.slot_off + e;                 // this expert's column of slot_off [L, T+1]
+  auto range = [&](int l, int (&r)[2]) {          // level l's positions [r[0], r[1]), loads only
+    r[0] = l < p.num_levels ? __ldg(so + (size_t)l * (T + 1)) : 0;
+    r[1] = l < p.num_levels ? __ldg(so + (size_t)l * (T + 1) + 1) : 0;
+  };
+  int cur[2], nxt[2], far[2];
+  range(0, cur);
+  range(1, nxt);
+  NextSlot<NF> next;
+  next.start(level_of(p, 0), p.lv_nodes, cur[0] + first, cur[0] + first < cur[1], D);
+  next.a();
+  next.b();
+  next.c();
+  for (int l = 0; l < p.num_levels; ++l) {
+    const size_t eo = (size_t)l * p.ep, no = (size_t)l * p.np;
+    const SlotPrep<NF> ready = next.sp;
+    next.start(level_of(p, l + 1), p.lv_nodes + no + p.np, nxt[0] + first,
+               nxt[0] + first < nxt[1], D);   // past the last level: an empty range
+    next.a();
+    range(l + 2, far);
+    level_forward_block<NF>(level_of(p, l), cur[0] + first, cur[1], stride, w, x, p.hf, p.hf,
+                            p.lv_nodes + no, p.score_buf, p.v_buf,
+                            p.res_e ? p.res_e + eo * ew : nullptr,
+                            p.res_n ? p.res_n + no * 4 * D : nullptr, scratch, D, &ready, next);
+    cur[0] = nxt[0], cur[1] = nxt[1];
+    nxt[0] = far[0], nxt[1] = far[1];
+    if (l + 1 < p.num_levels) grid_barrier(p.barrier, (unsigned)(l + 1) * gridDim.x);
+  }
+}
+
+template <int NF>
+cudaError_t launch_scan(ScanForward p, cudaStream_t s) {
+  const size_t smem = forward_smem<NF>();
+  static bool configured = false;
+  static int sms = 0, per_sm = 0;   // of the device the first call ran on
+  cudaError_t err = cudaSuccess;
+  if (!configured) {
+    int device = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    bool allowed = false;
+    if ((err = allow_shared_memory(level_scan_kernel<NF>, smem, &allowed)) != cudaSuccess) {
+      return err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_kernel<NF>,
+                                                        kLevelThreads, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  // a block per slot of a level's expert (its warps stream the expert's matrices
+  // out of shared memory, whose bandwidth an SM's warps share), as far as the
+  // blocks are co-resident
+  int nbe = p.np;
+  if (nbe > per_sm * sms / p.num_experts) nbe = per_sm * sms / p.num_experts;
+  if (nbe < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if ((err = cudaMemsetAsync(p.barrier, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_kernel<NF>),
+                                     dim3(p.num_experts * nbe), dim3(kLevelThreads), args, smem,
+                                     s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Runs levels [0, num_levels) of the level tables, one launch per level on
-// `stream`. Tables are [L, Ep] / [L, Np] row-major int32, pack_lv is
-// [L, Ep, D+2]. res_e [L, Ep, 3D+1] and res_n [L, Np, 4D] are both given
-// (training) or both null. Returns 0, or the cudaError_t of the first
-// failed launch.
+// Runs levels [0, num_levels) of the level tables in one cooperative launch
+// on `stream`. Tables and lists are row-major int32 with a leading level
+// axis, pack_lv is [L, Ep, D+2]; hf [N, D] must be zeroed by the caller.
+// res_e [L, Ep, 3D+1] and res_n [L, Np, 4D] are both given (training) or both
+// null. `barrier`: one unsigned of device memory. Returns 0, or the
+// cudaError_t of the failed call: a launch that is refused never runs.
 int mgvae_level_scan_forward(
-    const float* pack_lv, const int* lv_src, const int* lv_dslot, const int* lv_evalid,
-    const int* lv_nodes, const int* lv_upd, const int* lv_e_n,
-    const float* wkv_hf, const float* w_ih, const float* b_ih, const float* b_hh,
-    const float* wa_k, float* hf, float* score_buf, float* v_buf, float* res_e, float* res_n,
+    const float* pack_lv, const int* lv_src, const int* lv_nodes, const int* slot_rows,
+    const int* slot_off, const int* in_rows, const int* in_off, const float* wkv_e,
+    const float* wih_e, const float* b_ih, const float* b_hh, const float* wa_k, float* hf,
+    float* score_buf, float* v_buf, float* res_e, float* res_n, unsigned* barrier,
     int num_levels, int ep, int np, int dim, int num_experts, void* stream) {
   if (dim < 1 || dim > kMaxDim || num_experts < 1 || num_experts > kMaxExperts ||
       ep < 1 || np < 1 || num_levels < 0 || (res_e == nullptr) != (res_n == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = (dim + 31) / 32 * 32;
-  const size_t ew = 3 * static_cast<size_t>(dim) + 1, nw = 4 * static_cast<size_t>(dim);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int l = 0; l < num_levels; ++l) {
-    const size_t eo = static_cast<size_t>(l) * ep, no = static_cast<size_t>(l) * np;
-    level_kernel<<<np, threads, 0, s>>>(
-        pack_lv + eo * (dim + 2), lv_src + eo, lv_dslot + eo, lv_evalid + eo,
-        lv_nodes + no, lv_upd + no, lv_e_n + no,
-        wkv_hf, w_ih, b_ih, b_hh, wa_k, hf, score_buf, v_buf,
-        res_e ? res_e + eo * ew : nullptr, res_n ? res_n + no * nw : nullptr,
-        ep, dim, num_experts);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  if (num_levels == 0) return 0;
+  ScanForward p{pack_lv, lv_src, lv_nodes, slot_rows, slot_off, in_rows, in_off, wkv_e, wih_e,
+                b_ih, b_hh, wa_k, hf, score_buf, v_buf, res_e, res_n, barrier,
+                num_levels, ep, np, dim, num_experts};
+  cudaError_t err = cudaSuccess;
+  MGVAE_WITH_NF(dim, err = launch_scan<NF>(p, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(err);
 }
 
 const char* mgvae_cuda_error_string(int code) {

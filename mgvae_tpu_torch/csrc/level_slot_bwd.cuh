@@ -1,69 +1,255 @@
 // The backward of one level, shared by the fused level scan's backward
-// (level_scan_bwd.cu) and the single-level step's (level_step_bwd.cu): what
-// one destination slot computes from its saved residuals, the kernel that
-// sums the sources' gradients without atomics, and the weight-gradient
-// kernel that runs over saved rows. The two backwards differ in where a
-// slot's cotangent comes from (a row of the carried ghf, or the step's own
-// g [Np, D]) and in where the sources' gradients go (added into the carried
-// ghf, or into a zeroed d_hf). The giant backward (level_scan_giant_bwd.cu)
-// uses the same three on one level's recomputed rows at a time and adds each
-// level's weight gradients into its outputs.
+// (level_scan_bwd.cu), the giant backward (level_scan_giant_bwd.cu) and the
+// single-level step's (level_step_bwd.cu): what one destination slot computes
+// from its saved residuals, the sums of the sources' gradients without
+// atomics, and the weight-gradient kernels that run over saved rows. The
+// backwards differ in where a slot's cotangent comes from (a row of the
+// carried ghf, or the step's own g [Np, D]), in where the sources' gradients
+// go (added into the carried ghf, or into a zeroed d_hf) and in how the
+// levels are launched.
+//
+// As in the forward (level_slot.cuh) a warp owns a slot, lane l features l,
+// l + 32, ..., the slot's in-edges and a source's rows come from the level
+// lists, and what does not depend on the sweep (indices, the slot's
+// residuals: SlotPrepBwd) is loaded in three stages that a persistent sweep
+// issues between the phases of the warp's current slot (NextSlotBwd, as the
+// forward's NextSlot). The transposed products read copies of the expert's
+// matrices that the wrapper transposed (lane d on column d of a row: no bank
+// conflict, no uncoalesced row). And the per-edge products collapse: with
+// dk = dscore * wa_k[e] and dv = attn * dmsg,
+//   dhf_src = dk . wk_e^T + dv . wv_e^T = dscore * ck + attn * cv,
+//   ck = wa_k[e] . wk_e^T  (one vector per expert, once per block),
+//   cv = dmsg . wv_e^T     (one product per slot),
+// so an in-edge costs O(D), not O(D^2).
 #pragma once
 
 #include "level_common.cuh"
 
 namespace {
 
-// Called by every thread of the block that owns `slot` (thread d owns
-// feature d), with `e` the slot's expert and `g_row` [D] the cotangent of
-// the slot's h_new. GRU backward with h = 0, dmsg through the expert's
-// columns of w_ih, then the slot's in-edges in row order: dv, dattn, the
-// softmax backward, dk and dhf_src through the expert's columns of wkv_hf.
+// One level's lists for the backward (see LevelFwd; src_rows: the level's
+// live edge rows grouped by source node, each group in row order, in_off[Np]
+// of them).
+struct LevelBwd {
+  const int* src;        // [Ep]
+  const int* slot_rows;  // [Np]
+  const int* slot_off;   // [T+1]
+  const int* in_rows;    // [Ep]
+  const int* in_off;     // [Np+1]
+  const int* src_rows;   // [Ep]
+};
+
+// Level l's lists, from lists that hold all levels' (each list's rows at l
+// times its width).
+__host__ __device__ inline LevelBwd level_of(const LevelBwd& all, int l, int ep, int np, int T) {
+  const size_t eo = (size_t)l * ep, no = (size_t)l * np;
+  return LevelBwd{all.src + eo,
+                  all.slot_rows + no,
+                  all.slot_off + (size_t)l * (T + 1),
+                  all.in_rows + eo,
+                  all.in_off + (size_t)l * (np + 1),
+                  all.src_rows + eo};
+}
+
+// What a slot's warp holds before it reads its cotangent.
+template <int NF>
+struct SlotPrepBwd {
+  int slot, eb, n;              // the slot, its first position in in_rows, its in-edges
+  int g;                        // the row of the cotangent array that is the slot's
+  int j;                        // lane t < min(n, 32): row of in-edge t
+  float a;                      //   and its softmax weight
+  float r[NF], z[NF], nw[NF];   // the slot's GRU residuals, this lane's features
+  float v[kBatch][NF];          // the first batch's values
+};
+
+// An expert's vectors, this lane's features: wa_k and the n gate's b_hh.
+// Loaded once per block.
+template <int NF>
+struct ExpertVecBwd {
+  float wa[NF], bhn[NF];
+};
+
+template <int NF>
+__device__ __forceinline__ ExpertVecBwd<NF> load_expert_vec_bwd(
+    const float* __restrict__ b_hh, const float* __restrict__ wa_k, int e, int D) {
+  ExpertVecBwd<NF> x;
+#pragma unroll
+  for (int q = 0; q < NF; ++q) {
+    const int d = (threadIdx.x & 31) + 32 * q;
+    x.wa[q] = d < D ? __ldg(wa_k + (size_t)e * D + d) : 0.f;
+    x.bhn[q] = d < D ? __ldg(b_hh + (size_t)e * 3 * D + 2 * D + d) : 0.f;
+  }
+  return x;
+}
+
+// Values of in-edges t0 .. t0+3, this lane's features.
+template <int NF>
+__device__ __forceinline__ void load_values(const LevelBwd& lv, const SlotPrepBwd<NF>& sp,
+                                            const float* __restrict__ res_e, int t0, int D,
+                                            float (&v)[kBatch][NF]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const int t = t0 + u;
+    int j = 0;
+    if (t < sp.n) {   // warp-uniform
+      j = t < 32 ? __shfl_sync(0xffffffffu, sp.j, t) : __ldg(lv.in_rows + sp.eb + t);
+    }
+    const float* re = res_e + (size_t)j * (3 * D + 1) + 2 * D;
+#pragma unroll
+    for (int q = 0; q < NF; ++q) {
+      v[u][q] = (t < sp.n && lane + 32 * q < D) ? re[lane + 32 * q] : 0.f;
+    }
+  }
+}
+
+// A slot's SlotPrepBwd in three stages, each a round trip to device memory
+// that needs the one before (see the forward's slot_prepare_a .. c): called
+// by all lanes of the warp that takes position p of the level's slot list.
+// They read the lists and the forward's residuals only. The slot's cotangent
+// is row g_index[slot] of the cotangent array, or row slot without g_index.
+template <int NF>
+__device__ __forceinline__ void slot_bwd_prepare_a(const LevelBwd& lv, int p,
+                                                   SlotPrepBwd<NF>& sp) {
+  sp.slot = __ldg(lv.slot_rows + p);
+  sp.eb = __ldg(lv.in_off + p);
+  sp.n = __ldg(lv.in_off + p + 1);   // the end of the slot's in-edges, until stage b
+}
+
+template <int NF>
+__device__ __forceinline__ void slot_bwd_prepare_b(const LevelBwd& lv,
+                                                   const float* __restrict__ res_n,
+                                                   const int* __restrict__ g_index, int D,
+                                                   SlotPrepBwd<NF>& sp) {
+  const int lane = threadIdx.x & 31;
+  sp.n -= sp.eb;
+  sp.j = lane < sp.n ? __ldg(lv.in_rows + sp.eb + lane) : 0;
+  sp.g = g_index ? __ldg(g_index + sp.slot) : sp.slot;
+  const float* rn = res_n + (size_t)sp.slot * 4 * D;
+#pragma unroll
+  for (int q = 0; q < NF; ++q) {
+    const int d = lane + 32 * q;
+    sp.r[q] = d < D ? rn[D + d] : 0.f;
+    sp.z[q] = d < D ? rn[2 * D + d] : 0.f;
+    sp.nw[q] = d < D ? rn[3 * D + d] : 0.f;
+  }
+}
+
+template <int NF>
+__device__ __forceinline__ void slot_bwd_prepare_c(const LevelBwd& lv,
+                                                   const float* __restrict__ res_e, int D,
+                                                   SlotPrepBwd<NF>& sp) {
+  sp.a = (threadIdx.x & 31) < sp.n ? res_e[(size_t)sp.j * (3 * D + 1) + 3 * D] : 0.f;
+  load_values(lv, sp, res_e, 0, D, sp.v);
+}
+
+template <int NF>
+__device__ __forceinline__ SlotPrepBwd<NF> level_slot_bwd_prepare(
+    const LevelBwd& lv, int p, const float* __restrict__ res_e, const float* __restrict__ res_n,
+    const int* __restrict__ g_index, int D) {
+  SlotPrepBwd<NF> sp;
+  slot_bwd_prepare_a(lv, p, sp);
+  slot_bwd_prepare_b(lv, res_n, g_index, D, sp);
+  slot_bwd_prepare_c(lv, res_e, D, sp);
+  return sp;
+}
+
+// The slot at position p of the next (lower) level's list that a warp of the
+// persistent sweep prepares while it computes its slot of this level: the
+// forward's NextSlot for the backward.
+template <int NF>
+struct NextSlotBwd {
+  LevelBwd lv;
+  const float* res_e;
+  const float* res_n;
+  const int* g_index;
+  int p, D, stage;   // stage: the next to run; 3: none (done, or no slot there)
+  SlotPrepBwd<NF> sp;
+  __device__ __forceinline__ void start(const LevelBwd& level, const float* e_rows,
+                                        const float* n_rows, const int* index, int pos,
+                                        bool any, int dim) {
+    lv = level;
+    res_e = e_rows;
+    res_n = n_rows;
+    g_index = index;
+    p = pos;
+    D = dim;
+    stage = any ? 0 : 3;
+  }
+  __device__ __forceinline__ void a() {
+    if (stage == 0) {
+      slot_bwd_prepare_a(lv, p, sp);
+      stage = 1;
+    }
+  }
+  __device__ __forceinline__ void b() {
+    if (stage == 1) {
+      slot_bwd_prepare_b(lv, res_n, g_index, D, sp);
+      stage = 2;
+    }
+  }
+  __device__ __forceinline__ void c() {
+    if (stage == 2) {
+      slot_bwd_prepare_c(lv, res_e, D, sp);
+      stage = 3;
+    }
+  }
+};
+
+// For a launch of one level: nothing to prepare.
+struct NoNextBwd {
+  __device__ __forceinline__ void b() {}
+  __device__ __forceinline__ void c() {}
+};
+
+// Called by all lanes of the warp that owns the prepared slot, with its
+// expert's w.b = wv_e^T and w.c = w_ih_e^T, ck [D] = wa_k[e] . wk_e^T, and
+// row sp.g of `g` [., D] the cotangent of the slot's h_new (read past L1: a
+// persistent sweep wrote it itself). GRU backward with h = 0, dmsg through
+// w_ih_e^T, cv through wv_e^T, then the slot's in-edges in list order:
+// dattn, the softmax backward, dv, dk and dhf_src. `scratch`: 4 DP floats of
+// shared memory of this warp's own (DP = 32 NF). `next`: see NextSlotBwd.
+template <int NF, class Next>
 __device__ __forceinline__ void level_slot_backward(
-    const float* __restrict__ g_row,   // [D]
+    const LevelBwd& lv, SlotPrepBwd<NF>& sp, const ExpertWeights& w,
+    const ExpertVecBwd<NF>& x, Next& next, const float* ck, const float* g,
     const float* __restrict__ res_e,   // [Ep, 3D+1] hf_src | khf | v | attn
-    const float* __restrict__ res_n,   // [Np, 4D] msg | r | z | nw
-    const int* __restrict__ dslot,     // [Ep]
-    const int* __restrict__ evalid,    // [Ep]
-    int slot, int e,
-    const float* __restrict__ wkv_hf,  // [D, 2TD]
-    const float* __restrict__ w_ih,    // [D, 3TD]
-    const float* __restrict__ b_hh,    // [T, 3D]
-    const float* __restrict__ wa_k,    // [T, D]
     float* __restrict__ d_pack,        // [Ep, D+2]: dv | dscore written
     float* __restrict__ dkv,           // [Ep, 2D]: dk | dv, for the weight gradients
     float* __restrict__ dg,            // [Np, 6D]: dgi | dbh, for the weight gradients
-    float* __restrict__ dhf_buf,       // [Ep, D]: dhf_src, for the source sums
-    float* dattn_buf,                  // [Ep] scratch
-    int ep, int D, int T) {
-  __shared__ float dgi_s[3 * kMaxDim];
-  __shared__ float dk_s[kMaxDim];
-  __shared__ float dv_s[kMaxDim];
-  __shared__ float red[kMaxWarps];
-  __shared__ unsigned masks[kMaxWarps];
-
-  const int d = threadIdx.x;
-  const bool own = d < D;
+    float* dhf_buf,                    // [Ep, D]: dhf_src, for the source sums
+    float* scratch, int D) {
+  const int lane = threadIdx.x & 31;
   const size_t pw = D + 2;
-  const size_t ew = 3 * (size_t)D + 1;
-  const size_t kv_stride = 2 * (size_t)T * D;
-  const size_t g_stride = 3 * (size_t)T * D;
+  constexpr int DP = Staged<NF>::DP;
+  float* dgi_s = scratch;             // [3 DP]: gate g's features at g * DP, 0 past D
+  float* dmsg_s = scratch + 3 * DP;   // [DP]
+  bool own[NF];
+  float ckq[NF];
 
   // GRU backward with h = 0: h_new = (1 - z) * nw, nw = tanh(i_n + r * b_hn)
-  if (own) {
-    const float* rn = res_n + (size_t)slot * 4 * D;
-    const float r = rn[D + d], z = rn[2 * D + d], nw = rn[3 * D + d];
-    const float g = g_row[d];
-    const float dnw = g * (1.f - z);
-    const float dz = -g * nw;
+  float* o = dg + (size_t)sp.slot * 6 * D;
+  const float* g_row = g + (size_t)sp.g * D;
+#pragma unroll
+  for (int q = 0; q < NF; ++q) {
+    const int d = lane + 32 * q;
+    own[q] = d < D;
+    ckq[q] = ck[d];
+    if (!own[q]) {
+      dgi_s[d] = dgi_s[DP + d] = dgi_s[2 * DP + d] = 0.f;
+      continue;
+    }
+    const float r = sp.r[q], z = sp.z[q], nw = sp.nw[q];
+    const float go = __ldcg(g_row + d);
+    const float dnw = go * (1.f - z);
+    const float dz = -go * nw;
     const float dnu = dnw * (1.f - nw * nw);                  // pre-tanh
-    const float dr = dnu * b_hh[(size_t)e * 3 * D + 2 * D + d];
+    const float dr = dnu * x.bhn[q];
     const float dzeta = dz * z * (1.f - z);                   // pre-sigmoid z
     const float drho = dr * r * (1.f - r);                    // pre-sigmoid r
     dgi_s[d] = drho;
-    dgi_s[D + d] = dzeta;
-    dgi_s[2 * D + d] = dnu;
-    float* o = dg + (size_t)slot * 6 * D;
+    dgi_s[DP + d] = dzeta;
+    dgi_s[2 * DP + d] = dnu;
     o[d] = drho;
     o[D + d] = dzeta;
     o[2 * D + d] = dnu;
@@ -71,139 +257,295 @@ __device__ __forceinline__ void level_slot_backward(
     o[4 * D + d] = dzeta;
     o[5 * D + d] = dnu * r;
   }
-  __syncthreads();
+  __syncwarp();
 
-  // dmsg = dgi . w_ih[:, expert e]^T: thread d reads row d of the block
-  float dmsg = 0.f;
-  if (own) {
-    const float* row = w_ih + (size_t)d * g_stride + (size_t)e * 3 * D;
-    for (int c = 0; c < 3 * D; ++c) dmsg = fmaf(dgi_s[c], row[c], dmsg);
-  }
+  // dmsg = dgi . w_ih_e^T, then cv = dmsg . wv_e^T
+  float dmsg1[1][NF], cv1[1][NF];
+#pragma unroll
+  for (int q = 0; q < NF; ++q) dmsg1[0][q] = cv1[0][q] = 0.f;
+  vector_matrix<NF, 1, 3 * DP, DP, 0>(dgi_s, w.c, dmsg1);
+  const float (&dmsg)[NF] = dmsg1[0];   // 0 past D: w_ih^T's columns there are
+#pragma unroll
+  for (int q = 0; q < NF; ++q) dmsg_s[lane + 32 * q] = dmsg[q];
+  __syncwarp();
+  next.b();
+  vector_matrix<NF, 1, DP, DP, 0>(dmsg_s, w.b, cv1);
+  const float (&cv)[NF] = cv1[0];
+  __syncwarp();  // the warp's next slot overwrites scratch
+  next.c();
 
-  // pass 1: dv = attn * dmsg, dattn = v . dmsg, and sum attn * dattn
+  // softmax weight of in-edge t (all lanes get it)
+  auto attn_of = [&](int t) {
+    if (t < 32) return __shfl_sync(0xffffffffu, sp.a, t);
+    return res_e[(size_t)__ldg(lv.in_rows + sp.eb + t) * (3 * D + 1) + 3 * D];
+  };
+  // dattn = v . dmsg of in-edges t0 .. t0+3
+  float dattn[kBatch];
+  auto batch = [&](int t0) {
+    if (t0 > 0 || sp.n > kBatch) load_values(lv, sp, res_e, t0, D, sp.v);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      dattn[u] = 0.f;
+#pragma unroll
+      for (int q = 0; q < NF; ++q) dattn[u] = fmaf(sp.v[u][q], dmsg[q], dattn[u]);
+    }
+    warp_sums(dattn);
+  };
+
+  // pass 1: sum attn * dattn over the slot's in-edges
   float s_grp = 0.f;
-  for_each_in_edge(dslot, evalid, ep, slot, masks, [&](int j) {
-    const float* re = res_e + j * ew;
-    const float a = re[3 * D];
-    const float dattn = block_sum(own ? re[2 * D + d] * dmsg : 0.f, red);
-    if (d == 0) dattn_buf[j] = dattn;
-    s_grp = fmaf(a, dattn, s_grp);
-    if (own) {
-      const float dv = a * dmsg;
-      d_pack[j * pw + d] = dv;
-      dkv[(size_t)j * 2 * D + D + d] = dv;
+  for (int t0 = 0; t0 < sp.n; t0 += kBatch) {
+    batch(t0);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (t0 + u < sp.n) s_grp = fmaf(attn_of(t0 + u), dattn[u], s_grp);
     }
-  });
-
-  // pass 2: softmax backward, dk = dscore * wa_k[e], and
-  // dhf_src = dk . wk_e^T + dv . wv_e^T
-  const float wa = own ? wa_k[(size_t)e * D + d] : 0.f;
-  const float* wk = wkv_hf + (size_t)e * D;
-  const float* wv = wkv_hf + (size_t)(T + e) * D;
-  for_each_in_edge(dslot, evalid, ep, slot, masks, [&](int j) {
-    const float a = res_e[j * ew + 3 * D];
-    const float dscore = a * (dattn_buf[j] - s_grp);
-    if (d == 0) d_pack[j * pw + D] = dscore;
-    if (own) {
-      const float dk = dscore * wa;
-      dkv[(size_t)j * 2 * D + d] = dk;
-      dk_s[d] = dk;
-      dv_s[d] = a * dmsg;
-    }
-    __syncthreads();
-    if (own) {
-      const float* wkr = wk + (size_t)d * kv_stride;
-      const float* wvr = wv + (size_t)d * kv_stride;
-      float h = 0.f;
-      for (int c = 0; c < D; ++c) h = fmaf(dk_s[c], wkr[c], fmaf(dv_s[c], wvr[c], h));
-      dhf_buf[(size_t)j * D + d] = h;
-    }
-    __syncthreads();  // dk_s / dv_s are rewritten by the next edge
-  });
-}
-
-// The reverse sweep's first launch of a level, for a backward that carries
-// ghf (the fused scan's and the giant's): one block per destination slot, its
-// cotangent the row of ghf at the slot's node.
-__global__ void __launch_bounds__(kMaxDim) level_bwd_slot_kernel(
-    const float* __restrict__ ghf,     // [N, D] cotangent of hf (this level's nodes read)
-    const float* __restrict__ res_e,   // [Ep, 3D+1] hf_src | khf | v | attn
-    const float* __restrict__ res_n,   // [Np, 4D] msg | r | z | nw
-    const int* __restrict__ dslot,     // [Ep]
-    const int* __restrict__ evalid,    // [Ep]
-    const int* __restrict__ nodes,     // [Np]
-    const int* __restrict__ upd,       // [Np]
-    const int* __restrict__ e_n,       // [Np]
-    const float* __restrict__ wkv_hf,  // [D, 2TD]
-    const float* __restrict__ w_ih,    // [D, 3TD]
-    const float* __restrict__ b_hh,    // [T, 3D]
-    const float* __restrict__ wa_k,    // [T, D]
-    float* __restrict__ d_pack,        // [Ep, D+2]: dv | dscore written
-    float* __restrict__ dkv,           // [Ep, 2D]: dk | dv, for the weight gradients
-    float* __restrict__ dg,            // [Np, 6D]: dgi | dbh, for the weight gradients
-    float* __restrict__ dhf_buf,       // [Ep, D]: dhf_src, for the source sums
-    float* dattn_buf,                  // [Ep] scratch
-    int ep, int dim, int num_experts) {
-  const int slot = blockIdx.x;
-  if (upd[slot] == 0) return;  // block-uniform, before any barrier
-  level_slot_backward(ghf + (size_t)nodes[slot] * dim, res_e, res_n, dslot, evalid, slot,
-                      e_n[slot], wkv_hf, w_ih, b_hh, wa_k, d_pack, dkv, dg, dhf_buf, dattn_buf,
-                      ep, dim, num_experts);
-}
-
-// ghf[src] += a level's dhf_src rows. Several slots of a level can share a
-// source, so one block per edge row, of which only the first live row of
-// each distinct source works: it sums all live rows of that source in row
-// order and adds once. No atomics, the same result on every run.
-__global__ void __launch_bounds__(kMaxDim) level_bwd_source_kernel(
-    float* __restrict__ ghf,            // [N, D]
-    const float* __restrict__ dhf_buf,  // [Ep, D]
-    const int* __restrict__ src,        // [Ep]
-    const int* __restrict__ dslot,      // [Ep]
-    const int* __restrict__ evalid,     // [Ep]
-    const int* __restrict__ upd,        // [Np]
-    int ep, int dim) {
-  // a row is live when the slot kernel wrote its dhf_src
-  auto live = [&](int k) { return evalid[k] != 0 && upd[dslot[k]] != 0; };
-  const int j = blockIdx.x;
-  if (!live(j)) return;  // block-uniform
-  const int s = src[j];
-  for (int base = 0; base < j; base += blockDim.x) {
-    const int k = base + threadIdx.x;
-    if (__syncthreads_or(k < j && live(k) && src[k] == s)) return;  // not the first
   }
-  __shared__ unsigned masks[kMaxWarps];
-  const int d = threadIdx.x;
-  const bool own = d < dim;
-  float acc = 0.f;
-  for_each_row(j, ep, masks, [&](int k) { return live(k) && src[k] == s; },
-               [&](int k) { if (own) acc += dhf_buf[(size_t)k * dim + d]; });
-  if (own) ghf[(size_t)s * dim + d] += acc;
+
+  // pass 2: the softmax backward, dv = attn * dmsg, dk = dscore * wa_k[e],
+  // dhf_src = dscore * ck + attn * cv
+  for (int t0 = 0; t0 < sp.n; t0 += kBatch) {
+    if (sp.n > kBatch) batch(t0);   // else dattn still holds the slot's only batch
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = t0 + u;
+      if (t >= sp.n) break;   // warp-uniform
+      const size_t j = t < 32 ? __shfl_sync(0xffffffffu, sp.j, t)
+                              : __ldg(lv.in_rows + sp.eb + t);
+      const float a = attn_of(t);
+      const float dscore = a * (dattn[u] - s_grp);
+      if (lane == 0) d_pack[j * pw + D] = dscore;
+#pragma unroll
+      for (int q = 0; q < NF; ++q) {
+        if (!own[q]) continue;
+        const int d = lane + 32 * q;
+        const float dv = a * dmsg[q];
+        d_pack[j * pw + d] = dv;
+        dkv[j * 2 * D + d] = dscore * x.wa[q];
+        dkv[j * 2 * D + D + d] = dv;
+        dhf_buf[j * D + d] = fmaf(dscore, ckq[q], a * cv[q]);
+      }
+    }
+  }
 }
 
-// Weight gradients: out[i, col(e, c)] = sum over rows r of expert e of A[r, i] * B[r, c].
+// A warp's share of one level's slot backward: as level_forward_block. The
+// cotangent of slot s is the row of g at g_index[s] (the sweeps: ghf at the
+// slot's node) or at s without g_index (the step).
+template <int NF, class Next>
+__device__ __forceinline__ void level_backward_block(
+    const LevelBwd& lv, int p0, int p1, int stride, const ExpertWeights& w,
+    const ExpertVecBwd<NF>& x, const float* ck, const float* g,
+    const int* __restrict__ g_index, const float* __restrict__ res_e,
+    const float* __restrict__ res_n, float* __restrict__ d_pack, float* __restrict__ dkv,
+    float* __restrict__ dg, float* dhf_buf, float* scratch, int D,
+    const SlotPrepBwd<NF>* ready, Next& next) {
+  for (int p = p0; p < p1; p += stride) {
+    SlotPrepBwd<NF> sp = (ready && p == p0)
+                             ? *ready
+                             : level_slot_bwd_prepare<NF>(lv, p, res_e, res_n, g_index, D);
+    level_slot_backward<NF>(lv, sp, w, x, next, ck, g, res_e, d_pack, dkv, dg, dhf_buf,
+                            scratch + (threadIdx.x >> 5) * 4 * Staged<NF>::DP, D);
+  }
+  next.b();
+  next.c();
+}
+
+// out[src] += a level's dhf_src rows: a block's share of the level's source
+// sums. Several slots of a level can share a source. The level's live rows
+// are listed by source; a warp looks at 31 positions of the list at a time, a
+// lane each, and where the first of them starts a source's group (the
+// position before it holds another source) it sums the group's rows in list
+// (= row) order and adds once. No atomics, the same result on every run.
+// `first_warp` / `num_warps`: this warp's number among all that share the
+// level. dhf_buf and out are read past L1 (a persistent sweep wrote them
+// itself).
+template <int NF>
+__device__ __forceinline__ void level_source_block(
+    const LevelBwd& lv, int np, float* out, const float* dhf_buf, int first_warp, int num_warps,
+    int D) {
+  const int lane = threadIdx.x & 31;
+  const int n_live = __ldg(lv.in_off + np);
+  for (int i = first_warp; i < n_live; i += num_warps) {
+    // lane 0: the position before i; lane t: position i + t - 1
+    const int pos = i + lane - 1;
+    const int jt = (pos >= 0 && pos < n_live) ? __ldg(lv.src_rows + pos) : -1;
+    const int st = jt >= 0 ? __ldg(lv.src + jt) : -1;
+    const int s = __shfl_sync(0xffffffffu, st, 1);
+    if (__shfl_sync(0xffffffffu, st, 0) == s) continue;   // not a group's start
+    // the group: positions i .. i + len - 1
+    const unsigned same = __ballot_sync(0xffffffffu, st == s) >> 1;
+    int len = __ffs(~same) - 1;                             // leading lanes 1.. that match
+    float acc[NF];
+#pragma unroll
+    for (int q = 0; q < NF; ++q) acc[q] = 0.f;
+    for (int r0 = 0; r0 < len; r0 += kBatch) {
+      float x[kBatch][NF];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = __shfl_sync(0xffffffffu, jt, (1 + r0 + u) & 31);
+#pragma unroll
+        for (int q = 0; q < NF; ++q) {
+          const int d = lane + 32 * q;
+          x[u][q] = (r0 + u < len && d < D) ? __ldcg(dhf_buf + (size_t)j * D + d) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (r0 + u >= len) break;
+#pragma unroll
+        for (int q = 0; q < NF; ++q) acc[q] += x[u][q];
+      }
+    }
+    // a group longer than the 31 positions in view: the rest one row at a time
+    for (int t = i + 31; len == 31 && t < n_live; ++t) {
+      const int j = __ldg(lv.src_rows + t);
+      if (__ldg(lv.src + j) != s) break;
+#pragma unroll
+      for (int q = 0; q < NF; ++q) {
+        const int d = lane + 32 * q;
+        if (d < D) acc[q] += __ldcg(dhf_buf + (size_t)j * D + d);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NF; ++q) {
+      const int d = lane + 32 * q;
+      if (d < D) out[(size_t)s * D + d] = __ldcg(out + (size_t)s * D + d) + acc[q];
+    }
+  }
+}
+
+// Shared memory of a backward block: w_ih^T, wv^T where it fits, ck [DP]
+// and 4 DP floats of scratch per warp.
+template <int NF>
+constexpr size_t backward_smem() {
+  constexpr size_t DP = Staged<NF>::DP;
+  return sizeof(float) * ((Staged<NF>::all ? 4 : 3) * DP * DP + DP + kLevelWarps * 4 * DP);
+}
+
+// Called by every thread of a backward block at its start: expert e's
+// w_ih_e^T and wv_e^T from the wrapper's copies wiht_e [T, 3 DP, DP] and
+// wvt_e [T, DP, DP], staged, and ck = wa_k[e] . wk_e^T from wkv_e
+// [T, 2, DP, DP], in shared memory behind them (*ck; *scratch follows).
+template <int NF>
+__device__ __forceinline__ ExpertWeights stage_backward_weights(
+    float* smem, const float* __restrict__ wkv_e, const float* __restrict__ wvt_e,
+    const float* __restrict__ wiht_e, const float* __restrict__ wa_k, int e, int D, float** ck,
+    float** scratch) {
+  constexpr int DP = Staged<NF>::DP;
+  const float* wit = wiht_e + (size_t)e * 3 * DP * DP;
+  const float* wvt = wvt_e + (size_t)e * DP * DP;
+  stage(smem, wit, 3 * DP * DP);
+  if (Staged<NF>::all) stage(smem + 3 * DP * DP, wvt, DP * DP);
+  *ck = smem + (Staged<NF>::all ? 4 : 3) * DP * DP;
+  const float* wk = wkv_e + (size_t)e * 2 * DP * DP;
+  for (int i = threadIdx.x; i < DP; i += blockDim.x) {
+    float x = 0.f;
+    for (int c = 0; c < D; ++c) x = fmaf(__ldg(wa_k + (size_t)e * D + c), __ldg(wk + i * DP + c), x);
+    (*ck)[i] = x;
+  }
+  staged();
+  *scratch = *ck + DP;
+  return ExpertWeights{nullptr, Staged<NF>::all ? smem + 3 * DP * DP : wvt, smem};
+}
+
+// The slot backward of one level as a launch of its own (the giant backward
+// and the step's; the fused sweep has it inside its persistent kernel).
+// Grid: T * nbe blocks of kLevelThreads; block b serves expert b % T.
+template <int NF>
+__global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(
+    const LevelBwd lv, const float* g, const int* __restrict__ g_index,
+    const float* __restrict__ res_e, const float* __restrict__ res_n,
+    const float* __restrict__ wkv_e, const float* __restrict__ wvt_e,
+    const float* __restrict__ wiht_e, const float* __restrict__ b_hh,
+    const float* __restrict__ wa_k, float* __restrict__ d_pack, float* __restrict__ dkv,
+    float* __restrict__ dg, float* dhf_buf, int dim, int num_experts) {
+  extern __shared__ __align__(16) float smem[];
+  const int e = blockIdx.x % num_experts;
+  if (__ldg(lv.slot_off + e) == __ldg(lv.slot_off + e + 1)) return;  // block-uniform
+  float *ck, *scratch;
+  const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(b_hh, wa_k, e, dim);
+  const ExpertWeights w =
+      stage_backward_weights<NF>(smem, wkv_e, wvt_e, wiht_e, wa_k, e, dim, &ck, &scratch);
+  NoNextBwd none;
+  const int nbe = gridDim.x / num_experts;
+  const int p0 = __ldg(lv.slot_off + e) + first_slot(blockIdx.x / num_experts, nbe);
+  level_backward_block<NF>(lv, p0, __ldg(lv.slot_off + e + 1), slot_stride(nbe), w, x, ck, g,
+                           g_index, res_e, res_n, d_pack, dkv, dg, dhf_buf, scratch, dim,
+                           nullptr, none);
+}
+
+// The source sums of one level as a launch of its own. Grid: any number of
+// blocks of kLevelThreads.
+template <int NF>
+__global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(
+    const LevelBwd lv, int np, float* out, const float* dhf_buf, int dim) {
+  level_source_block<NF>(lv, np, out, dhf_buf, blockIdx.x * kLevelWarps + (threadIdx.x >> 5),
+                         gridDim.x * kLevelWarps, dim);
+}
+
+// Launches the two kernels above for one level on stream s.
+template <int NF>
+cudaError_t launch_level_backward(
+    const LevelBwd& lv, const float* g, const int* g_index, const float* res_e,
+    const float* res_n, const float* wkv_e, const float* wvt_e, const float* wiht_e,
+    const float* b_hh, const float* wa_k, float* d_pack, float* dkv, float* dg, float* dhf_buf,
+    float* out, int ep, int np, int D, int T, cudaStream_t s) {
+  static bool configured = false;
+  cudaError_t err =
+      allow_shared_memory(level_bwd_slot_kernel<NF>, backward_smem<NF>(), &configured);
+  if (err != cudaSuccess) return err;
+  level_bwd_slot_kernel<NF><<<T * blocks_per_expert(np), kLevelThreads, backward_smem<NF>(), s>>>(
+      lv, g, g_index, res_e, res_n, wkv_e, wvt_e, wiht_e, b_hh, wa_k, d_pack, dkv, dg, dhf_buf,
+      D, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  level_bwd_source_kernel<NF><<<(ep + kLevelWarps - 1) / kLevelWarps, kLevelThreads, 0, s>>>(
+      lv, np, out, dhf_buf, D);
+  return cudaGetLastError();
+}
+
+// ---- weight gradients -----------------------------------------------------
+//
+// out[i, col(e, c)] = sum over the rows r of expert e of A[r, i] * B[r, c],
+// for five products at once. The rows are the live edges (d_wkv, d_wak) or
+// the updated slots (d_wih, d_bih, d_bhh) of `levels` levels, taken from the
+// lists: a block visits its expert's rows only, none of another expert and
+// no padding row, so the buffers it reads need no zero fill. The levels are
+// cut into chunks of `levels_per_block`; a block owns one (product, expert,
+// output tile, chunk) and sums its rows in list order. With one chunk it
+// writes (or, `accumulate`, adds into) the outputs themselves; with more,
+// each chunk writes a partial and weight_reduce_kernel sums the partials of
+// an entry pairwise in a fixed order: no atomics, the same result on every
+// run, and no accumulator that runs over more than a chunk's rows.
+
 struct ExpertGemm {
-  const float* a;        // A rows at a + r * lda, width wa; null: A = 1 (wa = 1)
-  const float* b;        // B rows at b + r * ldb, width wb
-  const int* row_slot;   // null: row r's expert is e_n[r]; else e_n[(r / ep) * np + row_slot[r]]
-  float* out;            // out[i * ldo + (c / seg) * T * seg + e * seg + c % seg]
-  int lda, wa, ldb, wb, rows, ldo, seg;
+  const float* a;   // A rows at a + r * lda, width wa; null: A = 1 (wa = 1)
+  const float* b;   // B rows at b + r * ldb, width wb
+  float* out;       // out[i * ldo + (c / seg) * T * seg + e * seg + c % seg]
+  int lda, wa, ldb, wb, ldo, seg;
+  int edges;        // rows: 1 the live edges, 0 the updated slots
   int tiles_i, tiles_c, first_block;
 };
 
 constexpr int kMaxGemms = 5;
 struct ExpertGemms {
   ExpertGemm g[kMaxGemms];
-  const int* e_n;        // [L, Np]
-  int count, ep, np, num_experts;
-  int accumulate;        // 0: out = the sum; else out += the sum
+  LevelBwd lists;            // all levels': row l of each list at l * its width
+  int ep, np, num_experts, levels, levels_per_block;
+  int accumulate;            // one chunk only: 0 out = the sum; else out += the sum
+  size_t chunk_stride;       // floats between two chunks' partials; 0 with one chunk
 };
 
 constexpr int kTileI = 8, kTileC = 32, kChunk = 64;
 
+// Grid: (blocks of all products, chunks). A product with wa > 1 gives each
+// thread one entry of an 8 x 32 output tile; one with wa == 1 (a single
+// output row: d_wak, d_bih, d_bhh) gives thread (ti, tc) every 8th row of
+// the chunk for column tc and sums the 8 shares in a fixed order.
 __global__ void __launch_bounds__(kTileI * kTileC) expert_gemm_kernel(const ExpertGemms p) {
   int gi = 0;
-  while (gi + 1 < p.count && static_cast<int>(blockIdx.x) >= p.g[gi + 1].first_block) ++gi;
+  while (gi + 1 < kMaxGemms && static_cast<int>(blockIdx.x) >= p.g[gi + 1].first_block) ++gi;
   const ExpertGemm& g = p.g[gi];
   int local = blockIdx.x - g.first_block;
   const int per_expert = g.tiles_i * g.tiles_c;
@@ -211,91 +553,176 @@ __global__ void __launch_bounds__(kTileI * kTileC) expert_gemm_kernel(const Expe
   local %= per_expert;
   const int i0 = (local / g.tiles_c) * kTileI, c0 = (local % g.tiles_c) * kTileC;
   const int tc = threadIdx.x % kTileC, ti = threadIdx.x / kTileC;
+  const int l0 = blockIdx.y * p.levels_per_block;
+  const int l1 = min(l0 + p.levels_per_block, p.levels);
+  const int T1 = p.num_experts + 1, width = g.edges ? p.ep : p.np;
+  const int* list = g.edges ? p.lists.in_rows : p.lists.slot_rows;
+
+  // expert e's rows of level l: `len` entries of the level's list from `beg`
+  auto segment = [&](int l, int* beg) {
+    const int so = __ldg(p.lists.slot_off + l * T1 + e);
+    const int so1 = __ldg(p.lists.slot_off + l * T1 + e + 1);
+    if (!g.edges) {
+      *beg = so;
+      return so1 - so;
+    }
+    const int* off = p.lists.in_off + (size_t)l * (p.np + 1);
+    *beg = __ldg(off + so);
+    return __ldg(off + so1) - *beg;
+  };
+  int total = 0;
+  for (int l = l0; l < l1; ++l) {
+    int beg;
+    total += segment(l, &beg);
+  }
 
   __shared__ float as[kChunk][kTileI];
   __shared__ float bs[kChunk][kTileC];
-  __shared__ int ex[kChunk];
+  __shared__ long long row_of[kChunk];   // l * width + row, or -1
   float acc = 0.f;
-  for (int r0 = 0; r0 < g.rows; r0 += kChunk) {
+  for (int r0 = 0; r0 < total; r0 += kChunk) {
     if (threadIdx.x < kChunk) {
-      const int r = r0 + threadIdx.x;
-      int x = -1;
-      if (r < g.rows) {
-        x = g.row_slot ? p.e_n[(size_t)(r / p.ep) * p.np + g.row_slot[r]] : p.e_n[r];
+      int r = r0 + threadIdx.x;
+      long long id = -1;
+      for (int l = l0; l < l1 && r < total; ++l) {
+        int beg;
+        const int len = segment(l, &beg);
+        if (r < len) {
+          id = (long long)l * width + __ldg(list + (size_t)l * width + beg + r);
+          break;
+        }
+        r -= len;
       }
-      ex[threadIdx.x] = x;
+      row_of[threadIdx.x] = id;
     }
     __syncthreads();
     for (int idx = threadIdx.x; idx < kChunk * kTileC; idx += blockDim.x) {
       const int rr = idx / kTileC, c = c0 + idx % kTileC;
-      bs[rr][idx % kTileC] =
-          (ex[rr] == e && c < g.wb) ? g.b[(size_t)(r0 + rr) * g.ldb + c] : 0.f;
+      const long long id = row_of[rr];
+      bs[rr][idx % kTileC] = (id >= 0 && c < g.wb) ? g.b[id * g.ldb + c] : 0.f;
     }
     for (int idx = threadIdx.x; idx < kChunk * kTileI; idx += blockDim.x) {
       const int rr = idx / kTileI, i = i0 + idx % kTileI;
+      const long long id = row_of[rr];
       float v = 0.f;
-      if (ex[rr] == e && i < g.wa) v = g.a ? g.a[(size_t)(r0 + rr) * g.lda + i] : 1.f;
+      if (id >= 0 && i < g.wa) v = g.a ? g.a[id * g.lda + i] : 1.f;
       as[rr][idx % kTileI] = v;
     }
     __syncthreads();
+    if (g.wa > 1) {
 #pragma unroll 16
-    for (int k = 0; k < kChunk; ++k) acc = fmaf(as[k][ti], bs[k][tc], acc);
+      for (int k = 0; k < kChunk; ++k) acc = fmaf(as[k][ti], bs[k][tc], acc);
+    } else {
+#pragma unroll
+      for (int k = ti; k < kChunk; k += kTileI) acc = fmaf(as[k][0], bs[k][tc], acc);
+    }
     __syncthreads();
   }
-  const int i = i0 + ti, c = c0 + tc;
+  int i = i0 + ti;
+  if (g.wa == 1) {   // block-uniform: the 8 shares of column tc, summed by ti == 0
+    bs[ti][tc] = acc;
+    __syncthreads();
+    if (ti != 0) return;
+    acc = ((bs[0][tc] + bs[1][tc]) + (bs[2][tc] + bs[3][tc])) +
+          ((bs[4][tc] + bs[5][tc]) + (bs[6][tc] + bs[7][tc]));
+    i = 0;
+  }
+  const int c = c0 + tc;
   if (i < g.wa && c < g.wb) {
-    float* o = g.out + (size_t)i * g.ldo + (size_t)(c / g.seg) * p.num_experts * g.seg +
-               (size_t)e * g.seg + c % g.seg;
+    float* o = g.out + blockIdx.y * p.chunk_stride + (size_t)i * g.ldo +
+               (size_t)(c / g.seg) * p.num_experts * g.seg + (size_t)e * g.seg + c % g.seg;
     *o = p.accumulate ? *o + acc : acc;
   }
 }
 
-ExpertGemm gemm(const float* a, int lda, int wa, const float* b, int ldb, int wb,
-                const int* row_slot, int rows, float* out, int ldo, int seg) {
+// out[x] = the sum over chunks of partial[chunk, x], pairwise: partials are
+// merged as the bits of a binary counter carry, so the tree is fixed by the
+// chunk count alone.
+__global__ void weight_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                                     int total, int chunks) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= total) return;
+  float stack[32];
+  int sp = 0;
+  for (int c = 0; c < chunks; ++c) {
+    float v = partial[(size_t)c * total + x];
+    for (int b = c; b & 1; b >>= 1) v = stack[--sp] + v;
+    stack[sp++] = v;
+  }
+  float v = stack[--sp];
+  while (sp > 0) v = stack[--sp] + v;
+  out[x] = v;
+}
+
+ExpertGemm gemm(const float* a, int lda, int wa, const float* b, int ldb, int wb, int edges,
+                float* out, int ldo, int seg) {
   ExpertGemm g{};
   g.a = a; g.lda = lda; g.wa = wa;
   g.b = b; g.ldb = ldb; g.wb = wb;
-  g.row_slot = row_slot; g.rows = rows;
+  g.edges = edges;
   g.out = out; g.ldo = ldo; g.seg = seg;
   g.tiles_i = (wa + kTileI - 1) / kTileI;
   g.tiles_c = (wb + kTileC - 1) / kTileC;
   return g;
 }
 
-// The five weight gradients over `levels` saved levels of the sweep, in one
-// launch: each block owns one (product, expert, output tile) and reduces
-// over all saved rows in a fixed order, masking rows of other experts. No
-// atomics, deterministic. The gradients are written whole, or with
-// `accumulate` added into what the outputs hold: every entry belongs to one
-// thread of one block, so calls on one stream add in call order.
+// Floats of the five weight gradients laid end to end: d_wkv [D, 2TD],
+// d_wih [D, 3TD], d_bih [T, 3D], d_bhh [T, 3D], d_wak [T, D].
+inline size_t weight_grad_floats(int D, int T) {
+  return static_cast<size_t>(T) * D * (5 * D + 7);
+}
+
+// The five weight gradients over `levels` levels of saved rows (res_e, res_n,
+// d_pack, dkv, dg and the lists all start at the first of them). `grads`
+// holds the five outputs end to end (weight_grad_floats). With
+// levels <= levels_per_block: one launch, which writes the outputs or with
+// `accumulate` adds into them (every entry belongs to one thread of one
+// block, so calls on one stream add in call order). Else two launches: the
+// chunks' partials into `partial` [chunks, weight_grad_floats], then their
+// pairwise sums into `grads`; `accumulate` must then be false.
 cudaError_t launch_weight_grads(
     const float* res_e, const float* res_n, const float* d_pack, const float* dkv,
-    const float* dg, const int* lv_dslot, const int* lv_e_n,
-    float* d_wkv, float* d_wih, float* d_bih, float* d_bhh, float* d_wak,
-    int levels, int ep, int np, int D, int T, bool accumulate, cudaStream_t s) {
-  const int erows = levels * ep, nrows = levels * np;
+    const float* dg, const LevelBwd& lists, float* grads, float* partial,
+    int levels, int levels_per_block, int ep, int np, int D, int T, bool accumulate,
+    cudaStream_t s) {
+  if (levels < 1) return cudaSuccess;
+  const int chunks = (levels + levels_per_block - 1) / levels_per_block;
+  if (chunks > 1 && (accumulate || partial == nullptr)) return cudaErrorInvalidValue;
+  const size_t total = weight_grad_floats(D, T);
+  float* base = chunks > 1 ? partial : grads;
+  float* d_wkv = base;
+  float* d_wih = d_wkv + static_cast<size_t>(D) * 2 * T * D;
+  float* d_bih = d_wih + static_cast<size_t>(D) * 3 * T * D;
+  float* d_bhh = d_bih + static_cast<size_t>(T) * 3 * D;
+  float* d_wak = d_bhh + static_cast<size_t>(T) * 3 * D;
   ExpertGemms p{};
-  p.e_n = lv_e_n;
+  p.lists = lists;
   p.ep = ep;
   p.np = np;
   p.num_experts = T;
+  p.levels = levels;
+  p.levels_per_block = levels_per_block;
   p.accumulate = accumulate ? 1 : 0;
+  p.chunk_stride = chunks > 1 ? total : 0;
   // d_wkv[:, k | v block of expert e] = hf_src^T (dk | dv)
-  p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, lv_dslot, erows, d_wkv, 2 * T * D, D);
+  p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, 1, d_wkv, 2 * T * D, D);
   // d_wak[e] = sum dscore * khf
-  p.g[1] = gemm(d_pack + D, D + 2, 1, res_e + D, 3 * D + 1, D, lv_dslot, erows, d_wak, T * D, D);
+  p.g[1] = gemm(d_pack + D, D + 2, 1, res_e + D, 3 * D + 1, D, 1, d_wak, T * D, D);
   // d_wih[:, expert e block] = msg^T dgi
-  p.g[2] = gemm(res_n, 4 * D, D, dg, 6 * D, 3 * D, nullptr, nrows, d_wih, 3 * T * D, 3 * D);
+  p.g[2] = gemm(res_n, 4 * D, D, dg, 6 * D, 3 * D, 0, d_wih, 3 * T * D, 3 * D);
   // d_bih[e] = sum dgi, d_bhh[e] = sum dbh
-  p.g[3] = gemm(nullptr, 0, 1, dg, 6 * D, 3 * D, nullptr, nrows, d_bih, 3 * T * D, 3 * D);
-  p.g[4] = gemm(nullptr, 0, 1, dg + 3 * D, 6 * D, 3 * D, nullptr, nrows, d_bhh, 3 * T * D, 3 * D);
-  p.count = kMaxGemms;
+  p.g[3] = gemm(nullptr, 0, 1, dg, 6 * D, 3 * D, 0, d_bih, 3 * T * D, 3 * D);
+  p.g[4] = gemm(nullptr, 0, 1, dg + 3 * D, 6 * D, 3 * D, 0, d_bhh, 3 * T * D, 3 * D);
   int blocks = 0;
-  for (int i = 0; i < p.count; ++i) {
+  for (int i = 0; i < kMaxGemms; ++i) {
     p.g[i].first_block = blocks;
     blocks += T * p.g[i].tiles_i * p.g[i].tiles_c;
   }
-  expert_gemm_kernel<<<blocks, kTileI * kTileC, 0, s>>>(p);
+  expert_gemm_kernel<<<dim3(blocks, chunks), kTileI * kTileC, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const int n = static_cast<int>(total);
+  weight_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial, grads, n, chunks);
   return cudaGetLastError();
 }
 

@@ -59,8 +59,7 @@ def main(depth: int = 200) -> None:
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, layernorm=True)
     print(f"padded N={n} E={batch['edge_src'].shape[0]} L={batch['lv_nodes'].shape[0]} Ep={ep} "
           f"Np={np_}; hf {n * cfg.dim_hidden * 4 / 1e6:.1f} MB; kernel_fits "
-          f"{level_kernel.kernel_fits(n, ep, np_, cfg.dim_hidden)}, kernel_fits_hbm_bwd "
-          f"{level_kernel.kernel_fits_hbm_bwd(n, ep, np_, cfg.dim_hidden)}; struct remat "
+          f"{level_kernel.kernel_fits(n, ep, np_, cfg.dim_hidden)}; struct remat "
           f"{dg_ae.remat_struct(cfg, n)}", flush=True)
     params, state = dg_ae.init_params(cfg, seed=0, device=dev)
     train_step, _ = make_train_step(cfg, make_optimizer(params, LR))

@@ -21,15 +21,16 @@ The forward:
      takes the fused ``ops.level_kernel.level_scan``; one that fails it, a
      giant single graph or any large unchunked batch, takes
      ``ops.level_kernel.level_scan_giant``, which keeps no residuals and
-     recomputes from hf in the backward, while ``kernel_fits_hbm`` holds
-     (``kernel_fits_hbm_bwd`` when gradients are needed, the trainer's gate,
-     ``mgvae_tpu/train/step.py:47-82``); past those gates, where the JAX
-     package leaves its kernels, the fused scan again. A chunked batch takes
-     the fused scan chunk by chunk where its chunks pass ``kernel_fits``;
-     else ``level_scan_step``, one ``ops.level_kernel.level_step`` per
-     (chunk, level). All are the CUDA kernels on the card and their plain
-     versions on the CPU, and autograd differentiates all, so the forward
-     trains (``train/step.py``).
+     recomputes from hf in the backward, at any size (the JAX package leaves
+     its kernels past two further size gates of the TPU's; the CUDA kernels
+     have no such limit). A chunked batch takes the fused scan chunk by chunk
+     where its chunks pass ``kernel_fits``; else ``level_scan_step``, one
+     ``ops.level_kernel.level_step`` per (chunk, level), where they pass
+     ``step_kernel_fits``; else the giant scan chunk by chunk. All are the
+     CUDA kernels on the card and their plain versions on the CPU, and
+     autograd differentiates all, so the forward trains (``train/step.py``).
+     On the card the index lists that the kernels read
+     (``ops.level_kernel.level_lists``) are built once per batch.
 
 Batches larger than one bucket come chunked (``data.batching.collate_chunked``
 / ``collate_fit``: [C, L] level tables with chunk-local node ids) or split
@@ -60,8 +61,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.graph import MODALITY_GATES, NUM_GATE_TYPES
 from ..ops.init import gru_cell_init, linear_apply, linear_init
-from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, kernel_fits_hbm, kernel_fits_hbm_bwd,
-                                level_scan, level_scan_giant, level_step, select_expert)
+from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, level_lists, level_scan,
+                                level_scan_giant, level_step, repack_expert_major, select_expert)
 from ..ops.mlp import mlp_init
 from .encoder import direct_multigcn_apply, direct_multigcn_init
 
@@ -321,63 +322,87 @@ def step_kernel_fits(n_sub: int, ep: int, np_: int, dim: int) -> bool:
 
 def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tensor:
     """hf [num_nodes, D] from ``level_scan_inputs``' arguments and the real
-    level count of each chunk, by the route the shapes select, as the JAX
-    package's ``_level_scan_pallas`` does (``mgvae_tpu/models/dg_ae.py:600-620``):
+    level count of each chunk, by the route the shapes select. Where the JAX
+    package's ``_level_scan_pallas`` (``mgvae_tpu/models/dg_ae.py:600-620``)
+    takes a kernel, this takes that kernel's counterpart; where it falls
+    back to its XLA scan past a size gate of the TPU's, this takes the giant
+    scan, whose working memory does not grow with L * Ep and whose hf equals
+    the fused scan's bit for bit:
 
       * one chunk that passes ``kernel_fits``: the fused scan
         (``dg_ae.py:600-602``);
-      * one chunk that fails it and passes ``kernel_fits_hbm``: the giant
-        scan ``level_scan_giant`` (``dg_ae.py:605-610``). When gradients are
-        needed the gate is ``kernel_fits_hbm_bwd``, as in the JAX trainer's
-        ``_auto_pallas`` (``mgvae_tpu/train/step.py:80-82``), which leaves
-        the kernel route past it;
-      * one chunk that fails those gates, where the JAX package falls back
-        to its XLA scan: the fused scan, which takes any Ep and Np;
+      * one chunk that fails it: the giant scan ``level_scan_giant``
+        (``dg_ae.py:605-610``), at any size;
       * C chunks that pass ``kernel_fits``: the fused scan per chunk (they
         are independent sub-batches with chunk-local ids) on its own rows of
         the tables and its own real levels, concatenated;
       * C chunks that fail it and pass ``step_kernel_fits``:
         ``level_scan_step``;
-      * C chunks that fail both, where the JAX package falls back to its XLA
-        scan: the fused scan per chunk, which takes any Ep and Np.
+      * C chunks that fail both: the giant scan per chunk.
+
+    On the card the tables' index lists and the weights' expert-major copies
+    are built here, once for all chunks and levels, and handed to every call
+    (``kernel_inputs``).
     """
     C = len(n_levels)
     pack_lv, lv_nodes = args[0], args[4]
     n_sub, L = num_nodes // C, pack_lv.shape[0] // C
     ep, np_, D = pack_lv.shape[1], lv_nodes.shape[1], pack_lv.shape[2] - 2
+    lists, packed = kernel_inputs(args)
+    fits = kernel_fits(n_sub, ep, np_, D)
     if C == 1:
-        training = torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS)
-        giant_fits = kernel_fits_hbm_bwd if training else kernel_fits_hbm
-        scan = level_scan
-        if not kernel_fits(n_sub, ep, np_, D) and giant_fits(n_sub, ep, np_, D):
-            scan = level_scan_giant
-        return scan(*args, num_nodes=num_nodes, num_levels=n_levels[0])
-    if not kernel_fits(n_sub, ep, np_, D) and step_kernel_fits(n_sub, ep, np_, D):
-        return level_scan_step(args, n_levels, n_sub)
+        scan = level_scan if fits else level_scan_giant
+        return scan(*args, num_nodes=num_nodes, num_levels=n_levels[0], lists=lists,
+                    packed=packed)
+    if not fits and step_kernel_fits(n_sub, ep, np_, D):
+        return level_scan_step(args, n_levels, n_sub, lists, packed)
+    scan = level_scan if fits else level_scan_giant
     return torch.cat([
-        level_scan(*(t[k * L : (k + 1) * L] for t in args[:7]), *args[7:],
-                   num_nodes=n_sub, num_levels=n_levels[k])
+        scan(*(t[k * L : (k + 1) * L] for t in args[:7]), *args[7:], num_nodes=n_sub,
+             num_levels=n_levels[k], lists=lists and lists.rows(k * L, (k + 1) * L),
+             packed=packed)
         for k in range(C)])
 
 
-def level_scan_step(args: tuple, n_levels: tuple, n_sub: int) -> torch.Tensor:
+def kernel_inputs(args: tuple) -> tuple:
+    """(lists, packed) of ``level_scan_inputs``' arguments on the card, where
+    the kernels read them: the tables' index lists, all chunks' and levels'
+    at once, and the weights' expert-major copies (with the transposed ones
+    when a gradient will be asked for). (None, None) on the CPU, where the
+    plain versions read the tables and the weights themselves."""
+    if not args[0].is_cuda:
+        return None, None
+    T = args[11].shape[0]
+    training = torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS)
+    return (level_lists(args[1], args[2], args[3], args[5], args[6], T),
+            repack_expert_major(args[7], args[8], T, backward=training))
+
+
+def level_scan_step(args: tuple, n_levels: tuple, n_sub: int, lists=None,
+                    packed=None) -> torch.Tensor:
     """The level recurrence of a chunked batch as one ``level_step`` per real
     (chunk, level) row, each on its chunk's rows of hf, with the scatter
     hf[nodes + off] = where(upd, h_new, 0) in plain torch between the calls
     (``mgvae_tpu/models/dg_ae.py:629-652``, which scans the padding levels
     too; they write zeros to the dump rows, so skipping them changes
-    nothing). hf is written in place: ``level_step`` saves none of it."""
+    nothing). hf is written in place: ``level_step`` saves none of it.
+    ``lists``, ``packed``: ``kernel_inputs(args)``, built here where the
+    caller has none."""
     (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, *weights) = args
     C = len(n_levels)
     L, D = pack_lv.shape[0] // C, pack_lv.shape[2] - 2
+    if lists is None:
+        lists, packed = kernel_inputs(args)
     hf = pack_lv.new_zeros((C * n_sub, D))
+    # each level's row of the lists as its own [1, ...] view, all rows in one go
+    rows = lists and [type(lists)(*r) for r in zip(*(t[:, None].unbind(0) for t in lists))]
     for k in range(C):
         nodes_g = lv_nodes[k * L : (k + 1) * L].long() + k * n_sub
         for lv in range(n_levels[k]):
             row = k * L + lv
             h_new = level_step(hf.narrow(0, k * n_sub, n_sub), pack_lv[row], lv_src[row],
                                lv_dslot[row], lv_evalid[row], lv_upd[row], lv_e_n[row],
-                               *weights)
+                               *weights, lists=rows and rows[row], packed=packed)
             hf[nodes_g[lv]] = torch.where(lv_upd[row][:, None] > 0, h_new, 0.0)
     return hf
 

@@ -106,24 +106,16 @@ def library() -> ctypes.CDLL:
     bits)."""
     lib = ctypes.CDLL(str(build().path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.mgvae_level_scan_forward
-    fn.argtypes = [p] * 17 + [i] * 5 + [p]
-    fn.restype = i
-    fn = lib.mgvae_level_scan_backward
-    fn.argtypes = [p] * 23 + [i] * 5 + [p]
-    fn.restype = i
-    fn = lib.mgvae_level_scan_giant_forward
-    fn.argtypes = [p] * 15 + [i] * 5 + [p]
-    fn.restype = i
-    fn = lib.mgvae_level_scan_giant_backward
-    fn.argtypes = [p] * 28 + [i] * 5 + [p]
-    fn.restype = i
-    fn = lib.mgvae_level_step_forward
-    fn.argtypes = [p] * 17 + [i] * 4 + [p]
-    fn.restype = i
-    fn = lib.mgvae_level_step_backward
-    fn.argtypes = [p] * 23 + [i] * 4 + [p]
-    fn.restype = i
+    for name, pointers, ints in (("mgvae_level_lists", 10, 4),
+                                 ("mgvae_level_scan_forward", 18, 5),
+                                 ("mgvae_level_scan_backward", 22, 6),
+                                 ("mgvae_level_scan_giant_forward", 15, 5),
+                                 ("mgvae_level_scan_giant_backward", 26, 5),
+                                 ("mgvae_level_step_forward", 17, 4),
+                                 ("mgvae_level_step_backward", 20, 4)):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * pointers + [i] * ints + [p]     # ..., then the stream
+        fn.restype = i
     fn = lib.mgvae_struct_towers_forward
     fn.argtypes = [p] * 12 + [i] * 4 + [p]
     fn.restype = i

@@ -45,23 +45,38 @@ them against; ``_forward_cuda``, ``_backward_cuda``, ``_step_forward_cuda``,
 are the kernels' wrappers (CUDA tensors only, arguments as the public
 functions check them).
 
+The kernels find their work in index lists, not by scanning the level
+tables: ``level_lists`` groups, per level, the updated slots by expert, the
+live in-edge rows by destination slot and by source node, in plain torch on
+the tables' device with no host sync, and on the card in one launch of
+``csrc/level_lists.cu`` (``lists_launches``). The wrappers build them when
+the caller passes none (``lists=``); ``models/dg_ae.level_recurrence`` builds
+them once per batch, and the autograd Functions keep them, and the
+expert-major copy of the weights (``repack_expert_major``), from the forward
+for the backward.
+
 Launch counts, so that a run can show that it went through the kernels by
 setting them to 0 and reading them afterwards: ``launches`` (the fused
-forward: one per level), ``bwd_launches`` (the fused backward: a slot and a
-source kernel per level, then one weight-gradient kernel per call),
-``step_launches`` (one per ``level_step`` call), ``step_bwd_launches``
-(three per backward of a ``level_step`` call: slots, sources, weight
-gradients), ``giant_launches`` (the giant forward: one per level) and
-``giant_bwd_launches`` (the giant backward: four per level: recompute,
-slots, sources, the level's weight gradients).
+forward: one persistent launch per call) with ``levels_walked`` (the levels
+those launches walked), ``bwd_launches`` (the fused backward: one persistent
+sweep, then the weight gradients' partials and, past
+``LEVELS_PER_BLOCK`` levels, their sums: three per call) with
+``bwd_levels_walked``, ``step_launches`` (one per ``level_step`` call),
+``step_bwd_launches`` (three per backward of a ``level_step`` call: slots,
+sources, weight gradients), ``giant_launches`` (the giant forward: one per
+level) and ``giant_bwd_launches`` (the giant backward: four per level:
+recompute, slots, sources, the level's weight gradients).
 
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
 hf_src | khf | v | attn per edge, res_n [L, Np, 4D] = msg | r | z | nw per
-slot; the step's are one level's, [Ep, 3D+1] and [Np, 4D]. Rows of padding
-levels, padding edges and slots that are not updated are 0 and are never
-read.
+slot; the step's are one level's, [Ep, 3D+1] and [Np, 4D]. The kernels write
+the rows of live edges and updated slots (``live_rows``) of the real levels
+and read no other; the plain versions leave the other rows 0, the kernels
+leave them unwritten.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -71,8 +86,15 @@ from .segment import segment_softmax, segment_sum
 MAX_DIM = 128      # the kernels' limits (csrc/level_common.cuh)
 MAX_EXPERTS = 5
 
+# levels per block of the weight-gradient kernel: a chunk's rows are summed in
+# one accumulator, the chunks' partials pairwise. At most 32 chunks per call.
+LEVELS_PER_BLOCK = 4
+
+lists_launches = 0
 launches = 0
 bwd_launches = 0
+levels_walked = 0
+bwd_levels_walked = 0
 step_launches = 0
 step_bwd_launches = 0
 giant_launches = 0
@@ -82,7 +104,9 @@ giant_bwd_launches = 0
 # JAX package (``level_kernel.py:145-158``), where it is the TPU kernel's VMEM
 # gate. The CUDA kernels have no such limit: this is shape arithmetic only,
 # kept so that ``collate_fit`` chunks a batch, and ``models/dg_ae`` routes it,
-# the same way in both packages.
+# the same way in both packages. (The JAX package's two further gates, past
+# which it leaves its giant kernels, are not copied: the giant route here
+# takes any size.)
 KERNEL_MAX_NODES = 8192
 KERNEL_MAX_EP = 512
 KERNEL_MAX_NP = 512
@@ -93,26 +117,125 @@ def kernel_fits(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
             and np_ <= KERNEL_MAX_NP and dim <= 128)
 
 
-# Size gates of the giant route for an unchunked batch that fails
-# ``kernel_fits``, forward and with its backward, copied from the JAX package
-# (``level_kernel.py:851, 1189``: the VMEM gates of its HBM-streamed
-# kernels). The CUDA kernels have no such limit either: shape arithmetic,
-# kept so that ``models/dg_ae.level_recurrence`` routes alike in both
-# packages.
-def kernel_fits_hbm(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
-    return ep <= 4096 and np_ <= 2048 and dim <= 128
-
-
-def kernel_fits_hbm_bwd(num_nodes: int, ep: int, np_: int, dim: int) -> bool:
-    return ep <= 2048 and np_ <= 1024 and dim <= 128
-
-
 # positions of the float (differentiable) arguments among level_scan's (and
 # level_scan_giant's) 12:
 # pack_lv, wkv_hf, w_ih, b_ih, b_hh, wa_k
 FLOAT_ARGS = (0, 7, 8, 9, 10, 11)
 # and among level_step's 12: hf, pack, wkv_hf, w_ih, b_ih, b_hh, wa_k
 STEP_FLOAT_ARGS = (0, 1, 7, 8, 9, 10, 11)
+
+
+class LevelLists(NamedTuple):
+    """Where the kernels find a level's work (``level_lists``); int32, one
+    row per level."""
+    slot_rows: torch.Tensor   # [R, Np] updated slots, grouped by expert, ascending
+    slot_off: torch.Tensor    # [R, T+1] expert e's slots: positions [off[e], off[e+1])
+    in_rows: torch.Tensor     # [R, Ep] live edge rows, grouped by slot position, in row order
+    in_off: torch.Tensor      # [R, Np+1] position p's in-edges: in_rows[off[p] : off[p+1]]
+    src_rows: torch.Tensor    # [R, Ep] live edge rows, grouped by source node, in row order
+
+    def rows(self, begin: int, end: int) -> "LevelLists":
+        """The lists of levels [begin, end)."""
+        return LevelLists(*(t[begin:end] for t in self))
+
+
+def live_rows(lv_dslot, lv_evalid, lv_upd):
+    """(edges [..., Ep], slots [..., Np]) as bool: the updated slots, and
+    the valid edges into them. Only their residual rows are written."""
+    upd = lv_upd > 0
+    dslot = lv_dslot.long().clamp(0, upd.shape[-1] - 1)
+    return (lv_evalid > 0) & upd.gather(-1, dslot), upd
+
+
+def level_lists(lv_src, lv_dslot, lv_evalid, lv_upd, lv_e_n, num_experts: int) -> LevelLists:
+    """The index lists of the level tables [R, Ep] / [R, Np] int32 (or of one
+    level's, [Ep] / [Np]), for all levels at once, in any row order: on CUDA
+    tensors one launch of ``csrc/level_lists.cu`` (counted in
+    ``lists_launches``), on CPU tensors ``level_lists_reference``, the plain
+    version, which gives the same lists entry for entry."""
+    tables = (lv_src, lv_dslot, lv_evalid, lv_upd, lv_e_n)
+    if lv_src.dim() == 1:
+        tables = tuple(t[None] for t in tables)
+    dev = lv_src.device
+    if dev.type == "cpu":
+        return level_lists_reference(*tables, num_experts)
+    if dev.type != "cuda":
+        raise ValueError(f"level_lists: no kernel for device {dev}")
+    global lists_launches
+    (R, ep), np_ = tables[0].shape, tables[3].shape[1]
+    _check_tensors("level_lists", ("lv_src", "lv_dslot", "lv_evalid", "lv_upd", "lv_e_n"), tables,
+                   [((R, ep), torch.int32)] * 3 + [((R, np_), torch.int32)] * 2, dev)
+    lists = LevelLists(*(torch.empty((R, n), dtype=torch.int32, device=dev)
+                         for n in (np_, num_experts + 1, ep, np_ + 1, ep)))
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_lists(*(t.data_ptr() for t in (*tables, *lists)),
+                                     R, ep, np_, num_experts, stream)
+    _build.check(lib, code, "level_lists kernel launch")
+    lists_launches += 1
+    return lists
+
+
+def level_lists_reference(lv_src, lv_dslot, lv_evalid, lv_upd, lv_e_n,
+                          num_experts: int) -> LevelLists:
+    """The lists' plain version, on the tables' device with no host sync.
+
+    Per level: the updated slots sorted by expert (``slot_rows``,
+    ``slot_off``); the live edge rows, i.e. the valid edges into updated
+    slots, sorted by their slot's position in ``slot_rows`` (``in_rows``,
+    ``in_off``), so that a slot's in-edges and an expert's edges are both
+    contiguous; and the same rows sorted by source node (``src_rows``; a
+    source's group ends where the next row has another source, and the
+    level has ``in_off[:, Np]`` live rows). All sorts are stable: ties keep
+    row order, which fixes the order of every sum the kernels take. Plain
+    torch on the tables' device, with no host sync."""
+    if lv_src.dim() == 1:
+        lv_src, lv_dslot, lv_evalid, lv_upd, lv_e_n = (
+            t[None] for t in (lv_src, lv_dslot, lv_evalid, lv_upd, lv_e_n))
+    R, np_ = lv_upd.shape
+    dev = lv_src.device
+    live, upd = live_rows(lv_dslot, lv_evalid, lv_upd)
+    key, slot_rows = torch.sort(torch.where(upd, lv_e_n, num_experts), dim=1, stable=True)
+    bounds = torch.arange(num_experts + 1, dtype=key.dtype, device=dev).expand(R, -1)
+    slot_off = torch.searchsorted(key, bounds.contiguous(), out_int32=True)
+    position = torch.empty_like(slot_rows).scatter_(
+        1, slot_rows, torch.arange(np_, device=dev).expand(R, -1))
+    dslot = lv_dslot.long().clamp(0, np_ - 1)
+    key, in_rows = torch.sort(torch.where(live, position.gather(1, dslot), np_), dim=1,
+                              stable=True)
+    bounds = torch.arange(np_ + 1, device=dev).expand(R, -1)
+    in_off = torch.searchsorted(key, bounds.contiguous(), out_int32=True)
+    never = torch.iinfo(torch.int32).max
+    src_rows = torch.sort(torch.where(live, lv_src.long(), never), dim=1, stable=True)[1]
+    return LevelLists(slot_rows.to(torch.int32), slot_off, in_rows.to(torch.int32), in_off,
+                      src_rows.to(torch.int32))
+
+
+def repack_expert_major(wkv_hf, w_ih, num_experts: int, backward: bool = False):
+    """The weights as the kernels stage them: expert-major, each expert's
+    matrices contiguous and zero-padded to P = D rounded up to a multiple of
+    32, so that a block copies its expert's weights into shared memory in one
+    sweep and every loop of a kernel runs to a constant bound.
+
+    (wkv_e [T, 2, P, P], wih_e [T, P, 3P]): wkv_e[e, 0] = wk_e =
+    wkv_hf[:, e*D : (e+1)*D] and wkv_e[e, 1] = wv_e = wkv_hf[:, (T+e)*D :
+    (T+e+1)*D] in their top left [D, D]; wih_e[e] = w_ih[:, e*3D : (e+1)*3D]
+    with gate g's D columns at g*P. With ``backward`` also (wvt_e [T, P, P],
+    wiht_e [T, 3P, P]): wv_e and w_ih_e transposed, which the backward
+    kernels' transposed products read row by row."""
+    D, T = wkv_hf.shape[0], num_experts
+    P = -(-D // 32) * 32
+    wkv_e = wkv_hf.detach().view(D, 2, T, D).permute(2, 1, 0, 3)
+    wih_e = w_ih.detach().view(D, T, 3, D).permute(1, 0, 2, 3)
+    if P != D:
+        wkv_e = torch.nn.functional.pad(wkv_e, (0, P - D, 0, P - D))
+        wih_e = torch.nn.functional.pad(wih_e, (0, P - D, 0, 0, 0, P - D))
+    wkv_e, wih_e = wkv_e.contiguous(), wih_e.reshape(T, P, 3 * P).contiguous()
+    if not backward:
+        return wkv_e, wih_e
+    return (wkv_e, wih_e, wkv_e[:, 1].transpose(1, 2).contiguous(),
+            wih_e.transpose(1, 2).contiguous())
 
 
 def select_expert(stacked: torch.Tensor, expert: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -323,14 +446,18 @@ def level_step_bwd_reference(g, res_e, res_n, pack, src, dslot, evalid, upd, e_n
 
 def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
                wkv_hf, w_ih, b_ih, b_hh, wa_k, num_nodes: int,
-               num_levels: int) -> torch.Tensor:
+               num_levels: int, lists: LevelLists | None = None,
+               packed: tuple | None = None) -> torch.Tensor:
     """Level recurrence over levels [0, num_levels) of the tables.
 
     pack_lv [L, Ep, D+2] f32: per edge [vhs | score_static | expert];
     lv_src / lv_dslot / lv_evalid [L, Ep] and lv_nodes / lv_upd / lv_e_n
     [L, Np] int32; wkv_hf [D, 2TD], w_ih [D, 3TD], b_ih / b_hh [T, 3D],
     wa_k [T, D] f32. Returns hf [num_nodes, D] f32, differentiable with
-    respect to pack_lv, wkv_hf, w_ih, b_ih, b_hh and wa_k.
+    respect to pack_lv, wkv_hf, w_ih, b_ih, b_hh and wa_k. ``lists``: the
+    tables' ``level_lists``, and ``packed``: the weights'
+    ``repack_expert_major(wkv_hf, w_ih, T, backward=True)``, for a caller that
+    built them already for several calls (only the kernels read them).
     """
     args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
             wkv_hf, w_ih, b_ih, b_hh, wa_k)
@@ -340,9 +467,11 @@ def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
         return level_scan_reference(*args, num_nodes, num_levels)
     if dev.type != "cuda":
         raise ValueError(f"level_scan: no kernel for device {dev}")
+    _check_prepared("level_scan", args, lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
-        return _LevelScan.apply(num_nodes, num_levels, *args)
-    return _forward_cuda(args, num_nodes, num_levels, residuals=False)
+        return _LevelScan.apply(num_nodes, num_levels, (lists, packed), *args)
+    return _forward_cuda(args, num_nodes, num_levels, residuals=False, lists=lists,
+                         packed=packed)
 
 
 class _LevelScan(torch.autograd.Function):
@@ -351,8 +480,10 @@ class _LevelScan(torch.autograd.Function):
     ``pallas_level_scan``."""
 
     @staticmethod
-    def forward(ctx, num_nodes, num_levels, *args):
-        hf, res_e, res_n = _forward_cuda(args, num_nodes, num_levels, residuals=True)
+    def forward(ctx, num_nodes, num_levels, prepared, *args):
+        ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
+        hf, res_e, res_n = _forward_cuda(args, num_nodes, num_levels, residuals=True,
+                                         lists=ctx.lists, packed=ctx.packed)
         ctx.num_levels = num_levels
         ctx.save_for_backward(*args, res_e, res_n)
         return hf
@@ -360,10 +491,11 @@ class _LevelScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ghf):
         *args, res_e, res_n = ctx.saved_tensors
-        grads = _backward_cuda(ghf, res_e, res_n, tuple(args), ctx.num_levels)
+        grads = _backward_cuda(ghf, res_e, res_n, tuple(args), ctx.num_levels,
+                               lists=ctx.lists, packed=ctx.packed)
         d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = grads
-        # (num_nodes, num_levels, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
-        return (None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
+        # (num_nodes, num_levels, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+        return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
 
 def _kernel_dims(pack_lv, wa_k):
@@ -374,69 +506,136 @@ def _kernel_dims(pack_lv, wa_k):
     return D, T
 
 
-def _forward_cuda(args, num_nodes: int, num_levels: int, residuals: bool):
-    global launches
-    pack_lv, lv_nodes, wa_k = args[0], args[4], args[11]
+def _prepared(args, lists: LevelLists | None = None, packed=None, backward: bool = False):
+    """(lists, packed) of ``level_scan``'s 12 arguments or of ``level_step``'s
+    last 11, built where the caller has none: the tables' ``level_lists``
+    and the weights' ``repack_expert_major``, with ``backward`` its
+    transposed slices too."""
+    _, lv_src, lv_dslot, lv_evalid, *rest = args
+    lv_upd, lv_e_n, wkv_hf, w_ih = rest[-7:-3]
+    T = args[-1].shape[0]
+    if lists is None:
+        lists = level_lists(lv_src, lv_dslot, lv_evalid, lv_upd, lv_e_n, T)
+    if packed is None or (backward and len(packed) < 4):
+        packed = repack_expert_major(wkv_hf, w_ih, T, backward)
+    return lists, packed
+
+
+def _check_prepared(op: str, args, lists, packed) -> None:
+    """Shape, dtype, device and contiguity checks of a caller's ``lists``
+    and ``packed`` against ``level_scan``'s 12 arguments or ``level_step``'s
+    last 11."""
+    lv_src, lv_upd, wkv_hf = args[1], args[-7], args[-5]
+    T, D = args[-1].shape
+    if lists is not None:
+        rows = 1 if lv_src.dim() == 1 else lv_src.shape[0]
+        ep, np_ = lv_src.shape[-1], lv_upd.shape[-1]
+        want = [((rows, n), torch.int32) for n in (np_, T + 1, ep, np_ + 1, ep)]
+        _check_tensors(f"{op} lists", LevelLists._fields, lists, want, lv_src.device)
+    if packed is not None:
+        P = -(-D // 32) * 32
+        want = [((T, 2, P, P), torch.float32), ((T, P, 3 * P), torch.float32),
+                ((T, P, P), torch.float32), ((T, 3 * P, P), torch.float32)][:len(packed)]
+        _check_tensors(f"{op} packed", ("wkv_e", "wih_e", "wvt_e", "wiht_e"), packed, want,
+                       wkv_hf.device)
+
+
+def _scratch(dev, *floats: int):
+    """Float scratch areas of the given sizes in one allocation: (the buffer,
+    to be held until the launch is enqueued, and each area's device
+    pointer). One allocation where a route makes a call per level and the
+    host is what it waits for."""
+    buf = torch.empty((sum(floats),), dtype=torch.float32, device=dev)
+    ptrs, at = [], buf.data_ptr()
+    for n in floats:
+        ptrs.append(at)
+        at += 4 * n
+    return buf, ptrs
+
+
+def _weight_grads(flat: torch.Tensor, D: int, T: int):
+    """The five weight gradients as views of the buffer the kernels fill:
+    d_wkv [D, 2TD], d_wih [D, 3TD], d_bih, d_bhh [T, 3D], d_wak [T, D]."""
+    sizes = (D * 2 * T * D, D * 3 * T * D, T * 3 * D, T * 3 * D, T * D)
+    shapes = ((D, 2 * T * D), (D, 3 * T * D), (T, 3 * D), (T, 3 * D), (T, D))
+    return tuple(x.view(shape) for x, shape in zip(flat.split(sizes), shapes))
+
+
+def _forward_cuda(args, num_nodes: int, num_levels: int, residuals: bool,
+                  lists: LevelLists | None = None, packed=None):
+    global launches, levels_walked
+    pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
     L, ep, _ = pack_lv.shape
     np_ = lv_nodes.shape[1]
     D, T = _kernel_dims(pack_lv, wa_k)
     dev = pack_lv.device
     lib = _build.library()
+    lists, packed = _prepared(args, lists, packed)
     f32 = dict(dtype=torch.float32, device=dev)
     hf = torch.zeros((num_nodes, D), **f32)
     score_buf = torch.empty((ep,), **f32)
     v_buf = torch.empty((ep, D), **f32)
-    res_e = torch.zeros((L, ep, 3 * D + 1), **f32) if residuals else None
-    res_n = torch.zeros((L, np_, 4 * D), **f32) if residuals else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.mgvae_level_scan_forward(
-            *(t.data_ptr() for t in args), hf.data_ptr(), score_buf.data_ptr(),
-            v_buf.data_ptr(), res_e.data_ptr() if residuals else None,
-            res_n.data_ptr() if residuals else None, num_levels, ep, np_, D, T, stream)
-    _build.check(lib, code, "level_scan kernel launch")
-    launches += num_levels
+    res_e = torch.empty((L, ep, 3 * D + 1), **f32) if residuals else None
+    res_n = torch.empty((L, np_, 4 * D), **f32) if residuals else None
+    if num_levels > 0:
+        barrier = torch.empty((1,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.mgvae_level_scan_forward(
+                *(t.data_ptr() for t in (pack_lv, lv_src, lv_nodes, *lists[:4], *packed[:2],
+                                         b_ih, b_hh, wa_k, hf, score_buf, v_buf)),
+                res_e.data_ptr() if residuals else None,
+                res_n.data_ptr() if residuals else None, barrier.data_ptr(),
+                num_levels, ep, np_, D, T, stream)
+        _build.check(lib, code, "level_scan kernel launch")
+        launches += 1
+        levels_walked += num_levels
     return (hf, res_e, res_n) if residuals else hf
 
 
-def _backward_cuda(ghf, res_e, res_n, args, num_levels: int):
-    global bwd_launches
-    (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
-     wkv_hf, w_ih, _, b_hh, wa_k) = args
+def _backward_cuda(ghf, res_e, res_n, args, num_levels: int,
+                   lists: LevelLists | None = None, packed=None):
+    global bwd_launches, bwd_levels_walked
+    pack_lv, lv_src, lv_nodes, wkv_hf, b_hh, wa_k = (args[i] for i in (0, 1, 4, 7, 10, 11))
     L, ep, pw = pack_lv.shape
     np_ = lv_nodes.shape[1]
     D, T = _kernel_dims(pack_lv, wa_k)
     dev = pack_lv.device
     lib = _build.library()
+    lists, (wkv_e, _, wvt_e, wiht_e) = _prepared(args, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
+    d_pack = torch.zeros((L, ep, pw), **f32)
+    n_grad = T * D * (5 * D + 7)
+    if num_levels == 0:
+        return (d_pack, *_weight_grads(torch.zeros((n_grad,), **f32), D, T))
     # a contiguous working copy: autograd may hand over an expanded or shared
     # cotangent, and the kernel adds the sources' gradients into it
     g = torch.empty((ghf.shape[0], D), **f32)
     g.copy_(ghf)
-    d_pack = torch.zeros((L, ep, pw), **f32)
-    dkv = torch.zeros((L, ep, 2 * D), **f32)
-    dg = torch.zeros((L, np_, 6 * D), **f32)
-    dhf_buf = torch.empty((ep, D), **f32)
-    dattn_buf = torch.empty((ep,), **f32)
-    d_wkv, d_wih = torch.empty_like(wkv_hf), torch.empty_like(w_ih)
-    d_bih, d_bhh = torch.empty_like(b_hh), torch.empty_like(b_hh)
-    d_wak = torch.empty_like(wa_k)
+    per_block = max(LEVELS_PER_BLOCK, -(-num_levels // 32))
+    chunks = -(-num_levels // per_block)
+    grads = torch.empty((n_grad,), **f32)
+    scratch = [torch.empty(shape, **f32) for shape in (
+        (L, ep, 2 * D), (L, np_, 6 * D), (ep, D))]            # dkv, dg, dhf_buf
+    partial = torch.empty((chunks, n_grad), **f32) if chunks > 1 else None
+    barrier = torch.empty((1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_scan_backward(
-            *(t.data_ptr() for t in (g, res_e, res_n, lv_src, lv_dslot, lv_evalid, lv_nodes,
-                                     lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, d_pack, dkv,
-                                     dg, dhf_buf, dattn_buf, d_wkv, d_wih, d_bih, d_bhh,
-                                     d_wak)),
-            num_levels, ep, np_, D, T, stream)
+            *(t.data_ptr() for t in (g, res_e, res_n, lv_src, lv_nodes, *lists, wkv_e, wvt_e,
+                                     wiht_e, b_hh, wa_k, d_pack, *scratch, grads)),
+            partial.data_ptr() if chunks > 1 else None, barrier.data_ptr(),
+            num_levels, per_block, ep, np_, D, T, stream)
     _build.check(lib, code, "level_scan_bwd kernel launch")
-    bwd_launches += 2 * num_levels + 1
-    return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak
+    bwd_launches += 2 if chunks == 1 else 3
+    bwd_levels_walked += num_levels
+    return (d_pack, *_weight_grads(grads, D, T))
 
 
 def level_scan_giant(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
                      wkv_hf, w_ih, b_ih, b_hh, wa_k, num_nodes: int,
-                     num_levels: int) -> torch.Tensor:
+                     num_levels: int, lists: LevelLists | None = None,
+                     packed: tuple | None = None) -> torch.Tensor:
     """Level recurrence over levels [0, num_levels) of one batch's tables at
     any size, keeping no residuals: arguments and result as ``level_scan``'s.
     Training saves hf alone; the backward recomputes each level from it."""
@@ -448,9 +647,10 @@ def level_scan_giant(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_
         return level_scan_giant_reference(*args, num_nodes, num_levels)
     if dev.type != "cuda":
         raise ValueError(f"level_scan_giant: no kernel for device {dev}")
+    _check_prepared("level_scan_giant", args, lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
-        return _LevelScanGiant.apply(num_nodes, num_levels, *args)
-    return _giant_forward_cuda(args, num_nodes, num_levels)
+        return _LevelScanGiant.apply(num_nodes, num_levels, (lists, packed), *args)
+    return _giant_forward_cuda(args, num_nodes, num_levels, lists=lists, packed=packed)
 
 
 class _LevelScanGiant(torch.autograd.Function):
@@ -459,8 +659,10 @@ class _LevelScanGiant(torch.autograd.Function):
     Counterpart of the JAX package's custom VJP ``pallas_level_scan_hbm``."""
 
     @staticmethod
-    def forward(ctx, num_nodes, num_levels, *args):
-        hf = _giant_forward_cuda(args, num_nodes, num_levels)
+    def forward(ctx, num_nodes, num_levels, prepared, *args):
+        ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
+        hf = _giant_forward_cuda(args, num_nodes, num_levels, lists=ctx.lists,
+                                 packed=ctx.packed)
         ctx.num_levels = num_levels
         ctx.save_for_backward(*args, hf)
         return hf
@@ -469,18 +671,20 @@ class _LevelScanGiant(torch.autograd.Function):
     def backward(ctx, ghf):
         *args, hf = ctx.saved_tensors
         d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _giant_backward_cuda(
-            ghf, hf, tuple(args), ctx.num_levels)
-        # (num_nodes, num_levels, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
-        return (None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
+            ghf, hf, tuple(args), ctx.num_levels, lists=ctx.lists, packed=ctx.packed)
+        # (num_nodes, num_levels, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+        return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
 
-def _giant_forward_cuda(args, num_nodes: int, num_levels: int) -> torch.Tensor:
+def _giant_forward_cuda(args, num_nodes: int, num_levels: int,
+                        lists: LevelLists | None = None, packed=None) -> torch.Tensor:
     global giant_launches
-    pack_lv, lv_nodes, wa_k = args[0], args[4], args[11]
+    pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
     ep, np_ = pack_lv.shape[1], lv_nodes.shape[1]
     D, T = _kernel_dims(pack_lv, wa_k)
     dev = pack_lv.device
     lib = _build.library()
+    lists, packed = _prepared(args, lists, packed)
     f32 = dict(dtype=torch.float32, device=dev)
     hf = torch.zeros((num_nodes, D), **f32)
     score_buf = torch.empty((ep,), **f32)
@@ -488,50 +692,52 @@ def _giant_forward_cuda(args, num_nodes: int, num_levels: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_scan_giant_forward(
-            *(t.data_ptr() for t in args), hf.data_ptr(), score_buf.data_ptr(),
-            v_buf.data_ptr(), num_levels, ep, np_, D, T, stream)
+            *(t.data_ptr() for t in (pack_lv, lv_src, lv_nodes, *lists[:4], *packed[:2], b_ih,
+                                     b_hh, wa_k, hf, score_buf, v_buf)),
+            num_levels, ep, np_, D, T, stream)
     _build.check(lib, code, "level_scan_giant kernel launch")
     giant_launches += num_levels
     return hf
 
 
-def _giant_backward_cuda(ghf, hf, args, num_levels: int):
+def _giant_backward_cuda(ghf, hf, args, num_levels: int,
+                         lists: LevelLists | None = None, packed=None):
     """Apart from its outputs (d_pack_lv is the only float buffer with a
     leading L axis) the working memory is ghf's copy and one level's
     scratch."""
     global giant_bwd_launches
-    pack_lv, lv_nodes, wkv_hf, w_ih, b_hh, wa_k = (args[i] for i in (0, 4, 7, 8, 10, 11))
+    pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
     ep, np_ = pack_lv.shape[1], lv_nodes.shape[1]
     D, T = _kernel_dims(pack_lv, wa_k)
     dev = pack_lv.device
     lib = _build.library()
+    lists, packed = _prepared(args, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
     # a contiguous working copy: autograd may hand over an expanded or shared
     # cotangent, and the kernel adds the sources' gradients into it
     g = torch.empty((hf.shape[0], D), **f32)
     g.copy_(ghf)
     d_pack = torch.zeros_like(pack_lv)
-    # one level's recomputed residuals; rows a level does not write are only
-    # ever multiplied by zeroed rows, so they are zeroed once
-    res_e = torch.zeros((ep, 3 * D + 1), **f32)
-    res_n = torch.zeros((np_, 4 * D), **f32)
+    # one level's recomputed residuals and scratch; the kernels visit live rows only
     scratch = [torch.empty(shape, **f32) for shape in (
-        (ep, 2 * D), (np_, 6 * D),              # dkv, dg: zeroed before each level by the callee
-        (ep,), (ep, D), (ep, D), (ep,))]        # score_buf, v_buf, dhf_buf, dattn_buf
+        (ep, 3 * D + 1), (np_, 4 * D), (ep, 2 * D), (np_, 6 * D),   # res_e, res_n, dkv, dg
+        (ep,), (ep, D), (ep, D))]                                   # score_buf, v_buf, dhf_buf
     # the weight gradients are added into, level by level
-    grads = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
+    grads = torch.zeros((T * D * (5 * D + 7),), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_scan_giant_backward(
-            *(t.data_ptr() for t in (g, hf, *args, d_pack, res_e, res_n, *scratch, *grads)),
+            *(t.data_ptr() for t in (g, hf, pack_lv, lv_src, lv_nodes, *lists, *packed, b_ih,
+                                     b_hh, wa_k, d_pack, *scratch, grads)),
             num_levels, ep, np_, D, T, stream)
     _build.check(lib, code, "level_scan_giant_bwd kernel launch")
     giant_bwd_launches += 4 * num_levels
-    return (d_pack, *grads)
+    return (d_pack, *_weight_grads(grads, D, T))
 
 
 def level_step(hf, pack, src, dslot, evalid, upd, e_n,
-               wkv_hf, w_ih, b_ih, b_hh, wa_k) -> torch.Tensor:
+               wkv_hf, w_ih, b_ih, b_hh, wa_k, lists: LevelLists | None = None,
+               packed: tuple | None = None) -> torch.Tensor:
     """One level from an explicit hf.
 
     hf [N, D] f32 (read only; a contiguous row range of a larger hf will
@@ -539,7 +745,10 @@ def level_step(hf, pack, src, dslot, evalid, upd, e_n,
     src / dslot / evalid [Ep] and upd / e_n [Np] int32, src indexing hf's
     rows; the weights as ``level_scan``'s. Returns h_new [Np, D] f32 in slot
     order, 0 where ``upd`` is 0, not scattered; differentiable with respect
-    to hf (through the source gathers), pack and the weights.
+    to hf (through the source gathers), pack and the weights. ``lists``: the
+    level's row of the tables' ``level_lists`` ([1, ...]), and ``packed``: the
+    weights' ``repack_expert_major(wkv_hf, w_ih, T, backward=True)``, for a
+    caller that built them already for several calls.
 
     The JAX function's ``nodes`` argument only feeds its source windows and
     has no counterpart here.
@@ -551,9 +760,10 @@ def level_step(hf, pack, src, dslot, evalid, upd, e_n,
         return level_step_reference(*args)
     if dev.type != "cuda":
         raise ValueError(f"level_step: no kernel for device {dev}")
+    _check_prepared("level_step", args[1:], lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in STEP_FLOAT_ARGS):
-        return _LevelStep.apply(*args)
-    return _step_forward_cuda(args, residuals=False)
+        return _LevelStep.apply((lists, packed), *args)
+    return _step_forward_cuda(args, residuals=False, lists=lists, packed=packed)
 
 
 class _LevelStep(torch.autograd.Function):
@@ -566,8 +776,10 @@ class _LevelStep(torch.autograd.Function):
     write."""
 
     @staticmethod
-    def forward(ctx, hf, *rest):
-        h_new, res_e, res_n = _step_forward_cuda((hf, *rest), residuals=True)
+    def forward(ctx, prepared, hf, *rest):
+        ctx.lists, ctx.packed = _prepared(rest, *prepared, backward=True)
+        h_new, res_e, res_n = _step_forward_cuda((hf, *rest), residuals=True, lists=ctx.lists,
+                                                 packed=ctx.packed)
         ctx.num_nodes = hf.shape[0]
         ctx.save_for_backward(*rest, res_e, res_n)
         return h_new
@@ -575,66 +787,64 @@ class _LevelStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         *rest, res_e, res_n = ctx.saved_tensors
-        grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes)
+        grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes,
+                                    lists=ctx.lists, packed=ctx.packed)
         d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf = grads
-        # (hf, pack, 5 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
-        return (d_hf, d_pack) + (None,) * 5 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
+        # (prepared, hf, pack, 5 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+        return (None, d_hf, d_pack) + (None,) * 5 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
 
-def _step_forward_cuda(args, residuals: bool):
+def _step_forward_cuda(args, residuals: bool, lists: LevelLists | None = None, packed=None):
     global step_launches
-    hf, pack, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k = args
-    ep, np_ = pack.shape[0], upd.shape[0]
+    hf, pack, src, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 2, 9, 10, 11))
+    ep, np_ = pack.shape[0], args[5].shape[0]
     D, T = _kernel_dims(pack, wa_k)
     dev = pack.device
     lib = _build.library()
+    lists, packed = _prepared(args[1:], lists, packed)
     f32 = dict(dtype=torch.float32, device=dev)
     h_new = torch.zeros((np_, D), **f32)
-    score_buf = torch.empty((ep,), **f32)
-    v_buf = torch.empty((ep, D), **f32)
-    res_e = torch.zeros((ep, 3 * D + 1), **f32) if residuals else None
-    res_n = torch.zeros((np_, 4 * D), **f32) if residuals else None
+    held, scratch = _scratch(dev, ep, ep * D)                 # score_buf, v_buf
+    res_e = torch.empty((ep, 3 * D + 1), **f32) if residuals else None
+    res_n = torch.empty((np_, 4 * D), **f32) if residuals else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_step_forward(
-            *(t.data_ptr() for t in args), h_new.data_ptr(), score_buf.data_ptr(),
-            v_buf.data_ptr(), res_e.data_ptr() if residuals else None,
+            *(t.data_ptr() for t in (hf, pack, src, *lists[:4], *packed[:2], b_ih, b_hh, wa_k,
+                                     h_new)), *scratch,
+            res_e.data_ptr() if residuals else None,
             res_n.data_ptr() if residuals else None, ep, np_, D, T, stream)
     _build.check(lib, code, "level_step kernel launch")
     step_launches += 1
     return (h_new, res_e, res_n) if residuals else h_new
 
 
-def _step_backward_cuda(g, res_e, res_n, rest, num_nodes: int):
+def _step_backward_cuda(g, res_e, res_n, rest, num_nodes: int,
+                        lists: LevelLists | None = None, packed=None):
     """``rest``: level_step's arguments after hf."""
     global step_bwd_launches
-    pack, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, _, b_hh, wa_k = rest
+    pack, src, b_hh, wa_k = (rest[i] for i in (0, 1, 9, 10))
     ep, pw = pack.shape
-    np_ = upd.shape[0]
+    np_ = rest[4].shape[0]
     D, T = _kernel_dims(pack, wa_k)
     dev = pack.device
     lib = _build.library()
+    lists, (wkv_e, _, wvt_e, wiht_e) = _prepared(rest, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
     g = g.contiguous()   # autograd may hand over an expanded cotangent; only read
     d_pack = torch.zeros((ep, pw), **f32)
-    dkv = torch.zeros((ep, 2 * D), **f32)
-    dg = torch.zeros((np_, 6 * D), **f32)
     d_hf = torch.zeros((num_nodes, D), **f32)
-    dhf_buf = torch.empty((ep, D), **f32)
-    dattn_buf = torch.empty((ep,), **f32)
-    d_wkv, d_wih = torch.empty_like(wkv_hf), torch.empty_like(w_ih)
-    d_bih, d_bhh = torch.empty_like(b_hh), torch.empty_like(b_hh)
-    d_wak = torch.empty_like(wa_k)
+    held, scratch = _scratch(dev, ep * 2 * D, np_ * 6 * D, ep * D)   # dkv, dg, dhf_buf
+    grads = torch.empty((T * D * (5 * D + 7),), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_step_backward(
-            *(t.data_ptr() for t in (g, res_e, res_n, src, dslot, evalid, upd, e_n, wkv_hf, w_ih,
-                                     b_hh, wa_k, d_pack, dkv, dg, dhf_buf, dattn_buf, d_wkv,
-                                     d_wih, d_bih, d_bhh, d_wak, d_hf)),
+            *(t.data_ptr() for t in (g, res_e, res_n, src, *lists, wkv_e, wvt_e, wiht_e, b_hh,
+                                     wa_k, d_pack)), *scratch, grads.data_ptr(), d_hf.data_ptr(),
             ep, np_, D, T, stream)
     _build.check(lib, code, "level_step_bwd kernel launch")
     step_bwd_launches += 3
-    return d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf
+    return (d_pack, *_weight_grads(grads, D, T), d_hf)
 
 
 def _check_step(args) -> None:

@@ -27,13 +27,14 @@ _SCHEMA = {
 _STATE_SCHEMA = {"readout_prob": {"bn": [frozenset({"mean", "var"})]}}
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
+def params_from_jax(tree: dict, device="cuda") -> dict:
     """JAX params tree (numpy leaves) -> the port's params (f32 tensors on
-    ``device``). Raises KeyError on an unknown key."""
+    ``device``: the card unless the caller asks for the CPU, as
+    ``init_params``). Raises KeyError on an unknown key."""
     return _convert(tree, _SCHEMA, "params", torch.device(device))
 
 
-def state_from_jax(tree: dict, device="cpu") -> dict:
+def state_from_jax(tree: dict, device="cuda") -> dict:
     """JAX state tree (the BatchNorm running statistics, numpy leaves) ->
     the port's state. Raises KeyError on an unknown key."""
     return _convert(tree, _STATE_SCHEMA, "state", torch.device(device))

@@ -41,10 +41,11 @@ def test_kernel_matches_plain_version_on_card(cuda, modality, dim):
     hs = dg_ae.struct_hs(params, b, cfg)
     args = dg_ae.level_scan_inputs(params, b, cfg, hs)
     n_lv = dg_ae.num_levels(batch)
-    level_kernel.launches = 0
+    level_kernel.launches = level_kernel.levels_walked = 0
     hf_k = level_kernel.level_scan(*args, num_nodes=hs.shape[0], num_levels=n_lv)
     torch.cuda.synchronize()
-    assert level_kernel.launches == n_lv
+    # one persistent launch, which walks every real level
+    assert (level_kernel.launches, level_kernel.levels_walked) == (1, n_lv)
     hf_r = level_kernel.level_scan_reference(*args, num_nodes=hs.shape[0], num_levels=n_lv)
     # fp32 with TF32 off: only the order of sums differs
     torch.testing.assert_close(hf_k, hf_r, rtol=0, atol=1e-4)
@@ -149,17 +150,19 @@ def test_backward_kernel_matches_plain_version_on_card(cuda, modality, dim):
         args = dg_ae.level_scan_inputs(params, b, cfg, hs)
     n_lv, N = dg_ae.num_levels(batch), hs.shape[0]
     hf_k, re_k, rn_k = level_kernel._forward_cuda(args, N, n_lv, residuals=True)
+    re_k, rn_k = _written_rows(args[2], args[3], args[5], n_lv, re_k, rn_k)
     hf_r, re_r, rn_r = level_kernel.level_scan_reference(*args, num_nodes=N, num_levels=n_lv,
                                                          with_residuals=True)
     for k, r in ((hf_k, hf_r), (re_k, re_r), (rn_k, rn_r)):
         torch.testing.assert_close(k, r, rtol=0, atol=1e-4)
     ghf = torch.randn(hf_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
     bargs = (*args[:9], args[10], args[11])
-    level_kernel.bwd_launches = 0
+    level_kernel.bwd_launches = level_kernel.bwd_levels_walked = 0
     grads_k = level_kernel._backward_cuda(ghf, re_k, rn_k, args, n_lv)
     torch.cuda.synchronize()
-    # a slot and a source kernel per level, one weight-gradient kernel
-    assert level_kernel.bwd_launches == 2 * n_lv + 1
+    # the persistent sweep, the weight gradients' partials, their sums
+    assert n_lv > level_kernel.LEVELS_PER_BLOCK
+    assert (level_kernel.bwd_launches, level_kernel.bwd_levels_walked) == (3, n_lv)
     grads_r = level_kernel.level_scan_bwd_reference(ghf, re_k, rn_k, *bargs, num_levels=n_lv)
     for k, r in zip(grads_k, grads_r):
         # fp32, TF32 off: only the order of sums differs
@@ -173,9 +176,19 @@ def test_backward_kernel_matches_plain_version_on_card(cuda, modality, dim):
     hf = level_kernel.level_scan(*t, num_nodes=N, num_levels=n_lv)
     auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
     torch.cuda.synchronize()
-    assert level_kernel.launches == n_lv and level_kernel.bwd_launches == 2 * n_lv + 1
+    assert (level_kernel.launches, level_kernel.bwd_launches) == (1, 3)
     for a, k in zip(auto, grads_k):
         torch.testing.assert_close(a, k, rtol=0, atol=0)   # the same kernels, deterministic
+
+
+def _written_rows(dslot, evalid, upd, n_lv, res_e, res_n):
+    """The residuals with every row that the kernels leave unwritten set to
+    0, as the plain versions have them (all levels' tables, of which the
+    first ``n_lv`` ran, or one level's)."""
+    e_live, s_live = level_kernel.live_rows(dslot, evalid, upd)
+    if e_live.dim() == 2:
+        e_live[n_lv:], s_live[n_lv:] = False, False
+    return torch.where(e_live[..., None], res_e, 0.0), torch.where(s_live[..., None], res_n, 0.0)
 
 
 def _step_case(cuda, modality, dim, seed=9):
@@ -205,6 +218,7 @@ def test_step_kernels_match_plain_versions_on_card(cuda, modality, dim):
     level_kernel.step_launches = level_kernel.step_bwd_launches = 0
     h_k = level_kernel._step_forward_cuda(step_args, residuals=False)
     h_kr, re_k, rn_k = level_kernel._step_forward_cuda(step_args, residuals=True)
+    re_k, rn_k = _written_rows(step_args[3], step_args[4], step_args[5], 1, re_k, rn_k)
     torch.cuda.synchronize()
     assert level_kernel.step_launches == 2
     h_r, re_r, rn_r = level_kernel.level_step_reference(*step_args, with_residuals=True)
@@ -328,6 +342,126 @@ def test_giant_train_step_on_card_matches_cpu_with_and_without_remat(cuda):
         assert torch.equal(a, r)            # the struct kernels are bitwise deterministic
 
 
+@pytest.mark.parametrize("dim,experts", [(32, 4), (64, 5), (128, 4), (128, 5), (96, 5), (64, 4)])
+def test_level_kernels_on_random_tables_on_card(cuda, dim, experts):
+    """Kernels 1 and 2, and 3 to 6 on the same body, on the tables of
+    tests/test_torch_level_lists.py: arbitrary row order, padding rows, a
+    source shared by several slots, slots with 0 and with 40 in-edges, a
+    level with no updated slot, a padding level, T = 5; D = 128 stages wk and
+    wv alone. Forward within 1e-5 of the plain version, backward within
+    1e-4 * max(scale, 1), both bitwise repeatable, kernel 3 bit-equal to
+    kernel 1."""
+    from test_torch_level_lists import REAL, random_tables
+
+    cpu_args, n = random_tables(5, dim, experts)
+    args = tuple(a.to(cuda) for a in cpu_args)
+    L = args[0].shape[0]
+    runs = [level_kernel._forward_cuda(args, n, REAL, residuals=True) for _ in range(2)]
+    hf_k, re_k, rn_k = runs[0]
+    re_m, rn_m = _written_rows(args[2], args[3], args[5], REAL, re_k, rn_k)
+    again = _written_rows(args[2], args[3], args[5], REAL, runs[1][1], runs[1][2])
+    assert torch.equal(runs[1][0], hf_k)                                 # repeatable
+    assert torch.equal(again[0], re_m) and torch.equal(again[1], rn_m)
+    hf_r, re_r, rn_r = level_kernel.level_scan_reference(*args, num_nodes=n, num_levels=REAL,
+                                                         with_residuals=True)
+    assert hf_r.abs().max().item() > 0.01
+    for k, r in ((hf_k, hf_r), (re_m, re_r), (rn_m, rn_r)):
+        torch.testing.assert_close(k, r, rtol=0, atol=1e-5)
+    assert torch.equal(level_kernel._forward_cuda(args, n, REAL, residuals=False), hf_k)
+    assert torch.equal(level_kernel._giant_forward_cuda(args, n, REAL), hf_k)   # kernel 3
+    ghf = torch.randn(hf_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    raw = [level_kernel._backward_cuda(ghf, re_k, rn_k, args, REAL) for _ in range(2)]
+    assert all(torch.equal(a, c) for a, c in zip(*raw))                  # no atomics
+    assert (raw[0][0][REAL:] == 0).all() and L > REAL                    # the padding level
+    bargs = (*args[:9], args[10], args[11])
+    grads_r = level_kernel.level_scan_bwd_reference(ghf, re_m, rn_m, *bargs, num_levels=REAL)
+    grads_4 = level_kernel._giant_backward_cuda(ghf, hf_k, args, REAL)              # kernel 4
+    for k, r, k4 in zip(raw[0], grads_r, grads_4):
+        scale = max(r.abs().max().item(), 1.0)
+        assert r.abs().max().item() > 0
+        assert (k - r).abs().max().item() <= 1e-4 * scale
+        assert (k4 - r).abs().max().item() <= 1e-4 * scale
+        assert (k4 - k).abs().max().item() <= 1e-5 * scale               # recomputed vs saved
+    # kernels 5 and 6 on the level with the 40-in-edge slot, from kernel 1's hf
+    row = 3
+    step = (hf_k, *(args[i][row] for i in (0, 1, 2, 3, 5, 6)), *args[7:])
+    h_k, se_k, sn_k = level_kernel._step_forward_cuda(step, residuals=True)
+    h_r = level_kernel.level_step_reference(*step)
+    torch.testing.assert_close(h_k, h_r, rtol=0, atol=1e-5)
+    g = torch.randn(h_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    grads_6 = level_kernel._step_backward_cuda(g, se_k, sn_k, step[1:], n)
+    se_m, sn_m = _written_rows(step[3], step[4], step[5], 1, se_k, sn_k)
+    grads_r = level_kernel.level_step_bwd_reference(g, se_m, sn_m, *step[1:9], step[10],
+                                                    step[11], num_nodes=n)
+    for k, r in zip(grads_6, grads_r):
+        assert (k - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("case", ["random", "batch", "one_level"])
+def test_level_lists_kernel_equals_its_plain_version_on_card(cuda, case):
+    """``csrc/level_lists.cu`` against the torch sorts, entry for entry: on
+    the random tables of tests/test_torch_level_lists.py, on a collated
+    batch's tables (all chunks at once) and on one level's."""
+    from test_torch_level_lists import T, random_tables
+
+    if case == "batch":
+        cfg = dg_ae.DGConfig(modality="xmg", dim_hidden=32, s_rounds=1, t_rounds=1)
+        params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+        rng = np.random.default_rng(3)
+        batch = collate_chunked([random_circuit(rng, "xmg", num_inputs=8, num_gates=90)
+                                 for _ in range(6)], 2)
+        b = dg_ae.batch_to_device(batch, cuda)
+        args = dg_ae.level_scan_inputs(params, b, cfg, dg_ae.struct_hs(params, b, cfg))
+        experts = cfg.num_experts
+    else:
+        args, experts = [a.to(cuda) for a in random_tables(6)[0]], T
+    tables = [args[i] for i in (1, 2, 3, 5, 6)]
+    if case == "one_level":
+        tables = [t[3] for t in tables]
+    level_kernel.lists_launches = 0
+    got = level_kernel.level_lists(*tables, experts)
+    torch.cuda.synchronize()
+    assert level_kernel.lists_launches == 1
+    want = level_kernel.level_lists_reference(*tables, experts)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == torch.int32 and g.shape == w.shape and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("dim", [32, 64, 128])
+def test_fused_kernels_on_a_three_chunk_batch_on_card(cuda, dim):
+    """Kernels 1 and 2 chunk by chunk on ``collate_chunked(graphs, 3)``, the
+    lists built once for all chunks: hf and every gradient against the plain
+    versions, through ``level_recurrence`` and autograd."""
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=dim, s_rounds=1, t_rounds=1, layernorm=True)
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(12)
+    batch = collate_chunked([random_circuit(rng, "mig", num_inputs=8, num_gates=60 + 10 * i)
+                             for i in range(9)], 3)
+    b = dg_ae.batch_to_device(batch, cuda)
+    counts = dg_ae.level_counts(batch)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = [a.detach().clone() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
+    N, L = hs.shape[0], args[0].shape[0] // 3
+    t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS) for i, a in enumerate(args)]
+    level_kernel.launches = level_kernel.bwd_launches = 0
+    level_kernel.levels_walked = level_kernel.bwd_levels_walked = 0
+    hf = dg_ae.level_recurrence(tuple(t), N, counts)
+    ghf = torch.randn(hf.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
+    torch.cuda.synchronize()
+    assert (level_kernel.launches, level_kernel.bwd_launches) == (3, 9)
+    assert (level_kernel.levels_walked, level_kernel.bwd_levels_walked) == (sum(counts),) * 2
+    r = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS) for i, a in enumerate(args)]
+    hf_r = torch.cat([level_kernel.level_scan_reference(
+        *(x[k * L:(k + 1) * L] for x in r[:7]), *r[7:], num_nodes=N // 3, num_levels=counts[k])
+        for k in range(3)])
+    want = torch.autograd.grad(hf_r, [r[i] for i in level_kernel.FLOAT_ARGS], ghf)
+    torch.testing.assert_close(hf, hf_r, rtol=0, atol=1e-5)
+    for a, w in zip(auto, want):
+        assert (a - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1.0)
+
+
 def _one_step(cfg, batch, dev, neg, keep, seed=4, weights=(1.0, 4.0, 4.0, 0.0)):
     params, state = dg_ae.init_params(cfg, seed=seed, device=dev)
     leaves = step.param_leaves(params)
@@ -359,6 +493,7 @@ def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
     for m in (level_kernel, struct_kernel):
         m.launches = m.bwd_launches = 0
     level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    level_kernel.levels_walked = level_kernel.bwd_levels_walked = 0
     m_c, g_c = _one_step(cfg, batch, "cpu", neg, keep)
     assert level_kernel.launches == level_kernel.step_launches == 0
     m_g, g_g = _one_step(cfg, batch, cuda, neg, keep)
@@ -372,7 +507,9 @@ def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
         assert (level_kernel.step_launches, level_kernel.step_bwd_launches) == (real, 3 * real)
         assert level_kernel.launches == level_kernel.bwd_launches == 0
     else:
-        assert (level_kernel.launches, level_kernel.bwd_launches) == (real, 2 * real + calls)
+        # per chunk or group one persistent launch forward and three launches backward
+        assert (level_kernel.launches, level_kernel.bwd_launches) == (calls, 3 * calls)
+        assert (level_kernel.levels_walked, level_kernel.bwd_levels_walked) == (real, real)
         assert level_kernel.step_launches == level_kernel.step_bwd_launches == 0
     groups = len(counts) if layout == "split" else 1
     assert struct_kernel.launches == 4 * groups and struct_kernel.bwd_launches == 6 * groups

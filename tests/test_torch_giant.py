@@ -96,7 +96,7 @@ def test_giant_plain_versions_match_jax_hbm_route_and_xla_scan(modality, monkeyp
     # the port: the whole forward by the giant route; the scan's backward
     # written out (level_scan_giant_bwd_reference), the rest by autograd
     calls = _force_giant(monkeypatch)
-    pp = params_from_jax(_np(params))
+    pp = params_from_jax(_np(params), device="cpu")
     leaves = PS.param_leaves(pp)
     for t in leaves:
         t.requires_grad_(True)
@@ -171,7 +171,7 @@ def _spies(monkeypatch):
     calls = []
 
     def spy(name):
-        def scan(*args, num_nodes, num_levels):
+        def scan(*args, num_nodes, num_levels, lists=None, packed=None):
             calls.append(name)
             return args[0].new_zeros((num_nodes, args[0].shape[2] - 2))
         return scan
@@ -182,22 +182,19 @@ def _spies(monkeypatch):
 
 
 def test_giant_shape_routes_to_the_giant_scan(monkeypatch):
-    """The example's shape at a quarter of its depth fails ``kernel_fits``
-    and passes ``kernel_fits_hbm_bwd``, as tests/test_giant.py asserts for
-    the JAX package, and ``level_recurrence`` sends it to ``level_scan_giant``;
-    a small plain batch and a chunked batch keep the fused scan."""
+    """The example's shape at a quarter of its depth fails ``kernel_fits``,
+    as tests/test_giant.py asserts for the JAX package, and
+    ``level_recurrence`` sends it to ``level_scan_giant``; a small plain batch
+    and a chunked batch keep the fused scan."""
     cfg = P.DGConfig(modality="mig", dim_hidden=16, s_rounds=1, t_rounds=1, layernorm=True)
     params, _ = P.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(0)
     hb = collate([layered_circuit(rng, "mig", width=512, depth=50, num_tt_pairs=64)])
     n, ep, np_ = hb["gate"].shape[0], hb["lv_edge_src"].shape[-1], hb["lv_nodes"].shape[-1]
     assert not level_kernel.kernel_fits(n, ep, np_, 64)
-    assert level_kernel.kernel_fits_hbm(n, ep, np_, 64)
-    assert level_kernel.kernel_fits_hbm_bwd(n, ep, np_, 64)
-    for gate in ("kernel_fits_hbm", "kernel_fits_hbm_bwd"):   # both packages gate alike
-        for dims in ((n, ep, np_, 64), (10**6, 2048, 1024, 128), (64, 2049, 8, 64),
-                     (64, 4096, 2048, 64), (64, 4097, 8, 64), (64, 8, 2049, 64), (64, 8, 8, 129)):
-            assert getattr(level_kernel, gate)(*dims) == getattr(JK, gate)(*dims), (gate, dims)
+    for dims in ((n, ep, np_, 64), (8192, 512, 512, 128), (8193, 8, 8, 64), (64, 513, 8, 64),
+                 (64, 8, 513, 64), (64, 8, 8, 129)):    # both packages gate alike
+        assert level_kernel.kernel_fits(*dims) == JK.kernel_fits(*dims), dims
 
     calls = _spies(monkeypatch)
     with torch.no_grad():
@@ -222,8 +219,8 @@ def test_giant_shape_routes_to_the_giant_scan(monkeypatch):
 @pytest.mark.parametrize("n,ep,np_,serving,training", [
     (4096, 640, 320, "giant", "giant"),     # fails kernel_fits on Ep: a plain bs64 batch
     (8193, 512, 512, "giant", "giant"),     # fails it on N alone
-    (4096, 4096, 2048, "giant", "fused"),   # past the backward's gate only: the trainer leaves it
-    (4096, 4097, 64, "fused", "fused"),     # past both: the JAX package's XLA fallback
+    (4096, 4096, 2048, "giant", "giant"),   # past the JAX trainer's backward gate: no gate here
+    (4096, 4097, 64, "giant", "giant"),     # past both of the JAX package's giant gates
     (8192, 512, 512, "fused", "fused"),     # passes kernel_fits
 ])
 def test_unchunked_routing_by_shape(n, ep, np_, serving, training, monkeypatch):
@@ -302,7 +299,7 @@ def test_giant_train_step_matches_jax_at_mini_scale(monkeypatch):
                                                                    pcfg.dim_mlp))))
             for k in jax.random.split(k_drop, 2)]
     calls = _force_giant(monkeypatch)
-    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    pp, ps = params_from_jax(_np(params), device="cpu"), state_from_jax(_np(state), device="cpu")
     p_step, _ = PS.make_train_step(pcfg, PS.make_optimizer(pp, lr))
     s1_p, m_p = p_step(pp, ps, hb, None, WEIGHTS, neg_edges=neg, drop_keep=keep)
     assert len(calls) == 1

@@ -43,7 +43,7 @@ def _setup(modality="mig", seed=1, scale_hs=1.0):
 
 
 def _port(params, state, hb):
-    return (params_from_jax(_np(params)), state_from_jax(_np(state)),
+    return (params_from_jax(_np(params), device="cpu"), state_from_jax(_np(state), device="cpu"),
             P.batch_to_device(hb, "cpu"))
 
 
@@ -169,8 +169,8 @@ def test_batchnorm_running_state_matches_jax():
     pj, sj = JM.batchnorm_init(16)
     pj = {"w": jnp.asarray(rng.normal(size=16), jnp.float32), "b": pj["b"] + 0.5}
     sj = {"mean": sj["mean"] + 0.2, "var": sj["var"] * 2.0}
-    pp, sp = params_from_jax({"hs_linear": _np(pj)})["hs_linear"], state_from_jax(
-        {"readout_prob": {"bn": [_np(sj)]}})["readout_prob"]["bn"][0]
+    pp, sp = params_from_jax({"hs_linear": _np(pj)}, device="cpu")["hs_linear"], state_from_jax(
+        {"readout_prob": {"bn": [_np(sj)]}}, device="cpu")["readout_prob"]["bn"][0]
     for mask in (valid, None):
         y_j, s_j = JM.batchnorm_apply(pj, sj, jnp.asarray(x),
                                       valid=None if mask is None else jnp.asarray(mask))
@@ -219,8 +219,9 @@ def test_model_pred_prob_and_recon_loss_match_jax():
     kw = dict(modality="xag", dim_hidden=32, s_rounds=2, t_rounds=2, layernorm=True)
     jmodel = mgvae_tpu.Model(**kw)
     jmodel.state = jax.tree.map(lambda a: a + 0.3, jmodel.state)   # non-trivial running stats
-    pmodel = mgvae_tpu_torch.Model(**kw, params=params_from_jax(_np(jmodel.params)),
-                                   state=state_from_jax(_np(jmodel.state)), device="cpu")
+    pmodel = mgvae_tpu_torch.Model(
+        **kw, params=params_from_jax(_np(jmodel.params), device="cpu"),
+        state=state_from_jax(_np(jmodel.state), device="cpu"), device="cpu")
     g = random_circuit(np.random.default_rng(6), "xag", num_inputs=6, num_gates=40)
     g_p = mgvae_tpu_torch.random_circuit(np.random.default_rng(6), "xag", num_inputs=6,
                                          num_gates=40)                  # the same circuit

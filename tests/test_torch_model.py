@@ -44,7 +44,7 @@ def test_forward_matches_jax(modality):
     rng = np.random.default_rng(1)
     batch = collate([random_circuit(rng, modality, num_inputs=6, num_gates=40) for _ in range(3)])
     hs_j, hf_j, _ = J.forward(params, jax.tree.map(jnp.asarray, batch), jcfg)
-    hs_p, hf_p, aux = P.forward(params_from_jax(_np_tree(params)), batch, pcfg)
+    hs_p, hf_p, aux = P.forward(params_from_jax(_np_tree(params), device="cpu"), batch, pcfg)
     n = int(batch["n_nodes"])
     assert aux == {} and hs_p.shape == hf_p.shape == (batch["gate"].shape[0], 32)
     _assert_embeddings_close(hs_p.numpy()[:n], hf_p.numpy()[:n],
@@ -54,8 +54,8 @@ def test_forward_matches_jax(modality):
 def test_model_encode_many_and_forward_match_jax():
     kw = dict(modality="mig", dim_hidden=32, s_rounds=2, t_rounds=2, layernorm=True)
     jmodel = mgvae_tpu.Model(**kw)
-    pmodel = mgvae_tpu_torch.Model(**kw, params=params_from_jax(_np_tree(jmodel.params)),
-                                   device="cpu")
+    pmodel = mgvae_tpu_torch.Model(
+        **kw, params=params_from_jax(_np_tree(jmodel.params), device="cpu"), device="cpu")
     make = lambda rc: [rc(rng, "mig", num_inputs=5, num_gates=24 + 4 * i) for i in range(5)]
     rng = np.random.default_rng(2)
     jgraphs = make(random_circuit)
@@ -87,7 +87,7 @@ def test_init_params_same_tree_and_shapes_as_jax(modality, layernorm):
     assert shape_tree(jp) == shape_tree(pp)
     assert jax.tree.structure(js) == jax.tree.structure(ps)
     # the bridge carries the JAX tree over unchanged
-    bridged = params_from_jax(_np_tree(jp))
+    bridged = params_from_jax(_np_tree(jp), device="cpu")
     assert jax.tree.all(jax.tree.map(lambda a, b: np.array_equal(np.asarray(a), b.numpy()),
                                      jp, bridged))
 
@@ -97,10 +97,10 @@ def test_params_from_jax_raises_on_unknown_key():
     tree = _np_tree(params)
     tree["experts"]["w_extra"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError, match="w_extra"):
-        params_from_jax(tree)
+        params_from_jax(tree, device="cpu")
     vae, _ = J.init_params(jax.random.PRNGKey(0), J.DGConfig(dim_hidden=8, variational=True))
     with pytest.raises(KeyError, match="fc_"):
-        params_from_jax(_np_tree(vae))
+        params_from_jax(_np_tree(vae), device="cpu")
 
 
 def test_unported_options_raise_not_implemented():
@@ -146,7 +146,7 @@ def test_chunked_forward_matches_jax_both_routes(modality, route, monkeypatch):
         monkeypatch.setattr(JK, "kernel_fits", lambda *a: False)
         monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
     hs_k, hf_k, _ = J.forward(params, jbatch, jcfg, use_pallas=True, pallas_interpret=True)
-    hs_p, hf_p, _ = P.forward(params_from_jax(_np_tree(params)), batch, pcfg)
+    hs_p, hf_p, _ = P.forward(params_from_jax(_np_tree(params), device="cpu"), batch, pcfg)
     counts = P.level_counts(batch)
     assert calls == ({"scan": 2, "step": 0} if route == "fused"
                      else {"scan": 0, "step": sum(counts)})
@@ -161,13 +161,15 @@ def test_chunked_forward_matches_jax_both_routes(modality, route, monkeypatch):
     ({"KERNEL_MAX_NODES": 64}, True, "step"),        # too many nodes for it
     ({"KERNEL_MAX_EP": 8}, True, "step"),             # a level's edges too wide
     ({"KERNEL_MAX_NP": 4}, True, "step"),             # a level's slots too wide
-    ({"KERNEL_MAX_NODES": 64}, False, "fused"),      # neither gate holds: fused per chunk
+    ({"KERNEL_MAX_NODES": 64}, False, "giant"),      # neither gate holds: giant per chunk
 ])
 def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, monkeypatch):
     """For C > 1 the port takes the step route exactly where
     ``_level_scan_pallas`` does: ``kernel_fits`` false and
-    ``step_kernel_fits`` true. A plain batch takes the fused scan where it
-    passes ``kernel_fits`` and the giant scan where it fails it."""
+    ``step_kernel_fits`` true; chunks that fail both gates, where the JAX
+    package leaves its kernels, take the giant scan chunk by chunk. A plain
+    batch takes the fused scan where it passes ``kernel_fits`` and the giant
+    scan where it fails it."""
     rng = np.random.default_rng(5)
     graphs = [mgvae_tpu_torch.random_circuit(rng, "mig", num_inputs=4, num_gates=16 + 4 * i)
               for i in range(4)]
@@ -188,7 +190,7 @@ def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, mon
     batch = mgvae_tpu_torch.collate_chunked(graphs, 2)
     _, hf, _ = P.forward(params, batch, cfg)
     counts = P.level_counts(batch)
-    assert calls == [want] * (2 if want == "fused" else sum(counts))
+    assert calls == [want] * (sum(counts) if want == "step" else 2)
     calls.clear()
     _, hf1, _ = P.forward(params, mgvae_tpu_torch.collate(graphs), cfg)
     assert calls == (["giant"] if limits else ["fused"])
@@ -203,7 +205,7 @@ def test_split_forward_matches_jax(modality):
     batch = collate_split(graphs, 3)
     assert len({g["lv_nodes"].shape for g in batch["groups"]}) > 1
     hs_j, hf_j, _ = J.forward(params, jax.tree.map(jnp.asarray, batch), jcfg)
-    hs_p, hf_p, aux = P.forward(params_from_jax(_np_tree(params)), batch, pcfg)
+    hs_p, hf_p, aux = P.forward(params_from_jax(_np_tree(params), device="cpu"), batch, pcfg)
     assert aux == {} and hs_p.shape == hf_p.shape == (batch["gate"].shape[0], 32)
     valid = batch["node_valid"]
     _assert_embeddings_close(hs_p.numpy()[valid], hf_p.numpy()[valid],
@@ -218,8 +220,8 @@ def test_model_forward_list_goes_through_collate_fit(monkeypatch):
     unchunked batch's."""
     kw = dict(modality="mig", dim_hidden=32, s_rounds=2, t_rounds=2, layernorm=True)
     jmodel = mgvae_tpu.Model(**kw)
-    pmodel = mgvae_tpu_torch.Model(**kw, params=params_from_jax(_np_tree(jmodel.params)),
-                                   device="cpu")
+    pmodel = mgvae_tpu_torch.Model(
+        **kw, params=params_from_jax(_np_tree(jmodel.params), device="cpu"), device="cpu")
     rng = np.random.default_rng(7)
     jgraphs = [random_circuit(rng, "mig", num_inputs=5, num_gates=30 + 5 * i) for i in range(6)]
     rng = np.random.default_rng(7)

@@ -37,7 +37,7 @@ def _setup(layernorm, modality="mig", seed=0, circuits=3, gates=44):
     rng = np.random.default_rng(seed + 1)
     hb = collate([random_circuit(rng, modality, num_inputs=5, num_gates=gates)
                   for _ in range(circuits)])
-    pparams = params_from_jax(jax.tree.map(np.asarray, params))
+    pparams = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
     b = P.batch_to_device(hb, "cpu")
     return jcfg, pcfg, params, hb, pparams, b, P.struct_input(b["gate"], pcfg)
 

@@ -84,7 +84,7 @@ def test_model_gradients_match_jax(modality):
     (tot_j, (st_j, m_j)), g_j = _jax_value_and_grad(jcfg)(
         params, state, jax.tree.map(jnp.asarray, hb), key, jnp.asarray(WEIGHTS))
 
-    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    pp, ps = params_from_jax(_np(params), device="cpu"), state_from_jax(_np(state), device="cpu")
     leaves = PS.param_leaves(pp)
     for t in leaves:
         t.requires_grad_(True)
@@ -121,7 +121,7 @@ def test_train_step_matches_jax_make_train_step():
     j_step, j_eval = JS.make_train_step(jcfg, opt, mesh=None, donate=False)
     p1_j, s1_j, _, m_j = j_step(params, state, opt.init(params), batch, key, w)
 
-    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    pp, ps = params_from_jax(_np(params), device="cpu"), state_from_jax(_np(state), device="cpu")
     optimizer = PS.make_optimizer(pp, lr)
     p_step, _ = PS.make_train_step(pcfg, optimizer)
     before = PS.param_leaves(pp)
@@ -150,7 +150,7 @@ def test_train_step_matches_jax_make_train_step():
     m_je = j_eval(p1_j, s1_j, batch, key, w)
     neg_e, _ = _jax_draws(key, hb, pcfg.dim_mlp)
     with torch.no_grad():
-        _, (_, m_pe) = PS.loss_and_metrics(params_from_jax(_np(p1_j)), s1_p, hb, None,
+        _, (_, m_pe) = PS.loss_and_metrics(params_from_jax(_np(p1_j), device="cpu"), s1_p, hb, None,
                                            WEIGHTS, pcfg, False, neg_edges=neg_e)
     for k in PS.METRIC_KEYS:
         np.testing.assert_allclose(float(m_pe[k]), float(m_je[k]), rtol=RTOL, err_msg=k)
@@ -202,7 +202,7 @@ def _spy_step_route(monkeypatch):
     calls = []
     real = P.level_step
     monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
-    monkeypatch.setattr(P, "level_step", lambda *a: (calls.append(1), real(*a))[1])
+    monkeypatch.setattr(P, "level_step", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
     return calls
 
 
@@ -217,7 +217,7 @@ def test_model_gradients_on_large_batches_match_jax(layout, monkeypatch):
     (tot_j, (st_j, m_j)), g_j = _jax_value_and_grad(jcfg)(
         params, state, jax.tree.map(jnp.asarray, hb), key, jnp.asarray(WEIGHTS))
 
-    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    pp, ps = params_from_jax(_np(params), device="cpu"), state_from_jax(_np(state), device="cpu")
     leaves = PS.param_leaves(pp)
     for t in leaves:
         t.requires_grad_(True)
@@ -254,7 +254,7 @@ def test_train_step_on_chunked_batch_matches_jax_make_train_step(monkeypatch):
     j_step, _ = JS.make_train_step(jcfg, opt, mesh=None, donate=False)
     p1_j, s1_j, _, m_j = j_step(params, state, opt.init(params), batch, key, w)
 
-    pp, ps = params_from_jax(_np(params)), state_from_jax(_np(state))
+    pp, ps = params_from_jax(_np(params), device="cpu"), state_from_jax(_np(state), device="cpu")
     p_step, p_eval = PS.make_train_step(pcfg, PS.make_optimizer(pp, lr))
     neg, keep = _jax_draws(key, hb, pcfg.dim_mlp)
     s1_p, m_p = p_step(pp, ps, hb, None, WEIGHTS, neg_edges=neg, drop_keep=keep)
