@@ -33,14 +33,15 @@ Phases (any failure raises and the script exits nonzero):
      level_scan_bwd_reference) on the same residuals and a fixed random
      cotangent: max |d| of each of the six outputs <= 1e-4 * max(scale, 1),
      the JAX package's bound; the struct backward's launches equal to
-     2 * s_rounds + 2 (a row launch per half-round, two reductions), the
+     4 * s_rounds + 1 (a row launch and a weight-gradient partial launch
+     per half-round, one sum over the splits), the
      level backward's to three (the persistent sweep, the weight gradients'
      partials, their sums) with the real levels walked; both level kernels
      twice, bit for bit the same.
   7. training main path: MIG, four bs16 batches, stage-3 weights
      [1, 4, 4, 0], Adam lr 1e-4, 20 train_steps: every loss and metric
      finite; each step's struct launches 2 * s_rounds forward and
-     2 * s_rounds + 2 backward, one level forward launch and three level
+     4 * s_rounds + 1 backward, one level forward launch and three level
      backward launches, each having walked its batch's real levels. Then one
      step's losses and gradients on the card
      against the same step on the CPU (same params, batch, negatives and
@@ -50,7 +51,8 @@ Phases (any failure raises and the script exits nonzero):
      and of its stages (forward, losses, backward, Adam), and by CUDA
      events the struct towers and the level scan, each forward with
      residuals (kernel vs plain) and backward alone (kernel vs autograd
-     through the plain version).
+     through the plain version); the struct backward's device time per call
+     by kernel name under torch.profiler (row, partial and sum launches).
   9. profile (informational): torch.profiler over 10 MIG bs16 train
      steps; device time per step, busy share, device kernels per step, and
      the kernels by device time.
@@ -79,7 +81,7 @@ Phases (any failure raises and the script exits nonzero):
      masked on both sides (the readout's pre-activations and the gradients
      of every leaf).
  13. split batch: the same on collate_split(graphs, 4): per step, struct
-     launches 2 * s_rounds per group forward and 2 * s_rounds + 2 backward,
+     launches 2 * s_rounds per group forward and 4 * s_rounds + 1 backward,
      one level-scan launch per group forward and three backward, which walk
      the groups' real levels.
  14. timing (informational): by CUDA events the step kernel (with and
@@ -109,7 +111,10 @@ Phases (any failure raises and the script exits nonzero):
      phase 12; one step with remat_struct=True against
      False (struct forward launches doubled, gradients equal); the peak
      device memory of one step on the giant route, with the remat, and with
-     the route forced to the fused kernels and their residuals, and of the
+     the route forced to the fused kernels and their residuals; the struct
+     backward's scratch by buffer; the giant step's own peak (above what
+     the script held before it) must stay within GIANT_PEAK_GIB with and
+     without the remat; the peak of the
      level recurrence alone (forward and backward) by both routes: the giant
      route's must stay within 1.25 x (hf + ghf's copy + d_pack_lv). Then a plain
      collate of the 64 bs64 MIG circuits (N = 20480, C == 1, which fails the
@@ -135,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -145,6 +151,9 @@ import numpy as np
 NUM_INPUTS, NUM_GATES = 16, 264
 BATCH, N_CIRCUITS = 16, 64
 DIM, ROUNDS = 64, 4
+# the struct backward's launches per call: a row launch and a weight-gradient
+# partial launch per half-round, one sum
+SBWD_LAUNCHES = 4 * ROUNDS + 1
 MODALITIES = ("aig", "mig", "xag", "xmg")
 # kernel vs plain on the card: fp32, TF32 off; only the order of sums
 # differs (the kernels sum in a fixed order, the plain versions' index_add_
@@ -178,6 +187,10 @@ SMOOTH_WEIGHTS = [1.0, 0.0, 4.0, 0.0]
 # the other modalities check the kernels at a smaller depth
 GIANT_WIDTH, GIANT_DEPTH, GIANT_SMALL_DEPTH = 512, 200, 24
 GIANT_STEPS, GIANT_LR, GIANT_WEIGHTS = 4, 1e-4, [1.0, 4.0, 2.0, 0.0]
+# the giant step's own peak device memory (above what the script holds
+# before it), at most: the struct backward keeps one half-round of scratch
+# (7.67 GiB when it kept all 2R)
+GIANT_PEAK_GIB = 5.0
 # The giant backward recomputes what the fused backward reads from saved
 # residuals, with the same device functions; the two differ in the order of
 # the weight gradients' sums: the fused backward sums chunks of levels into
@@ -223,6 +236,12 @@ def event_ms(torch, fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Operations per row and feature of the struct backward's LayerNorm and GRU
+# backward, counted from struct_towers_bwd.cu's row kernel (statistics, the
+# LayerNorm's and the GRU's cotangents, the column sums, dxi += dgi).
+STRUCT_BWD_ELEMENTWISE = 40
 
 
 def bound(bytes_moved: float, flops: float) -> dict:
@@ -284,6 +303,7 @@ def main() -> int:
     from mgvae_tpu_torch.ops.struct_kernel import (struct_inputs, struct_tables,
                                                    struct_towers_bwd_reference,
                                                    struct_towers_reference)
+    from mgvae_tpu_torch.examples.level_scan_profile import by_name
     from mgvae_tpu_torch.train import losses as losses_mod
     from mgvae_tpu_torch.train import step as train_step_mod
 
@@ -306,12 +326,20 @@ def main() -> int:
     # its own expert only: 2 * D * 2D per valid edge (key and value) and
     # 2 * D * 3D per updated slot (GRU input) forward; in the backward the
     # transposed products and the weight gradients, twice that and more.
+    # The struct backward per half-round and tower: the weight gradients
+    # (nbr^T dgi, state_in^T dgh: 12 N D^2) and the LayerNorm and GRU backward
+    # (STRUCT_BWD_ELEMENTWISE operations per row and feature); every
+    # half-round but the last (k = 0, whose initial state is a constant) also
+    # the two row products (dgi W_fold^T, dgh W_hh^T: 12 N D^2) and the
+    # transposed neighbor sum (D per edge).
     def struct_bound(sargs, tables, n_edges, residuals, backward=False):
         N, D, hr = sargs[0].shape[2], sargs[1].shape[2], 2 * ROUNDS
         state, res = 2 * N * D * 4, hr * 2 * N * 7 * D * 4
         if backward:   # in: dstate, res, wfold, w_hh, ln_w, lists; out: the six gradients
             moved = state + res + nbytes(sargs[1], sargs[2], sargs[4], *tables) + nbytes(*sargs)
-            return bound(moved, hr * 2 * (24 * N * D * D + n_edges * D))
+            ops = (hr * 2 * (12 * N * D * D + STRUCT_BWD_ELEMENTWISE * N * D)
+                   + (hr - 1) * 2 * (12 * N * D * D + n_edges * D))
+            return bound(moved, ops)
         moved = nbytes(*sargs, *tables) + state + (res if residuals else 0)
         return bound(moved, hr * 2 * (12 * N * D * D + n_edges * D))
 
@@ -609,9 +637,9 @@ def main() -> int:
         log(f"[bwd] {mod}: struct residual forward max|d| state/res = {sfwd[0]:.3e}/"
             f"{sfwd[1]:.3e}; struct backward max|d|/scale: {report}; struct bwd launches="
             f"{n_sbwd}")
-        if n_sbwd != 2 * ROUNDS + 2:
+        if n_sbwd != SBWD_LAUNCHES:
             raise RuntimeError(f"[bwd] {mod}: struct backward launches {n_sbwd} != "
-                               f"{2 * ROUNDS + 2}")
+                               f"{SBWD_LAUNCHES}")
         with torch.no_grad():
             hs = dg_ae.struct_hs(params, b, cfg)
             args = dg_ae.level_scan_inputs(params, b, cfg, hs)
@@ -687,11 +715,11 @@ def main() -> int:
             f"{k}={v:.6g}" for k, v in zip(keys, rows[i].tolist())))
     if not torch.isfinite(rows).all():
         raise RuntimeError("[train] non-finite loss or metric")
-    want = [(1, 3, 2 * ROUNDS, 2 * ROUNDS + 2, n, n)
+    want = [(1, 3, 2 * ROUNDS, SBWD_LAUNCHES, n, n)
             for n in (levels[i % len(batches)] for i in range(TRAIN_STEPS))]
     if per_step != want or train_fwd == 0 or train_bwd == 0:
         raise RuntimeError(f"[train] per-step counts {per_step} != (1 level launch, 3 backward, "
-                           f"2 * s_rounds, 2 * s_rounds + 2, real levels walked, and backward) "
+                           f"2 * s_rounds, 4 * s_rounds + 1, real levels walked, and backward) "
                            f"{want}")
     for leaf in train_step_mod.param_leaves(params):
         if not torch.isfinite(leaf).all():
@@ -924,6 +952,8 @@ def main() -> int:
     sbms_k2 = event_ms(torch, skern, reps)
     sbms_p2 = event_ms(torch, splain, reps)
     sbms_k, sbms_p = (sbms_k1 + sbms_k2) / 2, (sbms_p1 + sbms_p2) / 2
+    # the struct backward by kernel name (device time per call under torch.profiler)
+    sb_names = by_name(skern, reps)
     bounds.update(
         struct_towers_residuals=struct_bound(sargs, tables, n_edges, True),
         struct_towers_bwd=struct_bound(sargs, tables, n_edges, True, backward=True),
@@ -945,6 +975,9 @@ def main() -> int:
     log(f"[time] struct towers backward alone, CUDA events over {reps} calls: kernel "
         f"{sbms_k1:.4f}/{sbms_k2:.4f} ms, autograd through the plain version "
         f"{sbms_p1:.4f}/{sbms_p2:.4f} ms")
+    for name, (us, n) in sorted(sb_names.items(), key=lambda kv: -kv[1][0]):
+        log(f"[time] struct towers backward by kernel name: {us:10.2f} us in {n:5.1f} launches "
+            f"per call  {name[:90]}")
 
     # ---- 9. train-step profile (informational) ----------------------------
     profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card,
@@ -1103,7 +1136,7 @@ def main() -> int:
                            f"{sum(ch_levels)} alone, or the routes disagree ({d_hf})")
     n_rows = sum(ch_levels)
     step_totals = train_large(
-        "step64", chunked, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, n_rows, 3 * n_rows, 0, 0, 0, 0))
+        "step64", chunked, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, n_rows, 3 * n_rows, 0, 0, 0, 0))
 
     split = collate_split(graphs, GROUPS)
     sp_levels = [c[0] for c in dg_ae.level_counts(split)]
@@ -1112,7 +1145,7 @@ def main() -> int:
     log(f"[split64] collate_split(graphs, {GROUPS}): per group (N, L, Ep, Np) = {dims}, real "
         f"levels {sp_levels}")
     train_large("split64", split, (
-        2 * ROUNDS * GROUPS, (2 * ROUNDS + 2) * GROUPS, GROUPS, 3 * GROUPS, 0, 0, 0, 0,
+        2 * ROUNDS * GROUPS, SBWD_LAUNCHES * GROUPS, GROUPS, 3 * GROUPS, 0, 0, 0, 0,
         sum(sp_levels), sum(sp_levels)), prob_check=False)
 
     # ---- 14. timing (informational) ----------------------------------------
@@ -1279,7 +1312,7 @@ def main() -> int:
     del hs_c, hf_c
 
     # ---- 17. giant training ----------------------------------------------------
-    giant_want = (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, giant_levels, 4 * giant_levels, 0, 0)
+    giant_want = (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, giant_levels, 4 * giant_levels, 0, 0)
     giant_totals = train_large("giant-train", giant_batch, giant_want, steps=GIANT_STEPS,
                                lr=GIANT_LR, weights=GIANT_WEIGHTS)
 
@@ -1313,16 +1346,19 @@ def main() -> int:
         log(f"[giant-train] one step, {tag}: launches {COUNT_NAMES} = {got}; peak device memory "
             f"{peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
             f"GiB held before the step")
-        return [None if t.grad is None else t.grad for t in leaves], got, peak - base
+        return [None if t.grad is None else t.grad for t in leaves], got, peak - base, peak
 
-    g_plain, got_plain, peak_giant = one_giant_step("giant route")
-    g_remat, got_remat, peak_remat = one_giant_step("giant route, remat_struct=True", remat=True)
-    _, got_fused, peak_fused = one_giant_step("forced to the fused kernels (1 and 2)",
-                                              force_fused=True)
+    peak_total = {}
+    g_plain, got_plain, peak_giant, peak_total["giant"] = one_giant_step(
+        "giant route, remat_struct=False", remat=False)
+    g_remat, got_remat, peak_remat, peak_total["remat"] = one_giant_step(
+        "giant route, remat_struct=True", remat=True)
+    _, got_fused, peak_fused, _ = one_giant_step("forced to the fused kernels (1 and 2)",
+                                                 force_fused=True)
     if got_plain != giant_want or got_remat != (4 * ROUNDS, *giant_want[1:]):
         raise RuntimeError(f"[giant-train] launches {got_plain} / with remat {got_remat}: want "
                            f"{giant_want} and the struct forward doubled")
-    if got_fused != (2 * ROUNDS, 2 * ROUNDS + 2, 1, 3, 0, 0, 0, 0, giant_levels, giant_levels):
+    if got_fused != (2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 0, 0, 0, 0, giant_levels, giant_levels):
         raise RuntimeError(f"[giant-train] forced fused route: launches {got_fused}")
     d_remat = max(0.0 if a is None else (a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
                   for a, c in zip(g_remat, g_plain))
@@ -1333,6 +1369,20 @@ def main() -> int:
     if not d_remat <= 1e-6:
         raise RuntimeError(f"[giant-train] remat changes the gradients: {d_remat}")
     del g_plain, g_remat
+    # the struct backward's scratch (one half-round's, whatever the rounds) and its outputs
+    n_g = giant_batch["gate"].shape[0]
+    scratch = {k: math.prod(s) for k, s in struct_kernel.bwd_scratch_shapes(n_g, DIM).items()}
+    scratch.update({"cotangent copy": 2 * n_g * DIM, "weights transposed": 8 * DIM * 3 * DIM,
+                    "dxi (output)": 4 * n_g * 3 * DIM})
+    log(f"[giant-train] struct backward at N={n_g}: " + ", ".join(
+        f"{k} {v * 4 / 2**20:.1f} MiB" for k, v in scratch.items()) + f"; residuals (input) "
+        f"{2 * ROUNDS * 2 * n_g * 7 * DIM * 4 / 2**20:.1f} MiB")
+    log(f"[giant-train] giant step's own peak device memory (above what the script held "
+        f"before it): {peak_giant / 2**30:.3f} GiB without the struct remat, "
+        f"{peak_remat / 2**30:.3f} GiB with it (limit {GIANT_PEAK_GIB} GiB); the process's "
+        f"peak {peak_total['giant'] / 2**30:.3f} / {peak_total['remat'] / 2**30:.3f} GiB; {card}")
+    if not max(peak_giant, peak_remat) <= GIANT_PEAK_GIB * 2**30:
+        raise RuntimeError(f"[giant-train] the giant step's peak exceeds {GIANT_PEAK_GIB} GiB")
 
     def scan_alone_peak(scan):
         """Peak device memory, above what is held before, of the level
@@ -1375,7 +1425,7 @@ def main() -> int:
     if got != (2 * ROUNDS, 0, 0, 0, 0, 0, p64_levels, 0, 0, 0) or not d_hf <= KERNEL_TOL:
         raise RuntimeError(f"[plain64] launches {got} != giant {p64_levels} alone, or the routes "
                            f"disagree ({d_hf})")
-    train_large("plain64", plain64, (2 * ROUNDS, 2 * ROUNDS + 2, 0, 0, 0, 0, p64_levels,
+    train_large("plain64", plain64, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, p64_levels,
                                      4 * p64_levels, 0, 0), steps=1, prob_check=False)
 
     # ---- 18. timing (informational) ----------------------------------------------

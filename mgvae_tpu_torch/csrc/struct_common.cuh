@@ -1,11 +1,14 @@
 // Layout and helpers shared by the struct-tower kernels (struct_towers.cu,
 // struct_towers_bwd.cu).
 //
-// A block owns a tile of kTileRows node rows of one tower (blockIdx.y).
-// Warp w owns rows w * kRowsPerWarp .. + kRowsPerWarp - 1 of the tile; lane
-// l owns the feature columns d = l + 32 j (j < CPT, CPT = ceil(D / 32)), so
-// a row's D features sit in one warp and a row reduction (LayerNorm) is a
-// warp reduction.
+// In both, lane l of a warp owns the feature columns d = l + 32 j (j < CPT,
+// CPT = ceil(D / 32)) of the rows the warp owns, so a row's D features sit in
+// one warp and a row reduction (LayerNorm) is a warp reduction.
+//
+// The tile constants below are the forward's (struct_towers.cu) alone: a
+// block owns kTileRows node rows of one tower (blockIdx.y), warp w rows
+// w * kRowsPerWarp .. + kRowsPerWarp - 1 of the tile. The backward sets its
+// own layout (kRows rows a warp).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,6 +42,70 @@ __device__ __forceinline__ void add_neighbor_sum(const float* __restrict__ x, co
     for (int j = 0; j < CPT; ++j) {
       const int d = lane + 32 * j;
       if (d < dim) out[j] += row[d];
+    }
+  }
+}
+
+// out[u][j] += sum of x[w, l + 32 j] over the neighbors w of row v0 + u
+// (u < ROWS; rows >= n have none), each row's in list order, for one warp.
+// Three round trips for all the rows together: lanes u < ROWS read the
+// rows' start / count, lane e reads the index of the e-th entry of the
+// rows' concatenated lists, and then every lane reads its columns of
+// kGatherBatch neighbor rows at once.
+constexpr int kGatherBatch = 8;
+
+template <int ROWS, int CPT>
+__device__ __forceinline__ void add_neighbor_sums(const float* __restrict__ x, const NbrList nl,
+                                                  int v0, int n, int dim, int lane,
+                                                  float (&out)[ROWS][CPT]) {
+  static_assert(ROWS <= 32, "one lane per row");
+  constexpr unsigned kAll = 0xffffffffu;
+  int first = 0, cnt = 0;
+  if (lane < ROWS && v0 + lane < n) {
+    first = nl.start[v0 + lane];
+    cnt = nl.count[v0 + lane];
+  }
+  int incl = cnt;  // inclusive prefix of the rows' counts
+#pragma unroll
+  for (int o = 1; o < ROWS; o <<= 1) {
+    const int y = __shfl_up_sync(kAll, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int total = __shfl_sync(kAll, incl, ROWS - 1);
+  const int excl = incl - cnt;
+  for (int e0 = 0; e0 < total; e0 += 32) {
+    // entry e0 + lane belongs to the last row whose list starts at or before it
+    const int e = e0 + lane;
+    int row = 0;
+#pragma unroll
+    for (int u = 1; u < ROWS; ++u) row += e >= __shfl_sync(kAll, excl, u) ? 1 : 0;
+    const int f = __shfl_sync(kAll, first, row), base = __shfl_sync(kAll, excl, row);
+    const int idx = e < total ? nl.src[f + e - base] : 0;
+    const int m = min(32, total - e0);
+    for (int b = 0; b < m; b += kGatherBatch) {
+      float val[kGatherBatch][CPT];
+      int rw[kGatherBatch];
+#pragma unroll
+      for (int i = 0; i < kGatherBatch; ++i) {
+        const int w = __shfl_sync(kAll, idx, (b + i) & 31);
+        rw[i] = b + i < m ? __shfl_sync(kAll, row, (b + i) & 31) : -1;
+        const float* xr = x + static_cast<size_t>(w) * dim;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int d = lane + 32 * j;
+          val[i][j] = rw[i] >= 0 && d < dim ? xr[d] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kGatherBatch; ++i) {
+#pragma unroll
+        for (int u = 0; u < ROWS; ++u) {
+          if (rw[i] == u) {
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) out[u][j] += val[i][j];
+          }
+        }
+      }
     }
   }
 }

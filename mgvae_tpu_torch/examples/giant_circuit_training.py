@@ -13,7 +13,10 @@ Prints per step the loss and the wall time, then the median step time, the
 peak device memory and the launch counts of the giant kernels, with the
 card's name and power limit.
 
-    python -m mgvae_tpu_torch.examples.giant_circuit_training [depth]
+    python -m mgvae_tpu_torch.examples.giant_circuit_training [depth] [remat]
+
+``remat`` is ``on`` or ``off`` and sets ``DGConfig.remat_struct``; left
+out, the config's own rule decides.
 
 Needs one CUDA card and raises without one.
 """
@@ -37,7 +40,7 @@ WIDTH, STEPS, LR = 512, 4, 1e-4
 WEIGHTS = [1.0, 4.0, 2.0, 0.0]
 
 
-def main(depth: int = 200) -> None:
+def main(depth: int = 200, remat: bool | None = None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("giant_circuit_training needs a CUDA card "
                            "(torch.cuda.is_available() is False)")
@@ -56,7 +59,7 @@ def main(depth: int = 200) -> None:
           f"{g.num_edges} levels {g.num_levels} (generated in {t1 - t0:.1f} s, collated in "
           f"{t2 - t1:.1f} s on the host)", flush=True)
 
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, layernorm=True)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, layernorm=True, remat_struct=remat)
     print(f"padded N={n} E={batch['edge_src'].shape[0]} L={batch['lv_nodes'].shape[0]} Ep={ep} "
           f"Np={np_}; hf {n * cfg.dim_hidden * 4 / 1e6:.1f} MB; kernel_fits "
           f"{level_kernel.kernel_fits(n, ep, np_, cfg.dim_hidden)}; struct remat "
@@ -89,4 +92,5 @@ def main(depth: int = 200) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]) if len(sys.argv) > 1 else 200)
+    main(int(sys.argv[1]) if len(sys.argv) > 1 else 200,
+         {"on": True, "off": False}[sys.argv[2]] if len(sys.argv) > 2 else None)

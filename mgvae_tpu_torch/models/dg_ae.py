@@ -41,8 +41,10 @@ order, the layout the batch's top-level loss arrays index).
 Past ``REMAT_STRUCT_NODES`` nodes the struct towers are rematerialised in the
 backward (``DGConfig.remat_struct``, ``struct_hs``): their residuals
 [2R, 2, N, 7D], the largest arrays of a giant graph's step, are then not held
-from the forward to the struct backward. The struct backward itself still
-holds them beside its own scratch, and that moment is the step's peak.
+from the forward through the level recurrence's backward; only the struct
+backward holds them, beside one half-round of its own scratch. On an H100
+that lowers a giant step's peak by 13% (depth 1000, ~513k nodes) for ~2%
+more step time.
 
 Parity mode is full fp32: set ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False on the card (``api.Model``

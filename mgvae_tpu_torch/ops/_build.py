@@ -120,7 +120,7 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [p] * 12 + [i] * 4 + [p]
     fn.restype = i
     fn = lib.mgvae_struct_towers_backward
-    fn.argtypes = [p] * 18 + [i] * 5 + [p]
+    fn.argtypes = [p] * 17 + [i] * 5 + [p]
     fn.restype = i
     lib.mgvae_cuda_error_string.argtypes = [i]
     lib.mgvae_cuda_error_string.restype = ctypes.c_char_p

@@ -33,8 +33,8 @@ and ``_backward_cuda`` are the kernels' wrappers (CUDA tensors only,
 arguments as ``struct_core`` checks them).
 
 ``launches`` counts forward kernel launches (2 * num_rounds per call),
-``bwd_launches`` backward kernel launches (2 * num_rounds row launches, then
-two weight-gradient launches per call).
+``bwd_launches`` backward kernel launches (4 * num_rounds + 1 per call: a
+row launch and a weight-gradient partial launch per half-round, one sum).
 
 Layouts (dir 0 = forward edges, 1 = reversed; tower 0 = source, 1 = target):
 xi [2 dir, 2 tower, N, 3D], wfold / w_hh [2, 2, D, 3D], b_hh [2, 2, 3D],
@@ -45,13 +45,17 @@ Residuals [2R, 2, N, 7D] = nbr | state_in | r | z | nw | gh_n | pre-LN h.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..data.batching import BLOCK_D
 from . import _build
 
 MAX_DIM = 128      # the kernels' limit (csrc/level_common.cuh kMaxDim)
-SPLIT_ROWS = 512   # rows per partial sum of the backward's weight gradients
+SPLIT_ROWS = 512   # rows per partial sum of the backward's weight gradients, at most
+MIN_SPLITS = 40    # ... and the splits a batch is cut into, at least, down to 128 rows
+WARP_ROWS = 8      # rows a warp of the backward's row kernel owns (csrc kRows)
 
 launches = 0
 bwd_launches = 0
@@ -226,6 +230,56 @@ def struct_towers_bwd_reference(dstate, res, wfold, w_hh, ln_w, tables, num_roun
     return dxi, dwfold, dwhh, dbhh, dlnw, dlnb
 
 
+def struct_towers_bwd_inplace(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int,
+                              layernorm: bool, split_rows: int | None = None):
+    """``struct_towers_bwd_reference``'s math in the backward kernel's order:
+    one half-round's dgi / dgh / LayerNorm terms at a time, the weight
+    gradients' partials per split of ``split_rows`` rows (by default
+    ``partial_rows(N)``, as the kernel's wrapper takes them) accumulated in
+    place into [2 dir, 2 tower, splits, ...] over the half-rounds, and
+    summed over the splits in order at the end. Same arguments and returns."""
+    src, start, count = tables
+    wfold, w_hh, ln_w = wfold.detach(), w_hh.detach(), ln_w.detach()
+    N, D = dstate.shape[1], wfold.shape[2]
+    rows = split_rows or partial_rows(N)
+    splits = -(-N // rows)
+    by_split = lambda x: torch.nn.functional.pad(x, (0, 0, 0, splits * rows - N)).view(
+        2, splits, rows, x.shape[-1])
+    lists = [_neighbor_rows(start[d], count[d]) for d in (0, 1)]
+    dh = dstate.detach().clone()
+    dxi = dh.new_zeros((2, 2, N, 3 * D))
+    p_wf, p_wh = dh.new_zeros((2, 2, splits, D, 3 * D)), dh.new_zeros((2, 2, splits, D, 3 * D))
+    p_bh, p_ln = dh.new_zeros((2, 2, splits, 3 * D)), dh.new_zeros((2, 2, splits, 2 * D))
+    for k in reversed(range(2 * num_rounds)):
+        d = k % 2
+        nbr, state_in, r, z, nw, gh_n, pre = res[k].split(D, dim=-1)
+        if layernorm:
+            mean, rstd = _layernorm_stats(pre)
+            xhat = (pre - mean) * rstd
+            p_ln[d] += by_split(torch.cat([dh * xhat, dh], dim=-1)).sum(2)
+            dxh = dh * ln_w[:, None, :]
+            dh = rstd * (dxh - dxh.mean(-1, keepdim=True)
+                         - xhat * (dxh * xhat).mean(-1, keepdim=True))
+        dz = dh * (state_in - nw)
+        dnu = dh * (1.0 - z) * (1.0 - nw * nw)
+        drho = dnu * gh_n * r * (1.0 - r)
+        dzeta = dz * z * (1.0 - z)
+        dgi = torch.cat([drho, dzeta, dnu], dim=-1)
+        dgh = torch.cat([drho, dzeta, dnu * r], dim=-1)
+        dxi[d] += dgi
+        p_wf[d] += by_split(nbr).mT @ by_split(dgi)
+        p_wh[d] += by_split(state_in).mT @ by_split(dgh)
+        p_bh[d] += by_split(dgh).sum(2)
+        if k > 0:
+            dnbr = dgi @ wfold[d].transpose(1, 2)
+            dh = dh * z + dgh @ w_hh[d].transpose(1, 2)
+            dh.index_add_(1, lists[1 - d][1], dnbr[:, src[1 - d][lists[1 - d][0]].long()])
+    in_order = lambda p: functools.reduce(torch.add, p.unbind(2))   # over the splits
+    ln = in_order(p_ln)
+    ln = ln[0] + ln[1]
+    return dxi, in_order(p_wf), in_order(p_wh), in_order(p_bh), ln[:, :D], ln[:, D:]
+
+
 class _StructTowers(torch.autograd.Function):
     """CUDA only: the forward kernel with residuals, and the backward
     kernels. Counterpart of the JAX package's custom VJP
@@ -280,30 +334,48 @@ def _backward_cuda(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int, laye
     dev = dstate.device
     lib = _build.library()
     f32 = dict(dtype=torch.float32, device=dev)
-    R2 = 2 * num_rounds
-    # a contiguous copy: autograd may hand over an expanded cotangent
+    # a contiguous copy (autograd may hand over an expanded cotangent), which
+    # the kernels overwrite
     g = torch.empty((2, N, D), **f32)
     g.copy_(dstate)
+    # W_fold^T and W_hh^T [2, 2 dir, 2 tower, 3D, D]: the row products read a row of D a step
+    wt = torch.stack((wfold, w_hh)).transpose(-1, -2).contiguous()
     dxi = torch.empty((2, 2, N, 3 * D), **f32)
     dwfold, dwhh = torch.empty_like(wfold), torch.empty_like(w_hh)
     dbhh = torch.empty((2, 2, 3 * D), **f32)
     dlnw, dlnb = torch.empty((2, D), **f32), torch.empty((2, D), **f32)
-    dg = torch.empty((R2, 2, N, 6 * D), **f32)
-    dln = torch.empty((R2, 2, N, 2 * D) if layernorm else (1,), **f32)
-    carry = torch.empty((2, 2, 2, N, D), **f32)
-    splits = -(-N // SPLIT_ROWS)
-    part = torch.empty((R2, 2, splits, 6 * D * D + 5 * D), **f32)
+    dg, colsum, carry, part = (torch.empty(s, **f32) for s in bwd_scratch_shapes(N, D).values())
+    rows = partial_rows(N)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_struct_towers_backward(
-            g.data_ptr(), res.data_ptr(), wfold.data_ptr(), w_hh.data_ptr(),
-            ln_w.data_ptr() if layernorm else None,
+            g.data_ptr(), res.data_ptr(), wt.data_ptr(), ln_w.data_ptr() if layernorm else None,
             *(t.data_ptr() for t in (src, start, count, dxi, dwfold, dwhh, dbhh, dlnw, dlnb,
-                                     dg, dln, carry, part)),
-            num_rounds, N, D, src.shape[1], splits, stream)
+                                     dg, colsum, carry, part)),
+            num_rounds, N, D, src.shape[1], rows, stream)
     _build.check(lib, code, "struct_towers_bwd kernel launch")
-    bwd_launches += R2 + 2
+    bwd_launches += 4 * num_rounds + 1
     return dxi, dwfold, dwhh, dbhh, dlnw, dlnb
+
+
+def bwd_scratch_shapes(N: int, D: int) -> dict[str, tuple[int, ...]]:
+    """The backward kernels' scratch: one half-round's whatever num_rounds.
+    dg [drho | dzeta | dnu | dhn] and each warp's column sums; the next
+    half-round's d nbr in two slots (the cotangent's copy carries the rest);
+    the weight gradients' partials per direction, tower and split."""
+    return {"dg": (2, N, 4 * D), "colsum": (2, -(-N // WARP_ROWS), 5 * D),
+            "carry": (2, 2, N, D), "part": (2, 2, -(-N // partial_rows(N)), 6 * D * D + 5 * D)}
+
+
+def partial_rows(N: int) -> int:
+    """Rows per weight-gradient partial for N rows: ``SPLIT_ROWS``, halved
+    down to 128 while that leaves fewer than ``MIN_SPLITS`` splits, so that
+    a small batch still gives the partial launch enough blocks (a multiple
+    of ``WARP_ROWS``: a split sums whole warps' column sums)."""
+    rows = SPLIT_ROWS
+    while rows > 128 and -(-N // rows) < MIN_SPLITS:
+        rows //= 2
+    return rows
 
 
 def _kernel_dim(D: int) -> None:

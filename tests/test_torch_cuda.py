@@ -18,6 +18,9 @@ from mgvae_tpu_torch.train import step
 
 pytestmark = pytest.mark.cuda
 GRAD_FLOOR = 2e-2    # leaf scale floor, as a share of the largest gradient entry
+# struct backward launches per call at 2 rounds: a row launch and a
+# weight-gradient partial launch per half-round, one sum
+STRUCT_BWD_LAUNCHES = 4 * 2 + 1
 
 
 @pytest.fixture
@@ -88,28 +91,30 @@ def _struct_case(cuda, modality, dim, layernorm=True, seed=7):
     return args, struct_kernel.struct_tables(b)
 
 
+@pytest.mark.parametrize("layernorm", [True, False])
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
-def test_struct_kernels_match_plain_versions_on_card(cuda, modality, dim):
-    args, tables = _struct_case(cuda, modality, dim)
+def test_struct_kernels_match_plain_versions_on_card(cuda, modality, dim, layernorm):
+    args, tables = _struct_case(cuda, modality, dim, layernorm)
     struct_kernel.launches = struct_kernel.bwd_launches = 0
-    st_k = struct_kernel._forward_cuda(args, tables, 2, True, residuals=False)
-    st_kr, res_k = struct_kernel._forward_cuda(args, tables, 2, True, residuals=True)
+    st_k = struct_kernel._forward_cuda(args, tables, 2, layernorm, residuals=False)
+    st_kr, res_k = struct_kernel._forward_cuda(args, tables, 2, layernorm, residuals=True)
     torch.cuda.synchronize()
     assert struct_kernel.launches == 2 * 4          # one launch per half-round
-    st_r, res_r = struct_kernel.struct_towers_reference(*args, tables, 2, True,
+    st_r, res_r = struct_kernel.struct_towers_reference(*args, tables, 2, layernorm,
                                                         with_residuals=True)
     # fp32, TF32 off: only the order of sums differs
     for k, r in ((st_k, st_r), (st_kr, st_r), (res_k, res_r)):
         assert (k - r).abs().max().item() <= 1e-4
     dstate = torch.randn(st_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
     grads_k = struct_kernel._backward_cuda(dstate, res_k, args[1], args[2], args[4], tables, 2,
-                                           True)
+                                           layernorm)
     torch.cuda.synchronize()
-    assert struct_kernel.bwd_launches == 4 + 2      # a row launch per half-round, two reductions
-    grads_r = struct_kernel.struct_towers_bwd_reference(dstate, res_k, args[1], args[2], args[4],
-                                                        tables, 2, True)
-    for k, r in zip(grads_k, grads_r):
-        assert (k - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+    assert struct_kernel.bwd_launches == STRUCT_BWD_LAUNCHES
+    for name, ref in (("reference", struct_kernel.struct_towers_bwd_reference),
+                      ("in place", struct_kernel.struct_towers_bwd_inplace)):
+        grads_r = ref(dstate, res_k, args[1], args[2], args[4], tables, 2, layernorm)
+        for k, r in zip(grads_k, grads_r):
+            assert (k - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0), name
 
 
 @pytest.mark.parametrize("layernorm", [True, False])
@@ -130,10 +135,30 @@ def test_struct_kernels_deterministic_and_autograd_on_card(cuda, layernorm):
     st = struct_kernel.struct_core(*t, tables, 2, layernorm)
     auto = torch.autograd.grad(st, t if layernorm else t[:4], dstate)
     torch.cuda.synchronize()
-    assert struct_kernel.launches == 4 and struct_kernel.bwd_launches == 6
+    assert struct_kernel.launches == 4 and struct_kernel.bwd_launches == STRUCT_BWD_LAUNCHES
     assert torch.equal(st.detach(), st1)
     for a, k in zip(auto, raw[0]):
         torch.testing.assert_close(a, k, rtol=0, atol=0)
+
+
+def test_struct_backward_scratch_does_not_grow_with_rounds(cuda):
+    """The backward's scratch holds one half-round whatever the rounds: one
+    call's peak memory past its inputs is the same at 2 and 4 rounds (the
+    residuals are an input)."""
+    args, tables = _struct_case(cuda, "mig", 64, seed=9)
+    past = {}
+    for rounds in (2, 4):
+        st, res = struct_kernel._forward_cuda(args, tables, rounds, True, residuals=True)
+        dstate = torch.randn(st.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = struct_kernel._backward_cuda(dstate, res, args[1], args[2], args[4], tables,
+                                             rounds, True)
+        torch.cuda.synchronize()
+        past[rounds] = torch.cuda.max_memory_allocated() - base
+        del grads, st, res
+    assert abs(past[4] - past[2]) <= 2**20, past
 
 
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
@@ -325,11 +350,12 @@ def test_giant_train_step_on_card_matches_cpu_with_and_without_remat(cuda):
     n_lv = dg_ae.num_levels(batch)
     assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (n_lv, 4 * n_lv)
     assert (level_kernel.launches, level_kernel.bwd_launches) == (0, 0)
-    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (4, 6)
+    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (4, STRUCT_BWD_LAUNCHES)
     struct_kernel.launches = struct_kernel.bwd_launches = 0
     m_r, g_r = _one_step(dataclasses.replace(cfg, remat_struct=True), batch, cuda, neg, keep,
                          weights=smooth)
-    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (8, 6)   # the towers ran twice
+    # the towers ran twice
+    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (8, STRUCT_BWD_LAUNCHES)
     for k in ("recon_loss", "func_loss"):
         assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-4 * max(abs(float(m_c[k])), 1.0)
         assert float(m_r[k]) == float(m_g[k])
@@ -512,7 +538,8 @@ def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
         assert (level_kernel.levels_walked, level_kernel.bwd_levels_walked) == (real, real)
         assert level_kernel.step_launches == level_kernel.step_bwd_launches == 0
     groups = len(counts) if layout == "split" else 1
-    assert struct_kernel.launches == 4 * groups and struct_kernel.bwd_launches == 6 * groups
+    assert struct_kernel.launches == 4 * groups
+    assert struct_kernel.bwd_launches == STRUCT_BWD_LAUNCHES * groups
     for k in ("recon_loss", "prob_loss", "func_loss"):
         assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-4 * max(abs(float(m_c[k])), 1.0), k
     scale = max(g.abs().max().item() for g in g_c if g is not None)

@@ -1,7 +1,10 @@
 """The port's struct towers (mgvae_tpu_torch.ops.struct_kernel) against the
 JAX package: the fused tower kernel ``struct_towers_pallas`` in interpret
 mode and the XLA towers ``direct_multigcn_apply``, forward and every encoder
-parameter's gradient; the written-out backward against autograd; the whole
+parameter's gradient; the written-out backward against autograd; the
+backward in the CUDA kernel's order (``struct_towers_bwd_inplace``) against
+the written-out one and against the JAX package's ``pallas_struct_core`` VJP
+in interpret mode (each output within 1e-5 * max(scale, 1)); the whole
 forward against ``forward(use_pallas=True, pallas_interpret=True)``.
 Tolerances are the JAX package's own (tests/test_struct_kernel.py): s and t
 rtol 1e-4 / atol 1e-5 on valid rows, gradients 1e-5 relative to each leaf's
@@ -17,7 +20,7 @@ from mgvae_tpu.data.batching import collate
 from mgvae_tpu.data.synthetic import random_circuit
 from mgvae_tpu.models import dg_ae as J
 from mgvae_tpu.models import encoder as jencoder
-from mgvae_tpu.ops.pallas.struct_kernel import struct_towers_pallas
+from mgvae_tpu.ops.pallas.struct_kernel import pallas_struct_core, struct_towers_pallas
 from mgvae_tpu_torch.models import dg_ae as P
 from mgvae_tpu_torch.models import encoder
 from mgvae_tpu_torch.ops import struct_kernel
@@ -117,6 +120,77 @@ def test_bwd_reference_matches_autograd(layernorm):
             continue
         assert a.shape == m.shape
         assert float((a - m).abs().max()) <= 1e-5 * float(a.abs().max()), i
+
+
+def _bwd_case(dim, layernorm, seed):
+    """(dstate, res, wfold, w_hh, ln_w, tables) and the six float inputs of a
+    4-circuit batch (N = 256) at width ``dim``, the cotangent from numpy."""
+    kw = dict(modality="mig", dim_hidden=dim, s_rounds=ROUNDS, t_rounds=ROUNDS,
+              layernorm=layernorm)
+    params, _ = J.init_params(jax.random.PRNGKey(seed), J.DGConfig(**kw))
+    rng = np.random.default_rng(seed + 1)
+    hb = collate([random_circuit(rng, "mig", num_inputs=5, num_gates=40) for _ in range(4)])
+    pparams = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    b = P.batch_to_device(hb, "cpu")
+    x = P.struct_input(b["gate"], P.DGConfig(**kw))
+    floats = struct_kernel.struct_inputs(pparams["struct"], x, b, layernorm)
+    tables = struct_kernel.struct_tables(b)
+    state, res = struct_kernel.struct_towers_reference(*floats, tables, ROUNDS, layernorm,
+                                                       with_residuals=True)
+    dstate = torch.tensor(rng.normal(size=state.shape).astype(np.float32))
+    return (dstate, res, floats[1], floats[2], floats[4], tables), floats, hb
+
+
+def _held(got, want, what):
+    """Each of the six outputs within 1e-5 * max(scale, 1)."""
+    for name, g, w in zip(("dxi", "dwfold", "dwhh", "dbhh", "dlnw", "dlnb"), got, want):
+        g, w = np.asarray(g, np.float32).reshape(-1), np.asarray(w, np.float32).reshape(-1)
+        err = float(np.abs(g - w).max())
+        assert err <= 1e-5 * max(float(np.abs(w).max()), 1.0), (what, name, err)
+
+
+@pytest.mark.parametrize("split_rows", [48, struct_kernel.SPLIT_ROWS])
+@pytest.mark.parametrize("layernorm", [True, False])
+@pytest.mark.parametrize("dim", [32, 64])
+def test_bwd_inplace_matches_bwd_reference(dim, layernorm, split_rows):
+    """The kernel's order (one half-round of scratch, split partials
+    accumulated in place) against the written-out sweep. N = 256: 48-row
+    splits leave a ragged last split of 16 rows, SPLIT_ROWS one short split."""
+    args, _, _ = _bwd_case(dim, layernorm, seed=10 + dim)
+    assert args[0].shape[1] % split_rows
+    got = struct_kernel.struct_towers_bwd_inplace(*args, ROUNDS, layernorm, split_rows=split_rows)
+    want = struct_kernel.struct_towers_bwd_reference(*args, ROUNDS, layernorm)
+    _held(got, want, "reference")
+    if not layernorm:
+        assert (got[4] == 0).all() and (got[5] == 0).all()
+
+
+def test_partial_rows_give_the_partial_launch_enough_splits():
+    rows = struct_kernel.partial_rows
+    assert rows(256) == 128 and rows(5120) == 128          # tiny and bs16 batches
+    assert rows(10240) == 256 and rows(20480) == 512       # bs64 chunk, plain bs64
+    assert rows(114_688) == struct_kernel.SPLIT_ROWS       # the giant batch: 224 splits
+    assert all(rows(n) % struct_kernel.WARP_ROWS == 0 for n in (1, 128, 5120, 10**6))
+
+
+@pytest.mark.parametrize("layernorm", [True, False])
+@pytest.mark.parametrize("dim", [32, 64])
+def test_bwd_inplace_matches_pallas_vjp(dim, layernorm):
+    """Against the JAX package's custom VJP ``pallas_struct_core`` with its
+    backward kernel in interpret mode, on the same inputs and cotangent."""
+    args, floats, hb = _bwd_case(dim, layernorm, seed=20 + dim)
+    got = struct_kernel.struct_towers_bwd_inplace(*args, ROUNDS, layernorm, split_rows=48)
+    xi, wfold, w_hh, b_hh, ln_w, ln_b = (jnp.asarray(t.numpy()) for t in floats)
+    iv = lambda k: jnp.asarray(hb[k], jnp.int32)
+    eb = max(hb["fa_src"].shape[1], hb["ra_src"].shape[1])
+    pad = lambda a: jnp.pad(a, ((0, 0), (0, eb - a.shape[1])))
+    tbl = jnp.stack([jnp.stack([pad(iv(f"{p}_src")), pad(iv(f"{p}_slot")), pad(iv(f"{p}_valid")),
+                                pad(iv(f"{p}_valid"))], axis=-1) for p in ("fa", "ra")])
+    core = lambda *f: pallas_struct_core(*f, tbl, ROUNDS, layernorm, True, "highest")
+    _, vjp = jax.vjp(core, xi, wfold, w_hh, b_hh[:, :, None, :], ln_w[:, None, :],
+                     ln_b[:, None, :])
+    want = vjp(jnp.asarray(args[0].numpy()))
+    _held(got, want, "pallas_struct_core")
 
 
 @pytest.mark.parametrize("modality", ["aig", "mig", "xag", "xmg"])
