@@ -37,7 +37,8 @@ Phases (any failure raises and the script exits nonzero):
      per half-round, one sum over the splits), the
      level backward's to three (the persistent sweep, the weight gradients'
      partials, their sums) with the real levels walked; both level kernels
-     twice, bit for bit the same.
+     and the struct forward twice, bit for bit the same (the struct
+     forward's serving launch too).
   7. training main path: MIG, four bs16 batches, stage-3 weights
      [1, 4, 4, 0], Adam lr 1e-4, 20 train_steps: every loss and metric
      finite; each step's struct launches 2 * s_rounds forward and
@@ -122,9 +123,10 @@ Phases (any failure raises and the script exits nonzero):
      one train step, both on the giant route.
  18. timing (informational): by CUDA events the giant forward and backward
      kernels alone against their plain versions and against the fused
-     kernels on the same batch; median wall time of the giant encode and of
-     the giant train step with its stages; torch.profiler over 3 giant train
-     steps.
+     kernels on the same batch, and the struct forward without and with
+     residuals on the giant batch beside its bounds; median wall time of the
+     giant encode and of the giant train step with its stages;
+     torch.profiler over 3 giant train steps.
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
@@ -133,7 +135,7 @@ its backward, and the giant forward and backward; each with its launches on
 its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s, computed from this run's
-inputs), the nvidia-smi line, and as the last line
+inputs, with both terms as bytes_ms and operations_ms), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -247,10 +249,11 @@ STRUCT_BWD_ELEMENTWISE = 40
 def bound(bytes_moved: float, flops: float) -> dict:
     """The least time the card could take: each input byte read once and
     each output byte written once at the memory rate, or the operations at
-    the fp32 rate, whichever is larger."""
+    the fp32 rate, whichever is larger (both terms kept beside it)."""
     by_bytes, by_ops = bytes_moved / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_ms": by_bytes, "operations_ms": by_ops}
 
 
 def profile_train(torch, step, card: str, label: str, steps: int = PROFILE_STEPS,
@@ -409,7 +412,8 @@ def main() -> int:
             raise RuntimeError(f"[kernel] {mod}: non-finite struct state")
         s_err = (st_k - st_r).abs().max().item()
         log(f"[kernel] {mod}: struct towers {2 * ROUNDS} half-rounds x 2 towers, N={st_k.shape[1]} "
-            f"D={DIM}: max|d state| all rows={s_err:.3e}")
+            f"D={DIM}: max|d state| all rows={s_err:.3e}; launch layout "
+            f"{struct_kernel.forward_layout(st_k.shape[1], DIM)}")
         if not s_err <= KERNEL_TOL:
             raise RuntimeError(f"[kernel] {mod}: struct kernel disagrees with plain version "
                                f"(max|d state|={s_err}, tol {KERNEL_TOL})")
@@ -621,6 +625,14 @@ def main() -> int:
             if not max(sfwd) <= KERNEL_TOL:
                 raise RuntimeError(f"[bwd] {mod}: struct residual forward disagrees: max|d| "
                                    f"state, res = {sfwd} (tol {KERNEL_TOL})")
+            # bitwise repeatable, and the serving launch gives the same state
+            st_k2, sres_k2 = struct_kernel._forward_cuda(sargs, tables, ROUNDS, True,
+                                                         residuals=True)
+            st_n = struct_kernel._forward_cuda(sargs, tables, ROUNDS, True, residuals=False)
+            if not (torch.equal(st_k2, st_k) and torch.equal(sres_k2, sres_k)
+                    and torch.equal(st_n, st_k)):
+                raise RuntimeError(f"[bwd] {mod}: struct forward not bitwise repeatable")
+            del st_k2, sres_k2, st_n
             sres_err = max(sres_err, *sfwd)
             dstate = torch.randn(st_k.shape, device=dev,
                                  generator=torch.Generator(device=dev).manual_seed(SEED + 4))
@@ -635,7 +647,7 @@ def main() -> int:
         report, worst = held(mod, sgrad_names, sgrads_k, sgrads_r)
         sbwd_err = max(sbwd_err, worst)
         log(f"[bwd] {mod}: struct residual forward max|d| state/res = {sfwd[0]:.3e}/"
-            f"{sfwd[1]:.3e}; struct backward max|d|/scale: {report}; struct bwd launches="
+            f"{sfwd[1]:.3e} (bitwise repeatable); struct backward max|d|/scale: {report}; struct bwd launches="
             f"{n_sbwd}")
         if n_sbwd != SBWD_LAUNCHES:
             raise RuntimeError(f"[bwd] {mod}: struct backward launches {n_sbwd} != "
@@ -1452,6 +1464,21 @@ def main() -> int:
         g4_f2, g4_k2, g4_p2 = event_ms(torch, k2, kr), event_ms(torch, g4, kr), event_ms(torch, p4, pr)
     g3_k, g3_p = (g3_k1 + g3_k2) / 2, (g3_p1 + g3_p2) / 2
     g4_k, g4_p = (g4_k1 + g4_k2) / 2, (g4_p1 + g4_p2) / 2
+    # kernel 7 on the giant batch, without and with residuals, in turns
+    gb = dg_ae.batch_to_device(giant_batch, dev)
+    with torch.no_grad():
+        gsargs = struct_inputs(model.params["struct"], dg_ae.struct_input(gb["gate"], cfg), gb,
+                               True)
+        gtables = struct_tables(gb)
+        g7 = lambda: struct_kernel._forward_cuda(gsargs, gtables, ROUNDS, True, residuals=False)
+        g7r = lambda: struct_kernel._forward_cuda(gsargs, gtables, ROUNDS, True, residuals=True)
+        g7()
+        g7r()
+        g7_1, g7r_1 = event_ms(torch, g7, kr), event_ms(torch, g7r, kr)
+        g7r_2, g7_2 = event_ms(torch, g7r, kr), event_ms(torch, g7, kr)
+    g7_bound = struct_bound(gsargs, gtables, int(giant_batch["n_edges"]), False)
+    g7r_bound = struct_bound(gsargs, gtables, int(giant_batch["n_edges"]), True)
+    del gb, gsargs, gtables
     bounds.update(level_scan_giant=level_bound(args, n_lv, N, False),
                   level_scan_giant_bwd=giant_bwd_bound(args, n_lv, N))
     del re_1, rn_1
@@ -1472,6 +1499,10 @@ def main() -> int:
         f"Np={args[4].shape[1]}), CUDA events over {kr} calls (plain: {pr}): giant kernel "
         f"{g3_k1:.4f}/{g3_k2:.4f} ms, plain {g3_p1:.4f}/{g3_p2:.4f} ms, fused kernel without "
         f"residuals {g3_f1:.4f}/{g3_f2:.4f} ms, with residuals {g3_r1:.4f}/{g3_r2:.4f} ms")
+    log(f"[time] giant struct towers alone ({2 * ROUNDS} half-rounds, N={N}), CUDA events over "
+        f"{kr} calls: without residuals {g7_1:.4f}/{g7_2:.4f} ms, with residuals "
+        f"{g7r_1:.4f}/{g7r_2:.4f} ms; bounds by bytes {g7_bound['bytes_ms']:.4f} / "
+        f"{g7r_bound['bytes_ms']:.4f} ms, by operations {g7_bound['operations_ms']:.4f} ms")
     log(f"[time] giant level scan backward alone: giant kernel (recomputes) {g4_k1:.4f}/"
         f"{g4_k2:.4f} ms, plain (recomputes) {g4_p1:.4f}/{g4_p2:.4f} ms, fused backward from "
         f"saved residuals {g4_f1:.4f}/{g4_f2:.4f} ms")

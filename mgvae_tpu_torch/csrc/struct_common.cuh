@@ -3,12 +3,8 @@
 //
 // In both, lane l of a warp owns the feature columns d = l + 32 j (j < CPT,
 // CPT = ceil(D / 32)) of the rows the warp owns, so a row's D features sit in
-// one warp and a row reduction (LayerNorm) is a warp reduction.
-//
-// The tile constants below are the forward's (struct_towers.cu) alone: a
-// block owns kTileRows node rows of one tower (blockIdx.y), warp w rows
-// w * kRowsPerWarp .. + kRowsPerWarp - 1 of the tile. The backward sets its
-// own layout (kRows rows a warp).
+// one warp and a row reduction (LayerNorm) is a warp reduction. Each kernel
+// sets its own tile (rows a warp, warps a block).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,12 +12,6 @@
 #include "level_common.cuh"  // kMaxDim, warp_sum
 
 namespace {
-
-constexpr int kTileRows = 32;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr int kRowsPerWarp = kTileRows / kWarpsPerBlock;
-constexpr int kChunk = 32;  // weight rows (or columns) staged in shared memory at a time
 
 // Neighbor lists of one direction: node v's neighbors are
 // src[start[v]], ..., src[start[v] + count[v] - 1], in that order.
@@ -31,33 +21,18 @@ struct NbrList {
   const int* count;
 };
 
-// out[j] += sum of x[u, l + 32 j] over v's neighbors u, in list order.
-template <int CPT>
-__device__ __forceinline__ void add_neighbor_sum(const float* __restrict__ x, const NbrList nl,
-                                                 int v, int dim, int lane, float (&out)[CPT]) {
-  const int first = nl.start[v], count = nl.count[v];
-  for (int e = 0; e < count; ++e) {
-    const float* row = x + static_cast<size_t>(nl.src[first + e]) * dim;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int d = lane + 32 * j;
-      if (d < dim) out[j] += row[d];
-    }
-  }
-}
-
-// out[u][j] += sum of x[w, l + 32 j] over the neighbors w of row v0 + u
-// (u < ROWS; rows >= n have none), each row's in list order, for one warp.
-// Three round trips for all the rows together: lanes u < ROWS read the
-// rows' start / count, lane e reads the index of the e-th entry of the
-// rows' concatenated lists, and then every lane reads its columns of
-// kGatherBatch neighbor rows at once.
+// For one warp: add(u, v) for every neighbor w of the rows v0 + u (u <
+// ROWS; rows >= n have none), v[j] = x[w, l + 32 j] (0 past dim), each
+// row's neighbors in list order. Three round trips for all the rows
+// together: lanes u < ROWS read the rows' start / count, lane e reads the
+// index of the e-th entry of the rows' concatenated lists, and then every
+// lane reads its columns of kGatherBatch neighbor rows at once. `u` is the
+// same on every lane.
 constexpr int kGatherBatch = 8;
 
-template <int ROWS, int CPT>
-__device__ __forceinline__ void add_neighbor_sums(const float* __restrict__ x, const NbrList nl,
-                                                  int v0, int n, int dim, int lane,
-                                                  float (&out)[ROWS][CPT]) {
+template <int ROWS, int CPT, class Add>
+__device__ __forceinline__ void for_each_neighbor(const float* __restrict__ x, const NbrList nl,
+                                                  int v0, int n, int dim, int lane, Add add) {
   static_assert(ROWS <= 32, "one lane per row");
   constexpr unsigned kAll = 0xffffffffu;
   int first = 0, cnt = 0;
@@ -98,18 +73,28 @@ __device__ __forceinline__ void add_neighbor_sums(const float* __restrict__ x, c
       }
 #pragma unroll
       for (int i = 0; i < kGatherBatch; ++i) {
-#pragma unroll
-        for (int u = 0; u < ROWS; ++u) {
-          if (rw[i] == u) {
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) out[u][j] += val[i][j];
-          }
-        }
+        if (rw[i] >= 0) add(rw[i], val[i]);
       }
     }
   }
 }
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+// out[u][j] += sum of x[w, l + 32 j] over the neighbors w of row v0 + u, in
+// registers: the row is matched against every u, so that each out[u][j]
+// has a fixed register.
+template <int ROWS, int CPT>
+__device__ __forceinline__ void add_neighbor_sums(const float* __restrict__ x, const NbrList nl,
+                                                  int v0, int n, int dim, int lane,
+                                                  float (&out)[ROWS][CPT]) {
+  for_each_neighbor<ROWS, CPT>(x, nl, v0, n, dim, lane, [&](int r, const float (&v)[CPT]) {
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+      if (r == u) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) out[u][j] += v[j];
+      }
+    }
+  });
+}
 
 }  // namespace

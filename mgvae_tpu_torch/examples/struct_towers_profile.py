@@ -1,13 +1,13 @@
-"""Where the struct-tower backward (and, beside it, the forward) spends its
-time and memory on the card.
+"""Where the struct-tower forward and backward spend their time and memory
+on the card.
 
 Two MIG batches, D = 64, 4 struct rounds, layernorm, random weights from
 seed 0: the bs16 batch of ``chip_smoke.py``'s timing phases (16 synthetic
 circuits of 16 inputs and 264 gates) and the giant batch (one layered
 circuit of width 512 x depth 200, collated alone). On each, through the
-wrappers of ``ops.struct_kernel``, the forward with residuals and then the
-backward alone on those residuals with a fixed random cotangent. For each
-it prints
+wrappers of ``ops.struct_kernel``, the forward without residuals (serving),
+the forward with residuals (training), and then the backward alone on those
+residuals with a fixed random cotangent. For each it prints
 
   * the call's time by CUDA events (mean of ``REPS`` calls) and the host's
     time to enqueue one call;
@@ -76,6 +76,11 @@ def profile_batch(label: str, batch: dict, dev) -> None:
     print(f"[{label}] N={N} edges {int(batch['n_edges'])} D={DIM} half-rounds {2 * ROUNDS}; "
           f"residuals {res_mib:.1f} MiB", flush=True)
     reps = REPS[label]
+    serve = lambda: struct_kernel._forward_cuda(args, tables, ROUNDS, True, residuals=False)
+    struct_kernel.launches = 0
+    serve()
+    print(f"[{label}] forward launches per call {struct_kernel.launches}", flush=True)
+    report(f"{label} forward without residuals", serve, reps)
     fwd = lambda: struct_kernel._forward_cuda(args, tables, ROUNDS, True, residuals=True)
     report(f"{label} forward with residuals", fwd, reps)
     _, res = fwd()

@@ -122,6 +122,9 @@ def library() -> ctypes.CDLL:
     fn = lib.mgvae_struct_towers_backward
     fn.argtypes = [p] * 17 + [i] * 5 + [p]
     fn.restype = i
+    fn = lib.mgvae_struct_towers_forward_layout
+    fn.argtypes = [i, i, p]
+    fn.restype = i
     lib.mgvae_cuda_error_string.argtypes = [i]
     lib.mgvae_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -32,9 +32,11 @@ that the tests and ``chip_smoke.py`` hold them against; ``_forward_cuda``
 and ``_backward_cuda`` are the kernels' wrappers (CUDA tensors only,
 arguments as ``struct_core`` checks them).
 
-``launches`` counts forward kernel launches (2 * num_rounds per call),
-``bwd_launches`` backward kernel launches (4 * num_rounds + 1 per call: a
-row launch and a weight-gradient partial launch per half-round, one sum).
+``launches`` counts forward kernel launches (2 * num_rounds per call: one
+per half-round over both towers, ``forward_layout`` blocks of 8 rows a
+warp), ``bwd_launches`` backward kernel launches (4 * num_rounds + 1 per
+call: a row launch and a weight-gradient partial launch per half-round, one
+sum).
 
 Layouts (dir 0 = forward edges, 1 = reversed; tower 0 = source, 1 = target):
 xi [2 dir, 2 tower, N, 3D], wfold / w_hh [2, 2, D, 3D], b_hh [2, 2, 3D],
@@ -56,6 +58,7 @@ MAX_DIM = 128      # the kernels' limit (csrc/level_common.cuh kMaxDim)
 SPLIT_ROWS = 512   # rows per partial sum of the backward's weight gradients, at most
 MIN_SPLITS = 40    # ... and the splits a batch is cut into, at least, down to 128 rows
 WARP_ROWS = 8      # rows a warp of the backward's row kernel owns (csrc kRows)
+FWD_ROWS, FWD_WARPS = 8, 4   # the forward kernel's rows a warp and warps a block
 
 launches = 0
 bwd_launches = 0
@@ -376,6 +379,21 @@ def partial_rows(N: int) -> int:
     while rows > 128 and -(-N // rows) < MIN_SPLITS:
         rows //= 2
     return rows
+
+
+def forward_layout(N: int, D: int) -> dict:
+    """The forward kernel's launch at (N, D), as ``csrc/struct_towers.cu``
+    computes it (its ``mgvae_struct_towers_forward_layout``): a block of
+    ``FWD_WARPS`` warps owns ``FWD_ROWS`` rows a warp of one tower (grid y);
+    its shared memory holds two buffers of ``chunk_rows`` rows of W_fold and
+    W_hh, each gate padded to 32 * ceil(D / 32) columns, and each warp's
+    nbr and state rows k-major."""
+    _kernel_dim(D)
+    cpt = -(-D // 32)
+    dp, chunk = 32 * cpt, 16 if cpt <= 2 else 8
+    floats = 2 * (2 * chunk * 3 * dp) + FWD_WARPS * 2 * dp * FWD_ROWS
+    return {"grid": (-(-N // (FWD_ROWS * FWD_WARPS)), 2), "threads": 32 * FWD_WARPS,
+            "smem_bytes": 4 * floats, "chunk_rows": chunk, "rows_per_warp": FWD_ROWS}
 
 
 def _kernel_dim(D: int) -> None:

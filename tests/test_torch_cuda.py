@@ -4,6 +4,7 @@ with the same step on the CPU. Marked ``cuda``; without a card these tests
 skip. On a machine with one:
 python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 from mgvae_tpu_torch import (Model, collate, collate_chunked, collate_split, layered_circuit,
                              random_circuit)
 from mgvae_tpu_torch.models import dg_ae
-from mgvae_tpu_torch.ops import level_kernel, struct_kernel
+from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
 from mgvae_tpu_torch.train import step
 
 pytestmark = pytest.mark.cuda
@@ -139,6 +140,87 @@ def test_struct_kernels_deterministic_and_autograd_on_card(cuda, layernorm):
     assert torch.equal(st.detach(), st1)
     for a, k in zip(auto, raw[0]):
         torch.testing.assert_close(a, k, rtol=0, atol=0)
+
+
+def _hub_case(cuda, dim, n, seed):
+    """Random struct-core inputs on a graph made for the forward kernel's
+    edges: node 3 has 45 in-edges (its forward list is longer than a warp)
+    and node 7 45 out-edges (its reverse list); rows 32-39, one warp's rows,
+    have 6 in-edges each (48 entries for the warp); every fifth node has no
+    in-edge, and nodes that are nobody's source no out-edge; n is not a
+    multiple of the block's 32 rows."""
+    rng = np.random.default_rng(seed)
+    src, dst = [rng.integers(0, n, 45), np.full(45, 7)], [np.full(45, 3), rng.integers(0, n, 45)]
+    for v in range(32, 40):
+        src.append(rng.integers(0, n, 6))
+        dst.append(np.full(6, v))
+    for v in range(n):
+        if v % 5 and v != 3 and not 32 <= v < 40:
+            k = int(rng.integers(1, 4))
+            src.append(rng.integers(0, n // 2, k))   # nodes past n / 2 have few out-edges
+            dst.append(np.full(k, v))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+
+    def lists(by, other):
+        order = np.argsort(by, kind="stable")        # each node's entries in edge order
+        count = np.bincount(by, minlength=n)
+        return other[order], np.cumsum(count) - count, count
+
+    tables = tuple(torch.tensor(np.stack(a), dtype=torch.int32, device=cuda)
+                   for a in zip(lists(dst, src), lists(src, dst)))
+    f = lambda scale, *shape: torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32,
+                                           device=cuda)
+    D3 = 3 * dim
+    args = (f(0.5, 2, 2, n, D3), f(0.5 / dim**0.5, 2, 2, dim, D3), f(1 / dim**0.5, 2, 2, dim, D3),
+            f(0.1, 2, 2, D3), 1 + f(0.1, 2, dim), f(0.1, 2, dim))
+    return args, tables
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+@pytest.mark.parametrize("layernorm", [True, False])
+@pytest.mark.parametrize("dim", [32, 40, 64, 96, 128])
+def test_struct_forward_on_hubs_ragged_rows_and_empty_lists_on_card(cuda, dim, layernorm,
+                                                                    rounds):
+    """The forward kernel against its plain version where its gather and
+    tiles have edges: lists longer than a warp, a warp's lists together
+    longer than a warp, empty lists, a partial last block, a width that is
+    not a multiple of 32 (D = 40: the padded weight copies); bitwise
+    repeatable; the backward kernel on its residuals."""
+    args, tables = _hub_case(cuda, dim, 203, seed=dim + rounds)
+    struct_kernel.launches = 0
+    st_k = struct_kernel._forward_cuda(args, tables, rounds, layernorm, residuals=False)
+    st_kr, res_k = struct_kernel._forward_cuda(args, tables, rounds, layernorm, residuals=True)
+    torch.cuda.synchronize()
+    assert struct_kernel.launches == 2 * 2 * rounds       # one launch per half-round
+    st_r, res_r = struct_kernel.struct_towers_reference(*args, tables, rounds, layernorm,
+                                                        with_residuals=True)
+    # fp32, TF32 off: only the order of sums differs (the neighbor sums of
+    # 45 rows in the residuals: against their scale)
+    assert (st_k - st_r).abs().max().item() <= 1e-4
+    assert (res_k - res_r).abs().max().item() <= 1e-4 * max(res_r.abs().max().item(), 1.0)
+    assert torch.equal(st_kr, st_k)
+    again = struct_kernel._forward_cuda(args, tables, rounds, layernorm, residuals=True)
+    assert torch.equal(again[0], st_k) and torch.equal(again[1], res_k)
+    dstate = torch.randn(st_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    grads_k = struct_kernel._backward_cuda(dstate, res_k, args[1], args[2], args[4], tables,
+                                           rounds, layernorm)
+    grads_r = struct_kernel.struct_towers_bwd_reference(dstate, res_k, args[1], args[2], args[4],
+                                                        tables, rounds, layernorm)
+    for k, r in zip(grads_k, grads_r):
+        assert (k - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+
+
+def test_struct_forward_layout_matches_the_kernel_on_card(cuda):
+    """``struct_kernel.forward_layout`` is the layout the kernel launches."""
+    lib = _build.library()
+    out = (ctypes.c_int * 6)()
+    for n in (1, 203, 5120, 114_688):
+        for dim in (1, 31, 32, 33, 40, 64, 96, 100, 128):
+            assert lib.mgvae_struct_towers_forward_layout(n, dim, out) == 0
+            lay = struct_kernel.forward_layout(n, dim)
+            assert list(out) == [*lay["grid"], lay["threads"], lay["smem_bytes"],
+                                 lay["chunk_rows"], lay["rows_per_warp"]], (n, dim)
+    assert lib.mgvae_struct_towers_forward_layout(8, 129, out) != 0
 
 
 def test_struct_backward_scratch_does_not_grow_with_rounds(cuda):

@@ -258,3 +258,33 @@ def test_core_checks_its_arguments():
         struct_kernel.struct_core(*args, (tables[0].long(), *tables[1:]), ROUNDS, False)
     with pytest.raises(ValueError, match="num_rounds"):
         struct_kernel.struct_core(*args, tables, 0, False)
+
+
+@pytest.mark.parametrize("dim", [1, 31, 32, 33, 64, 96, 100, 128])
+def test_forward_layout_fits_the_card(dim):
+    """The forward kernel's block at every width: its shared memory within
+    a block's 227 KB, at least two blocks an SM (228 KB, 1 KB reserved per
+    block), three at D <= 64; chunks that tile the padded width."""
+    lay = struct_kernel.forward_layout(5120, dim)
+    smem = lay["smem_bytes"]
+    assert smem <= 232_448                # a block's dynamic shared memory on the H100
+    per_sm = (228 * 1024) // (smem + 1024)
+    assert per_sm >= (3 if dim <= 64 else 2), (dim, smem, per_sm)
+    assert 32 % lay["chunk_rows"] == 0 and lay["threads"] == 32 * struct_kernel.FWD_WARPS
+    assert lay["rows_per_warp"] == struct_kernel.FWD_ROWS
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (31, 1), (32, 1), (33, 2), (5120, 160),
+                                      (5121, 161), (114_688, 3584)])
+def test_forward_layout_grid_covers_the_rows(n, blocks):
+    """One block per 32 rows of each tower: bs16 (N = 5120) gives 320 blocks,
+    the giant batch (N = 114,688) 7168; a ragged N gets one more block."""
+    lay = struct_kernel.forward_layout(n, 64)
+    assert lay["grid"] == (blocks, 2)
+    tile = lay["rows_per_warp"] * lay["threads"] // 32
+    assert (blocks - 1) * tile < n <= blocks * tile
+
+
+def test_forward_layout_refuses_wide_rows():
+    with pytest.raises(ValueError, match="D <= 128"):
+        struct_kernel.forward_layout(64, 129)
