@@ -94,20 +94,25 @@ Phases (any failure raises and the script exits nonzero):
  15. giant kernels vs plain: one layered circuit of width 512 collated alone
      (MIG at depth 200: the giant example's circuit, N = 114,688 padded;
      aig/xag/xmg at depth 24): the giant forward kernel against
-     level_scan_giant_reference (max |dhf| <= 1e-4) and the giant backward
-     kernel, which recomputes from hf, against level_scan_giant_bwd_reference
-     on the same hf and a fixed random cotangent (each of the six outputs
-     within 1e-4 * max(scale, 1)); the giant forward's hf against the fused
-     kernel's on the same inputs, and the giant backward's outputs against
-     the fused backward's from saved residuals (<= 1e-4 * max(scale, 1));
-     launches: real levels forward, four per real level backward.
+     level_scan_giant_reference (max |dhf| <= 1e-4) and equal bit for bit to
+     the fused kernel's hf on the same inputs; the giant backward kernel,
+     which recomputes from hf in chunks of K levels
+     (level_kernel.giant_chunk_levels), against
+     level_scan_giant_bwd_reference in the same chunk order on the same hf
+     and a fixed random cotangent (each of the six outputs within
+     1e-4 * max(scale, 1)) and against the fused backward's outputs from
+     saved residuals (<= RECOMPUTE_TOL * max(scale, 1)); both giant kernels
+     twice, bit for bit the same; launches: one forward, and backward the
+     kernels the C entry counts as it enqueues them, against
+     giant_bwd_launch_count(real levels, K) (per chunk a recompute, a sweep,
+     the weight-gradient partials and their sums).
  16. giant encode: Model.forward(g) on the depth-200 circuit: shapes, finite,
-     struct launches 2 * s_rounds, giant launches equal to the real levels,
-     no fused or step launch; rows against the same model on the CPU.
+     struct launches 2 * s_rounds, one giant launch, no fused or step
+     launch; rows against the same model on the CPU.
  17. giant training: 4 train_steps on collate([g]) with the example's weights
      [1, 4, 2, 0] and lr 1e-4, fixed negatives and dropout masks: per step
-     giant launches = real levels forward and four per real level backward,
-     no fused or step launch; loss finite and lower at the end; one step card
+     one giant launch forward and giant_bwd_launch_count backward, no fused
+     or step launch; loss finite and lower at the end; one step card
      vs CPU with SMOOTH_WEIGHTS and the masked prob loss beside it, as in
      phase 12; one step with remat_struct=True against
      False (struct forward launches doubled, gradients equal); the peak
@@ -196,9 +201,10 @@ GIANT_PEAK_GIB = 5.0
 # The giant backward recomputes what the fused backward reads from saved
 # residuals, with the same device functions; the two differ in the order of
 # the weight gradients' sums: the fused backward sums chunks of levels into
-# partials and those pairwise, the giant sums per level and then across
-# levels in launch order. At 257k rows they agree to ~1e-6 of an output's
-# scale (a single fp32 accumulator over all rows had cost 1.06e-5).
+# partials and those pairwise, the giant sums a partial per level of a chunk,
+# those pairwise, and the chunks in launch order. At 257k rows they agree to
+# ~1e-6 of an output's scale (a single fp32 accumulator over all rows had
+# cost 1.06e-5).
 RECOMPUTE_TOL = 1e-5
 SEED = 0
 DEVICE = "cuda"
@@ -1255,6 +1261,8 @@ def main() -> int:
         if level_kernel.kernel_fits(N, ep, np_, DIM):
             raise RuntimeError(f"[giant] {mod}: the batch passes kernel_fits and would not take "
                                f"the giant route")
+        k_lv = min(level_kernel.giant_chunk_levels(ep, np_, DIM, L, N, cfg_m.num_experts), n_lv)
+        bwd_count = level_kernel.giant_bwd_launch_count(n_lv, k_lv)
         zero_counts()
         hf_k = level_kernel._giant_forward_cuda(args, N, n_lv)
         ghf = torch.randn(hf_k.shape, device=dev,
@@ -1262,11 +1270,16 @@ def main() -> int:
         grads_k = level_kernel._giant_backward_cuda(ghf, hf_k, args, n_lv)
         sync()
         got = read_counts()
-        if got != (0, 0, 0, 0, 0, 0, n_lv, 4 * n_lv, 0, 0):
-            raise RuntimeError(f"[giant] {mod}: launches {COUNT_NAMES} {got} != giant {n_lv} "
-                               f"forward and {4 * n_lv} backward alone")
+        if got != (0, 0, 0, 0, 0, 0, 1, bwd_count, 0, 0):
+            raise RuntimeError(f"[giant] {mod}: launches {COUNT_NAMES} {got} != giant 1 forward "
+                               f"and {bwd_count} backward ({n_lv} levels in chunks of {k_lv}) "
+                               f"alone")
+        repeat = (torch.equal(level_kernel._giant_forward_cuda(args, N, n_lv), hf_k)
+                  and all(torch.equal(a, c) for a, c in zip(
+                      level_kernel._giant_backward_cuda(ghf, hf_k, args, n_lv), grads_k)))
         hf_r = level_kernel.level_scan_giant_reference(*args, num_nodes=N, num_levels=n_lv)
-        grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv)
+        grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv,
+                                                              chunk_levels=k_lv)
         # the fused kernels on the same inputs: residuals saved against recomputed
         hf_1, re_1, rn_1 = level_kernel._forward_cuda(args, N, n_lv, residuals=True)
         grads_2 = level_kernel._backward_cuda(ghf, re_1, rn_1, args, n_lv)
@@ -1276,20 +1289,23 @@ def main() -> int:
         valid = torch.as_tensor(batch["node_valid"], device=dev)
         err = (hf_k - hf_r)[valid].abs().max().item()
         pad = hf_k[~valid].abs().max().item()
-        d_fused = (hf_k - hf_1).abs().max().item()
+        same_fused = torch.equal(hf_k, hf_1)
         pad_levels = grads_k[0][n_lv:].abs().max().item() if n_lv < L else 0.0
         report, worst = held(mod, giant_names, grads_k, grads_r)
         d_saved = max((k - f).abs().max().item() / max(f.abs().max().item(), 1.0)
                       for k, f in zip(grads_k, grads_2))
         log(f"[giant] {mod}: N={N} n={int(batch['n_nodes'])} E={batch['edge_src'].shape[0]} L={L} "
             f"real_levels={n_lv} Np={np_} Ep={ep} T={cfg_m.num_experts}: giant forward "
-            f"max|dhf| valid rows={err:.3e}, padding rows {pad:.3e}, against the fused kernel "
-            f"{d_fused:.3e}; giant backward max|d|/scale: {report}; d_pack of padding levels "
-            f"{pad_levels:.3e}; against the fused backward from saved residuals, worst output "
-            f"{d_saved:.3e} of max(scale, 1)")
-        if not (err <= KERNEL_TOL and d_fused <= KERNEL_TOL) or pad != 0.0 or pad_levels != 0.0:
+            f"max|dhf| valid rows={err:.3e}, padding rows {pad:.3e}, equal to the fused kernel's "
+            f"hf: {same_fused}; giant backward in chunks of {k_lv} levels ({bwd_count} "
+            f"launches), against the plain version in that order, max|d|/scale: {report}; "
+            f"d_pack of padding levels {pad_levels:.3e}; against the fused backward from saved "
+            f"residuals, worst output {d_saved:.3e} of max(scale, 1); both giant kernels "
+            f"repeatable bit for bit: {repeat}")
+        if not (err <= KERNEL_TOL and same_fused and repeat) or pad != 0.0 or pad_levels != 0.0:
             raise RuntimeError(f"[giant] {mod}: the giant forward disagrees with its plain "
-                               f"version or the fused kernel, or wrote a padding row")
+                               f"version or the fused kernel, wrote a padding row, or a giant "
+                               f"kernel did not repeat bit for bit")
         if not d_saved <= RECOMPUTE_TOL:
             raise RuntimeError(f"[giant] {mod}: the giant backward disagrees with the fused "
                                f"backward: {d_saved} of scale (tol {RECOMPUTE_TOL})")
@@ -1306,9 +1322,9 @@ def main() -> int:
     got = read_counts()
     log(f"[giant-encode] Model.forward(g), {giant_graph.num_nodes} nodes: launches "
         f"{COUNT_NAMES} = {got}, real levels {giant_levels}")
-    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, giant_levels, 0, 0, 0):
-        raise RuntimeError(f"[giant-encode] launches {got} != struct {2 * ROUNDS} and giant "
-                           f"{giant_levels} alone")
+    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, 1, 0, 0, 0):
+        raise RuntimeError(f"[giant-encode] launches {got} != struct {2 * ROUNDS} and one giant "
+                           f"launch alone")
     want = (giant_graph.num_nodes, DIM)
     if hs_gi.shape != want or hf_gi.shape != want or not (
             torch.isfinite(hs_gi).all() and torch.isfinite(hf_gi).all()):
@@ -1324,7 +1340,15 @@ def main() -> int:
     del hs_c, hf_c
 
     # ---- 17. giant training ----------------------------------------------------
-    giant_want = (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, giant_levels, 4 * giant_levels, 0, 0)
+    def giant_bwd_count(batch):
+        """The giant backward's launches per call on a host batch: its real
+        levels in chunks of the K its shapes give."""
+        n_lv, (L, ep) = dg_ae.num_levels(batch), batch["lv_edge_src"].shape
+        k_lv = level_kernel.giant_chunk_levels(ep, batch["lv_nodes"].shape[-1], DIM, L,
+                                               batch["gate"].shape[0], cfg.num_experts)
+        return level_kernel.giant_bwd_launch_count(n_lv, min(k_lv, n_lv))
+
+    giant_want = (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, 1, giant_bwd_count(giant_batch), 0, 0)
     giant_totals = train_large("giant-train", giant_batch, giant_want, steps=GIANT_STEPS,
                                lr=GIANT_LR, weights=GIANT_WEIGHTS)
 
@@ -1434,11 +1458,11 @@ def main() -> int:
         f"Ep={plain64['lv_edge_src'].shape[1]} Np={plain64['lv_nodes'].shape[1]}, real levels "
         f"{p64_levels}; forward launches {COUNT_NAMES} = {got}; max|dhf| against the bs64 encode "
         f"(fused route, C={C_fit}) = {d_hf:.3e}")
-    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, p64_levels, 0, 0, 0) or not d_hf <= KERNEL_TOL:
-        raise RuntimeError(f"[plain64] launches {got} != giant {p64_levels} alone, or the routes "
+    if got != (2 * ROUNDS, 0, 0, 0, 0, 0, 1, 0, 0, 0) or not d_hf <= KERNEL_TOL:
+        raise RuntimeError(f"[plain64] launches {got} != one giant launch alone, or the routes "
                            f"disagree ({d_hf})")
-    train_large("plain64", plain64, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, p64_levels,
-                                     4 * p64_levels, 0, 0), steps=1, prob_check=False)
+    train_large("plain64", plain64, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, 1,
+                                     giant_bwd_count(plain64), 0, 0), steps=1, prob_check=False)
 
     # ---- 18. timing (informational) ----------------------------------------------
     args, ghf, n_lv = giant_args, giant_ghf, giant_levels
@@ -1543,7 +1567,7 @@ def main() -> int:
         entry("level_step_bwd", "level_step_bwd.cu", "level_kernel.py:1706", step_totals[5],
               step_bwd_err, sb_k, sb_p),
         # the giant route's training path (phases 15, 17, 18)
-        entry("level_scan_giant", "level_scan_giant.cu", "level_kernel.py:911", giant_totals[6],
+        entry("level_scan_giant", "level_scan.cu", "level_kernel.py:911", giant_totals[6],
               giant_err, g3_k, g3_p),
         entry("level_scan_giant_bwd", "level_scan_giant_bwd.cu", "level_kernel.py:1195",
               giant_totals[7], giant_bwd_err, g4_k, g4_p),

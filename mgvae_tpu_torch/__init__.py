@@ -9,8 +9,9 @@ forward and backward, as hand-written CUDA kernels: ``csrc/struct_towers*.cu``;
 ``csrc/level_scan.cu`` / ``level_scan_bwd.cu``, the fused scan of a batch or
 chunk that passes the size gate, one persistent launch per pass; for chunks
 too large for it ``csrc/level_step*.cu``, one level per call; and for a
-giant graph or any unchunked batch past the gate ``csrc/level_scan_giant*.cu``,
-which keeps no residuals and recomputes from hf in the backward. The JAX
+giant graph or any unchunked batch past the gate ``csrc/level_scan.cu``
+without residuals and ``csrc/level_scan_giant_bwd.cu``, which recomputes
+from hf in the backward, K levels at a time. The JAX
 package ``mgvae_tpu`` is the reference it is tested against; this package
 never imports jax.
 """

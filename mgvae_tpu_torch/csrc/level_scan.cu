@@ -1,8 +1,13 @@
-// Fused level-recurrence forward of DG_AE (num_rounds == 1), fp32, for
-// Hopper (sm_90a).
+// Level-recurrence forward of DG_AE (num_rounds == 1), fp32, for Hopper
+// (sm_90a): the fused route and the giant route.
 //
 // Replaces mgvae_tpu/ops/pallas/level_kernel.py::fused_level_scan (C == 1),
-// with and without its residual outputs. Per DAG level and per destination
+// with and without its residual outputs, and ::fused_level_scan_hbm
+// (_level_scan_hbm_padded, _level_kernel_hbm), the giant route's forward:
+// the same launch without residuals, at any N (offsets are size_t), whose
+// backward (level_scan_giant_bwd.cu) recomputes from hf. The TPU kernel's
+// chunked DMA stream of hf through VMEM, its double buffers and chunk loops
+// have no counterpart: hf is read where it lies. Per DAG level and per destination
 // slot: gather hf[src] of the slot's in-edges, the hf-side key/value of the
 // destination's expert, the masked segment softmax over the in-edges,
 // msg = sum attn * v, then a GRU step with h = 0, written to hf[node].

@@ -16,7 +16,8 @@
 //
 // What the design does about it:
 //   * The reverse sweep is one persistent cooperative launch, as the forward
-//     (level_scan.cu): a block serves one expert and keeps in shared memory
+//     (level_scan.cu; the kernel, level_scan_bwd_kernel, is in
+//     level_slot_bwd.cuh, where the giant backward runs it per chunk): a block serves one expert and keeps in shared memory
 //     the transposed copies of its wv and w_ih slices that the wrapper made,
 //     so that the transposed products read rows, without bank conflicts; a
 //     warp owns a slot and takes its in-edges from the level's list; the
@@ -46,119 +47,6 @@
 #include <cuda_runtime.h>
 
 #include "level_slot_bwd.cuh"
-
-namespace {
-
-struct ScanBackward {
-  float* ghf;             // [N, D] cotangent of hf, updated in place
-  const float* res_e;     // [L, Ep, 3D+1]
-  const float* res_n;     // [L, Np, 4D]
-  const int* lv_nodes;    // [L, Np]
-  LevelBwd lists;         // all levels': lv_src, slot_rows, slot_off, in_rows, in_off, src_rows
-  const float* wkv_e;     // [T, 2, DP, DP], DP = D rounded up to 32
-  const float* wvt_e;     // [T, DP, DP]: wv_e transposed
-  const float* wiht_e;    // [T, 3 DP, DP]: w_ih_e transposed
-  const float* b_hh;      // [T, 3D]
-  const float* wa_k;      // [T, D]
-  float* d_pack;          // [L, Ep, D+2] zeroed
-  float* dkv;             // [L, Ep, 2D]
-  float* dg;              // [L, Np, 6D]
-  float* dhf_buf;         // [Ep, D] scratch
-  unsigned* barrier;      // zeroed
-  int num_levels, ep, np, dim, num_experts;
-};
-
-// Cooperative launch: T * nbe blocks of kLevelThreads; block b serves expert
-// b % T as the (b / T)-th of its nbe blocks.
-template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const ScanBackward p) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = p.dim, T = p.num_experts;
-  const int e = blockIdx.x % T, be = blockIdx.x / T, nbe = gridDim.x / T;
-  float *ck, *scratch;
-  const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(p.b_hh, p.wa_k, e, D);
-  const ExpertWeights w = stage_backward_weights<NF>(smem, p.wkv_e, p.wvt_e, p.wiht_e, p.wa_k,
-                                                     e, D, &ck, &scratch);
-  const size_t ew = 3 * (size_t)D + 1;
-  unsigned target = 0;
-  // As the forward (level_scan.cu): two levels ahead (below) a warp holds its
-  // expert's range of the slot list, one level ahead its own slot, prepared
-  // in stages between the phases of the current slot.
-  const int first = first_slot(be, nbe), stride = slot_stride(nbe);
-  const int* so = p.lists.slot_off + e;           // this expert's column of slot_off [L, T+1]
-  auto range = [&](int l, int (&r)[2]) {          // level l's positions [r[0], r[1]), loads only
-    r[0] = l >= 0 ? __ldg(so + (size_t)l * (T + 1)) : 0;
-    r[1] = l >= 0 ? __ldg(so + (size_t)l * (T + 1) + 1) : 0;
-  };
-  auto start = [&](NextSlotBwd<NF>& next, int l, const int (&r)[2]) {
-    const size_t lo = l >= 0 ? l : 0;              // below level 0: an empty range
-    next.start(level_of(p.lists, lo, p.ep, p.np, T), p.res_e + lo * p.ep * ew,
-               p.res_n + lo * p.np * 4 * D, p.lv_nodes + lo * p.np, r[0] + first,
-               r[0] + first < r[1], D);
-  };
-  int l = p.num_levels - 1;
-  int cur[2], nxt[2], far[2];
-  range(l, cur);
-  range(l - 1, nxt);
-  NextSlotBwd<NF> next;
-  start(next, l, cur);
-  next.a();
-  next.b();
-  next.c();
-  for (; l >= 0; --l) {
-    const size_t eo = (size_t)l * p.ep, no = (size_t)l * p.np;
-    const LevelBwd lv = level_of(p.lists, l, p.ep, p.np, T);
-    const SlotPrepBwd<NF> ready = next.sp;
-    start(next, l - 1, nxt);
-    next.a();
-    range(l - 2, far);
-    level_backward_block<NF>(lv, cur[0] + first, cur[1], stride, w, x, ck, p.ghf,
-                             p.lv_nodes + no, p.res_e + eo * ew, p.res_n + no * 4 * D,
-                             p.d_pack + eo * (D + 2), p.dkv + eo * 2 * D, p.dg + no * 6 * D,
-                             p.dhf_buf, scratch, D, &ready, next);
-    cur[0] = nxt[0], cur[1] = nxt[1];
-    nxt[0] = far[0], nxt[1] = far[1];
-    grid_barrier(p.barrier, target += gridDim.x);
-    level_source_block<NF>(lv, p.np, p.ghf, p.dhf_buf,
-                           blockIdx.x * kLevelWarps + (threadIdx.x >> 5),
-                           gridDim.x * kLevelWarps, D);
-    if (l > 0) grid_barrier(p.barrier, target += gridDim.x);
-  }
-}
-
-template <int NF>
-cudaError_t launch_sweep(ScanBackward p, cudaStream_t s) {
-  const size_t smem = backward_smem<NF>();
-  static bool configured = false;
-  static int sms = 0, per_sm = 0;   // of the device the first call ran on
-  cudaError_t err = cudaSuccess;
-  if (!configured) {
-    int device = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    bool allowed = false;
-    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF>, smem, &allowed)) != cudaSuccess) {
-      return err;
-    }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF>,
-                                                        kLevelThreads, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  // a block per slot of a level's expert, as far as the blocks are co-resident
-  // (level_scan.cu)
-  int nbe = p.np;
-  if (nbe > per_sm * sms / p.num_experts) nbe = per_sm * sms / p.num_experts;
-  if (nbe < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if ((err = cudaMemsetAsync(p.barrier, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
-  void* args[] = {&p};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_bwd_kernel<NF>),
-                                     dim3(p.num_experts * nbe), dim3(kLevelThreads), args, smem,
-                                     s);
-}
-
-}  // namespace
 
 extern "C" {
 

@@ -1,7 +1,7 @@
 // What one destination slot of one level computes in the forward, shared by
-// the fused level scan (level_scan.cu), the giant scan and its backward's
-// recompute (level_scan_giant*.cu) and the single-level step
-// (level_step.cu): gather hf[src] of the slot's in-edges, the hf-side
+// the level scan (level_scan.cu: the fused route and the giant route's
+// forward), the giant backward's recompute (level_scan_giant_bwd.cu) and the
+// single-level step (level_step.cu): gather hf[src] of the slot's in-edges, the hf-side
 // key/value of the slot's expert, the masked segment softmax over the
 // in-edges, msg = sum attn * v, then a GRU step with h = 0. The kernels
 // differ only in where hf is read from, where the new row goes and how the
@@ -206,7 +206,7 @@ struct NoNext {
 // persistent launch wrote them itself, on other SMs) and writes the slot's
 // new row to row sp.out of `out` [., D]; `hf` and `out` may be one array (a
 // level writes rows of a higher level than any it reads); a null `out` drops
-// the row (the giant backward recomputes a level for its residuals only).
+// the row (the giant backward recomputes levels for their residuals only).
 // With res_e / res_n given it also writes the slot's residual rows (see
 // level_scan.cu). `scratch`: kBatch * DP floats of shared memory of this
 // warp's own, 16-byte aligned. `next`: see NextSlot.
@@ -426,9 +426,9 @@ __device__ __forceinline__ ExpertWeights stage_forward_weights(
   return ExpertWeights{smem, smem + DP * DP, Staged<NF>::all ? smem + 2 * DP * DP : wi};
 }
 
-// One level as a launch of its own (the giant scan, its backward's recompute
-// and the step; the fused scan has the level loop inside its persistent
-// kernel). Grid: T * nbe blocks of kLevelThreads; block b serves expert
+// One level as a launch of its own (the step; the scan has the level loop
+// inside its persistent kernel, the giant backward's recompute a chunk of
+// levels inside one launch). Grid: T * nbe blocks of kLevelThreads; block b serves expert
 // b % T.
 template <int NF>
 __global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(

@@ -2,7 +2,8 @@
 // (level_scan_bwd.cu), the giant backward (level_scan_giant_bwd.cu) and the
 // single-level step's (level_step_bwd.cu): what one destination slot computes
 // from its saved residuals, the sums of the sources' gradients without
-// atomics, and the weight-gradient kernels that run over saved rows. The
+// atomics, the persistent reverse sweep over a run of levels, and the
+// weight-gradient kernels that run over saved rows. The
 // backwards differ in where a slot's cotangent comes from (a row of the
 // carried ghf, or the step's own g [Np, D]), in where the sources' gradients
 // go (added into the carried ghf, or into a zeroed d_hf) and in how the
@@ -449,8 +450,8 @@ __device__ __forceinline__ ExpertWeights stage_backward_weights(
   return ExpertWeights{nullptr, Staged<NF>::all ? smem + 3 * DP * DP : wvt, smem};
 }
 
-// The slot backward of one level as a launch of its own (the giant backward
-// and the step's; the fused sweep has it inside its persistent kernel).
+// The slot backward of one level as a launch of its own (the step's; the
+// sweeps have it inside their persistent kernel).
 // Grid: T * nbe blocks of kLevelThreads; block b serves expert b % T.
 template <int NF>
 __global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(
@@ -505,6 +506,124 @@ cudaError_t launch_level_backward(
   return cudaGetLastError();
 }
 
+// ---- the persistent reverse sweep ---------------------------------------
+//
+// The slot phase and the source sums of levels [0, num_levels) of the arrays
+// given, from the last down to 0, in one cooperative launch (the fused
+// backward's whole sweep, level_scan_bwd.cu; one chunk of levels of the giant
+// backward, level_scan_giant_bwd.cu, which passes every array from its
+// chunk's first level on).
+
+struct ScanBackward {
+  float* ghf;             // [N, D] cotangent of hf, updated in place
+  const float* res_e;     // [L, Ep, 3D+1]
+  const float* res_n;     // [L, Np, 4D]
+  const int* lv_nodes;    // [L, Np]
+  LevelBwd lists;         // all levels': lv_src, slot_rows, slot_off, in_rows, in_off, src_rows
+  const float* wkv_e;     // [T, 2, DP, DP], DP = D rounded up to 32
+  const float* wvt_e;     // [T, DP, DP]: wv_e transposed
+  const float* wiht_e;    // [T, 3 DP, DP]: w_ih_e transposed
+  const float* b_hh;      // [T, 3D]
+  const float* wa_k;      // [T, D]
+  float* d_pack;          // [L, Ep, D+2] zeroed
+  float* dkv;             // [L, Ep, 2D]
+  float* dg;              // [L, Np, 6D]
+  float* dhf_buf;         // [Ep, D] scratch
+  unsigned* barrier;      // zeroed
+  int num_levels, ep, np, dim, num_experts;
+};
+
+// Cooperative launch: T * nbe blocks of kLevelThreads; block b serves expert
+// b % T as the (b / T)-th of its nbe blocks.
+template <int NF>
+__global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const ScanBackward p) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = p.dim, T = p.num_experts;
+  const int e = blockIdx.x % T, be = blockIdx.x / T, nbe = gridDim.x / T;
+  float *ck, *scratch;
+  const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(p.b_hh, p.wa_k, e, D);
+  const ExpertWeights w = stage_backward_weights<NF>(smem, p.wkv_e, p.wvt_e, p.wiht_e, p.wa_k,
+                                                     e, D, &ck, &scratch);
+  const size_t ew = 3 * (size_t)D + 1;
+  unsigned target = 0;
+  // As the forward (level_scan.cu): two levels ahead (below) a warp holds its
+  // expert's range of the slot list, one level ahead its own slot, prepared
+  // in stages between the phases of the current slot.
+  const int first = first_slot(be, nbe), stride = slot_stride(nbe);
+  const int* so = p.lists.slot_off + e;           // this expert's column of slot_off [L, T+1]
+  auto range = [&](int l, int (&r)[2]) {          // level l's positions [r[0], r[1]), loads only
+    r[0] = l >= 0 ? __ldg(so + (size_t)l * (T + 1)) : 0;
+    r[1] = l >= 0 ? __ldg(so + (size_t)l * (T + 1) + 1) : 0;
+  };
+  auto start = [&](NextSlotBwd<NF>& next, int l, const int (&r)[2]) {
+    const size_t lo = l >= 0 ? l : 0;              // below level 0: an empty range
+    next.start(level_of(p.lists, lo, p.ep, p.np, T), p.res_e + lo * p.ep * ew,
+               p.res_n + lo * p.np * 4 * D, p.lv_nodes + lo * p.np, r[0] + first,
+               r[0] + first < r[1], D);
+  };
+  int l = p.num_levels - 1;
+  int cur[2], nxt[2], far[2];
+  range(l, cur);
+  range(l - 1, nxt);
+  NextSlotBwd<NF> next;
+  start(next, l, cur);
+  next.a();
+  next.b();
+  next.c();
+  for (; l >= 0; --l) {
+    const size_t eo = (size_t)l * p.ep, no = (size_t)l * p.np;
+    const LevelBwd lv = level_of(p.lists, l, p.ep, p.np, T);
+    const SlotPrepBwd<NF> ready = next.sp;
+    start(next, l - 1, nxt);
+    next.a();
+    range(l - 2, far);
+    level_backward_block<NF>(lv, cur[0] + first, cur[1], stride, w, x, ck, p.ghf,
+                             p.lv_nodes + no, p.res_e + eo * ew, p.res_n + no * 4 * D,
+                             p.d_pack + eo * (D + 2), p.dkv + eo * 2 * D, p.dg + no * 6 * D,
+                             p.dhf_buf, scratch, D, &ready, next);
+    cur[0] = nxt[0], cur[1] = nxt[1];
+    nxt[0] = far[0], nxt[1] = far[1];
+    grid_barrier(p.barrier, target += gridDim.x);
+    level_source_block<NF>(lv, p.np, p.ghf, p.dhf_buf,
+                           blockIdx.x * kLevelWarps + (threadIdx.x >> 5),
+                           gridDim.x * kLevelWarps, D);
+    if (l > 0) grid_barrier(p.barrier, target += gridDim.x);
+  }
+}
+
+template <int NF>
+cudaError_t launch_sweep(ScanBackward p, cudaStream_t s) {
+  const size_t smem = backward_smem<NF>();
+  static bool configured = false;
+  static int sms = 0, per_sm = 0;   // of the device the first call ran on
+  cudaError_t err = cudaSuccess;
+  if (!configured) {
+    int device = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    bool allowed = false;
+    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF>, smem, &allowed)) != cudaSuccess) {
+      return err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF>,
+                                                        kLevelThreads, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  // a block per slot of a level's expert, as far as the blocks are co-resident
+  // (level_scan.cu)
+  int nbe = p.np;
+  if (nbe > per_sm * sms / p.num_experts) nbe = per_sm * sms / p.num_experts;
+  if (nbe < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if ((err = cudaMemsetAsync(p.barrier, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
+  void* args[] = {&p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_bwd_kernel<NF>),
+                                     dim3(p.num_experts * nbe), dim3(kLevelThreads), args, smem,
+                                     s);
+}
+
+
 // ---- weight gradients -----------------------------------------------------
 //
 // out[i, col(e, c)] = sum over the rows r of expert e of A[r, i] * B[r, c],
@@ -516,8 +635,9 @@ cudaError_t launch_level_backward(
 // output tile, chunk) and sums its rows in list order. With one chunk it
 // writes (or, `accumulate`, adds into) the outputs themselves; with more,
 // each chunk writes a partial and weight_reduce_kernel sums the partials of
-// an entry pairwise in a fixed order: no atomics, the same result on every
-// run, and no accumulator that runs over more than a chunk's rows.
+// an entry pairwise in a fixed order and writes (or adds) the sum: no
+// atomics, the same result on every run, and no accumulator that runs over
+// more than a chunk's rows.
 
 struct ExpertGemm {
   const float* a;   // A rows at a + r * lda, width wa; null: A = 1 (wa = 1)
@@ -533,7 +653,7 @@ struct ExpertGemms {
   ExpertGemm g[kMaxGemms];
   LevelBwd lists;            // all levels': row l of each list at l * its width
   int ep, np, num_experts, levels, levels_per_block;
-  int accumulate;            // one chunk only: 0 out = the sum; else out += the sum
+  int accumulate;            // one chunk only: 0 out = the sum, 1 out += the sum
   size_t chunk_stride;       // floats between two chunks' partials; 0 with one chunk
 };
 
@@ -635,11 +755,11 @@ __global__ void __launch_bounds__(kTileI * kTileC) expert_gemm_kernel(const Expe
   }
 }
 
-// out[x] = the sum over chunks of partial[chunk, x], pairwise: partials are
-// merged as the bits of a binary counter carry, so the tree is fixed by the
-// chunk count alone.
+// out[x] = the sum over chunks of partial[chunk, x], pairwise (with
+// `accumulate`, out[x] + that sum): partials are merged as the bits of a
+// binary counter carry, so the tree is fixed by the chunk count alone.
 __global__ void weight_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                     int total, int chunks) {
+                                     int total, int chunks, int accumulate) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= total) return;
   float stack[32];
@@ -651,7 +771,7 @@ __global__ void weight_reduce_kernel(const float* __restrict__ partial, float* _
   }
   float v = stack[--sp];
   while (sp > 0) v = stack[--sp] + v;
-  out[x] = v;
+  out[x] = accumulate ? out[x] + v : v;
 }
 
 ExpertGemm gemm(const float* a, int lda, int wa, const float* b, int ldb, int wb, int edges,
@@ -679,15 +799,16 @@ inline size_t weight_grad_floats(int D, int T) {
 // `accumulate` adds into them (every entry belongs to one thread of one
 // block, so calls on one stream add in call order). Else two launches: the
 // chunks' partials into `partial` [chunks, weight_grad_floats], then their
-// pairwise sums into `grads`; `accumulate` must then be false.
+// pairwise sums written into `grads` or, with `accumulate`, added. Adds one
+// to *launched for each kernel it enqueues, where `launched` is not null.
 cudaError_t launch_weight_grads(
     const float* res_e, const float* res_n, const float* d_pack, const float* dkv,
     const float* dg, const LevelBwd& lists, float* grads, float* partial,
     int levels, int levels_per_block, int ep, int np, int D, int T, bool accumulate,
-    cudaStream_t s) {
+    cudaStream_t s, int* launched = nullptr) {
   if (levels < 1) return cudaSuccess;
   const int chunks = (levels + levels_per_block - 1) / levels_per_block;
-  if (chunks > 1 && (accumulate || partial == nullptr)) return cudaErrorInvalidValue;
+  if (chunks > 1 && partial == nullptr) return cudaErrorInvalidValue;
   const size_t total = weight_grad_floats(D, T);
   float* base = chunks > 1 ? partial : grads;
   float* d_wkv = base;
@@ -702,7 +823,7 @@ cudaError_t launch_weight_grads(
   p.num_experts = T;
   p.levels = levels;
   p.levels_per_block = levels_per_block;
-  p.accumulate = accumulate ? 1 : 0;
+  p.accumulate = accumulate && chunks == 1 ? 1 : 0;
   p.chunk_stride = chunks > 1 ? total : 0;
   // d_wkv[:, k | v block of expert e] = hf_src^T (dk | dv)
   p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, 1, d_wkv, 2 * T * D, D);
@@ -720,10 +841,15 @@ cudaError_t launch_weight_grads(
   }
   expert_gemm_kernel<<<dim3(blocks, chunks), kTileI * kTileC, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return err;
+  if (err != cudaSuccess) return err;
+  if (launched) ++*launched;
+  if (chunks == 1) return cudaSuccess;
   const int n = static_cast<int>(total);
-  weight_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial, grads, n, chunks);
-  return cudaGetLastError();
+  weight_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial, grads, n, chunks,
+                                                       accumulate ? 1 : 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (launched) ++*launched;
+  return cudaSuccess;
 }
 
 }  // namespace

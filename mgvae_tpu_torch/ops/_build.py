@@ -109,8 +109,7 @@ def library() -> ctypes.CDLL:
     for name, pointers, ints in (("mgvae_level_lists", 10, 4),
                                  ("mgvae_level_scan_forward", 18, 5),
                                  ("mgvae_level_scan_backward", 22, 6),
-                                 ("mgvae_level_scan_giant_forward", 15, 5),
-                                 ("mgvae_level_scan_giant_backward", 26, 5),
+                                 ("mgvae_level_scan_giant_backward", 29, 6),
                                  ("mgvae_level_step_forward", 17, 4),
                                  ("mgvae_level_step_backward", 20, 4)):
         fn = getattr(lib, name)

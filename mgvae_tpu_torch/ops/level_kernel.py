@@ -17,13 +17,14 @@ forms that share one level's arithmetic:
     (``models/dg_ae.level_scan_step``) writes them into hf between calls;
   * the scan of one batch of any size that keeps no residuals, for giant
     single graphs and every plain batch too large for the fused route's size
-    gate: ``fused_level_scan_hbm`` is ``csrc/level_scan_giant.cu``,
-    ``fused_level_scan_hbm_bwd`` is ``csrc/level_scan_giant_bwd.cu``, and the
-    custom VJP ``pallas_level_scan_hbm`` is the autograd Function behind
+    gate: ``fused_level_scan_hbm`` is ``csrc/level_scan.cu``'s launch
+    without residuals, ``fused_level_scan_hbm_bwd`` is
+    ``csrc/level_scan_giant_bwd.cu``, and the custom VJP
+    ``pallas_level_scan_hbm`` is the autograd Function behind
     ``level_scan_giant``. Its forward saves hf alone and its backward
-    recomputes each level's intermediates from it, so training needs
-    O(N * D + Ep * D) working memory where the fused route's residuals need
-    O(L * Ep * D).
+    recomputes the levels' intermediates from it, K levels at a time
+    (``giant_chunk_levels``), so training needs O(N * D + K * Ep * D) working
+    memory where the fused route's residuals need O(L * Ep * D).
 
 Dispatch of ``level_scan``, ``level_step`` and ``level_scan_giant``, with no
 hidden fallback:
@@ -39,7 +40,8 @@ for the training forward) and ``level_scan_bwd_reference`` /
 ``level_step_bwd_reference`` are the plain versions of the first four
 kernels, ``level_scan_giant_reference`` (hf only) and
 ``level_scan_giant_bwd_reference`` (which recomputes from hf, as its kernel
-does) those of the giant route's, that the tests and ``chip_smoke.py`` hold
+does, and with ``chunk_levels`` in its kernel's order) those of the giant
+route's, that the tests and ``chip_smoke.py`` hold
 them against; ``_forward_cuda``, ``_backward_cuda``, ``_step_forward_cuda``,
 ``_step_backward_cuda``, ``_giant_forward_cuda`` and ``_giant_backward_cuda``
 are the kernels' wrappers (CUDA tensors only, arguments as the public
@@ -63,9 +65,12 @@ sweep, then the weight gradients' partials and, past
 ``LEVELS_PER_BLOCK`` levels, their sums: three per call) with
 ``bwd_levels_walked``, ``step_launches`` (one per ``level_step`` call),
 ``step_bwd_launches`` (three per backward of a ``level_step`` call: slots,
-sources, weight gradients), ``giant_launches`` (the giant forward: one per
-level) and ``giant_bwd_launches`` (the giant backward: four per level:
-recompute, slots, sources, the level's weight gradients).
+sources, weight gradients), ``giant_launches`` (the giant forward: one
+persistent launch per call) and ``giant_bwd_launches`` (the giant backward:
+per chunk of levels a recompute, a persistent sweep and the weight
+gradients' partials, and where the chunk has more than one level their
+sums, as the C entry counts them; ``giant_bwd_launch_count`` says how many
+that should be).
 
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
 hf_src | khf | v | attn per edge, res_n [L, Np, 4D] = msg | r | z | nw per
@@ -76,6 +81,7 @@ leave them unwritten.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -89,6 +95,13 @@ MAX_EXPERTS = 5
 # levels per block of the weight-gradient kernel: a chunk's rows are summed in
 # one accumulator, the chunks' partials pairwise. At most 32 chunks per call.
 LEVELS_PER_BLOCK = 4
+# The giant backward's chunks of levels (giant_chunk_levels): the scratch of
+# a chunk may take GIANT_SCRATCH_SHARE of the bytes the route holds anyway
+# (hf, ghf's working copy and d_pack_lv), or GIANT_SCRATCH_FLOOR bytes where
+# that is more. Within a chunk the weight gradients take a partial per level,
+# so that one chunk's few levels still fill the card.
+GIANT_SCRATCH_SHARE = 0.18
+GIANT_SCRATCH_FLOOR = 16 << 20
 
 lists_launches = 0
 launches = 0
@@ -360,22 +373,31 @@ def level_scan_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
 
 
 def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
-                   lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels: int):
+                   lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels: int, chunk_levels: int = 1):
     """The reverse sweep over levels with hf's cotangent ``ghf`` [N, D]
     carried back to the sources; ``residuals_of(lv)`` gives level lv's
-    (res_e, res_n). Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih,
-    d_bhh, d_wak); the pack's expert column gets no gradient."""
+    (res_e, res_n). The levels go from the top in chunks of
+    ``chunk_levels`` (``giant_chunks``): a chunk's residuals are all taken
+    first, then its levels swept, their weight gradients summed and the sum
+    added to the totals. Returns (d_pack [L, Ep, D+2], d_wkv,
+    d_wih, d_bih, d_bhh, d_wak); the pack's expert column gets no
+    gradient."""
     ghf = ghf.detach().clone()
     d_pack = torch.zeros_like(pack_lv)
     sums = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
-    for lv in reversed(range(num_levels)):
-        g = torch.where((lv_upd[lv] > 0)[:, None], ghf[lv_nodes[lv].long()], 0.0)
-        d_pack[lv], *grads, dhf_src = _level_backward(
-            g, *residuals_of(lv), pack_lv[lv], lv_dslot[lv].long(),
-            (lv_evalid[lv] > 0).to(ghf.dtype), lv_e_n[lv].long(), wkv_hf, w_ih, b_hh, wa_k)
-        for acc, x in zip(sums, grads):
+    for begin, end in giant_chunks(num_levels, chunk_levels):
+        residuals = [residuals_of(lv) for lv in range(begin, end)]
+        chunk = [torch.zeros_like(t) for t in sums]
+        for lv in reversed(range(begin, end)):
+            g = torch.where((lv_upd[lv] > 0)[:, None], ghf[lv_nodes[lv].long()], 0.0)
+            d_pack[lv], *grads, dhf_src = _level_backward(
+                g, *residuals[lv - begin], pack_lv[lv], lv_dslot[lv].long(),
+                (lv_evalid[lv] > 0).to(ghf.dtype), lv_e_n[lv].long(), wkv_hf, w_ih, b_hh, wa_k)
+            for acc, x in zip(chunk, grads):
+                acc += x
+            ghf.index_add_(0, lv_src[lv].long(), dhf_src)
+        for acc, x in zip(sums, chunk):
             acc += x
-        ghf.index_add_(0, lv_src[lv].long(), dhf_src)
     return (d_pack, *sums)
 
 
@@ -401,12 +423,14 @@ def level_scan_giant_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, l
 
 def level_scan_giant_bwd_reference(ghf, hf, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes,
                                    lv_upd, lv_e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k,
-                                   num_levels: int):
+                                   num_levels: int, chunk_levels: int | None = None):
     """The giant backward's math: the reverse sweep with each level's
     residuals recomputed from the forward's final hf [N, D] (exact: a
     level's sources all lie at lower levels, and with one round their rows
-    are final before it runs). Returns (d_pack [L, Ep, D+2], d_wkv, d_wih,
-    d_bih, d_bhh, d_wak)."""
+    are final before it runs). ``chunk_levels`` None: a level at a time;
+    K: in the kernel's order, the levels from the top in chunks of K, each
+    chunk recomputed, swept, and its weight gradients summed and added.
+    Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh, d_wak)."""
     def recompute(lv):
         with torch.no_grad():
             _, res_e, res_n = _level_forward(
@@ -415,7 +439,50 @@ def level_scan_giant_bwd_reference(ghf, hf, pack_lv, lv_src, lv_dslot, lv_evalid
         return res_e, res_n
 
     return _reverse_sweep(ghf, recompute, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes,
-                          lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels)
+                          lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels,
+                          chunk_levels or 1)
+
+
+def giant_chunks(num_levels: int, chunk_levels: int) -> list[tuple[int, int]]:
+    """The giant backward's chunks of levels [0, num_levels) as (begin, end),
+    in the order it takes them: from the top, ``chunk_levels`` levels each,
+    the last (lowest) chunk ragged."""
+    if chunk_levels < 1:
+        raise ValueError(f"chunk_levels must be >= 1, got {chunk_levels}")
+    return [(max(top - chunk_levels, 0), top)
+            for top in range(num_levels, 0, -chunk_levels)]
+
+
+def _giant_scratch_floats(ep: int, np_: int, dim: int, num_experts: int):
+    """(floats per level of a chunk, floats per chunk whatever its size) of
+    the giant backward's scratch: per level res_e, res_n, dkv, dg, score_buf,
+    v_buf and a weight-gradient partial; per chunk dhf_buf."""
+    partial = num_experts * dim * (5 * dim + 7)
+    return ep * (6 * dim + 2) + np_ * 10 * dim + partial, ep * dim
+
+
+def giant_chunk_levels(ep: int, np_: int, dim: int, levels: int, num_nodes: int,
+                       num_experts: int = MAX_EXPERTS) -> int:
+    """K, the levels per chunk of the giant backward, for level tables of
+    ``levels`` levels [levels, Ep] / [levels, Np], D = ``dim``, N =
+    ``num_nodes``: as many as the scratch budget allows, at least 1, at most
+    ``levels``. The budget is GIANT_SCRATCH_SHARE of the bytes the route
+    holds anyway (hf and ghf's working copy, 2 N D floats, and d_pack_lv,
+    L Ep (D+2)), at least GIANT_SCRATCH_FLOOR, so that the route's working
+    memory stays within a fixed share above what it holds anyway
+    (``chip_smoke.py`` phase 17 allows 1.25 x those bytes)."""
+    per_level, fixed = _giant_scratch_floats(ep, np_, dim, num_experts)
+    held = 4 * (2 * num_nodes * dim + levels * ep * (dim + 2))
+    budget = max(GIANT_SCRATCH_FLOOR, GIANT_SCRATCH_SHARE * held)
+    return int(max(1, min(levels, (budget / 4 - fixed) // per_level)))
+
+
+def giant_bwd_launch_count(num_levels: int, chunk_levels: int) -> int:
+    """The giant backward's launches for ``num_levels`` real levels in
+    chunks of ``chunk_levels``: per chunk a recompute, a sweep and the
+    weight-gradient partials, a partial per level, and their sums where the
+    chunk has more than one level."""
+    return sum(3 + (end - begin > 1) for begin, end in giant_chunks(num_levels, chunk_levels))
 
 
 def level_step_reference(hf, pack, src, dslot, evalid, upd, e_n,
@@ -543,11 +610,12 @@ def _check_prepared(op: str, args, lists, packed) -> None:
 def _scratch(dev, *floats: int):
     """Float scratch areas of the given sizes in one allocation: (the buffer,
     to be held until the launch is enqueued, and each area's device
-    pointer). One allocation where a route makes a call per level and the
-    host is what it waits for."""
-    buf = torch.empty((sum(floats),), dtype=torch.float32, device=dev)
+    pointer, 256-byte aligned). One allocation where a route makes a call
+    per level and the host is what it waits for."""
+    sizes = [-(-n // 64) * 64 for n in floats]
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     ptrs, at = [], buf.data_ptr()
-    for n in floats:
+    for n in sizes:
         ptrs.append(at)
         at += 4 * n
     return buf, ptrs
@@ -561,9 +629,11 @@ def _weight_grads(flat: torch.Tensor, D: int, T: int):
     return tuple(x.view(shape) for x, shape in zip(flat.split(sizes), shapes))
 
 
-def _forward_cuda(args, num_nodes: int, num_levels: int, residuals: bool,
-                  lists: LevelLists | None = None, packed=None):
-    global launches, levels_walked
+def _launch_forward(args, num_nodes: int, num_levels: int, residuals: bool,
+                    lists: LevelLists | None, packed, what: str):
+    """The fused forward's persistent launch (``csrc/level_scan.cu``), which
+    walks all real levels: (hf, res_e, res_n), the residuals None without
+    ``residuals``. It launches where ``num_levels`` > 0."""
     pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
     L, ep, _ = pack_lv.shape
     np_ = lv_nodes.shape[1]
@@ -573,21 +643,29 @@ def _forward_cuda(args, num_nodes: int, num_levels: int, residuals: bool,
     lists, packed = _prepared(args, lists, packed)
     f32 = dict(dtype=torch.float32, device=dev)
     hf = torch.zeros((num_nodes, D), **f32)
-    score_buf = torch.empty((ep,), **f32)
-    v_buf = torch.empty((ep, D), **f32)
     res_e = torch.empty((L, ep, 3 * D + 1), **f32) if residuals else None
     res_n = torch.empty((L, np_, 4 * D), **f32) if residuals else None
     if num_levels > 0:
+        held, scratch = _scratch(dev, ep, ep * D)              # score_buf, v_buf
         barrier = torch.empty((1,), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             code = lib.mgvae_level_scan_forward(
                 *(t.data_ptr() for t in (pack_lv, lv_src, lv_nodes, *lists[:4], *packed[:2],
-                                         b_ih, b_hh, wa_k, hf, score_buf, v_buf)),
+                                         b_ih, b_hh, wa_k, hf)), *scratch,
                 res_e.data_ptr() if residuals else None,
                 res_n.data_ptr() if residuals else None, barrier.data_ptr(),
                 num_levels, ep, np_, D, T, stream)
-        _build.check(lib, code, "level_scan kernel launch")
+        _build.check(lib, code, f"{what} kernel launch")
+    return hf, res_e, res_n
+
+
+def _forward_cuda(args, num_nodes: int, num_levels: int, residuals: bool,
+                  lists: LevelLists | None = None, packed=None):
+    global launches, levels_walked
+    hf, res_e, res_n = _launch_forward(args, num_nodes, num_levels, residuals, lists, packed,
+                                       "level_scan")
+    if num_levels > 0:
         launches += 1
         levels_walked += num_levels
     return (hf, res_e, res_n) if residuals else hf
@@ -678,60 +756,60 @@ class _LevelScanGiant(torch.autograd.Function):
 
 def _giant_forward_cuda(args, num_nodes: int, num_levels: int,
                         lists: LevelLists | None = None, packed=None) -> torch.Tensor:
+    """The fused forward's persistent launch without residuals: one launch
+    walks all real levels."""
     global giant_launches
-    pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
-    ep, np_ = pack_lv.shape[1], lv_nodes.shape[1]
-    D, T = _kernel_dims(pack_lv, wa_k)
-    dev = pack_lv.device
-    lib = _build.library()
-    lists, packed = _prepared(args, lists, packed)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hf = torch.zeros((num_nodes, D), **f32)
-    score_buf = torch.empty((ep,), **f32)
-    v_buf = torch.empty((ep, D), **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.mgvae_level_scan_giant_forward(
-            *(t.data_ptr() for t in (pack_lv, lv_src, lv_nodes, *lists[:4], *packed[:2], b_ih,
-                                     b_hh, wa_k, hf, score_buf, v_buf)),
-            num_levels, ep, np_, D, T, stream)
-    _build.check(lib, code, "level_scan_giant kernel launch")
-    giant_launches += num_levels
+    hf, _, _ = _launch_forward(args, num_nodes, num_levels, False, lists, packed,
+                               "level_scan_giant")
+    if num_levels > 0:
+        giant_launches += 1
     return hf
 
 
 def _giant_backward_cuda(ghf, hf, args, num_levels: int,
-                         lists: LevelLists | None = None, packed=None):
+                         lists: LevelLists | None = None, packed=None,
+                         chunk_levels: int | None = None):
     """Apart from its outputs (d_pack_lv is the only float buffer with a
-    leading L axis) the working memory is ghf's copy and one level's
-    scratch."""
+    leading L axis) the working memory is ghf's copy and the scratch of one
+    chunk of K levels: ``chunk_levels``, or by default
+    ``giant_chunk_levels``."""
     global giant_bwd_launches
     pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
-    ep, np_ = pack_lv.shape[1], lv_nodes.shape[1]
+    L, ep, _ = pack_lv.shape
+    np_ = lv_nodes.shape[1]
     D, T = _kernel_dims(pack_lv, wa_k)
     dev = pack_lv.device
     lib = _build.library()
     lists, packed = _prepared(args, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
+    d_pack = torch.zeros_like(pack_lv)
+    n_grad = T * D * (5 * D + 7)
+    # the weight gradients are added into, chunk by chunk
+    grads = torch.zeros((n_grad,), **f32)
+    if num_levels == 0:
+        return (d_pack, *_weight_grads(grads, D, T))
+    K = chunk_levels or giant_chunk_levels(ep, np_, D, L, hf.shape[0], T)
+    K = min(K, num_levels)
     # a contiguous working copy: autograd may hand over an expanded or shared
     # cotangent, and the kernel adds the sources' gradients into it
     g = torch.empty((hf.shape[0], D), **f32)
     g.copy_(ghf)
-    d_pack = torch.zeros_like(pack_lv)
-    # one level's recomputed residuals and scratch; the kernels visit live rows only
-    scratch = [torch.empty(shape, **f32) for shape in (
-        (ep, 3 * D + 1), (np_, 4 * D), (ep, 2 * D), (np_, 6 * D),   # res_e, res_n, dkv, dg
-        (ep,), (ep, D), (ep, D))]                                   # score_buf, v_buf, dhf_buf
-    # the weight gradients are added into, level by level
-    grads = torch.zeros((T * D * (5 * D + 7),), **f32)
+    # K levels' recomputed residuals and scratch; the kernels visit live rows only
+    held, scratch = _scratch(
+        dev, K * ep * (3 * D + 1), K * np_ * 4 * D, K * ep * 2 * D, K * np_ * 6 * D,
+        K * ep, K * ep * D, ep * D,          # res_e, res_n, dkv, dg, score_buf, v_buf, dhf_buf
+        K * n_grad if K > 1 else 1)                               # partial
+    barrier = torch.empty((1,), dtype=torch.int32, device=dev)
+    launched = ctypes.c_int(0)             # the kernels the C entry enqueued
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_scan_giant_backward(
             *(t.data_ptr() for t in (g, hf, pack_lv, lv_src, lv_nodes, *lists, *packed, b_ih,
-                                     b_hh, wa_k, d_pack, *scratch, grads)),
-            num_levels, ep, np_, D, T, stream)
+                                     b_hh, wa_k, d_pack)), *scratch[:7], grads.data_ptr(),
+            scratch[7], barrier.data_ptr(), ctypes.addressof(launched), num_levels, K, ep, np_,
+            D, T, stream)
     _build.check(lib, code, "level_scan_giant_bwd kernel launch")
-    giant_bwd_launches += 4 * num_levels
+    giant_bwd_launches += launched.value
     return (d_pack, *_weight_grads(grads, D, T))
 
 

@@ -363,8 +363,9 @@ def test_step_kernels_match_plain_versions_on_card(cuda, modality, dim):
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
 def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
     """Kernels 3 and 4 on a small layered circuit whose shape takes the giant
-    route (N > 8192): forward against the plain scan, backward (recomputed
-    from hf) against the plain recompute and against the residual route's
+    route (N > 8192): forward (one persistent launch) against the plain
+    scan, backward (recomputed from hf, in chunks of the default K) against
+    the plain recompute in its order and against the residual route's
     kernel, twice for bitwise repeatability, and through autograd."""
     cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=1, t_rounds=1,
                          layernorm=True)
@@ -378,10 +379,13 @@ def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
         args = [a.detach().clone() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
     N, L = hs.shape[0], args[0].shape[0]
     assert not level_kernel.kernel_fits(N, args[0].shape[1], args[4].shape[1], dim)
+    k = min(level_kernel.giant_chunk_levels(args[0].shape[1], args[4].shape[1], dim, L, N,
+                                            cfg.num_experts), n_lv)
+    bwd_launches = level_kernel.giant_bwd_launch_count(n_lv, k)
     level_kernel.giant_launches = level_kernel.giant_bwd_launches = level_kernel.launches = 0
     hf_k = level_kernel.level_scan_giant(*args, num_nodes=N, num_levels=n_lv)
     torch.cuda.synchronize()
-    assert (level_kernel.giant_launches, level_kernel.launches) == (n_lv, 0)
+    assert (level_kernel.giant_launches, level_kernel.launches) == (1, 0)
     hf_r = level_kernel.level_scan_giant_reference(*args, num_nodes=N, num_levels=n_lv)
     assert hf_r.abs().max().item() > 0
     # fp32, TF32 off: only the order of sums differs
@@ -389,10 +393,11 @@ def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
     ghf = torch.randn(hf_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
     raw = [level_kernel._giant_backward_cuda(ghf, hf_k, tuple(args), n_lv) for _ in range(2)]
     torch.cuda.synchronize()
-    assert level_kernel.giant_bwd_launches == 2 * 4 * n_lv
+    assert level_kernel.giant_bwd_launches == 2 * bwd_launches
     assert all(torch.equal(a, c) for a, c in zip(*raw))              # no atomics
     assert n_lv == L or (raw[0][0][n_lv:] == 0).all()                # padding levels
-    grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv)
+    grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv,
+                                                          chunk_levels=k)
     _, res_e, res_n = level_kernel._forward_cuda(args, N, n_lv, residuals=True)
     grads_2 = level_kernel._backward_cuda(ghf, res_e, res_n, tuple(args), n_lv)
     for k, r, k2 in zip(raw[0], grads_r, grads_2):
@@ -404,7 +409,7 @@ def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
     hf = level_kernel.level_scan_giant(*t, num_nodes=N, num_levels=n_lv)
     auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
     torch.cuda.synchronize()
-    assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (n_lv, 4 * n_lv)
+    assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (1, bwd_launches)
     assert torch.equal(hf, hf_k)
     for a, k in zip(auto, raw[0]):
         torch.testing.assert_close(a, k, rtol=0, atol=0)
@@ -430,7 +435,12 @@ def test_giant_train_step_on_card_matches_cpu_with_and_without_remat(cuda):
     level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
     m_g, g_g = _one_step(cfg, batch, cuda, neg, keep, weights=smooth)
     n_lv = dg_ae.num_levels(batch)
-    assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (n_lv, 4 * n_lv)
+    k = min(level_kernel.giant_chunk_levels(batch["lv_edge_src"].shape[-1],
+                                            batch["lv_nodes"].shape[-1], 64,
+                                            batch["lv_nodes"].shape[0], n_pad, cfg.num_experts),
+            n_lv)
+    assert (level_kernel.giant_launches, level_kernel.giant_bwd_launches) == (
+        1, level_kernel.giant_bwd_launch_count(n_lv, k))
     assert (level_kernel.launches, level_kernel.bwd_launches) == (0, 0)
     assert (struct_kernel.launches, struct_kernel.bwd_launches) == (4, STRUCT_BWD_LAUNCHES)
     struct_kernel.launches = struct_kernel.bwd_launches = 0
@@ -448,6 +458,47 @@ def test_giant_train_step_on_card_matches_cpu_with_and_without_remat(cuda):
             continue
         assert (a - c).abs().max().item() <= 1e-4 * max(c.abs().max().item(), GRAD_FLOOR * scale)
         assert torch.equal(a, r)            # the struct kernels are bitwise deterministic
+
+
+@pytest.mark.parametrize("dim,experts", [(32, 3), (40, 4), (64, 5), (96, 3), (128, 4)])
+def test_giant_kernels_by_chunks_on_random_tables_on_card(cuda, dim, experts):
+    """Kernel 3 (one persistent launch) and kernel 4 in chunks of K = 1, a
+    ragged K (2: chunks of 2, 2 and 1 of the 5 real levels) and K >= L on the
+    tables of tests/test_torch_level_lists.py (a source shared by several
+    slots, slots with 0 and with 40 in-edges, a level with no updated slot, a
+    padding level): kernel 3 equal to kernel 1 bit for bit and repeatable;
+    kernel 4 against the plain version in its own chunk order within
+    1e-4 * max(scale, 1) and against kernel 2 from saved residuals within
+    1e-5 * max(scale, 1), bitwise repeatable, with the launches
+    ``giant_bwd_launch_count`` gives."""
+    from test_torch_level_lists import L, REAL, random_tables
+
+    cpu_args, n = random_tables(7, dim, experts)
+    args = tuple(a.to(cuda) for a in cpu_args)
+    level_kernel.giant_launches = 0
+    hf = [level_kernel._giant_forward_cuda(args, n, REAL) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert level_kernel.giant_launches == 2
+    hf_1, re_1, rn_1 = level_kernel._forward_cuda(args, n, REAL, residuals=True)
+    assert torch.equal(hf[0], hf[1]) and torch.equal(hf[0], hf_1)
+    ghf = torch.randn(hf_1.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    grads_2 = level_kernel._backward_cuda(ghf, re_1, rn_1, args, REAL)
+    for k in (1, 2, L + 2):
+        level_kernel.giant_bwd_launches = 0
+        raw = [level_kernel._giant_backward_cuda(ghf, hf_1, args, REAL, chunk_levels=k)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        assert level_kernel.giant_bwd_launches == 2 * level_kernel.giant_bwd_launch_count(
+            REAL, min(k, REAL))
+        assert all(torch.equal(a, c) for a, c in zip(*raw))          # no atomics
+        assert (raw[0][0][REAL:] == 0).all()                         # the padding level
+        grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_1, *args, num_levels=REAL,
+                                                              chunk_levels=k)
+        for a, r, a2 in zip(raw[0], grads_r, grads_2):
+            scale = max(r.abs().max().item(), 1.0)
+            assert r.abs().max().item() > 0
+            assert (a - r).abs().max().item() <= 1e-4 * scale
+            assert (a - a2).abs().max().item() <= 1e-5 * scale       # recomputed vs saved
 
 
 @pytest.mark.parametrize("dim,experts", [(32, 4), (64, 5), (128, 4), (128, 5), (96, 5), (64, 4)])
