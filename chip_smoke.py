@@ -65,7 +65,14 @@ Phases (any failure raises and the script exits nonzero):
      (h_new, res_e, res_n: max |d| <= 1e-4) and its backward against
      level_step_bwd_reference on the same residuals and a fixed random
      cotangent (each of the seven outputs, d_hf included, within
-     1e-4 * max(scale, 1)).
+     1e-4 * max(scale, 1)); then the whole step route (one launch per level
+     index for both chunks, the scatter inside the kernel; its backward on
+     a carried ghf in blocks of K level indices, step_chunk_levels) against
+     level_scan_step_reference / level_scan_step_bwd_reference in the same
+     block order: hf and the residuals within 1e-4, each backward output
+     within 1e-4 * max(scale, 1), d_pack 0 on the rows not walked, two runs
+     bit for bit the same, hf equal bit for bit to the route's serving
+     launch and to the per-row loop of single-level calls.
  11. bs64 encode: Model.forward(list of 64 MIG circuits), which collates
      with collate_fit (C and the per-chunk dims are printed): struct
      launches 2 * s_rounds, one level-scan launch per chunk which together
@@ -74,22 +81,29 @@ Phases (any failure raises and the script exits nonzero):
  12. step route: the forward and 5 train steps (lr 1e-3, fixed negatives
      and dropout masks, so that the loss must fall) on the MIG
      collate_chunked(graphs, 2) batch: per step, step launches equal to the
-     real (chunk, level) rows and step backward launches to three times
-     that (slots, sources, weight gradients), no fused level launch; losses
+     level indices (max real levels) and step backward launches to
+     step_route_launch_count(real levels, K) (per level index a slot and a
+     source launch, per block of K level indices and chunk the weight
+     gradients), no fused level launch; losses
      finite and falling; one step card vs CPU as in phase 7, without the
      prob loss (see SMOOTH_WEIGHTS), and beside it the prob loss alone card
      vs CPU with the units of its readout that lie within rounding of a kink
      masked on both sides (the readout's pre-activations and the gradients
-     of every leaf).
+     of every leaf). Then the peak device memory of the level recurrence
+     alone (forward and backward) on the route and by the per-row loop of
+     single-level calls: the route's must stay within 1.25 x (stacked
+     residuals + hf + ghf's copy + d_pack_lv).
  13. split batch: the same on collate_split(graphs, 4): per step, struct
      launches 2 * s_rounds per group forward and 4 * s_rounds + 1 backward,
      one level-scan launch per group forward and three backward, which walk
      the groups' real levels.
- 14. timing (informational): by CUDA events the step kernel (with and
-     without residuals) and its backward against their plain versions on
-     the widest level of the phase-12 batch; median wall time of one bs64
-     MIG train step by its three layouts (collate_fit's chunks on the fused
-     route, two chunks on the step route, four split groups), in turns.
+ 14. timing (informational): by CUDA events the single-level step kernel
+     (with and without residuals) and its backward against their plain
+     versions on the widest level of the phase-12 batch; the route's
+     forward with residuals and its backward on the whole batch against the
+     plain route; median wall time of one bs64 MIG train step by its three
+     layouts (collate_fit's chunks on the fused route, two chunks on the
+     step route, four split groups), in turns.
 
  15. giant kernels vs plain: one layered circuit of width 512 collated alone
      (MIG at depth 200: the giant example's circuit, N = 114,688 padded;
@@ -135,9 +149,10 @@ Phases (any failure raises and the script exits nonzero):
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
-towers and level scan with residuals, the two backwards, the step kernel and
-its backward, and the giant forward and backward; each with its launches on
-its main path, its
+towers and level scan with residuals, the two backwards, the step route's
+forward and backward (its passes over the bs64 two-chunk batch, with the
+launches of one pass beside), and the giant forward and backward; each with
+its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s, computed from this run's
 inputs, with both terms as bytes_ms and operations_ms), the nvidia-smi line, and as the last line
@@ -1003,7 +1018,7 @@ def main() -> int:
 
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
     step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")
-    step_err = step_bwd_err = 0.0
+    step_err = step_bwd_err = route_err = route_bwd_err = 0.0
     for i, mod in enumerate(MODALITIES):
         cfg_m = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
                                layernorm=True)
@@ -1015,10 +1030,11 @@ def main() -> int:
             hs = dg_ae.struct_hs(params_m, b, cfg_m)
             args = dg_ae.level_scan_inputs(params_m, b, cfg_m, hs)
             n_sub, L = hs.shape[0] // CHUNKS, args[0].shape[0] // CHUNKS
-            hf = dg_ae.level_scan_step(args, counts, n_sub)
+            hf = dg_ae.level_scan_step(args, counts, n_sub)      # the route's serving launch
             g = torch.randn((args[4].shape[1], DIM), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(SEED + 7))
             fwd_w, bwd_w, bwd_rep = [0.0, 0.0, 0.0], 0.0, ""
+            # the single-level kernels, level by level on the route's hf
             for k in range(CHUNKS):
                 hf_c = hf.narrow(0, k * n_sub, n_sub)
                 for lv in range(counts[k]):
@@ -1037,16 +1053,56 @@ def main() -> int:
                     report, worst = held(mod, step_names, grads_k, grads_r)
                     if worst >= bwd_w:
                         bwd_w, bwd_rep = worst, report
+            # the whole route, forward with residuals and backward (K level
+            # indices a block, step_chunk_levels), twice, against the plain route
+            prep = level_kernel._prepared(args, backward=True)
+            runs = [level_kernel._step_route_forward_cuda(args, counts, n_sub, True, *prep)
+                    for _ in range(2)]
+            hf_k, re_k, rn_k = runs[0]
+            written = [written_rows(args[2], args[3], args[5], 2 * L, r[1], r[2]) for r in runs]
+            out_r = level_kernel.level_scan_step_reference(*args, counts, n_sub,
+                                                           with_residuals=True)
+            hf_loop = dg_ae.level_step_loop(args, counts, n_sub)
+            ghf = torch.randn(hf_k.shape, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 8))
+            K = min(level_kernel.step_chunk_levels(args[0].shape[1], args[4].shape[1], DIM, L,
+                                                   CHUNKS, hs.shape[0], cfg_m.num_experts),
+                    max(counts))
+            graw = [level_kernel._step_route_backward_cuda(ghf, re_k, rn_k, args, counts, n_sub,
+                                                           *prep) for _ in range(2)]
+            grads_r = level_kernel.level_scan_step_bwd_reference(
+                ghf, *written[0], *args[:9], args[10], args[11], counts, n_sub, chunk_levels=K)
         sync()
+        route_w = [(x - r).abs().max().item()
+                   for x, r in zip((hf_k, *written[0]), out_r)]
+        route_rep, route_worst = held(mod, step_names[:6], graw[0], grads_r)
+        same = (torch.equal(runs[0][0], runs[1][0]) and torch.equal(written[0][0], written[1][0])
+                and torch.equal(written[0][1], written[1][1])
+                and all(torch.equal(a, c) for a, c in zip(*graw)))
+        unwalked_zero = all((graw[0][0].view(CHUNKS, L, -1)[k, n:] == 0).all()
+                            for k, n in enumerate(counts))
         n_rows = sum(counts)
         log(f"[step] {mod}: {N_CIRCUITS} circuits in {CHUNKS} chunks, N_sub={n_sub} L={L} "
             f"real levels {counts} Np={args[4].shape[1]} Ep={args[0].shape[1]}; over {n_rows} "
             f"levels: step forward max|d| h_new/res_e/res_n = {fwd_w[0]:.3e}/{fwd_w[1]:.3e}/"
             f"{fwd_w[2]:.3e}; step backward, worst level, max|d|/scale: {bwd_rep}")
+        log(f"[step] {mod}: the route (one launch per level index for both chunks, K = {K} "
+            f"level indices a backward block) against the plain route: forward max|d| "
+            f"hf/res_e/res_n = {route_w[0]:.3e}/{route_w[1]:.3e}/{route_w[2]:.3e}; backward "
+            f"max|d|/scale: {route_rep}; two runs bit for bit the same: {same}; hf equal to "
+            f"its serving launch's and to the per-row loop's (single-level kernels) bit for "
+            f"bit: {torch.equal(hf_k, hf)}/{torch.equal(hf_k, hf_loop)}")
         if not max(fwd_w) <= KERNEL_TOL:
             raise RuntimeError(f"[step] {mod}: step kernel disagrees with plain version: "
                                f"{fwd_w} (tol {KERNEL_TOL})")
+        if not (max(route_w) <= KERNEL_TOL and same and unwalked_zero and torch.equal(hf_k, hf)
+                and torch.equal(hf_k, hf_loop)):
+            raise RuntimeError(f"[step] {mod}: the route disagrees with its plain version "
+                               f"({route_w}, tol {KERNEL_TOL}), is not repeatable ({same}), "
+                               f"wrote d_pack rows it does not walk ({not unwalked_zero}) or "
+                               f"differs from its serving launch or the per-row loop")
         step_err, step_bwd_err = max(step_err, *fwd_w), max(step_bwd_err, bwd_w)
+        route_err, route_bwd_err = max(route_err, *route_w), max(route_bwd_err, route_worst)
 
     # ---- 11. bs64 encode: Model.forward(list) through collate_fit ----------
     cfg = model.cfg
@@ -1149,12 +1205,58 @@ def main() -> int:
     d_hf = (hf_s[inv.to(dev)][:total_nodes] - hf_g).abs().max().item()
     log(f"[step64] forward: launches {got}; max|dhf| against the bs64 encode (fused route, "
         f"C={C_fit}) = {d_hf:.3e}")
-    if got != (2 * ROUNDS, 0, 0, 0, sum(ch_levels), 0, 0, 0, 0, 0) or not d_hf <= KERNEL_TOL:
+    if got != (2 * ROUNDS, 0, 0, 0, max(ch_levels), 0, 0, 0, 0, 0) or not d_hf <= KERNEL_TOL:
         raise RuntimeError(f"[step64] forward: launches {got} != step launches "
-                           f"{sum(ch_levels)} alone, or the routes disagree ({d_hf})")
-    n_rows = sum(ch_levels)
+                           f"{max(ch_levels)} (one per level index) alone, or the routes "
+                           f"disagree ({d_hf})")
+    L64 = chunked["lv_nodes"].shape[1]
+    step_K = min(level_kernel.step_chunk_levels(ep, np_, DIM, L64, CHUNKS, CHUNKS * n_sub,
+                                                cfg.num_experts), max(ch_levels))
+    step_fwd_want = max(ch_levels)
+    step_bwd_want = level_kernel.step_route_launch_count(ch_levels, step_K)
+    log(f"[step64] per pass the route launches {step_fwd_want} forward (one per level index) "
+        f"and {step_bwd_want} backward (K = {step_K} level indices a block: "
+        f"step_route_launch_count), against {sum(ch_levels)} and {3 * sum(ch_levels)} by a call "
+        f"per (chunk, level)")
     step_totals = train_large(
-        "step64", chunked, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, n_rows, 3 * n_rows, 0, 0, 0, 0))
+        "step64", chunked, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, step_fwd_want, step_bwd_want, 0, 0,
+                            0, 0))
+
+    # the level recurrence alone on the step route: forward and backward
+    # through its autograd Function, and by the per-row loop of single-level
+    # calls (the route's earlier structure), peak above what is held before
+    b = dg_ae.batch_to_device(chunked, dev)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(model.params, b, cfg)
+        step_args = [a.detach().clone()
+                     for a in dg_ae.level_scan_inputs(model.params, b, cfg, hs)]
+    route_ghf = torch.randn(hs.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 10))
+
+    def route_alone_peak(route):
+        t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS)
+             for i, a in enumerate(step_args)]
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hf = route(tuple(t), ch_levels, n_sub, *dg_ae.kernel_inputs(tuple(t)))
+        torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], route_ghf)
+        sync()
+        return torch.cuda.max_memory_allocated() - base
+
+    peak_route = route_alone_peak(dg_ae.level_scan_step)
+    peak_loop = route_alone_peak(dg_ae.level_step_loop)
+    # the stacked residuals, hf, ghf's working copy and d_pack_lv
+    rows64 = step_args[0].shape[0]
+    route_law = (4 * rows64 * (ep * (3 * DIM + 1) + np_ * 4 * DIM) + 2 * hs.numel() * 4
+                 + nbytes(step_args[0]))
+    log(f"[step64] level recurrence alone (forward and backward), peak above what is held "
+        f"before: the route {peak_route / 2**20:.2f} MiB, the per-row loop of single-level "
+        f"calls {peak_loop / 2**20:.2f} MiB; stacked residuals + hf + ghf's copy + d_pack_lv = "
+        f"{route_law / 2**20:.2f} MiB (the route's ratio {peak_route / route_law:.3f}, limit "
+        f"1.25); {card}")
+    if not peak_route <= 1.25 * route_law:
+        raise RuntimeError("[step64] the route's working memory passes 1.25 x what it holds")
 
     split = collate_split(graphs, GROUPS)
     sp_levels = [c[0] for c in dg_ae.level_counts(split)]
@@ -1167,17 +1269,15 @@ def main() -> int:
         sum(sp_levels), sum(sp_levels)), prob_check=False)
 
     # ---- 14. timing (informational) ----------------------------------------
-    b = dg_ae.batch_to_device(chunked, dev)
+    args = step_args
     with torch.no_grad():
-        hs = dg_ae.struct_hs(model.params, b, cfg)
-        args = [a.detach().clone() for a in dg_ae.level_scan_inputs(model.params, b, cfg, hs)]
         hf = dg_ae.level_scan_step(args, ch_levels, n_sub)
     L = args[0].shape[0] // CHUNKS
     wide = max(range(ch_levels[0]), key=lambda lv: int(args[3][lv].sum()))   # chunk 0's widest
     sa = [hf[:n_sub].clone(), *(args[j][wide].clone() for j in (0, 1, 2, 3, 5, 6)), *args[7:]]
     reps = 50
     with torch.no_grad():
-        # as on the step route: the lists and the weights' copies are built once per batch
+        # as on the route: the lists and the weights' copies are built once per batch
         prep = level_kernel._prepared(sa[1:], backward=True)
         kern = lambda: level_kernel._step_forward_cuda(sa, False, *prep)
         rkern = lambda: level_kernel._step_forward_cuda(sa, True, *prep)
@@ -1204,17 +1304,56 @@ def main() -> int:
         bplain()
     sb_p1, sb_k1 = event_ms(torch, bplain, reps), event_ms(torch, bkern, reps)
     sb_k2, sb_p2 = event_ms(torch, bkern, reps), event_ms(torch, bplain, reps)
-    sr_k, sr_p = (sr_k1 + sr_k2) / 2, (sr_p1 + sr_p2) / 2
-    sb_k, sb_p = (sb_k1 + sb_k2) / 2, (sb_p1 + sb_p2) / 2
-    bounds.update(level_step=step_bound(sa, True), level_step_bwd=step_bound(sa, True, True))
     log(f"[time] card: {card}")
     log(f"[time] level step alone, level {wide} of chunk 0 ({int(sa[4].sum())} edges, "
         f"{int(sa[5].sum())} slots of Ep={sa[1].shape[0]} Np={sa[5].shape[0]}, N_sub={n_sub}), "
         f"CUDA events over {reps} calls: kernel {st_k1:.4f}/{st_k2:.4f} ms, plain "
         f"{st_p1:.4f}/{st_p2:.4f} ms; with residuals: kernel {sr_k1:.4f}/{sr_k2:.4f} ms, plain "
-        f"{sr_p1:.4f}/{sr_p2:.4f} ms")
+        f"{sr_p1:.4f}/{sr_p2:.4f} ms; bound {step_bound(sa, True)['bound_ms']:.5f} ms")
     log(f"[time] level step backward alone, the same level: kernel {sb_k1:.4f}/{sb_k2:.4f} ms, "
-        f"autograd through the plain version {sb_p1:.4f}/{sb_p2:.4f} ms")
+        f"autograd through the plain version {sb_p1:.4f}/{sb_p2:.4f} ms; bound "
+        f"{step_bound(sa, True, True)['bound_ms']:.5f} ms")
+    # the route's passes on the whole two-chunk batch, lists and weight copies
+    # built before (as level_recurrence hands them over), kernel vs plain in turns
+    with torch.no_grad():
+        prep = level_kernel._prepared(args, backward=True)
+        rfwd = lambda: level_kernel._step_route_forward_cuda(args, ch_levels, n_sub, True, *prep)
+        rplain = lambda: level_kernel.level_scan_step_reference(*args, ch_levels, n_sub,
+                                                                with_residuals=True)
+        _, re_r, rn_r = rfwd()
+        rbwd = lambda: level_kernel._step_route_backward_cuda(route_ghf, re_r, rn_r, args,
+                                                              ch_levels, n_sub, *prep)
+        rbplain = lambda: level_kernel.level_scan_step_bwd_reference(
+            route_ghf, re_r, rn_r, *args[:9], args[10], args[11], ch_levels, n_sub,
+            chunk_levels=step_K)
+        for f in (rfwd, rplain, rbwd, rbplain):
+            f()
+        rr, pr = 20, 2
+        rf_p1, rf_k1 = event_ms(torch, rplain, pr), event_ms(torch, rfwd, rr)
+        rf_k2, rf_p2 = event_ms(torch, rfwd, rr), event_ms(torch, rplain, pr)
+        rb_p1, rb_k1 = event_ms(torch, rbplain, pr), event_ms(torch, rbwd, rr)
+        rb_k2, rb_p2 = event_ms(torch, rbwd, rr), event_ms(torch, rbplain, pr)
+    sr_k, sr_p = (rf_k1 + rf_k2) / 2, (rf_p1 + rf_p2) / 2
+    sb_k, sb_p = (rb_k1 + rb_k2) / 2, (rb_p1 + rb_p2) / 2
+    # each input read once and each output written once over the real rows;
+    # the operations of every real (chunk, level) row
+    real = [k * L + lv for k, n in enumerate(ch_levels) for lv in range(n)]
+    real_args = [a[real] for a in args[:7]] + list(args[7:])
+    bounds.update(level_step=level_bound(real_args, len(real), hs.shape[0], True),
+                  level_step_bwd=level_bound(real_args, len(real), hs.shape[0], True, True))
+    per_level = [step_bound((hf.narrow(0, (r // L) * n_sub, n_sub),
+                             *(args[j][r] for j in (0, 1, 2, 3, 5, 6)), *args[7:]), True, bwd)
+                 for bwd in (False, True) for r in real]
+    half = len(real)
+    log(f"[time] the route on the two-chunk batch ({len(real)} real (chunk, level) rows, "
+        f"{step_fwd_want} forward launches, {step_bwd_want} backward, K = {step_K}), CUDA "
+        f"events over {rr} calls (plain: {pr}): forward with residuals {rf_k1:.4f}/{rf_k2:.4f} "
+        f"ms, plain {rf_p1:.4f}/{rf_p2:.4f} ms; backward {rb_k1:.4f}/{rb_k2:.4f} ms, plain "
+        f"{rb_p1:.4f}/{rb_p2:.4f} ms; bounds (each input read once) "
+        f"{bounds['level_step']['bound_ms']:.5f} / {bounds['level_step_bwd']['bound_ms']:.5f} "
+        f"ms; the per-level step bounds summed "
+        f"{sum(x['bound_ms'] for x in per_level[:half]):.5f} / "
+        f"{sum(x['bound_ms'] for x in per_level[half:]):.5f} ms")
     layouts = {f"fit C={C_fit} (fused)": fit, f"chunked C={CHUNKS} (step)": chunked,
                f"split G={GROUPS} (fused)": split}
     p3, s3 = dg_ae.init_params(cfg, seed=SEED, device=dev)
@@ -1562,10 +1701,13 @@ def main() -> int:
         entry("level_scan_bwd", "level_scan_bwd.cu", "level_kernel.py:487", train_bwd, bwd_err,
               bms_k, bms_p, levels_walked=train_walked[1]),
         # the step route's training path (phases 10, 12, 14)
-        entry("level_step", "level_step.cu", "level_kernel.py:1636", step_totals[4], step_err,
-              sr_k, sr_p),
+        # (the route: the script's numbers for its passes over the two-chunk
+        # batch; the single-level kernels' errors on their own keys)
+        entry("level_step", "level_step.cu", "level_kernel.py:1636", step_totals[4], route_err,
+              sr_k, sr_p, launches_per_pass=step_fwd_want, single_level_max_abs_err=step_err),
         entry("level_step_bwd", "level_step_bwd.cu", "level_kernel.py:1706", step_totals[5],
-              step_bwd_err, sb_k, sb_p),
+              route_bwd_err, sb_k, sb_p, launches_per_pass=step_bwd_want,
+              single_level_max_abs_err=step_bwd_err),
         # the giant route's training path (phases 15, 17, 18)
         entry("level_scan_giant", "level_scan.cu", "level_kernel.py:911", giant_totals[6],
               giant_err, g3_k, g3_p),

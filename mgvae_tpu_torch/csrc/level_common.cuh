@@ -124,11 +124,18 @@ __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target)
   __syncthreads();
 }
 
-// Blocks per expert of a launch whose blocks need not be co-resident. A
-// slot's warp streams its expert's matrices out of shared memory, whose
-// bandwidth one SM's warps share, so a level's slots are dealt out over as
-// many blocks as there are slots, up to 64 (the slot loops stride past that).
-inline int blocks_per_expert(int np) { return np < 64 ? np : 64; }
+// Blocks per expert of a launch of one level of `chunks` chunks whose blocks
+// need not be co-resident. A slot's warp streams its expert's matrices out of
+// shared memory, whose bandwidth one SM's warps share, so a level's slots are
+// dealt out over as many blocks as there are slots, up to 64 (the slot loops
+// stride past that), and over no more blocks than fill the card once
+// (`resident`: blocks the card holds at once) with all chunks' blocks.
+inline int chunk_blocks_per_expert(int np, int resident, int T, int chunks) {
+  int nbe = np < 64 ? np : 64;
+  const int fill = resident / (T * chunks);
+  if (nbe > fill) nbe = fill;
+  return nbe < 1 ? 1 : nbe;
+}
 
 // The positions of an expert's slot list that one warp takes: the expert's
 // k-th slot goes to block k % nbe (be: the block's number among the nbe
@@ -151,6 +158,30 @@ cudaError_t allow_shared_memory(Kernel kernel, size_t bytes, bool* done) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   *done = err == cudaSuccess;
   return err;
+}
+
+// For a launcher's first call: lets `kernel` have `bytes` of dynamic shared
+// memory and gives in *blocks how many of its blocks of kLevelThreads the
+// current device holds at once.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t bytes, int* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  bool allowed = false;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if ((err = allow_shared_memory(kernel, bytes, &allowed)) != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLevelThreads, bytes);
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// Whether a C entry's level dimensions are outside what the kernels take.
+inline bool bad_dims(int ep, int np, int dim, int num_experts) {
+  return dim < 1 || dim > kMaxDim || num_experts < 1 || num_experts > kMaxExperts || ep < 1 ||
+         np < 1;
 }
 
 // Runs the statement, which names NF, with NF = ceil(D / 32) a constant.

@@ -426,44 +426,81 @@ __device__ __forceinline__ ExpertWeights stage_forward_weights(
   return ExpertWeights{smem, smem + DP * DP, Staged<NF>::all ? smem + 2 * DP * DP : wi};
 }
 
-// One level as a launch of its own (the step; the scan has the level loop
-// inside its persistent kernel, the giant backward's recompute a chunk of
-// levels inside one launch). Grid: T * nbe blocks of kLevelThreads; block b serves expert
-// b % T.
+// One level of each of gridDim.y chunks as a launch of its own: the step
+// route's level index l of every chunk at once, or the single-level step (one
+// chunk). The scan has the level loop inside its persistent kernel, the giant
+// backward's recompute a chunk of levels inside one launch.
+//
+// Chunk k = blockIdx.y finds its level at row `row + k * rows` of the tables
+// and lists (all rows' arrays are given), reads its sources from hf rows
+// k * n_sub on (the tables' node ids are chunk-local), writes its new rows
+// to `out` from the same offset on, and keeps its softmax scratch at k * Ep.
+// A chunk past its real levels has empty lists there, so its blocks return
+// at once.
+struct StepForward {
+  const float* pack_lv;     // [R, Ep, D+2]
+  const int* lv_src;        // [R, Ep]
+  const int* out_index;     // [R, Np] the slots' nodes (lv_nodes), or null: slot s -> row s
+  const int* slot_rows;     // [R, Np]
+  const int* slot_off;      // [R, T+1]
+  const int* in_rows;       // [R, Ep]
+  const int* in_off;        // [R, Np+1]
+  const float* wkv_e;       // [T, 2, DP, DP]
+  const float* wih_e;       // [T, DP, 3 DP]
+  const float* b_ih;        // [T, 3D]
+  const float* b_hh;        // [T, 3D]
+  const float* wa_k;        // [T, D]
+  const float* hf;          // [C * n_sub, D] read
+  float* out;               // [C * n_sub, D] (hf itself on the route) or [Np, D]
+  float* score_buf;         // [C, Ep] scratch
+  float* v_buf;             // [C, Ep, D] scratch
+  float* res_e;             // [R, Ep, 3D+1] or null
+  float* res_n;             // [R, Np, 4D] or null
+  int row, rows;            // chunk 0's row; rows from one chunk's level to the next's
+  int n_sub, ep, np, dim, num_experts;
+};
+
+// Grid: (T * nbe, chunks) blocks of kLevelThreads; block (b, k) serves
+// expert b % T of chunk k.
 template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(
-    const LevelFwd lv, const float* __restrict__ wkv_e, const float* __restrict__ wih_e,
-    const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-    const float* __restrict__ wa_k, const float* hf, float* out,
-    const int* __restrict__ out_index, float* score_buf, float* v_buf,
-    float* __restrict__ res_e, float* __restrict__ res_n, int dim, int num_experts) {
+__global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(const StepForward p) {
   extern __shared__ __align__(16) float smem[];
-  const int e = blockIdx.x % num_experts;
-  if (__ldg(lv.slot_off + e) == __ldg(lv.slot_off + e + 1)) return;  // block-uniform
+  const int D = p.dim, T = p.num_experts, e = blockIdx.x % T, k = blockIdx.y;
+  const size_t r = p.row + (size_t)k * p.rows;
+  const int* so = p.slot_off + r * (T + 1);
+  const int p1 = __ldg(so + e + 1);
+  if (__ldg(so + e) == p1) return;  // block-uniform
+  const LevelFwd lv{p.pack_lv + r * p.ep * (D + 2), p.lv_src + r * p.ep, p.slot_rows + r * p.np,
+                    so, p.in_rows + r * p.ep, p.in_off + r * (p.np + 1)};
+  const size_t h0 = (size_t)k * p.n_sub * D, ew = 3 * (size_t)D + 1;
   float* scratch;
-  const ExpertVec<NF> x = load_expert_vec<NF>(b_ih, b_hh, wa_k, e, dim);
-  const ExpertWeights w = stage_forward_weights<NF>(smem, wkv_e, wih_e, e, &scratch);
+  const ExpertVec<NF> x = load_expert_vec<NF>(p.b_ih, p.b_hh, p.wa_k, e, D);
+  const ExpertWeights w = stage_forward_weights<NF>(smem, p.wkv_e, p.wih_e, e, &scratch);
   NoNext none;
-  const int nbe = gridDim.x / num_experts;
-  level_forward_block<NF>(lv, __ldg(lv.slot_off + e) + first_slot(blockIdx.x / num_experts, nbe),
-                          __ldg(lv.slot_off + e + 1), slot_stride(nbe), w, x, hf, out, out_index,
-                          score_buf, v_buf, res_e, res_n, scratch, dim, nullptr, none);
+  const int nbe = gridDim.x / T;
+  level_forward_block<NF>(lv, __ldg(so + e) + first_slot(blockIdx.x / T, nbe), p1,
+                          slot_stride(nbe), w, x, p.hf + h0, p.out + h0,
+                          p.out_index ? p.out_index + r * p.np : nullptr,
+                          p.score_buf + (size_t)k * p.ep, p.v_buf + (size_t)k * p.ep * D,
+                          p.res_e ? p.res_e + r * p.ep * ew : nullptr,
+                          p.res_n ? p.res_n + r * p.np * 4 * D : nullptr, scratch, D, nullptr,
+                          none);
 }
 
-// Launches the kernel above for one level on stream s.
+// Launches the kernel above for `chunks` chunks on stream s, with
+// chunk_blocks_per_expert blocks per expert.
 template <int NF>
-cudaError_t launch_level_forward(
-    const LevelFwd& lv, const float* wkv_e, const float* wih_e, const float* b_ih,
-    const float* b_hh, const float* wa_k, const float* hf, float* out, const int* out_index,
-    float* score_buf, float* v_buf, float* res_e, float* res_n, int np, int D, int T,
-    cudaStream_t s) {
+cudaError_t launch_level_forward(const StepForward& p, int chunks, cudaStream_t s) {
   static bool configured = false;
-  const cudaError_t err =
-      allow_shared_memory(level_fwd_kernel<NF>, forward_smem<NF>(), &configured);
-  if (err != cudaSuccess) return err;
-  level_fwd_kernel<NF><<<T * blocks_per_expert(np), kLevelThreads, forward_smem<NF>(), s>>>(
-      lv, wkv_e, wih_e, b_ih, b_hh, wa_k, hf, out, out_index, score_buf, v_buf, res_e, res_n, D,
-      T);
+  static int resident = 0;   // blocks the device the first call ran on holds at once
+  if (!configured) {
+    cudaError_t err = resident_blocks(level_fwd_kernel<NF>, forward_smem<NF>(), &resident);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
+  level_fwd_kernel<NF><<<dim3(p.num_experts * nbe, chunks), kLevelThreads, forward_smem<NF>(),
+                         s>>>(p);
   return cudaGetLastError();
 }
 

@@ -450,59 +450,95 @@ __device__ __forceinline__ ExpertWeights stage_backward_weights(
   return ExpertWeights{nullptr, Staged<NF>::all ? smem + 3 * DP * DP : wvt, smem};
 }
 
-// The slot backward of one level as a launch of its own (the step's; the
-// sweeps have it inside their persistent kernel).
-// Grid: T * nbe blocks of kLevelThreads; block b serves expert b % T.
+// The slot backward and the source sums of one level of each of gridDim.y
+// chunks, each as a launch of its own: the step route's level index l of
+// every chunk at once, or the single-level step's backward (one chunk). The
+// sweeps have both inside their persistent kernel.
+//
+// Chunk k = blockIdx.y finds its level at row `row + k * rows` of the tables,
+// lists and residuals (all rows' arrays are given), reads its slots'
+// cotangents from g and adds its sources' gradients into `out`, both from
+// rows k * n_sub on (the tables' node ids are chunk-local), and keeps its
+// scratch rows dkv, dg at k * scratch_rows rows of the level's width from
+// the given pointers on, dhf_buf at k * Ep rows. A chunk past its real
+// levels has empty lists there, so its blocks return at once.
+struct StepBackward {
+  LevelBwd lists;           // all rows': lv_src, slot_rows, slot_off, in_rows, in_off, src_rows
+  const float* g;           // [C * n_sub, D] (the carried ghf) or [Np, D]
+  const int* g_index;       // [R, Np] the slots' nodes (lv_nodes), or null: slot s <- row s
+  const float* res_e;       // [R, Ep, 3D+1]
+  const float* res_n;       // [R, Np, 4D]
+  const float* wkv_e;       // [T, 2, DP, DP]
+  const float* wvt_e;       // [T, DP, DP]
+  const float* wiht_e;      // [T, 3 DP, DP]
+  const float* b_hh;        // [T, 3D]
+  const float* wa_k;        // [T, D]
+  float* d_pack;            // [R, Ep, D+2]
+  float* dkv;               // chunk k's level at dkv + k * scratch_rows * Ep * 2D
+  float* dg;                // chunk k's level at dg + k * scratch_rows * Np * 6D
+  float* dhf_buf;           // [C, Ep, D]
+  float* out;               // [C * n_sub, D]: ghf (the route) or d_hf (the step), added into
+  int row, rows, scratch_rows;
+  int n_sub, ep, np, dim, num_experts;
+};
+
+// Grid: (T * nbe, chunks) blocks of kLevelThreads; block (b, k) serves
+// expert b % T of chunk k.
 template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(
-    const LevelBwd lv, const float* g, const int* __restrict__ g_index,
-    const float* __restrict__ res_e, const float* __restrict__ res_n,
-    const float* __restrict__ wkv_e, const float* __restrict__ wvt_e,
-    const float* __restrict__ wiht_e, const float* __restrict__ b_hh,
-    const float* __restrict__ wa_k, float* __restrict__ d_pack, float* __restrict__ dkv,
-    float* __restrict__ dg, float* dhf_buf, int dim, int num_experts) {
+__global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(const StepBackward p) {
   extern __shared__ __align__(16) float smem[];
-  const int e = blockIdx.x % num_experts;
-  if (__ldg(lv.slot_off + e) == __ldg(lv.slot_off + e + 1)) return;  // block-uniform
+  const int D = p.dim, T = p.num_experts, e = blockIdx.x % T, k = blockIdx.y;
+  const int r = p.row + k * p.rows;
+  const size_t sr = (size_t)k * p.scratch_rows;
+  const LevelBwd lv = level_of(p.lists, r, p.ep, p.np, T);
+  const int p1 = __ldg(lv.slot_off + e + 1);
+  if (__ldg(lv.slot_off + e) == p1) return;  // block-uniform
   float *ck, *scratch;
-  const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(b_hh, wa_k, e, dim);
+  const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(p.b_hh, p.wa_k, e, D);
   const ExpertWeights w =
-      stage_backward_weights<NF>(smem, wkv_e, wvt_e, wiht_e, wa_k, e, dim, &ck, &scratch);
+      stage_backward_weights<NF>(smem, p.wkv_e, p.wvt_e, p.wiht_e, p.wa_k, e, D, &ck, &scratch);
   NoNextBwd none;
-  const int nbe = gridDim.x / num_experts;
-  const int p0 = __ldg(lv.slot_off + e) + first_slot(blockIdx.x / num_experts, nbe);
-  level_backward_block<NF>(lv, p0, __ldg(lv.slot_off + e + 1), slot_stride(nbe), w, x, ck, g,
-                           g_index, res_e, res_n, d_pack, dkv, dg, dhf_buf, scratch, dim,
-                           nullptr, none);
+  const int nbe = gridDim.x / T;
+  const int p0 = __ldg(lv.slot_off + e) + first_slot(blockIdx.x / T, nbe);
+  level_backward_block<NF>(lv, p0, p1, slot_stride(nbe), w, x, ck,
+                           p.g + (size_t)k * p.n_sub * D,
+                           p.g_index ? p.g_index + (size_t)r * p.np : nullptr,
+                           p.res_e + (size_t)r * p.ep * (3 * D + 1),
+                           p.res_n + (size_t)r * p.np * 4 * D,
+                           p.d_pack + (size_t)r * p.ep * (D + 2), p.dkv + sr * p.ep * 2 * D,
+                           p.dg + sr * p.np * 6 * D, p.dhf_buf + (size_t)k * p.ep * D, scratch,
+                           D, nullptr, none);
 }
 
-// The source sums of one level as a launch of its own. Grid: any number of
-// blocks of kLevelThreads.
+// Grid: (any number, chunks) blocks of kLevelThreads.
 template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(
-    const LevelBwd lv, int np, float* out, const float* dhf_buf, int dim) {
-  level_source_block<NF>(lv, np, out, dhf_buf, blockIdx.x * kLevelWarps + (threadIdx.x >> 5),
-                         gridDim.x * kLevelWarps, dim);
+__global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(const StepBackward p) {
+  const int k = blockIdx.y, r = p.row + k * p.rows;
+  level_source_block<NF>(level_of(p.lists, r, p.ep, p.np, p.num_experts), p.np,
+                         p.out + (size_t)k * p.n_sub * p.dim,
+                         p.dhf_buf + (size_t)k * p.ep * p.dim,
+                         blockIdx.x * kLevelWarps + (threadIdx.x >> 5), gridDim.x * kLevelWarps,
+                         p.dim);
 }
 
-// Launches the two kernels above for one level on stream s.
+// Launches the two kernels above for `chunks` chunks on stream s (blocks per
+// expert as the forward's, launch_level_forward).
 template <int NF>
-cudaError_t launch_level_backward(
-    const LevelBwd& lv, const float* g, const int* g_index, const float* res_e,
-    const float* res_n, const float* wkv_e, const float* wvt_e, const float* wiht_e,
-    const float* b_hh, const float* wa_k, float* d_pack, float* dkv, float* dg, float* dhf_buf,
-    float* out, int ep, int np, int D, int T, cudaStream_t s) {
+cudaError_t launch_level_backward(const StepBackward& p, int chunks, cudaStream_t s) {
   static bool configured = false;
-  cudaError_t err =
-      allow_shared_memory(level_bwd_slot_kernel<NF>, backward_smem<NF>(), &configured);
-  if (err != cudaSuccess) return err;
-  level_bwd_slot_kernel<NF><<<T * blocks_per_expert(np), kLevelThreads, backward_smem<NF>(), s>>>(
-      lv, g, g_index, res_e, res_n, wkv_e, wvt_e, wiht_e, b_hh, wa_k, d_pack, dkv, dg, dhf_buf,
-      D, T);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  level_bwd_source_kernel<NF><<<(ep + kLevelWarps - 1) / kLevelWarps, kLevelThreads, 0, s>>>(
-      lv, np, out, dhf_buf, D);
+  static int resident = 0;   // blocks the device the first call ran on holds at once
+  cudaError_t err = cudaSuccess;
+  if (!configured) {
+    err = resident_blocks(level_bwd_slot_kernel<NF>, backward_smem<NF>(), &resident);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
+  level_bwd_slot_kernel<NF><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
+                              backward_smem<NF>(), s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  level_bwd_source_kernel<NF><<<dim3((p.ep + kLevelWarps - 1) / kLevelWarps, chunks),
+                                kLevelThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 

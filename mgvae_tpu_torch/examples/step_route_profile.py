@@ -1,21 +1,35 @@
-"""Host and device time of the step route (a chunked batch whose chunks are
-too large for the fused scan: one ``level_step`` per (chunk, level)).
+"""Where the step route spends its time on the card: a chunked batch whose
+chunks are too large for the fused scan, through
+``models.dg_ae.level_scan_step``.
 
 64 synthetic MIG circuits (16 inputs, 264 gates; D = 64, random weights from
-seed 0) collated into two chunks, as ``chip_smoke.py``'s step-route phases;
-``models.dg_ae.level_scan_step`` forward and backward, five times: per run
-the host's time to enqueue it and the wall time to the end of the device's
-work (equal where the host is what the route waits for), then under
-``torch.profiler`` the device time of one run in all and by kernel name.
+seed 0) collated into two chunks, as ``chip_smoke.py``'s step-route phases.
+The forward and the backward (a fixed random cotangent) are measured apart:
 
-    python -m mgvae_tpu_torch.examples.step_route_profile
+  * the time of each by CUDA events and the host's time to enqueue it,
+    means over ``RUNS`` runs;
+  * under ``torch.profiler``, one run of each: the host time of every
+    top-level host operation by name (the wrappers' autograd Functions, and
+    the indexing, scatter, selection and accumulation nodes around them),
+    the device time of every kernel and copy by name, the device's busy
+    time (the union of its kernels' intervals) and its idle gaps within the
+    run;
+  * the launches of the step kernels that each pass counted;
+  * the peak device memory of one forward and backward above what was held
+    before, beside the stacked residuals + hf + ghf's copy + d_pack_lv.
 
-Needs one CUDA card and raises without one.
+    python -m mgvae_tpu_torch.examples.step_route_profile [loop]
+
+``loop``: the same for ``dg_ae.level_step_loop`` on the card, one
+``level_step`` per (chunk, level) with the scatter in torch between the
+calls, the route's plain structure. Needs one CUDA card and raises without
+one.
 """
 from __future__ import annotations
 
 import collections
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -29,12 +43,52 @@ from ..ops import level_kernel
 CIRCUITS, CHUNKS, DIM, ROUNDS, RUNS = 64, 2, 64, 4, 5
 
 
-def main() -> None:
+def _profiled(fn):
+    """(host ms by top-level host operation, device (ms, launches) by kernel
+    name, device busy ms, wall ms of the window) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    host = collections.defaultdict(float)
+    dev = collections.defaultdict(lambda: [0.0, 0])
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.name][0] += e.time_range.elapsed_us() / 1e3
+            dev[e.name][1] += 1
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.cpu_parent is None:
+            host[e.name] += e.cpu_time_total / 1e3
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return host, dev, busy / 1e3, wall
+
+
+def _report(tag, host, dev, busy, wall, launches):
+    n = sum(v[1] for v in dev.values())
+    print(f"[{tag}] one run under the profiler: wall {wall:.3f} ms; host time of top-level "
+          f"operations {sum(host.values()):.3f} ms; device busy {busy:.3f} ms in {n} kernels and "
+          f"copies; device idle {wall - busy:.3f} ms; step kernels launched "
+          f"{launches}", flush=True)
+    for name, ms in sorted(host.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[{tag}]   host {ms:9.3f} ms  {name[:100]}", flush=True)
+    for name, (ms, k) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"[{tag}]   device {ms:9.3f} ms in {k:5d} launches  {name[:90]}", flush=True)
+
+
+def main(argv=()) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("step_route_profile needs a CUDA card "
                            "(torch.cuda.is_available() is False)")
-    from torch.profiler import ProfilerActivity, profile
-
+    loop = "loop" in argv
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -55,35 +109,70 @@ def main() -> None:
     for i in level_kernel.FLOAT_ARGS:
         args[i].requires_grad_(True)
     n_sub = hs.shape[0] // CHUNKS
-    print(f"card: {card}; {CIRCUITS} MIG circuits in {CHUNKS} chunks: N_sub={n_sub} "
-          f"Ep={args[0].shape[1]} Np={args[4].shape[1]}, real levels {counts}", flush=True)
+    route = dg_ae.level_step_loop if loop else dg_ae.level_scan_step
+    name = "loop" if loop else "route"
+    print(f"[{name}] card: {card}; {CIRCUITS} MIG circuits in {CHUNKS} chunks: N_sub={n_sub} "
+          f"Ep={args[0].shape[1]} Np={args[4].shape[1]}, real levels {counts}; "
+          f"{'dg_ae.level_step_loop' if loop else 'dg_ae.level_scan_step'}", flush=True)
+    g = torch.randn((hs.shape[0], DIM), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    inputs = [args[i] for i in level_kernel.FLOAT_ARGS]
 
-    def run():
-        dg_ae.level_scan_step(tuple(args), counts, n_sub).sum().backward()
+    def forward():
+        lists, packed = dg_ae.kernel_inputs(tuple(args))
+        return route(tuple(args), counts, n_sub, lists, packed)
+
+    def backward(hf):
+        torch.autograd.grad(hf, inputs, g)
 
     for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    times = []
+        backward(forward())
+    fwd_ev, bwd_ev, fwd_host, bwd_host = [], [], [], []
     for _ in range(RUNS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
         t0 = time.perf_counter()
-        run()
+        hf = forward()
         t1 = time.perf_counter()
+        ev[1].record()
         torch.cuda.synchronize()
-        times.append((round((t1 - t0) * 1e3, 1), round((time.perf_counter() - t0) * 1e3, 1)))
-    print(f"forward and backward, {RUNS} runs, (host enqueue, wall) ms: {times}", flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        t2 = time.perf_counter()
+        backward(hf)
+        t3 = time.perf_counter()
+        ev[2].record()
         torch.cuda.synchronize()
-    us = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us[e.name][0] += e.time_range.elapsed_us()
-            us[e.name][1] += 1
-    print(f"device time of one run: {sum(v[0] for v in us.values()) / 1e3:.3f} ms", flush=True)
-    for name, (t, n) in sorted(us.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {t / 1e3:8.3f} ms in {n:5d} launches  {name[:100]}", flush=True)
+        fwd_ev.append(ev[0].elapsed_time(ev[1]))
+        bwd_ev.append(ev[1].elapsed_time(ev[2]))
+        fwd_host.append((t1 - t0) * 1e3)
+        bwd_host.append((t3 - t2) * 1e3)
+    mean = lambda x: sum(x) / len(x)
+    print(f"[{name}] {RUNS} runs, means: forward {mean(fwd_ev):.3f} ms by CUDA events, host "
+          f"enqueue {mean(fwd_host):.3f} ms; backward {mean(bwd_ev):.3f} ms by CUDA events "
+          f"(from the end of its forward), host enqueue {mean(bwd_host):.3f} ms; per run "
+          f"(forward, backward) ms: {[(round(a, 3), round(c, 3)) for a, c in zip(fwd_ev, bwd_ev)]}",
+          flush=True)
+
+    held = []
+    level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    prof = _profiled(lambda: held.append(forward()))
+    _report(f"{name} forward", *prof, level_kernel.step_launches)
+    prof = _profiled(lambda: backward(held.pop()))
+    _report(f"{name} backward", *prof, level_kernel.step_bwd_launches)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    backward(forward())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    L, ep, np_ = args[0].shape[0], args[0].shape[1], args[4].shape[1]
+    res = 4 * L * (ep * (3 * DIM + 1) + np_ * 4 * DIM)
+    law = res + 2 * 4 * hs.shape[0] * DIM + args[0].numel() * 4
+    print(f"[{name}] level recurrence alone, forward and backward: peak {peak / 2**20:.2f} MiB "
+          f"above what was held before; stacked residuals {res / 2**20:.2f} + hf + ghf's copy + "
+          f"d_pack_lv = {law / 2**20:.2f} MiB (ratio {peak / law:.3f}); {card}", flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -25,7 +25,7 @@ The forward:
      its kernels past two further size gates of the TPU's; the CUDA kernels
      have no such limit). A chunked batch takes the fused scan chunk by chunk
      where its chunks pass ``kernel_fits``; else ``level_scan_step``, one
-     ``ops.level_kernel.level_step`` per (chunk, level), where they pass
+     level at a time from an explicit hf, where they pass
      ``step_kernel_fits``; else the giant scan chunk by chunk. All are the
      CUDA kernels on the card and their plain versions on the CPU, and
      autograd differentiates all, so the forward trains (``train/step.py``).
@@ -62,6 +62,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..data.graph import MODALITY_GATES, NUM_GATE_TYPES
+from ..ops import level_kernel
 from ..ops.init import gru_cell_init, linear_apply, linear_init
 from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, level_lists, level_scan,
                                 level_scan_giant, level_step, repack_expert_major, select_expert)
@@ -382,14 +383,28 @@ def kernel_inputs(args: tuple) -> tuple:
 
 def level_scan_step(args: tuple, n_levels: tuple, n_sub: int, lists=None,
                     packed=None) -> torch.Tensor:
-    """The level recurrence of a chunked batch as one ``level_step`` per real
-    (chunk, level) row, each on its chunk's rows of hf, with the scatter
-    hf[nodes + off] = where(upd, h_new, 0) in plain torch between the calls
-    (``mgvae_tpu/models/dg_ae.py:629-652``, which scans the padding levels
-    too; they write zeros to the dump rows, so skipping them changes
-    nothing). hf is written in place: ``level_step`` saves none of it.
-    ``lists``, ``packed``: ``kernel_inputs(args)``, built here where the
-    caller has none."""
+    """The level recurrence of a chunked batch one level at a time from an
+    explicit hf (``mgvae_tpu/models/dg_ae.py:629-652``, which scans the
+    padding levels too; they write zeros to the dump rows, so skipping them
+    changes nothing). On the card ``ops.level_kernel.level_scan_step``: one
+    launch per level index for all chunks, the new rows scattered into hf
+    inside the kernel, and as one autograd Function for training. On the
+    CPU ``level_step_loop``, its plain version. ``lists``, ``packed``:
+    ``kernel_inputs(args)``, built where the caller has none."""
+    if not args[0].is_cuda:
+        return level_step_loop(args, n_levels, n_sub)
+    return level_kernel.level_scan_step(*args, n_levels=n_levels, n_sub=n_sub, lists=lists,
+                                        packed=packed)
+
+
+def level_step_loop(args: tuple, n_levels: tuple, n_sub: int, lists=None,
+                    packed=None) -> torch.Tensor:
+    """The step route as one ``level_step`` per real (chunk, level) row, each
+    on its chunk's rows of hf, with the scatter hf[nodes + off] =
+    where(upd, h_new, 0) in plain torch between the calls: the route's plain
+    structure, which ``level_scan_step`` takes on the CPU (on the card it
+    runs the single-level kernels, a call per row). hf is written in place:
+    ``level_step`` saves none of it."""
     (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, *weights) = args
     C = len(n_levels)
     L, D = pack_lv.shape[0] // C, pack_lv.shape[2] - 2

@@ -111,7 +111,9 @@ def library() -> ctypes.CDLL:
                                  ("mgvae_level_scan_backward", 22, 6),
                                  ("mgvae_level_scan_giant_backward", 29, 6),
                                  ("mgvae_level_step_forward", 17, 4),
-                                 ("mgvae_level_step_backward", 20, 4)):
+                                 ("mgvae_level_step_backward", 20, 4),
+                                 ("mgvae_level_scan_step_forward", 19, 7),
+                                 ("mgvae_level_scan_step_backward", 23, 8)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * pointers + [i] * ints + [p]     # ..., then the stream
         fn.restype = i

@@ -9,12 +9,20 @@ forms that share one level's arithmetic:
     ``csrc/level_scan.cu``, ``fused_level_scan_bwd`` is
     ``csrc/level_scan_bwd.cu``, and the custom VJP ``pallas_level_scan`` that
     joins them is the autograd Function behind ``level_scan``;
-  * the single-level step from an explicit hf, for chunks too large for the
-    fused route: ``level_step_call`` is ``csrc/level_step.cu``,
-    ``level_step_bwd_call`` is ``csrc/level_step_bwd.cu``, and the custom VJP
-    ``pallas_level_step`` is the autograd Function behind ``level_step``. It
-    returns the level's new rows h_new [Np, D] unscattered; the caller
-    (``models/dg_ae.level_scan_step``) writes them into hf between calls;
+  * the single-level step from an explicit hf: ``level_step_call`` is
+    ``csrc/level_step.cu``, ``level_step_bwd_call`` is
+    ``csrc/level_step_bwd.cu``, and the custom VJP ``pallas_level_step`` is
+    the autograd Function behind ``level_step``. It returns the level's new
+    rows h_new [Np, D] unscattered;
+  * the step route, for chunked batches whose chunks are too large for the
+    fused route: the JAX package's scan of ``pallas_level_step`` over the
+    (chunk, level) rows (``mgvae_tpu/models/dg_ae.py::_level_scan_step``) is
+    ``level_scan_step``, whose autograd Function runs one launch of
+    ``csrc/level_step.cu``'s kernel per level index for all chunks, the new
+    rows scattered into hf inside the kernel, and a backward that carries
+    hf's cotangent in place over the level indices (``csrc/level_step_bwd.cu``),
+    keeping its scratch for K level indices at a time
+    (``step_chunk_levels``);
   * the scan of one batch of any size that keeps no residuals, for giant
     single graphs and every plain batch too large for the fused route's size
     gate: ``fused_level_scan_hbm`` is ``csrc/level_scan.cu``'s launch
@@ -26,8 +34,8 @@ forms that share one level's arithmetic:
     (``giant_chunk_levels``), so training needs O(N * D + K * Ep * D) working
     memory where the fused route's residuals need O(L * Ep * D).
 
-Dispatch of ``level_scan``, ``level_step`` and ``level_scan_giant``, with no
-hidden fallback:
+Dispatch of ``level_scan``, ``level_step``, ``level_scan_step`` and
+``level_scan_giant``, with no hidden fallback:
   * CUDA tensors: the forward kernel or raise. When grad is enabled and a
     float input requires grad it goes through the autograd Function: the
     forward kernel also writes the residuals (the giant route has none: it
@@ -35,17 +43,20 @@ hidden fallback:
     (serving) it takes the launch without residuals.
   * CPU tensors: the plain version; autograd differentiates it.
 
-``level_scan_reference`` / ``level_step_reference`` (``with_residuals=True``
-for the training forward) and ``level_scan_bwd_reference`` /
-``level_step_bwd_reference`` are the plain versions of the first four
-kernels, ``level_scan_giant_reference`` (hf only) and
+``level_scan_reference`` / ``level_step_reference`` /
+``level_scan_step_reference`` (``with_residuals=True`` for the training
+forward) and ``level_scan_bwd_reference`` / ``level_step_bwd_reference`` /
+``level_scan_step_bwd_reference`` (with ``chunk_levels`` in its kernel's
+order) are the plain versions of the first four kernels and of the step
+route, ``level_scan_giant_reference`` (hf only) and
 ``level_scan_giant_bwd_reference`` (which recomputes from hf, as its kernel
 does, and with ``chunk_levels`` in its kernel's order) those of the giant
 route's, that the tests and ``chip_smoke.py`` hold
 them against; ``_forward_cuda``, ``_backward_cuda``, ``_step_forward_cuda``,
-``_step_backward_cuda``, ``_giant_forward_cuda`` and ``_giant_backward_cuda``
-are the kernels' wrappers (CUDA tensors only, arguments as the public
-functions check them).
+``_step_backward_cuda``, ``_step_route_forward_cuda``,
+``_step_route_backward_cuda``, ``_giant_forward_cuda`` and
+``_giant_backward_cuda`` are the kernels' wrappers (CUDA tensors only,
+arguments as the public functions check them).
 
 The kernels find their work in index lists, not by scanning the level
 tables: ``level_lists`` groups, per level, the updated slots by expert, the
@@ -63,9 +74,13 @@ forward: one persistent launch per call) with ``levels_walked`` (the levels
 those launches walked), ``bwd_launches`` (the fused backward: one persistent
 sweep, then the weight gradients' partials and, past
 ``LEVELS_PER_BLOCK`` levels, their sums: three per call) with
-``bwd_levels_walked``, ``step_launches`` (one per ``level_step`` call),
-``step_bwd_launches`` (three per backward of a ``level_step`` call: slots,
-sources, weight gradients), ``giant_launches`` (the giant forward: one
+``bwd_levels_walked``, ``step_launches`` (the step kernel: one per
+``level_step`` call, one per level index of a ``level_scan_step`` pass,
+max(real levels), as the C entry counts them), ``step_bwd_launches``
+(three per backward of a ``level_step`` call: slots, sources, weight
+gradients; per backward of a ``level_scan_step`` pass two per level index
+and the weight gradients per block of K level indices and chunk, as the C
+entry counts them, ``step_route_launch_count``), ``giant_launches`` (the giant forward: one
 persistent launch per call) and ``giant_bwd_launches`` (the giant backward:
 per chunk of levels a recompute, a persistent sweep and the weight
 gradients' partials, and where the chunk has more than one level their
@@ -74,7 +89,8 @@ that should be).
 
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
 hf_src | khf | v | attn per edge, res_n [L, Np, 4D] = msg | r | z | nw per
-slot; the step's are one level's, [Ep, 3D+1] and [Np, 4D]. The kernels write
+slot (the step route's over all C * L rows); the step's are one level's,
+[Ep, 3D+1] and [Np, 4D]. The kernels write
 the rows of live edges and updated slots (``live_rows``) of the real levels
 and read no other; the plain versions leave the other rows 0, the kernels
 leave them unwritten.
@@ -95,13 +111,14 @@ MAX_EXPERTS = 5
 # levels per block of the weight-gradient kernel: a chunk's rows are summed in
 # one accumulator, the chunks' partials pairwise. At most 32 chunks per call.
 LEVELS_PER_BLOCK = 4
-# The giant backward's chunks of levels (giant_chunk_levels): the scratch of
-# a chunk may take GIANT_SCRATCH_SHARE of the bytes the route holds anyway
-# (hf, ghf's working copy and d_pack_lv), or GIANT_SCRATCH_FLOOR bytes where
-# that is more. Within a chunk the weight gradients take a partial per level,
-# so that one chunk's few levels still fill the card.
-GIANT_SCRATCH_SHARE = 0.18
-GIANT_SCRATCH_FLOOR = 16 << 20
+# The backwards that keep their scratch for K levels at a time: the giant
+# backward's chunks of levels (giant_chunk_levels; within a chunk the weight
+# gradients take a partial per level, so that one chunk's few levels still
+# fill the card) and the step route's blocks of level indices
+# (step_chunk_levels). Their scratch may take SCRATCH_SHARE of the bytes the
+# route holds anyway, or SCRATCH_FLOOR bytes where that is more.
+SCRATCH_SHARE = 0.18
+SCRATCH_FLOOR = 16 << 20
 
 lists_launches = 0
 launches = 0
@@ -353,51 +370,88 @@ def level_scan_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
     padding slots all point at the dump row, which so stays 0). Autograd
     differentiates the loop: the in-place row write is legal because the
     earlier reads ``hf[src]`` save only their indices, not hf."""
-    D = pack_lv.shape[2] - 2
-    L, ep, _ = pack_lv.shape
-    np_ = lv_nodes.shape[1]
-    hf = pack_lv.new_zeros((num_nodes, D))
+    return _forward_sweep((pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                           wkv_hf, w_ih, b_ih, b_hh, wa_k), (num_levels,), num_nodes,
+                          with_residuals)
+
+
+def level_scan_step_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                              wkv_hf, w_ih, b_ih, b_hh, wa_k, n_levels, n_sub: int,
+                              with_residuals: bool = False):
+    """The step route's forward: the tables hold C = len(n_levels) chunks
+    of L rows each, chunk-local node ids, chunk k's real levels at rows
+    [k * L, k * L + n_levels[k]) and its nodes at hf rows [k * n_sub,
+    (k + 1) * n_sub). Returns hf [C * n_sub, D], or with ``with_residuals``
+    (hf, res_e [C * L, Ep, 3D+1], res_n [C * L, Np, 4D]), the residuals
+    detached and 0 on the rows of padding levels. Autograd differentiates
+    it."""
+    return _forward_sweep((pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                           wkv_hf, w_ih, b_ih, b_hh, wa_k), tuple(n_levels), n_sub,
+                          with_residuals)
+
+
+def _forward_sweep(args, n_levels: tuple, n_sub: int, with_residuals: bool):
+    """Chunk by chunk, level by level: each level from its chunk's rows of hf,
+    its new rows written into them (``level_scan_step_reference``)."""
+    (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, *weights) = args
+    R, ep, pw = pack_lv.shape
+    C, D, np_ = len(n_levels), pw - 2, lv_nodes.shape[1]
+    L = R // C
+    hf = pack_lv.new_zeros((C * n_sub, D))
     if with_residuals:
-        res_e = pack_lv.new_zeros((L, ep, 3 * D + 1))
-        res_n = pack_lv.new_zeros((L, np_, 4 * D))
-    for lv in range(num_levels):
-        h_new, re, rn = _level_forward(
-            hf, pack_lv[lv], lv_src[lv].long(), lv_dslot[lv].long(), lv_evalid[lv] > 0,
-            lv_upd[lv] > 0, lv_e_n[lv].long(), wkv_hf, w_ih, b_ih, b_hh, wa_k, with_residuals)
-        hf[lv_nodes[lv].long()] = h_new
-        if with_residuals:
-            res_e[lv], res_n[lv] = re, rn
+        res_e = pack_lv.new_zeros((R, ep, 3 * D + 1))
+        res_n = pack_lv.new_zeros((R, np_, 4 * D))
+    for k, levels in enumerate(n_levels):
+        hf_k = hf.narrow(0, k * n_sub, n_sub)
+        for row in range(k * L, k * L + levels):
+            h_new, re, rn = _level_forward(
+                hf_k, pack_lv[row], lv_src[row].long(), lv_dslot[row].long(),
+                lv_evalid[row] > 0, lv_upd[row] > 0, lv_e_n[row].long(), *weights,
+                with_residuals)
+            hf[lv_nodes[row].long() + k * n_sub] = h_new
+            if with_residuals:
+                res_e[row], res_n[row] = re, rn
     if with_residuals:
         return hf, res_e, res_n
     return hf
 
 
 def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
-                   lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels: int, chunk_levels: int = 1):
-    """The reverse sweep over levels with hf's cotangent ``ghf`` [N, D]
-    carried back to the sources; ``residuals_of(lv)`` gives level lv's
-    (res_e, res_n). The levels go from the top in chunks of
-    ``chunk_levels`` (``giant_chunks``): a chunk's residuals are all taken
-    first, then its levels swept, their weight gradients summed and the sum
-    added to the totals. Returns (d_pack [L, Ep, D+2], d_wkv,
-    d_wih, d_bih, d_bhh, d_wak); the pack's expert column gets no
-    gradient."""
+                   lv_e_n, wkv_hf, w_ih, b_hh, wa_k, n_levels: tuple, n_sub: int = 0,
+                   chunk_levels: int = 1):
+    """The reverse sweep over levels with hf's cotangent ``ghf`` carried back
+    to the sources, for tables of C = len(n_levels) chunks of L rows each
+    (chunk k's real levels at rows k * L + lv, lv < n_levels[k], its nodes at
+    hf rows k * n_sub on; a plain batch is C == 1); ``residuals_of(row)``
+    gives a row's (res_e, res_n). The level indices go from the top in
+    blocks of ``chunk_levels`` (``giant_chunks``): a block's residuals are
+    all taken first, then its level indices swept, each for every chunk,
+    the weight gradients summed per chunk and the chunks' sums added to the
+    totals in chunk order. Returns (d_pack [C * L, Ep, D+2], d_wkv, d_wih,
+    d_bih, d_bhh, d_wak); the pack's expert column gets no gradient."""
     ghf = ghf.detach().clone()
     d_pack = torch.zeros_like(pack_lv)
     sums = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
-    for begin, end in giant_chunks(num_levels, chunk_levels):
-        residuals = [residuals_of(lv) for lv in range(begin, end)]
-        chunk = [torch.zeros_like(t) for t in sums]
-        for lv in reversed(range(begin, end)):
-            g = torch.where((lv_upd[lv] > 0)[:, None], ghf[lv_nodes[lv].long()], 0.0)
-            d_pack[lv], *grads, dhf_src = _level_backward(
-                g, *residuals[lv - begin], pack_lv[lv], lv_dslot[lv].long(),
-                (lv_evalid[lv] > 0).to(ghf.dtype), lv_e_n[lv].long(), wkv_hf, w_ih, b_hh, wa_k)
-            for acc, x in zip(chunk, grads):
+    L = pack_lv.shape[0] // len(n_levels)
+    for begin, end in giant_chunks(max(n_levels), chunk_levels):
+        live = [[(k, k * L + lv) for k, levels in enumerate(n_levels) if lv < levels]
+                for lv in range(begin, end)]
+        residuals = {row: residuals_of(row) for rows in live for _, row in rows}
+        chunk = [[torch.zeros_like(t) for t in sums] for _ in n_levels]
+        for rows in reversed(live):
+            for k, row in rows:
+                off = k * n_sub
+                g = torch.where((lv_upd[row] > 0)[:, None], ghf[lv_nodes[row].long() + off], 0.0)
+                d_pack[row], *grads, dhf_src = _level_backward(
+                    g, *residuals[row], pack_lv[row], lv_dslot[row].long(),
+                    (lv_evalid[row] > 0).to(ghf.dtype), lv_e_n[row].long(), wkv_hf, w_ih, b_hh,
+                    wa_k)
+                for acc, x in zip(chunk[k], grads):
+                    acc += x
+                ghf.index_add_(0, lv_src[row].long() + off, dhf_src)
+        for part in chunk:
+            for acc, x in zip(sums, part):
                 acc += x
-            ghf.index_add_(0, lv_src[lv].long(), dhf_src)
-        for acc, x in zip(sums, chunk):
-            acc += x
     return (d_pack, *sums)
 
 
@@ -409,7 +463,23 @@ def level_scan_bwd_reference(ghf, res_e, res_n, pack_lv, lv_src, lv_dslot, lv_ev
     d_wak)."""
     return _reverse_sweep(ghf, lambda lv: (res_e[lv], res_n[lv]), pack_lv, lv_src, lv_dslot,
                           lv_evalid, lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k,
-                          num_levels)
+                          (num_levels,))
+
+
+def level_scan_step_bwd_reference(ghf, res_e, res_n, pack_lv, lv_src, lv_dslot, lv_evalid,
+                                  lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, n_levels,
+                                  n_sub: int, chunk_levels: int | None = None):
+    """The step route's backward: from hf's cotangent ghf [C * n_sub, D] and
+    the stacked residuals of ``level_scan_step_reference``, the reverse sweep
+    over the level indices with ghf carried in place, each level index for
+    every chunk. ``chunk_levels`` None: a level index at a time; K: in the
+    kernel's order, the level indices from the top in blocks of K, each
+    block's weight gradients summed per chunk and the sums added in chunk
+    order. Returns (d_pack [C * L, Ep, D+2], 0 on the rows not walked,
+    d_wkv, d_wih, d_bih, d_bhh, d_wak)."""
+    return _reverse_sweep(ghf, lambda row: (res_e[row], res_n[row]), pack_lv, lv_src,
+                          lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, wkv_hf, w_ih, b_hh,
+                          wa_k, tuple(n_levels), n_sub, chunk_levels or 1)
 
 
 def level_scan_giant_reference(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
@@ -439,8 +509,8 @@ def level_scan_giant_bwd_reference(ghf, hf, pack_lv, lv_src, lv_dslot, lv_evalid
         return res_e, res_n
 
     return _reverse_sweep(ghf, recompute, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes,
-                          lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, num_levels,
-                          chunk_levels or 1)
+                          lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, (num_levels,),
+                          chunk_levels=chunk_levels or 1)
 
 
 def giant_chunks(num_levels: int, chunk_levels: int) -> list[tuple[int, int]]:
@@ -466,14 +536,14 @@ def giant_chunk_levels(ep: int, np_: int, dim: int, levels: int, num_nodes: int,
     """K, the levels per chunk of the giant backward, for level tables of
     ``levels`` levels [levels, Ep] / [levels, Np], D = ``dim``, N =
     ``num_nodes``: as many as the scratch budget allows, at least 1, at most
-    ``levels``. The budget is GIANT_SCRATCH_SHARE of the bytes the route
+    ``levels``. The budget is SCRATCH_SHARE of the bytes the route
     holds anyway (hf and ghf's working copy, 2 N D floats, and d_pack_lv,
-    L Ep (D+2)), at least GIANT_SCRATCH_FLOOR, so that the route's working
+    L Ep (D+2)), at least SCRATCH_FLOOR, so that the route's working
     memory stays within a fixed share above what it holds anyway
     (``chip_smoke.py`` phase 17 allows 1.25 x those bytes)."""
     per_level, fixed = _giant_scratch_floats(ep, np_, dim, num_experts)
     held = 4 * (2 * num_nodes * dim + levels * ep * (dim + 2))
-    budget = max(GIANT_SCRATCH_FLOOR, GIANT_SCRATCH_SHARE * held)
+    budget = max(SCRATCH_FLOOR, SCRATCH_SHARE * held)
     return int(max(1, min(levels, (budget / 4 - fixed) // per_level)))
 
 
@@ -483,6 +553,49 @@ def giant_bwd_launch_count(num_levels: int, chunk_levels: int) -> int:
     weight-gradient partials, a partial per level, and their sums where the
     chunk has more than one level."""
     return sum(3 + (end - begin > 1) for begin, end in giant_chunks(num_levels, chunk_levels))
+
+
+def _step_scratch_floats(ep: int, np_: int, dim: int, chunks: int, num_experts: int):
+    """(floats per level index of a block, floats per block whatever its
+    size) of the step route's backward scratch: per level index each chunk's
+    dkv and dg rows, and a weight-gradient partial; per block each chunk's
+    dhf_buf."""
+    partial = num_experts * dim * (5 * dim + 7)
+    return chunks * (ep * 2 * dim + np_ * 6 * dim) + partial, chunks * ep * dim
+
+
+def step_chunk_levels(ep: int, np_: int, dim: int, rows: int, chunks: int, num_nodes: int,
+                      num_experts: int = MAX_EXPERTS) -> int:
+    """K, the level indices per block of the step route's backward, for
+    ``chunks`` chunks of ``rows`` level rows [rows, Ep] / [rows, Np] each,
+    D = ``dim``, ``num_nodes`` = C * N_sub: as many as the scratch budget
+    allows, at least 1, at most ``rows``. The budget is SCRATCH_SHARE of
+    the bytes the route holds anyway (the stacked residuals, C L (Ep (3D+1) +
+    Np 4D) floats, hf and ghf's working copy, 2 N D, and d_pack_lv,
+    C L Ep (D+2)), at least SCRATCH_FLOOR, so that the route's working
+    memory stays within a fixed share above what it holds anyway
+    (``chip_smoke.py`` phase 12 allows 1.25 x those bytes)."""
+    per_level, fixed = _step_scratch_floats(ep, np_, dim, chunks, num_experts)
+    held = 4 * (2 * num_nodes * dim + chunks * rows * (
+        ep * (dim + 2) + ep * (3 * dim + 1) + np_ * 4 * dim))
+    budget = max(SCRATCH_FLOOR, SCRATCH_SHARE * held)
+    return int(max(1, min(rows, (budget / 4 - fixed) // per_level)))
+
+
+def step_route_launch_count(n_levels, chunk_levels: int) -> int:
+    """The step route's backward launches for chunks of ``n_levels`` real
+    levels in blocks of ``chunk_levels`` level indices: per level index a
+    slot launch and a source launch (all chunks in each), and per block and
+    chunk with real levels in it the weight-gradient partials, a partial per
+    level, and their sum where it has more than one. (Its forward launches
+    once per level index: max(n_levels).)"""
+    count = 0
+    for begin, end in giant_chunks(max(n_levels), chunk_levels):
+        count += 2 * (end - begin)
+        for levels in n_levels:
+            rows = min(end, levels) - begin
+            count += (rows > 0) + (rows > 1)
+    return count
 
 
 def level_step_reference(hf, pack, src, dslot, evalid, upd, e_n,
@@ -923,6 +1036,145 @@ def _step_backward_cuda(g, res_e, res_n, rest, num_nodes: int,
     _build.check(lib, code, "level_step_bwd kernel launch")
     step_bwd_launches += 3
     return (d_pack, *_weight_grads(grads, D, T), d_hf)
+
+
+def level_scan_step(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+                    wkv_hf, w_ih, b_ih, b_hh, wa_k, n_levels, n_sub: int,
+                    lists: LevelLists | None = None, packed: tuple | None = None) -> torch.Tensor:
+    """The level recurrence of a chunked batch by the step route, one level
+    at a time from an explicit hf (the JAX package's ``_level_scan_step``,
+    ``mgvae_tpu/models/dg_ae.py:629-652``).
+
+    The 12 arguments as ``level_scan``'s for the batch's flat [C * L, ...]
+    table rows with chunk-local node ids, C = len(n_levels): chunk k's rows
+    are [k * L, (k + 1) * L), its real levels the first ``n_levels[k]`` of
+    them, and its nodes hf's rows [k * n_sub, (k + 1) * n_sub). Returns hf
+    [C * n_sub, D], differentiable with respect to pack_lv and the weights.
+    ``lists`` / ``packed`` as ``level_scan``'s. On CUDA tensors one launch
+    per level index for all chunks, the new rows scattered into hf inside
+    the kernel; training goes through ``_LevelScanStep``. The kernels take a
+    chunk's rows past its real levels to be padding (no updated slot, so
+    empty lists), as ``collate_chunked`` pads them."""
+    args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
+            wkv_hf, w_ih, b_ih, b_hh, wa_k)
+    n_levels = tuple(int(n) for n in n_levels)
+    C = len(n_levels)
+    if C < 1 or pack_lv.dim() != 3 or pack_lv.shape[0] % C:
+        raise ValueError(f"level_scan_step: {C} chunks do not divide the table rows "
+                         f"{tuple(pack_lv.shape)}")
+    _check(args, C * n_sub, 0, op="level_scan_step")
+    if not all(0 <= n <= pack_lv.shape[0] // C for n in n_levels):
+        raise ValueError(f"level_scan_step: real levels {n_levels} outside "
+                         f"[0, {pack_lv.shape[0] // C}]")
+    dev = pack_lv.device
+    if dev.type == "cpu":
+        return level_scan_step_reference(*args, n_levels, n_sub)
+    if dev.type != "cuda":
+        raise ValueError(f"level_scan_step: no kernel for device {dev}")
+    _check_prepared("level_scan_step", args, lists, packed)
+    if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
+        return _LevelScanStep.apply(n_levels, n_sub, (lists, packed), *args)
+    return _step_route_forward_cuda(args, n_levels, n_sub, residuals=False, lists=lists,
+                                    packed=packed)
+
+
+class _LevelScanStep(torch.autograd.Function):
+    """CUDA only: the step route's forward with residuals, stacked over all
+    C * L rows, and its backward, which carries hf's cotangent in place over
+    the level indices. Counterpart of ``jax.vjp`` of the JAX package's
+    ``_level_scan_step``."""
+
+    @staticmethod
+    def forward(ctx, n_levels, n_sub, prepared, *args):
+        ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
+        hf, res_e, res_n = _step_route_forward_cuda(args, n_levels, n_sub, residuals=True,
+                                                    lists=ctx.lists, packed=ctx.packed)
+        ctx.n_levels, ctx.n_sub = n_levels, n_sub
+        ctx.save_for_backward(*args, res_e, res_n)
+        return hf
+
+    @staticmethod
+    def backward(ctx, ghf):
+        *args, res_e, res_n = ctx.saved_tensors
+        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _step_route_backward_cuda(
+            ghf, res_e, res_n, tuple(args), ctx.n_levels, ctx.n_sub, lists=ctx.lists,
+            packed=ctx.packed)
+        # (n_levels, n_sub, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
+        return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
+
+
+def _step_route_forward_cuda(args, n_levels, n_sub: int, residuals: bool,
+                             lists: LevelLists | None = None, packed=None):
+    """One launch per level index for all chunks (the C entry's loop):
+    (hf, res_e, res_n), the residuals None without ``residuals``."""
+    global step_launches
+    pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
+    R, ep, _ = pack_lv.shape
+    np_, C = lv_nodes.shape[1], len(n_levels)
+    D, T = _kernel_dims(pack_lv, wa_k)
+    dev = pack_lv.device
+    lib = _build.library()
+    lists, packed = _prepared(args, lists, packed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hf = torch.zeros((C * n_sub, D), **f32)
+    res_e = torch.empty((R, ep, 3 * D + 1), **f32) if residuals else None
+    res_n = torch.empty((R, np_, 4 * D), **f32) if residuals else None
+    held, scratch = _scratch(dev, C * ep, C * ep * D)         # score_buf, v_buf
+    levels = (ctypes.c_int * C)(*n_levels)
+    launched = ctypes.c_int(0)             # the kernels the C entry enqueued
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_scan_step_forward(
+            *(t.data_ptr() for t in (hf, pack_lv, lv_src, lv_nodes, *lists[:4], *packed[:2],
+                                     b_ih, b_hh, wa_k)), *scratch,
+            res_e.data_ptr() if residuals else None, res_n.data_ptr() if residuals else None,
+            ctypes.addressof(levels), ctypes.addressof(launched), C, R // C, n_sub, ep, np_, D,
+            T, stream)
+    _build.check(lib, code, "level_scan_step kernel launch")
+    step_launches += launched.value
+    return (hf, res_e, res_n) if residuals else hf
+
+
+def _step_route_backward_cuda(ghf, res_e, res_n, args, n_levels, n_sub: int,
+                              lists: LevelLists | None = None, packed=None,
+                              chunk_levels: int | None = None):
+    """Apart from its outputs the working memory is ghf's copy and the
+    scratch of one block of K level indices: ``chunk_levels``, or by default
+    ``step_chunk_levels``."""
+    global step_bwd_launches
+    pack_lv, lv_src, lv_nodes, b_hh, wa_k = (args[i] for i in (0, 1, 4, 10, 11))
+    R, ep, _ = pack_lv.shape
+    np_, C = lv_nodes.shape[1], len(n_levels)
+    D, T = _kernel_dims(pack_lv, wa_k)
+    dev = pack_lv.device
+    lib = _build.library()
+    lists, (wkv_e, _, wvt_e, wiht_e) = _prepared(args, lists, packed, backward=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_pack = torch.zeros_like(pack_lv)
+    n_grad = T * D * (5 * D + 7)
+    grads = torch.zeros((n_grad,), **f32)      # added into, block by block and chunk by chunk
+    top = max(n_levels)
+    if top == 0:
+        return (d_pack, *_weight_grads(grads, D, T))
+    K = min(chunk_levels or step_chunk_levels(ep, np_, D, R // C, C, C * n_sub, T), top)
+    # a contiguous working copy: autograd may hand over an expanded or shared
+    # cotangent, and the kernels add the sources' gradients into it
+    g = torch.empty((C * n_sub, D), **f32)
+    g.copy_(ghf)
+    held, scratch = _scratch(dev, C * K * ep * 2 * D, C * K * np_ * 6 * D, C * ep * D,
+                             K * n_grad if K > 1 else 1)      # dkv, dg, dhf_buf, partial
+    levels = (ctypes.c_int * C)(*n_levels)
+    launched = ctypes.c_int(0)             # the kernels the C entry enqueued
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mgvae_level_scan_step_backward(
+            *(t.data_ptr() for t in (g, res_e, res_n, lv_src, lv_nodes, *lists, wkv_e, wvt_e,
+                                     wiht_e, b_hh, wa_k, d_pack)), *scratch[:3],
+            grads.data_ptr(), scratch[3], ctypes.addressof(levels), ctypes.addressof(launched),
+            C, R // C, K, n_sub, ep, np_, D, T, stream)
+    _build.check(lib, code, "level_scan_step_bwd kernel launch")
+    step_bwd_launches += launched.value
+    return (d_pack, *_weight_grads(grads, D, T))
 
 
 def _check_step(args) -> None:

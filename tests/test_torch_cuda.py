@@ -360,6 +360,96 @@ def test_step_kernels_match_plain_versions_on_card(cuda, modality, dim):
         torch.testing.assert_close(a, k, rtol=0, atol=0)
 
 
+def _route_tables(cuda, dim, experts, chunks, seed):
+    """level_scan_step's 12 arguments for ``chunks`` chunks of the tables of
+    tests/test_torch_level_lists.py (a source shared by several slots, a
+    slot with 40 in-edges, a level with no updated slot), chunk k with
+    REAL - k % 3 real levels and its rows past them padding, as
+    collate_chunked pads (no updated slot, no valid edge); the weights of
+    chunk 0's. Returns (args, real levels, n_sub)."""
+    from test_torch_level_lists import REAL, random_tables
+
+    parts = [random_tables(seed + k, dim, experts) for k in range(chunks)]
+    n_sub = parts[0][1]
+    n_levels = tuple(REAL - k % 3 for k in range(chunks))
+    tables = []
+    for (t, _), real in zip(parts, n_levels):
+        t = [a.clone() for a in t[:7]]
+        t[3][real:], t[5][real:], t[4][real:] = 0, 0, n_sub - 1
+        tables.append(t)
+    args = [torch.cat([t[i] for t in tables]) for i in range(7)] + parts[0][0][7:]
+    return tuple(a.to(cuda) for a in args), n_levels, n_sub
+
+
+@pytest.mark.parametrize("dim,experts,chunks", [(32, 3, 2), (64, 4, 3), (128, 5, 4), (40, 4, 2)])
+def test_step_route_matches_plain_versions_on_card(cuda, dim, experts, chunks):
+    """Kernels 5 and 6 as the step route (one launch per level index for all
+    chunks, the scatter inside the kernel, hf's cotangent carried in place)
+    on chunks of unequal real levels: the forward with residuals against
+    level_scan_step_reference within 1e-5, equal bit for bit to its serving
+    launch and to the per-row loop of single-level calls; the backward at
+    K = 1, a ragged K and K >= L against level_scan_step_bwd_reference in
+    the same block order within 1e-4 * max(scale, 1), d_pack 0 on the rows
+    it does not walk; each twice, bit for bit the same; launches as
+    step_route_launch_count gives, and through the autograd Function the
+    same outputs."""
+    from test_torch_level_lists import L
+
+    args, n_levels, n = _route_tables(cuda, dim, experts, chunks, seed=11)
+    level_kernel.step_launches = 0
+    runs = [level_kernel._step_route_forward_cuda(args, n_levels, n, residuals=True)
+            for _ in range(2)]
+    hf_k, re_k, rn_k = runs[0]
+    torch.cuda.synchronize()
+    assert level_kernel.step_launches == 2 * max(n_levels)
+    written = [_written_rows(args[2], args[3], args[5], chunks * L, r[1], r[2]) for r in runs]
+    assert torch.equal(runs[1][0], hf_k) and all(
+        torch.equal(a, b) for a, b in zip(written[0], written[1]))
+    hf_r, re_r, rn_r = level_kernel.level_scan_step_reference(*args, n_levels, n,
+                                                              with_residuals=True)
+    assert hf_r.abs().max().item() > 0.01
+    for k, r in zip((hf_k, *written[0]), (hf_r, re_r, rn_r)):
+        torch.testing.assert_close(k, r, rtol=0, atol=1e-5)
+    assert torch.equal(level_kernel._step_route_forward_cuda(args, n_levels, n, False), hf_k)
+    assert torch.equal(dg_ae.level_step_loop(args, n_levels, n), hf_k)
+    ghf = torch.randn(hf_k.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    top = max(n_levels)
+    for K in (1, 2, L + 2):
+        level_kernel.step_bwd_launches = 0
+        raw = [level_kernel._step_route_backward_cuda(ghf, re_k, rn_k, args, n_levels, n,
+                                                      chunk_levels=K) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert level_kernel.step_bwd_launches == 2 * level_kernel.step_route_launch_count(
+            n_levels, min(K, top))
+        assert all(torch.equal(a, c) for a, c in zip(*raw))          # no atomics
+        d_pack = raw[0][0].view(chunks, L, -1)
+        assert all((d_pack[k, real:] == 0).all() for k, real in enumerate(n_levels))
+        grads_r = level_kernel.level_scan_step_bwd_reference(
+            ghf, *written[0], *args[:9], args[10], args[11], n_levels, n, chunk_levels=K)
+        for a, r in zip(raw[0], grads_r):
+            scale = max(r.abs().max().item(), 1.0)
+            assert r.abs().max().item() > 0
+            assert (a - r).abs().max().item() <= 1e-4 * scale
+    # through the autograd Function: the residual forward and the backward
+    # at its own K (step_chunk_levels), on an expanded cotangent
+    t = [a.detach().clone() for a in args]
+    for i in level_kernel.FLOAT_ARGS:
+        t[i].requires_grad_(True)
+    level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    hf = level_kernel.level_scan_step(*t, n_levels, n)
+    g1 = torch.ones((), device=cuda).expand(hf.shape)
+    auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], g1)
+    torch.cuda.synchronize()
+    K = level_kernel.step_chunk_levels(args[0].shape[1], args[4].shape[1], dim, L, chunks,
+                                       chunks * n, experts)
+    assert level_kernel.step_launches == top
+    assert level_kernel.step_bwd_launches == level_kernel.step_route_launch_count(
+        n_levels, min(K, top))
+    assert torch.equal(hf, hf_k)
+    want = level_kernel._step_route_backward_cuda(g1.contiguous(), re_k, rn_k, args, n_levels, n)
+    assert all(torch.equal(a, w) for a, w in zip(auto, want))
+
+
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
 def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
     """Kernels 3 and 4 on a small layered circuit whose shape takes the giant
@@ -663,7 +753,13 @@ def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
     else:
         real, calls = sum(counts), len(counts)
     if layout == "chunked_step":
-        assert (level_kernel.step_launches, level_kernel.step_bwd_launches) == (real, 3 * real)
+        # the route: a launch per level index forward, and backward the
+        # launches of its blocks of K level indices
+        ep, np_ = batch["lv_edge_src"].shape[-1], batch["lv_nodes"].shape[-1]
+        K = level_kernel.step_chunk_levels(ep, np_, cfg.dim_hidden, batch["lv_nodes"].shape[1],
+                                           len(counts), n_pad, cfg.num_experts)
+        assert (level_kernel.step_launches, level_kernel.step_bwd_launches) == (
+            max(counts), level_kernel.step_route_launch_count(counts, min(K, max(counts))))
         assert level_kernel.launches == level_kernel.bwd_launches == 0
     else:
         # per chunk or group one persistent launch forward and three launches backward

@@ -38,7 +38,7 @@ def _scratch_bytes(k, ep, np_, dim, experts):
 
 def _budget(ep, np_, dim, levels, nodes):
     held = 4 * (2 * nodes * dim + levels * ep * (dim + 2))
-    return max(level_kernel.GIANT_SCRATCH_FLOOR, level_kernel.GIANT_SCRATCH_SHARE * held)
+    return max(level_kernel.SCRATCH_FLOOR, level_kernel.SCRATCH_SHARE * held)
 
 
 # ---- K from the byte budget ---------------------------------------------------
