@@ -57,6 +57,20 @@ Phases (any failure raises and the script exits nonzero):
   9. profile (informational): torch.profiler over 10 MIG bs16 train
      steps; device time per step, busy share, device kernels per step, and
      the kernels by device time.
+  [trainer] the 3-stage CLI, ``cli.main(argv)`` as ``python -m
+     mgvae_tpu_torch.train`` runs it (MIG, DG_AE, bs16, layernorm, D=64,
+     s/t_rounds 4, --stage_epochs 1,1,1, 176 synthetic circuits: 9 train
+     and 1 val step an epoch), in-process on the card: per train step struct
+     launches 8 / 17, level 1 / 3, level lists 1, per val step 8 / 1 / 1, no
+     step or giant launch; the five checkpoint files and six epoch lines of
+     the reference format; a --resume rerun with no epochs restores params,
+     BN and Adam state bit for bit; one epoch card vs CPU through two
+     Trainers from the same params with the same host-made negatives and
+     dropout masks (per-step losses within rtol 1e-4, params after within
+     2e-4, see TRAINER_PARAM_ATOL); a bs64 epoch with the chunk count C
+     that pick_chunks chose (one fused launch per chunk); and, for
+     information, the trainer's ms per train step beside a bare train_step
+     loop over the same collated batches.
 
  10. step kernels vs plain: for aig/mig/xag/xmg, 64 circuits collated with
      collate_chunked(graphs, 2) (per-chunk N_sub > 8192, so the chunks fail
@@ -307,6 +321,262 @@ def profile_train(torch, step, card: str, label: str, steps: int = PROFILE_STEPS
     for line in ka.table(sort_by="self_device_time_total", row_limit=rows,
                          max_name_column_width=60).splitlines():
         log(f"[profile] {line}")
+
+
+TRAINER_ARGV = ["--exp_id", "smoke", "--model", "DG_AE", "--type", "mig", "--batch_size",
+                str(BATCH), "--layernorm", "--stage_epochs", "1,1,1", "--synthetic_circuits",
+                "176"]   # D = 64 and s/t_rounds 4 are the parser's defaults; 158 train, 18 val
+# card vs CPU through the trainer: per-step losses, and params after one
+# epoch of 9 Adam steps at lr 1e-4. The comparison's weights leave the prob
+# term out (SMOOTH_WEIGHTS' reason, and the readout biases before BatchNorm
+# have a gradient of 0 in exact arithmetic, rounding noise that Adam scales
+# to +-lr a step on each device). The attention's query side and key bias
+# shift every logit into a node alike, so the softmax cancels their
+# gradient in the same way; they are held to the Adam bound 2 * lr * steps.
+TRAINER_LOSS_RTOL, TRAINER_PARAM_ATOL = 1e-4, 2e-4
+SOFTMAX_INVARIANT = ("wq", "bq", "wa_q", "ba", "bk")
+EPOCH_LINE = (r"^(train|val)\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|ACC: \d+\.\d{2} "
+              r"\|Prob: \d+\.\d{4} \|Func: \d+\.\d{4}\|Net: \d+\.\d{2}s$")
+
+
+def trainer_phase(torch, dev, card: str) -> None:
+    """[trainer]: the 3-stage CLI (``python -m mgvae_tpu_torch.train``) run
+    in-process on the card at full width, with its launches per step, its
+    files and log lines, ``--resume`` bit for bit, one epoch card vs CPU
+    through the trainer, a bs64 epoch's chunk count, and the trainer's ms
+    per step beside a bare train_step loop (informational)."""
+    import os
+    import re
+    import shutil
+
+    from mgvae_tpu_torch import cli
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.ops import level_kernel, struct_kernel
+    from mgvae_tpu_torch.ops import mlp as mlp_mod
+    from mgvae_tpu_torch.train import losses as losses_mod
+    from mgvae_tpu_torch.train import step as step_mod
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exp", "chip_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    save = ["--save_dir", root]
+
+    def counts():
+        return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
+                level_kernel.bwd_launches, level_kernel.lists_launches,
+                level_kernel.step_launches + level_kernel.step_bwd_launches
+                + level_kernel.giant_launches + level_kernel.giant_bwd_launches)
+
+    names = "(struct, struct bwd, level, level bwd, lists, step and giant)"
+    per_step = {"train": [], "val": []}
+    metrics = {"train": [], "val": []}
+    make = trainer_mod.make_train_step
+
+    def counting_make(cfg, optimizer):
+        """make_train_step whose steps record their launches and metrics."""
+        train_step, eval_step = make(cfg, optimizer)
+
+        def recorded(phase, fn):
+            def call(*a, **kw):
+                before = counts()
+                out = fn(*a, **kw)
+                per_step[phase].append(tuple(x - y for x, y in zip(counts(), before)))
+                metrics[phase].append(out[1] if phase == "train" else out)
+                return out
+            return call
+
+        return recorded("train", train_step), recorded("val", eval_step)
+
+    def run(argv):
+        trainer_mod.make_train_step = counting_make
+        try:
+            return cli.main(argv)
+        finally:
+            trainer_mod.make_train_step = make
+
+    for m in (level_kernel, struct_kernel):
+        m.launches = m.bwd_launches = 0
+    level_kernel.lists_launches = level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+    t0 = time.perf_counter()
+    trainer = run(TRAINER_ARGV + save)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {ph: sorted(set(v)) for ph, v in per_step.items()}
+    log(f"[trainer] python -m mgvae_tpu_torch.train {' '.join(TRAINER_ARGV)} in-process on "
+        f"{dev}: {wall:.1f} s for 3 stages; {len(per_step['train'])} train steps and "
+        f"{len(per_step['val'])} val steps; chunks {trainer._chunks}, dims {trainer._dims_max}; "
+        f"launches per step {names}: train {got['train']}, val {got['val']}")
+    want = {"train": [(2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0)], "val": [(2 * ROUNDS, 0, 1, 0, 1, 0)]}
+    if got != want or len(per_step["train"]) != 3 * 9 or len(per_step["val"]) != 3:
+        raise RuntimeError(f"[trainer] launches per step {got} != {want}, or not 27 train and 3 "
+                           f"val steps")
+    rows = torch.stack([torch.stack([m[k] for k in step_mod.METRIC_KEYS])
+                        for m in metrics["train"] + metrics["val"]]).cpu()
+    if not torch.isfinite(rows).all():
+        raise RuntimeError("[trainer] non-finite loss or metric")
+    run_dir = os.path.join(root, "smoke")
+    files = ("stage_1.pth", "stage_2.pth", "stage_3.pth", "model_0.pth", "model_last.pth")
+    missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
+    logs = [f for f in os.listdir(run_dir) if f.startswith("log-")]
+    with open(os.path.join(run_dir, logs[0])) as f:
+        lines = [ln.rstrip("\n") for ln in f if "| Epoch:" in ln]
+    for ln in lines:
+        log(f"[trainer] log: {ln}")
+    if missing or len(logs) != 1 or len(lines) != 6 or not all(
+            re.match(EPOCH_LINE, ln) for ln in lines):
+        raise RuntimeError(f"[trainer] files missing {missing}, or not 6 epoch lines of the "
+                           f"reference format")
+
+    # --resume with no epochs: stage_1.pth then holds what was restored
+    last = torch.load(os.path.join(run_dir, "model_last.pth"), map_location="cpu",
+                      weights_only=True)
+    resumed = run(TRAINER_ARGV[:-4] + ["--stage_epochs", "0,0,0", "--synthetic_circuits", "176",
+                                       "--resume"] + save)
+    again = torch.load(os.path.join(run_dir, "stage_1.pth"), map_location="cpu",
+                       weights_only=True)
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree, key=str) for t in tensors(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in tensors(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    pairs = [(x, y) for key in ("params", "state", "optimizer")
+             for x, y in zip(tensors(last[key]), tensors(again[key]), strict=True)]
+    on_card = all(t.device.type == dev.type for t in step_mod.param_leaves(resumed.params))
+    equal = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs)
+    log(f"[trainer] --resume: model_epoch {resumed.model_epoch} (saved {last['epoch']}), "
+        f"{len(pairs)} tensors (params, BN state, Adam state) bit for bit: {equal}; params on "
+        f"the card: {on_card}")
+    if not (equal and on_card and pairs and resumed.model_epoch == last["epoch"]):
+        raise RuntimeError("[trainer] --resume did not restore the saved tensors bit for bit")
+
+    # one epoch on the card against one on the CPU: same params, graphs and
+    # order, and the same host-made draws
+    args = cli.get_parse_args(TRAINER_ARGV)
+    cfg = cli.model_config(args)
+    train_ds, val_ds = cli.load_dataset(args)
+
+    def host_negatives(gen, num_samples, b):
+        n = int(b["n_nodes"])
+        r = np.random.default_rng([n, num_samples, int(b["n_edges"])])
+        src = r.integers(0, n, num_samples)
+        dst = (src + 1 + r.integers(0, n - 1, num_samples)) % n
+        return tuple(losses_mod.to_valid_runs(
+            torch.as_tensor(x, dtype=torch.int32, device=b["edge_src"].device), b)
+            for x in (src, dst))
+
+    def host_dropout(x, p, train, gen=None, keep=None):
+        if not train or p <= 0.0:
+            return x
+        r = np.random.default_rng(list(x.shape))
+        keep = torch.as_tensor(r.random(tuple(x.shape)) < 1.0 - p, device=x.device)
+        return torch.where(keep, x / (1.0 - p), 0.0)
+
+    draws = (losses_mod.sample_negative_edges, mlp_mod.dropout)
+    losses_mod.sample_negative_edges, mlp_mod.dropout = host_negatives, host_dropout
+    side = {}
+    try:
+        for where in (DEVICE, "cpu"):
+            for ph in metrics:
+                metrics[ph].clear()
+            p0, s0 = dg_ae.init_params(cfg, seed=SEED + 5, device=where)
+            trainer_mod.make_train_step = counting_make
+            try:
+                t = trainer_mod.Trainer(args, cfg, params=p0, state=s0, training_id=f"vs_{where}",
+                                        save_dir=root, batch_size=BATCH, distributed=False,
+                                        seed=SEED, steps_per_call=1, device=where)
+            finally:
+                trainer_mod.make_train_step = make
+            t.set_training_args(rc_prob_func_weight=SMOOTH_WEIGHTS[:3], lr=TRAIN_LR)
+            t.train(1, train_ds, val_ds)
+            side[where] = ({ph: [[float(m[k]) for k in ("recon_loss", "prob_loss", "func_loss")]
+                                 for m in v] for ph, v in metrics.items()},
+                           [x.detach().cpu() for x in step_mod.param_leaves(t.params)])
+    finally:
+        losses_mod.sample_negative_edges, mlp_mod.dropout = draws
+    (l_g, p_g), (l_c, p_c) = side[DEVICE], side["cpu"]
+    loss_err = max(abs(a - c) / max(abs(c), 1e-12) for ph in l_c
+                   for ra, rc in zip(l_g[ph], l_c[ph], strict=True) for a, c in zip(ra, rc))
+    def named_leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}/{i}")]
+        return [prefix]
+
+    leaf_ids = named_leaves(p0)
+    worst = {True: (0.0, ""), False: (0.0, "")}
+    for name, a, c in zip(leaf_ids, p_g, p_c, strict=True):
+        inv = name.startswith("/experts/") and name.split("/")[-1] in SOFTMAX_INVARIANT
+        worst[inv] = max(worst[inv], ((a - c).abs().max().item(), name))
+    adam_bound = 2 * TRAIN_LR * len(l_c["train"])
+    log(f"[trainer] one epoch card vs CPU ({len(l_c['train'])} train and {len(l_c['val'])} val "
+        f"steps, weights {SMOOTH_WEIGHTS[:3]}, lr {TRAIN_LR}, host-made draws): per-step "
+        f"losses max rel |d| {loss_err:.3e} (tol {TRAINER_LOSS_RTOL}); params after, max |d| "
+        f"{worst[False][0]:.3e} at {worst[False][1]} (tol {TRAINER_PARAM_ATOL}); the "
+        f"softmax-invariant attention leaves {worst[True][0]:.3e} at {worst[True][1]} (Adam "
+        f"bound {adam_bound:.1e})")
+    if not (loss_err <= TRAINER_LOSS_RTOL and worst[False][0] <= TRAINER_PARAM_ATOL
+            and worst[True][0] <= adam_bound and len(l_c["train"]) == 9):
+        raise RuntimeError("[trainer] the card's epoch and the CPU's disagree")
+
+    # a bs64 epoch: the chunk count pick_chunks chose, and its launches
+    per_step["train"].clear()
+    trainer_mod.make_train_step = counting_make
+    try:
+        t64 = trainer_mod.Trainer(args, cfg, training_id="bs64", save_dir=root, batch_size=64,
+                                  distributed=False, seed=SEED, steps_per_call=1, device=DEVICE)
+    finally:
+        trainer_mod.make_train_step = make
+    t64.train(1, train_ds, [])
+    torch.cuda.synchronize()
+    got64 = sorted(set(per_step["train"]))
+    C64 = t64._chunks
+    log(f"[trainer] bs64 epoch: pick_chunks chose C={C64} (dims per chunk {t64._dims_max}); "
+        f"{len(per_step['train'])} train steps, launches per step {names}: {got64}")
+    if got64 != [(2 * ROUNDS, SBWD_LAUNCHES, C64, 3 * C64, 1, 0)] or C64 < 2:
+        raise RuntimeError(f"[trainer] bs64 launches {got64}: want one fused launch forward and "
+                           f"three backward per chunk, C={C64} >= 2")
+
+    # (informational) the trainer's ms per train step against a bare
+    # train_step loop over the same collated batches, in one call
+    tt = trainer_mod.Trainer(args, cfg, training_id="time", save_dir=root, batch_size=BATCH,
+                             distributed=False, seed=SEED, steps_per_call=1, device=DEVICE)
+    tt.set_training_args(rc_prob_func_weight=[1.0, 4.0, 4.0], lr=TRAIN_LR)
+    epochs_ms = [tt.train(1, train_ds, [])["train"]["time"] * 1e3 for _ in range(3)]
+    # the host work an epoch adds to the steps: its plan (the shuffle and
+    # the dims scan, a collate per shard) and a collate per step
+    t1 = time.perf_counter()
+    idx, n_steps, dims, C = tt._epoch_plan(train_ds)
+    plan_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    batches = [tt._collate_step([train_ds[i] for i in idx[s * BATCH:(s + 1) * BATCH]], dims, C)
+               for s in range(n_steps)]
+    collate_ms = (time.perf_counter() - t1) * 1e3 / n_steps
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def bare():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in batches:
+            tt.state, _ = tt.train_step(tt.params, tt.state, b, gen, tt.weights)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / len(batches) * 1e3
+
+    bare_ms = [bare() for _ in range(3)]
+    log(f"[trainer] card: {card}")
+    log(f"[trainer] MIG bs{BATCH} trainer epoch ({len(batches)} train steps, collate in the "
+        f"prefetch thread, the dims scan on the epoch's thread, synchronised at the epoch's "
+        f"end), ms per train step over three epochs: "
+        + ", ".join(f"{x:.3f}" for x in epochs_ms)
+        + f"; bare train_step loop over the same collated batches, three passes: "
+        + ", ".join(f"{x:.3f}" for x in bare_ms)
+        + f"; on the host alone, the epoch's plan (shuffle and dims scan) {plan_ms:.3f} ms, "
+        f"collate {collate_ms:.3f} ms per step")
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1015,6 +1285,9 @@ def main() -> int:
     # ---- 9. train-step profile (informational) ----------------------------
     profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card,
                   f"MIG bs{BATCH} train step")
+
+    # ---- [trainer]: the 3-stage CLI on the card -----------------------------
+    trainer_phase(torch, dev, card)
 
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
     step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")

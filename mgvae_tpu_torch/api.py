@@ -6,6 +6,7 @@
     pairs = model.encode_many(graphs, batch_size=16)       # serving path
     prob = model.pred_prob(hf)                              # [N, 1] in [0, 1]
     loss, metrics = model.recon_loss(hs, graph.edge_index)
+    model.save(path); model.load(path)                      # the port's checkpoint format
 
 On CUDA the struct towers and the level recurrence run the hand-written
 kernels (``ops/struct_kernel``, ``ops/level_kernel``). The constructor sets
@@ -23,6 +24,7 @@ from .models import dg_ae
 from .models.dg_ae import DGConfig, init_params
 from .ops.mlp import mlp_apply
 from .train import losses
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 
 class Model:
@@ -131,3 +133,17 @@ class Model:
         if neg_edges is None and gen is None:
             gen = torch.Generator().manual_seed(0)
         return losses.recon_loss(self.params, hs, b, gen, neg_edges=neg_edges)
+
+    # ------------------------------------------------------------------
+    def save(self, path: str):
+        """Write params and BatchNorm state in the port's checkpoint format
+        (``utils/checkpoint``; epoch 0, no optimizer state)."""
+        save_checkpoint(path, 0, self.params, self.state, None, 0.0)
+
+    def load(self, path: str):
+        """Load params and state from a checkpoint of this package (a
+        trainer's or ``save``'s), with the tolerant merge of the reference's
+        ``Model.load``. Other formats raise ValueError (ROADMAP 1.8)."""
+        _, _, self.params, self.state = load_checkpoint(path, self.params, self.state, None,
+                                                        self.device)
+        return self

@@ -115,11 +115,12 @@ REMAT_STRUCT_NODES = 131_072
 
 def check_supported(cfg: DGConfig) -> None:
     if cfg.variational:
-        raise NotImplementedError("variational=True is not ported yet")
+        raise NotImplementedError("variational=True (DG_VAE) is not ported yet (ROADMAP 1.4)")
     if cfg.num_rounds != 1:
-        raise NotImplementedError("num_rounds > 1 is not ported yet")
+        raise NotImplementedError("num_rounds > 1 is not ported yet (ROADMAP 1.5)")
     if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported")
+        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
+                                  "(ROADMAP 1.6)")
 
 
 def init_params(cfg: DGConfig, seed: int = 0, device="cuda"):

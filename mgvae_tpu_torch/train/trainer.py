@@ -1,0 +1,471 @@
+"""Training runtime on one device: the counterpart of
+``mgvae_tpu/train/trainer.py`` (the reference's trainer.py:20-278).
+
+Public surface as in the JAX package: ``Trainer(args, model_cfg, ...)``,
+``set_training_args``, ``weights``, ``train(num_epoch, train_ds, val_ds)``,
+``save`` / ``load`` / ``resume``, ``model_epoch``, ``log_dir`` and
+``step_times``. What it keeps exactly:
+
+  * the batch order: one shuffle per phase from ``default_rng(seed + 2)``,
+    drop_last, so that both packages see the same graphs in each batch;
+  * the lr schedule: decay by 0.1 every ``lr_step`` epochs of the global
+    ``model_epoch``; ``set_training_args(lr=...)`` resets it;
+  * ``model_{e}.pth`` and ``model_last.pth`` in the train phase of every
+    tenth epoch, before the val phase; the reference epoch line;
+  * the batch layout at one device: with ``fixed_dims`` a running max of the
+    padded dims, and on CUDA the smallest chunk count C whose chunks pass
+    the fused level kernel's size gate (``ops/level_kernel.kernel_fits``);
+    without it ``collate_fit`` on CUDA and ``collate`` on the CPU; a forced
+    split count G runs ``collate_split`` on the stratified layout.
+
+Collation runs in a prefetch thread (numpy only, no CUDA call); the
+host-to-device copy stays on the step's thread. Metrics stay on the device
+and are read back once per epoch. Random draws come from one
+``torch.Generator`` on the trainer's device, seeded ``seed + 1``.
+
+Not ported (ROADMAP "Not ported by design"): the data-parallel mesh
+(ROADMAP 1.7), the packed transfer, the thin wire, the K-step scan
+(``steps_per_call`` is accepted and ignored), the native stats cache, the
+split layout's pre-grown dims (they change padding only) and ``trace_dir``.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..data.batching import (
+    _partition_chunks,
+    collate,
+    collate_chunked,
+    collate_fit,
+    collate_split,
+    natural_dims,
+    split_dims,
+)
+from ..models.dg_ae import DGConfig, init_params
+from ..ops.level_kernel import kernel_fits
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.logger import AverageMeter, Logger
+from .step import METRIC_KEYS, make_optimizer, make_train_step, param_leaves, set_lr
+
+# chunk counts tried on the first step, smallest first (the JAX trainer's)
+CHUNK_CANDIDATES = (1, 2, 3, 4, 6, 8)
+PREFETCH_DEPTH = 2
+
+
+def resolve_device(device) -> torch.device:
+    """The trainer's device; "cuda" without a card raises (nothing falls
+    back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: training runs on the card unless the caller asks "
+                           "for the CPU (device='cpu'; for the CLI, MGVAE_PLATFORM=cpu)")
+    return dev
+
+
+def check_single_device(distributed: bool, num_devices) -> None:
+    """Data parallelism over more than one device is not ported."""
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1 or (distributed and (num_devices or 1) > 1):
+        raise NotImplementedError(
+            f"training over more than one device (num_devices={num_devices}, "
+            f"WORLD_SIZE={world}) is not ported yet (ROADMAP 1.7)")
+
+
+def shard_dims(graphs, num_chunks: int) -> dict:
+    """The padded dims of one step's graphs as ``collate`` (C = 1) or each
+    chunk of ``collate_chunked`` gives them: the elementwise max of the
+    chunks' natural dims."""
+    if num_chunks == 1:
+        return natural_dims(graphs)
+    dl = [natural_dims([graphs[i] for i in b]) for b in _partition_chunks(graphs, num_chunks)]
+    return {k: max(d[k] for d in dl) for k in dl[0]}
+
+
+def _running_max(cur: dict, new: dict) -> bool:
+    """Grow ``cur`` to the elementwise max with ``new``; whether it grew."""
+    grew = False
+    for k, v in new.items():
+        if v > cur.get(k, 0):
+            cur[k] = v
+            grew = True
+    return grew
+
+
+class Trainer:
+    def __init__(
+        self,
+        args,
+        model_cfg: DGConfig,
+        params=None,
+        state=None,
+        training_id: str = "default",
+        save_dir: str = "./exp",
+        lr: float = 1e-4,
+        rc_prob_func_weight=(1.0, 4.0, 2.0),
+        kl_weight: float = 0.0,
+        batch_size: int = 32,
+        distributed: bool = True,
+        seed: int = 0,
+        num_devices: int | None = None,
+        log_every: int = 0,
+        fixed_dims: bool = True,
+        steps_per_call: int = 8,
+        split: int | str = "auto",
+        device="cuda",
+    ):
+        check_single_device(distributed, num_devices)
+        self.device = resolve_device(device)
+        self.args = args
+        self.model_cfg = model_cfg
+        self.lr = lr
+        self.lr_step = -1
+        self.rc_prob_func_weight = list(rc_prob_func_weight)
+        self.kl_weight = kl_weight
+        self.batch_size = batch_size
+        self.log_every = log_every
+        # Fixed dims: a running max of the padded batch dims (the JAX trainer
+        # keeps it to stop recompiles; here it keeps the chunking choice and
+        # the batch shapes stable from epoch to epoch)
+        self.fixed_dims = fixed_dims
+        self._dims_max: dict = {}
+        self._chunks: int | None = None     # resolved on the first step
+        # split: "auto" resolves to off (on the H100 fit C=3 ranked ahead of
+        # split G=4 at bs64, PERF.md); an int forces G groups
+        self.split_arg = split
+        self._split: int | None = None
+        self._split_dims_max: list = []
+        self._split_layout: str | None = None   # "stratified" | "uniform"
+        # set to a list to collect (phase, step, host seconds) per step and
+        # ("fetch:<phase>", steps, seconds) for the epoch's metric read-back
+        self.step_times = None
+
+        self.log_dir = os.path.join(save_dir, training_id)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.distributed = distributed
+        self.num_devices = 1
+
+        if params is None:
+            params, state = init_params(model_cfg, seed=seed, device=self.device)
+        self.params, self.state = params, state
+        self.optimizer = make_optimizer(self.params, lr)
+        self.train_step, self.eval_step = make_train_step(model_cfg, self.optimizer)
+        self.model_epoch = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._np_rng = np.random.default_rng(seed + 2)
+
+        time_str = time.strftime("%Y-%m-%d-%H-%M")
+        self.logger = Logger(os.path.join(self.log_dir, f"log-{time_str}.txt"))
+        if int(steps_per_call) != 1:
+            print(f"[INFO] steps_per_call={steps_per_call} is not ported: one optimizer step "
+                  "per call")
+        print(f"[INFO] Training single device; device={self.device}")
+
+    # ------------------------------------------------------------------
+    def set_training_args(self, rc_prob_func_weight=(), lr: float = -1, lr_step: int = -1,
+                          kl_weight: float = None):
+        if len(rc_prob_func_weight) == 3 and list(rc_prob_func_weight) != self.rc_prob_func_weight:
+            print(f"[INFO] Update rc_prob_func_weight from {self.rc_prob_func_weight} to {list(rc_prob_func_weight)}")
+            self.rc_prob_func_weight = list(rc_prob_func_weight)
+        if lr > 0 and lr != self.lr:
+            print(f"[INFO] Update learning rate from {self.lr} to {lr}")
+            self.lr = lr
+            set_lr(self.optimizer, lr)
+        if lr_step > 0 and lr_step != self.lr_step:
+            print(f"[INFO] Update learning rate step from {self.lr_step} to {lr_step}")
+            self.lr_step = lr_step
+        if kl_weight is not None:
+            self.kl_weight = kl_weight
+
+    @property
+    def weights(self) -> list:
+        return self.rc_prob_func_weight + [self.kl_weight]
+
+    # ------------------------------------------------------------------
+    def save(self, path: str):
+        save_checkpoint(path, self.model_epoch, self.params, self.state,
+                        self.optimizer.state_dict(), self.lr)
+
+    def load(self, path: str):
+        """Restore params (copied into the optimizer's own tensors), BN
+        state, Adam state, ``model_epoch`` and lr from ``path``. The rngs are
+        not restored, as in the JAX package."""
+        epoch, lr, params, state = load_checkpoint(path, self.params, self.state,
+                                                   self.optimizer, self.device)
+        with torch.no_grad():
+            for dst, src in zip(param_leaves(self.params), param_leaves(params), strict=True):
+                if dst is not src:
+                    dst.copy_(src)
+        self.state = state
+        self.model_epoch = epoch
+        self.lr = lr
+        set_lr(self.optimizer, lr)
+        print(f"[INFO] Continue training from epoch {self.model_epoch}")
+        return path
+
+    def resume(self) -> bool:
+        path = os.path.join(self.log_dir, "model_last.pth")
+        if os.path.exists(path):
+            self.load(path)
+            return True
+        return False
+
+    # ------------------------------------------------------------------
+    def _epoch_plan(self, dataset):
+        """The epoch's shuffled ids, step count, dims (None, a dict, or one
+        dict per split group) and chunk count."""
+        idx = np.arange(len(dataset))
+        self._np_rng.shuffle(idx)
+        n_steps = len(idx) // self.batch_size
+        if n_steps == 0 and len(dataset):
+            print(
+                f"[WARN] dataset of {len(dataset)} graphs yields 0 steps at "
+                f"batch_size {self.batch_size} x {self.num_devices} device(s) "
+                "(drop_last) — epoch will be empty"
+            )
+        dims = None
+        if self.fixed_dims:
+            if self._split is None and n_steps:  # defer on empty epochs
+                self._split = (max(self.split_arg, 1) if isinstance(self.split_arg, int) else 1)
+                if self._split > 1:
+                    print(f"[INFO] fixed-dims: splitting each shard into {self._split} "
+                          "shape-sorted groups (collate_split)")
+            if self._split is not None and self._split > 1:
+                if self._split_layout != "uniform":
+                    sidx = self._stratified_perm(dataset, n_steps)
+                    if self._split_layout is None:
+                        self._split_layout = "uniform" if sidx is None else "stratified"
+                    if sidx is not None:
+                        idx = sidx
+                dims = self._update_split_dims(dataset, idx, n_steps)
+            else:
+                dims = self._update_dims_max(dataset, idx, n_steps)
+        return idx, n_steps, dims, (self._chunks or 1)
+
+    def _shape_sort_ids(self, dataset) -> np.ndarray:
+        """Dataset ids sorted by the split shape key (max level, edges,
+        nodes): the order whose contiguous quantiles are the strata."""
+        lmax = np.array([int(dataset[i].forward_level.max(initial=0))
+                         for i in range(len(dataset))])
+        e = np.array([dataset[i].num_edges for i in range(len(dataset))])
+        n = np.array([dataset[i].num_nodes for i in range(len(dataset))])
+        return np.lexsort((n, e, lmax))
+
+    def _stratified_perm(self, dataset, n_steps):
+        """Split-mode epoch layout: G contiguous shape strata, each shuffled,
+        every shard drawn from its per-stratum quota, so that a shard's
+        shape-sorted group g is a random subset of stratum g. Every graph
+        still appears once per epoch. None when a stratum cannot fill its
+        quota."""
+        G = self._split
+        order = self._shape_sort_ids(dataset)
+        strata = [s[self._np_rng.permutation(len(s))] for s in np.array_split(order, G)]
+        sizes = [len(a) for a in np.array_split(np.arange(self.batch_size), G)]
+        if any(n_steps * m > len(s) for m, s in zip(sizes, strata)):
+            return None
+        shards = [np.concatenate([strata[g][j * sizes[g]:(j + 1) * sizes[g]] for g in range(G)])
+                  for j in range(n_steps)]
+        used = np.concatenate(shards) if shards else np.zeros(0, np.int64)
+        rest = np.setdiff1d(order, used, assume_unique=True)
+        return np.concatenate([used, rest]).astype(np.int64)
+
+    def _shards(self, dataset, idx, steps):
+        bs = self.batch_size
+        return [[dataset[i] for i in idx[s * bs:(s + 1) * bs]] for s in steps]
+
+    def _update_split_dims(self, dataset, idx, n_steps):
+        """Running max of the per-group dims over this epoch's shards."""
+        if n_steps:
+            dl = split_dims(self._shards(dataset, idx, range(n_steps)), self._split)
+            if not self._split_dims_max:
+                self._split_dims_max = [{} for _ in dl]
+            for cur, new in zip(self._split_dims_max, dl):
+                _running_max(cur, new)
+        return [dict(d) for d in self._split_dims_max] or None
+
+    def _scan_dims(self, dataset, idx, num_chunks: int, steps) -> dict:
+        dmax: dict = {}
+        for shard in self._shards(dataset, idx, steps):
+            _running_max(dmax, shard_dims(shard, num_chunks))
+        return dmax
+
+    def _pick_chunks(self, dataset, idx, n_steps) -> int:
+        """The smallest C whose per-chunk dims on the first step pass
+        ``kernel_fits``; 1 on the CPU, whose plain path has no size gate."""
+        if self.device.type != "cuda":
+            return 1
+        for C in CHUNK_CANDIDATES:
+            if C > max(self.batch_size // 2, 1):
+                break
+            d = self._scan_dims(dataset, idx, C, range(min(n_steps, 1)))
+            if kernel_fits(d["N"], d["EP"], d["NP"], self.model_cfg.dim_hidden):
+                if C > 1:
+                    print(f"[INFO] fixed-dims: collating each shard as {C} kernel-sized chunks")
+                return C
+        return 1
+
+    def _update_dims_max(self, dataset, idx, n_steps) -> dict:
+        """Grow the running dims max over this epoch's shards; on the first
+        step pick the chunk count, and pick it again only when the max grows
+        past the kernel's size gate."""
+        if self._chunks is None and n_steps:
+            self._chunks = self._pick_chunks(dataset, idx, n_steps)
+        C = self._chunks or 1
+        grew = _running_max(self._dims_max, self._scan_dims(dataset, idx, C, range(n_steps)))
+        if grew and self.device.type == "cuda" and not kernel_fits(
+                self._dims_max["N"], self._dims_max["EP"], self._dims_max["NP"],
+                self.model_cfg.dim_hidden):
+            new_c = self._pick_chunks(dataset, idx, n_steps)
+            if new_c != self._chunks:
+                self._chunks = new_c
+                self._dims_max = self._scan_dims(dataset, idx, new_c, range(n_steps))
+        return dict(self._dims_max)
+
+    def _collate_step(self, graphs, dims, num_chunks: int) -> dict:
+        if isinstance(dims, list):  # split mode: per-group dims
+            return collate_split(graphs, len(dims), dims=dims)
+        if dims is None and self.device.type == "cuda":
+            # free dims: chunk big batches so that each chunk takes the fused kernels
+            return collate_fit(graphs)
+        if num_chunks > 1:
+            return collate_chunked(graphs, num_chunks, dims=dims)
+        return collate(graphs, dims=dims)
+
+    def _iter_batches(self, dataset):
+        """Host batches of one epoch, collated in a prefetch thread (numpy
+        only) PREFETCH_DEPTH steps ahead. An error in the thread is raised
+        here; closing the generator early stops the thread."""
+        idx, n_steps, dims, C = self._epoch_plan(dataset)
+        bs = self.batch_size
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
+        stop = threading.Event()
+
+        def producer():
+            end = RuntimeError("the prefetch thread stopped before the epoch's end")
+            try:
+                for s in range(n_steps):
+                    if stop.is_set():
+                        return
+                    q.put(self._collate_step([dataset[i] for i in idx[s * bs:(s + 1) * bs]],
+                                             dims, C))
+                end = None
+            except Exception as e:  # handed to the consumer, which raises it
+                end = e
+            finally:
+                q.put(end)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    break
+                if isinstance(b, BaseException):
+                    raise b
+                yield b
+        finally:
+            stop.set()
+            while t.is_alive():  # unblock a pending put until the thread returns
+                try:
+                    q.get(timeout=0.05)
+                except queue.Empty:
+                    pass
+
+    # ------------------------------------------------------------------
+    def train(self, num_epoch: int, train_dataset, val_dataset):
+        weights = self.weights
+        print(f"[INFO] Start training, lr = {self.lr:.6f}")
+        phase_meters = {}
+        meters = None
+        for epoch in range(num_epoch):
+            for phase in ("train", "val"):
+                ds = train_dataset if phase == "train" else val_dataset
+                meters = {k: AverageMeter() for k in ("recon", "prob", "func", "kl", "acc", "tp", "fp", "tn", "fn", "time")}
+                # metrics stay on the device, one [9] row per step, read back
+                # once at the epoch's end: a read per step would wait for the
+                # device on every step of a host-bound loop
+                pending = []
+                steps_done = 0
+                last_logged = 0
+                t0 = time.time()
+                for batch in self._iter_batches(ds):
+                    ts = time.perf_counter() if self.step_times is not None else 0.0
+                    if phase == "train":
+                        self.state, m = self.train_step(self.params, self.state, batch,
+                                                        self._gen, weights)
+                    else:
+                        m = self.eval_step(self.params, self.state, batch, self._gen, weights)
+                    pending.append(torch.stack([m[k] for k in METRIC_KEYS]))
+                    steps_done += 1
+                    if self.log_every and steps_done - last_logged >= self.log_every:
+                        last_logged = steps_done
+                        mm = dict(zip(METRIC_KEYS, pending[-1].tolist()))
+                        print(
+                            f"[{phase} {self.model_epoch}] {epoch}/{num_epoch} it {steps_done} "
+                            f"|Recon: {mm['recon_loss']:.4f} |Prob: {mm['prob_loss']:.4f} "
+                            f"|Func: {mm['func_loss']:.4f}"
+                        )
+                    if self.step_times is not None:
+                        self.step_times.append((phase, steps_done, time.perf_counter() - ts))
+                tf = time.perf_counter() if self.step_times is not None else 0.0
+                rows = (torch.stack(pending).cpu().numpy() if pending
+                        else np.zeros((0, len(METRIC_KEYS)), np.float32))
+                if self.step_times is not None:
+                    self.step_times.append(
+                        (f"fetch:{phase}", steps_done, time.perf_counter() - tf))
+                for row in rows:
+                    m = dict(zip(METRIC_KEYS, (float(x) for x in row)))
+                    n_pred = max(m["n_pred"], 1.0)
+                    meters["recon"].update(m["recon_loss"])
+                    meters["prob"].update(m["prob_loss"])
+                    meters["func"].update(m["func_loss"])
+                    meters["kl"].update(m["kl_loss"])
+                    meters["acc"].update((m["tp"] + m["tn"]) / n_pred)
+                    meters["tp"].update(m["tp"] / n_pred)
+                    meters["fp"].update(m["fp"] / n_pred)
+                    meters["tn"].update(m["tn"] / n_pred)
+                    meters["fn"].update(m["fn"] / n_pred)
+                meters["time"].update((time.time() - t0) / max(steps_done, 1), n=max(steps_done, 1))
+                if phase == "train" and self.model_epoch % 10 == 0:
+                    self.save(os.path.join(self.log_dir, f"model_{self.model_epoch}.pth"))
+                    self.save(os.path.join(self.log_dir, "model_last.pth"))
+                phase_meters[phase] = meters if pending else phase_meters.get(phase, meters)
+                # reference epoch-line format (trainer.py:208-212); the KL
+                # field only when a nonzero KL was metered
+                kl_part = (" |KL: {:.4f}".format(meters["kl"].avg)
+                           if meters["kl"].avg else "")
+                self.logger.write(
+                    "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
+                        phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
+                        meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
+                    )
+                )
+            self.model_epoch += 1
+            if self.lr_step > 0 and self.model_epoch % self.lr_step == 0:
+                self.lr *= 0.1
+                print(f"[INFO] Learning rate decay to {self.lr}")
+                set_lr(self.optimizer, self.lr)
+        if not num_epoch:
+            return {}
+        # last epoch's meters: val phase when it had batches, else train
+        # (the val split can be smaller than batch_size under drop_last)
+        val_empty = not phase_meters.get("val", meters)["recon"].count
+        if val_empty and not getattr(self, "_warned_empty_val", False):
+            self._warned_empty_val = True
+            print(
+                "[WARN] validation split smaller than batch_size: the val "
+                "epoch is empty under drop_last (reference parity) — "
+                "returned metrics fall back to TRAIN meters. Early stopping "
+                "on these stops on training loss, not validation loss."
+            )
+        best = phase_meters.get("train", meters) if val_empty else phase_meters.get("val")
+        out = {k: v.avg for k, v in best.items()}
+        out["train"] = {k: v.avg for k, v in phase_meters.get("train", meters).items()}
+        out["val"] = {k: v.avg for k, v in phase_meters.get("val", meters).items()}
+        return out
