@@ -71,6 +71,26 @@ Phases (any failure raises and the script exits nonzero):
      that pick_chunks chose (one fused launch per chunk); and, for
      information, the trainer's ms per train step beside a bare train_step
      loop over the same collated batches.
+  [variants] the model variants at the same width (MIG bs16, D=64, s/t_rounds
+     4, layernorm, random weights from seed 0): DG_VAE (the variational head
+     and the KL term), AE (the directed GCN struct encoder, plain torch as in
+     the JAX package) and num_rounds = 2 (the general level loop, plain torch
+     on every device: neither package has a kernel for it), beside DG_AE.
+     Three train steps of each (weights [1, 4, 4, 1]) with the launches of
+     each step, counts set to 0 before it: DG_VAE's equal DG_AE's (struct
+     8 / 17, level 1 / 3, lists 1), AE (0, 0, 1, 3, 1), num_rounds = 2
+     (8, 17, 0, 0, 0: the struct towers keep their kernels, no level, list,
+     step or giant launch); kl_loss nonzero exactly for DG_VAE. For each of
+     the three, the encode (launches; hs, hf and DG_VAE's aux within 1e-4 of
+     the CPU's) and one train step card vs CPU with host-made negatives,
+     dropout masks and posterior noise, held as phase 7 holds its step, the
+     prob term apart as in phase 12 (weights [1, 0, 4, 1] and
+     card_vs_cpu_prob). Model(variational=True).encode_many: a second model
+     of the same seed gives the same hf, the next request fresh draws. The
+     CLI with the parser's default model (DG_VAE), --kl_weight 0.1, one
+     epoch a stage: the five files and six epoch lines with the KL field.
+     For information: the median bs16 train step of the four models in
+     this call, and torch.profiler over three AE and num_rounds = 2 steps.
 
  10. step kernels vs plain: for aig/mig/xag/xmg, 64 circuits collated with
      collate_chunked(graphs, 2) (per-chunk N_sub > 8192, so the chunks fail
@@ -177,6 +197,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -323,6 +346,17 @@ def profile_train(torch, step, card: str, label: str, steps: int = PROFILE_STEPS
         log(f"[profile] {line}")
 
 
+# [variants]: the train steps of each variant on the card; their weights
+# (stage 3's with the KL term, DG_VAE's only); the card-vs-CPU step's, with
+# the prob term held apart as in phases 12 and 17 (SMOOTH_WEIGHTS' reason)
+VARIANT_STEPS = 3
+VARIANT_WEIGHTS = [1.0, 4.0, 4.0, 1.0]
+VARIANT_SMOOTH_WEIGHTS = [1.0, 0.0, 4.0, 1.0]
+VAE_ARGV = ["--exp_id", "vae", "--type", "mig", "--batch_size", str(BATCH), "--layernorm",
+            "--stage_epochs", "1,1,1", "--synthetic_circuits", "176", "--kl_weight", "0.1"]
+VAE_EPOCH_LINE = (r"^(train|val)\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|ACC: \d+\.\d{2} "
+                  r"\|Prob: \d+\.\d{4} \|Func: \d+\.\d{4} \|KL: -?\d+\.\d{4}\|Net: "
+                  r"\d+\.\d{2}s$")
 TRAINER_ARGV = ["--exp_id", "smoke", "--model", "DG_AE", "--type", "mig", "--batch_size",
                 str(BATCH), "--layernorm", "--stage_epochs", "1,1,1", "--synthetic_circuits",
                 "176"]   # D = 64 and s/t_rounds 4 are the parser's defaults; 158 train, 18 val
@@ -345,10 +379,6 @@ def trainer_phase(torch, dev, card: str) -> None:
     files and log lines, ``--resume`` bit for bit, one epoch card vs CPU
     through the trainer, a bs64 epoch's chunk count, and the trainer's ms
     per step beside a bare train_step loop (informational)."""
-    import os
-    import re
-    import shutil
-
     from mgvae_tpu_torch import cli
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.ops import level_kernel, struct_kernel
@@ -1039,26 +1069,38 @@ def main() -> int:
         keep = [torch.rand(n_pad, cfg.dim_mlp, generator=g) < 0.8 for _ in range(2)]
         return neg, keep
 
-    def card_vs_cpu_step(tag, batch, weights):
+    def vae_draws(batch, cfg_x, where):
+        """DG_VAE's posterior noise (eps_s, eps_t) for the batch's rows, made
+        on the CPU from a fixed seed, on ``where``; None for other models."""
+        if not cfg_x.variational:
+            return None
+        g = torch.Generator().manual_seed(SEED + 4)
+        return tuple(torch.randn(batch["gate"].shape[0], cfg_x.dim_hidden, generator=g).to(where)
+                     for _ in range(2))
+
+    def card_vs_cpu_step(tag, batch, weights, cfg_x=None):
         """One step's losses and gradients on the card and on the CPU: same
-        params, batch, loss weights, negatives and dropout masks."""
+        params, batch, loss weights, negatives, dropout masks and (DG_VAE)
+        posterior noise. ``cfg_x``: the model, phase 7's by default."""
+        cfg_x = cfg_x or cfg
         neg, keep = fixed_draws(batch, SEED + 2)
         one = {}
         for where in ("cpu", DEVICE):
-            p1, s1 = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
+            p1, s1 = dg_ae.init_params(cfg_x, seed=SEED + 3, device=where)
             leaves = train_step_mod.param_leaves(p1)
             for t in leaves:
                 t.requires_grad_(True)
             total, (_, m1) = train_step_mod.loss_and_metrics(
-                p1, s1, batch, None, weights, cfg, True,
-                neg_edges=tuple(t.to(where) for t in neg), drop_keep=[k.to(where) for k in keep])
+                p1, s1, batch, None, weights, cfg_x, True,
+                neg_edges=tuple(t.to(where) for t in neg), drop_keep=[k.to(where) for k in keep],
+                vae_eps=vae_draws(batch, cfg_x, where))
             total.backward()
             one[where] = ({k: float(m1[k]) for k in keys},
                           [torch.zeros(t.shape) if t.grad is None else t.grad.cpu()
                            for t in leaves])
         (m_c, g_c), (m_g, g_g) = one["cpu"], one[DEVICE]
         # the losses, not the counts: a logit within rounding of 0 may flip one
-        loss_keys = ("recon_loss", "prob_loss", "func_loss", "loss")
+        loss_keys = ("recon_loss", "prob_loss", "func_loss", "kl_loss", "loss")
         loss_err = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1.0) for k in loss_keys)
         g_scale = max(g.abs().max().item() for g in g_c)
         # per leaf: (|d| / tol, |d|, leaf scale); the worst leaf is reported
@@ -1066,9 +1108,10 @@ def main() -> int:
                                                                     GRAD_FLOOR * g_scale)),
                       (a - c).abs().max().item(), c.abs().max().item())
                      for a, c in zip(g_g, g_c))
-        log(f"[{tag}] card vs CPU, one step, weights {weights}: losses {m_g['recon_loss']:.6f}/"
-            f"{m_g['prob_loss']:.6f}/{m_g['func_loss']:.6f} vs {m_c['recon_loss']:.6f}/"
-            f"{m_c['prob_loss']:.6f}/{m_c['func_loss']:.6f}; max rel |d| of the losses "
+        log(f"[{tag}] card vs CPU, one step, weights {weights}: losses (recon/prob/func/kl) "
+            f"{m_g['recon_loss']:.6f}/{m_g['prob_loss']:.6f}/{m_g['func_loss']:.6f}/"
+            f"{m_g['kl_loss']:.6f} vs {m_c['recon_loss']:.6f}/{m_c['prob_loss']:.6f}/"
+            f"{m_c['func_loss']:.6f}/{m_c['kl_loss']:.6f}; max rel |d| of the losses "
             f"{loss_err:.3e}; tp/fp {m_g['tp']:.0f}/{m_g['fp']:.0f} vs {m_c['tp']:.0f}/"
             f"{m_c['fp']:.0f}; gradients, worst leaf against its own scale: max|d| "
             f"{g_leaf[1]:.3e} at scale {g_leaf[2]:.3e}, {g_leaf[0]:.3f} of its tolerance "
@@ -1076,22 +1119,24 @@ def main() -> int:
         if not (loss_err <= CPU_TOL and g_leaf[0] <= 1.0):
             raise RuntimeError(f"[{tag}] card and CPU disagree on one training step")
 
-    def card_vs_cpu_prob(tag, batch, near=1e-4):
+    def card_vs_cpu_prob(tag, batch, near=1e-4, cfg_x=None):
         """The prob loss alone on the card and on the CPU at a size where
         some ReLU unit of its readout lies within rounding of 0 (see
         SMOOTH_WEIGHTS): the readout's pre-activations are compared as they
         are, and the loss's gradients with the units within ``near`` of a
         kink on either device masked on both: hidden units near 0, and
         nodes whose prediction is near 0, 1 or its target."""
+        cfg_x = cfg_x or cfg
         _, keep = fixed_draws(batch, SEED + 2)
         side = {}
         for where in ("cpu", DEVICE):
-            p1, s1 = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
+            p1, s1 = dg_ae.init_params(cfg_x, seed=SEED + 3, device=where)
             leaves = train_step_mod.param_leaves(p1)
             for t in leaves:
                 t.requires_grad_(True)
             b1 = dg_ae.batch_to_device(batch, where)
-            _, hf, _ = dg_ae.forward_device(p1, b1, cfg, dg_ae.level_counts(batch))
+            _, hf, _ = dg_ae.forward_device(p1, b1, cfg_x, dg_ae.level_counts(batch),
+                                            vae_eps=vae_draws(batch, cfg_x, where))
             side[where] = (p1["readout_prob"], s1["readout_prob"], b1, hf, leaves,
                            [k.to(where) for k in keep])
 
@@ -1288,6 +1333,142 @@ def main() -> int:
 
     # ---- [trainer]: the 3-stage CLI on the card -----------------------------
     trainer_phase(torch, dev, card)
+
+    # ---- [variants]: DG_VAE, AE and num_rounds = 2 ------------------------------
+    variants = {"DG_AE": cfg, "DG_VAE": dataclasses.replace(cfg, variational=True),
+                "AE": dataclasses.replace(cfg, struct_encoder="gcn"),
+                "num_rounds=2": dataclasses.replace(cfg, num_rounds=2)}
+    var_names = "(struct, struct bwd, level, level bwd, lists, step and giant)"
+
+    def var_zero():
+        for m in (level_kernel, struct_kernel):
+            m.launches = m.bwd_launches = 0
+        level_kernel.lists_launches = level_kernel.step_launches = 0
+        level_kernel.step_bwd_launches = level_kernel.giant_launches = 0
+        level_kernel.giant_bwd_launches = 0
+
+    def var_read():
+        return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
+                level_kernel.bwd_launches, level_kernel.lists_launches,
+                level_kernel.step_launches + level_kernel.step_bwd_launches
+                + level_kernel.giant_launches + level_kernel.giant_bwd_launches)
+
+    # (a)-(c) the main path of each variant: VARIANT_STEPS train steps on the
+    # card, the launches of each read with the counts set to 0 before it
+    b16 = batches[0]
+    var_steps, var_ms = {}, {}
+    for name, cfg_v in variants.items():
+        p_v, s_v = dg_ae.init_params(cfg_v, seed=SEED, device=dev)
+        ts_v, _ = train_step_mod.make_train_step(
+            cfg_v, train_step_mod.make_optimizer(p_v, TRAIN_LR))
+        gen_v = torch.Generator(device=dev).manual_seed(SEED)
+        per, kl = [], []
+        for i in range(VARIANT_STEPS):
+            var_zero()
+            s_v, m_v = ts_v(p_v, s_v, batches[i % len(batches)], gen_v, VARIANT_WEIGHTS)
+            sync()
+            per.append(var_read())
+            vals = torch.stack([m_v[k] for k in keys]).cpu()
+            if not torch.isfinite(vals).all():
+                raise RuntimeError(f"[variants] {name}: non-finite loss or metric")
+            kl.append(float(m_v["kl_loss"]))
+        var_steps[name] = sorted(set(per))
+        # (d) the bs16 train step's median wall time (informational)
+        reps = 5 if cfg_v.num_rounds > 1 else 20
+        var_ms[name] = median_wall(lambda: ts_v(p_v, s_v, b16, gen_v, VARIANT_WEIGHTS), reps,
+                                   sync) * 1e3
+        if name in ("AE", "num_rounds=2"):   # where the plain torch of the variant goes
+            profile_train(torch, lambda: ts_v(p_v, s_v, b16, gen_v, VARIANT_WEIGHTS), card,
+                          f"{name} MIG bs{BATCH} train step", steps=3, rows=12)
+        log(f"[variants] {name}: {VARIANT_STEPS} train steps, weights {VARIANT_WEIGHTS}, "
+            f"launches per step {var_names} {var_steps[name]}; kl_loss {kl}")
+        if (kl[0] != 0.0) != cfg_v.variational:
+            raise RuntimeError(f"[variants] {name}: kl_loss {kl} (nonzero exactly for DG_VAE)")
+    want_steps = {"DG_AE": [(2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0)],
+                  "DG_VAE": var_steps["DG_AE"], "AE": [(0, 0, 1, 3, 1, 0)],
+                  "num_rounds=2": [(2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0)]}
+    if var_steps != want_steps:
+        raise RuntimeError(f"[variants] launches per train step {var_steps} != {want_steps}")
+
+    # encode and one train step of each, card vs CPU
+    want_enc = {"DG_VAE": (2 * ROUNDS, 0, 1, 0, 1, 0), "AE": (0, 0, 1, 0, 1, 0),
+                "num_rounds=2": (2 * ROUNDS, 0, 0, 0, 0, 0)}
+    for name, want in want_enc.items():
+        cfg_v = variants[name]
+        enc = {}
+        for where in ("cpu", DEVICE):
+            p_v, _ = dg_ae.init_params(cfg_v, seed=SEED, device=where)
+            var_zero()
+            with torch.inference_mode():
+                hs_v, hf_v, aux_v = dg_ae.forward(p_v, b16, cfg_v,
+                                                  vae_eps=vae_draws(b16, cfg_v, where))
+            sync()
+            enc[where] = (hs_v.cpu(), hf_v.cpu(), {k: v.cpu() for k, v in aux_v.items()},
+                          var_read())
+        (hs_c, hf_c, aux_c, _), (hs_g, hf_g, aux_g, got) = enc["cpu"], enc[DEVICE]
+        rows = torch.as_tensor(b16["node_valid"])
+        d = {k: (a[rows] - c[rows]).abs().max().item()
+             for k, a, c in [("hs", hs_g, hs_c), ("hf", hf_g, hf_c)]
+             + [(k, aux_g[k], aux_c[k]) for k in sorted(aux_c)]}
+        log(f"[variants] {name} encode (bs{BATCH} MIG): launches {var_names} {got}; card vs CPU "
+            f"max|d| " + ", ".join(f"{k} {v:.3e}" for k, v in d.items()) + f" (tol {CPU_TOL})")
+        if got != want or sorted(aux_g) != sorted(aux_c) or not all(
+                v <= CPU_TOL for v in d.values()) or not torch.isfinite(hf_g).all():
+            raise RuntimeError(f"[variants] {name} encode: launches {got} (want {want}) or card "
+                               f"and CPU disagree")
+        card_vs_cpu_step(f"variants {name}", b16, VARIANT_SMOOTH_WEIGHTS, cfg_x=cfg_v)
+        card_vs_cpu_prob(f"variants {name}", b16, cfg_x=cfg_v)
+
+    # DG_VAE through api.Model: its noise from its own device generator,
+    # repeatable from the seed and fresh on every request
+    vae_models = [Model(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                        layernorm=True, variational=True, seed=SEED, device=DEVICE)
+                  for _ in range(2)]
+    var_zero()
+    first = vae_models[0].encode_many(requests[0], batch_size=BATCH)
+    sync()
+    got = var_read()
+    again = vae_models[0].encode_many(requests[0], batch_size=BATCH)
+    twin = vae_models[1].encode_many(requests[0], batch_size=BATCH)
+    d_twin = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(first, twin))
+    d_again = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(first, again))
+    log(f"[variants] Model(variational=True).encode_many, one bs{BATCH} request: launches "
+        f"{var_names} {got}; hf of a second model of the same seed max|d| {d_twin:.3e}, of the "
+        f"next request of the same model {d_again:.3e}")
+    if got != want_enc["DG_VAE"] or not d_twin <= 1e-6 or not d_again > 1e-3 or not all(
+            np.isfinite(h).all() for pair in first for h in pair):
+        raise RuntimeError("[variants] Model(variational=True): launches, or draws not "
+                           "repeatable from the seed and fresh per request")
+
+    # (a) the CLI with the parser's default model (DG_VAE), KL in the loss
+    from mgvae_tpu_torch import cli
+    var_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exp", "chip_smoke_vae")
+    shutil.rmtree(var_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    vae_trainer = cli.main(VAE_ARGV + ["--save_dir", var_root])
+    sync()
+    wall = time.perf_counter() - t0
+    run_dir = os.path.join(var_root, "vae")
+    files = ("stage_1.pth", "stage_2.pth", "stage_3.pth", "model_0.pth", "model_last.pth")
+    missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
+    (log_file,) = [f for f in os.listdir(run_dir) if f.startswith("log-")]
+    with open(os.path.join(run_dir, log_file)) as f:
+        lines = [ln.rstrip("\n") for ln in f if "| Epoch:" in ln]
+    for ln in lines:
+        log(f"[variants] DG_VAE CLI log: {ln}")
+    log(f"[variants] python -m mgvae_tpu_torch.train {' '.join(VAE_ARGV)} in-process on {dev}: "
+        f"{wall:.1f} s; model variational={vae_trainer.model_cfg.variational}, weights "
+        f"{vae_trainer.weights}; files missing {missing}")
+    if missing or not vae_trainer.model_cfg.variational or len(lines) != 6 or not all(
+            re.match(VAE_EPOCH_LINE, ln) for ln in lines):
+        raise RuntimeError("[variants] the DG_VAE CLI: files missing, or not 6 epoch lines with "
+                           "the KL field")
+    shutil.rmtree(var_root, ignore_errors=True)
+
+    # (d) the bs16 train step of each variant, in this call (informational)
+    log(f"[variants] card: {card}")
+    log(f"[variants] MIG bs{BATCH} train step (host batch -> Adam update, synchronised), "
+        f"median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in var_ms.items()))
 
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
     step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")

@@ -9,7 +9,12 @@
     model.save(path); model.load(path)                      # the port's checkpoint format
 
 On CUDA the struct towers and the level recurrence run the hand-written
-kernels (``ops/struct_kernel``, ``ops/level_kernel``). The constructor sets
+kernels (``ops/struct_kernel``, ``ops/level_kernel``); with
+``num_rounds > 1`` the level recurrence is plain torch, as in the JAX
+package. ``variational=True`` (DG_VAE) draws the posterior noise from a
+generator on the model's device seeded ``seed + 17``, once per forward or
+``encode_many`` request, so that embeddings differ from call to call and
+repeat from the seed. The constructor sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.allow_tf32``
 to False: parity mode is full fp32.
 """
@@ -28,8 +33,8 @@ from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 
 class Model:
-    """Per-modality DG_AE model. The default modality is XAG, as in the
-    reference package's ``deepgate.Model``."""
+    """Per-modality DG_AE / DG_VAE model. The default modality is XAG, as in
+    the reference package's ``deepgate.Model``."""
 
     def __init__(
         self,
@@ -52,13 +57,14 @@ class Model:
             s_rounds=s_rounds, t_rounds=t_rounds, layernorm=layernorm,
             variational=variational, input_quirk=input_quirk, num_rounds=num_rounds,
         )
-        dg_ae.check_supported(self.cfg)
         self.device = torch.device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if params is None:
             params, state = init_params(self.cfg, seed=seed, device=self.device)
         self.params, self.state = params, state
+        self._gen = (torch.Generator(device=self.device).manual_seed(seed + 17)
+                     if variational else None)
 
     def __call__(self, graph):
         return self.forward(graph)
@@ -79,7 +85,7 @@ class Model:
             crop = int(batch["n_nodes"])
         else:
             batch = graph
-        hs, hf, _ = dg_ae.forward(self.params, batch, self.cfg)
+        hs, hf, _ = dg_ae.forward(self.params, batch, self.cfg, gen=self._gen)
         # undo the batcher's renumbering (level-major, per chunk or group)
         inv = torch.as_tensor(batch["node_inv"]).to(hs.device).long()
         hs, hf = hs[inv], hf[inv]
@@ -95,7 +101,7 @@ class Model:
         for start in range(0, len(graphs), batch_size):
             chunk = graphs[start : start + batch_size]
             batch = collate(chunk)
-            hs, hf, _ = dg_ae.forward(self.params, batch, self.cfg)
+            hs, hf, _ = dg_ae.forward(self.params, batch, self.cfg, gen=self._gen)
             inv = batch["node_inv"]
             hs = hs.cpu().numpy()[inv]
             hf = hf.cpu().numpy()[inv]

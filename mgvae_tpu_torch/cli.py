@@ -10,14 +10,17 @@ Stages (train.py:81-85): recon only, recon + prob, all three losses, lr
 ``--num_epochs`` and ``--lr`` are ignored, like the reference's (quirk 9).
 Without ``--data_dir`` a synthetic labelled dataset is generated.
 
+``--model`` picks the model as ``train.py`` does: DG_VAE (the parser's
+default) adds the variational head and the KL term (``--kl_weight``), DG_AE
+runs without them, AE swaps the struct towers for the directed GCN.
+
 Runs on the card (``cuda``) unless ``MGVAE_PLATFORM=cpu`` (the environment
-knob of ``train.py``). What the port does not run raises
-``NotImplementedError`` before any data is built: ``--model DG_VAE`` (the
-parser's default; ROADMAP 1.4), ``--model AE`` (the gcn encoder, 1.9), and
-more than one device (1.7). Accepted but not honoured yet, each with a
-printed note: ``--distributed`` on one device (the single-device path,
-which a 1-device mesh equals), ``--matmul_precision`` (full fp32, TF32 off,
-until 1.6) and ``--steps_per_call`` (one step per call).
+knob of ``train.py``). More than one device (ROADMAP 1.7) raises
+``NotImplementedError`` before any data is built. Accepted but not honoured
+yet, each with a printed note: ``--distributed`` on one device (the
+single-device path, which a 1-device mesh equals), ``--matmul_precision``
+(full fp32, TF32 off, until 1.6) and ``--steps_per_call`` (one step per
+call).
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ import numpy as np
 from .config import get_parse_args
 from .data.npz import NpzParser
 from .data.synthetic import random_circuit
-from .models import dg_ae
 from .models.dg_ae import DGConfig
 from .train.trainer import Trainer, check_single_device, resolve_device
 
@@ -57,12 +59,8 @@ def load_dataset(args):
 
 
 def model_config(args) -> DGConfig:
-    """The model configuration of the flags; raises NotImplementedError for
-    a model the port does not run."""
-    if "DG" not in args.model:
-        raise NotImplementedError(f"--model {args.model}: the gcn struct encoder is not "
-                                  "ported yet (ROADMAP 1.9)")
-    cfg = DGConfig(
+    """The model configuration of the flags (``train.py:55-67``)."""
+    return DGConfig(
         modality=args.type,
         dim_hidden=args.dim_hidden,
         dim_feature=args.dim_feature,
@@ -71,10 +69,9 @@ def model_config(args) -> DGConfig:
         layernorm=args.layernorm,
         variational="VAE" in args.model,
         input_quirk=not args.no_input_quirk,
+        struct_encoder="multigcn" if "DG" in args.model else "gcn",
         neg_collision_mask=args.neg_collision_mask,
     )
-    dg_ae.check_supported(cfg)
-    return cfg
 
 
 def main(argv=None) -> Trainer:

@@ -1,19 +1,27 @@
-"""DG_AE: the multi-gate auto-encoder's forward and its decoder heads.
+"""DG_AE / DG_VAE / AE: the multi-gate auto-encoder's forward and its
+decoder heads.
 
-Counterpart of ``mgvae_tpu/models/dg_ae.py`` for ``num_rounds == 1`` in
-fp32. The per-gate-type attention aggregators and GRUs ("experts") are
-stacked along a T axis in single [in, T*out] matrices, as in the JAX
-package, so one params tree serves both packages.
+Counterpart of ``mgvae_tpu/models/dg_ae.py`` in fp32. The per-gate-type
+attention aggregators and GRUs ("experts") are stacked along a T axis in
+single [in, T*out] matrices, as in the JAX package, so one params tree
+serves both packages.
 
 The forward:
-  1. ``struct_input`` and the two struct towers, then ``hs_linear`` -> hs.
-     With s_rounds == t_rounds the towers run through
+  1. ``struct_input`` and the two struct towers, the variational head when
+     ``cfg.variational`` (DG_VAE: s = s_mu + exp(s_logstd) * eps, and
+     likewise t; ``aux`` holds the four posterior tensors), then
+     ``hs_linear`` -> hs (``encode_struct``). The towers are the recurrent
+     multigcn ones (``--model DG_*``) or, with ``struct_encoder="gcn"``
+     (``--model AE``), the 2-layer directed GCN of ``models/gcn``, fed
+     ``x_feat`` on both sides; the gcn is plain torch, as in the JAX
+     package. With s_rounds == t_rounds the multigcn towers run through
      ``ops.struct_kernel.struct_towers`` (the CUDA kernels on the card, an
      autograd Function when training), which reads the batch's blocked
      ``fa_src`` / ``ra_src`` tables.
-  2. ``level_statics``: everything the level recurrence needs that does not
-     depend on hf (with one round, a node's hf is zero until its own level
-     runs), packed per edge as [vhs | score_static | expert].
+  2. With ``num_rounds == 1``, ``level_statics``: everything the level
+     recurrence needs that does not depend on hf (with one round, a node's
+     hf is zero until its own level runs), packed per edge as
+     [vhs | score_static | expert].
   3. The level recurrence over DAG depth (``level_recurrence``), by the
      route the batch's shapes select, as ``_level_scan_pallas`` does in the
      JAX package (``mgvae_tpu/models/dg_ae.py:600-620``). A plain batch
@@ -39,19 +47,25 @@ own dims that runs the whole forward; hs and hf are concatenated in group
 order, the layout the batch's top-level loss arrays index).
 
 Past ``REMAT_STRUCT_NODES`` nodes the struct towers are rematerialised in the
-backward (``DGConfig.remat_struct``, ``struct_hs``): their residuals
+backward (``DGConfig.remat_struct``, ``struct_towers``): their residuals
 [2R, 2, N, 7D], the largest arrays of a giant graph's step, are then not held
 from the forward through the level recurrence's backward; only the struct
 backward holds them, beside one half-round of its own scratch. On an H100
 that lowers a giant step's peak by 13% (depth 1000, ~513k nodes) for ~2%
 more step time.
 
+With ``num_rounds > 1`` steps 2 and 3 are ``level_loop`` instead, the JAX
+package's general loop (``mgvae_tpu/models/dg_ae.py:339-396``): plain
+torch on every device, since neither package has a kernel for it (the level
+kernels assume hf == 0 before a node's own level).
+
+Random draws of the variational head come from an explicit
+``torch.Generator`` (``gen``) or are passed in (``vae_eps``).
+
 Parity mode is full fp32: set ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False on the card (``api.Model``
-does so).
-
-Not ported yet, and raising ``NotImplementedError``: ``variational``,
-``num_rounds > 1``, ``compute_dtype="bfloat16"``.
+does so). Not ported yet, and raising ``NotImplementedError``:
+``compute_dtype="bfloat16"`` (ROADMAP 1.6).
 """
 from __future__ import annotations
 
@@ -67,7 +81,9 @@ from ..ops.init import gru_cell_init, linear_apply, linear_init
 from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, level_lists, level_scan,
                                 level_scan_giant, level_step, repack_expert_major, select_expert)
 from ..ops.mlp import mlp_init
+from ..ops.segment import segment_softmax, segment_sum
 from .encoder import direct_multigcn_apply, direct_multigcn_init
+from .gcn import directed_gcn_encoder_apply, directed_gcn_encoder_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +104,9 @@ class DGConfig:
     remat_struct: bool | None = None
     dim_mlp: int = 32
     compute_dtype: str = "float32"
+    # struct encoder: "multigcn" (--model DG_*, the recurrent towers) or
+    # "gcn" (--model AE, the 2-layer directed GCN of models/gcn)
+    struct_encoder: str = "multigcn"
     # mask sampled negatives that hit a real edge (train/losses.recon_loss)
     neg_collision_mask: bool = False
 
@@ -111,13 +130,11 @@ class DGConfig:
 # package's threshold (``mgvae_tpu/models/dg_ae.py:304-313``), here a plain
 # constant.
 REMAT_STRUCT_NODES = 131_072
+# the variational head's linears (D -> D), in their draw order
+VAE_HEADS = ("fc_s_mu", "fc_s_logstd", "fc_t_mu", "fc_t_logstd")
 
 
 def check_supported(cfg: DGConfig) -> None:
-    if cfg.variational:
-        raise NotImplementedError("variational=True (DG_VAE) is not ported yet (ROADMAP 1.4)")
-    if cfg.num_rounds != 1:
-        raise NotImplementedError("num_rounds > 1 is not ported yet (ROADMAP 1.5)")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
                                   "(ROADMAP 1.6)")
@@ -126,12 +143,18 @@ def check_supported(cfg: DGConfig) -> None:
 def init_params(cfg: DGConfig, seed: int = 0, device="cuda"):
     """(params, state) with the JAX package's tree and shapes, drawn with
     torch's default init from ``torch.Generator().manual_seed(seed)`` on the
-    CPU and moved to ``device``."""
+    CPU and moved to ``device``. The struct tree follows
+    ``cfg.struct_encoder``; ``cfg.variational`` adds the posterior heads
+    ``fc_{s,t}_{mu,logstd}`` (D -> D linears), drawn last."""
     check_supported(cfg)
     D = cfg.dim_hidden
     gen = torch.Generator().manual_seed(seed)
+    if cfg.struct_encoder == "gcn":
+        struct = directed_gcn_encoder_init(gen, cfg.dim_feature, D, D)
+    else:
+        struct = direct_multigcn_init(gen, D, cfg.dim_feature, cfg.layernorm)
     params = {
-        "struct": direct_multigcn_init(gen, D, cfg.dim_feature, cfg.layernorm),
+        "struct": struct,
         "hs_linear": linear_init(gen, 2 * D, D),
         "hs_decompose": linear_init(gen, D, 2 * D),
         "experts": _experts_init(gen, cfg),
@@ -139,6 +162,9 @@ def init_params(cfg: DGConfig, seed: int = 0, device="cuda"):
     # probability readout MLP (D -> dim_mlp -> dim_mlp -> 1, BatchNorm after
     # the hidden layers); read by the prob loss, not by the encode path
     params["readout_prob"], readout_state = mlp_init(gen, D, cfg.dim_mlp)
+    if cfg.variational:
+        for name in VAE_HEADS:
+            params[name] = linear_init(gen, D, D)
     state = {"readout_prob": readout_state}
     return _to(params, device), _to(state, device)
 
@@ -237,22 +263,59 @@ def remat_struct(cfg: DGConfig, num_nodes: int) -> bool:
     return cfg.remat_struct
 
 
-def struct_hs(params, b: dict, cfg: DGConfig) -> torch.Tensor:
-    """hs [N, D] of a device batch. With ``remat_struct`` and grad enabled
-    the towers run under ``torch.utils.checkpoint``: the backward runs them
-    a second time, in place of keeping their residuals. The struct kernels
-    sum in a fixed order, so the second run equals the first bit for bit."""
+def struct_towers(params, b: dict, cfg: DGConfig):
+    """(s, t) [N, D] of the struct encoder on a device batch. The multigcn
+    towers run under ``torch.utils.checkpoint`` with ``remat_struct`` and
+    grad enabled: the backward runs them a second time, in place of keeping
+    their residuals. The struct kernels sum in a fixed order, so the second
+    run equals the first bit for bit. The gcn encoder (``struct_encoder ==
+    "gcn"``) reads ``x_feat`` on both sides and never the struct kernels."""
     x_feat = struct_input(b["gate"], cfg)
+    if cfg.struct_encoder == "gcn":
+        return directed_gcn_encoder_apply(params["struct"], x_feat, x_feat, b["edge_src"],
+                                          b["edge_dst"], b["edge_valid"])
 
     def towers(struct_params):
         return direct_multigcn_apply(struct_params, x_feat, b, cfg.s_rounds, cfg.t_rounds,
                                      cfg.layernorm)
 
     if remat_struct(cfg, x_feat.shape[0]) and torch.is_grad_enabled():
-        s, t = checkpoint(towers, params["struct"], use_reentrant=False)
-    else:
-        s, t = towers(params["struct"])
-    return linear_apply(params["hs_linear"], torch.cat([s, t], dim=-1))
+        return checkpoint(towers, params["struct"], use_reentrant=False)
+    return towers(params["struct"])
+
+
+def variational_head(params, s, t, eps) -> tuple:
+    """DG_VAE's reparametrisation (``mgvae_tpu/models/dg_ae.py:316-325``):
+    returns (s, t, aux) with s = s_mu + exp(s_logstd) * eps[0], likewise t,
+    and aux the four posterior tensors."""
+    aux = {name[3:]: linear_apply(params[name], x)
+           for name, x in zip(VAE_HEADS, (s, s, t, t))}
+    s = aux["s_mu"] + torch.exp(aux["s_logstd"]) * eps[0]
+    t = aux["t_mu"] + torch.exp(aux["t_logstd"]) * eps[1]
+    return s, t, aux
+
+
+def encode_struct(params, b: dict, cfg: DGConfig, gen=None, vae_eps=None):
+    """(hs [N, D], aux) of a device batch: the struct towers, the
+    variational head when ``cfg.variational`` (outside the towers'
+    checkpoint, so that a recompute draws nothing), then ``hs_linear``.
+    ``vae_eps``: explicit (eps_s, eps_t) [N, D]; else two standard normal
+    draws from ``gen``, on the generator's device."""
+    s, t = struct_towers(params, b, cfg)
+    aux = {}
+    if cfg.variational:
+        if vae_eps is None:
+            if gen is None:
+                raise ValueError("the variational forward needs a generator or vae_eps")
+            vae_eps = [torch.randn(s.shape, generator=gen, device=gen.device).to(s.device)
+                       for _ in range(2)]
+        s, t, aux = variational_head(params, s, t, vae_eps)
+    return linear_apply(params["hs_linear"], torch.cat([s, t], dim=-1)), aux
+
+
+def struct_hs(params, b: dict, cfg: DGConfig) -> torch.Tensor:
+    """hs [N, D] of a device batch (``encode_struct`` without ``aux``)."""
+    return encode_struct(params, b, cfg)[0]
 
 
 def level_statics(params, b: dict, cfg: DGConfig, hs: torch.Tensor, expert: torch.Tensor):
@@ -326,7 +389,9 @@ def step_kernel_fits(n_sub: int, ep: int, np_: int, dim: int) -> bool:
 
 def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tensor:
     """hf [num_nodes, D] from ``level_scan_inputs``' arguments and the real
-    level count of each chunk, by the route the shapes select. Where the JAX
+    level count of each chunk, by the route the shapes select, for
+    ``num_rounds == 1`` (``forward_device`` takes ``level_loop`` for
+    ``num_rounds > 1``, where neither package has a kernel). Where the JAX
     package's ``_level_scan_pallas`` (``mgvae_tpu/models/dg_ae.py:600-620``)
     takes a kernel, this takes that kernel's counterpart; where it falls
     back to its XLA scan past a size gate of the TPU's, this takes the giant
@@ -366,6 +431,57 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
              num_levels=n_levels[k], lists=lists and lists.rows(k * L, (k + 1) * L),
              packed=packed)
         for k in range(C)])
+
+
+def level_loop(params, b: dict, cfg: DGConfig, hs: torch.Tensor, n_levels: tuple) -> torch.Tensor:
+    """The general level recurrence, ``num_rounds`` passes over the real
+    (chunk, level) rows with hf carried across passes: the JAX package's
+    loop for ``num_rounds > 1`` (``mgvae_tpu/models/dg_ae.py:339-396``), as
+    plain torch. Per level: the query from [hs, hf] of the level's nodes,
+    keys and values from [hs, hf] of its edges' sources, the masked segment
+    softmax, the GRU with ``w_hh @ hf`` and both biases, and hf written out
+    of place (``index_copy``) where a node has an expert, its old row
+    elsewhere (the padding slots all point at the chunk's dump row and write
+    it unchanged). The JAX loop also walks the padding levels, which change
+    nothing."""
+    D, T = cfg.dim_hidden, cfg.num_experts
+    ex = params["experts"]
+    expert = cfg.expert_of_gate(hs.device)[b["gate"].long()]     # [N], -1: no expert
+    tabs, off, C = lv_views(b)
+    L = tabs["lv_nodes"].shape[0] // C
+    nodes_all = (tabs["lv_nodes"] + off[:, None]).long()
+    src_all = (tabs["lv_edge_src"] + off[:, None]).long()
+    dslot_all = tabs["lv_edge_dst_slot"].long()
+    upd_all = tabs["lv_node_valid"] & (expert[nodes_all] >= 0)
+    e_all = expert[nodes_all].clamp(min=0)
+    wkv = torch.cat([ex["wk"], ex["wv"]], dim=1)                  # [2D, 2TD]
+    rows = [k * L + lv for k in range(C) for lv in range(n_levels[k])]
+    hf = torch.zeros_like(hs)
+    for _ in range(cfg.num_rounds):
+        for row in rows:
+            nodes, e_n, dslot = nodes_all[row], e_all[row], dslot_all[row]
+            src, evalid = src_all[row], tabs["lv_edge_valid"][row]
+            hf_dst = hf[nodes]
+            q = (select_expert(torch.cat([hs[nodes], hf_dst], dim=1) @ ex["wq"], e_n, T)
+                 + ex["bq"][e_n])
+            aq = (q * ex["wa_q"][e_n]).sum(-1) + ex["ba"][e_n]
+            e_edge = e_n[dslot]
+            kv = torch.cat([hs[src], hf[src]], dim=1) @ wkv
+            k = select_expert(kv[:, : T * D], e_edge, T) + ex["bk"][e_edge]
+            v = select_expert(kv[:, T * D :], e_edge, T) + ex["bv"][e_edge]
+            score = aq[dslot] + (k * ex["wa_k"][e_edge]).sum(-1)
+            np_ = nodes.shape[0]
+            attn = segment_softmax(score, dslot, np_, valid=evalid)
+            msg = segment_sum(v * attn[:, None], dslot, np_)
+            gi = select_expert(msg @ ex["w_ih"], e_n, T) + ex["b_ih"][e_n]
+            gh = select_expert(hf_dst @ ex["w_hh"], e_n, T) + ex["b_hh"][e_n]
+            i_r, i_z, i_n = gi.chunk(3, dim=-1)
+            h_r, h_z, h_n = gh.chunk(3, dim=-1)
+            r = torch.sigmoid(i_r + h_r)
+            z = torch.sigmoid(i_z + h_z)
+            h_new = (1.0 - z) * torch.tanh(i_n + r * h_n) + z * hf_dst
+            hf = hf.index_copy(0, nodes, torch.where(upd_all[row][:, None], h_new, hf_dst))
+    return hf
 
 
 def kernel_inputs(args: tuple) -> tuple:
@@ -425,38 +541,52 @@ def level_step_loop(args: tuple, n_levels: tuple, n_sub: int, lists=None,
     return hf
 
 
-def forward(params, batch: dict, cfg: DGConfig):
+def forward(params, batch: dict, cfg: DGConfig, gen=None, vae_eps=None):
     """Model forward on a host batch (``data.batching.collate``,
     ``collate_chunked`` / ``collate_fit`` or ``collate_split``); returns
     (hs, hf, aux) on the params' device, rows in the batch's own order
     (level-major per chunk or group; ``batch["node_inv"]`` maps input order
-    to it). ``aux`` is empty (it holds the posterior stats of the
-    variational mode, which is not ported yet). Differentiable with respect
-    to the params; ``api.Model`` runs it under ``inference_mode``."""
+    to it). ``aux`` holds the posterior tensors s_mu, s_logstd, t_mu,
+    t_logstd [N, D] when ``cfg.variational``, rows as hs's, and is empty
+    otherwise. The variational draws: ``vae_eps`` (eps_s, eps_t) [N, D] in
+    the same rows, or from ``gen``. Differentiable with respect to the
+    params; ``api.Model`` runs it under ``inference_mode``."""
     device = params["hs_linear"]["w"].device
-    return forward_device(params, batch_to_device(batch, device), cfg, level_counts(batch))
+    return forward_device(params, batch_to_device(batch, device), cfg, level_counts(batch),
+                          gen=gen, vae_eps=vae_eps)
 
 
-def forward_device(params, b: dict, cfg: DGConfig, n_levels):
+def forward_device(params, b: dict, cfg: DGConfig, n_levels, gen=None, vae_eps=None):
     """``forward`` on a batch already on the device (``batch_to_device``),
     with its real level counts (``level_counts``; an int will do for a plain
     batch). Level counts come from the host so that no launch waits for the
     device."""
     check_supported(cfg)
     if "groups" in b:
-        return forward_split(params, b, cfg, n_levels)
+        return forward_split(params, b, cfg, n_levels, gen, vae_eps)
     if isinstance(n_levels, int):
         n_levels = (n_levels,)
-    hs = struct_hs(params, b, cfg)
+    hs, aux = encode_struct(params, b, cfg, gen, vae_eps)
+    if cfg.num_rounds > 1:
+        # plain torch on every device: the level kernels of both packages
+        # assume hf == 0 before a node's own level (the GRU's hidden side is
+        # b_hh alone), and the JAX package runs this loop as plain XLA
+        return hs, level_loop(params, b, cfg, hs, tuple(n_levels)), aux
     hf = level_recurrence(level_scan_inputs(params, b, cfg, hs), hs.shape[0], tuple(n_levels))
-    return hs, hf, {}
+    return hs, hf, aux
 
 
-def forward_split(params, b: dict, cfg: DGConfig, n_levels):
+def forward_split(params, b: dict, cfg: DGConfig, n_levels, gen=None, vae_eps=None):
     """A split batch: each group runs the whole forward at its own padded
-    dims; hs and hf are concatenated in group order."""
-    outs = [forward_device(params, g, cfg, n) for g, n in zip(b["groups"], n_levels, strict=True)]
-    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), {}
+    dims, drawing its variational noise in group order (or reading its rows
+    of ``vae_eps``); hs, hf and aux are concatenated in group order."""
+    sizes = [g["gate"].shape[0] for g in b["groups"]]
+    eps = (zip(*(e.split(sizes) for e in vae_eps)) if vae_eps is not None
+           else [None] * len(sizes))
+    outs = [forward_device(params, g, cfg, n, gen, e)
+            for g, n, e in zip(b["groups"], n_levels, eps, strict=True)]
+    aux = {k: torch.cat([o[2][k] for o in outs]) for k in outs[0][2]}
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), aux
 
 
 def hs_decompose(params, hs: torch.Tensor):

@@ -3,7 +3,8 @@
 Counterpart of ``mgvae_tpu/ops/segment.py``: scatter-add aggregation and
 PyG's segment ``softmax``. On CUDA ``index_add_`` and ``scatter_reduce_``
 use atomics, so the order of a sum changes from run to run; every tolerance
-that covers these ops on the card says so.
+that covers these ops on the card says so. ``segment_sum_ordered`` sums in
+a fixed order on every device.
 """
 from __future__ import annotations
 
@@ -18,6 +19,15 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     """Sum ``data`` rows into ``num_segments`` buckets keyed by ``segment_ids``."""
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
+
+
+def segment_sum_ordered(data: torch.Tensor, segment_ids: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """``segment_sum`` in a fixed order: ``index_put_`` with ``accumulate``,
+    which on CUDA sorts the ids (stably) and sums each segment's rows in
+    their order, with no atomics; two runs agree bit for bit."""
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_put_((segment_ids.long(),), data, accumulate=True)
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -8,12 +8,13 @@ Counterpart of ``mgvae_tpu/train/losses.py``:
   prob:  L1(clamp(readout_prob(hf), 0, 1), prob).
   func:  L1(zscore(1 - cos(hf_a, hf_b)), zscore(tt_dis)), torch's unbiased
          std.
+  kl:    DG_VAE's term over the posterior tensors in ``aux``, with the
+         reference's double 1/N (trainer.py:146-148).
 
 Random draws (negatives, dropout) come from an explicit ``torch.Generator``
 and cannot match ``jax.random`` bit for bit; ``recon_loss`` takes explicit
 ``neg_edges`` and ``prob_loss`` explicit dropout ``drop_keep`` masks, so the
-parity tests hand both packages the same draws. ``kl_loss`` waits for the
-variational mode, which is not ported yet.
+parity tests hand both packages the same draws.
 """
 from __future__ import annotations
 
@@ -139,6 +140,21 @@ def prob_loss(params, state, hf, b: dict, train: bool, gen: torch.Generator | No
     pred = out[:, 0].clamp(0.0, 1.0)
     l1 = (pred - b["prob"]).abs()
     return masked_mean(l1, valid, _count(b, "n_nodes", hf)), {"readout_prob": new_state}
+
+
+def kl_loss(aux: dict, b: dict):
+    """Per tower -0.5 / N * masked_mean over the valid nodes of
+    sum_d (1 + 2 logstd - mu^2 - exp(logstd)^2), with N = n_nodes: the
+    reference's double 1/N, kept (``mgvae_tpu/train/losses.py:205-216``).
+    Returns the s tower's plus the t tower's."""
+    n = _count(b, "n_nodes", aux["s_mu"])
+    valid = b["node_valid"]
+
+    def one(mu, logstd):
+        per_node = (1.0 + 2.0 * logstd - mu.square() - torch.exp(logstd).square()).sum(1)
+        return (-0.5 / n) * masked_mean(per_node, valid, n)
+
+    return one(aux["s_mu"], aux["s_logstd"]) + one(aux["t_mu"], aux["t_logstd"])
 
 
 def func_loss(hf, b: dict):

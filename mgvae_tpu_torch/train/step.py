@@ -9,8 +9,10 @@ CUDA the struct towers and the level recurrence, forward and backward, are
 the hand-written kernels (autograd Functions in ``ops/struct_kernel`` and
 ``ops/level_kernel``).
 
-Loss weights are [w_recon, w_prob, w_func, w_kl]; the KL term waits for the
-variational mode and is 0. Not ported: the data-parallel (mesh) path, and
+Loss weights are [w_recon, w_prob, w_func, w_kl]; the KL term is DG_VAE's
+(``cfg.variational``) and 0 otherwise. Random draws (the variational noise,
+the negatives, the dropout masks) come from one ``torch.Generator`` in that
+order, or are passed in. Not ported: the data-parallel (mesh) path, and
 ``rehydrate`` / ``rehydrate_split``, which rebuild on the device what the
 JAX package's thin host-to-device wire drops (the port sends whole batches).
 """
@@ -20,7 +22,7 @@ import torch
 
 from ..models import dg_ae
 from ..models.dg_ae import DGConfig
-from .losses import func_loss, prob_loss, recon_loss
+from .losses import func_loss, kl_loss, prob_loss, recon_loss
 
 # epoch-metric row layout, as in the JAX package
 METRIC_KEYS = ("recon_loss", "prob_loss", "func_loss", "kl_loss",
@@ -52,65 +54,70 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 def losses_from_forward(params, state, b: dict, hs, hf, gen, weights, cfg: DGConfig,
-                        train: bool, neg_edges=None, drop_keep=None):
-    """The losses of one forward's (hs, hf) on the device batch ``b``;
+                        train: bool, neg_edges=None, drop_keep=None, aux=None):
+    """The losses of one forward's (hs, hf, aux) on the device batch ``b``;
     returns (total, (new_state, metrics))."""
     rc, metrics = recon_loss(params, hs, b, gen, neg_edges=neg_edges,
                              mask_collisions=cfg.neg_collision_mask)
     pl, new_state = prob_loss(params, state, hf, b, train, gen, drop_keep=drop_keep)
     fl = func_loss(hf, b)
-    kl = torch.zeros((), dtype=hs.dtype, device=hs.device)
+    kl = (kl_loss(aux, b) if cfg.variational
+          else torch.zeros((), dtype=hs.dtype, device=hs.device))
     w = [float(x) for x in weights]
     total = w[0] * rc + w[1] * pl + w[2] * fl + w[3] * kl
     metrics = dict(metrics)
     metrics.update(recon_loss=rc.detach(), prob_loss=pl.detach(), func_loss=fl.detach(),
-                   kl_loss=kl, loss=total.detach())
+                   kl_loss=kl.detach(), loss=total.detach())
     return total, (new_state, metrics)
 
 
 def loss_and_metrics(params, state, batch: dict, gen, weights, cfg: DGConfig, train: bool,
-                     neg_edges=None, drop_keep=None):
+                     neg_edges=None, drop_keep=None, vae_eps=None):
     """Forward and losses of a host batch; returns (total, (new_state,
-    metrics)). ``neg_edges`` and ``drop_keep`` replace the draws from
-    ``gen`` (the parity tests pass the JAX package's)."""
+    metrics)). ``neg_edges``, ``drop_keep`` and ``vae_eps`` replace the
+    draws from ``gen`` (the parity tests pass the JAX package's)."""
     device = params["hs_linear"]["w"].device
     b = dg_ae.batch_to_device(batch, device)
-    hs, hf, _ = dg_ae.forward_device(params, b, cfg, dg_ae.level_counts(batch))
+    hs, hf, aux = dg_ae.forward_device(params, b, cfg, dg_ae.level_counts(batch), gen=gen,
+                                       vae_eps=vae_eps)
     return losses_from_forward(params, state, b, hs, hf, gen, weights, cfg, train,
-                               neg_edges=neg_edges, drop_keep=drop_keep)
+                               neg_edges=neg_edges, drop_keep=drop_keep, aux=aux)
 
 
 def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer):
     """Returns (train_step, eval_step).
 
     train_step(params, state, batch, gen, weights, neg_edges=None,
-    drop_keep=None) -> (state, metrics) updates ``params`` IN PLACE through
+    drop_keep=None, vae_eps=None) -> (state, metrics) updates ``params`` IN PLACE through
     ``optimizer`` (which must hold the params' leaves, ``make_optimizer``)
     and returns the new BatchNorm running state and the metrics (detached
     0-d tensors; reading them syncs the device).
 
-    eval_step(params, state, batch, gen, weights) -> metrics runs under
-    ``no_grad`` with the running statistics and no dropout.
+    eval_step(params, state, batch, gen, weights, neg_edges=None,
+    vae_eps=None) -> metrics runs under ``no_grad`` with the running
+    statistics and no dropout.
 
     Both set TF32 off: the flag is global in torch, so it holds in the
     backward too.
     """
     dg_ae.check_supported(cfg)
 
-    def train_step(params, state, batch, gen, weights, neg_edges=None, drop_keep=None):
+    def train_step(params, state, batch, gen, weights, neg_edges=None, drop_keep=None,
+                   vae_eps=None):
         _full_fp32()
         optimizer.zero_grad(set_to_none=True)
         total, (new_state, metrics) = loss_and_metrics(
             params, state, batch, gen, weights, cfg, True, neg_edges=neg_edges,
-            drop_keep=drop_keep)
+            drop_keep=drop_keep, vae_eps=vae_eps)
         total.backward()
         optimizer.step()
         return state | new_state, metrics
 
     @torch.no_grad()
-    def eval_step(params, state, batch, gen, weights):
+    def eval_step(params, state, batch, gen, weights, neg_edges=None, vae_eps=None):
         _full_fp32()
-        _, (_, metrics) = loss_and_metrics(params, state, batch, gen, weights, cfg, False)
+        _, (_, metrics) = loss_and_metrics(params, state, batch, gen, weights, cfg, False,
+                                           neg_edges=neg_edges, vae_eps=vae_eps)
         return metrics
 
     return train_step, eval_step

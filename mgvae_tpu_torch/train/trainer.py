@@ -20,8 +20,10 @@ Public surface as in the JAX package: ``Trainer(args, model_cfg, ...)``,
 
 Collation runs in a prefetch thread (numpy only, no CUDA call); the
 host-to-device copy stays on the step's thread. Metrics stay on the device
-and are read back once per epoch. Random draws come from one
-``torch.Generator`` on the trainer's device, seeded ``seed + 1``.
+and are read back once per epoch. Random draws (DG_VAE's noise, the
+negatives, the dropout masks) come from one ``torch.Generator`` on the
+trainer's device, seeded ``seed + 1``. The epoch line carries `` |KL:``
+only when a nonzero KL was metered (DG_VAE), as in the JAX package.
 
 Not ported (ROADMAP "Not ported by design"): the data-parallel mesh
 (ROADMAP 1.7), the packed transfer, the thin wire, the K-step scan

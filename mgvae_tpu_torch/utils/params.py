@@ -3,9 +3,10 @@ tensors.
 
 Both packages keep the same tree and the same [in, out] layouts, so the
 bridge is a plain copy. It takes the tree as nested dicts and lists of numpy
-arrays (``jax.tree.map(np.asarray, params)``) and raises on any key it does
-not know, so a tree from a configuration the port does not run yet (e.g.
-the variational heads) is refused instead of silently dropped.
+arrays (``jax.tree.map(np.asarray, params)``): the multigcn or the gcn
+struct tree (told apart by the tree's keys), with or without the
+variational heads ``fc_*``. It raises on any key it does not know, so a
+tree it does not understand is refused instead of silently dropped.
 ``params_to_numpy`` goes the other way, for comparing updated trees.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 _LINEAR = frozenset({"w", "b"})
 _GRU = frozenset({"w_ih", "w_hh", "b_ih", "b_hh"})
 _TOWER = {"aggr": _LINEAR, "update": _GRU, "aggr_r": _LINEAR, "update_r": _GRU, "ln": _LINEAR}
+_GCN_TOWER = {"conv1": {"lin": _LINEAR}, "conv2": {"lin": _LINEAR}}
 _SCHEMA = {
     "struct": {"source": _TOWER, "target": _TOWER},
     "hs_linear": _LINEAR,
@@ -23,7 +25,10 @@ _SCHEMA = {
     "experts": frozenset({"wq", "bq", "wk", "bk", "wv", "bv", "wa_q", "wa_k", "ba",
                           "w_ih", "w_hh", "b_ih", "b_hh"}),
     "readout_prob": {"layers": [_LINEAR], "bn": [_LINEAR]},
+    "fc_s_mu": _LINEAR, "fc_s_logstd": _LINEAR, "fc_t_mu": _LINEAR, "fc_t_logstd": _LINEAR,
 }
+# --model AE: the struct tree of models/gcn (DGConfig(struct_encoder="gcn"))
+_GCN_SCHEMA = _SCHEMA | {"struct": {"source": _GCN_TOWER, "target": _GCN_TOWER}}
 _STATE_SCHEMA = {"readout_prob": {"bn": [frozenset({"mean", "var"})]}}
 
 
@@ -31,7 +36,8 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
     """JAX params tree (numpy leaves) -> the port's params (f32 tensors on
     ``device``: the card unless the caller asks for the CPU, as
     ``init_params``). Raises KeyError on an unknown key."""
-    return _convert(tree, _SCHEMA, "params", torch.device(device))
+    gcn = "conv1" in tree.get("struct", {}).get("source", {})
+    return _convert(tree, _GCN_SCHEMA if gcn else _SCHEMA, "params", torch.device(device))
 
 
 def state_from_jax(tree: dict, device="cuda") -> dict:

@@ -88,12 +88,10 @@ def test_three_stage_recipe_and_resume(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, env, match", [
-    (["--type", "mig"], {}, "ROADMAP 1.4"),                       # DG_VAE, the default
-    (["--type", "mig", "--model", "AE"], {}, "ROADMAP 1.9"),
     (["--type", "mig", "--model", "DG_AE", "--distributed", "--num_devices", "2"], {},
      "ROADMAP 1.7"),
     (["--type", "mig", "--model", "DG_AE"], {"WORLD_SIZE": "2"}, "ROADMAP 1.7"),
-], ids=["dg_vae", "ae", "num_devices", "world_size"])
+], ids=["num_devices", "world_size"])
 def test_unported_modes_raise_before_any_data(argv, env, match, monkeypatch, tmp_path):
     monkeypatch.setenv("MGVAE_PLATFORM", "cpu")
     for k, v in env.items():
@@ -105,6 +103,49 @@ def test_unported_modes_raise_before_any_data(argv, env, match, monkeypatch, tmp
     monkeypatch.setattr(cli, "load_dataset", no_data)
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv + ["--save_dir", str(tmp_path)])
+
+
+# the epoch line with DG_VAE's KL field
+KL_LINE = re.compile(r"^(train|val)\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|ACC: \d+\.\d{2} "
+                     r"\|Prob: \d+\.\d{4} \|Func: \d+\.\d{4} \|KL: -?\d+\.\d{4}"
+                     r"\|Net: \d+\.\d{2}s$")
+# the recipe at the parser's own --model (DG_VAE) with a val split of a batch
+DEFAULT_MODEL = [a for a in RECIPE if a not in ("--model", "DG_AE")][:-1] + ["44"]
+
+
+@pytest.mark.parametrize("kl_weight", ["0.1", "0"])
+def test_default_model_dg_vae_runs_the_three_stages(kl_weight, tmp_path, monkeypatch):
+    """``--model`` left at the parser's default, DG_VAE: the variational
+    head and its KL term; the epoch lines carry the KL field whenever a
+    nonzero KL was metered, which DG_VAE computes whatever its weight."""
+    monkeypatch.setenv("MGVAE_PLATFORM", "cpu")
+    assert "--model" not in DEFAULT_MODEL
+    trainer = cli.main(DEFAULT_MODEL + ["--kl_weight", kl_weight, "--save_dir", str(tmp_path)])
+    assert trainer.model_cfg.variational and trainer.model_cfg.struct_encoder == "multigcn"
+    assert trainer.weights == [1.0, 4.0, 4.0, float(kl_weight)]
+    assert {"fc_s_mu", "fc_s_logstd", "fc_t_mu", "fc_t_logstd"} <= set(trainer.params)
+    run = tmp_path / "v"
+    for name in ("stage_1.pth", "stage_2.pth", "stage_3.pth", "model_0.pth", "model_last.pth"):
+        assert (run / name).is_file(), name
+    assert "fc_s_logstd" in _payload(run / "stage_3.pth")["params"]
+    (log,) = run.glob("log-*.txt")
+    lines = [ln for ln in log.read_text().splitlines() if "| Epoch:" in ln]
+    assert len(lines) == 6 and all(KL_LINE.match(ln) for ln in lines), lines
+
+
+def test_model_ae_runs_the_three_stages(tmp_path, monkeypatch):
+    """``--model AE``: the gcn struct encoder, no KL field."""
+    monkeypatch.setenv("MGVAE_PLATFORM", "cpu")
+    argv = [a if a != "DG_AE" else "AE" for a in RECIPE]
+    trainer = cli.main(argv + ["--kl_weight", "0.1", "--save_dir", str(tmp_path)])
+    assert trainer.model_cfg.struct_encoder == "gcn" and not trainer.model_cfg.variational
+    assert set(trainer.params["struct"]["source"]) == {"conv1", "conv2"}
+    run = tmp_path / "v"
+    for name in ("stage_1.pth", "stage_2.pth", "stage_3.pth", "model_0.pth", "model_last.pth"):
+        assert (run / name).is_file(), name
+    (log,) = run.glob("log-*.txt")
+    lines = [ln for ln in log.read_text().splitlines() if "| Epoch:" in ln]
+    assert len(lines) == 6 and all(EPOCH_LINE.match(ln) for ln in lines), lines
 
 
 def test_no_card_and_no_cpu_request_raises(monkeypatch, tmp_path):

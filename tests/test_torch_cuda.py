@@ -812,3 +812,91 @@ def test_train_step_on_card_matches_cpu(cuda):
         if c is not None:
             tol = 1e-4 * max(c.abs().max().item(), GRAD_FLOOR * scale)
             assert (a - c).abs().max().item() <= tol
+
+
+def _variant_counts():
+    return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
+            level_kernel.bwd_launches, level_kernel.lists_launches,
+            level_kernel.step_launches + level_kernel.step_bwd_launches
+            + level_kernel.giant_launches + level_kernel.giant_bwd_launches)
+
+
+@pytest.mark.parametrize("variant,want", [
+    ("dg_vae", (4, STRUCT_BWD_LAUNCHES, 1, 3, 1, 0)),
+    ("ae", (0, 0, 1, 3, 1, 0)),
+    ("rounds2", (4, STRUCT_BWD_LAUNCHES, 0, 0, 0, 0)),
+])
+def test_variant_train_step_on_card_matches_cpu(cuda, variant, want):
+    """DG_VAE (the variational head and KL), AE (the gcn struct encoder,
+    plain torch) and num_rounds = 2 (the general level loop, plain torch):
+    one step's losses and gradients on the card against the CPU, with the
+    launches of the card's step."""
+    kw = {"dg_vae": dict(variational=True), "ae": dict(struct_encoder="gcn"),
+          "rounds2": dict(num_rounds=2)}[variant]
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         **kw)
+    rng = np.random.default_rng(7)
+    batch = collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)])
+    gen = torch.Generator().manual_seed(5)
+    n = batch["gate"].shape[0]
+    neg = tuple(t.to(torch.int32) for t in torch.randint(
+        0, int(batch["n_nodes"]), (2, batch["edge_src"].shape[0]), generator=gen))
+    keep = [torch.rand(n, cfg.dim_mlp, generator=gen) < 0.8 for _ in range(2)]
+    eps = tuple(torch.randn(n, 64, generator=gen) for _ in range(2))
+    out = {}
+    for dev in ("cpu", cuda):
+        params, state = dg_ae.init_params(cfg, seed=4, device=dev)
+        leaves = step.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = _variant_counts()
+        total, (_, metrics) = step.loss_and_metrics(
+            params, state, batch, None, [1.0, 4.0, 4.0, 1.0], cfg, True,
+            neg_edges=tuple(t.to(dev) for t in neg), drop_keep=[k.to(dev) for k in keep],
+            vae_eps=tuple(e.to(dev) for e in eps) if cfg.variational else None)
+        total.backward()
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(_variant_counts(), before))
+        out[str(dev)] = (metrics, [None if t.grad is None else t.grad.cpu() for t in leaves],
+                         counts)
+    (m_c, g_c, _), (m_g, g_g, got) = out["cpu"], out["cuda"]
+    assert got == want
+    assert (float(m_g["kl_loss"]) != 0.0) == cfg.variational
+    for k in step.METRIC_KEYS:
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-4 * max(abs(float(m_c[k])), 1.0), k
+    scale = max(g.abs().max().item() for g in g_c if g is not None)
+    for a, c in zip(g_g, g_c):
+        assert (a is None) == (c is None)
+        if c is not None:
+            tol = 1e-4 * max(c.abs().max().item(), GRAD_FLOOR * scale)
+            assert (a - c).abs().max().item() <= tol
+
+
+def test_ordered_segment_sum_is_deterministic_on_card(cuda):
+    """The gcn encoder's sums: a fixed order on the card, two runs bit for
+    bit, and the atomic index_add_'s value within rounding."""
+    from mgvae_tpu_torch.ops.segment import segment_sum, segment_sum_ordered
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    data = torch.randn(200_000, 64, device=cuda, generator=gen)
+    ids = torch.randint(0, 300, (200_000,), device=cuda, generator=gen)
+    a, b = segment_sum_ordered(data, ids, 300), segment_sum_ordered(data, ids, 300)
+    assert torch.equal(a, b)
+    assert (a - segment_sum(data, ids, 300)).abs().max().item() <= 1e-3
+
+
+def test_model_variational_draws_on_card(cuda):
+    """Model(variational=True): noise from a generator on the card, seeded
+    seed + 17; repeatable from the seed, fresh on every request."""
+    rng = np.random.default_rng(8)
+    graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=100) for _ in range(4)]
+    kw = dict(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+              variational=True, seed=3)
+    a, b = Model(**kw), Model(**kw)
+    assert a._gen.device.type == "cuda"
+    first = a.encode_many(graphs, batch_size=4)
+    twin = b.encode_many(graphs, batch_size=4)
+    again = a.encode_many(graphs, batch_size=4)
+    for (hs1, hf1), (hs2, _), (hs3, _) in zip(first, twin, again):
+        assert np.isfinite(hf1).all()
+        assert np.abs(hs1 - hs2).max() <= 1e-6 < np.abs(hs1 - hs3).max()
