@@ -91,6 +91,23 @@ Phases (any failure raises and the script exits nonzero):
      epoch a stage: the five files and six epoch lines with the KL field.
      For information: the median bs16 train step of the four models in
      this call, and torch.profiler over three AE and num_rounds = 2 steps.
+  [precision] the precision modes: (b) three bf16 train steps of phase 7's
+     model (compute_dtype="bfloat16"; fp32 master params) with their
+     launches, counts set to 0 before them: the main path of the four bf16
+     kernels; (a) the bf16 struct towers with residuals, their backward,
+     the bf16 fused level scan with residuals and its backward against
+     their plain bf16 versions on phase 3's MIG batch (each output within
+     2^-6 of its own largest entry, two bf16 ulps at the top of its range),
+     with CUDA-event times; the bf16 bs16 encode and one train step card vs
+     CPU (hs, hf within 2^-6 of their scale, each gradient leaf within 2^-3
+     of its own) and card bf16 vs card fp32 (the JAX package's bf16 bounds:
+     values atol 3e-2 / rtol 1e-1, gradients 0.05 * max(scale, 1)); (c) one
+     bf16 step on the bs64 collate_fit (C=3) and collate_split (G=4) layouts
+     card vs CPU (as the bs16 step) with their launches; (d) the bs16 train step under "default"
+     (TF32) and "highest" in turns: both medians, their ratio, and the drift
+     of hs, hf and the losses (each within 1e-2 * max(its scale, 1)); (e)
+     bf16 on the step route and the giant route raises NotImplementedError
+     (ROADMAP 1.6b) before any level launch.
 
  10. step kernels vs plain: for aig/mig/xag/xmg, 64 circuits collated with
      collate_chunked(graphs, 2) (per-chunk N_sub > 8192, so the chunks fail
@@ -185,7 +202,8 @@ Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step route's
 forward and backward (its passes over the bs64 two-chunk batch, with the
-launches of one pass beside), and the giant forward and backward; each with
+launches of one pass beside), the giant forward and backward, and the four
+bf16 kernels ([precision]; bounds with the values' bytes halved); each with
 its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s, computed from this run's
@@ -258,6 +276,25 @@ GIANT_PEAK_GIB = 5.0
 # ~1e-6 of an output's scale (a single fp32 accumulator over all rows had
 # cost 1.06e-5).
 RECOMPUTE_TOL = 1e-5
+# [precision]: the JAX package's bf16 bounds (tests/test_pallas_kernel.py:95-114):
+# values atol 2e-2 / rtol 1e-1 against bf16, atol 3e-2 / rtol 1e-1 against
+# fp32; gradients 0.05 * max(scale, 1). They are made for bf16 against fp32
+# and hold every comparison. Two bf16 paths that round at the same points (a
+# kernel and its plain version, the card and the CPU) are held tighter too,
+# each tensor against its own largest entry: values and a kernel's gradients
+# within BF16_ULPS (two bf16 ulps at the top of the range, no floor); a train
+# step's gradient leaves card vs CPU within BF16_LEAF of their own scale,
+# floored at GRAD_FLOOR of the largest entry over all leaves as phase 7
+# floors them. A leaf's gradient is a sum over every edge or node whose
+# terms cancel, and each term differs between the two by about a bf16 ulp
+# (the card's and the CPU's fp32 sums round to bf16 apart): the error
+# follows the terms, not the sum (the expert value bias, a sum over ~8k
+# edges, moved 6.8% of its own scale on a bs64 step). TF32 against full
+# fp32: each tensor within 1e-2 * max(its scale, 1).
+BF16_ATOL, BF16_F32_ATOL, BF16_RTOL, BF16_GRAD = 2e-2, 3e-2, 1e-1, 0.05
+BF16_ULPS, BF16_LEAF = 2.0 ** -6, 2.0 ** -3
+TF32_DRIFT = 1e-2
+BF16_STEPS = 3
 SEED = 0
 DEVICE = "cuda"
 
@@ -346,6 +383,33 @@ def profile_train(torch, step, card: str, label: str, steps: int = PROFILE_STEPS
         log(f"[profile] {line}")
 
 
+def step_casts(torch, step, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` calls of ``step`` (after 2 warm-up
+    calls), per step: wall and device time, device kernels, and the dtype
+    and device conversions (``aten::_to_copy``, forward and backward): their
+    calls, their host time (inclusive), and the copy kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    to_copy = [e for e in prof.key_averages() if e.key == "aten::_to_copy"]
+    return {"wall_ms": wall / steps * 1e3,
+            "device_ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / steps,
+            "kernels": len(on_card) / steps,
+            "to_copy_calls": sum(e.count for e in to_copy) / steps,
+            "to_copy_host_ms": sum(e.cpu_time_total for e in to_copy) / 1e3 / steps,
+            "copy_kernels_ms": sum(e.time_range.elapsed_us() for e in on_card
+                                   if "copy_kernel" in e.name) / 1e3 / steps}
+
+
 # [variants]: the train steps of each variant on the card; their weights
 # (stage 3's with the KL term, DG_VAE's only); the card-vs-CPU step's, with
 # the prob term held apart as in phases 12 and 17 (SMOOTH_WEIGHTS' reason)
@@ -359,7 +423,9 @@ VAE_EPOCH_LINE = (r"^(train|val)\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|ACC: \d+\.\d
                   r"\d+\.\d{2}s$")
 TRAINER_ARGV = ["--exp_id", "smoke", "--model", "DG_AE", "--type", "mig", "--batch_size",
                 str(BATCH), "--layernorm", "--stage_epochs", "1,1,1", "--synthetic_circuits",
-                "176"]   # D = 64 and s/t_rounds 4 are the parser's defaults; 158 train, 18 val
+                "176", "--matmul_precision", "highest"]
+# D = 64 and s/t_rounds 4 are the parser's defaults; 158 train, 18 val; full
+# fp32, as the epoch is held card against CPU
 # card vs CPU through the trainer: per-step losses, and params after one
 # epoch of 9 Adam steps at lr 1e-4. The comparison's weights leave the prob
 # term out (SMOOTH_WEIGHTS' reason, and the readout biases before BatchNorm
@@ -369,6 +435,15 @@ TRAINER_ARGV = ["--exp_id", "smoke", "--model", "DG_AE", "--type", "mig", "--bat
 # gradient in the same way; they are held to the Adam bound 2 * lr * steps.
 TRAINER_LOSS_RTOL, TRAINER_PARAM_ATOL = 1e-4, 2e-4
 SOFTMAX_INVARIANT = ("wq", "bq", "wa_q", "ba", "bk")
+
+
+def named_leaves(tree, prefix=""):
+    """The leaves' paths, in ``train.step.param_leaves``' order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}/{i}")]
+    return [prefix]
 EPOCH_LINE = (r"^(train|val)\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|ACC: \d+\.\d{2} "
               r"\|Prob: \d+\.\d{4} \|Func: \d+\.\d{4}\|Net: \d+\.\d{2}s$")
 
@@ -530,13 +605,6 @@ def trainer_phase(torch, dev, card: str) -> None:
     (l_g, p_g), (l_c, p_c) = side[DEVICE], side["cpu"]
     loss_err = max(abs(a - c) / max(abs(c), 1e-12) for ph in l_c
                    for ra, rc in zip(l_g[ph], l_c[ph], strict=True) for a, c in zip(ra, rc))
-    def named_leaves(tree, prefix=""):
-        if isinstance(tree, dict):
-            return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}/{k}")]
-        if isinstance(tree, (list, tuple)):
-            return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}/{i}")]
-        return [prefix]
-
     leaf_ids = named_leaves(p0)
     worst = {True: (0.0, ""), False: (0.0, "")}
     for name, a, c in zip(leaf_ids, p_g, p_c, strict=True):
@@ -624,6 +692,7 @@ def main() -> int:
     from mgvae_tpu_torch.ops import mlp as mlp_mod
     from mgvae_tpu_torch.ops.init import linear_apply
     from mgvae_tpu_torch.ops.level_kernel import level_scan, level_scan_reference
+    from mgvae_tpu_torch.ops.precision import matmul_precision as precision_scope
     from mgvae_tpu_torch.ops.struct_kernel import (struct_inputs, struct_tables,
                                                    struct_towers_bwd_reference,
                                                    struct_towers_reference)
@@ -658,7 +727,8 @@ def main() -> int:
     # transposed neighbor sum (D per edge).
     def struct_bound(sargs, tables, n_edges, residuals, backward=False):
         N, D, hr = sargs[0].shape[2], sargs[1].shape[2], 2 * ROUNDS
-        state, res = 2 * N * D * 4, hr * 2 * N * 7 * D * 4
+        vb = sargs[0].element_size()   # the value type's bytes: the state and residuals
+        state, res = 2 * N * D * vb, hr * 2 * N * 7 * D * vb
         if backward:   # in: dstate, res, wfold, w_hh, ln_w, lists; out: the six gradients
             moved = state + res + nbytes(sargs[1], sargs[2], sargs[4], *tables) + nbytes(*sargs)
             ops = (hr * 2 * (12 * N * D * D + STRUCT_BWD_ELEMENTWISE * N * D)
@@ -675,14 +745,15 @@ def main() -> int:
 
     def level_bound(args, n_lv, N, residuals, backward=False):
         D, ep, np_ = args[0].shape[2] - 2, args[0].shape[1], args[4].shape[1]
+        vb = args[0].element_size()    # the value type's bytes: hf, ghf and the residuals
         tabs = [a[:n_lv] for a in args[:7]]
-        res = n_lv * (ep * (3 * D + 1) + np_ * 4 * D) * 4
+        res = n_lv * (ep * (3 * D + 1) + np_ * 4 * D) * vb
         flops = level_work(tabs[3], tabs[5], D, backward)
         if backward:   # in: ghf, residuals, tables, weights; out: d_pack, five weight gradients
-            moved = (N * D * 4 + res + nbytes(*tabs[1:], args[7], args[8], args[10], args[11])
+            moved = (N * D * vb + res + nbytes(*tabs[1:], args[7], args[8], args[10], args[11])
                      + nbytes(tabs[0], *args[7:]))
             return bound(moved, flops)
-        return bound(nbytes(*tabs, *args[7:]) + N * D * 4 + (res if residuals else 0), flops)
+        return bound(nbytes(*tabs, *args[7:]) + N * D * vb + (res if residuals else 0), flops)
 
     def giant_bwd_bound(args, n_lv, N):
         # in: ghf, hf, tables, pack_lv, weights; out: d_pack, five weight gradients;
@@ -720,7 +791,7 @@ def main() -> int:
     phase3 = []   # (modality, cfg, params, batch) for phase 6
     for i, mod in enumerate(MODALITIES):
         cfg = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                             layernorm=True)
+                             layernorm=True, matmul_precision="highest")
         params, _ = dg_ae.init_params(cfg, seed=SEED, device=dev)
         batch = collate(dataset(random_circuit, mod, 100 + i, BATCH))
         b = dg_ae.batch_to_device(batch, dev)
@@ -1470,12 +1541,305 @@ def main() -> int:
     log(f"[variants] MIG bs{BATCH} train step (host batch -> Adam update, synchronised), "
         f"median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in var_ms.items()))
 
+    # ---- [precision]: bf16 values and the TF32 mode -------------------------------
+    t_precision = time.perf_counter()
+    # (b) the main path in bf16: BF16_STEPS train steps of phase 7's model
+    # (MIG bs16, D=64, "highest") with compute_dtype="bfloat16", counts zeroed
+    # just before and read just after: the bf16 kernels' launches
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    p16, s16 = dg_ae.init_params(cfg16, seed=SEED, device=dev)
+    ts16, _ = train_step_mod.make_train_step(cfg16, train_step_mod.make_optimizer(p16, TRAIN_LR))
+    gen16 = torch.Generator(device=dev).manual_seed(SEED)
+    var_zero()
+    rows16 = []
+    for i in range(BF16_STEPS):
+        s16, m16 = ts16(p16, s16, batches[i % len(batches)], gen16, WEIGHTS)
+        rows16.append(torch.stack([m16[k].float() for k in keys]))
+    sync()
+    bf16_counts = var_read()
+    rows16 = torch.stack(rows16).cpu()
+    want16 = (BF16_STEPS * 2 * ROUNDS, BF16_STEPS * SBWD_LAUNCHES, BF16_STEPS, 3 * BF16_STEPS,
+              BF16_STEPS, 0)
+    log(f"[precision] bf16 main path: {BF16_STEPS} train steps (MIG bs{BATCH}, D={DIM}, "
+        f"weights {WEIGHTS}): launches {var_names} {bf16_counts}; losses "
+        + "; ".join(", ".join(f"{k}={v:.5g}" for k, v in zip(keys, r.tolist())) for r in rows16))
+    if bf16_counts != want16 or not torch.isfinite(rows16).all() or not all(
+            t.dtype == torch.float32 and torch.isfinite(t).all()
+            for t in train_step_mod.param_leaves(p16)):
+        raise RuntimeError(f"[precision] bf16 train steps: launches {bf16_counts} != {want16}, "
+                           f"or non-finite losses or fp32 master params")
+
+    def bf16_close(tag, got, want, atol, same_rounding=True):
+        """Values within atol + BF16_RTOL |want|, and with ``same_rounding``
+        within BF16_ULPS of max |want|; returns max |d|."""
+        got, want = got.float(), want.float()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not torch.isfinite(got).all() or not bool(
+                ((got - want).abs() <= atol + BF16_RTOL * want.abs()).all()):
+            raise RuntimeError(f"[precision] {tag}: max|d| {err} past atol {atol} / rtol "
+                               f"{BF16_RTOL}")
+        if same_rounding and not err <= BF16_ULPS * scale:
+            raise RuntimeError(f"[precision] {tag}: max|d| {err} past {BF16_ULPS} * {scale}")
+        return err
+
+    def bf16_grads(tag, names, got, want):
+        """Each output within BF16_ULPS of its own max |want| (no floor);
+        returns (report, worst |d|)."""
+        report, worst = [], 0.0
+        for name, k, r in zip(names, got, want):
+            k, r = k.float(), r.float()
+            err, scale = (k - r).abs().max().item(), r.abs().max().item()
+            report.append(f"{name} {err:.3e}/{scale:.3e}")
+            if not torch.isfinite(k).all() or not err <= BF16_ULPS * scale:
+                raise RuntimeError(f"[precision] {tag}: {name} max|d| {err} past "
+                                   f"{BF16_ULPS} * {scale}")
+            worst = max(worst, err)
+        return "; ".join(report), worst
+
+    # (a) the four bf16 kernels against their plain bf16 versions, on phase
+    # 3's MIG batch at D=64, with CUDA-event times (plain, kernel, kernel, plain)
+    _, cfg3, params3, batch3 = phase3[MODALITIES.index("mig")]
+    c16 = dataclasses.replace(cfg3, compute_dtype="bfloat16")
+    b3 = dg_ae.batch_to_device(batch3, dev)
+    n_lv3, reps = dg_ae.num_levels(batch3), 20
+    with torch.no_grad():
+        p3 = dg_ae.cast_params(params3, c16)
+        sa16 = struct_inputs(p3["struct"], dg_ae.struct_input(b3["gate"], c16), b3, True)
+        tab3 = struct_tables(b3)
+        st_k, sres_k = struct_kernel._forward_cuda(sa16, tab3, ROUNDS, True, residuals=True)
+        st_r, sres_r = struct_towers_reference(*sa16, tab3, ROUNDS, True, with_residuals=True)
+        b16_sfwd = max(bf16_close("struct towers state", st_k, st_r, BF16_ATOL),
+                       bf16_close("struct towers residuals", sres_k, sres_r, BF16_ATOL))
+        ds16 = torch.randn(st_k.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 4)).to(torch.bfloat16)
+        sbw = (ds16, sres_k, sa16[1], sa16[2], sa16[4], tab3, ROUNDS, True)
+        srep, b16_sbwd = bf16_grads("struct towers backward", sgrad_names,
+                                    struct_kernel._backward_cuda(*sbw),
+                                    struct_towers_bwd_reference(*sbw))
+        hs3 = dg_ae.struct_hs(p3, b3, c16)
+        a16 = dg_ae.level_scan_inputs(p3, b3, c16, hs3)
+        N3 = hs3.shape[0]
+        hf_k, re_k, rn_k = level_kernel._forward_cuda(a16, N3, n_lv3, residuals=True)
+        hf_r, re_r, rn_r = level_scan_reference(*a16, num_nodes=N3, num_levels=n_lv3,
+                                                with_residuals=True)
+        re_k, rn_k = written_rows(a16[2], a16[3], a16[5], n_lv3, re_k, rn_k)
+        b16_fwd = max(bf16_close(f"level scan {name}", k, r, BF16_ATOL)
+                      for name, k, r in (("hf", hf_k, hf_r), ("res_e", re_k, re_r),
+                                         ("res_n", rn_k, rn_r)))
+        ghf16 = torch.randn(hf_k.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1)).to(torch.bfloat16)
+        lbw = (ghf16, re_k, rn_k)
+        lrep, b16_bwd = bf16_grads("level scan backward", grad_names,
+                                   level_kernel._backward_cuda(*lbw, a16, n_lv3),
+                                   level_kernel.level_scan_bwd_reference(
+                                       *lbw, *a16[:9], a16[10], a16[11], num_levels=n_lv3))
+        sync()
+        timed = {
+            "struct_towers_bf16": (
+                lambda: struct_kernel._forward_cuda(sa16, tab3, ROUNDS, True, residuals=True),
+                lambda: struct_towers_reference(*sa16, tab3, ROUNDS, True, with_residuals=True)),
+            "struct_towers_bwd_bf16": (lambda: struct_kernel._backward_cuda(*sbw),
+                                       lambda: struct_towers_bwd_reference(*sbw)),
+            "level_scan_bf16": (
+                lambda: level_kernel._forward_cuda(a16, N3, n_lv3, residuals=True),
+                lambda: level_scan_reference(*a16, num_nodes=N3, num_levels=n_lv3,
+                                             with_residuals=True)),
+            "level_scan_bwd_bf16": (
+                lambda: level_kernel._backward_cuda(*lbw, a16, n_lv3),
+                lambda: level_kernel.level_scan_bwd_reference(*lbw, *a16[:9], a16[10], a16[11],
+                                                              num_levels=n_lv3)),
+        }
+        b16_ms = {}
+        for name, (kern, plain) in timed.items():
+            pr = 3 if "level" in name else reps
+            p1, k1, k2, p2 = (event_ms(torch, f, n) for f, n in
+                              ((plain, pr), (kern, reps), (kern, reps), (plain, pr)))
+            b16_ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2))
+    n_e3 = int(batch3["n_edges"])
+    bounds.update(struct_towers_bf16=struct_bound(sa16, tab3, n_e3, True),
+                  struct_towers_bwd_bf16=struct_bound(sa16, tab3, n_e3, True, backward=True),
+                  level_scan_bf16=level_bound(a16, n_lv3, N3, True),
+                  level_scan_bwd_bf16=level_bound(a16, n_lv3, N3, True, backward=True))
+    log(f"[precision] card: {card}")
+    log(f"[precision] bf16 kernels vs plain (MIG bs{BATCH}, D={DIM}, N={N3}, {n_lv3} levels): "
+        f"struct towers max|d| state/residuals {b16_sfwd:.3e}; struct backward max|d|/scale "
+        f"{srep}; level scan max|d| hf/res_e/res_n {b16_fwd:.3e}; level backward max|d|/scale "
+        f"{lrep} (bounds: values atol {BF16_ATOL} rtol {BF16_RTOL}, and each output "
+        f"{BF16_ULPS} * its scale)")
+    for name, (k, pl, runs) in b16_ms.items():
+        log(f"[precision] {name}: kernel {runs[0]:.4f}/{runs[1]:.4f} ms, plain {runs[2]:.4f}/"
+            f"{runs[3]:.4f} ms (CUDA events); bound {bounds[name]['bound_ms']:.5f} ms by "
+            f"{bounds[name]['bound_by']}")
+
+    # (b) bs16 encode and one train step in bf16: card vs CPU, and card bf16 vs card fp32
+    b16 = batches[0]
+    rows_v = torch.as_tensor(b16["node_valid"])
+    enc16 = {}
+    for where, c in (("cpu", cfg16), (DEVICE, cfg16), ("fp32", cfg)):
+        p_e, _ = dg_ae.init_params(c, seed=SEED, device="cpu" if where == "cpu" else dev)
+        with torch.inference_mode():
+            hs_e, hf_e, _ = dg_ae.forward(p_e, b16, c)
+        enc16[where] = (hs_e.cpu()[rows_v], hf_e.cpu()[rows_v])
+    if not all(t.dtype == torch.bfloat16 for t in (*enc16["cpu"], *enc16[DEVICE])):
+        raise RuntimeError("[precision] the bf16 forward's hs / hf are not bf16")
+    e_cpu = [bf16_close(f"bf16 encode card vs CPU {n}", g, c, BF16_ATOL)
+             for n, g, c in zip(("hs", "hf"), enc16[DEVICE], enc16["cpu"])]
+    e_f32 = [bf16_close(f"bf16 encode vs fp32 {n}", g, c, BF16_F32_ATOL, same_rounding=False)
+             for n, g, c in zip(("hs", "hf"), enc16[DEVICE], enc16["fp32"])]
+
+    def step_grads(c, batch, where, weights):
+        """One step's losses and master gradients, fixed draws (phase 7's)."""
+        neg, keep = fixed_draws(batch, SEED + 2)
+        p1, s1 = dg_ae.init_params(c, seed=SEED + 3, device=where)
+        leaves = train_step_mod.param_leaves(p1)
+        for t in leaves:
+            t.requires_grad_(True)
+        with precision_scope(c.matmul_precision):
+            total, (_, m1) = train_step_mod.loss_and_metrics(
+                p1, s1, batch, None, weights, c, True, neg_edges=tuple(t.to(where) for t in neg),
+                drop_keep=[k.to(where) for k in keep])
+            total.backward()
+        if not all(t.grad is None or t.grad.dtype == torch.float32 for t in leaves):
+            raise RuntimeError("[precision] a master gradient is not fp32")
+        return ([float(m1[k]) for k in ("recon_loss", "prob_loss", "func_loss", "loss")],
+                [torch.zeros(t.shape) if t.grad is None else t.grad.cpu() for t in leaves])
+
+    leaf_ids, leaf_faults = named_leaves(p16), []
+
+    def step_held(tag, got, want, atol, same_rounding=True):
+        """The losses within atol + BF16_RTOL |want| and the gradients within
+        BF16_GRAD * max(scale, 1) over all leaves; with ``same_rounding``
+        each leaf within BF16_LEAF of its own scale floored at GRAD_FLOOR of
+        the largest entry (a fault is kept in leaf_faults and raised at the
+        end of (c)); the three worst leaves are reported either way."""
+        (l_g, g_g), (l_c, g_c) = got, want
+        l_err = max(abs(a - c) for a, c in zip(l_g, l_c))
+        if not all(abs(a - c) <= atol + BF16_RTOL * abs(c) for a, c in zip(l_g, l_c)):
+            raise RuntimeError(f"[precision] {tag}: losses {l_g} vs {l_c}")
+        flat = lambda g: torch.cat([x.reshape(-1) for x in g])
+        scale, err = flat(g_c).abs().max().item(), (flat(g_g) - flat(g_c)).abs().max().item()
+        if not err <= BF16_GRAD * max(scale, 1.0):
+            raise RuntimeError(f"[precision] {tag}: gradients max|d| {err} at scale {scale}")
+        leaves = sorted(((a - c).abs().max().item() / (BF16_LEAF * max(
+            c.abs().max().item(), GRAD_FLOOR * scale)), name, (a - c).abs().max().item(),
+                          c.abs().max().item()) for name, a, c in zip(leaf_ids, g_g, g_c,
+                                                                      strict=True))[::-1]
+        if same_rounding and not leaves[0][0] <= 1.0:
+            leaf_faults.append(f"{tag}: gradient leaf {leaves[0][1]} max|d| {leaves[0][2]} at "
+                               f"its scale {leaves[0][3]}")
+        return (f"losses max|d| {l_err:.3e}, gradients max|d| {err:.3e} at scale {scale:.3e}; "
+                f"worst leaves (share of {BF16_LEAF} * max(its scale, {GRAD_FLOOR} * "
+                f"{scale:.3e}): name, max|d|, its scale) " + ", ".join(
+                    f"{r:.3f} {n} {d:.3e} {sc:.3e}" for r, n, d, sc in leaves[:3]))
+
+    s_card = step_grads(cfg16, b16, DEVICE, WEIGHTS)
+    vs_cpu = step_held("bf16 step card vs CPU", s_card, step_grads(cfg16, b16, "cpu", WEIGHTS),
+                       BF16_ATOL)
+    vs_f32 = step_held("bf16 step vs fp32", s_card, step_grads(cfg, b16, DEVICE, WEIGHTS),
+                       BF16_F32_ATOL, same_rounding=False)
+    log(f"[precision] bf16 MIG bs{BATCH}: encode card vs CPU max|d| hs/hf {e_cpu[0]:.3e}/"
+        f"{e_cpu[1]:.3e}, vs the card's fp32 {e_f32[0]:.3e}/{e_f32[1]:.3e}; one train step "
+        f"(weights {WEIGHTS}) card vs CPU: {vs_cpu}; card bf16 vs card fp32: {vs_f32}")
+
+    # (c) bs64 in bf16: one step on the collate_fit and the collate_split
+    # layout, card vs CPU, with their launches
+    for layout, batch64 in (("fit", collate_fit(graphs)), ("split", collate_split(graphs, GROUPS))):
+        var_zero()
+        s_card = step_grads(cfg16, batch64, DEVICE, WEIGHTS)
+        sync()
+        got = var_read()
+        units = len(batch64["groups"]) if layout == "split" else batch64["lv_nodes"].shape[0]
+        groups = units if layout == "split" else 1
+        want = (2 * ROUNDS * groups, SBWD_LAUNCHES * groups, units, 3 * units, groups, 0)
+        held64 = step_held(f"bf16 bs64 {layout} card vs CPU", s_card,
+                           step_grads(cfg16, batch64, "cpu", WEIGHTS), BF16_ATOL)
+        log(f"[precision] bf16 bs{N_CIRCUITS} {layout} ({units} "
+            f"{'groups' if layout == 'split' else 'chunks'}): launches {var_names} {got}; card "
+            f"vs CPU: {held64}")
+        if got != want:
+            raise RuntimeError(f"[precision] bf16 bs64 {layout}: launches {got} != {want}")
+    if leaf_faults:
+        raise RuntimeError(f"[precision] gradient leaves past their bounds: {leaf_faults}")
+
+    # (d) TF32: the bs16 train step under "default" and under "highest" (and
+    # for information the bf16 step), in turns, and the drift of hs, hf and
+    # the losses between the two modes
+    modes = {m: dataclasses.replace(cfg, matmul_precision=m) for m in ("highest", "default")}
+    steps_tf, tf_ms = {}, {m: [] for m in (*modes, "bf16")}
+    for m, c in (*modes.items(), ("bf16", cfg16)):
+        p_t, s_t = dg_ae.init_params(c, seed=SEED, device=dev)
+        ts_t, _ = train_step_mod.make_train_step(c, train_step_mod.make_optimizer(p_t, TRAIN_LR))
+        for _ in range(3):
+            ts_t(p_t, s_t, b16, gen, WEIGHTS)
+        steps_tf[m] = (ts_t, p_t, s_t)
+    for m in ("highest", "default", "bf16", "bf16", "default", "highest"):
+        ts_t, p_t, s_t = steps_tf[m]
+        tf_ms[m].append(median_wall(lambda: ts_t(p_t, s_t, b16, gen, WEIGHTS), 10, sync) * 1e3)
+    med = {m: statistics.median(v) for m, v in tf_ms.items()}
+    drift = {}
+    fwd_t = {}
+    for m, c in modes.items():
+        p_t, _ = dg_ae.init_params(c, seed=SEED, device=dev)
+        with torch.inference_mode():
+            fwd_t[m] = dg_ae.forward(p_t, b16, c)[:2]
+    for i, name in enumerate(("hs", "hf")):
+        a, h = fwd_t["default"][i][rows_v.to(dev)], fwd_t["highest"][i][rows_v.to(dev)]
+        drift[name] = ((a - h).abs().max().item(), h.abs().max().item())
+    l_def, l_hi = step_grads(modes["default"], b16, DEVICE, WEIGHTS), step_grads(
+        modes["highest"], b16, DEVICE, WEIGHTS)
+    for name, a, h in zip(("recon", "prob", "func", "loss"), l_def[0], l_hi[0]):
+        drift[name] = (abs(a - h), abs(h))
+    log(f"[precision] TF32 (MIG bs{BATCH} train step, host batch -> Adam update, synchronised; "
+        f"medians of 10 in turns highest/default/bf16/bf16/default/highest): highest "
+        f"{[round(x, 3) for x in tf_ms['highest']]} ms, default "
+        f"{[round(x, 3) for x in tf_ms['default']]} ms, bf16 (highest) "
+        f"{[round(x, 3) for x in tf_ms['bf16']]} ms; highest / default = "
+        f"{med['highest'] / med['default']:.4f}, bf16 / highest = "
+        f"{med['bf16'] / med['highest']:.4f}; drift default vs "
+        f"highest, max|d| / scale: " + ", ".join(f"{k} {d:.3e}/{sc:.3e}"
+                                                for k, (d, sc) in drift.items()))
+    if not all(d <= TF32_DRIFT * max(sc, 1.0) for d, sc in drift.values()):
+        raise RuntimeError(f"[precision] TF32 drifts past {TF32_DRIFT} * max(scale, 1): {drift}")
+    # for information: where the bf16 step's extra time goes, against the
+    # fp32 step ("highest"): the conversions (the master params cast to bf16
+    # and their gradients back, the wrappers' fp32 weight copies) beside the
+    # rest
+    casts = []
+    for m in ("highest", "bf16", "bf16", "highest"):
+        ts_t, p_t, s_t = steps_tf[m]
+        c = step_casts(torch, lambda: ts_t(p_t, s_t, b16, gen, WEIGHTS))
+        casts.append(f"{m} " + ", ".join(f"{k} {v:.3f}" for k, v in c.items()))
+    log(f"[precision] bf16 step vs fp32 (highest) under torch.profiler (5 steps a run, in turns; "
+        f"per step: wall, device time, kernels, aten::_to_copy calls and host ms, copy "
+        f"kernels' device ms): " + "; ".join(casts))
+    ts_t, p_t, s_t = steps_tf["bf16"]
+    profile_train(torch, lambda: ts_t(p_t, s_t, b16, gen, WEIGHTS), card,
+                  f"bf16 MIG bs{BATCH} train step", steps=5, rows=15)
+
+    # (e) bf16 on the step route (the 64 circuits in two chunks, past
+    # kernel_fits) and on the giant route (the 64 collated plainly, N=20480)
+    # raises before any level launch
+    for route, batch_x in (("step", collate_chunked(graphs, CHUNKS)), ("giant", collate(graphs))):
+        var_zero()
+        try:
+            with torch.inference_mode():
+                dg_ae.forward(p16, batch_x, cfg16)
+        except NotImplementedError as err:
+            got = var_read()
+            log(f"[precision] bf16 on the {route} route refused (launches {var_names} {got}): "
+                f"{err}")
+            if "1.6b" not in str(err) or got[2:] != (0, 0, 0, 0):
+                raise RuntimeError(f"[precision] the {route} route's refusal: {err}; {got}")
+        else:
+            raise RuntimeError(f"[precision] bf16 on the {route} route did not raise")
+    log(f"[precision] phase: {time.perf_counter() - t_precision:.1f} s")
+
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
     step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")
     step_err = step_bwd_err = route_err = route_bwd_err = 0.0
     for i, mod in enumerate(MODALITIES):
         cfg_m = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                               layernorm=True)
+                               layernorm=True, matmul_precision="highest")
         params_m, _ = dg_ae.init_params(cfg_m, seed=SEED, device=dev)
         batch = collate_chunked(dataset(random_circuit, mod, 200 + i, N_CIRCUITS), CHUNKS)
         b = dg_ae.batch_to_device(batch, dev)
@@ -1839,7 +2203,7 @@ def main() -> int:
     giant_args = None     # the MIG circuit's scan arguments, for phase 18
     for i, mod in enumerate(MODALITIES):
         cfg_m = dg_ae.DGConfig(modality=mod, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                               layernorm=True)
+                               layernorm=True, matmul_precision="highest")
         params_m, _ = dg_ae.init_params(cfg_m, seed=SEED, device=dev)
         batch = giant_batch if mod == "mig" else collate([layered_circuit(
             np.random.default_rng(300 + i), mod, width=GIANT_WIDTH, depth=GIANT_SMALL_DEPTH,
@@ -2167,6 +2531,15 @@ def main() -> int:
               giant_err, g3_k, g3_p),
         entry("level_scan_giant_bwd", "level_scan_giant_bwd.cu", "level_kernel.py:1195",
               giant_totals[7], giant_bwd_err, g4_k, g4_p),
+        # the bf16 main path ([precision]): launches over its BF16_STEPS train steps
+        entry("struct_towers_bf16", "struct_towers.cu", "struct_kernel.py:175", bf16_counts[0],
+              b16_sfwd, *b16_ms["struct_towers_bf16"][:2]),
+        entry("struct_towers_bwd_bf16", "struct_towers_bwd.cu", "struct_kernel.py:338",
+              bf16_counts[1], b16_sbwd, *b16_ms["struct_towers_bwd_bf16"][:2]),
+        entry("level_scan_bf16", "level_scan.cu", "level_kernel.py:173", bf16_counts[2], b16_fwd,
+              *b16_ms["level_scan_bf16"][:2]),
+        entry("level_scan_bwd_bf16", "level_scan_bwd.cu", "level_kernel.py:487", bf16_counts[3],
+              b16_bwd, *b16_ms["level_scan_bwd_bf16"][:2]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

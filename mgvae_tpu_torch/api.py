@@ -14,9 +14,9 @@ kernels (``ops/struct_kernel``, ``ops/level_kernel``); with
 package. ``variational=True`` (DG_VAE) draws the posterior noise from a
 generator on the model's device seeded ``seed + 17``, once per forward or
 ``encode_many`` request, so that embeddings differ from call to call and
-repeat from the seed. The constructor sets
-``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.allow_tf32``
-to False: parity mode is full fp32.
+repeat from the seed. The model runs in parity mode: fp32 with
+``matmul_precision="highest"`` (no TF32), set for each call and restored
+after it (``ops.precision``); the CLI's trainer defaults to "default", TF32.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from .data.graph import CircuitGraph
 from .models import dg_ae
 from .models.dg_ae import DGConfig, init_params
 from .ops.mlp import mlp_apply
+from .ops.precision import matmul_precision
 from .train import losses
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -56,10 +57,9 @@ class Model:
             modality=modality, dim_hidden=dim_hidden, dim_feature=dim_feature,
             s_rounds=s_rounds, t_rounds=t_rounds, layernorm=layernorm,
             variational=variational, input_quirk=input_quirk, num_rounds=num_rounds,
+            matmul_precision="highest",
         )
         self.device = torch.device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         if params is None:
             params, state = init_params(self.cfg, seed=seed, device=self.device)
         self.params, self.state = params, state
@@ -117,8 +117,9 @@ class Model:
         """Probability readout in eval mode (running BatchNorm statistics, no
         dropout), clipped to [0, 1]: [N, 1]."""
         hf = torch.as_tensor(hf, device=self.device)
-        out, _ = mlp_apply(self.params["readout_prob"], self.state["readout_prob"], hf,
-                           train=False)
+        with matmul_precision(self.cfg.matmul_precision):
+            out, _ = mlp_apply(self.params["readout_prob"], self.state["readout_prob"], hf,
+                               train=False)
         return out[:, 0:1].clamp(0.0, 1.0)
 
     @torch.inference_mode()
@@ -138,7 +139,8 @@ class Model:
         }
         if neg_edges is None and gen is None:
             gen = torch.Generator().manual_seed(0)
-        return losses.recon_loss(self.params, hs, b, gen, neg_edges=neg_edges)
+        with matmul_precision(self.cfg.matmul_precision):
+            return losses.recon_loss(self.params, hs, b, gen, neg_edges=neg_edges)
 
     # ------------------------------------------------------------------
     def save(self, path: str):

@@ -18,9 +18,10 @@ Runs on the card (``cuda``) unless ``MGVAE_PLATFORM=cpu`` (the environment
 knob of ``train.py``). More than one device (ROADMAP 1.7) raises
 ``NotImplementedError`` before any data is built. Accepted but not honoured
 yet, each with a printed note: ``--distributed`` on one device (the
-single-device path, which a 1-device mesh equals), ``--matmul_precision``
-(full fp32, TF32 off, until 1.6) and ``--steps_per_call`` (one step per
-call).
+single-device path, which a 1-device mesh equals) and ``--steps_per_call``
+(one step per call). ``--matmul_precision`` goes into ``DGConfig`` as in
+``train.py:66``: "default" (the parser's default) runs PyTorch's fp32
+products in TF32 on the card, "highest" in full fp32.
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ def model_config(args) -> DGConfig:
         input_quirk=not args.no_input_quirk,
         struct_encoder="multigcn" if "DG" in args.model else "gcn",
         neg_collision_mask=args.neg_collision_mask,
+        matmul_precision=args.matmul_precision,
     )
 
 
@@ -82,8 +84,6 @@ def main(argv=None) -> Trainer:
     device = resolve_device("cpu" if os.environ.get("MGVAE_PLATFORM") == "cpu" else "cuda")
     if args.distributed:
         print("[INFO] --distributed on one device: the single-device path")
-    print(f"[INFO] --matmul_precision {args.matmul_precision}: the port runs full fp32 "
-          "(TF32 off) until ROADMAP 1.6")
 
     print("[INFO] Parse Dataset")
     train_dataset, val_dataset = load_dataset(args)

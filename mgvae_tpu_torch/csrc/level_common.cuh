@@ -14,10 +14,61 @@
 // kernels use kMaxDim and warp_sum (struct_common.cuh).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// ---- value types ----------------------------------------------------------
+//
+// The kernels that take bf16 values (the fused level scan and its backward,
+// the struct towers and theirs) are templates of the value type V, float or
+// __nv_bfloat16: what they store in device memory (hf, the residuals, the
+// state, d_pack). Registers and shared memory hold fp32, every sum is fp32,
+// and a value is rounded to V where the JAX package's kernels round it
+// (round_to). For V = float every helper is the identity, so the fp32
+// instantiations compute what they computed before the template.
+
+template <class V>
+struct IsBf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsBf16<__nv_bfloat16> {
+  static constexpr bool value = true;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <class V>
+__device__ __forceinline__ V from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to V (to nearest even) and back to fp32.
+template <class V>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<V>(x));
+}
+
+// Loads of one value past L1 (a persistent launch reads what it wrote on
+// other SMs) and through the read-only path.
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float load_ro(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_ro(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
 
 constexpr int kMaxDim = 128;
 constexpr int kMaxExperts = 5;
@@ -183,6 +234,17 @@ inline bool bad_dims(int ep, int np, int dim, int num_experts) {
   return dim < 1 || dim > kMaxDim || num_experts < 1 || num_experts > kMaxExperts || ep < 1 ||
          np < 1;
 }
+
+// Runs the statement, which names V, with V the value type of the C entry's
+// flag (0: float, else __nv_bfloat16).
+#define MGVAE_WITH_VALUE(BF16, ...)                           \
+  if (BF16) {                                                 \
+    using V = __nv_bfloat16;                                  \
+    __VA_ARGS__;                                              \
+  } else {                                                    \
+    using V = float;                                          \
+    __VA_ARGS__;                                              \
+  }
 
 // Runs the statement, which names NF, with NF = ceil(D / 32) a constant.
 #define MGVAE_WITH_NF(D, ...)                                  \

@@ -1,5 +1,5 @@
-// Level-recurrence forward of DG_AE (num_rounds == 1), fp32, for Hopper
-// (sm_90a): the fused route and the giant route.
+// Level-recurrence forward of DG_AE (num_rounds == 1), for Hopper (sm_90a):
+// the fused route, with fp32 or bf16 values, and the giant route (fp32).
 //
 // Replaces mgvae_tpu/ops/pallas/level_kernel.py::fused_level_scan (C == 1),
 // with and without its residual outputs, and ::fused_level_scan_hbm
@@ -55,6 +55,14 @@
 //     row gather). Here a slot reads only its own expert and gathers rows
 //     with indexed loads. fp32 FMA: tensor cores would mean TF32 or bf16.
 //
+// Values: fp32, or bf16 on the fused route (the JAX package's throughput
+// mode, level_kernel.py:352-356): pack_lv, hf and the residuals are then
+// bf16 in memory and rounded where the JAX kernel rounds them
+// (level_slot.cuh), while registers, shared memory, the softmax scratch and
+// every sum stay fp32. The expert weights are the wrapper's fp32 copies
+// either way (a bf16 weight is exact in fp32, and so is the product of two
+// bf16 values), so the products read them as before.
+//
 // Residuals (training): with res_e / res_n given, each updated slot also
 // writes, for the backward kernel (level_scan_bwd.cu), per live in-edge
 // res_e [Ep, 3D+1] = hf_src | khf | v | attn and per slot
@@ -68,8 +76,9 @@
 
 namespace {
 
+template <class V>
 struct ScanForward {
-  const float* pack_lv;   // [L, Ep, D+2]
+  const V* pack_lv;       // [L, Ep, D+2]
   const int* lv_src;      // [L, Ep]
   const int* lv_nodes;    // [L, Np] node id of each slot
   const int* slot_rows;   // [L, Np]
@@ -81,26 +90,27 @@ struct ScanForward {
   const float* b_ih;      // [T, 3D]
   const float* b_hh;      // [T, 3D]
   const float* wa_k;      // [T, D]
-  float* hf;              // [N, D] zeroed; sources read, each level's rows written
+  V* hf;                  // [N, D] zeroed; sources read, each level's rows written
   float* score_buf;       // [Ep] scratch
   float* v_buf;           // [Ep, D] scratch
-  float* res_e;           // [L, Ep, 3D+1] or null
-  float* res_n;           // [L, Np, 4D] or null
+  V* res_e;               // [L, Ep, 3D+1] or null
+  V* res_n;               // [L, Np, 4D] or null
   unsigned* barrier;      // zeroed
   int num_levels, ep, np, dim, num_experts;
 };
 
-__device__ __forceinline__ LevelFwd level_of(const ScanForward& p, int l) {
+template <class V>
+__device__ __forceinline__ LevelFwd<V> level_of(const ScanForward<V>& p, int l) {
   const size_t eo = (size_t)l * p.ep, no = (size_t)l * p.np;
-  return LevelFwd{p.pack_lv + eo * (p.dim + 2), p.lv_src + eo, p.slot_rows + no,
+  return LevelFwd<V>{p.pack_lv + eo * (p.dim + 2), p.lv_src + eo, p.slot_rows + no,
                   p.slot_off + (size_t)l * (p.num_experts + 1), p.in_rows + eo,
                   p.in_off + (size_t)l * (p.np + 1)};
 }
 
 // Cooperative launch: T * nbe blocks of kLevelThreads; block b serves expert
 // b % T as the (b / T)-th of its nbe blocks.
-template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanForward p) {
+template <int NF, class V>
+__global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanForward<V> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.dim, T = p.num_experts;
   const int e = blockIdx.x % T, be = blockIdx.x / T, nbe = gridDim.x / T;
@@ -121,7 +131,7 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanFor
   int cur[2], nxt[2], far[2];
   range(0, cur);
   range(1, nxt);
-  NextSlot<NF> next;
+  NextSlot<NF, V> next;
   next.start(level_of(p, 0), p.lv_nodes, cur[0] + first, cur[0] + first < cur[1], D);
   next.a();
   next.b();
@@ -133,7 +143,7 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanFor
                nxt[0] + first < nxt[1], D);   // past the last level: an empty range
     next.a();
     range(l + 2, far);
-    level_forward_block<NF>(level_of(p, l), cur[0] + first, cur[1], stride, w, x, p.hf, p.hf,
+    level_forward_block<NF, V>(level_of(p, l), cur[0] + first, cur[1], stride, w, x, p.hf, p.hf,
                             p.lv_nodes + no, p.score_buf, p.v_buf,
                             p.res_e ? p.res_e + eo * ew : nullptr,
                             p.res_n ? p.res_n + no * 4 * D : nullptr, scratch, D, &ready, next);
@@ -143,8 +153,8 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanFor
   }
 }
 
-template <int NF>
-cudaError_t launch_scan(ScanForward p, cudaStream_t s) {
+template <int NF, class V>
+cudaError_t launch_scan(ScanForward<V> p, cudaStream_t s) {
   const size_t smem = forward_smem<NF>();
   static bool configured = false;
   static int sms = 0, per_sm = 0;   // of the device the first call ran on
@@ -155,10 +165,10 @@ cudaError_t launch_scan(ScanForward p, cudaStream_t s) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
     bool allowed = false;
-    if ((err = allow_shared_memory(level_scan_kernel<NF>, smem, &allowed)) != cudaSuccess) {
+    if ((err = allow_shared_memory(level_scan_kernel<NF, V>, smem, &allowed)) != cudaSuccess) {
       return err;
     }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_kernel<NF>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_kernel<NF, V>,
                                                         kLevelThreads, smem);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -171,7 +181,7 @@ cudaError_t launch_scan(ScanForward p, cudaStream_t s) {
   if (nbe < 1) return cudaErrorCooperativeLaunchTooLarge;
   if ((err = cudaMemsetAsync(p.barrier, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_kernel<NF>),
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_kernel<NF, V>),
                                      dim3(p.num_experts * nbe), dim3(kLevelThreads), args, smem,
                                      s);
 }
@@ -184,24 +194,29 @@ extern "C" {
 // on `stream`. Tables and lists are row-major int32 with a leading level
 // axis, pack_lv is [L, Ep, D+2]; hf [N, D] must be zeroed by the caller.
 // res_e [L, Ep, 3D+1] and res_n [L, Np, 4D] are both given (training) or both
-// null. `barrier`: one unsigned of device memory. Returns 0, or the
-// cudaError_t of the failed call: a launch that is refused never runs.
+// null. pack_lv, hf, res_e and res_n hold bf16 with `bf16` set, else fp32;
+// the weights, b_ih, b_hh, wa_k and the scratch are fp32. `barrier`: one
+// unsigned of device memory. Returns 0, or the cudaError_t of the failed
+// call: a launch that is refused never runs.
 int mgvae_level_scan_forward(
-    const float* pack_lv, const int* lv_src, const int* lv_nodes, const int* slot_rows,
+    const void* pack_lv, const int* lv_src, const int* lv_nodes, const int* slot_rows,
     const int* slot_off, const int* in_rows, const int* in_off, const float* wkv_e,
-    const float* wih_e, const float* b_ih, const float* b_hh, const float* wa_k, float* hf,
-    float* score_buf, float* v_buf, float* res_e, float* res_n, unsigned* barrier,
-    int num_levels, int ep, int np, int dim, int num_experts, void* stream) {
+    const float* wih_e, const float* b_ih, const float* b_hh, const float* wa_k, void* hf,
+    float* score_buf, float* v_buf, void* res_e, void* res_n, unsigned* barrier,
+    int num_levels, int ep, int np, int dim, int num_experts, int bf16, void* stream) {
   if (dim < 1 || dim > kMaxDim || num_experts < 1 || num_experts > kMaxExperts ||
       ep < 1 || np < 1 || num_levels < 0 || (res_e == nullptr) != (res_n == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_levels == 0) return 0;
-  ScanForward p{pack_lv, lv_src, lv_nodes, slot_rows, slot_off, in_rows, in_off, wkv_e, wih_e,
-                b_ih, b_hh, wa_k, hf, score_buf, v_buf, res_e, res_n, barrier,
-                num_levels, ep, np, dim, num_experts};
   cudaError_t err = cudaSuccess;
-  MGVAE_WITH_NF(dim, err = launch_scan<NF>(p, static_cast<cudaStream_t>(stream)));
+  MGVAE_WITH_VALUE(bf16, {
+    ScanForward<V> p{static_cast<const V*>(pack_lv), lv_src, lv_nodes, slot_rows, slot_off,
+                     in_rows, in_off, wkv_e, wih_e, b_ih, b_hh, wa_k, static_cast<V*>(hf),
+                     score_buf, v_buf, static_cast<V*>(res_e), static_cast<V*>(res_n), barrier,
+                     num_levels, ep, np, dim, num_experts};
+    MGVAE_WITH_NF(dim, err = launch_scan<NF, V>(p, static_cast<cudaStream_t>(stream)));
+  });
   return static_cast<int>(err);
 }
 

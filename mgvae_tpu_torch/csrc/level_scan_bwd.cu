@@ -1,5 +1,5 @@
-// Backward of the fused level recurrence (num_rounds == 1), fp32, for
-// Hopper (sm_90a).
+// Backward of the fused level recurrence (num_rounds == 1), with fp32 or
+// bf16 values, for Hopper (sm_90a).
 //
 // Replaces mgvae_tpu/ops/pallas/level_kernel.py::fused_level_scan_bwd (the
 // backward of the custom VJP pallas_level_scan, C == 1). It reads the
@@ -43,6 +43,12 @@
 //   * The TPU kernel's one-hot gathers and scatters, source windows, class
 //     tiers and expert-stacked matmuls over all T experts are gone. fp32
 //     FMA: tensor cores would mean TF32 or bf16.
+//   * bf16 values (level_slot_bwd.cuh): the residuals, ghf and d_pack are
+//     bf16 in memory and the values are rounded where the JAX kernel rounds
+//     them; the dhf_src products of a slot's in-edges then run per edge
+//     against wk_e^T (a copy the wrapper makes) and wv_e^T, D x 2D each, as
+//     the forward's k and v products; dscore goes to an fp32 buffer for
+//     d_wak. The weight gradients sum in fp32, as in fp32 mode.
 
 #include <cuda_runtime.h>
 
@@ -61,31 +67,37 @@ extern "C" {
 // partial [ceil(num_levels / levels_per_block), weight-gradient floats] are
 // scratch that needs no fill; grads holds the five weight gradients end to
 // end (d_wkv, d_wih, d_bih, d_bhh, d_wak), written whole; `barrier`: one
-// unsigned. Returns 0, or the cudaError_t of the failed call: a launch that
-// is refused never runs.
+// unsigned. With `bf16` ghf, res_e, res_n and d_pack hold bf16, and
+// wkt_e [T, DP, DP] (wk_e transposed) and dscore [L, Ep] (fp32 scratch) are
+// given; else they are null and those arrays fp32. Returns 0, or the
+// cudaError_t of the failed call: a launch that is refused never runs.
 int mgvae_level_scan_backward(
-    float* ghf, const float* res_e, const float* res_n, const int* lv_src, const int* lv_nodes,
+    void* ghf, const void* res_e, const void* res_n, const int* lv_src, const int* lv_nodes,
     const int* slot_rows, const int* slot_off, const int* in_rows, const int* in_off,
     const int* src_rows, const float* wkv_e, const float* wvt_e, const float* wiht_e,
-    const float* b_hh, const float* wa_k, float* d_pack, float* dkv, float* dg, float* dhf_buf,
-    float* grads,
-    float* partial, unsigned* barrier,
-    int num_levels, int levels_per_block, int ep, int np, int dim, int num_experts,
+    const float* b_hh, const float* wa_k, void* d_pack, float* dkv, float* dg, float* dhf_buf,
+    float* grads, float* partial, const float* wkt_e, float* dscore, unsigned* barrier,
+    int num_levels, int levels_per_block, int ep, int np, int dim, int num_experts, int bf16,
     void* stream) {
   if (dim < 1 || dim > kMaxDim || num_experts < 1 || num_experts > kMaxExperts ||
-      ep < 1 || np < 1 || num_levels < 1 || levels_per_block < 1) {
+      ep < 1 || np < 1 || num_levels < 1 || levels_per_block < 1 ||
+      (bf16 && (wkt_e == nullptr || dscore == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const LevelBwd lists{lv_src, slot_rows, slot_off, in_rows, in_off, src_rows};
-  ScanBackward p{ghf, res_e, res_n, lv_nodes, lists, wkv_e, wvt_e, wiht_e, b_hh, wa_k, d_pack,
-                 dkv, dg, dhf_buf, barrier, num_levels, ep, np, dim, num_experts};
   cudaError_t err = cudaSuccess;
-  MGVAE_WITH_NF(dim, err = launch_sweep<NF>(p, s));
+  MGVAE_WITH_VALUE(bf16, {
+    ScanBackward<V> p{static_cast<V*>(ghf), static_cast<const V*>(res_e),
+                      static_cast<const V*>(res_n), lv_nodes, lists, wkv_e, wvt_e, wiht_e, b_hh,
+                      wa_k, static_cast<V*>(d_pack), dkv, dg, dhf_buf, wkt_e, dscore, barrier,
+                      num_levels, ep, np, dim, num_experts};
+    MGVAE_WITH_NF(dim, err = launch_sweep<NF, V>(p, s));
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_weight_grads(res_e, res_n, d_pack, dkv, dg, lists, grads,
                                               partial, num_levels, levels_per_block, ep, np,
-                                              dim, num_experts, false, s));
+                                              dim, num_experts, false, s, nullptr, bf16, dscore));
 }
 
 }  // extern "C"

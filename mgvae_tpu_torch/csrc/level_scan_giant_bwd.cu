@@ -105,13 +105,13 @@ __global__ void __launch_bounds__(kLevelThreads) level_recompute_kernel(const Re
   for (int l = 0; l < p.levels; ++l) {
     const size_t eo = (size_t)l * p.ep, no = (size_t)l * p.np;
     const int p0 = __ldg(so + (size_t)l * (T + 1)), p1 = __ldg(so + (size_t)l * (T + 1) + 1);
-    const LevelFwd lv{p.pack_lv + eo * (D + 2), p.lv_src + eo, p.slot_rows + no,
-                      p.slot_off + (size_t)l * (T + 1), p.in_rows + eo,
-                      p.in_off + (size_t)l * (p.np + 1)};
+    const LevelFwd<float> lv{p.pack_lv + eo * (D + 2), p.lv_src + eo, p.slot_rows + no,
+                             p.slot_off + (size_t)l * (T + 1), p.in_rows + eo,
+                             p.in_off + (size_t)l * (p.np + 1)};
     const int first = ((warp - before) % stride + stride) % stride;
-    level_forward_block<NF>(lv, p0 + first, p1, stride, w, x, p.hf, nullptr, nullptr,
-                            p.score_buf + eo, p.v_buf + eo * D, p.res_e + eo * ew,
-                            p.res_n + no * 4 * D, scratch, D, nullptr, none);
+    level_forward_block<NF, float>(lv, p0 + first, p1, stride, w, x, p.hf, nullptr, nullptr,
+                                   p.score_buf + eo, p.v_buf + eo * D, p.res_e + eo * ew,
+                                   p.res_n + no * 4 * D, scratch, D, nullptr, none);
     before += p1 - p0;
   }
 }
@@ -189,14 +189,14 @@ int mgvae_level_scan_giant_backward(
     const Recompute rc{pack_lv + eo * (D + 2), lv.src, lv.slot_rows, lv.slot_off, lv.in_rows,
                        lv.in_off, wkv_e, wih_e, b_ih, b_hh, wa_k, hf, score_buf, v_buf, res_e,
                        res_n, k, ep, np, D, T};
-    const ScanBackward sw{ghf, res_e, res_n, lv_nodes + no, lv, wkv_e, wvt_e, wiht_e, b_hh,
-                          wa_k, d_pack + eo * (D + 2), dkv, dg, dhf_buf, barrier, k, ep, np, D,
-                          T};
+    const ScanBackward<float> sw{ghf, res_e, res_n, lv_nodes + no, lv, wkv_e, wvt_e, wiht_e, b_hh,
+                                 wa_k, d_pack + eo * (D + 2), dkv, dg, dhf_buf, nullptr, nullptr,
+                                 barrier, k, ep, np, D, T};
     cudaError_t err = cudaSuccess;
     MGVAE_WITH_NF(D, err = launch_recompute<NF>(rc, s));
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
-    MGVAE_WITH_NF(D, err = launch_sweep<NF>(sw, s));
+    MGVAE_WITH_NF(D, err = launch_sweep<NF, float>(sw, s));
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
     err = launch_weight_grads(res_e, res_n, d_pack + eo * (D + 2), dkv, dg, lv, grads, partial,

@@ -37,9 +37,11 @@ namespace {
 
 // One level's tables and lists. Positions p in [slot_off[e], slot_off[e+1])
 // are expert e's updated slots: slot_rows[p] is the slot and
-// in_rows[in_off[p] .. in_off[p+1]) are the rows of its live in-edges.
+// in_rows[in_off[p] .. in_off[p+1]) are the rows of its live in-edges. V:
+// the value type (level_common.cuh).
+template <class V>
 struct LevelFwd {
-  const float* pack;     // [Ep, D+2]: [vhs | score_static | expert]
+  const V* pack;         // [Ep, D+2]: [vhs | score_static | expert]
   const int* src;        // [Ep] source node of each edge row
   const int* slot_rows;  // [Np]
   const int* slot_off;   // [T+1]
@@ -86,8 +88,8 @@ __device__ __forceinline__ ExpertVec<NF> load_expert_vec(
 }
 
 // Row and source of the slot's in-edge t (all lanes get them).
-template <int NF>
-__device__ __forceinline__ void edge_of(const LevelFwd& lv, const SlotPrep<NF>& sp, int t,
+template <int NF, class V>
+__device__ __forceinline__ void edge_of(const LevelFwd<V>& lv, const SlotPrep<NF>& sp, int t,
                                         int* j, int* s) {
   if (t < 32) {
     *j = __shfl_sync(0xffffffffu, sp.j, t);
@@ -99,20 +101,20 @@ __device__ __forceinline__ void edge_of(const LevelFwd& lv, const SlotPrep<NF>& 
 }
 
 // One batch's static inputs: vhs and score_static of in-edges t0 .. t0+3.
-template <int NF>
-__device__ __forceinline__ void load_pack(const LevelFwd& lv, const SlotPrep<NF>& sp, int t0,
+template <int NF, class V>
+__device__ __forceinline__ void load_pack(const LevelFwd<V>& lv, const SlotPrep<NF>& sp, int t0,
                                           int D, float (&pv)[kBatch][NF], float (&ps)[kBatch]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int u = 0; u < kBatch; ++u) {
     int j = 0, s;
     if (t0 + u < sp.n) edge_of(lv, sp, t0 + u, &j, &s);   // warp-uniform
-    const float* row = lv.pack + (size_t)j * (D + 2);
-    ps[u] = t0 + u < sp.n ? __ldg(row + D) : 0.f;
+    const V* row = lv.pack + (size_t)j * (D + 2);
+    ps[u] = t0 + u < sp.n ? load_ro(row + D) : 0.f;
 #pragma unroll
     for (int q = 0; q < NF; ++q) {
       const int d = lane + 32 * q;
-      pv[u][q] = (t0 + u < sp.n && d < D) ? __ldg(row + d) : 0.f;
+      pv[u][q] = (t0 + u < sp.n && d < D) ? load_ro(row + d) : 0.f;
     }
   }
 }
@@ -123,15 +125,15 @@ __device__ __forceinline__ void load_pack(const LevelFwd& lv, const SlotPrep<NF>
 // that a level below writes. Stage a issues loads and uses none of them, so
 // it never waits. The slot's new row will go to row out_index[slot] of the
 // output, or row slot without out_index.
-template <int NF>
-__device__ __forceinline__ void slot_prepare_a(const LevelFwd& lv, int p, SlotPrep<NF>& sp) {
+template <int NF, class V>
+__device__ __forceinline__ void slot_prepare_a(const LevelFwd<V>& lv, int p, SlotPrep<NF>& sp) {
   sp.slot = __ldg(lv.slot_rows + p);
   sp.eb = __ldg(lv.in_off + p);
   sp.n = __ldg(lv.in_off + p + 1);   // the end of the slot's in-edges, until stage b
 }
 
-template <int NF>
-__device__ __forceinline__ void slot_prepare_b(const LevelFwd& lv,
+template <int NF, class V>
+__device__ __forceinline__ void slot_prepare_b(const LevelFwd<V>& lv,
                                                const int* __restrict__ out_index,
                                                SlotPrep<NF>& sp) {
   const int lane = threadIdx.x & 31;
@@ -140,15 +142,15 @@ __device__ __forceinline__ void slot_prepare_b(const LevelFwd& lv,
   sp.out = out_index ? __ldg(out_index + sp.slot) : sp.slot;
 }
 
-template <int NF>
-__device__ __forceinline__ void slot_prepare_c(const LevelFwd& lv, int D, SlotPrep<NF>& sp) {
+template <int NF, class V>
+__device__ __forceinline__ void slot_prepare_c(const LevelFwd<V>& lv, int D, SlotPrep<NF>& sp) {
   sp.s = (threadIdx.x & 31) < sp.n ? __ldg(lv.src + sp.j) : 0;
   load_pack(lv, sp, 0, D, sp.pv, sp.ps);
 }
 
-template <int NF>
+template <int NF, class V>
 __device__ __forceinline__ SlotPrep<NF> level_slot_prepare(
-    const LevelFwd& lv, int p, const int* __restrict__ out_index, int D) {
+    const LevelFwd<V>& lv, int p, const int* __restrict__ out_index, int D) {
   SlotPrep<NF> sp;
   slot_prepare_a(lv, p, sp);
   slot_prepare_b(lv, out_index, sp);
@@ -161,13 +163,13 @@ __device__ __forceinline__ SlotPrep<NF> level_slot_prepare(
 // the level's start, b() and c() where the slot body calls them, between its
 // phases, each by then with the stage before it long landed. A warp with no
 // slot now runs them back to back. Each stage runs once.
-template <int NF>
+template <int NF, class V>
 struct NextSlot {
-  LevelFwd lv;
+  LevelFwd<V> lv;
   const int* out_index;
   int p, D, stage;   // stage: the next to run; 3: none (done, or no slot there)
   SlotPrep<NF> sp;
-  __device__ __forceinline__ void start(const LevelFwd& level, const int* index, int pos,
+  __device__ __forceinline__ void start(const LevelFwd<V>& level, const int* index, int pos,
                                         bool any, int dim) {
     lv = level;
     out_index = index;
@@ -210,16 +212,23 @@ struct NoNext {
 // With res_e / res_n given it also writes the slot's residual rows (see
 // level_scan.cu). `scratch`: kBatch * DP floats of shared memory of this
 // warp's own, 16-byte aligned. `next`: see NextSlot.
-template <int NF, class Next>
+//
+// hf, out and the residuals hold V; everything else is fp32. In bf16 the
+// values are rounded where the JAX package's _level_body rounds them
+// (mgvae_tpu/ops/pallas/level_kernel.py): v * attn before the message sum
+// (:418-420; the softmax weights are then taken before the sum, not after
+// as in fp32), msg before the GRU product (:427), the residuals (:446-453)
+// and the new row (:480). hf's rows are bf16 already when gathered (:393).
+template <int NF, class V, class Next>
 __device__ __forceinline__ void level_slot_forward(
-    const LevelFwd& lv, SlotPrep<NF>& sp, const ExpertWeights& w, const ExpertVec<NF>& x,
+    const LevelFwd<V>& lv, SlotPrep<NF>& sp, const ExpertWeights& w, const ExpertVec<NF>& x,
     Next& next,
-    const float* hf,                  // [N, D]
-    float* out,                       // [., D] or null
+    const V* hf,                      // [N, D]
+    V* out,                           // [., D] or null
     float* score_buf,                 // [Ep] scratch in device memory
     float* v_buf,                     // [Ep, D] scratch in device memory
-    float* __restrict__ res_e,        // [Ep, 3D+1] or null
-    float* __restrict__ res_n,        // [Np, 4D] or null
+    V* __restrict__ res_e,            // [Ep, 3D+1] or null
+    V* __restrict__ res_n,            // [Np, 4D] or null
     float* scratch, int D) {
   const int lane = threadIdx.x & 31;
   const size_t ew = 3 * (size_t)D + 1;
@@ -241,10 +250,10 @@ __device__ __forceinline__ void level_slot_forward(
       int s = 0;
       row[u] = 0;
       if (t0 + u < sp.n) edge_of(lv, sp, t0 + u, &row[u], &s);
-      const float* hrow = hf + (size_t)s * D;
+      const V* hrow = hf + (size_t)s * D;
 #pragma unroll
       for (int q = 0; q < NF; ++q) {
-        h[u][q] = (t0 + u < sp.n && own[q]) ? __ldcg(hrow + lane + 32 * q) : 0.f;
+        h[u][q] = (t0 + u < sp.n && own[q]) ? load_cg(hrow + lane + 32 * q) : 0.f;
         k[u][q] = 0.f;
         v[u][q] = 0.f;
       }
@@ -295,10 +304,10 @@ __device__ __forceinline__ void level_slot_forward(
         v[u][q] += sp.pv[u][q];
         if (!in_registers) v_buf[j * D + d] = v[u][q];
         if (res_e) {
-          float* re = res_e + j * ew;
-          re[d] = h[u][q];
-          re[D + d] = k[u][q];
-          re[2 * D + d] = v[u][q];
+          V* re = res_e + j * ew;
+          re[d] = from_float<V>(h[u][q]);
+          re[D + d] = from_float<V>(k[u][q]);
+          re[2 * D + d] = from_float<V>(v[u][q]);
         }
       }
       if (!in_registers && lane == 0) score_buf[j] = score[u];
@@ -311,31 +320,66 @@ __device__ __forceinline__ void level_slot_forward(
   float den = 0.f, acc[NF];
 #pragma unroll
   for (int q = 0; q < NF; ++q) acc[q] = 0.f;
-  if (in_registers) {
+  if constexpr (!IsBf16<V>::value) {
+    if (in_registers) {
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      if (u >= sp.n) break;
-      const float ex = expf(fminf(fmaxf(score[u] - smax, -80.f), 0.f));
-      den += ex;
+      for (int u = 0; u < kBatch; ++u) {
+        if (u >= sp.n) break;
+        const float ex = expf(fminf(fmaxf(score[u] - smax, -80.f), 0.f));
+        den += ex;
 #pragma unroll
-      for (int q = 0; q < NF; ++q) acc[q] = fmaf(ex, v[u][q], acc[q]);
+        for (int q = 0; q < NF; ++q) acc[q] = fmaf(ex, v[u][q], acc[q]);
+      }
+    } else {
+      for (int t = 0; t < sp.n; ++t) {
+        int j, s;
+        edge_of(lv, sp, t, &j, &s);
+        const float ex = expf(fminf(fmaxf(__ldcg(score_buf + j) - smax, -80.f), 0.f));
+        den += ex;
+#pragma unroll
+        for (int q = 0; q < NF; ++q) {
+          if (own[q]) acc[q] = fmaf(ex, __ldcg(v_buf + (size_t)j * D + lane + 32 * q), acc[q]);
+        }
+      }
     }
-  } else {
-    for (int t = 0; t < sp.n; ++t) {
-      int j, s;
-      edge_of(lv, sp, t, &j, &s);
-      const float ex = expf(fminf(fmaxf(__ldcg(score_buf + j) - smax, -80.f), 0.f));
-      den += ex;
 #pragma unroll
-      for (int q = 0; q < NF; ++q) {
-        if (own[q]) acc[q] = fmaf(ex, __ldcg(v_buf + (size_t)j * D + lane + 32 * q), acc[q]);
+    for (int q = 0; q < NF; ++q) acc[q] /= den + 1e-16f;
+  } else {
+    // the normaliser first, then the sum of round(v * attn)
+    if (in_registers) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (u < sp.n) den += expf(fminf(fmaxf(score[u] - smax, -80.f), 0.f));
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (u >= sp.n) break;
+        const float a = expf(fminf(fmaxf(score[u] - smax, -80.f), 0.f)) / (den + 1e-16f);
+#pragma unroll
+        for (int q = 0; q < NF; ++q) acc[q] += round_to<V>(v[u][q] * a);
+      }
+    } else {
+      for (int t = 0; t < sp.n; ++t) {
+        int j, s;
+        edge_of(lv, sp, t, &j, &s);
+        den += expf(fminf(fmaxf(__ldcg(score_buf + j) - smax, -80.f), 0.f));
+      }
+      for (int t = 0; t < sp.n; ++t) {
+        int j, s;
+        edge_of(lv, sp, t, &j, &s);
+        const float a =
+            expf(fminf(fmaxf(__ldcg(score_buf + j) - smax, -80.f), 0.f)) / (den + 1e-16f);
+#pragma unroll
+        for (int q = 0; q < NF; ++q) {
+          if (own[q]) acc[q] += round_to<V>(__ldcg(v_buf + (size_t)j * D + lane + 32 * q) * a);
+        }
       }
     }
   }
   float msg[NF];
 #pragma unroll
   for (int q = 0; q < NF; ++q) {
-    msg[q] = acc[q] / (den + 1e-16f);   // 0 past D
+    msg[q] = round_to<V>(acc[q]);   // 0 past D
     scratch[lane + 32 * q] = msg[q];
   }
   __syncwarp();
@@ -350,7 +394,8 @@ __device__ __forceinline__ void level_slot_forward(
       } else {
         sc = __ldcg(score_buf + j);
       }
-      res_e[j * ew + 3 * D] = expf(fminf(fmaxf(sc - smax, -80.f), 0.f)) / (den + 1e-16f);
+      res_e[j * ew + 3 * D] =
+          from_float<V>(expf(fminf(fmaxf(sc - smax, -80.f), 0.f)) / (den + 1e-16f));
     }
   }
 
@@ -368,13 +413,13 @@ __device__ __forceinline__ void level_slot_forward(
     const float r = 1.f / (1.f + expf(-(gi[0][q] + x.br[q])));
     const float z = 1.f / (1.f + expf(-(gi[1][q] + x.bz[q])));
     const float n = tanhf(gi[2][q] + x.bin[q] + r * x.bhn[q]);
-    if (out) out[(size_t)sp.out * D + d] = (1.f - z) * n;
+    if (out) out[(size_t)sp.out * D + d] = from_float<V>((1.f - z) * n);
     if (res_n) {
-      float* rn = res_n + (size_t)sp.slot * 4 * D;
-      rn[d] = msg[q];
-      rn[D + d] = r;
-      rn[2 * D + d] = z;
-      rn[3 * D + d] = n;
+      V* rn = res_n + (size_t)sp.slot * 4 * D;
+      rn[d] = from_float<V>(msg[q]);
+      rn[D + d] = from_float<V>(r);
+      rn[2 * D + d] = from_float<V>(z);
+      rn[3 * D + d] = from_float<V>(n);
     }
   }
 }
@@ -386,16 +431,16 @@ __device__ __forceinline__ void level_slot_forward(
 // without out_index (the step), or nowhere without out (the recompute).
 // `ready`: the warp's first slot of this level, prepared before the call, or
 // null. `next`: see NextSlot; its stages have all run when this returns.
-template <int NF, class Next>
+template <int NF, class V, class Next>
 __device__ __forceinline__ void level_forward_block(
-    const LevelFwd& lv, int p0, int p1, int stride, const ExpertWeights& w,
-    const ExpertVec<NF>& x, const float* hf, float* out, const int* __restrict__ out_index,
-    float* score_buf, float* v_buf, float* __restrict__ res_e, float* __restrict__ res_n,
+    const LevelFwd<V>& lv, int p0, int p1, int stride, const ExpertWeights& w,
+    const ExpertVec<NF>& x, const V* hf, V* out, const int* __restrict__ out_index,
+    float* score_buf, float* v_buf, V* __restrict__ res_e, V* __restrict__ res_n,
     float* scratch, int D, const SlotPrep<NF>* ready, Next& next) {
   for (int p = p0; p < p1; p += stride) {
     SlotPrep<NF> sp = (ready && p == p0) ? *ready : level_slot_prepare<NF>(lv, p, out_index, D);
-    level_slot_forward<NF>(lv, sp, w, x, next, hf, out, score_buf, v_buf, res_e, res_n,
-                           scratch + (threadIdx.x >> 5) * kBatch * Staged<NF>::DP, D);
+    level_slot_forward<NF, V>(lv, sp, w, x, next, hf, out, score_buf, v_buf, res_e, res_n,
+                              scratch + (threadIdx.x >> 5) * kBatch * Staged<NF>::DP, D);
   }
   next.b();
   next.c();
@@ -470,15 +515,16 @@ __global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(const StepForw
   const int* so = p.slot_off + r * (T + 1);
   const int p1 = __ldg(so + e + 1);
   if (__ldg(so + e) == p1) return;  // block-uniform
-  const LevelFwd lv{p.pack_lv + r * p.ep * (D + 2), p.lv_src + r * p.ep, p.slot_rows + r * p.np,
-                    so, p.in_rows + r * p.ep, p.in_off + r * (p.np + 1)};
+  const LevelFwd<float> lv{p.pack_lv + r * p.ep * (D + 2), p.lv_src + r * p.ep,
+                           p.slot_rows + r * p.np, so, p.in_rows + r * p.ep,
+                           p.in_off + r * (p.np + 1)};
   const size_t h0 = (size_t)k * p.n_sub * D, ew = 3 * (size_t)D + 1;
   float* scratch;
   const ExpertVec<NF> x = load_expert_vec<NF>(p.b_ih, p.b_hh, p.wa_k, e, D);
   const ExpertWeights w = stage_forward_weights<NF>(smem, p.wkv_e, p.wih_e, e, &scratch);
   NoNext none;
   const int nbe = gridDim.x / T;
-  level_forward_block<NF>(lv, __ldg(so + e) + first_slot(blockIdx.x / T, nbe), p1,
+  level_forward_block<NF, float>(lv, __ldg(so + e) + first_slot(blockIdx.x / T, nbe), p1,
                           slot_stride(nbe), w, x, p.hf + h0, p.out + h0,
                           p.out_index ? p.out_index + r * p.np : nullptr,
                           p.score_buf + (size_t)k * p.ep, p.v_buf + (size_t)k * p.ep * D,

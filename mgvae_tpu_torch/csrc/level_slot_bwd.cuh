@@ -22,11 +22,30 @@
 //   ck = wa_k[e] . wk_e^T  (one vector per expert, once per block),
 //   cv = dmsg . wv_e^T     (one product per slot),
 // so an in-edge costs O(D), not O(D^2).
+//
+// Values (level_common.cuh): the slot backward, the source sums and the
+// persistent sweep are templates of V, which the fused backward instantiates
+// in fp32 and bf16 and the others in fp32. With V = bf16 the residuals, the
+// carried ghf and d_pack are bf16 in memory and the values are rounded where
+// the JAX package's _level_bwd_body rounds them (level_kernel.py): dgi before
+// the dmsg product (:728), dmsg (:732), dk | dv before the dhf_src product
+// (:750; the per-edge products then do not collapse: a slot reads wk_e^T too
+// and computes each in-edge's dhf_src as the forward computes its k and v),
+// d_pack (:758), dhf_src, and a source's sum before and after it is added to
+// ghf (:774-778). dscore goes to an fp32 buffer for d_wak, as the JAX kernel
+// sums it unrounded.
 #pragma once
 
 #include "level_common.cuh"
 
 namespace {
+
+// A backward warp's scratch in shared memory: 4 DP floats (dgi, dmsg), and
+// in bf16 2 kBatch DP for a batch's rounded dk | dv.
+template <int NF, class V>
+__host__ __device__ constexpr int bwd_scratch_floats() {
+  return (IsBf16<V>::value ? 2 * kBatch : 4) * Staged<NF>::DP;
+}
 
 // One level's lists for the backward (see LevelFwd; src_rows: the level's
 // live edge rows grouped by source node, each group in row order, in_off[Np]
@@ -84,9 +103,9 @@ __device__ __forceinline__ ExpertVecBwd<NF> load_expert_vec_bwd(
 }
 
 // Values of in-edges t0 .. t0+3, this lane's features.
-template <int NF>
+template <int NF, class V>
 __device__ __forceinline__ void load_values(const LevelBwd& lv, const SlotPrepBwd<NF>& sp,
-                                            const float* __restrict__ res_e, int t0, int D,
+                                            const V* __restrict__ res_e, int t0, int D,
                                             float (&v)[kBatch][NF]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -96,10 +115,10 @@ __device__ __forceinline__ void load_values(const LevelBwd& lv, const SlotPrepBw
     if (t < sp.n) {   // warp-uniform
       j = t < 32 ? __shfl_sync(0xffffffffu, sp.j, t) : __ldg(lv.in_rows + sp.eb + t);
     }
-    const float* re = res_e + (size_t)j * (3 * D + 1) + 2 * D;
+    const V* re = res_e + (size_t)j * (3 * D + 1) + 2 * D;
 #pragma unroll
     for (int q = 0; q < NF; ++q) {
-      v[u][q] = (t < sp.n && lane + 32 * q < D) ? re[lane + 32 * q] : 0.f;
+      v[u][q] = (t < sp.n && lane + 32 * q < D) ? to_float(re[lane + 32 * q]) : 0.f;
     }
   }
 }
@@ -117,36 +136,36 @@ __device__ __forceinline__ void slot_bwd_prepare_a(const LevelBwd& lv, int p,
   sp.n = __ldg(lv.in_off + p + 1);   // the end of the slot's in-edges, until stage b
 }
 
-template <int NF>
+template <int NF, class V>
 __device__ __forceinline__ void slot_bwd_prepare_b(const LevelBwd& lv,
-                                                   const float* __restrict__ res_n,
+                                                   const V* __restrict__ res_n,
                                                    const int* __restrict__ g_index, int D,
                                                    SlotPrepBwd<NF>& sp) {
   const int lane = threadIdx.x & 31;
   sp.n -= sp.eb;
   sp.j = lane < sp.n ? __ldg(lv.in_rows + sp.eb + lane) : 0;
   sp.g = g_index ? __ldg(g_index + sp.slot) : sp.slot;
-  const float* rn = res_n + (size_t)sp.slot * 4 * D;
+  const V* rn = res_n + (size_t)sp.slot * 4 * D;
 #pragma unroll
   for (int q = 0; q < NF; ++q) {
     const int d = lane + 32 * q;
-    sp.r[q] = d < D ? rn[D + d] : 0.f;
-    sp.z[q] = d < D ? rn[2 * D + d] : 0.f;
-    sp.nw[q] = d < D ? rn[3 * D + d] : 0.f;
+    sp.r[q] = d < D ? to_float(rn[D + d]) : 0.f;
+    sp.z[q] = d < D ? to_float(rn[2 * D + d]) : 0.f;
+    sp.nw[q] = d < D ? to_float(rn[3 * D + d]) : 0.f;
   }
 }
 
-template <int NF>
+template <int NF, class V>
 __device__ __forceinline__ void slot_bwd_prepare_c(const LevelBwd& lv,
-                                                   const float* __restrict__ res_e, int D,
+                                                   const V* __restrict__ res_e, int D,
                                                    SlotPrepBwd<NF>& sp) {
-  sp.a = (threadIdx.x & 31) < sp.n ? res_e[(size_t)sp.j * (3 * D + 1) + 3 * D] : 0.f;
+  sp.a = (threadIdx.x & 31) < sp.n ? to_float(res_e[(size_t)sp.j * (3 * D + 1) + 3 * D]) : 0.f;
   load_values(lv, sp, res_e, 0, D, sp.v);
 }
 
-template <int NF>
+template <int NF, class V>
 __device__ __forceinline__ SlotPrepBwd<NF> level_slot_bwd_prepare(
-    const LevelBwd& lv, int p, const float* __restrict__ res_e, const float* __restrict__ res_n,
+    const LevelBwd& lv, int p, const V* __restrict__ res_e, const V* __restrict__ res_n,
     const int* __restrict__ g_index, int D) {
   SlotPrepBwd<NF> sp;
   slot_bwd_prepare_a(lv, p, sp);
@@ -158,16 +177,16 @@ __device__ __forceinline__ SlotPrepBwd<NF> level_slot_bwd_prepare(
 // The slot at position p of the next (lower) level's list that a warp of the
 // persistent sweep prepares while it computes its slot of this level: the
 // forward's NextSlot for the backward.
-template <int NF>
+template <int NF, class V>
 struct NextSlotBwd {
   LevelBwd lv;
-  const float* res_e;
-  const float* res_n;
+  const V* res_e;
+  const V* res_n;
   const int* g_index;
   int p, D, stage;   // stage: the next to run; 3: none (done, or no slot there)
   SlotPrepBwd<NF> sp;
-  __device__ __forceinline__ void start(const LevelBwd& level, const float* e_rows,
-                                        const float* n_rows, const int* index, int pos,
+  __device__ __forceinline__ void start(const LevelBwd& level, const V* e_rows,
+                                        const V* n_rows, const int* index, int pos,
                                         bool any, int dim) {
     lv = level;
     res_e = e_rows;
@@ -208,17 +227,20 @@ struct NoNextBwd {
 // row sp.g of `g` [., D] the cotangent of the slot's h_new (read past L1: a
 // persistent sweep wrote it itself). GRU backward with h = 0, dmsg through
 // w_ih_e^T, cv through wv_e^T, then the slot's in-edges in list order:
-// dattn, the softmax backward, dv, dk and dhf_src. `scratch`: 4 DP floats of
-// shared memory of this warp's own (DP = 32 NF). `next`: see NextSlotBwd.
-template <int NF, class Next>
+// dattn, the softmax backward, dv, dk and dhf_src. `scratch`:
+// bwd_scratch_floats<NF, V>() floats of shared memory of this warp's own
+// (DP = 32 NF). `next`: see NextSlotBwd. With V = bf16, w.a = wk_e^T and
+// `dscore_out` [Ep] receives each in-edge's dscore in fp32.
+template <int NF, class V, class Next>
 __device__ __forceinline__ void level_slot_backward(
     const LevelBwd& lv, SlotPrepBwd<NF>& sp, const ExpertWeights& w,
-    const ExpertVecBwd<NF>& x, Next& next, const float* ck, const float* g,
-    const float* __restrict__ res_e,   // [Ep, 3D+1] hf_src | khf | v | attn
-    float* __restrict__ d_pack,        // [Ep, D+2]: dv | dscore written
+    const ExpertVecBwd<NF>& x, Next& next, const float* ck, const V* g,
+    const V* __restrict__ res_e,       // [Ep, 3D+1] hf_src | khf | v | attn
+    V* __restrict__ d_pack,            // [Ep, D+2]: dv | dscore written
     float* __restrict__ dkv,           // [Ep, 2D]: dk | dv, for the weight gradients
     float* __restrict__ dg,            // [Np, 6D]: dgi | dbh, for the weight gradients
     float* dhf_buf,                    // [Ep, D]: dhf_src, for the source sums
+    float* __restrict__ dscore_out,    // [Ep] (bf16 only) or null
     float* scratch, int D) {
   const int lane = threadIdx.x & 31;
   const size_t pw = D + 2;
@@ -230,7 +252,7 @@ __device__ __forceinline__ void level_slot_backward(
 
   // GRU backward with h = 0: h_new = (1 - z) * nw, nw = tanh(i_n + r * b_hn)
   float* o = dg + (size_t)sp.slot * 6 * D;
-  const float* g_row = g + (size_t)sp.g * D;
+  const V* g_row = g + (size_t)sp.g * D;
 #pragma unroll
   for (int q = 0; q < NF; ++q) {
     const int d = lane + 32 * q;
@@ -241,16 +263,16 @@ __device__ __forceinline__ void level_slot_backward(
       continue;
     }
     const float r = sp.r[q], z = sp.z[q], nw = sp.nw[q];
-    const float go = __ldcg(g_row + d);
+    const float go = load_cg(g_row + d);
     const float dnw = go * (1.f - z);
     const float dz = -go * nw;
     const float dnu = dnw * (1.f - nw * nw);                  // pre-tanh
     const float dr = dnu * x.bhn[q];
     const float dzeta = dz * z * (1.f - z);                   // pre-sigmoid z
     const float drho = dr * r * (1.f - r);                    // pre-sigmoid r
-    dgi_s[d] = drho;
-    dgi_s[DP + d] = dzeta;
-    dgi_s[2 * DP + d] = dnu;
+    dgi_s[d] = round_to<V>(drho);
+    dgi_s[DP + d] = round_to<V>(dzeta);
+    dgi_s[2 * DP + d] = round_to<V>(dnu);
     o[d] = drho;
     o[D + d] = dzeta;
     o[2 * D + d] = dnu;
@@ -265,20 +287,23 @@ __device__ __forceinline__ void level_slot_backward(
 #pragma unroll
   for (int q = 0; q < NF; ++q) dmsg1[0][q] = cv1[0][q] = 0.f;
   vector_matrix<NF, 1, 3 * DP, DP, 0>(dgi_s, w.c, dmsg1);
-  const float (&dmsg)[NF] = dmsg1[0];   // 0 past D: w_ih^T's columns there are
+  float (&dmsg)[NF] = dmsg1[0];   // 0 past D: w_ih^T's columns there are
 #pragma unroll
-  for (int q = 0; q < NF; ++q) dmsg_s[lane + 32 * q] = dmsg[q];
+  for (int q = 0; q < NF; ++q) {
+    dmsg[q] = round_to<V>(dmsg[q]);
+    dmsg_s[lane + 32 * q] = dmsg[q];
+  }
   __syncwarp();
   next.b();
-  vector_matrix<NF, 1, DP, DP, 0>(dmsg_s, w.b, cv1);
+  if constexpr (!IsBf16<V>::value) vector_matrix<NF, 1, DP, DP, 0>(dmsg_s, w.b, cv1);
   const float (&cv)[NF] = cv1[0];
-  __syncwarp();  // the warp's next slot overwrites scratch
+  __syncwarp();  // the warp's next slot (or, in bf16, the edge products) overwrites scratch
   next.c();
 
   // softmax weight of in-edge t (all lanes get it)
   auto attn_of = [&](int t) {
     if (t < 32) return __shfl_sync(0xffffffffu, sp.a, t);
-    return res_e[(size_t)__ldg(lv.in_rows + sp.eb + t) * (3 * D + 1) + 3 * D];
+    return to_float(res_e[(size_t)__ldg(lv.in_rows + sp.eb + t) * (3 * D + 1) + 3 * D]);
   };
   // dattn = v . dmsg of in-edges t0 .. t0+3
   float dattn[kBatch];
@@ -304,27 +329,84 @@ __device__ __forceinline__ void level_slot_backward(
   }
 
   // pass 2: the softmax backward, dv = attn * dmsg, dk = dscore * wa_k[e],
-  // dhf_src = dscore * ck + attn * cv
+  // dhf_src = dscore * ck + attn * cv (fp32), or in bf16
+  // round(dk) . wk_e^T + round(dv) . wv_e^T, rounded
   for (int t0 = 0; t0 < sp.n; t0 += kBatch) {
     if (sp.n > kBatch) batch(t0);   // else dattn still holds the slot's only batch
+    size_t rows[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int t = t0 + u;
-      if (t >= sp.n) break;   // warp-uniform
+      rows[u] = 0;
+      if (t >= sp.n) {   // warp-uniform
+        if constexpr (IsBf16<V>::value) {
+#pragma unroll
+          for (int q = 0; q < NF; ++q) {
+            scratch[kBatch * (lane + 32 * q) + u] = 0.f;
+            scratch[kBatch * (DP + lane + 32 * q) + u] = 0.f;
+          }
+        }
+        continue;
+      }
       const size_t j = t < 32 ? __shfl_sync(0xffffffffu, sp.j, t)
                               : __ldg(lv.in_rows + sp.eb + t);
+      rows[u] = j;
       const float a = attn_of(t);
       const float dscore = a * (dattn[u] - s_grp);
-      if (lane == 0) d_pack[j * pw + D] = dscore;
+      if (lane == 0) {
+        d_pack[j * pw + D] = from_float<V>(dscore);
+        if (dscore_out) dscore_out[j] = dscore;
+      }
 #pragma unroll
       for (int q = 0; q < NF; ++q) {
-        if (!own[q]) continue;
         const int d = lane + 32 * q;
         const float dv = a * dmsg[q];
-        d_pack[j * pw + d] = dv;
+        if constexpr (IsBf16<V>::value) {   // every lane: the rows past D are 0
+          scratch[kBatch * d + u] = round_to<V>(dscore * x.wa[q]);
+          scratch[kBatch * (DP + d) + u] = round_to<V>(dv);
+        }
+        if (!own[q]) continue;
+        d_pack[j * pw + d] = from_float<V>(dv);
         dkv[j * 2 * D + d] = dscore * x.wa[q];
         dkv[j * 2 * D + D + d] = dv;
-        dhf_buf[j * D + d] = fmaf(dscore, ckq[q], a * cv[q]);
+        if constexpr (!IsBf16<V>::value) dhf_buf[j * D + d] = fmaf(dscore, ckq[q], a * cv[q]);
+      }
+    }
+    if constexpr (IsBf16<V>::value) {
+      // the batch's dhf_src: a row of wk^T and of wv^T at a time, as the
+      // forward's k and v products
+      __syncwarp();
+      float acc[kBatch][NF];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+        for (int q = 0; q < NF; ++q) acc[u][q] = 0.f;
+      }
+      const float* wk = w.a + lane;
+      const float* wv = w.b + lane;
+#pragma unroll 8
+      for (int i = 0; i < DP; ++i) {
+        const float4 k4 = *reinterpret_cast<const float4*>(scratch + kBatch * i);
+        const float4 v4 = *reinterpret_cast<const float4*>(scratch + kBatch * (DP + i));
+        const float ki[kBatch] = {k4.x, k4.y, k4.z, k4.w};
+        const float vi[kBatch] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int q = 0; q < NF; ++q) {
+          const float wkq = wk[i * DP + 32 * q], wvq = wv[i * DP + 32 * q];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            acc[u][q] = fmaf(vi[u], wvq, fmaf(ki[u], wkq, acc[u][q]));
+          }
+        }
+      }
+      __syncwarp();  // the next batch overwrites scratch
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (t0 + u >= sp.n) break;
+#pragma unroll
+        for (int q = 0; q < NF; ++q) {
+          if (own[q]) dhf_buf[rows[u] * D + lane + 32 * q] = round_to<V>(acc[u][q]);
+        }
       }
     }
   }
@@ -333,20 +415,21 @@ __device__ __forceinline__ void level_slot_backward(
 // A warp's share of one level's slot backward: as level_forward_block. The
 // cotangent of slot s is the row of g at g_index[s] (the sweeps: ghf at the
 // slot's node) or at s without g_index (the step).
-template <int NF, class Next>
+template <int NF, class V, class Next>
 __device__ __forceinline__ void level_backward_block(
     const LevelBwd& lv, int p0, int p1, int stride, const ExpertWeights& w,
-    const ExpertVecBwd<NF>& x, const float* ck, const float* g,
-    const int* __restrict__ g_index, const float* __restrict__ res_e,
-    const float* __restrict__ res_n, float* __restrict__ d_pack, float* __restrict__ dkv,
-    float* __restrict__ dg, float* dhf_buf, float* scratch, int D,
+    const ExpertVecBwd<NF>& x, const float* ck, const V* g,
+    const int* __restrict__ g_index, const V* __restrict__ res_e,
+    const V* __restrict__ res_n, V* __restrict__ d_pack, float* __restrict__ dkv,
+    float* __restrict__ dg, float* dhf_buf, float* dscore, float* scratch, int D,
     const SlotPrepBwd<NF>* ready, Next& next) {
   for (int p = p0; p < p1; p += stride) {
     SlotPrepBwd<NF> sp = (ready && p == p0)
                              ? *ready
-                             : level_slot_bwd_prepare<NF>(lv, p, res_e, res_n, g_index, D);
-    level_slot_backward<NF>(lv, sp, w, x, next, ck, g, res_e, d_pack, dkv, dg, dhf_buf,
-                            scratch + (threadIdx.x >> 5) * 4 * Staged<NF>::DP, D);
+                             : level_slot_bwd_prepare<NF, V>(lv, p, res_e, res_n, g_index, D);
+    level_slot_backward<NF, V>(lv, sp, w, x, next, ck, g, res_e, d_pack, dkv, dg, dhf_buf,
+                               dscore, scratch + (threadIdx.x >> 5) * bwd_scratch_floats<NF, V>(),
+                               D);
   }
   next.b();
   next.c();
@@ -360,10 +443,11 @@ __device__ __forceinline__ void level_backward_block(
 // (= row) order and adds once. No atomics, the same result on every run.
 // `first_warp` / `num_warps`: this warp's number among all that share the
 // level. dhf_buf and out are read past L1 (a persistent sweep wrote them
-// itself).
-template <int NF>
+// itself). With V = bf16 the group's fp32 sum is rounded, added to its row
+// of out and rounded again (level_kernel.py:774-778).
+template <int NF, class V>
 __device__ __forceinline__ void level_source_block(
-    const LevelBwd& lv, int np, float* out, const float* dhf_buf, int first_warp, int num_warps,
+    const LevelBwd& lv, int np, V* out, const float* dhf_buf, int first_warp, int num_warps,
     int D) {
   const int lane = threadIdx.x & 31;
   const int n_live = __ldg(lv.in_off + np);
@@ -411,34 +495,49 @@ __device__ __forceinline__ void level_source_block(
 #pragma unroll
     for (int q = 0; q < NF; ++q) {
       const int d = lane + 32 * q;
-      if (d < D) out[(size_t)s * D + d] = __ldcg(out + (size_t)s * D + d) + acc[q];
+      if (d < D) {
+        out[(size_t)s * D + d] =
+            from_float<V>(load_cg(out + (size_t)s * D + d) + round_to<V>(acc[q]));
+      }
     }
   }
 }
 
-// Shared memory of a backward block: w_ih^T, wv^T where it fits, ck [DP]
-// and 4 DP floats of scratch per warp.
-template <int NF>
+// The expert's matrices a backward block keeps in shared memory: w_ih^T,
+// and where they fit wv^T and (bf16) wk^T.
+template <int NF, class V>
+__host__ __device__ constexpr int bwd_staged_matrices() {
+  return 3 + (Staged<NF>::all ? 1 + (IsBf16<V>::value ? 1 : 0) : 0);
+}
+
+// Shared memory of a backward block: the staged matrices, ck [DP] and each
+// warp's scratch.
+template <int NF, class V>
 constexpr size_t backward_smem() {
   constexpr size_t DP = Staged<NF>::DP;
-  return sizeof(float) * ((Staged<NF>::all ? 4 : 3) * DP * DP + DP + kLevelWarps * 4 * DP);
+  return sizeof(float) * (bwd_staged_matrices<NF, V>() * DP * DP + DP +
+                          kLevelWarps * bwd_scratch_floats<NF, V>());
 }
 
 // Called by every thread of a backward block at its start: expert e's
 // w_ih_e^T and wv_e^T from the wrapper's copies wiht_e [T, 3 DP, DP] and
 // wvt_e [T, DP, DP], staged, and ck = wa_k[e] . wk_e^T from wkv_e
 // [T, 2, DP, DP], in shared memory behind them (*ck; *scratch follows).
-template <int NF>
+// With V = bf16 also wk_e^T from wkt_e [T, DP, DP] (w.a).
+template <int NF, class V>
 __device__ __forceinline__ ExpertWeights stage_backward_weights(
     float* smem, const float* __restrict__ wkv_e, const float* __restrict__ wvt_e,
-    const float* __restrict__ wiht_e, const float* __restrict__ wa_k, int e, int D, float** ck,
-    float** scratch) {
+    const float* __restrict__ wiht_e, const float* __restrict__ wkt_e,
+    const float* __restrict__ wa_k, int e, int D, float** ck, float** scratch) {
   constexpr int DP = Staged<NF>::DP;
+  constexpr bool kt = IsBf16<V>::value;
   const float* wit = wiht_e + (size_t)e * 3 * DP * DP;
   const float* wvt = wvt_e + (size_t)e * DP * DP;
+  const float* wkt = kt ? wkt_e + (size_t)e * DP * DP : nullptr;
   stage(smem, wit, 3 * DP * DP);
   if (Staged<NF>::all) stage(smem + 3 * DP * DP, wvt, DP * DP);
-  *ck = smem + (Staged<NF>::all ? 4 : 3) * DP * DP;
+  if (Staged<NF>::all && kt) stage(smem + 4 * DP * DP, wkt, DP * DP);
+  *ck = smem + bwd_staged_matrices<NF, V>() * DP * DP;
   const float* wk = wkv_e + (size_t)e * 2 * DP * DP;
   for (int i = threadIdx.x; i < DP; i += blockDim.x) {
     float x = 0.f;
@@ -447,7 +546,8 @@ __device__ __forceinline__ ExpertWeights stage_backward_weights(
   }
   staged();
   *scratch = *ck + DP;
-  return ExpertWeights{nullptr, Staged<NF>::all ? smem + 3 * DP * DP : wvt, smem};
+  const float* wk_t = kt && Staged<NF>::all ? smem + 4 * DP * DP : wkt;
+  return ExpertWeights{wk_t, Staged<NF>::all ? smem + 3 * DP * DP : wvt, smem};
 }
 
 // The slot backward and the source sums of one level of each of gridDim.y
@@ -495,26 +595,26 @@ __global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(const Ste
   if (__ldg(lv.slot_off + e) == p1) return;  // block-uniform
   float *ck, *scratch;
   const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(p.b_hh, p.wa_k, e, D);
-  const ExpertWeights w =
-      stage_backward_weights<NF>(smem, p.wkv_e, p.wvt_e, p.wiht_e, p.wa_k, e, D, &ck, &scratch);
+  const ExpertWeights w = stage_backward_weights<NF, float>(smem, p.wkv_e, p.wvt_e, p.wiht_e,
+                                                            nullptr, p.wa_k, e, D, &ck, &scratch);
   NoNextBwd none;
   const int nbe = gridDim.x / T;
   const int p0 = __ldg(lv.slot_off + e) + first_slot(blockIdx.x / T, nbe);
-  level_backward_block<NF>(lv, p0, p1, slot_stride(nbe), w, x, ck,
+  level_backward_block<NF, float>(lv, p0, p1, slot_stride(nbe), w, x, ck,
                            p.g + (size_t)k * p.n_sub * D,
                            p.g_index ? p.g_index + (size_t)r * p.np : nullptr,
                            p.res_e + (size_t)r * p.ep * (3 * D + 1),
                            p.res_n + (size_t)r * p.np * 4 * D,
                            p.d_pack + (size_t)r * p.ep * (D + 2), p.dkv + sr * p.ep * 2 * D,
-                           p.dg + sr * p.np * 6 * D, p.dhf_buf + (size_t)k * p.ep * D, scratch,
-                           D, nullptr, none);
+                           p.dg + sr * p.np * 6 * D, p.dhf_buf + (size_t)k * p.ep * D, nullptr,
+                           scratch, D, nullptr, none);
 }
 
 // Grid: (any number, chunks) blocks of kLevelThreads.
 template <int NF>
 __global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(const StepBackward p) {
   const int k = blockIdx.y, r = p.row + k * p.rows;
-  level_source_block<NF>(level_of(p.lists, r, p.ep, p.np, p.num_experts), p.np,
+  level_source_block<NF, float>(level_of(p.lists, r, p.ep, p.np, p.num_experts), p.np,
                          p.out + (size_t)k * p.n_sub * p.dim,
                          p.dhf_buf + (size_t)k * p.ep * p.dim,
                          blockIdx.x * kLevelWarps + (threadIdx.x >> 5), gridDim.x * kLevelWarps,
@@ -529,13 +629,13 @@ cudaError_t launch_level_backward(const StepBackward& p, int chunks, cudaStream_
   static int resident = 0;   // blocks the device the first call ran on holds at once
   cudaError_t err = cudaSuccess;
   if (!configured) {
-    err = resident_blocks(level_bwd_slot_kernel<NF>, backward_smem<NF>(), &resident);
+    err = resident_blocks(level_bwd_slot_kernel<NF>, backward_smem<NF, float>(), &resident);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
   level_bwd_slot_kernel<NF><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
-                              backward_smem<NF>(), s>>>(p);
+                              backward_smem<NF, float>(), s>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   level_bwd_source_kernel<NF><<<dim3((p.ep + kLevelWarps - 1) / kLevelWarps, chunks),
                                 kLevelThreads, 0, s>>>(p);
@@ -550,10 +650,11 @@ cudaError_t launch_level_backward(const StepBackward& p, int chunks, cudaStream_
 // backward, level_scan_giant_bwd.cu, which passes every array from its
 // chunk's first level on).
 
+template <class V>
 struct ScanBackward {
-  float* ghf;             // [N, D] cotangent of hf, updated in place
-  const float* res_e;     // [L, Ep, 3D+1]
-  const float* res_n;     // [L, Np, 4D]
+  V* ghf;                 // [N, D] cotangent of hf, updated in place
+  const V* res_e;         // [L, Ep, 3D+1]
+  const V* res_n;         // [L, Np, 4D]
   const int* lv_nodes;    // [L, Np]
   LevelBwd lists;         // all levels': lv_src, slot_rows, slot_off, in_rows, in_off, src_rows
   const float* wkv_e;     // [T, 2, DP, DP], DP = D rounded up to 32
@@ -561,25 +662,27 @@ struct ScanBackward {
   const float* wiht_e;    // [T, 3 DP, DP]: w_ih_e transposed
   const float* b_hh;      // [T, 3D]
   const float* wa_k;      // [T, D]
-  float* d_pack;          // [L, Ep, D+2] zeroed
+  V* d_pack;              // [L, Ep, D+2] zeroed
   float* dkv;             // [L, Ep, 2D]
   float* dg;              // [L, Np, 6D]
   float* dhf_buf;         // [Ep, D] scratch
+  const float* wkt_e;     // [T, DP, DP]: wk_e transposed (bf16 only), or null
+  float* dscore;          // [L, Ep] (bf16 only), or null
   unsigned* barrier;      // zeroed
   int num_levels, ep, np, dim, num_experts;
 };
 
 // Cooperative launch: T * nbe blocks of kLevelThreads; block b serves expert
 // b % T as the (b / T)-th of its nbe blocks.
-template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const ScanBackward p) {
+template <int NF, class V>
+__global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const ScanBackward<V> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.dim, T = p.num_experts;
   const int e = blockIdx.x % T, be = blockIdx.x / T, nbe = gridDim.x / T;
   float *ck, *scratch;
   const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(p.b_hh, p.wa_k, e, D);
-  const ExpertWeights w = stage_backward_weights<NF>(smem, p.wkv_e, p.wvt_e, p.wiht_e, p.wa_k,
-                                                     e, D, &ck, &scratch);
+  const ExpertWeights w = stage_backward_weights<NF, V>(smem, p.wkv_e, p.wvt_e, p.wiht_e,
+                                                        p.wkt_e, p.wa_k, e, D, &ck, &scratch);
   const size_t ew = 3 * (size_t)D + 1;
   unsigned target = 0;
   // As the forward (level_scan.cu): two levels ahead (below) a warp holds its
@@ -591,7 +694,7 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const Sca
     r[0] = l >= 0 ? __ldg(so + (size_t)l * (T + 1)) : 0;
     r[1] = l >= 0 ? __ldg(so + (size_t)l * (T + 1) + 1) : 0;
   };
-  auto start = [&](NextSlotBwd<NF>& next, int l, const int (&r)[2]) {
+  auto start = [&](NextSlotBwd<NF, V>& next, int l, const int (&r)[2]) {
     const size_t lo = l >= 0 ? l : 0;              // below level 0: an empty range
     next.start(level_of(p.lists, lo, p.ep, p.np, T), p.res_e + lo * p.ep * ew,
                p.res_n + lo * p.np * 4 * D, p.lv_nodes + lo * p.np, r[0] + first,
@@ -601,7 +704,7 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const Sca
   int cur[2], nxt[2], far[2];
   range(l, cur);
   range(l - 1, nxt);
-  NextSlotBwd<NF> next;
+  NextSlotBwd<NF, V> next;
   start(next, l, cur);
   next.a();
   next.b();
@@ -613,23 +716,24 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const Sca
     start(next, l - 1, nxt);
     next.a();
     range(l - 2, far);
-    level_backward_block<NF>(lv, cur[0] + first, cur[1], stride, w, x, ck, p.ghf,
-                             p.lv_nodes + no, p.res_e + eo * ew, p.res_n + no * 4 * D,
-                             p.d_pack + eo * (D + 2), p.dkv + eo * 2 * D, p.dg + no * 6 * D,
-                             p.dhf_buf, scratch, D, &ready, next);
+    level_backward_block<NF, V>(lv, cur[0] + first, cur[1], stride, w, x, ck, p.ghf,
+                                p.lv_nodes + no, p.res_e + eo * ew, p.res_n + no * 4 * D,
+                                p.d_pack + eo * (D + 2), p.dkv + eo * 2 * D, p.dg + no * 6 * D,
+                                p.dhf_buf, p.dscore ? p.dscore + eo : nullptr, scratch, D,
+                                &ready, next);
     cur[0] = nxt[0], cur[1] = nxt[1];
     nxt[0] = far[0], nxt[1] = far[1];
     grid_barrier(p.barrier, target += gridDim.x);
-    level_source_block<NF>(lv, p.np, p.ghf, p.dhf_buf,
+    level_source_block<NF, V>(lv, p.np, p.ghf, p.dhf_buf,
                            blockIdx.x * kLevelWarps + (threadIdx.x >> 5),
                            gridDim.x * kLevelWarps, D);
     if (l > 0) grid_barrier(p.barrier, target += gridDim.x);
   }
 }
 
-template <int NF>
-cudaError_t launch_sweep(ScanBackward p, cudaStream_t s) {
-  const size_t smem = backward_smem<NF>();
+template <int NF, class V>
+cudaError_t launch_sweep(ScanBackward<V> p, cudaStream_t s) {
+  const size_t smem = backward_smem<NF, V>();
   static bool configured = false;
   static int sms = 0, per_sm = 0;   // of the device the first call ran on
   cudaError_t err = cudaSuccess;
@@ -639,10 +743,11 @@ cudaError_t launch_sweep(ScanBackward p, cudaStream_t s) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
     bool allowed = false;
-    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF>, smem, &allowed)) != cudaSuccess) {
+    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF, V>, smem, &allowed)) !=
+        cudaSuccess) {
       return err;
     }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF, V>,
                                                         kLevelThreads, smem);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -654,7 +759,7 @@ cudaError_t launch_sweep(ScanBackward p, cudaStream_t s) {
   if (nbe < 1) return cudaErrorCooperativeLaunchTooLarge;
   if ((err = cudaMemsetAsync(p.barrier, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_bwd_kernel<NF>),
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_bwd_kernel<NF, V>),
                                      dim3(p.num_experts * nbe), dim3(kLevelThreads), args, smem,
                                      s);
 }
@@ -676,8 +781,9 @@ cudaError_t launch_sweep(ScanBackward p, cudaStream_t s) {
 // more than a chunk's rows.
 
 struct ExpertGemm {
-  const float* a;   // A rows at a + r * lda, width wa; null: A = 1 (wa = 1)
-  const float* b;   // B rows at b + r * ldb, width wb
+  const void* a;    // A rows at a + r * lda, width wa; null: A = 1 (wa = 1)
+  const void* b;    // B rows at b + r * ldb, width wb
+  int a_bf16, b_bf16;   // A, B hold bf16 (else fp32)
   float* out;       // out[i * ldo + (c / seg) * T * seg + e * seg + c % seg]
   int lda, wa, ldb, wb, ldo, seg;
   int edges;        // rows: 1 the live edges, 0 the updated slots
@@ -694,6 +800,11 @@ struct ExpertGemms {
 };
 
 constexpr int kTileI = 8, kTileC = 32, kChunk = 64;
+
+__device__ __forceinline__ float load_any(const void* p, long long i, int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
 
 // Grid: (blocks of all products, chunks). A product with wa > 1 gives each
 // thread one entry of an 8 x 32 output tile; one with wa == 1 (a single
@@ -755,13 +866,14 @@ __global__ void __launch_bounds__(kTileI * kTileC) expert_gemm_kernel(const Expe
     for (int idx = threadIdx.x; idx < kChunk * kTileC; idx += blockDim.x) {
       const int rr = idx / kTileC, c = c0 + idx % kTileC;
       const long long id = row_of[rr];
-      bs[rr][idx % kTileC] = (id >= 0 && c < g.wb) ? g.b[id * g.ldb + c] : 0.f;
+      bs[rr][idx % kTileC] =
+          (id >= 0 && c < g.wb) ? load_any(g.b, id * g.ldb + c, g.b_bf16) : 0.f;
     }
     for (int idx = threadIdx.x; idx < kChunk * kTileI; idx += blockDim.x) {
       const int rr = idx / kTileI, i = i0 + idx % kTileI;
       const long long id = row_of[rr];
       float v = 0.f;
-      if (id >= 0 && i < g.wa) v = g.a ? g.a[id * g.lda + i] : 1.f;
+      if (id >= 0 && i < g.wa) v = g.a ? load_any(g.a, id * g.lda + i, g.a_bf16) : 1.f;
       as[rr][idx % kTileI] = v;
     }
     __syncthreads();
@@ -810,11 +922,11 @@ __global__ void weight_reduce_kernel(const float* __restrict__ partial, float* _
   out[x] = accumulate ? out[x] + v : v;
 }
 
-ExpertGemm gemm(const float* a, int lda, int wa, const float* b, int ldb, int wb, int edges,
-                float* out, int ldo, int seg) {
+ExpertGemm gemm(const void* a, int lda, int wa, const void* b, int ldb, int wb, int edges,
+                float* out, int ldo, int seg, int a_bf16 = 0, int b_bf16 = 0) {
   ExpertGemm g{};
-  g.a = a; g.lda = lda; g.wa = wa;
-  g.b = b; g.ldb = ldb; g.wb = wb;
+  g.a = a; g.lda = lda; g.wa = wa; g.a_bf16 = a_bf16;
+  g.b = b; g.ldb = ldb; g.wb = wb; g.b_bf16 = b_bf16;
   g.edges = edges;
   g.out = out; g.ldo = ldo; g.seg = seg;
   g.tiles_i = (wa + kTileI - 1) / kTileI;
@@ -837,11 +949,13 @@ inline size_t weight_grad_floats(int D, int T) {
 // chunks' partials into `partial` [chunks, weight_grad_floats], then their
 // pairwise sums written into `grads` or, with `accumulate`, added. Adds one
 // to *launched for each kernel it enqueues, where `launched` is not null.
+// With `bf16` res_e, res_n and d_pack hold bf16 and d_wak reads each edge's
+// fp32 dscore from `dscore` [levels, Ep] instead of d_pack.
 cudaError_t launch_weight_grads(
-    const float* res_e, const float* res_n, const float* d_pack, const float* dkv,
+    const void* res_e, const void* res_n, const void* d_pack, const float* dkv,
     const float* dg, const LevelBwd& lists, float* grads, float* partial,
     int levels, int levels_per_block, int ep, int np, int D, int T, bool accumulate,
-    cudaStream_t s, int* launched = nullptr) {
+    cudaStream_t s, int* launched = nullptr, int bf16 = 0, const float* dscore = nullptr) {
   if (levels < 1) return cudaSuccess;
   const int chunks = (levels + levels_per_block - 1) / levels_per_block;
   if (chunks > 1 && partial == nullptr) return cudaErrorInvalidValue;
@@ -861,12 +975,17 @@ cudaError_t launch_weight_grads(
   p.levels_per_block = levels_per_block;
   p.accumulate = accumulate && chunks == 1 ? 1 : 0;
   p.chunk_stride = chunks > 1 ? total : 0;
+  // a value array's element n (res_e, d_pack: bf16 or fp32)
+  const auto at = [&](const void* x, size_t n) {
+    return static_cast<const void*>(static_cast<const char*>(x) + n * (bf16 ? 2 : 4));
+  };
   // d_wkv[:, k | v block of expert e] = hf_src^T (dk | dv)
-  p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, 1, d_wkv, 2 * T * D, D);
+  p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, 1, d_wkv, 2 * T * D, D, bf16);
   // d_wak[e] = sum dscore * khf
-  p.g[1] = gemm(d_pack + D, D + 2, 1, res_e + D, 3 * D + 1, D, 1, d_wak, T * D, D);
+  p.g[1] = bf16 ? gemm(dscore, 1, 1, at(res_e, D), 3 * D + 1, D, 1, d_wak, T * D, D, 0, 1)
+                : gemm(at(d_pack, D), D + 2, 1, at(res_e, D), 3 * D + 1, D, 1, d_wak, T * D, D);
   // d_wih[:, expert e block] = msg^T dgi
-  p.g[2] = gemm(res_n, 4 * D, D, dg, 6 * D, 3 * D, 0, d_wih, 3 * T * D, 3 * D);
+  p.g[2] = gemm(res_n, 4 * D, D, dg, 6 * D, 3 * D, 0, d_wih, 3 * T * D, 3 * D, bf16);
   // d_bih[e] = sum dgi, d_bhh[e] = sum dbh
   p.g[3] = gemm(nullptr, 0, 1, dg, 6 * D, 3 * D, 0, d_bih, 3 * T * D, 3 * D);
   p.g[4] = gemm(nullptr, 0, 1, dg + 3 * D, 6 * D, 3 * D, 0, d_bhh, 3 * T * D, 3 * D);

@@ -22,7 +22,8 @@ struct NbrList {
 };
 
 // For one warp: add(u, v) for every neighbor w of the rows v0 + u (u <
-// ROWS; rows >= n have none), v[j] = x[w, l + 32 j] (0 past dim), each
+// ROWS; rows >= n have none), v[j] = x[w, l + 32 j] in fp32 (0 past dim;
+// x holds float or bf16, level_common.cuh), each
 // row's neighbors in list order. Three round trips for all the rows
 // together: lanes u < ROWS read the rows' start / count, lane e reads the
 // index of the e-th entry of the rows' concatenated lists, and then every
@@ -30,8 +31,8 @@ struct NbrList {
 // same on every lane.
 constexpr int kGatherBatch = 8;
 
-template <int ROWS, int CPT, class Add>
-__device__ __forceinline__ void for_each_neighbor(const float* __restrict__ x, const NbrList nl,
+template <int ROWS, int CPT, class T, class Add>
+__device__ __forceinline__ void for_each_neighbor(const T* __restrict__ x, const NbrList nl,
                                                   int v0, int n, int dim, int lane, Add add) {
   static_assert(ROWS <= 32, "one lane per row");
   constexpr unsigned kAll = 0xffffffffu;
@@ -64,11 +65,11 @@ __device__ __forceinline__ void for_each_neighbor(const float* __restrict__ x, c
       for (int i = 0; i < kGatherBatch; ++i) {
         const int w = __shfl_sync(kAll, idx, (b + i) & 31);
         rw[i] = b + i < m ? __shfl_sync(kAll, row, (b + i) & 31) : -1;
-        const float* xr = x + static_cast<size_t>(w) * dim;
+        const T* xr = x + static_cast<size_t>(w) * dim;
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           const int d = lane + 32 * j;
-          val[i][j] = rw[i] >= 0 && d < dim ? xr[d] : 0.f;
+          val[i][j] = rw[i] >= 0 && d < dim ? to_float(xr[d]) : 0.f;
         }
       }
 #pragma unroll
@@ -86,7 +87,7 @@ template <int ROWS, int CPT>
 __device__ __forceinline__ void add_neighbor_sums(const float* __restrict__ x, const NbrList nl,
                                                   int v0, int n, int dim, int lane,
                                                   float (&out)[ROWS][CPT]) {
-  for_each_neighbor<ROWS, CPT>(x, nl, v0, n, dim, lane, [&](int r, const float (&v)[CPT]) {
+  for_each_neighbor<ROWS, CPT, float>(x, nl, v0, n, dim, lane, [&](int r, const float (&v)[CPT]) {
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
       if (r == u) {

@@ -1,5 +1,5 @@
 // Struct-encoder towers forward (DirectMultiGCN source and target towers),
-// fp32, for Hopper (sm_90a).
+// with fp32 or bf16 values, for Hopper (sm_90a).
 //
 // Replaces mgvae_tpu/ops/pallas/struct_kernel.py::fused_struct_towers, with
 // and without its residual outputs. Per half-round k (direction k % 2:
@@ -66,6 +66,13 @@
 //   half-round ends) saved 2-4% at bs16 and nothing on the giant batch;
 //   not taken.
 //
+// Values: fp32, or bf16 (the JAX package's throughput mode,
+// struct_kernel.py:158-162): xi, the state and the residuals are then bf16 in
+// memory, nbr is rounded before its product (:144), the residuals (:158) and
+// the new state (:162) as they are written; the neighbor sums, the products,
+// the GRU and the LayerNorm stay fp32. The weights are the wrapper's fp32
+// copies either way (exact for bf16 weights), staged as before.
+//
 // Residuals (training): res [2R, 2, N, 7D] = nbr | state_in | r | z | nw |
 // gh_n | pre-LN h per half-round, tower and node, unpadded; the backward
 // (struct_towers_bwd.cu) recomputes nothing of the forward from them but
@@ -105,22 +112,23 @@ __device__ __forceinline__ float tanh_gate(float x) {
   return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
 }
 
+template <class V>
 struct FwdArgs {
-  const float* state_in;  // [2, N, D] tower-stacked
-  float* state_out;       // [2, N, D]
-  const float* xi;        // [2, N, 3D] this direction's XI
+  const V* state_in;      // [2, N, D] tower-stacked
+  V* state_out;           // [2, N, D]
+  const V* xi;            // [2, N, 3D] this direction's XI
   const float* wfold;     // [2, D, 3D] this direction's W_aggr @ W_ih[:D]
   const float* w_hh;      // [2, D, 3D]
   const float* b_hh;      // [2, 3D]
   const float* ln_w;      // [2, D]; null: no LayerNorm
   const float* ln_b;      // [2, D]
   NbrList nbr;            // this direction's neighbor lists
-  float* res;             // [2, N, 7D] this half-round's residuals, or null
+  V* res;                 // [2, N, 7D] this half-round's residuals, or null
   int n, dim;
 };
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
+template <int CPT, class V>
+__global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs<V> p) {
   using L = Layout<CPT>;
   constexpr int DP = L::DP, KC = L::kChunk, G = L::kGroup;
   extern __shared__ __align__(16) float smem[];
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
   const bool live = v0 < N;  // warp-uniform; a warp past N still joins the block's barriers
   const size_t tN = static_cast<size_t>(t) * N;
   float* tile = smem + 2 * L::kWFloats + static_cast<size_t>(warp) * 2 * DP * kRows;
-  const float* __restrict__ state = p.state_in + tN * D;
+  const V* __restrict__ state = p.state_in + tN * D;
   const float* __restrict__ wf = p.wfold + static_cast<size_t>(t) * D * D3;
   const float* __restrict__ wh = p.w_hh + static_cast<size_t>(t) * D * D3;
   const int n_chunks = (D + KC - 1) / KC;
@@ -172,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int d = lane + 32 * j;
-      st[u][j] = v0 + u < N && d < D ? state[static_cast<size_t>(v0 + u) * D + d] : 0.f;
+      st[u][j] = v0 + u < N && d < D ? to_float(state[static_cast<size_t>(v0 + u) * D + d]) : 0.f;
     }
   }
 #pragma unroll
@@ -184,9 +192,15 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
 #pragma unroll
     for (int j = 0; j < CPT; ++j) tile_n[32 * j * kRows + r] += v[j];
   };
-  for_each_neighbor<kRows, CPT>(state, p.nbr, v0, N, D, lane, add_to_tile);
+  for_each_neighbor<kRows, CPT, V>(state, p.nbr, v0, N, D, lane, add_to_tile);
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
+    if constexpr (IsBf16<V>::value) {   // nbr rounded before its product
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        tile_n[32 * j * kRows + u] = round_to<V>(tile_n[32 * j * kRows + u]);
+      }
+    }
     float4* ts = reinterpret_cast<float4*>(tile_s + 32 * j * kRows);
     ts[0] = make_float4(st[0][j], st[1][j], st[2][j], st[3][j]);
     ts[1] = make_float4(st[4][j], st[5][j], st[6][j], st[7][j]);
@@ -201,9 +215,9 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         if (v0 + u < N && d < D) {
-          float* res = p.res + (tN + v0 + u) * 7 * D;
-          res[d] = nb[u];
-          res[D + d] = st[u][j];
+          V* res = p.res + (tN + v0 + u) * 7 * D;
+          res[d] = from_float<V>(nb[u]);
+          res[D + d] = from_float<V>(st[u][j]);
         }
       }
     }
@@ -278,18 +292,18 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int v = v0 + g0 + u;
-      const float* xrow = p.xi + (tN + v) * D3;
+      const V* xrow = p.xi + (tN + v) * D3;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int d = lane + 32 * j;
 #pragma unroll
-        for (int q = 0; q < 3; ++q) xr[u][q][j] = v < N && d < D ? xrow[q * D + d] : 0.f;
+        for (int q = 0; q < 3; ++q) xr[u][q][j] = v < N && d < D ? to_float(xrow[q * D + d]) : 0.f;
       }
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int v = v0 + g0 + u, w = g0 + u;
-      float* res = p.res && v < N ? p.res + (tN + v) * 7 * D : nullptr;
+      V* res = p.res && v < N ? p.res + (tN + v) * 7 * D : nullptr;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int d = lane + 32 * j;
@@ -299,11 +313,11 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
         const float nw = tanh_gate(a_n[w][j] + xr[u][2][j] + r * gh_n);
         h[u][j] = d < D ? (1.f - z) * nw + z * sv[u][j] : 0.f;
         if (res && d < D) {
-          res[2 * D + d] = r;
-          res[3 * D + d] = z;
-          res[4 * D + d] = nw;
-          res[5 * D + d] = gh_n;
-          res[6 * D + d] = h[u][j];
+          res[2 * D + d] = from_float<V>(r);
+          res[3 * D + d] = from_float<V>(z);
+          res[4 * D + d] = from_float<V>(nw);
+          res[5 * D + d] = from_float<V>(gh_n);
+          res[6 * D + d] = from_float<V>(h[u][j]);
         }
       }
     }
@@ -341,16 +355,16 @@ __global__ void __launch_bounds__(kThreads) struct_fwd_kernel(const FwdArgs p) {
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int d = lane + 32 * j;
-        if (d < D) p.state_out[(tN + v) * D + d] = h[u][j];
+        if (d < D) p.state_out[(tN + v) * D + d] = from_float<V>(h[u][j]);
       }
     }
   }
 }
 
-template <int CPT>
-int run_forward(FwdArgs p, const float* xi, const float* wfold, const float* w_hh,
+template <int CPT, class V>
+int run_forward(FwdArgs<V> p, const V* xi, const float* wfold, const float* w_hh,
                 const float* b_hh, const int* nbr_src, const int* nbr_start,
-                const int* nbr_count, float* state, float* scratch, float* res,
+                const int* nbr_count, V* state, V* scratch, V* res,
                 int num_rounds, int src_len, cudaStream_t s) {
   // past 48 KB of dynamic shared memory: allowed once per device (the layout
   // depends on CPT alone)
@@ -363,7 +377,7 @@ int run_forward(FwdArgs p, const float* xi, const float* wfold, const float* w_h
   if (dev >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!allowed[dev]) {
     allowed[dev] = 1 + static_cast<int>(cudaFuncSetAttribute(
-        struct_fwd_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        struct_fwd_kernel<CPT, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem)));
   }
   if (allowed[dev] != 1) return allowed[dev] - 1;
@@ -381,7 +395,7 @@ int run_forward(FwdArgs p, const float* xi, const float* wfold, const float* w_h
     p.nbr = NbrList{nbr_src + static_cast<size_t>(dir) * src_len, nbr_start + dir * N,
                     nbr_count + dir * N};
     p.res = res ? res + static_cast<size_t>(k) * 2 * nd * 7 : nullptr;
-    struct_fwd_kernel<CPT><<<grid, kThreads, smem, s>>>(p);
+    struct_fwd_kernel<CPT, V><<<grid, kThreads, smem, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -399,27 +413,31 @@ extern "C" {
 // nbr_src [2 dir, src_len], nbr_start / nbr_count [2 dir, N] int32. `state`
 // [2, N, D] holds the initial state (ones) and receives the final one;
 // `scratch` [2, N, D] is the other ping-pong buffer. res [2R, 2, N, 7D] is
-// given (training) or null. Returns 0, or the cudaError_t of the first
-// failed call.
-int mgvae_struct_towers_forward(const float* xi, const float* wfold, const float* w_hh,
+// given (training) or null. xi, state, scratch and res hold bf16 with `bf16`
+// set, else fp32; the weights are fp32. Returns 0, or the cudaError_t of the
+// first failed call.
+int mgvae_struct_towers_forward(const void* xi, const float* wfold, const float* w_hh,
                                 const float* b_hh, const float* ln_w, const float* ln_b,
                                 const int* nbr_src, const int* nbr_start, const int* nbr_count,
-                                float* state, float* scratch, float* res, int num_rounds, int n,
-                                int dim, int src_len, void* stream) {
+                                void* state, void* scratch, void* res, int num_rounds, int n,
+                                int dim, int src_len, int bf16, void* stream) {
   if (dim < 1 || dim > kMaxDim || n < 1 || num_rounds < 1 || src_len < 1 ||
       (ln_w == nullptr) != (ln_b == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FwdArgs p{};
-  p.ln_w = ln_w;
-  p.ln_b = ln_b;
-  p.n = n;
-  p.dim = dim;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int code = 0;
-  MGVAE_WITH_NF(dim, code = run_forward<NF>(p, xi, wfold, w_hh, b_hh, nbr_src, nbr_start,
-                                            nbr_count, state, scratch, res, num_rounds,
-                                            src_len, s));
+  MGVAE_WITH_VALUE(bf16, {
+    FwdArgs<V> p{};
+    p.ln_w = ln_w;
+    p.ln_b = ln_b;
+    p.n = n;
+    p.dim = dim;
+    MGVAE_WITH_NF(dim, code = run_forward<NF, V>(
+                           p, static_cast<const V*>(xi), wfold, w_hh, b_hh, nbr_src, nbr_start,
+                           nbr_count, static_cast<V*>(state), static_cast<V*>(scratch),
+                           static_cast<V*>(res), num_rounds, src_len, s));
+  });
   return code;
 }
 

@@ -1,5 +1,5 @@
-// Backward of the struct-encoder towers (struct_towers.cu), fp32, for
-// Hopper (sm_90a).
+// Backward of the struct-encoder towers (struct_towers.cu), with fp32 or
+// bf16 residuals, for Hopper (sm_90a).
 //
 // Replaces mgvae_tpu/ops/pallas/struct_kernel.py::fused_struct_towers_bwd
 // (the backward of the custom VJP pallas_struct_core). It reads the
@@ -49,6 +49,13 @@
 //   * Sum launch: the partials over the splits in order (the LayerNorm's
 //     over both directions too). No atomics anywhere: every output is the
 //     same on every run.
+//   * bf16 values (the JAX package's throughput mode): the residuals are
+//     bf16, and the state's cotangent is rounded to bf16 where it is
+//     complete (the direct part plus the neighbor sum), as the JAX kernel
+//     carries it (struct_kernel.py:335); everything else, dxi and the weight
+//     gradients included, is summed in fp32 and rounded once by the wrapper
+//     (:437-439). The JAX kernel's dxi accumulator is an fp32 output (:388),
+//     so its `dxi_ref += dgi.astype(dxi_ref.dtype)` (:308) adds in fp32 too.
 
 #include <cuda_runtime.h>
 
@@ -62,8 +69,9 @@ constexpr int kRowThreads = 32 * kRowWarps;
 constexpr int kRowTile = kRows * kRowWarps;
 constexpr int kWChunk = 32;               // rows of W^T staged in shared memory at a time
 
+template <class V>
 struct RowArgs {
-  const float* res;      // [2, N, 7D] this half-round's residuals
+  const V* res;          // [2, N, 7D] this half-round's residuals
   float* dsi;            // [2, N, D] in: the direct part of d state_out (or the incoming
                          // cotangent); out: dh * z + dgh W_hh^T (k > 0)
   const float* dnbr_in;  // [2, N, D] the next half-round's d nbr, or null (k = 2R-1)
@@ -92,8 +100,8 @@ __host__ __device__ constexpr size_t row_smem_floats(int dim) {
   return static_cast<size_t>(kRowWarps) * 4 * dim * kRows + 2 * 2 * kWChunk * dim;
 }
 
-template <int CPT>
-__global__ void __launch_bounds__(kRowThreads) struct_bwd_row_kernel(const RowArgs p) {
+template <int CPT, class V>
+__global__ void __launch_bounds__(kRowThreads) struct_bwd_row_kernel(const RowArgs<V> p) {
   extern __shared__ __align__(16) float smem[];
   constexpr int G = Group<CPT>::kSize;
   const int D = p.dim, D3 = 3 * D, N = p.n, t = blockIdx.y;
@@ -136,6 +144,13 @@ __global__ void __launch_bounds__(kRowThreads) struct_bwd_row_kernel(const RowAr
     }
   }
   if (p.dnbr_in) add_neighbor_sums<kRows, CPT>(p.dnbr_in + tN * D, p.nbr, v0, N, D, lane, dh);
+  if constexpr (IsBf16<V>::value) {   // the complete cotangent of the state, in bf16
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) dh[u][j] = round_to<V>(dh[u][j]);
+    }
+  }
 
   float dhz[kRows][CPT], csum[5][CPT];
 #pragma unroll
@@ -150,18 +165,18 @@ __global__ void __launch_bounds__(kRowThreads) struct_bwd_row_kernel(const RowAr
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int v = v0 + g0 + u;
-      const float* rr = p.res + (tN + v) * 7 * D;
+      const V* rr = p.res + (tN + v) * 7 * D;
       const float* xr = p.dxi + (tN + v) * 3 * D;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int d = lane + 32 * j;
         const bool own = v < N && d < D;
-        st[u][j] = own ? rr[D + d] : 0.f;
-        r[u][j] = own ? rr[2 * D + d] : 0.f;
-        z[u][j] = own ? rr[3 * D + d] : 0.f;
-        nw[u][j] = own ? rr[4 * D + d] : 0.f;
-        ghn[u][j] = own ? rr[5 * D + d] : 0.f;
-        pre[u][j] = own && p.ln_w ? rr[6 * D + d] : 0.f;
+        st[u][j] = own ? to_float(rr[D + d]) : 0.f;
+        r[u][j] = own ? to_float(rr[2 * D + d]) : 0.f;
+        z[u][j] = own ? to_float(rr[3 * D + d]) : 0.f;
+        nw[u][j] = own ? to_float(rr[4 * D + d]) : 0.f;
+        ghn[u][j] = own ? to_float(rr[5 * D + d]) : 0.f;
+        pre[u][j] = own && p.ln_w ? to_float(rr[6 * D + d]) : 0.f;
 #pragma unroll
         for (int q = 0; q < 3; ++q) x0[u][q][j] = own && p.dxi_add ? xr[q * D + d] : 0.f;
       }
@@ -355,8 +370,9 @@ __global__ void __launch_bounds__(kRowThreads) struct_bwd_row_kernel(const RowAr
 // per-warp sums. Each adds its result into the direction's partial
 // [2 tower, splits, part_size] = [wf D x 3D | wh D x 3D | bh 3D | ln 2D] in
 // place, or writes it for the direction's first half-round.
+template <class V>
 struct PartArgs {
-  const float* res;     // [2, N, 7D] this half-round's
+  const V* res;         // [2, N, 7D] this half-round's
   const float* dg;      // [2, N, 4D]
   const float* colsum;  // [2, ceil(N / kRows), 5D]
   float* part;          // [2, splits, part_size] this direction's
@@ -367,7 +383,8 @@ constexpr int kPTile = 64;     // output tile edge
 constexpr int kPChunk = 16;    // rows staged at a time
 constexpr int kPThreads = 64;  // 8 x 8 threads of 8 x 8 outputs
 
-__global__ void __launch_bounds__(kPThreads) struct_grad_partial_kernel(const PartArgs p) {
+template <class V>
+__global__ void __launch_bounds__(kPThreads) struct_grad_partial_kernel(const PartArgs<V> p) {
   __shared__ __align__(16) float a_s[kPChunk][kPTile];
   __shared__ __align__(16) float b_s[kPChunk][kPTile];
   const int D = p.dim, D3 = 3 * D, t = blockIdx.y, tid = threadIdx.x;
@@ -397,14 +414,14 @@ __global__ void __launch_bounds__(kPThreads) struct_grad_partial_kernel(const Pa
   // staging: thread tid loads column tid of each of the chunk's rows
   const int ia = i0 + tid, cb = c0 + tid;
   const bool a_ok = ia < D, b_ok = cb < D3;
-  const float* a_col = p.res + tN * 7 * D + m * D + ia;
+  const V* a_col = p.res + tN * 7 * D + m * D + ia;
   const float* b_col = p.dg + tN * 4 * D + (cb < 2 * D ? cb : cb + m * D);
   float a_reg[kPChunk], b_reg[kPChunk];
   auto load = [&](int r0) {
 #pragma unroll
     for (int i = 0; i < kPChunk; ++i) {
       const int r = r0 + i;
-      a_reg[i] = a_ok && r < r_end ? a_col[static_cast<size_t>(r) * 7 * D] : 0.f;
+      a_reg[i] = a_ok && r < r_end ? to_float(a_col[static_cast<size_t>(r) * 7 * D]) : 0.f;
       b_reg[i] = b_ok && r < r_end ? b_col[static_cast<size_t>(r) * 4 * D] : 0.f;
     }
   };
@@ -487,8 +504,8 @@ __global__ void __launch_bounds__(256) struct_grad_sum_kernel(
 // The sweep, on `s`: per half-round the row launch and then its partial
 // launch, so the partial of half-round k has read dg and colsum before row
 // k - 1 overwrites them, and the in-place sums keep the half-round order.
-template <int CPT>
-int run(RowArgs p, PartArgs g, const float* res, const float* wt, const int* nbr_src,
+template <int CPT, class V>
+int run(RowArgs<V> p, PartArgs<V> g, const V* res, const float* wt, const int* nbr_src,
         const int* nbr_start, const int* nbr_count, float* dxi, float* dg, float* colsum,
         float* carry, float* part, int num_rounds, int src_len, cudaStream_t s) {
   // past 48 KB of dynamic shared memory at D > 48: allowed once per device for kMaxDim
@@ -500,7 +517,7 @@ int run(RowArgs p, PartArgs g, const float* res, const float* wt, const int* nbr
   if (dev >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!allowed[dev]) {
     allowed[dev] = 1 + static_cast<int>(cudaFuncSetAttribute(
-        struct_bwd_row_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        struct_bwd_row_kernel<CPT, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(row_smem_floats(kMaxDim) * sizeof(float))));
   }
   if (allowed[dev] != 1) return allowed[dev] - 1;
@@ -524,12 +541,12 @@ int run(RowArgs p, PartArgs g, const float* res, const float* wt, const int* nbr
     p.dxi = dxi + dir * 2 * nd * 3;
     p.dxi_add = k < R2 - 2;
     p.dnbr_out = k > 0 ? dnbr(k) : nullptr;
-    struct_bwd_row_kernel<CPT><<<rows_grid, kRowThreads, smem, s>>>(p);
+    struct_bwd_row_kernel<CPT, V><<<rows_grid, kRowThreads, smem, s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) break;
     g.part = part + static_cast<size_t>(dir) * 2 * g.splits * g.part_size;
     g.accumulate = k < R2 - 2;
-    struct_grad_partial_kernel<<<part_grid, kPThreads, 0, s>>>(g);
+    struct_grad_partial_kernel<V><<<part_grid, kPThreads, 0, s>>>(g);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
@@ -549,50 +566,48 @@ extern "C" {
 // LayerNorm). Scratch, one half-round's whatever num_rounds: dg
 // [2, N, 4D], colsum [2, ceil(N / 8), 5D], carry [2, 2, N, D] (two slots);
 // part [2, 2, splits, 6D^2 + 5D], splits = ceil(n / split_rows), split_rows
-// a multiple of 8. 4R + 1 launches. Returns 0, or the cudaError_t of the
-// first failed call.
-int mgvae_struct_towers_backward(float* dstate, const float* res, const float* wt,
+// a multiple of 8. res holds bf16 with `bf16` set (the state's cotangent is
+// then rounded to bf16 where it is complete), else fp32; everything else is
+// fp32. 4R + 1 launches. Returns 0, or the cudaError_t of the first failed
+// call.
+int mgvae_struct_towers_backward(float* dstate, const void* res, const float* wt,
                                  const float* ln_w, const int* nbr_src, const int* nbr_start,
                                  const int* nbr_count, float* dxi, float* dwfold, float* dwhh,
                                  float* dbhh, float* dlnw, float* dlnb, float* dg, float* colsum,
                                  float* carry, float* part, int num_rounds, int n, int dim,
-                                 int src_len, int split_rows, void* stream) {
+                                 int src_len, int split_rows, int bf16, void* stream) {
   if (dim < 1 || dim > kMaxDim || n < 1 || num_rounds < 1 || src_len < 1 || split_rows < 1 ||
       split_rows % kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int D = dim;
   const bool ln = ln_w != nullptr;
-  RowArgs p{};
-  p.dsi = dstate;
-  p.ln_w = ln_w;
-  p.n = n;
-  p.dim = D;
-  PartArgs g{};
-  g.n = n;
-  g.dim = D;
-  g.split_rows = split_rows;
-  g.splits = (n + split_rows - 1) / split_rows;
-  g.part_size = 6 * D * D + 5 * D;
-  g.i_tiles = (D + kPTile - 1) / kPTile;
-  g.c_tiles = (3 * D + kPTile - 1) / kPTile;
-  g.layernorm = ln ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int code;
-  switch ((dim + 31) / 32) {
-    case 1: code = run<1>(p, g, res, wt, nbr_src, nbr_start, nbr_count, dxi, dg, colsum,
-                          carry, part, num_rounds, src_len, s); break;
-    case 2: code = run<2>(p, g, res, wt, nbr_src, nbr_start, nbr_count, dxi, dg, colsum,
-                          carry, part, num_rounds, src_len, s); break;
-    case 3: code = run<3>(p, g, res, wt, nbr_src, nbr_start, nbr_count, dxi, dg, colsum,
-                          carry, part, num_rounds, src_len, s); break;
-    default: code = run<4>(p, g, res, wt, nbr_src, nbr_start, nbr_count, dxi, dg, colsum,
-                           carry, part, num_rounds, src_len, s); break;
-  }
+  int code = 0;
+  MGVAE_WITH_VALUE(bf16, {
+    RowArgs<V> p{};
+    p.dsi = dstate;
+    p.ln_w = ln_w;
+    p.n = n;
+    p.dim = D;
+    PartArgs<V> g{};
+    g.n = n;
+    g.dim = D;
+    g.split_rows = split_rows;
+    g.splits = (n + split_rows - 1) / split_rows;
+    g.part_size = 6 * D * D + 5 * D;
+    g.i_tiles = (D + kPTile - 1) / kPTile;
+    g.c_tiles = (3 * D + kPTile - 1) / kPTile;
+    g.layernorm = ln ? 1 : 0;
+    MGVAE_WITH_NF(dim, code = run<NF, V>(p, g, static_cast<const V*>(res), wt, nbr_src,
+                                         nbr_start, nbr_count, dxi, dg, colsum, carry, part,
+                                         num_rounds, src_len, s));
+  });
   if (code != 0) return code;
+  const int splits = (n + split_rows - 1) / split_rows, part_size = 6 * D * D + 5 * D;
   const int outputs = 4 * (6 * D * D + 3 * D) + 4 * D;
   struct_grad_sum_kernel<<<(outputs + 255) / 256, 256, 0, s>>>(
-      part, dwfold, dwhh, dbhh, dlnw, dlnb, g.splits, D, g.part_size, ln ? 1 : 0);
+      part, dwfold, dwhh, dbhh, dlnw, dlnb, splits, D, part_size, ln ? 1 : 0);
   const cudaError_t err = cudaGetLastError();
   return err == cudaSuccess ? 0 : static_cast<int>(err);
 }

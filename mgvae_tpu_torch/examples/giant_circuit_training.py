@@ -59,7 +59,8 @@ def main(depth: int = 200, remat: bool | None = None) -> None:
           f"{g.num_edges} levels {g.num_levels} (generated in {t1 - t0:.1f} s, collated in "
           f"{t2 - t1:.1f} s on the host)", flush=True)
 
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, layernorm=True, remat_struct=remat)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, layernorm=True, remat_struct=remat,
+                         matmul_precision="highest")
     print(f"padded N={n} E={batch['edge_src'].shape[0]} L={batch['lv_nodes'].shape[0]} Ep={ep} "
           f"Np={np_}; hf {n * cfg.dim_hidden * 4 / 1e6:.1f} MB; kernel_fits "
           f"{level_kernel.kernel_fits(n, ep, np_, cfg.dim_hidden)}; struct remat "

@@ -6,6 +6,9 @@ batch of ``chip_smoke.py``'s timing phases) through
 ``ops.level_kernel.level_scan`` three ways: the serving forward (no
 residuals), the training forward (with residuals) and the backward alone.
 
+``bf16`` mode: the same three calls with bf16 values
+(``compute_dtype="bfloat16"``: kernels 1 and 2's bf16 instantiations).
+
 ``giant`` mode: the giant batch of ``chip_smoke.py`` phases 15-18 (one
 layered MIG circuit, width 512 x depth 200, collated alone) through the
 giant route's wrappers, the forward (kernel 3) and the backward that
@@ -25,7 +28,7 @@ before) against hf + ghf's copy + d_pack_lv, the bytes of
     copies that the wrapper issues), their sum, and the call's remainder:
     what the card waits between and around the launches.
 
-    python -m mgvae_tpu_torch.examples.level_scan_profile [giant]
+    python -m mgvae_tpu_torch.examples.level_scan_profile [giant | bf16]
 
 Needs one CUDA card and raises without one.
 """
@@ -102,15 +105,17 @@ def report(tag: str, fn, reps: int = REPS) -> None:
         print(f"[{tag}]   {t:10.2f} us in {n:6.1f} launches  {name[:100]}", flush=True)
 
 
-def scan_args(batch, dev, tag: str):
+def scan_args(batch, dev, tag: str, compute_dtype: str = "float32"):
     """The level scan's 12 arguments of a host batch (MIG, D = 64, random
-    weights from seed 0), its node count and its real levels."""
+    weights from seed 0) in ``compute_dtype``, its node count and its real
+    levels."""
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest", compute_dtype=compute_dtype)
     params, _ = dg_ae.init_params(cfg, seed=0, device=dev)
     b = dg_ae.batch_to_device(batch, dev)
     n_lv = dg_ae.num_levels(batch)
     with torch.no_grad():
+        params = dg_ae.cast_params(params, cfg)
         hs = dg_ae.struct_hs(params, b, cfg)
         args = [a.detach().clone() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
     N = hs.shape[0]
@@ -187,7 +192,8 @@ def main() -> None:
     rng = np.random.default_rng(7)
     graphs = [random_circuit(rng, "mig", num_inputs=16, num_gates=264, num_tt_pairs=64)
               for _ in range(BATCH)]
-    args, N, n_lv = scan_args(collate(graphs), dev, f"MIG bs{BATCH}")
+    dtype = "bfloat16" if sys.argv[1:] == ["bf16"] else "float32"
+    args, N, n_lv = scan_args(collate(graphs), dev, f"MIG bs{BATCH} {dtype}", dtype)
     scan = dict(num_nodes=N, num_levels=n_lv)
 
     def serve():
@@ -200,7 +206,8 @@ def main() -> None:
     report("forward with residuals", lambda: level_kernel.level_scan(*args, **scan))
     hf = level_kernel.level_scan(*args, **scan)
     diff = [args[i] for i in level_kernel.FLOAT_ARGS]
-    ghf = torch.randn(hf.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    ghf = torch.randn(hf.shape, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5)).to(hf.dtype)
     report("backward", lambda: torch.autograd.grad(hf, diff, ghf, retain_graph=True))
     print(f"card: {card}", flush=True)
 

@@ -99,7 +99,7 @@ def main(argv=()) -> None:
               for _ in range(CIRCUITS)]
     batch = collate_chunked(graphs, CHUNKS)
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=0, device=dev)
     b = dg_ae.batch_to_device(batch, dev)
     counts = dg_ae.level_counts(batch)

@@ -65,7 +65,7 @@ class Library:
 
 def inputs(batch: dict, dev) -> tuple:
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=0, device=dev)
     b = dg_ae.batch_to_device(batch, dev)
     with torch.no_grad():

@@ -16,13 +16,17 @@ residuals with a fixed random cotangent. For each it prints
   * ``torch.cuda.max_memory_allocated`` of one call above what was
     allocated before it (outputs and scratch).
 
-    python -m mgvae_tpu_torch.examples.struct_towers_profile
+    python -m mgvae_tpu_torch.examples.struct_towers_profile [bf16]
+
+With ``bf16`` the same calls take bf16 values (``compute_dtype="bfloat16"``:
+kernels 7 and 8's bf16 instantiations).
 
 Needs one CUDA card and raises without one.
 """
 from __future__ import annotations
 
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -62,19 +66,20 @@ def report(tag: str, fn, reps: int) -> None:
         print(f"[{tag}]   {t:10.2f} us in {n:6.1f} launches  {name[:100]}", flush=True)
 
 
-def profile_batch(label: str, batch: dict, dev) -> None:
+def profile_batch(label: str, batch: dict, dev, compute_dtype: str = "float32") -> None:
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest", compute_dtype=compute_dtype)
     params, _ = dg_ae.init_params(cfg, seed=0, device=dev)
     b = dg_ae.batch_to_device(batch, dev)
     with torch.no_grad():
+        params = dg_ae.cast_params(params, cfg)
         args = struct_kernel.struct_inputs(params["struct"], dg_ae.struct_input(b["gate"], cfg),
                                            b, True)
         tables = struct_kernel.struct_tables(b)
     N = args[0].shape[2]
-    res_mib = 2 * ROUNDS * 2 * N * 7 * DIM * 4 / 2**20
-    print(f"[{label}] N={N} edges {int(batch['n_edges'])} D={DIM} half-rounds {2 * ROUNDS}; "
-          f"residuals {res_mib:.1f} MiB", flush=True)
+    res_mib = 2 * ROUNDS * 2 * N * 7 * DIM * args[0].element_size() / 2**20
+    print(f"[{label}] {compute_dtype}: N={N} edges {int(batch['n_edges'])} D={DIM} half-rounds "
+          f"{2 * ROUNDS}; residuals {res_mib:.1f} MiB", flush=True)
     reps = REPS[label]
     serve = lambda: struct_kernel._forward_cuda(args, tables, ROUNDS, True, residuals=False)
     struct_kernel.launches = 0
@@ -85,7 +90,7 @@ def profile_batch(label: str, batch: dict, dev) -> None:
     report(f"{label} forward with residuals", fwd, reps)
     _, res = fwd()
     dstate = torch.randn((2, N, DIM), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(6))
+                         generator=torch.Generator(device=dev).manual_seed(6)).to(res.dtype)
     bwd = lambda: struct_kernel._backward_cuda(dstate, res, args[1], args[2], args[4], tables,
                                                ROUNDS, True)
     struct_kernel.bwd_launches = 0
@@ -108,10 +113,11 @@ def main() -> None:
     rng = np.random.default_rng(7)
     bs16 = collate([random_circuit(rng, "mig", num_inputs=16, num_gates=264, num_tt_pairs=64)
                     for _ in range(16)])
-    profile_batch("bs16", bs16, dev)
+    dtype = "bfloat16" if sys.argv[1:] == ["bf16"] else "float32"
+    profile_batch("bs16", bs16, dev, dtype)
     giant = collate([layered_circuit(np.random.default_rng(0), "mig", width=512, depth=200,
                                      num_tt_pairs=512)])
-    profile_batch("giant", giant, dev)
+    profile_batch("giant", giant, dev, dtype)
     print(f"card: {card}", flush=True)
 
 

@@ -62,10 +62,16 @@ kernels assume hf == 0 before a node's own level).
 Random draws of the variational head come from an explicit
 ``torch.Generator`` (``gen``) or are passed in (``vae_eps``).
 
-Parity mode is full fp32: set ``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` to False on the card (``api.Model``
-does so). Not ported yet, and raising ``NotImplementedError``:
-``compute_dtype="bfloat16"`` (ROADMAP 1.6).
+The two precision modes of the JAX package (``mgvae_tpu/models/dg_ae.py:58``,
+``:76-82``, ``:225``, ``:250-258``): ``forward_device`` runs under
+``ops.precision.matmul_precision(cfg.matmul_precision)`` ("default": TF32
+for PyTorch's fp32 products on the card, the JAX default; "highest": full
+fp32, ``api.Model``'s parity mode), and with ``compute_dtype="bfloat16"``
+the fp32 master params are cast to bf16 once per forward, so that the
+activations, hs, hf and ``aux`` are bf16 and autograd carries the gradients
+back to the fp32 leaves. The fused level scan and the struct towers then run
+their bf16 kernels (bf16 values, fp32 accumulation); the giant and step
+routes raise ``NotImplementedError`` in bf16 (ROADMAP 1.6b), on every device.
 """
 from __future__ import annotations
 
@@ -81,6 +87,7 @@ from ..ops.init import gru_cell_init, linear_apply, linear_init
 from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, level_lists, level_scan,
                                 level_scan_giant, level_step, repack_expert_major, select_expert)
 from ..ops.mlp import mlp_init
+from ..ops.precision import matmul_precision, uses_tf32
 from ..ops.segment import segment_softmax, segment_sum
 from .encoder import direct_multigcn_apply, direct_multigcn_init
 from .gcn import directed_gcn_encoder_apply, directed_gcn_encoder_init
@@ -109,6 +116,9 @@ class DGConfig:
     struct_encoder: str = "multigcn"
     # mask sampled negatives that hit a real edge (train/losses.recon_loss)
     neg_collision_mask: bool = False
+    # fp32 matmul mode of the forward and its backward (ops.precision):
+    # "default" / "high" TF32 on the card, "highest" / "float32" full fp32
+    matmul_precision: str = "default"
 
     @property
     def gate_types(self) -> tuple:
@@ -134,10 +144,36 @@ REMAT_STRUCT_NODES = 131_072
 VAE_HEADS = ("fc_s_mu", "fc_s_logstd", "fc_t_mu", "fc_t_logstd")
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_supported(cfg: DGConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported "
-                                  "(ROADMAP 1.6)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, "
+                         f"got {cfg.compute_dtype!r}")
+    uses_tf32(cfg.matmul_precision)   # raises on an unknown name
+
+
+def compute_dtype(cfg: DGConfig) -> torch.dtype:
+    return COMPUTE_DTYPES[cfg.compute_dtype]
+
+
+def cast_params(params, cfg: DGConfig):
+    """The params tree in the compute dtype (``mgvae_tpu/models/dg_ae.py:250-258``):
+    floating leaves cast, differentiably, so that autograd carries their
+    gradients back to the fp32 master leaves, which stay as they are."""
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        return params
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cast(v) for v in tree)
+        return tree.to(dtype) if tree.is_floating_point() else tree
+
+    return cast(params)
 
 
 def init_params(cfg: DGConfig, seed: int = 0, device="cuda"):
@@ -145,7 +181,9 @@ def init_params(cfg: DGConfig, seed: int = 0, device="cuda"):
     torch's default init from ``torch.Generator().manual_seed(seed)`` on the
     CPU and moved to ``device``. The struct tree follows
     ``cfg.struct_encoder``; ``cfg.variational`` adds the posterior heads
-    ``fc_{s,t}_{mu,logstd}`` (D -> D linears), drawn last."""
+    ``fc_{s,t}_{mu,logstd}`` (D -> D linears), drawn last. The params are
+    fp32 whatever ``cfg.compute_dtype``: the master params, as in the JAX
+    package."""
     check_supported(cfg)
     D = cfg.dim_hidden
     gen = torch.Generator().manual_seed(seed)
@@ -203,9 +241,9 @@ def _experts_init(gen: torch.Generator, cfg: DGConfig) -> dict:
 def struct_input(gate: torch.Tensor, cfg: DGConfig) -> torch.Tensor:
     """Struct-encoder input features [N, dim_feature]. With ``input_quirk``
     the reference model's one_hot(x[:, 1]) of already one-hot features, i.e.
-    one_hot(gate == 1); otherwise one_hot(gate)."""
+    one_hot(gate == 1); otherwise one_hot(gate). In the compute dtype."""
     ids = (gate == 1).long() if cfg.input_quirk else gate.long()
-    return torch.nn.functional.one_hot(ids, cfg.dim_feature).to(torch.float32)
+    return torch.nn.functional.one_hot(ids, cfg.dim_feature).to(compute_dtype(cfg))
 
 
 # batch keys the encode path reads on the device
@@ -287,11 +325,12 @@ def struct_towers(params, b: dict, cfg: DGConfig):
 def variational_head(params, s, t, eps) -> tuple:
     """DG_VAE's reparametrisation (``mgvae_tpu/models/dg_ae.py:316-325``):
     returns (s, t, aux) with s = s_mu + exp(s_logstd) * eps[0], likewise t,
-    and aux the four posterior tensors."""
+    and aux the four posterior tensors. The noise is taken in the
+    activations' dtype, as the JAX package draws it."""
     aux = {name[3:]: linear_apply(params[name], x)
            for name, x in zip(VAE_HEADS, (s, s, t, t))}
-    s = aux["s_mu"] + torch.exp(aux["s_logstd"]) * eps[0]
-    t = aux["t_mu"] + torch.exp(aux["t_logstd"]) * eps[1]
+    s = aux["s_mu"] + torch.exp(aux["s_logstd"]) * eps[0].to(s.dtype)
+    t = aux["t_mu"] + torch.exp(aux["t_logstd"]) * eps[1].to(t.dtype)
     return s, t, aux
 
 
@@ -409,6 +448,10 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
         ``level_scan_step``;
       * C chunks that fail both: the giant scan per chunk.
 
+    In bf16 the fused scan alone is ported: a batch for the giant or the
+    step route raises ``NotImplementedError`` (ROADMAP 1.6b) before any
+    launch, on every device.
+
     On the card the tables' index lists and the weights' expert-major copies
     are built here, once for all chunks and levels, and handed to every call
     (``kernel_inputs``).
@@ -417,8 +460,15 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
     pack_lv, lv_nodes = args[0], args[4]
     n_sub, L = num_nodes // C, pack_lv.shape[0] // C
     ep, np_, D = pack_lv.shape[1], lv_nodes.shape[1], pack_lv.shape[2] - 2
-    lists, packed = kernel_inputs(args)
     fits = kernel_fits(n_sub, ep, np_, D)
+    if not fits and pack_lv.dtype != torch.float32:
+        route = "giant" if C == 1 or not step_kernel_fits(n_sub, ep, np_, D) else "step"
+        raise NotImplementedError(
+            f"compute_dtype={pack_lv.dtype}: the {route} route of the level recurrence "
+            f"(N_sub={n_sub}, Ep={ep}, Np={np_} past kernel_fits) is not ported to bf16 yet "
+            "(ROADMAP 1.6b); chunk the batch so that it takes the fused route "
+            "(data.batching.collate_fit)")
+    lists, packed = kernel_inputs(args)
     if C == 1:
         scan = level_scan if fits else level_scan_giant
         return scan(*args, num_nodes=num_nodes, num_levels=n_levels[0], lists=lists,
@@ -560,10 +610,18 @@ def forward_device(params, b: dict, cfg: DGConfig, n_levels, gen=None, vae_eps=N
     """``forward`` on a batch already on the device (``batch_to_device``),
     with its real level counts (``level_counts``; an int will do for a plain
     batch). Level counts come from the host so that no launch waits for the
-    device."""
+    device. Runs under ``cfg.matmul_precision``, with the params cast to
+    ``cfg.compute_dtype`` (once, for all groups of a split batch)."""
     check_supported(cfg)
-    if "groups" in b:
-        return forward_split(params, b, cfg, n_levels, gen, vae_eps)
+    with matmul_precision(cfg.matmul_precision):
+        params = cast_params(params, cfg)
+        if "groups" in b:
+            return forward_split(params, b, cfg, n_levels, gen, vae_eps)
+        return _forward_plain(params, b, cfg, n_levels, gen, vae_eps)
+
+
+def _forward_plain(params, b: dict, cfg: DGConfig, n_levels, gen=None, vae_eps=None):
+    """``forward_device`` of a plain or chunked batch, params already cast."""
     if isinstance(n_levels, int):
         n_levels = (n_levels,)
     hs, aux = encode_struct(params, b, cfg, gen, vae_eps)
@@ -583,7 +641,7 @@ def forward_split(params, b: dict, cfg: DGConfig, n_levels, gen=None, vae_eps=No
     sizes = [g["gate"].shape[0] for g in b["groups"]]
     eps = (zip(*(e.split(sizes) for e in vae_eps)) if vae_eps is not None
            else [None] * len(sizes))
-    outs = [forward_device(params, g, cfg, n, gen, e)
+    outs = [_forward_plain(params, g, cfg, n, gen, e)
             for g, n, e in zip(b["groups"], n_levels, eps, strict=True)]
     aux = {k: torch.cat([o[2][k] for o in outs]) for k in outs[0][2]}
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), aux

@@ -107,8 +107,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, pointers, ints in (("mgvae_level_lists", 10, 4),
-                                 ("mgvae_level_scan_forward", 18, 5),
-                                 ("mgvae_level_scan_backward", 22, 6),
+                                 ("mgvae_level_scan_forward", 18, 6),
+                                 ("mgvae_level_scan_backward", 24, 7),
                                  ("mgvae_level_scan_giant_backward", 29, 6),
                                  ("mgvae_level_step_forward", 17, 4),
                                  ("mgvae_level_step_backward", 20, 4),
@@ -118,10 +118,10 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [p] * pointers + [i] * ints + [p]     # ..., then the stream
         fn.restype = i
     fn = lib.mgvae_struct_towers_forward
-    fn.argtypes = [p] * 12 + [i] * 4 + [p]
+    fn.argtypes = [p] * 12 + [i] * 5 + [p]
     fn.restype = i
     fn = lib.mgvae_struct_towers_backward
-    fn.argtypes = [p] * 17 + [i] * 5 + [p]
+    fn.argtypes = [p] * 17 + [i] * 6 + [p]
     fn.restype = i
     fn = lib.mgvae_struct_towers_forward_layout
     fn.argtypes = [i, i, p]

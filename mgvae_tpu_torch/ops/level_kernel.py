@@ -1,8 +1,8 @@
 """The level recurrence, forward and backward: the CUDA kernels' wrappers
 and their plain PyTorch versions.
 
-Counterpart of ``mgvae_tpu/ops/pallas/level_kernel.py`` in fp32, in three
-forms that share one level's arithmetic:
+Counterpart of ``mgvae_tpu/ops/pallas/level_kernel.py``, in forms that share
+one level's arithmetic:
 
   * the fused scan over all levels of one (sub-)batch, hf kept inside:
     ``fused_level_scan`` (with and without residuals) is
@@ -87,6 +87,15 @@ gradients' partials, and where the chunk has more than one level their
 sums, as the C entry counts them; ``giant_bwd_launch_count`` says how many
 that should be).
 
+Values: fp32 on every route; on the fused route also bf16 (the JAX
+package's throughput mode, ``level_kernel.py:352-356``): pack_lv, hf, the
+residuals and the backward's d_pack and carried d_hf are then bf16, rounded
+where the JAX kernels round them (``rounder``), everything else fp32, and
+the weight gradients are summed in fp32 and rounded once to the weights'
+dtype. The giant and step routes refuse bf16 values (``BF16_OPS``; ROADMAP
+1.6b). Every autograd Function saves the forward's matmul precision
+(``ops.precision``) and runs its backward in it.
+
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
 hf_src | khf | v | attn per edge, res_n [L, Np, 4D] = msg | r | z | nw per
 slot (the step route's over all C * L rows); the step's are one level's,
@@ -103,6 +112,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .precision import bf16_flag, current_precision, matmul_precision, rounder
 from .segment import segment_softmax, segment_sum
 
 MAX_DIM = 128      # the kernels' limits (csrc/level_common.cuh)
@@ -253,11 +263,14 @@ def repack_expert_major(wkv_hf, w_ih, num_experts: int, backward: bool = False):
     (T+e+1)*D] in their top left [D, D]; wih_e[e] = w_ih[:, e*3D : (e+1)*3D]
     with gate g's D columns at g*P. With ``backward`` also (wvt_e [T, P, P],
     wiht_e [T, 3P, P]): wv_e and w_ih_e transposed, which the backward
-    kernels' transposed products read row by row."""
+    kernels' transposed products read row by row. The copies are fp32
+    whatever the weights' dtype: a bf16 weight is exact in fp32, and so is
+    the product of two bf16 values, so the kernels read their weights the
+    same way in both value types."""
     D, T = wkv_hf.shape[0], num_experts
     P = -(-D // 32) * 32
-    wkv_e = wkv_hf.detach().view(D, 2, T, D).permute(2, 1, 0, 3)
-    wih_e = w_ih.detach().view(D, T, 3, D).permute(1, 0, 2, 3)
+    wkv_e = wkv_hf.detach().float().view(D, 2, T, D).permute(2, 1, 0, 3)
+    wih_e = w_ih.detach().float().view(D, T, 3, D).permute(1, 0, 2, 3)
     if P != D:
         wkv_e = torch.nn.functional.pad(wkv_e, (0, P - D, 0, P - D))
         wih_e = torch.nn.functional.pad(wih_e, (0, P - D, 0, 0, 0, P - D))
@@ -281,7 +294,15 @@ def _level_forward(hf, pk, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_h
     """One level from hf [N, D] with the math of the JAX package's
     ``_level_scan_fast`` (``mgvae_tpu/models/dg_ae.py``): src / dslot / e_n
     int64, evalid / upd bool. Returns (h_new [Np, D], 0 on the slots that
-    are not updated, res_e [Ep, 3D+1] or None, res_n [Np, 4D] or None)."""
+    are not updated, res_e [Ep, 3D+1] or None, res_n [Np, 4D] or None), in
+    the value type of ``pk``. In bf16 the values are rounded where the JAX
+    package's ``_level_body`` rounds them (``level_kernel.py:418-420``:
+    v * attn before the message sum; ``:427``: msg before the GRU product;
+    ``:446-462``: the residuals and h_new) and computed in fp32 between."""
+    vdt = pk.dtype
+    rnd = rounder(vdt)
+    hf, pk, wkv_hf, w_ih, b_ih, b_hh, wa_k = (
+        t.float() for t in (hf, pk, wkv_hf, w_ih, b_ih, b_hh, wa_k))
     D = pk.shape[1] - 2
     T = wa_k.shape[0]
     np_ = upd.shape[0]
@@ -293,30 +314,38 @@ def _level_forward(hf, pk, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_h
     score = pk[:, D] + (khf * wa_k[e_edge]).sum(-1)
     v = pk[:, :D] + vhf
     attn = segment_softmax(score, dslot, np_, valid=evalid)
-    msg = segment_sum(v * attn[:, None], dslot, np_)            # [Np, D]
+    msg = segment_sum(rnd(v * attn[:, None]), dslot, np_)       # [Np, D]
 
-    gi = select_expert(msg @ w_ih, e_n, T) + b_ih[e_n]
+    gi = select_expert(rnd(msg) @ w_ih, e_n, T) + b_ih[e_n]
     gh = b_hh[e_n]                                              # h == 0
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(i_r + h_r)
     z = torch.sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
-    h_new = torch.where(upd[:, None], (1.0 - z) * n, 0.0)
+    h_new = torch.where(upd[:, None], (1.0 - z) * n, 0.0).to(vdt)
     if not with_residuals:
         return h_new, None, None
     live = (evalid & upd[dslot])[:, None]
     res_e = torch.where(live, torch.cat([hf_src, khf, v, attn[:, None]], 1), 0.0)
     res_n = torch.where(upd[:, None], torch.cat([msg, r, z, n], 1), 0.0)
-    return h_new, res_e.detach(), res_n.detach()
+    return h_new, res_e.detach().to(vdt), res_n.detach().to(vdt)
 
 
 def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa_k):
     """One level's backward, written out as the JAX package's
     ``_level_bwd_body`` (``level_kernel.py:645-778``): g [Np, D] is the
     cotangent of h_new, already 0 on the slots that are not updated; evf the
-    edge mask as float. Returns (d_pack [Ep, D+2], d_wkv, d_wih, d_bih,
-    d_bhh, d_wak, dhf_src [Ep, D]: the sources' gradients per edge, masked)."""
+    edge mask as float. Returns (d_pack [Ep, D+2] in the value type of
+    ``pk``, d_wkv, d_wih, d_bih, d_bhh, d_wak in fp32, dhf_src [Ep, D]: the
+    sources' gradients per edge, masked). In bf16 the values are rounded
+    where ``_level_bwd_body`` rounds them: dgi before the dmsg product
+    (``level_kernel.py:728``), dmsg (``:732``), dk | dv before the dhf_src
+    product (``:750``), d_pack (``:758``) and dhf_src (``:774-778``)."""
+    vdt = pk.dtype
+    rnd = rounder(vdt)
+    g, res_e, res_n, wkv_hf, w_ih, b_hh, wa_k = (
+        t.float() for t in (g, res_e, res_n, wkv_hf, w_ih, b_hh, wa_k))
     ep, pw = pk.shape
     D, T = pw - 2, wa_k.shape[0]
     np_ = g.shape[0]
@@ -338,7 +367,7 @@ def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa
     d_wih = msg.T @ dgi_all
     d_bih = onehot_n.T @ dgi
     d_bhh = onehot_n.T @ dbh
-    dmsg = dgi_all @ w_ih.T                                     # [Np, D]
+    dmsg = rnd(rnd(dgi_all) @ w_ih.T)                           # [Np, D]
 
     # attention backward over the in-edges
     per_edge = dmsg[dslot] * evf[:, None]
@@ -353,7 +382,7 @@ def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa
     dkv = torch.cat([(onehot_e[:, :, None] * dkhf[:, None, :]).reshape(ep, T * D),
                      (onehot_e[:, :, None] * dv[:, None, :]).reshape(ep, T * D)], 1)
     d_wkv = hf_src.T @ dkv
-    dhf_src = (dkv @ wkv_hf.T) * evf[:, None]                   # [Ep, D]
+    dhf_src = rnd((rnd(dkv) @ wkv_hf.T) * evf[:, None])         # [Ep, D]
     d_pack = torch.zeros_like(pk)                               # no gradient for the expert column
     d_pack[:, :D] = dv
     d_pack[:, D] = dscore
@@ -428,10 +457,13 @@ def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_n
     all taken first, then its level indices swept, each for every chunk,
     the weight gradients summed per chunk and the chunks' sums added to the
     totals in chunk order. Returns (d_pack [C * L, Ep, D+2], d_wkv, d_wih,
-    d_bih, d_bhh, d_wak); the pack's expert column gets no gradient."""
-    ghf = ghf.detach().clone()
+    d_bih, d_bhh, d_wak); the pack's expert column gets no gradient. In
+    bf16 ghf is carried in bf16 and d_pack is bf16; the weight gradients
+    are summed in fp32 and returned in the weights' dtypes."""
+    vdt = pack_lv.dtype
+    ghf = ghf.detach().to(vdt, copy=True)
     d_pack = torch.zeros_like(pack_lv)
-    sums = [torch.zeros_like(t) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
+    sums = [torch.zeros_like(t, dtype=torch.float32) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
     L = pack_lv.shape[0] // len(n_levels)
     for begin, end in giant_chunks(max(n_levels), chunk_levels):
         live = [[(k, k * L + lv) for k, levels in enumerate(n_levels) if lv < levels]
@@ -448,11 +480,25 @@ def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_n
                     wa_k)
                 for acc, x in zip(chunk[k], grads):
                     acc += x
-                ghf.index_add_(0, lv_src[row].long() + off, dhf_src)
+                _add_sources(ghf, lv_src[row].long() + off, dhf_src)
         for part in chunk:
             for acc, x in zip(sums, part):
                 acc += x
-    return (d_pack, *sums)
+    return (d_pack, *(x.to(t.dtype) for x, t in zip(sums, (wkv_hf, w_ih, b_hh, b_hh, wa_k))))
+
+
+def _add_sources(ghf, src, dhf_src):
+    """ghf[src] += dhf_src, the level's rows of one source summed first. In
+    bf16 (ghf's dtype) as the JAX package's scatter (``level_kernel.py:774-778``):
+    the fp32 sum of a source's rows rounded, then added to its row of ghf
+    and rounded again."""
+    if ghf.dtype == torch.float32:
+        ghf.index_add_(0, src, dhf_src)
+        return
+    add = torch.zeros(ghf.shape, dtype=torch.float32, device=ghf.device)
+    add.index_add_(0, src, dhf_src)
+    rows = torch.unique(src)
+    ghf[rows] = (ghf[rows].float() + add[rows].to(ghf.dtype).float()).to(ghf.dtype)
 
 
 def level_scan_bwd_reference(ghf, res_e, res_n, pack_lv, lv_src, lv_dslot, lv_evalid,
@@ -630,50 +676,73 @@ def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
                packed: tuple | None = None) -> torch.Tensor:
     """Level recurrence over levels [0, num_levels) of the tables.
 
-    pack_lv [L, Ep, D+2] f32: per edge [vhs | score_static | expert];
+    pack_lv [L, Ep, D+2]: per edge [vhs | score_static | expert];
     lv_src / lv_dslot / lv_evalid [L, Ep] and lv_nodes / lv_upd / lv_e_n
     [L, Np] int32; wkv_hf [D, 2TD], w_ih [D, 3TD], b_ih / b_hh [T, 3D],
-    wa_k [T, D] f32. Returns hf [num_nodes, D] f32, differentiable with
-    respect to pack_lv, wkv_hf, w_ih, b_ih, b_hh and wa_k. ``lists``: the
-    tables' ``level_lists``, and ``packed``: the weights'
-    ``repack_expert_major(wkv_hf, w_ih, T, backward=True)``, for a caller that
-    built them already for several calls (only the kernels read them).
+    wa_k [T, D]; the float arguments all fp32, or all bf16 (the value type:
+    hf, the residuals and the backward's d_pack and carried d_hf are then
+    bf16, with fp32 accumulation). Returns hf [num_nodes, D] in the value
+    type, differentiable with respect to pack_lv, wkv_hf, w_ih, b_ih, b_hh
+    and wa_k. ``lists``: the tables' ``level_lists``, and ``packed``: the
+    weights' ``repack_expert_major(wkv_hf, w_ih, T, backward=True)``, for a
+    caller that built them already for several calls (only the kernels read
+    them).
+
+    On CPU tensors in fp32 autograd differentiates the plain forward; in
+    bf16 training goes through ``_LevelScan`` with the plain versions of
+    both kernels, so that the CPU rounds where the kernels do.
     """
     args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
             wkv_hf, w_ih, b_ih, b_hh, wa_k)
     _check(args, num_nodes, num_levels)
     dev = pack_lv.device
-    if dev.type == "cpu":
-        return level_scan_reference(*args, num_nodes, num_levels)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"level_scan: no kernel for device {dev}")
-    _check_prepared("level_scan", args, lists, packed)
+    if dev.type == "cpu" and pack_lv.dtype == torch.float32:
+        return level_scan_reference(*args, num_nodes, num_levels)
+    if dev.type == "cuda":
+        _check_prepared("level_scan", args, lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
         return _LevelScan.apply(num_nodes, num_levels, (lists, packed), *args)
+    if dev.type == "cpu":
+        return level_scan_reference(*args, num_nodes, num_levels)
     return _forward_cuda(args, num_nodes, num_levels, residuals=False, lists=lists,
                          packed=packed)
 
 
 class _LevelScan(torch.autograd.Function):
-    """CUDA only: the forward kernel with residuals, and the backward
-    kernels. Counterpart of the JAX package's custom VJP
-    ``pallas_level_scan``."""
+    """The forward with residuals and the backward from them: on CUDA
+    tensors the kernels, on CPU tensors (bf16 only) their plain versions.
+    Counterpart of the JAX package's custom VJP ``pallas_level_scan``. The
+    backward runs in the forward's matmul precision."""
 
     @staticmethod
     def forward(ctx, num_nodes, num_levels, prepared, *args):
-        ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
-        hf, res_e, res_n = _forward_cuda(args, num_nodes, num_levels, residuals=True,
-                                         lists=ctx.lists, packed=ctx.packed)
+        ctx.precision = current_precision()
         ctx.num_levels = num_levels
+        if args[0].is_cuda:
+            ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
+            hf, res_e, res_n = _forward_cuda(args, num_nodes, num_levels, residuals=True,
+                                             lists=ctx.lists, packed=ctx.packed)
+        else:
+            hf, res_e, res_n = level_scan_reference(*args, num_nodes, num_levels,
+                                                    with_residuals=True)
         ctx.save_for_backward(*args, res_e, res_n)
         return hf
 
     @staticmethod
     def backward(ctx, ghf):
         *args, res_e, res_n = ctx.saved_tensors
-        grads = _backward_cuda(ghf, res_e, res_n, tuple(args), ctx.num_levels,
-                               lists=ctx.lists, packed=ctx.packed)
+        with matmul_precision(ctx.precision):
+            if ghf.is_cuda:
+                grads = _backward_cuda(ghf, res_e, res_n, tuple(args), ctx.num_levels,
+                                       lists=ctx.lists, packed=ctx.packed)
+            else:
+                grads = level_scan_bwd_reference(ghf, res_e, res_n,
+                                                 *(args[i] for i in (0, 1, 2, 3, 4, 5, 6, 7, 8,
+                                                                     10, 11)), ctx.num_levels)
         d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = grads
+        d_bih = d_bih.to(args[9].dtype)
         # (num_nodes, num_levels, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
@@ -734,12 +803,16 @@ def _scratch(dev, *floats: int):
     return buf, ptrs
 
 
-def _weight_grads(flat: torch.Tensor, D: int, T: int):
+def _weight_grads(flat: torch.Tensor, D: int, T: int, dtypes=None):
     """The five weight gradients as views of the buffer the kernels fill:
-    d_wkv [D, 2TD], d_wih [D, 3TD], d_bih, d_bhh [T, 3D], d_wak [T, D]."""
+    d_wkv [D, 2TD], d_wih [D, 3TD], d_bih, d_bhh [T, 3D], d_wak [T, D];
+    with ``dtypes`` each rounded once to its weight's dtype (the kernels sum
+    them in fp32, ``level_kernel.py:834-839``)."""
     sizes = (D * 2 * T * D, D * 3 * T * D, T * 3 * D, T * 3 * D, T * D)
     shapes = ((D, 2 * T * D), (D, 3 * T * D), (T, 3 * D), (T, 3 * D), (T, D))
-    return tuple(x.view(shape) for x, shape in zip(flat.split(sizes), shapes))
+    out = tuple(x.view(shape) for x, shape in zip(flat.split(sizes), shapes))
+    return out if dtypes is None else tuple(x.to(d) for x, d in zip(out, dtypes))
+
 
 
 def _launch_forward(args, num_nodes: int, num_levels: int, residuals: bool,
@@ -754,10 +827,12 @@ def _launch_forward(args, num_nodes: int, num_levels: int, residuals: bool,
     dev = pack_lv.device
     lib = _build.library()
     lists, packed = _prepared(args, lists, packed)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hf = torch.zeros((num_nodes, D), **f32)
-    res_e = torch.empty((L, ep, 3 * D + 1), **f32) if residuals else None
-    res_n = torch.empty((L, np_, 4 * D), **f32) if residuals else None
+    # the value type: hf and the residuals; the small vectors go as fp32 copies
+    vdt = dict(dtype=pack_lv.dtype, device=dev)
+    b_ih, b_hh, wa_k = (t.float().contiguous() for t in (b_ih, b_hh, wa_k))
+    hf = torch.zeros((num_nodes, D), **vdt)
+    res_e = torch.empty((L, ep, 3 * D + 1), **vdt) if residuals else None
+    res_n = torch.empty((L, np_, 4 * D), **vdt) if residuals else None
     if num_levels > 0:
         held, scratch = _scratch(dev, ep, ep * D)              # score_buf, v_buf
         barrier = torch.empty((1,), dtype=torch.int32, device=dev)
@@ -768,7 +843,7 @@ def _launch_forward(args, num_nodes: int, num_levels: int, residuals: bool,
                                          b_ih, b_hh, wa_k, hf)), *scratch,
                 res_e.data_ptr() if residuals else None,
                 res_n.data_ptr() if residuals else None, barrier.data_ptr(),
-                num_levels, ep, np_, D, T, stream)
+                num_levels, ep, np_, D, T, bf16_flag(pack_lv), stream)
         _build.check(lib, code, f"{what} kernel launch")
     return hf, res_e, res_n
 
@@ -795,32 +870,41 @@ def _backward_cuda(ghf, res_e, res_n, args, num_levels: int,
     lib = _build.library()
     lists, (wkv_e, _, wvt_e, wiht_e) = _prepared(args, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
-    d_pack = torch.zeros((L, ep, pw), **f32)
+    vdt = dict(dtype=pack_lv.dtype, device=dev)
+    bf16 = bf16_flag(pack_lv)
+    d_pack = torch.zeros((L, ep, pw), **vdt)
     n_grad = T * D * (5 * D + 7)
+    primal = [args[i].dtype for i in (7, 8, 9, 10, 11)]
     if num_levels == 0:
-        return (d_pack, *_weight_grads(torch.zeros((n_grad,), **f32), D, T))
-    # a contiguous working copy: autograd may hand over an expanded or shared
-    # cotangent, and the kernel adds the sources' gradients into it
-    g = torch.empty((ghf.shape[0], D), **f32)
+        return (d_pack, *_weight_grads(torch.zeros((n_grad,), **f32), D, T, primal))
+    # a contiguous working copy in the value type: autograd may hand over an
+    # expanded or shared cotangent, and the kernel adds the sources'
+    # gradients into it
+    g = torch.empty((ghf.shape[0], D), **vdt)
     g.copy_(ghf)
+    b_hh, wa_k = (t.float().contiguous() for t in (b_hh, wa_k))
     per_block = max(LEVELS_PER_BLOCK, -(-num_levels // 32))
     chunks = -(-num_levels // per_block)
     grads = torch.empty((n_grad,), **f32)
     scratch = [torch.empty(shape, **f32) for shape in (
         (L, ep, 2 * D), (L, np_, 6 * D), (ep, D))]            # dkv, dg, dhf_buf
     partial = torch.empty((chunks, n_grad), **f32) if chunks > 1 else None
+    # bf16: wk_e^T for the per-edge dhf_src product, and dscore in fp32 for d_wak
+    wkt_e = wkv_e[:, 0].transpose(1, 2).contiguous() if bf16 else None
+    dscore = torch.empty((L, ep), **f32) if bf16 else None
     barrier = torch.empty((1,), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_scan_backward(
             *(t.data_ptr() for t in (g, res_e, res_n, lv_src, lv_nodes, *lists, wkv_e, wvt_e,
                                      wiht_e, b_hh, wa_k, d_pack, *scratch, grads)),
-            partial.data_ptr() if chunks > 1 else None, barrier.data_ptr(),
-            num_levels, per_block, ep, np_, D, T, stream)
+            ptr(partial), ptr(wkt_e), ptr(dscore), barrier.data_ptr(),
+            num_levels, per_block, ep, np_, D, T, bf16, stream)
     _build.check(lib, code, "level_scan_bwd kernel launch")
     bwd_launches += 2 if chunks == 1 else 3
     bwd_levels_walked += num_levels
-    return (d_pack, *_weight_grads(grads, D, T))
+    return (d_pack, *_weight_grads(grads, D, T, primal))
 
 
 def level_scan_giant(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
@@ -847,10 +931,12 @@ def level_scan_giant(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_
 class _LevelScanGiant(torch.autograd.Function):
     """CUDA only: the giant forward kernel, which saves its result hf and no
     residuals, and the giant backward kernels, which recompute from it.
-    Counterpart of the JAX package's custom VJP ``pallas_level_scan_hbm``."""
+    Counterpart of the JAX package's custom VJP ``pallas_level_scan_hbm``.
+    The backward runs in the forward's matmul precision."""
 
     @staticmethod
     def forward(ctx, num_nodes, num_levels, prepared, *args):
+        ctx.precision = current_precision()
         ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
         hf = _giant_forward_cuda(args, num_nodes, num_levels, lists=ctx.lists,
                                  packed=ctx.packed)
@@ -861,8 +947,9 @@ class _LevelScanGiant(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ghf):
         *args, hf = ctx.saved_tensors
-        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _giant_backward_cuda(
-            ghf, hf, tuple(args), ctx.num_levels, lists=ctx.lists, packed=ctx.packed)
+        with matmul_precision(ctx.precision):
+            d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _giant_backward_cuda(
+                ghf, hf, tuple(args), ctx.num_levels, lists=ctx.lists, packed=ctx.packed)
         # (num_nodes, num_levels, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
@@ -964,10 +1051,11 @@ class _LevelStep(torch.autograd.Function):
     hf itself is not saved (res_e holds the gathered source rows), only its
     row count: the caller writes the new rows into hf in place between
     calls, and a saved hf would fail autograd's version check at the next
-    write."""
+    write. The backward runs in the forward's matmul precision."""
 
     @staticmethod
     def forward(ctx, prepared, hf, *rest):
+        ctx.precision = current_precision()
         ctx.lists, ctx.packed = _prepared(rest, *prepared, backward=True)
         h_new, res_e, res_n = _step_forward_cuda((hf, *rest), residuals=True, lists=ctx.lists,
                                                  packed=ctx.packed)
@@ -978,8 +1066,9 @@ class _LevelStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         *rest, res_e, res_n = ctx.saved_tensors
-        grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes,
-                                    lists=ctx.lists, packed=ctx.packed)
+        with matmul_precision(ctx.precision):
+            grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes,
+                                        lists=ctx.lists, packed=ctx.packed)
         d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf = grads
         # (prepared, hf, pack, 5 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, d_hf, d_pack) + (None,) * 5 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
@@ -1082,10 +1171,12 @@ class _LevelScanStep(torch.autograd.Function):
     """CUDA only: the step route's forward with residuals, stacked over all
     C * L rows, and its backward, which carries hf's cotangent in place over
     the level indices. Counterpart of ``jax.vjp`` of the JAX package's
-    ``_level_scan_step``."""
+    ``_level_scan_step``. The backward runs in the forward's matmul
+    precision."""
 
     @staticmethod
     def forward(ctx, n_levels, n_sub, prepared, *args):
+        ctx.precision = current_precision()
         ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
         hf, res_e, res_n = _step_route_forward_cuda(args, n_levels, n_sub, residuals=True,
                                                     lists=ctx.lists, packed=ctx.packed)
@@ -1096,9 +1187,10 @@ class _LevelScanStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ghf):
         *args, res_e, res_n = ctx.saved_tensors
-        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _step_route_backward_cuda(
-            ghf, res_e, res_n, tuple(args), ctx.n_levels, ctx.n_sub, lists=ctx.lists,
-            packed=ctx.packed)
+        with matmul_precision(ctx.precision):
+            d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _step_route_backward_cuda(
+                ghf, res_e, res_n, tuple(args), ctx.n_levels, ctx.n_sub, lists=ctx.lists,
+                packed=ctx.packed)
         # (n_levels, n_sub, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
@@ -1192,10 +1284,11 @@ def _check_step(args) -> None:
         raise ValueError(f"level_step: hf must be [N, D] with N >= 1, got {tuple(hf.shape)}; "
                          f"Ep={ep}, Np={np_}")
     i32 = torch.int32
-    want = [((hf.shape[0], D), torch.float32), ((ep, pw), torch.float32),
+    vdt = _value_dtype("level_step", pack)
+    want = [((hf.shape[0], D), vdt), ((ep, pw), vdt),
             ((ep,), i32), ((ep,), i32), ((ep,), i32), ((np_,), i32), ((np_,), i32),
-            ((D, 2 * T * D), torch.float32), ((D, 3 * T * D), torch.float32),
-            ((T, 3 * D), torch.float32), ((T, 3 * D), torch.float32), ((T, D), torch.float32)]
+            ((D, 2 * T * D), vdt), ((D, 3 * T * D), vdt),
+            ((T, 3 * D), vdt), ((T, 3 * D), vdt), ((T, D), vdt)]
     _check_tensors("level_step", names, args, want, pack.device)
 
 
@@ -1211,21 +1304,36 @@ def _check(args, num_nodes: int, num_levels: int, op: str = "level_scan") -> Non
     L, ep, pw = pack_lv.shape
     np_ = lv_nodes.shape[-1]
     D, T = pw - 2, wa_k.shape[0]
+    vdt = _value_dtype(op, pack_lv)
     want = {
-        "pack_lv": ((L, ep, pw), torch.float32),
+        "pack_lv": ((L, ep, pw), vdt),
         "lv_src": ((L, ep), torch.int32), "lv_dslot": ((L, ep), torch.int32),
         "lv_evalid": ((L, ep), torch.int32),
         "lv_nodes": ((L, np_), torch.int32), "lv_upd": ((L, np_), torch.int32),
         "lv_e_n": ((L, np_), torch.int32),
-        "wkv_hf": ((D, 2 * T * D), torch.float32), "w_ih": ((D, 3 * T * D), torch.float32),
-        "b_ih": ((T, 3 * D), torch.float32), "b_hh": ((T, 3 * D), torch.float32),
-        "wa_k": ((T, D), torch.float32),
+        "wkv_hf": ((D, 2 * T * D), vdt), "w_ih": ((D, 3 * T * D), vdt),
+        "b_ih": ((T, 3 * D), vdt), "b_hh": ((T, 3 * D), vdt),
+        "wa_k": ((T, D), vdt),
     }
     _check_tensors(op, names, args, [want[n] for n in names], pack_lv.device)
     if not 0 <= num_levels <= L:
         raise ValueError(f"{op}: num_levels {num_levels} outside [0, {L}]")
     if num_nodes < 1 or ep < 1 or np_ < 1:
         raise ValueError(f"{op}: empty node or level tables")
+
+
+# the level kernels that take bf16 values: the fused route's (kernels 1, 2)
+BF16_OPS = ("level_scan",)
+
+
+def _value_dtype(op: str, values: torch.Tensor) -> torch.dtype:
+    """The value type that ``op`` takes for its float arguments, from the
+    first of them: fp32, or bf16 where ``op`` is in ``BF16_OPS``. The giant
+    and step routes' kernels take fp32 alone until ROADMAP 1.6b."""
+    if values.dtype == torch.bfloat16 and op not in BF16_OPS:
+        raise NotImplementedError(f"{op}: bf16 values are not ported to this route yet "
+                                  "(ROADMAP 1.6b); only the fused level scan takes them")
+    return values.dtype if values.dtype == torch.bfloat16 else torch.float32
 
 
 def _check_tensors(op: str, names, tensors, want, device) -> None:

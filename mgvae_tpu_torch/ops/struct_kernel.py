@@ -1,7 +1,10 @@
 """Struct-encoder towers, forward and backward: the CUDA kernels' wrappers
 and their plain PyTorch versions.
 
-Counterpart of ``mgvae_tpu/ops/pallas/struct_kernel.py`` in fp32:
+Counterpart of ``mgvae_tpu/ops/pallas/struct_kernel.py``, with fp32 or bf16
+values (xi, the state and the residuals; registers and sums fp32, the
+JAX kernels' rounding points mirrored, the gradients summed in fp32 and
+rounded once):
 ``fused_struct_towers`` (with and without residuals) is
 ``csrc/struct_towers.cu``; ``fused_struct_towers_bwd`` is
 ``csrc/struct_towers_bwd.cu``; the custom VJP ``pallas_struct_core`` that
@@ -13,10 +16,9 @@ input product in plain torch *outside* the core,
        = nbr @ (w_aggr @ w_ihD) + XI,  XI = x_feat @ w_ihX + b_ih + (deg * b_aggr) @ w_ihD,
 
 so autograd recovers the gradients of w_aggr, b_aggr, w_ih and b_ih from
-those of W_fold and XI. These products run at the global matmul precision:
-parity mode keeps TF32 off (``api.Model`` and ``train.step.make_train_step``
-set it), and the recurrence would amplify a TF32 fold or XI over the
-half-rounds (``struct_kernel.py:453-459``).
+those of W_fold and XI. These products run at the caller's matmul precision
+(``ops.precision``; "highest" in ``api.Model``): the recurrence amplifies a
+TF32 fold or XI over the half-rounds (``struct_kernel.py:453-459``).
 
 Dispatch of ``struct_core``, with no hidden fallback:
   * CUDA tensors: the forward kernel (one launch per half-round) or raise.
@@ -24,7 +26,9 @@ Dispatch of ``struct_core``, with no hidden fallback:
     ``_StructTowers``: the forward kernel also writes the residuals, and the
     backward launches the backward kernels. Otherwise (serving) it takes the
     launch without residuals.
-  * CPU tensors: ``struct_towers_reference``; autograd differentiates it.
+  * CPU tensors: ``struct_towers_reference``; in fp32 autograd
+    differentiates it, in bf16 training goes through ``_StructTowers`` with
+    the plain versions of both kernels.
 
 ``struct_towers_reference(..., with_residuals=True)`` and
 ``struct_towers_bwd_reference`` are the plain versions of the two kernels
@@ -53,6 +57,7 @@ import torch
 
 from ..data.batching import BLOCK_D
 from . import _build
+from .precision import bf16_flag, current_precision, matmul_precision, rounder
 
 MAX_DIM = 128      # the kernels' limit (csrc/level_common.cuh kMaxDim)
 SPLIT_ROWS = 512   # rows per partial sum of the backward's weight gradients, at most
@@ -127,12 +132,14 @@ def struct_core(xi, wfold, w_hh, b_hh, ln_w, ln_b, tables, num_rounds: int,
     floats = (xi, wfold, w_hh, b_hh, ln_w, ln_b)
     _check(floats, tables, num_rounds)
     dev = xi.device
-    if dev.type == "cpu":
-        return struct_towers_reference(*floats, tables, num_rounds, layernorm)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"struct_towers: no kernel for device {dev}")
+    if dev.type == "cpu" and xi.dtype == torch.float32:
+        return struct_towers_reference(*floats, tables, num_rounds, layernorm)
     if torch.is_grad_enabled() and any(t.requires_grad for t in floats):
         return _StructTowers.apply(num_rounds, layernorm, *floats, *tables)
+    if dev.type == "cpu":
+        return struct_towers_reference(*floats, tables, num_rounds, layernorm)
     return _forward_cuda(floats, tables, num_rounds, layernorm, residuals=False)
 
 
@@ -159,8 +166,16 @@ def _layernorm_stats(h):
 def struct_towers_reference(xi, wfold, w_hh, b_hh, ln_w, ln_b, tables, num_rounds: int,
                             layernorm: bool, with_residuals: bool = False):
     """The forward kernel's math, eager: returns the state [2, N, D], or
-    with ``with_residuals`` (state, res [2R, 2, N, 7D]), res detached."""
+    with ``with_residuals`` (state, res [2R, 2, N, 7D]), res detached, both
+    in xi's dtype (the value type). In bf16 the values are rounded where the
+    JAX package's ``_struct_kernel`` rounds them (``struct_kernel.py:144``:
+    nbr before its product; ``:158``: the residuals; ``:162``: the new
+    state) and computed in fp32 between; the neighbor messages are bf16
+    state rows already (``:91-99``)."""
     src, start, count = tables
+    vdt = xi.dtype
+    rnd = rounder(vdt)
+    xi, wfold, w_hh, b_hh, ln_w, ln_b = (t.float() for t in (xi, wfold, w_hh, b_hh, ln_w, ln_b))
     D = wfold.shape[2]
     lists = [_neighbor_rows(start[d], count[d]) for d in (0, 1)]
     state = xi.new_ones((2, xi.shape[2], D))
@@ -168,7 +183,7 @@ def struct_towers_reference(xi, wfold, w_hh, b_hh, ln_w, ln_b, tables, num_round
     for k in range(2 * num_rounds):
         d = k % 2
         nbr = _neighbor_sum(state, src[d], *lists[d])
-        gi = nbr @ wfold[d] + xi[d]
+        gi = rnd(nbr) @ wfold[d] + xi[d]
         gh = state @ w_hh[d] + b_hh[d][:, None, :]
         r = torch.sigmoid(gi[..., :D] + gh[..., :D])
         z = torch.sigmoid(gi[..., D : 2 * D] + gh[..., D : 2 * D])
@@ -176,14 +191,21 @@ def struct_towers_reference(xi, wfold, w_hh, b_hh, ln_w, ln_b, tables, num_round
         nw = torch.tanh(gi[..., 2 * D :] + r * gh_n)
         h = (1.0 - z) * nw + z * state
         if with_residuals:
-            res.append(torch.cat([nbr, state, r, z, nw, gh_n, h], dim=-1))
+            res.append(torch.cat([nbr, state, r, z, nw, gh_n, h], dim=-1).to(vdt))
         if layernorm:
             mean, rstd = _layernorm_stats(h)
             h = (h - mean) * rstd * ln_w[:, None, :] + ln_b[:, None, :]
-        state = h
+        state = rnd(h)
     if with_residuals:
-        return state, torch.stack(res).detach()
-    return state
+        return state.to(vdt), torch.stack(res).detach()
+    return state.to(vdt)
+
+
+def _bwd_types(res, wfold, w_hh, ln_w):
+    """(the dtypes of the six gradients: dxi the value type's, the weights'
+    their own; the value type's rounder; the four inputs detached, in fp32)."""
+    primal = (res.dtype, wfold.dtype, w_hh.dtype, w_hh.dtype, ln_w.dtype, ln_w.dtype)
+    return primal, rounder(res.dtype), [t.detach().float() for t in (res, wfold, w_hh, ln_w)]
 
 
 def struct_towers_bwd_reference(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int,
@@ -193,12 +215,18 @@ def struct_towers_bwd_reference(dstate, res, wfold, w_hh, ln_w, tables, num_roun
     the residuals with the state's cotangent carried back, the transposed
     neighbor sum over the opposite direction's lists. Returns (dxi, dwfold,
     dwhh, dbhh, dlnw, dlnb) in the forward's layouts (dlnw / dlnb zero
-    without LayerNorm)."""
+    without LayerNorm): dxi and the weight gradients summed in fp32 and
+    rounded once, dxi to the value type (res's dtype) and the weight
+    gradients to their weights' dtypes (``struct_kernel.py:437-439``; the
+    JAX kernel's dxi accumulator is an fp32 output, ``:388``, so its
+    ``dxi_ref += dgi.astype(dxi_ref.dtype)`` at ``:308`` adds in fp32). In
+    bf16 the state's cotangent is rounded as the JAX package carries it
+    (``:335``)."""
     src, start, count = tables
-    wfold, w_hh, ln_w = wfold.detach(), w_hh.detach(), ln_w.detach()
+    primal, rnd, (res, wfold, w_hh, ln_w) = _bwd_types(res, wfold, w_hh, ln_w)
     D = wfold.shape[2]
     lists = [_neighbor_rows(start[d], count[d]) for d in (0, 1)]
-    dh = dstate.detach().clone()
+    dh = dstate.detach().float().clone()
     dxi = dh.new_zeros((2, 2, dh.shape[1], 3 * D))
     dwfold, dwhh = torch.zeros_like(wfold), torch.zeros_like(w_hh)
     dbhh = dh.new_zeros((2, 2, 3 * D))
@@ -230,7 +258,8 @@ def struct_towers_bwd_reference(dstate, res, wfold, w_hh, ln_w, tables, num_roun
             dnbr = dgi @ wfold[d].transpose(1, 2)
             dh = dh * z + dgh @ w_hh[d].transpose(1, 2)
             dh.index_add_(1, lists[1 - d][1], dnbr[:, src[1 - d][lists[1 - d][0]].long()])
-    return dxi, dwfold, dwhh, dbhh, dlnw, dlnb
+            dh = rnd(dh)
+    return tuple(x.to(t) for x, t in zip((dxi, dwfold, dwhh, dbhh, dlnw, dlnb), primal))
 
 
 def struct_towers_bwd_inplace(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int,
@@ -242,14 +271,14 @@ def struct_towers_bwd_inplace(dstate, res, wfold, w_hh, ln_w, tables, num_rounds
     place into [2 dir, 2 tower, splits, ...] over the half-rounds, and
     summed over the splits in order at the end. Same arguments and returns."""
     src, start, count = tables
-    wfold, w_hh, ln_w = wfold.detach(), w_hh.detach(), ln_w.detach()
+    primal, rnd, (res, wfold, w_hh, ln_w) = _bwd_types(res, wfold, w_hh, ln_w)
     N, D = dstate.shape[1], wfold.shape[2]
     rows = split_rows or partial_rows(N)
     splits = -(-N // rows)
     by_split = lambda x: torch.nn.functional.pad(x, (0, 0, 0, splits * rows - N)).view(
         2, splits, rows, x.shape[-1])
     lists = [_neighbor_rows(start[d], count[d]) for d in (0, 1)]
-    dh = dstate.detach().clone()
+    dh = dstate.detach().float().clone()
     dxi = dh.new_zeros((2, 2, N, 3 * D))
     p_wf, p_wh = dh.new_zeros((2, 2, splits, D, 3 * D)), dh.new_zeros((2, 2, splits, D, 3 * D))
     p_bh, p_ln = dh.new_zeros((2, 2, splits, 3 * D)), dh.new_zeros((2, 2, splits, 2 * D))
@@ -277,21 +306,29 @@ def struct_towers_bwd_inplace(dstate, res, wfold, w_hh, ln_w, tables, num_rounds
             dnbr = dgi @ wfold[d].transpose(1, 2)
             dh = dh * z + dgh @ w_hh[d].transpose(1, 2)
             dh.index_add_(1, lists[1 - d][1], dnbr[:, src[1 - d][lists[1 - d][0]].long()])
+            dh = rnd(dh)
     in_order = lambda p: functools.reduce(torch.add, p.unbind(2))   # over the splits
     ln = in_order(p_ln)
     ln = ln[0] + ln[1]
-    return dxi, in_order(p_wf), in_order(p_wh), in_order(p_bh), ln[:, :D], ln[:, D:]
+    out = (dxi, in_order(p_wf), in_order(p_wh), in_order(p_bh), ln[:, :D], ln[:, D:])
+    return tuple(x.to(t) for x, t in zip(out, primal))
 
 
 class _StructTowers(torch.autograd.Function):
-    """CUDA only: the forward kernel with residuals, and the backward
-    kernels. Counterpart of the JAX package's custom VJP
-    ``pallas_struct_core``."""
+    """The forward with residuals and the backward from them: on CUDA
+    tensors the kernels, on CPU tensors (bf16 only) their plain versions.
+    Counterpart of the JAX package's custom VJP ``pallas_struct_core``. The
+    backward runs in the forward's matmul precision."""
 
     @staticmethod
     def forward(ctx, num_rounds, layernorm, xi, wfold, w_hh, b_hh, ln_w, ln_b, *tables):
         floats = (xi, wfold, w_hh, b_hh, ln_w, ln_b)
-        state, res = _forward_cuda(floats, tables, num_rounds, layernorm, residuals=True)
+        ctx.precision = current_precision()
+        if xi.is_cuda:
+            state, res = _forward_cuda(floats, tables, num_rounds, layernorm, residuals=True)
+        else:
+            state, res = struct_towers_reference(*floats, tables, num_rounds, layernorm,
+                                                 with_residuals=True)
         ctx.num_rounds, ctx.layernorm = num_rounds, layernorm
         ctx.save_for_backward(res, wfold, w_hh, ln_w, *tables)
         return state
@@ -299,8 +336,10 @@ class _StructTowers(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dstate):
         res, wfold, w_hh, ln_w, *tables = ctx.saved_tensors
-        grads = _backward_cuda(dstate, res, wfold, w_hh, ln_w, tuple(tables), ctx.num_rounds,
-                               ctx.layernorm)
+        bwd = _backward_cuda if dstate.is_cuda else struct_towers_bwd_reference
+        with matmul_precision(ctx.precision):
+            grads = bwd(dstate, res, wfold, w_hh, ln_w, tuple(tables), ctx.num_rounds,
+                        ctx.layernorm)
         # (num_rounds, layernorm, xi, wfold, w_hh, b_hh, ln_w, ln_b, src, start, count)
         return (None, None, *grads, None, None, None)
 
@@ -313,17 +352,22 @@ def _forward_cuda(floats, tables, num_rounds: int, layernorm: bool, residuals: b
     _kernel_dim(D)
     dev = xi.device
     lib = _build.library()
-    f32 = dict(dtype=torch.float32, device=dev)
-    state = torch.ones((2, N, D), **f32)
-    scratch = torch.empty((2, N, D), **f32)
-    res = torch.empty((2 * num_rounds, 2, N, 7 * D), **f32) if residuals else None
+    # the value type: xi, the state and the residuals; the weights go as fp32
+    # copies (exact), which the kernel stages as it does fp32 weights
+    vdt = dict(dtype=xi.dtype, device=dev)
+    wfold, w_hh, b_hh, ln_w, ln_b = (t.float().contiguous()
+                                     for t in (wfold, w_hh, b_hh, ln_w, ln_b))
+    state = torch.ones((2, N, D), **vdt)
+    scratch = torch.empty((2, N, D), **vdt)
+    res = torch.empty((2 * num_rounds, 2, N, 7 * D), **vdt) if residuals else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_struct_towers_forward(
             *(t.data_ptr() for t in (xi, wfold, w_hh, b_hh)),
             ln_w.data_ptr() if layernorm else None, ln_b.data_ptr() if layernorm else None,
             *(t.data_ptr() for t in (src, start, count, state, scratch)),
-            res.data_ptr() if residuals else None, num_rounds, N, D, src.shape[1], stream)
+            res.data_ptr() if residuals else None, num_rounds, N, D, src.shape[1],
+            bf16_flag(xi), stream)
     _build.check(lib, code, "struct_towers kernel launch")
     launches += 2 * num_rounds
     return (state, res) if residuals else state
@@ -337,14 +381,17 @@ def _backward_cuda(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int, laye
     dev = dstate.device
     lib = _build.library()
     f32 = dict(dtype=torch.float32, device=dev)
-    # a contiguous copy (autograd may hand over an expanded cotangent), which
-    # the kernels overwrite
+    primal = (res.dtype, wfold.dtype, w_hh.dtype, w_hh.dtype, ln_w.dtype, ln_w.dtype)
+    # a contiguous fp32 copy (autograd may hand over an expanded cotangent),
+    # which the kernels overwrite; in bf16 they round the state's cotangent
+    # where it is complete, as the JAX package carries it in bf16
     g = torch.empty((2, N, D), **f32)
     g.copy_(dstate)
     # W_fold^T and W_hh^T [2, 2 dir, 2 tower, 3D, D]: the row products read a row of D a step
-    wt = torch.stack((wfold, w_hh)).transpose(-1, -2).contiguous()
+    wt = torch.stack((wfold, w_hh)).transpose(-1, -2).float().contiguous()
+    ln_w = ln_w.float().contiguous()
     dxi = torch.empty((2, 2, N, 3 * D), **f32)
-    dwfold, dwhh = torch.empty_like(wfold), torch.empty_like(w_hh)
+    dwfold, dwhh = (torch.empty((2, 2, D, 3 * D), **f32) for _ in range(2))
     dbhh = torch.empty((2, 2, 3 * D), **f32)
     dlnw, dlnb = torch.empty((2, D), **f32), torch.empty((2, D), **f32)
     dg, colsum, carry, part = (torch.empty(s, **f32) for s in bwd_scratch_shapes(N, D).values())
@@ -355,10 +402,11 @@ def _backward_cuda(dstate, res, wfold, w_hh, ln_w, tables, num_rounds: int, laye
             g.data_ptr(), res.data_ptr(), wt.data_ptr(), ln_w.data_ptr() if layernorm else None,
             *(t.data_ptr() for t in (src, start, count, dxi, dwfold, dwhh, dbhh, dlnw, dlnb,
                                      dg, colsum, carry, part)),
-            num_rounds, N, D, src.shape[1], rows, stream)
+            num_rounds, N, D, src.shape[1], rows, bf16_flag(res), stream)
     _build.check(lib, code, "struct_towers_bwd kernel launch")
     bwd_launches += 4 * num_rounds + 1
-    return dxi, dwfold, dwhh, dbhh, dlnw, dlnb
+    # dxi and the weight gradients are summed in fp32, then rounded once
+    return tuple(x.to(t) for x, t in zip((dxi, dwfold, dwhh, dbhh, dlnw, dlnb), primal))
 
 
 def bwd_scratch_shapes(N: int, D: int) -> dict[str, tuple[int, ...]]:
@@ -409,13 +457,14 @@ def _check(floats, tables, num_rounds: int) -> None:
         raise ValueError(f"struct_towers: xi must be [2, 2, N, 3D], got {tuple(xi.shape)}")
     N, D = xi.shape[2], xi.shape[3] // 3
     S = tables[0].shape[-1]
+    vdt = torch.bfloat16 if xi.dtype == torch.bfloat16 else torch.float32
     want = {
         "xi": (2, 2, N, 3 * D), "wfold": (2, 2, D, 3 * D), "w_hh": (2, 2, D, 3 * D),
         "b_hh": (2, 2, 3 * D), "ln_w": (2, D), "ln_b": (2, D),
         "src": (2, S), "start": (2, N), "count": (2, N),
     }
     for (name, shape), t in zip(want.items(), (*floats, *tables)):
-        dtype = torch.float32 if name not in ("src", "start", "count") else torch.int32
+        dtype = vdt if name not in ("src", "start", "count") else torch.int32
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"struct_towers: {name} must be {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")

@@ -98,8 +98,11 @@ def recon_loss(params, hs, b: dict, gen: torch.Generator | None = None, neg_edge
     ``neg_edges``: explicit (src, dst) negatives; without them E pairs are
     drawn from ``gen``. ``mask_collisions`` masks sampled negatives that
     coincide with a valid real edge and renormalises over the survivors
-    (an [E, E] equality test)."""
-    s, t = hs_decompose(params, hs)
+    (an [E, E] equality test). ``params`` are the fp32 master params: a
+    bf16 ``hs`` is upcast before ``hs_decompose``, as JAX promotes it
+    (``mgvae_tpu/train/losses.py:119``), while the counts keep hs's dtype
+    (in bf16 they round, as in JAX)."""
+    s, t = hs_decompose(params, hs.float())
     ev = b["edge_valid"]
     e_count = _count(b, "n_edges", hs)
     pos_logit = decode_edges(s, t, b["edge_src"], b["edge_dst"], sigmoid=False)
@@ -133,9 +136,11 @@ def prob_loss(params, state, hf, b: dict, train: bool, gen: torch.Generator | No
               drop_keep=None):
     """Returns (loss, {"readout_prob": new_state}). The readout is the BN-MLP
     with dropout 0.2 in train mode, clipped to [0, 1]; ``drop_keep`` is an
-    optional list of explicit keep masks, one per hidden layer."""
+    optional list of explicit keep masks, one per hidden layer. The fp32
+    readout takes a bf16 ``hf`` upcast, as JAX promotes it
+    (``mgvae_tpu/train/losses.py:174``); the count keeps hf's dtype."""
     valid = b["node_valid"]
-    out, new_state = mlp_apply(params["readout_prob"], state["readout_prob"], hf,
+    out, new_state = mlp_apply(params["readout_prob"], state["readout_prob"], hf.float(),
                                valid=valid, train=train, gen=gen, drop_keep=drop_keep)
     pred = out[:, 0].clamp(0.0, 1.0)
     l1 = (pred - b["prob"]).abs()

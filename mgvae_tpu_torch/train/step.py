@@ -22,6 +22,7 @@ import torch
 
 from ..models import dg_ae
 from ..models.dg_ae import DGConfig
+from ..ops.precision import matmul_precision
 from .losses import func_loss, kl_loss, prob_loss, recon_loss
 
 # epoch-metric row layout, as in the JAX package
@@ -97,32 +98,31 @@ def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer):
     vae_eps=None) -> metrics runs under ``no_grad`` with the running
     statistics and no dropout.
 
-    Both set TF32 off: the flag is global in torch, so it holds in the
-    backward too.
+    Both run the forward, the losses and (train_step) ``total.backward()``
+    under ``matmul_precision(cfg.matmul_precision)`` and restore the flags
+    after; Adam updates the fp32 master params. With
+    ``cfg.compute_dtype="bfloat16"`` the forward runs in bf16
+    (``models/dg_ae.forward_device``) and the gradients reach the master
+    params in fp32.
     """
     dg_ae.check_supported(cfg)
 
     def train_step(params, state, batch, gen, weights, neg_edges=None, drop_keep=None,
                    vae_eps=None):
-        _full_fp32()
         optimizer.zero_grad(set_to_none=True)
-        total, (new_state, metrics) = loss_and_metrics(
-            params, state, batch, gen, weights, cfg, True, neg_edges=neg_edges,
-            drop_keep=drop_keep, vae_eps=vae_eps)
-        total.backward()
+        with matmul_precision(cfg.matmul_precision):
+            total, (new_state, metrics) = loss_and_metrics(
+                params, state, batch, gen, weights, cfg, True, neg_edges=neg_edges,
+                drop_keep=drop_keep, vae_eps=vae_eps)
+            total.backward()
         optimizer.step()
         return state | new_state, metrics
 
     @torch.no_grad()
     def eval_step(params, state, batch, gen, weights, neg_edges=None, vae_eps=None):
-        _full_fp32()
-        _, (_, metrics) = loss_and_metrics(params, state, batch, gen, weights, cfg, False,
-                                           neg_edges=neg_edges, vae_eps=vae_eps)
+        with matmul_precision(cfg.matmul_precision):
+            _, (_, metrics) = loss_and_metrics(params, state, batch, gen, weights, cfg, False,
+                                               neg_edges=neg_edges, vae_eps=vae_eps)
         return metrics
 
     return train_step, eval_step
-
-
-def _full_fp32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False

@@ -40,6 +40,15 @@ def test_parser_matches_root_config(argv, monkeypatch):
     assert vars(get_parse_args(argv)) == vars(root_config.get_parse_args())
 
 
+@pytest.mark.parametrize("argv, want", [([], "default"), (["--matmul_precision", "high"], "high"),
+                                         (["--matmul_precision", "highest"], "highest")])
+def test_matmul_precision_goes_into_the_config(argv, want):
+    """``--matmul_precision`` reaches ``DGConfig`` as in ``train.py:66``;
+    the parser's default is the JAX package's, TF32 on the card."""
+    cfg = cli.model_config(get_parse_args(["--type", "mig"] + argv))
+    assert cfg.matmul_precision == want and cfg.compute_dtype == "float32"
+
+
 def test_parser_rejects_unknown_type():
     with pytest.raises(SystemExit):
         get_parse_args(["--type", "foo"])

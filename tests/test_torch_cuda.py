@@ -36,7 +36,7 @@ def cuda():
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
 def test_kernel_matches_plain_version_on_card(cuda, modality, dim):
     cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
     rng = np.random.default_rng(2)
     batch = collate([random_circuit(rng, modality, num_inputs=8, num_gates=120)
@@ -70,7 +70,8 @@ def test_encode_on_card_matches_cpu(cuda):
 
 def test_kernel_rejects_unsupported_width(cuda):
     # the struct-tower kernels run first and refuse D > 128 as the level scan does
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=160, s_rounds=1, t_rounds=1)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=160, s_rounds=1, t_rounds=1,
+                         matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, device=cuda)
     batch = collate([random_circuit(np.random.default_rng(0), "mig", num_inputs=4,
                                     num_gates=20)])
@@ -80,7 +81,7 @@ def test_kernel_rejects_unsupported_width(cuda):
 
 def _struct_case(cuda, modality, dim, layernorm=True, seed=7):
     cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
-                         layernorm=layernorm)
+                         layernorm=layernorm, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
     rng = np.random.default_rng(seed)
     batch = collate([random_circuit(rng, modality, num_inputs=8, num_gates=120)
@@ -246,7 +247,7 @@ def test_struct_backward_scratch_does_not_grow_with_rounds(cuda):
 @pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
 def test_backward_kernel_matches_plain_version_on_card(cuda, modality, dim):
     cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
     rng = np.random.default_rng(5)
     batch = collate([random_circuit(rng, modality, num_inputs=8, num_gates=120)
@@ -302,7 +303,7 @@ def _step_case(cuda, modality, dim, seed=9):
     """level_step's 12 arguments for a mid level of chunk 1 of a chunked
     batch, with hf as the fused scan leaves it, and the chunk's node count."""
     cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
     rng = np.random.default_rng(seed)
     batch = collate_chunked([random_circuit(rng, modality, num_inputs=8, num_gates=120)
@@ -458,7 +459,7 @@ def test_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
     the plain recompute in its order and against the residual route's
     kernel, twice for bitwise repeatability, and through autograd."""
     cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=1, t_rounds=1,
-                         layernorm=True)
+                         layernorm=True, matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
     rng = np.random.default_rng(5)
     batch = collate([layered_circuit(rng, modality, width=96, depth=90, num_tt_pairs=16)])
@@ -511,7 +512,8 @@ def test_giant_train_step_on_card_matches_cpu_with_and_without_remat(cuda):
     prob loss is left out: among the readout's ~0.6M ReLU units one may sit
     within rounding of 0 and be on for one device and off for the other."""
     smooth = (1.0, 0.0, 2.0, 0.0)
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         matmul_precision="highest")
     rng = np.random.default_rng(13)
     batch = collate([layered_circuit(rng, "mig", width=64, depth=140, num_tt_pairs=64)])
     assert batch["gate"].shape[0] > level_kernel.KERNEL_MAX_NODES
@@ -654,7 +656,8 @@ def test_level_lists_kernel_equals_its_plain_version_on_card(cuda, case):
     from test_torch_level_lists import T, random_tables
 
     if case == "batch":
-        cfg = dg_ae.DGConfig(modality="xmg", dim_hidden=32, s_rounds=1, t_rounds=1)
+        cfg = dg_ae.DGConfig(modality="xmg", dim_hidden=32, s_rounds=1, t_rounds=1,
+                             matmul_precision="highest")
         params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
         rng = np.random.default_rng(3)
         batch = collate_chunked([random_circuit(rng, "xmg", num_inputs=8, num_gates=90)
@@ -681,7 +684,8 @@ def test_fused_kernels_on_a_three_chunk_batch_on_card(cuda, dim):
     """Kernels 1 and 2 chunk by chunk on ``collate_chunked(graphs, 3)``, the
     lists built once for all chunks: hf and every gradient against the plain
     versions, through ``level_recurrence`` and autograd."""
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=dim, s_rounds=1, t_rounds=1, layernorm=True)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=dim, s_rounds=1, t_rounds=1, layernorm=True,
+                         matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
     rng = np.random.default_rng(12)
     batch = collate_chunked([random_circuit(rng, "mig", num_inputs=8, num_gates=60 + 10 * i)
@@ -727,7 +731,8 @@ def _one_step(cfg, batch, dev, neg, keep, seed=4, weights=(1.0, 4.0, 4.0, 0.0)):
 def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
     """One training step on a chunked batch by both routes and on a split
     batch: the card's kernels against the CPU's plain versions."""
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         matmul_precision="highest")
     rng = np.random.default_rng(11)
     graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=60 + 20 * i) for i in range(6)]
     batch = collate_split(graphs, 3) if layout == "split" else collate_chunked(graphs, 2)
@@ -780,7 +785,8 @@ def test_large_batch_train_step_on_card_matches_cpu(cuda, layout, monkeypatch):
 
 
 def test_train_step_on_card_matches_cpu(cuda):
-    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True)
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         matmul_precision="highest")
     rng = np.random.default_rng(6)
     batch = collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)])
     gen = torch.Generator().manual_seed(3)
@@ -834,7 +840,7 @@ def test_variant_train_step_on_card_matches_cpu(cuda, variant, want):
     kw = {"dg_vae": dict(variational=True), "ae": dict(struct_encoder="gcn"),
           "rounds2": dict(num_rounds=2)}[variant]
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
-                         **kw)
+                         **kw, matmul_precision="highest")
     rng = np.random.default_rng(7)
     batch = collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)])
     gen = torch.Generator().manual_seed(5)
@@ -900,3 +906,126 @@ def test_model_variational_draws_on_card(cuda):
     for (hs1, hf1), (hs2, _), (hs3, _) in zip(first, twin, again):
         assert np.isfinite(hf1).all()
         assert np.abs(hs1 - hs2).max() <= 1e-6 < np.abs(hs1 - hs3).max()
+
+
+# ---- bf16 values (kernels 1, 2, 7 and 8) ---------------------------------------
+# The kernels round where their plain versions do and the sums run in other
+# orders, so each output is held against its own largest entry at BF16_ULPS
+# (two bf16 ulps at the top of its range; inside the JAX package's bf16
+# bounds, tests/test_pallas_kernel.py:95-114). A bf16 step card vs CPU: the
+# JAX bounds over all gradient leaves, and each leaf within BF16_LEAF of its
+# own scale floored at GRAD_FLOOR of the largest entry, as the fp32 steps'
+# (a leaf's gradient sums terms that cancel, each about a bf16 ulp apart
+# between the card and the CPU; chip_smoke.py's BF16_LEAF).
+BF16_ULPS, BF16_LEAF = 2.0 ** -6, 2.0 ** -3
+
+def _bf16_case(cuda, modality, dim, seed=7):
+    cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=2, t_rounds=2,
+                         layernorm=True, compute_dtype="bfloat16", matmul_precision="highest")
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(seed)
+    batch = collate([random_circuit(rng, modality, num_inputs=8, num_gates=120)
+                     for _ in range(4)])
+    b = dg_ae.batch_to_device(batch, cuda)
+    with torch.no_grad():
+        p = dg_ae.cast_params(params, cfg)
+        sargs = struct_kernel.struct_inputs(p["struct"], dg_ae.struct_input(b["gate"], cfg), b,
+                                            True)
+        hs = dg_ae.struct_hs(p, b, cfg)
+        args = dg_ae.level_scan_inputs(p, b, cfg, hs)
+    return cfg, batch, b, sargs, args
+
+
+def _bf16_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= BF16_ULPS * want.abs().max().item()
+
+
+def _leaf_names(tree, prefix=""):
+    """The leaves' paths, in ``step.param_leaves``' order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+@pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
+def test_bf16_kernels_match_plain_versions_on_card(cuda, modality, dim):
+    """The four bf16 kernels against their plain bf16 versions on the same
+    bf16 inputs: the struct towers with residuals and their backward, the
+    fused level scan with residuals and its backward; outputs bf16."""
+    cfg, batch, b, sargs, args = _bf16_case(cuda, modality, dim)
+    assert all(t.dtype == torch.bfloat16 for t in (*sargs, args[0], *args[7:]))
+    tables = struct_kernel.struct_tables(b)
+    st_k, sres_k = struct_kernel._forward_cuda(sargs, tables, 2, True, residuals=True)
+    st_r, sres_r = struct_kernel.struct_towers_reference(*sargs, tables, 2, True,
+                                                         with_residuals=True)
+    assert st_k.dtype == sres_k.dtype == torch.bfloat16
+    _bf16_close(st_k, st_r)
+    _bf16_close(sres_k, sres_r)
+    dstate = torch.randn(st_k.shape, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(3)).to(torch.bfloat16)
+    sg_k = struct_kernel._backward_cuda(dstate, sres_k, sargs[1], sargs[2], sargs[4], tables,
+                                        2, True)
+    sg_r = struct_kernel.struct_towers_bwd_reference(dstate, sres_k, sargs[1], sargs[2],
+                                                     sargs[4], tables, 2, True)
+    for k, r in zip(sg_k, sg_r):
+        assert k.dtype == r.dtype == torch.bfloat16
+        _bf16_close(k, r)
+    n_lv, N = dg_ae.num_levels(batch), b["gate"].shape[0]
+    hf_k, re_k, rn_k = level_kernel._forward_cuda(args, N, n_lv, residuals=True)
+    re_k, rn_k = (x.to(torch.bfloat16) for x in
+                  _written_rows(args[2], args[3], args[5], n_lv, re_k, rn_k))
+    hf_r, re_r, rn_r = level_kernel.level_scan_reference(*args, num_nodes=N, num_levels=n_lv,
+                                                         with_residuals=True)
+    for k, r in ((hf_k, hf_r), (re_k, re_r), (rn_k, rn_r)):
+        assert k.dtype == torch.bfloat16
+        _bf16_close(k, r)
+    ghf = torch.randn(hf_k.shape, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2)).to(torch.bfloat16)
+    g_k = level_kernel._backward_cuda(ghf, re_k, rn_k, args, n_lv)
+    g_r = level_kernel.level_scan_bwd_reference(ghf, re_k, rn_k, *args[:9], args[10], args[11],
+                                                num_levels=n_lv)
+    for k, r in zip(g_k, g_r):
+        assert k.dtype == torch.bfloat16
+        _bf16_close(k, r)
+    # the giant and step routes' kernels take fp32 alone (ROADMAP 1.6b)
+    with pytest.raises(NotImplementedError, match="1.6b"):
+        level_kernel.level_scan_giant(*args, num_nodes=N, num_levels=n_lv)
+
+
+def test_bf16_train_step_on_card_matches_cpu(cuda):
+    """One bf16 step (bs4 MIG, D = 64) on the card against the CPU: the
+    kernels' launches, losses within the JAX package's bf16 bounds, and
+    every master gradient (fp32) within them over all leaves and within
+    BF16_LEAF of its own leaf's scale."""
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         compute_dtype="bfloat16", matmul_precision="highest")
+    rng = np.random.default_rng(6)
+    batch = collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)])
+    gen = torch.Generator().manual_seed(3)
+    neg = tuple(t.to(torch.int32) for t in torch.randint(
+        0, int(batch["n_nodes"]), (2, batch["edge_src"].shape[0]), generator=gen))
+    keep = [torch.rand(batch["gate"].shape[0], cfg.dim_mlp, generator=gen) < 0.8
+            for _ in range(2)]
+    for m in (level_kernel, struct_kernel):
+        m.launches = m.bwd_launches = 0
+    m_c, g_c = _one_step(cfg, batch, "cpu", neg, keep)
+    m_g, g_g = _one_step(cfg, batch, cuda, neg, keep)
+    torch.cuda.synchronize()
+    assert (level_kernel.launches, level_kernel.bwd_launches) == (1, 3)
+    assert (struct_kernel.launches, struct_kernel.bwd_launches) == (4, STRUCT_BWD_LAUNCHES)
+    for k in ("recon_loss", "prob_loss", "func_loss"):
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 2e-2 + 1e-1 * abs(float(m_c[k])), k
+    names = _leaf_names(dg_ae.init_params(cfg, seed=4, device="cpu")[0])
+    scale = max(c.abs().max().item() for c in g_c if c is not None)
+    flat = lambda g: torch.cat([x.reshape(-1) for x in g if x is not None])
+    assert (flat(g_g) - flat(g_c)).abs().max().item() <= 0.05 * max(scale, 1.0)
+    for name, a, c in zip(names, g_g, g_c, strict=True):
+        assert (a is None) == (c is None)
+        if c is not None:
+            assert a.dtype == c.dtype == torch.float32
+            leaf = max(c.abs().max().item(), GRAD_FLOOR * scale)
+            assert (a - c).abs().max().item() <= BF16_LEAF * leaf, name

@@ -106,9 +106,23 @@ def test_params_from_jax_raises_on_unknown_key():
         params_from_jax(vae, device="cpu")
 
 
-def test_unported_options_raise_not_implemented():
-    with pytest.raises(NotImplementedError):
-        P.init_params(P.DGConfig(dim_hidden=8, compute_dtype="bfloat16"), device="cpu")
+def test_unported_options_raise_not_implemented(monkeypatch):
+    """bf16 initialises (fp32 master params, as in JAX) and runs the fused
+    route; on the giant and step routes it raises (ROADMAP 1.6b)."""
+    cfg16 = P.DGConfig(dim_hidden=8, s_rounds=1, t_rounds=1, compute_dtype="bfloat16")
+    params, _ = P.init_params(cfg16, device="cpu")
+    assert all(t.dtype == torch.float32 for t in jax.tree.leaves(params))
+    rng = np.random.default_rng(0)
+    graphs = [random_circuit(rng, "mig", num_inputs=4, num_gates=12) for _ in range(2)]
+    hs, hf, _ = P.forward(params, collate(graphs), cfg16)
+    assert hs.dtype == hf.dtype == torch.bfloat16
+    monkeypatch.setattr(P, "kernel_fits", lambda *a: False)
+    for batch, route in ((collate(graphs), "giant"), (collate_chunked(graphs, 2), "step")):
+        with pytest.raises(NotImplementedError, match=rf"{route} route.*1\.6b"):
+            P.forward(params, batch, cfg16)
+        P.forward(params, batch, P.DGConfig(dim_hidden=8, s_rounds=1, t_rounds=1))   # fp32 runs
+    with pytest.raises(ValueError, match="compute_dtype"):
+        P.check_supported(P.DGConfig(compute_dtype="float16"))
     # DG_VAE, the gcn struct encoder and num_rounds > 1 are ported
     for kw in (dict(variational=True), dict(num_rounds=2), dict(struct_encoder="gcn")):
         P.init_params(P.DGConfig(dim_hidden=8, **kw), device="cpu")

@@ -158,7 +158,10 @@ def test_train_step_matches_jax_make_train_step():
 
 def test_train_and_eval_step_with_generator_on_cpu():
     """The step's own draws: metrics finite, the CPU route takes no kernel,
-    lr settable, eval changes nothing."""
+    lr settable, eval changes nothing, and the TF32 flags after the steps
+    are the caller's (each step runs under the config's matmul precision
+    and restores them)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     cfg = P.DGConfig(modality="xmg", dim_hidden=16, s_rounds=1, t_rounds=1)
     params, state = P.init_params(cfg, seed=3, device="cpu")
     rng = np.random.default_rng(4)
@@ -180,7 +183,7 @@ def test_train_and_eval_step_with_generator_on_cpu():
     m = eval_step(params, state, hb, gen, WEIGHTS)
     assert np.isfinite(float(m["loss"]))
     assert all(torch.equal(a, b) for a, b in zip(snap, PS.param_leaves(params)))
-    assert not torch.backends.cuda.matmul.allow_tf32
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
 
 
 # ---- chunked and split batches ----------------------------------------------
