@@ -90,7 +90,7 @@ Phases (any failure raises and the script exits nonzero):
      CLI with the parser's default model (DG_VAE), --kl_weight 0.1, one
      epoch a stage: the five files and six epoch lines with the KL field.
      For information: the median bs16 train step of the four models in
-     this call, and torch.profiler over three AE and num_rounds = 2 steps.
+     this call, and torch.profiler over one AE and one num_rounds = 2 step.
   [precision] the precision modes: (b) three bf16 train steps of phase 7's
      model (compute_dtype="bfloat16"; fp32 master params) with their
      launches, counts set to 0 before them: the main path of the four bf16
@@ -106,8 +106,8 @@ Phases (any failure raises and the script exits nonzero):
      card vs CPU (as the bs16 step) with their launches; (d) the bs16 train step under "default"
      (TF32) and "highest" in turns: both medians, their ratio, and the drift
      of hs, hf and the losses (each within 1e-2 * max(its scale, 1)); (e)
-     bf16 on the step route and the giant route raises NotImplementedError
-     (ROADMAP 1.6b) before any level launch.
+     bf16 on the step and giant routes, run after phase 17 on its batches
+     (see there).
 
  10. step kernels vs plain: for aig/mig/xag/xmg, 64 circuits collated with
      collate_chunked(graphs, 2) (per-chunk N_sub > 8192, so the chunks fail
@@ -191,6 +191,24 @@ Phases (any failure raises and the script exits nonzero):
      collate of the 64 bs64 MIG circuits (N = 20480, C == 1, which fails the
      fused route's size gate): one forward (hf equal to phase 11's rows) and
      one train step, both on the giant route.
+  [precision] (e) bf16 values on the step and giant routes (kernels 3-6),
+     the model as compute_dtype="bfloat16" casts it: (e1) the giant forward
+     and backward on phase 15's MIG batch and the step route's forward and
+     backward on phase 12's two-chunk batch against their plain bf16
+     versions (each output within 2^-6 of its own scale; the giant
+     backward's plain version rounds as the JAX giant kernel does: fp32 ghf
+     and recompute), the giant forward equal bit for bit to kernel 1's bf16
+     launch without residuals, with CUDA-event times beside the fp32
+     kernels' in turns; (e2) one bf16 train step on the two-chunk batch by
+     the step route and (e3) the bf16 giant encode and one train step, card
+     vs CPU (hs / hf within 2^-6 of their scale, each gradient leaf within
+     2^-3 of its own, as [precision] (c)), each with its launches (those of
+     fp32: step 49 / 118, giant 1 / 136); the giant step's median wall time
+     beside fp32's and its own peak device memory beside phase 17's, and the level
+     recurrence alone in bf16 against phase 17's law (hf + ghf's copy +
+     d_pack_lv in their bf16 / fp32 / bf16 bytes, and fp32's; its K and
+     scratch are fp32's), which must stay within 1.25 x fp32's law and
+     below fp32's own peak.
  18. timing (informational): by CUDA events the giant forward and backward
      kernels alone against their plain versions and against the fused
      kernels on the same batch, and the struct forward without and with
@@ -202,12 +220,17 @@ Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step route's
 forward and backward (its passes over the bs64 two-chunk batch, with the
-launches of one pass beside), the giant forward and backward, and the four
-bf16 kernels ([precision]; bounds with the values' bytes halved); each with
+launches of one pass beside), the giant forward and backward, the four
+bf16 kernels of the fused route ([precision]; bounds with the values' bytes
+halved) and the four of the step and giant routes ([precision] (e), their
+launches from (e2) and (e3), the fp32 kernel's time in the same call as
+fp32_ms); each with
 its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
-3.35 TB/s and its operations over 67 TFLOP/s, computed from this run's
-inputs, with both terms as bytes_ms and operations_ms), the nvidia-smi line, and as the last line
+3.35 TB/s and its operations at their type's peak (67 TFLOP/s in fp32; the
+bf16 entries' products, bf16 operands with fp32 accumulation, at 989
+TFLOP/s on the tensor cores), computed from this run's inputs, with both
+terms as bytes_ms and operations_ms), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -249,8 +272,10 @@ GRAD_FLOOR = 2e-2
 TRAIN_STEPS, TRAIN_LR = 20, 1e-4
 LARGE_STEPS, LARGE_LR = 5, 1e-3   # the bs64 phases: few steps, fixed draws, the loss must fall
 CHUNKS, GROUPS = 2, 4             # collate_chunked / collate_split of the 64 circuits
-# the card's published peaks (H100 SXM): device memory and fp32 outside the tensor cores
-PEAK_BYTES_S, PEAK_FLOP_S = 3.35e12, 67e12
+# the card's published peaks (H100 SXM data sheet, dense rates): device memory,
+# fp32 outside the tensor cores, and bf16 products (bf16 operands, fp32
+# accumulation) on the tensor cores
+PEAK_BYTES_S, PEAK_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 PROFILE_STEPS = 10
 WEIGHTS = [1.0, 4.0, 4.0, 0.0]    # stage-3 loss weights (train.py)
 # The bs64 card-vs-CPU steps leave the prob loss out. Its readout MLP has
@@ -341,25 +366,27 @@ def nbytes(*tensors) -> int:
 STRUCT_BWD_ELEMENTWISE = 40
 
 
-def bound(bytes_moved: float, flops: float) -> dict:
+def bound(bytes_moved: float, flops: float, bf16_products: float = 0.0) -> dict:
     """The least time the card could take: each input byte read once and
     each output byte written once at the memory rate, or the operations at
-    the fp32 rate, whichever is larger (both terms kept beside it)."""
-    by_bytes, by_ops = bytes_moved / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+    their type's rate (``flops`` at fp32's, ``bf16_products`` at the bf16
+    tensor cores'), whichever is larger (both terms kept beside it)."""
+    by_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    by_ops = (flops / PEAK_FLOP_S + bf16_products / PEAK_BF16_FLOP_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes_ms": by_bytes, "operations_ms": by_ops}
 
 
 def profile_train(torch, step, card: str, label: str, steps: int = PROFILE_STEPS,
-                  rows: int = 25) -> None:
-    """torch.profiler over ``steps`` calls of ``step`` (after 3 warm-up
-    calls): wall and device time per step, the card's busy share, device
-    kernels and copies per step, and the ``rows`` entries with the most
-    device time."""
+                  rows: int = 25, warm: int = 3) -> None:
+    """torch.profiler over ``steps`` calls of ``step`` (after ``warm``
+    warm-up calls; 0 where the caller ran it already): wall and device time
+    per step, the card's busy share, device kernels and copies per step, and
+    the ``rows`` entries with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warm):
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -681,6 +708,12 @@ def main() -> int:
     import torch
 
     # ---- 1. device ------------------------------------------------------
+    t_main = time.perf_counter()
+
+    def clock(phase):
+        """Each phase's start, for the command's time budget."""
+        log(f"[clock] {phase} starts at {time.perf_counter() - t_main:.1f} s")
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
@@ -724,52 +757,61 @@ def main() -> int:
     # (STRUCT_BWD_ELEMENTWISE operations per row and feature); every
     # half-round but the last (k = 0, whose initial state is a constant) also
     # the two row products (dgi W_fold^T, dgh W_hh^T: 12 N D^2) and the
-    # transposed neighbor sum (D per edge).
+    # transposed neighbor sum (D per edge). In bf16 (2-byte values) the
+    # products run at the bf16 tensor cores' rate, the rest at fp32's.
+    def typed_bound(moved, products, elementwise, vb):
+        if vb == 2:
+            return bound(moved, elementwise, bf16_products=products)
+        return bound(moved, products + elementwise)
+
     def struct_bound(sargs, tables, n_edges, residuals, backward=False):
         N, D, hr = sargs[0].shape[2], sargs[1].shape[2], 2 * ROUNDS
         vb = sargs[0].element_size()   # the value type's bytes: the state and residuals
         state, res = 2 * N * D * vb, hr * 2 * N * 7 * D * vb
         if backward:   # in: dstate, res, wfold, w_hh, ln_w, lists; out: the six gradients
             moved = state + res + nbytes(sargs[1], sargs[2], sargs[4], *tables) + nbytes(*sargs)
-            ops = (hr * 2 * (12 * N * D * D + STRUCT_BWD_ELEMENTWISE * N * D)
-                   + (hr - 1) * 2 * (12 * N * D * D + n_edges * D))
-            return bound(moved, ops)
+            return typed_bound(moved, (2 * hr - 1) * 2 * 12 * N * D * D,
+                               hr * 2 * STRUCT_BWD_ELEMENTWISE * N * D
+                               + (hr - 1) * 2 * n_edges * D, vb)
         moved = nbytes(*sargs, *tables) + state + (res if residuals else 0)
-        return bound(moved, hr * 2 * (12 * N * D * D + n_edges * D))
+        return typed_bound(moved, hr * 2 * 12 * N * D * D, hr * 2 * n_edges * D, vb)
 
     def level_work(evalid, upd, D, backward):
+        """(products, elementwise operations) of the real levels' work."""
         e, u = int((evalid > 0).sum()), int((upd > 0).sum())
         if backward:
-            return u * 12 * D * D + e * 8 * D * D
-        return e * (4 * D * D + 6 * D) + u * (6 * D * D + 12 * D)
+            return u * 12 * D * D + e * 8 * D * D, 0
+        return e * 4 * D * D + u * 6 * D * D, e * 6 * D + u * 12 * D
 
     def level_bound(args, n_lv, N, residuals, backward=False):
         D, ep, np_ = args[0].shape[2] - 2, args[0].shape[1], args[4].shape[1]
         vb = args[0].element_size()    # the value type's bytes: hf, ghf and the residuals
         tabs = [a[:n_lv] for a in args[:7]]
         res = n_lv * (ep * (3 * D + 1) + np_ * 4 * D) * vb
-        flops = level_work(tabs[3], tabs[5], D, backward)
+        work = level_work(tabs[3], tabs[5], D, backward)
         if backward:   # in: ghf, residuals, tables, weights; out: d_pack, five weight gradients
             moved = (N * D * vb + res + nbytes(*tabs[1:], args[7], args[8], args[10], args[11])
                      + nbytes(tabs[0], *args[7:]))
-            return bound(moved, flops)
-        return bound(nbytes(*tabs, *args[7:]) + N * D * vb + (res if residuals else 0), flops)
+            return typed_bound(moved, *work, vb)
+        return typed_bound(nbytes(*tabs, *args[7:]) + N * D * vb + (res if residuals else 0),
+                           *work, vb)
 
     def giant_bwd_bound(args, n_lv, N):
         # in: ghf, hf, tables, pack_lv, weights; out: d_pack, five weight gradients;
         # operations: the backward's and the recomputed forward's
-        D = args[0].shape[2] - 2
+        D, vb = args[0].shape[2] - 2, args[0].element_size()   # ghf and hf in the value type
         tabs = [a[:n_lv] for a in args[:7]]
-        flops = level_work(tabs[3], tabs[5], D, True) + level_work(tabs[3], tabs[5], D, False)
-        moved = (2 * N * D * 4 + nbytes(*tabs, *args[7:])
+        work = [b + f for b, f in zip(level_work(tabs[3], tabs[5], D, True),
+                                      level_work(tabs[3], tabs[5], D, False))]
+        moved = (2 * N * D * vb + nbytes(*tabs, *args[7:])
                  + nbytes(tabs[0], args[7], args[8], args[9], args[10], args[11]))
-        return bound(moved, flops)
+        return typed_bound(moved, *work, vb)
 
     def step_bound(step_args, residuals, backward=False):
         hf, pack, src, dslot, evalid, upd, e_n, *w = step_args
         D, ep, np_ = pack.shape[1] - 2, pack.shape[0], upd.shape[0]
         res = (ep * (3 * D + 1) + np_ * 4 * D) * 4
-        flops = level_work(evalid, upd, D, backward)
+        flops = sum(level_work(evalid, upd, D, backward))
         if backward:   # in: g, residuals, tables, weights; out: d_pack, weight gradients, d_hf
             moved = (np_ * D * 4 + res + nbytes(src, dslot, evalid, upd, e_n, w[0], w[1], w[3], w[4])
                      + nbytes(pack, *w) + hf.shape[0] * D * 4)
@@ -778,6 +820,7 @@ def main() -> int:
         moved = sources * D * 4 + nbytes(*step_args[1:]) + np_ * D * 4 + (res if residuals else 0)
         return bound(moved, flops)
 
+    clock("phase 2")
     # ---- 2. build ---------------------------------------------------------
     built = _build.build()
     log(f"[build] {built.path.name}: {built.seconds:.1f} s (0.0 = already built)")
@@ -785,6 +828,7 @@ def main() -> int:
         log(f"[build] {line}")
     _build.library()
 
+    clock("phase 3")
     # ---- 3. kernel vs plain, per modality ---------------------------------
     enc_err = struct_err = 0.0
     lists_err = 0
@@ -842,6 +886,7 @@ def main() -> int:
         enc_err = max(enc_err, err)
         phase3.append((mod, cfg, params, batch))
 
+    clock("phase 4")
     # ---- 4. main path: MIG bs16 encode_many -------------------------------
     model = Model(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
                   layernorm=True, seed=SEED, device=DEVICE)
@@ -890,6 +935,7 @@ def main() -> int:
     nz = sum(int((np.abs(hf) > 0).any(axis=1).sum()) for _, hf in out)
     log(f"[main] rows with nonzero hf: {nz} of {sum(g.num_nodes for g in graphs)}")
 
+    clock("phase 5")
     # ---- 5. timing (informational) ----------------------------------------
     cfg, params = model.cfg, model.params
     batch = collate(requests[0])
@@ -975,6 +1021,7 @@ def main() -> int:
     log(f"[time] struct towers alone ({2 * ROUNDS} half-rounds, no residuals), CUDA events over "
         f"{reps} calls: kernel {sms_k1:.4f}/{sms_k2:.4f} ms, plain {sms_p1:.4f}/{sms_p2:.4f} ms")
 
+    clock("phase 6")
     # ---- 6. backward kernels vs plain, per modality -----------------------
     res_err = bwd_err = sres_err = sbwd_err = 0.0
     grad_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak")
@@ -1080,6 +1127,7 @@ def main() -> int:
         if not all(torch.equal(a, c) for a, c in zip(again, (hf_k, *grads_k))):
             raise RuntimeError(f"[bwd] {mod}: a second run of the level kernels differs")
 
+    clock("phase 7")
     # ---- 7. training main path: MIG bs16 train steps ---------------------
     cfg = model.cfg
     params, state = dg_ae.init_params(cfg, seed=SEED, device=dev)
@@ -1270,6 +1318,7 @@ def main() -> int:
 
     card_vs_cpu_step("train", batches[0], WEIGHTS)
 
+    clock("phase 8")
     # ---- 8. training timing (informational) -------------------------------
     batch = batches[0]
     n_lv = dg_ae.num_levels(batch)
@@ -1398,13 +1447,16 @@ def main() -> int:
         log(f"[time] struct towers backward by kernel name: {us:10.2f} us in {n:5.1f} launches "
             f"per call  {name[:90]}")
 
+    clock("phase 9")
     # ---- 9. train-step profile (informational) ----------------------------
     profile_train(torch, lambda: train_step(params, state, batch, gen, WEIGHTS), card,
                   f"MIG bs{BATCH} train step")
 
+    clock("[trainer]")
     # ---- [trainer]: the 3-stage CLI on the card -----------------------------
     trainer_phase(torch, dev, card)
 
+    clock("[variants]")
     # ---- [variants]: DG_VAE, AE and num_rounds = 2 ------------------------------
     variants = {"DG_AE": cfg, "DG_VAE": dataclasses.replace(cfg, variational=True),
                 "AE": dataclasses.replace(cfg, struct_encoder="gcn"),
@@ -1445,12 +1497,12 @@ def main() -> int:
             kl.append(float(m_v["kl_loss"]))
         var_steps[name] = sorted(set(per))
         # (d) the bs16 train step's median wall time (informational)
-        reps = 5 if cfg_v.num_rounds > 1 else 20
+        reps = 3 if cfg_v.num_rounds > 1 else 5
         var_ms[name] = median_wall(lambda: ts_v(p_v, s_v, b16, gen_v, VARIANT_WEIGHTS), reps,
                                    sync) * 1e3
         if name in ("AE", "num_rounds=2"):   # where the plain torch of the variant goes
             profile_train(torch, lambda: ts_v(p_v, s_v, b16, gen_v, VARIANT_WEIGHTS), card,
-                          f"{name} MIG bs{BATCH} train step", steps=3, rows=12)
+                          f"{name} MIG bs{BATCH} train step", steps=1, rows=12, warm=0)
         log(f"[variants] {name}: {VARIANT_STEPS} train steps, weights {VARIANT_WEIGHTS}, "
             f"launches per step {var_names} {var_steps[name]}; kl_loss {kl}")
         if (kl[0] != 0.0) != cfg_v.variational:
@@ -1461,6 +1513,7 @@ def main() -> int:
     if var_steps != want_steps:
         raise RuntimeError(f"[variants] launches per train step {var_steps} != {want_steps}")
 
+    clock("[variants] encode and one step card vs CPU")
     # encode and one train step of each, card vs CPU
     want_enc = {"DG_VAE": (2 * ROUNDS, 0, 1, 0, 1, 0), "AE": (0, 0, 1, 0, 1, 0),
                 "num_rounds=2": (2 * ROUNDS, 0, 0, 0, 0, 0)}
@@ -1490,6 +1543,7 @@ def main() -> int:
         card_vs_cpu_step(f"variants {name}", b16, VARIANT_SMOOTH_WEIGHTS, cfg_x=cfg_v)
         card_vs_cpu_prob(f"variants {name}", b16, cfg_x=cfg_v)
 
+    clock("[variants] Model(variational=True) and the CLI")
     # DG_VAE through api.Model: its noise from its own device generator,
     # repeatable from the seed and fresh on every request
     vae_models = [Model(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
@@ -1541,6 +1595,7 @@ def main() -> int:
     log(f"[variants] MIG bs{BATCH} train step (host batch -> Adam update, synchronised), "
         f"median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in var_ms.items()))
 
+    clock("[precision]")
     # ---- [precision]: bf16 values and the TF32 mode -------------------------------
     t_precision = time.perf_counter()
     # (b) the main path in bf16: BF16_STEPS train steps of phase 7's model
@@ -1761,6 +1816,7 @@ def main() -> int:
     if leaf_faults:
         raise RuntimeError(f"[precision] gradient leaves past their bounds: {leaf_faults}")
 
+    clock("[precision] (d)")
     # (d) TF32: the bs16 train step under "default" and under "highest" (and
     # for information the bf16 step), in turns, and the drift of hs, hf and
     # the losses between the two modes
@@ -1804,36 +1860,23 @@ def main() -> int:
     # fp32 step ("highest"): the conversions (the master params cast to bf16
     # and their gradients back, the wrappers' fp32 weight copies) beside the
     # rest
+    clock("[precision] (d) the bf16 step's casts")
     casts = []
-    for m in ("highest", "bf16", "bf16", "highest"):
+    for m in ("highest", "bf16"):
         ts_t, p_t, s_t = steps_tf[m]
         c = step_casts(torch, lambda: ts_t(p_t, s_t, b16, gen, WEIGHTS))
         casts.append(f"{m} " + ", ".join(f"{k} {v:.3f}" for k, v in c.items()))
-    log(f"[precision] bf16 step vs fp32 (highest) under torch.profiler (5 steps a run, in turns; "
+    log(f"[precision] bf16 step vs fp32 (highest) under torch.profiler (5 steps a run; "
         f"per step: wall, device time, kernels, aten::_to_copy calls and host ms, copy "
         f"kernels' device ms): " + "; ".join(casts))
     ts_t, p_t, s_t = steps_tf["bf16"]
     profile_train(torch, lambda: ts_t(p_t, s_t, b16, gen, WEIGHTS), card,
-                  f"bf16 MIG bs{BATCH} train step", steps=5, rows=15)
+                  f"bf16 MIG bs{BATCH} train step", steps=5, rows=15, warm=0)
 
-    # (e) bf16 on the step route (the 64 circuits in two chunks, past
-    # kernel_fits) and on the giant route (the 64 collated plainly, N=20480)
-    # raises before any level launch
-    for route, batch_x in (("step", collate_chunked(graphs, CHUNKS)), ("giant", collate(graphs))):
-        var_zero()
-        try:
-            with torch.inference_mode():
-                dg_ae.forward(p16, batch_x, cfg16)
-        except NotImplementedError as err:
-            got = var_read()
-            log(f"[precision] bf16 on the {route} route refused (launches {var_names} {got}): "
-                f"{err}")
-            if "1.6b" not in str(err) or got[2:] != (0, 0, 0, 0):
-                raise RuntimeError(f"[precision] the {route} route's refusal: {err}; {got}")
-        else:
-            raise RuntimeError(f"[precision] bf16 on the {route} route did not raise")
-    log(f"[precision] phase: {time.perf_counter() - t_precision:.1f} s")
+    log(f"[precision] phase (a)-(d): {time.perf_counter() - t_precision:.1f} s; (e), bf16 on "
+        f"the step and giant routes, follows phase 17 on their batches")
 
+    clock("phase 10")
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------
     step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")
     step_err = step_bwd_err = route_err = route_bwd_err = 0.0
@@ -1922,6 +1965,7 @@ def main() -> int:
         step_err, step_bwd_err = max(step_err, *fwd_w), max(step_bwd_err, bwd_w)
         route_err, route_bwd_err = max(route_err, *route_w), max(route_bwd_err, route_worst)
 
+    clock("phase 11")
     # ---- 11. bs64 encode: Model.forward(list) through collate_fit ----------
     cfg = model.cfg
     level_mods = (level_kernel, struct_kernel)
@@ -1967,6 +2011,7 @@ def main() -> int:
     if hs_g.shape != (total_nodes, DIM) or not (d_hs <= CPU_TOL and d_hf <= CPU_TOL):
         raise RuntimeError("[encode64] card and CPU disagree")
 
+    clock("phase 12 and 13")
     # ---- 12 and 13. bs64 train steps: the step route, and a split batch ----
     def train_large(tag, batch, want, steps=LARGE_STEPS, lr=LARGE_LR, weights=WEIGHTS,
                     prob_check=True):
@@ -1997,8 +2042,10 @@ def main() -> int:
             raise RuntimeError(f"[{tag}] non-finite loss or metric")
         if steps > 1 and not losses[-1] < losses[0]:
             raise RuntimeError(f"[{tag}] the loss did not fall: {losses}")
+        clock(f"[{tag}] card vs CPU")
         card_vs_cpu_step(tag, batch, SMOOTH_WEIGHTS)
         if prob_check:
+            clock(f"[{tag}] card vs CPU, the prob loss")
             card_vs_cpu_prob(tag, batch)
         return totals
 
@@ -2086,6 +2133,7 @@ def main() -> int:
         2 * ROUNDS * GROUPS, SBWD_LAUNCHES * GROUPS, GROUPS, 3 * GROUPS, 0, 0, 0, 0,
         sum(sp_levels), sum(sp_levels)), prob_check=False)
 
+    clock("phase 14")
     # ---- 14. timing (informational) ----------------------------------------
     args = step_args
     with torch.no_grad():
@@ -2188,6 +2236,7 @@ def main() -> int:
         f"of 10, two turns: " + "; ".join(
             f"{name} {w[0] * 1e3:.3f}/{w[1] * 1e3:.3f} ms" for name, w in wall.items()))
 
+    clock("phase 15")
     # ---- 15. giant kernels vs plain, per modality ---------------------------
     giant_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak")
     giant_err = giant_bwd_err = 0.0
@@ -2271,6 +2320,7 @@ def main() -> int:
             giant_args, giant_ghf = args, ghf
         del hf_1, re_1, rn_1, grads_2, grads_r, grads_k
 
+    clock("phase 16")
     # ---- 16. giant encode: Model.forward(g) ----------------------------------
     giant_levels = dg_ae.num_levels(giant_batch)
     zero_counts()
@@ -2296,6 +2346,7 @@ def main() -> int:
         raise RuntimeError("[giant-encode] card and CPU disagree")
     del hs_c, hf_c
 
+    clock("phase 17")
     # ---- 17. giant training ----------------------------------------------------
     def giant_bwd_count(batch):
         """The giant backward's launches per call on a host batch: its real
@@ -2308,6 +2359,8 @@ def main() -> int:
     giant_want = (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, 1, giant_bwd_count(giant_batch), 0, 0)
     giant_totals = train_large("giant-train", giant_batch, giant_want, steps=GIANT_STEPS,
                                lr=GIANT_LR, weights=GIANT_WEIGHTS)
+
+    clock("[giant-train] one step by route, peaks")
 
     def one_giant_step(tag, remat=None, force_fused=False):
         """Forward, losses and backward of the giant batch from fresh params
@@ -2377,17 +2430,16 @@ def main() -> int:
     if not max(peak_giant, peak_remat) <= GIANT_PEAK_GIB * 2**30:
         raise RuntimeError(f"[giant-train] the giant step's peak exceeds {GIANT_PEAK_GIB} GiB")
 
-    def scan_alone_peak(scan):
+    def scan_alone_peak(scan, args=giant_args, ghf=giant_ghf):
         """Peak device memory, above what is held before, of the level
         recurrence alone on the giant batch: forward and backward through
         ``scan``'s autograd Function."""
-        t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS)
-             for i, a in enumerate(giant_args)]
+        t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS) for i, a in enumerate(args)]
         sync()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         hf = scan(*t, num_nodes=giant_batch["gate"].shape[0], num_levels=giant_levels)
-        torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], giant_ghf)
+        torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
         sync()
         return torch.cuda.max_memory_allocated() - base
 
@@ -2402,6 +2454,7 @@ def main() -> int:
     if not (scan_giant <= 1.25 * law and scan_giant < scan_fused):
         raise RuntimeError("[giant-train] the giant route's working memory is not O(N D + Ep D)")
 
+    clock("[plain64]")
     # a plain (unchunked) collate of the 64 circuits fails the fused route's
     # size gate on N and takes the giant route too
     plain64 = collate(graphs)
@@ -2421,6 +2474,205 @@ def main() -> int:
     train_large("plain64", plain64, (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, 1,
                                      giant_bwd_count(plain64), 0, 0), steps=1, prob_check=False)
 
+    clock("[precision] (e)")
+    # ---- [precision] (e): bf16 on the step and giant routes ----------------------
+    # on phase 12's two-chunk bs64 batch (the step route, kernels 5 and 6) and
+    # phase 15's giant batch (kernels 3 and 4), the model cast to bf16 as
+    # compute_dtype="bfloat16" casts it
+    t_e = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    to16 = lambda args: tuple(a.to(torch.bfloat16) if i in level_kernel.FLOAT_ARGS else a
+                              for i, a in enumerate(args))
+    N_g = giant_batch["gate"].shape[0]
+    s16, rghf16 = to16(step_args), route_ghf.to(torch.bfloat16)
+    g16, gghf16 = to16(giant_args), giant_ghf.to(torch.bfloat16)
+    ms16 = {}
+    # (e1) kernels 3-6 in bf16 against their plain bf16 versions (each output
+    # within BF16_ULPS of its own scale), kernel 3 = kernel 1 in bf16 bit for
+    # bit; CUDA events, plain / bf16 kernel / fp32 kernel in turns
+    with torch.no_grad():
+        hf3 = level_kernel._giant_forward_cuda(g16, N_g, giant_levels)
+        same31 = torch.equal(hf3, level_kernel._forward_cuda(g16, N_g, giant_levels,
+                                                             residuals=False))
+        e16_giant = bf16_close("giant forward (kernel 3) hf", hf3,
+                               level_kernel.level_scan_giant_reference(
+                                   *g16, num_nodes=N_g, num_levels=giant_levels), BF16_ATOL)
+        k_g = min(level_kernel.giant_chunk_levels(g16[0].shape[1], g16[4].shape[1], DIM,
+                                                  g16[0].shape[0], N_g, cfg.num_experts),
+                  giant_levels)
+        grep4, e16_giant_bwd = bf16_grads(
+            "giant backward (kernel 4)", grad_names,
+            level_kernel._giant_backward_cuda(gghf16, hf3, g16, giant_levels),
+            level_kernel.level_scan_giant_bwd_reference(gghf16, hf3, *g16,
+                                                        num_levels=giant_levels,
+                                                        chunk_levels=k_g))
+        prep16 = level_kernel._prepared(s16, backward=True)
+        hf5, re5, rn5 = level_kernel._step_route_forward_cuda(s16, ch_levels, n_sub, True,
+                                                              *prep16)
+        re5, rn5 = written_rows(s16[2], s16[3], s16[5], s16[0].shape[0], re5, rn5)
+        e16_step = max(bf16_close(f"step route forward (kernel 5) {name}", k, r, BF16_ATOL)
+                       for name, k, r in zip(("hf", "res_e", "res_n"), (hf5, re5, rn5),
+                                             level_kernel.level_scan_step_reference(
+                                                 *s16, ch_levels, n_sub, with_residuals=True)))
+        srep6, e16_step_bwd = bf16_grads(
+            "step route backward (kernel 6)", grad_names,
+            level_kernel._step_route_backward_cuda(rghf16, re5, rn5, s16, ch_levels, n_sub,
+                                                   *prep16),
+            level_kernel.level_scan_step_bwd_reference(rghf16, re5, rn5, *s16[:9], s16[10],
+                                                       s16[11], ch_levels, n_sub,
+                                                       chunk_levels=step_K))
+        prep32 = level_kernel._prepared(step_args, backward=True)
+        _, re32, rn32 = level_kernel._step_route_forward_cuda(step_args, ch_levels, n_sub, True,
+                                                              *prep32)
+        hf3_32 = level_kernel._giant_forward_cuda(giant_args, N_g, giant_levels)
+        timed16 = {   # name: (plain bf16, kernel bf16, kernel fp32)
+            "level_scan_giant_bf16": (
+                lambda: level_kernel.level_scan_giant_reference(*g16, num_nodes=N_g,
+                                                                num_levels=giant_levels),
+                lambda: level_kernel._giant_forward_cuda(g16, N_g, giant_levels),
+                lambda: level_kernel._giant_forward_cuda(giant_args, N_g, giant_levels)),
+            "level_scan_giant_bwd_bf16": (
+                lambda: level_kernel.level_scan_giant_bwd_reference(
+                    gghf16, hf3, *g16, num_levels=giant_levels, chunk_levels=k_g),
+                lambda: level_kernel._giant_backward_cuda(gghf16, hf3, g16, giant_levels),
+                lambda: level_kernel._giant_backward_cuda(giant_ghf, hf3_32, giant_args,
+                                                          giant_levels)),
+            "level_step_bf16": (
+                lambda: level_kernel.level_scan_step_reference(*s16, ch_levels, n_sub,
+                                                               with_residuals=True),
+                lambda: level_kernel._step_route_forward_cuda(s16, ch_levels, n_sub, True,
+                                                              *prep16),
+                lambda: level_kernel._step_route_forward_cuda(step_args, ch_levels, n_sub, True,
+                                                              *prep32)),
+            "level_step_bwd_bf16": (
+                lambda: level_kernel.level_scan_step_bwd_reference(
+                    rghf16, re5, rn5, *s16[:9], s16[10], s16[11], ch_levels, n_sub,
+                    chunk_levels=step_K),
+                lambda: level_kernel._step_route_backward_cuda(rghf16, re5, rn5, s16, ch_levels,
+                                                               n_sub, *prep16),
+                lambda: level_kernel._step_route_backward_cuda(route_ghf, re32, rn32, step_args,
+                                                               ch_levels, n_sub, *prep32)),
+        }
+        for name, (plain, k16, k32) in timed16.items():
+            for f in (k16, k32):
+                f()
+            reps = 5 if "giant_bwd" in name else 10
+            runs = [event_ms(torch, f, n) for f, n in ((plain, 1), (k16, reps), (k32, reps),
+                                                       (k32, reps), (k16, reps), (plain, 1))]
+            ms16[name] = ((runs[1] + runs[4]) / 2, (runs[0] + runs[5]) / 2, runs)
+        del re32, rn32, hf3_32
+    real16 = [k * L64 + lv for k, n in enumerate(ch_levels) for lv in range(n)]
+    rows16 = [a[real16] for a in s16[:7]] + list(s16[7:])
+    bounds.update(level_scan_giant_bf16=level_bound(g16, giant_levels, N_g, False),
+                  level_scan_giant_bwd_bf16=giant_bwd_bound(g16, giant_levels, N_g),
+                  level_step_bf16=level_bound(rows16, len(real16), CHUNKS * n_sub, True),
+                  level_step_bwd_bf16=level_bound(rows16, len(real16), CHUNKS * n_sub, True,
+                                                  True))
+    log(f"[precision] (e1) card: {card}")
+    log(f"[precision] (e1) bf16 kernels 3-6 vs plain: giant forward (N={N_g}, {giant_levels} "
+        f"levels) max|d| {e16_giant:.3e}, equal bit for bit to kernel 1's bf16 launch without "
+        f"residuals: {same31}; giant backward (K = {k_g}) max|d|/scale {grep4}; step route "
+        f"forward (bs{N_CIRCUITS} C={CHUNKS}) max|d| hf/res_e/res_n {e16_step:.3e}; step route "
+        f"backward (K = {step_K}) max|d|/scale {srep6} (each output within {BF16_ULPS} * its "
+        f"scale)")
+    for name, (k, pl, runs) in ms16.items():
+        log(f"[precision] (e1) {name}: bf16 kernel {runs[1]:.4f}/{runs[4]:.4f} ms, fp32 kernel "
+            f"{runs[2]:.4f}/{runs[3]:.4f} ms, plain bf16 {runs[0]:.4f}/{runs[5]:.4f} ms (CUDA "
+            f"events, in turns); bound {bounds[name]['bound_ms']:.5f} ms by "
+            f"{bounds[name]['bound_by']}")
+    if not same31:
+        raise RuntimeError("[precision] (e1) kernel 3 in bf16 differs from kernel 1 in bf16")
+
+    clock("[precision] (e2)")
+    # (e2) one bf16 train step on the two-chunk step-route batch, card vs CPU,
+    # with its launches
+    zero_counts()
+    s_card = step_grads(cfg16, chunked, DEVICE, WEIGHTS)
+    sync()
+    route16 = read_counts()
+    want = (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, step_fwd_want, step_bwd_want, 0, 0, 0, 0)
+    held_step = step_held(f"bf16 step route (bs{N_CIRCUITS} C={CHUNKS}) card vs CPU", s_card,
+                          step_grads(cfg16, chunked, "cpu", WEIGHTS), BF16_ATOL)
+    log(f"[precision] (e2) bf16 train step on the step route (bs{N_CIRCUITS} C={CHUNKS}): "
+        f"launches {COUNT_NAMES} {route16}; card vs CPU: {held_step}")
+    if route16 != want:
+        raise RuntimeError(f"[precision] (e2) launches {route16} != {want}")
+
+    clock("[precision] (e3)")
+    # (e3) the giant batch in bf16: encode and one train step card vs CPU; the
+    # step's median wall time and peak device memory beside fp32's, and the
+    # level recurrence's peak against phase 17's law
+    valid_g = torch.as_tensor(giant_batch["node_valid"])
+    enc_g = {}
+    for where in ("cpu", DEVICE):
+        p_e, _ = dg_ae.init_params(cfg16, seed=SEED, device=where)
+        with torch.inference_mode():
+            hs_e, hf_e, _ = dg_ae.forward(p_e, giant_batch, cfg16)
+        enc_g[where] = (hs_e.cpu()[valid_g], hf_e.cpu()[valid_g])
+    e_giant = [bf16_close(f"bf16 giant encode card vs CPU {n}", g, c, BF16_ATOL)
+               for n, g, c in zip(("hs", "hf"), enc_g[DEVICE], enc_g["cpu"])]
+    del enc_g
+    zero_counts()
+    s_card = step_grads(cfg16, giant_batch, DEVICE, GIANT_WEIGHTS)
+    sync()
+    giant16 = read_counts()
+    want = (2 * ROUNDS, SBWD_LAUNCHES, 0, 0, 0, 0, 1, giant_bwd_count(giant_batch), 0, 0)
+    held_giant = step_held("bf16 giant card vs CPU", s_card,
+                           step_grads(cfg16, giant_batch, "cpu", GIANT_WEIGHTS), BF16_ATOL)
+    log(f"[precision] (e3) bf16 giant (N={N_g}): encode card vs CPU max|d| hs/hf "
+        f"{e_giant[0]:.3e}/{e_giant[1]:.3e}; one train step (weights {GIANT_WEIGHTS}): launches "
+        f"{COUNT_NAMES} {giant16}; card vs CPU: {held_giant}")
+    if giant16 != want:
+        raise RuntimeError(f"[precision] (e3) launches {giant16} != {want}")
+    if leaf_faults:
+        raise RuntimeError(f"[precision] gradient leaves past their bounds: {leaf_faults}")
+
+    def giant_step_peak(c):
+        """Peak device memory of one giant train step (forward, losses,
+        backward) above what is held before it."""
+        p4, s4 = dg_ae.init_params(c, seed=SEED, device=dev)
+        for t in train_step_mod.param_leaves(p4):
+            t.requires_grad_(True)
+        neg, keep = fixed_draws(giant_batch, SEED + 11)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        total, _ = train_step_mod.loss_and_metrics(
+            p4, s4, giant_batch, None, GIANT_WEIGHTS, c, True,
+            neg_edges=tuple(t.to(dev) for t in neg), drop_keep=[k.to(dev) for k in keep])
+        total.backward()
+        sync()
+        return torch.cuda.max_memory_allocated() - base
+
+    # fp32's: phase 17's step without the struct remat, measured the same way
+    peak16 = {"fp32": peak_giant, "bf16": giant_step_peak(cfg16)}
+    wall_g = {}
+    for name, c in (("fp32", cfg), ("bf16", cfg16)):
+        p_t, s_t = dg_ae.init_params(c, seed=SEED, device=dev)
+        ts_t, _ = train_step_mod.make_train_step(c, train_step_mod.make_optimizer(p_t, GIANT_LR))
+        ts_t(p_t, s_t, giant_batch, gen, GIANT_WEIGHTS)
+        wall_g[name] = median_wall(lambda: ts_t(p_t, s_t, giant_batch, gen, GIANT_WEIGHTS), 3,
+                                   sync) * 1e3
+    scan16 = scan_alone_peak(level_kernel.level_scan_giant, g16, gghf16)
+    law16 = N_g * DIM * (2 + 4) + nbytes(g16[0])    # hf (bf16) + ghf's copy (fp32) + d_pack_lv
+    log(f"[precision] (e3) card: {card}")
+    log(f"[precision] (e3) giant MIG train step (host batch -> Adam update, synchronised), "
+        f"median of 3 after one: fp32 {wall_g['fp32']:.3f} ms, bf16 {wall_g['bf16']:.3f} ms; "
+        f"one step's own peak device memory: fp32 {peak16['fp32'] / 2**30:.3f} GiB (phase 17), "
+        f"bf16 "
+        f"{peak16['bf16'] / 2**30:.3f} GiB; the level recurrence alone in bf16: "
+        f"{scan16 / 2**20:.1f} MiB, against its hf (bf16) + ghf's copy (fp32) + d_pack_lv "
+        f"(bf16) = {law16 / 2**20:.1f} MiB ({scan16 / law16:.3f} x) and fp32's law "
+        f"{law / 2**20:.1f} MiB ({scan16 / law:.3f} x; K = {k_g}, fp32's, its scratch fp32) "
+        f"beside fp32's {scan_giant / 2**20:.1f} MiB")
+    if not (scan16 <= 1.25 * law and scan16 < scan_giant
+            and peak16["bf16"] <= GIANT_PEAK_GIB * 2**30):
+        raise RuntimeError("[precision] (e3) the bf16 giant route's working memory exceeds "
+                           "fp32's law or fp32's own, or the step's peak its limit")
+    del s16, g16, rghf16, gghf16, hf3, hf5, re5, rn5, prep16, prep32
+    log(f"[precision] (e): {time.perf_counter() - t_e:.1f} s")
+
+    clock("phase 18")
     # ---- 18. timing (informational) ----------------------------------------------
     args, ghf, n_lv = giant_args, giant_ghf, giant_levels
     N = giant_batch["gate"].shape[0]
@@ -2488,7 +2740,7 @@ def main() -> int:
         f"{g4_k2:.4f} ms, plain (recomputes) {g4_p1:.4f}/{g4_p2:.4f} ms, fused backward from "
         f"saved residuals {g4_f1:.4f}/{g4_f2:.4f} ms")
     profile_train(torch, lambda: step5(p5, s5, giant_batch, gen, GIANT_WEIGHTS), card,
-                  f"giant MIG train step (N={N})", steps=3, rows=16)
+                  f"giant MIG train step (N={N})", steps=3, rows=16, warm=0)
     log(f"[time] giant MIG encode (host batch -> hs, hf on card), median of 5: "
         f"{genc_s * 1e3:.3f} ms; giant MIG train step (host batch -> Adam update, synchronised), "
         f"median of 5: {gstep_s * 1e3:.3f} ms; stages: " + "; ".join(
@@ -2501,6 +2753,7 @@ def main() -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bounds[name],
                 "library_ms": None, **more}
 
+    clock("the kernels line")
     print(json.dumps({"kernels": [
         # encode path (phases 3-5)
         entry("struct_towers", "struct_towers.cu", "struct_kernel.py:175", enc_struct,
@@ -2540,6 +2793,21 @@ def main() -> int:
               *b16_ms["level_scan_bf16"][:2]),
         entry("level_scan_bwd_bf16", "level_scan_bwd.cu", "level_kernel.py:487", bf16_counts[3],
               b16_bwd, *b16_ms["level_scan_bwd_bf16"][:2]),
+        # bf16 on the step and giant routes ([precision] (e)): launches of
+        # (e2)'s and (e3)'s train steps; the fp32 kernel's time in the same call
+        # beside; the step route's numbers for its passes, as above
+        entry("level_scan_giant_bf16", "level_scan.cu", "level_kernel.py:911", giant16[6],
+              e16_giant, *ms16["level_scan_giant_bf16"][:2],
+              fp32_ms=sum(ms16["level_scan_giant_bf16"][2][2:4]) / 2),
+        entry("level_scan_giant_bwd_bf16", "level_scan_giant_bwd.cu", "level_kernel.py:1195",
+              giant16[7], e16_giant_bwd, *ms16["level_scan_giant_bwd_bf16"][:2],
+              fp32_ms=sum(ms16["level_scan_giant_bwd_bf16"][2][2:4]) / 2),
+        entry("level_step_bf16", "level_step.cu", "level_kernel.py:1636", route16[4], e16_step,
+              *ms16["level_step_bf16"][:2], launches_per_pass=step_fwd_want,
+              fp32_ms=sum(ms16["level_step_bf16"][2][2:4]) / 2),
+        entry("level_step_bwd_bf16", "level_step_bwd.cu", "level_kernel.py:1706", route16[5],
+              e16_step_bwd, *ms16["level_step_bwd_bf16"][:2], launches_per_pass=step_bwd_want,
+              fp32_ms=sum(ms16["level_step_bwd_bf16"][2][2:4]) / 2),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,8 @@ namespace {
 
 // ---- value types ----------------------------------------------------------
 //
-// The kernels that take bf16 values (the fused level scan and its backward,
-// the struct towers and theirs) are templates of the value type V, float or
-// __nv_bfloat16: what they store in device memory (hf, the residuals, the
+// Every level and struct kernel is a template of the value type V, float or
+// __nv_bfloat16: what it stores in device memory (hf, the residuals, the
 // state, d_pack). Registers and shared memory hold fp32, every sum is fp32,
 // and a value is rounded to V where the JAX package's kernels round it
 // (round_to). For V = float every helper is the identity, so the fp32

@@ -1,5 +1,5 @@
 // Level-recurrence forward of DG_AE (num_rounds == 1), for Hopper (sm_90a):
-// the fused route, with fp32 or bf16 values, and the giant route (fp32).
+// the fused route and the giant route, with fp32 or bf16 values.
 //
 // Replaces mgvae_tpu/ops/pallas/level_kernel.py::fused_level_scan (C == 1),
 // with and without its residual outputs, and ::fused_level_scan_hbm
@@ -55,9 +55,10 @@
 //     row gather). Here a slot reads only its own expert and gathers rows
 //     with indexed loads. fp32 FMA: tensor cores would mean TF32 or bf16.
 //
-// Values: fp32, or bf16 on the fused route (the JAX package's throughput
-// mode, level_kernel.py:352-356): pack_lv, hf and the residuals are then
-// bf16 in memory and rounded where the JAX kernel rounds them
+// Values: fp32, or bf16 on both routes (the JAX package's throughput mode,
+// level_kernel.py:352-356; the giant forward in bf16 is kernel 1's bf16
+// launch without residuals, bit for bit): pack_lv, hf and the residuals are
+// then bf16 in memory and rounded where the JAX kernel rounds them
 // (level_slot.cuh), while registers, shared memory, the softmax scratch and
 // every sum stay fp32. The expert weights are the wrapper's fp32 copies
 // either way (a bf16 weight is exact in fp32, and so is the product of two
@@ -143,10 +144,11 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_kernel(const ScanFor
                nxt[0] + first < nxt[1], D);   // past the last level: an empty range
     next.a();
     range(l + 2, far);
-    level_forward_block<NF, V>(level_of(p, l), cur[0] + first, cur[1], stride, w, x, p.hf, p.hf,
-                            p.lv_nodes + no, p.score_buf, p.v_buf,
-                            p.res_e ? p.res_e + eo * ew : nullptr,
-                            p.res_n ? p.res_n + no * 4 * D : nullptr, scratch, D, &ready, next);
+    level_forward_block<NF, V, V>(level_of(p, l), cur[0] + first, cur[1], stride, w, x, p.hf,
+                                  p.hf, p.lv_nodes + no, p.score_buf, p.v_buf,
+                                  p.res_e ? p.res_e + eo * ew : nullptr,
+                                  p.res_n ? p.res_n + no * 4 * D : nullptr, scratch, D, &ready,
+                                  next);
     cur[0] = nxt[0], cur[1] = nxt[1];
     nxt[0] = far[0], nxt[1] = far[1];
     if (l + 1 < p.num_levels) grid_barrier(p.barrier, (unsigned)(l + 1) * gridDim.x);

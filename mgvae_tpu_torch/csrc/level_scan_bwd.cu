@@ -88,11 +88,11 @@ int mgvae_level_scan_backward(
   const LevelBwd lists{lv_src, slot_rows, slot_off, in_rows, in_off, src_rows};
   cudaError_t err = cudaSuccess;
   MGVAE_WITH_VALUE(bf16, {
-    ScanBackward<V> p{static_cast<V*>(ghf), static_cast<const V*>(res_e),
-                      static_cast<const V*>(res_n), lv_nodes, lists, wkv_e, wvt_e, wiht_e, b_hh,
-                      wa_k, static_cast<V*>(d_pack), dkv, dg, dhf_buf, wkt_e, dscore, barrier,
-                      num_levels, ep, np, dim, num_experts};
-    MGVAE_WITH_NF(dim, err = launch_sweep<NF, V>(p, s));
+    ScanBackward<V, V> p{static_cast<V*>(ghf), static_cast<const V*>(res_e),
+                         static_cast<const V*>(res_n), lv_nodes, lists, wkv_e, wvt_e, wiht_e,
+                         b_hh, wa_k, static_cast<V*>(d_pack), dkv, dg, dhf_buf, wkt_e, dscore,
+                         barrier, num_levels, ep, np, dim, num_experts};
+    MGVAE_WITH_NF(dim, err = launch_sweep<NF, V, V>(p, s));
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_weight_grads(res_e, res_n, d_pack, dkv, dg, lists, grads,

@@ -213,13 +213,17 @@ struct NoNext {
 // level_scan.cu). `scratch`: kBatch * DP floats of shared memory of this
 // warp's own, 16-byte aligned. `next`: see NextSlot.
 //
-// hf, out and the residuals hold V; everything else is fp32. In bf16 the
+// hf and out hold V, the residuals R (V, or float where the giant backward's
+// recompute keeps them unrounded); everything else is fp32. In bf16 the
 // values are rounded where the JAX package's _level_body rounds them
 // (mgvae_tpu/ops/pallas/level_kernel.py): v * attn before the message sum
 // (:418-420; the softmax weights are then taken before the sum, not after
-// as in fp32), msg before the GRU product (:427), the residuals (:446-453)
-// and the new row (:480). hf's rows are bf16 already when gathered (:393).
-template <int NF, class V, class Next>
+// as in fp32), msg before the GRU product (:427), the residuals (:446-453;
+// R = V) and the new row (:480). hf's rows are bf16 already when gathered
+// (:393). With R = float the residuals are the unrounded fp32 values, as
+// the JAX giant backward recomputes them (:1375-1410): msg is its sum
+// before the rounding that feeds the GRU product.
+template <int NF, class V, class R, class Next>
 __device__ __forceinline__ void level_slot_forward(
     const LevelFwd<V>& lv, SlotPrep<NF>& sp, const ExpertWeights& w, const ExpertVec<NF>& x,
     Next& next,
@@ -227,8 +231,8 @@ __device__ __forceinline__ void level_slot_forward(
     V* out,                           // [., D] or null
     float* score_buf,                 // [Ep] scratch in device memory
     float* v_buf,                     // [Ep, D] scratch in device memory
-    V* __restrict__ res_e,            // [Ep, 3D+1] or null
-    V* __restrict__ res_n,            // [Np, 4D] or null
+    R* __restrict__ res_e,            // [Ep, 3D+1] or null
+    R* __restrict__ res_n,            // [Np, 4D] or null
     float* scratch, int D) {
   const int lane = threadIdx.x & 31;
   const size_t ew = 3 * (size_t)D + 1;
@@ -304,10 +308,10 @@ __device__ __forceinline__ void level_slot_forward(
         v[u][q] += sp.pv[u][q];
         if (!in_registers) v_buf[j * D + d] = v[u][q];
         if (res_e) {
-          V* re = res_e + j * ew;
-          re[d] = from_float<V>(h[u][q]);
-          re[D + d] = from_float<V>(k[u][q]);
-          re[2 * D + d] = from_float<V>(v[u][q]);
+          R* re = res_e + j * ew;
+          re[d] = from_float<R>(h[u][q]);
+          re[D + d] = from_float<R>(k[u][q]);
+          re[2 * D + d] = from_float<R>(v[u][q]);
         }
       }
       if (!in_registers && lane == 0) score_buf[j] = score[u];
@@ -376,7 +380,7 @@ __device__ __forceinline__ void level_slot_forward(
       }
     }
   }
-  float msg[NF];
+  float msg[NF];   // the GRU product's operand; the residual keeps acc
 #pragma unroll
   for (int q = 0; q < NF; ++q) {
     msg[q] = round_to<V>(acc[q]);   // 0 past D
@@ -395,7 +399,7 @@ __device__ __forceinline__ void level_slot_forward(
         sc = __ldcg(score_buf + j);
       }
       res_e[j * ew + 3 * D] =
-          from_float<V>(expf(fminf(fmaxf(sc - smax, -80.f), 0.f)) / (den + 1e-16f));
+          from_float<R>(expf(fminf(fmaxf(sc - smax, -80.f), 0.f)) / (den + 1e-16f));
     }
   }
 
@@ -415,11 +419,11 @@ __device__ __forceinline__ void level_slot_forward(
     const float n = tanhf(gi[2][q] + x.bin[q] + r * x.bhn[q]);
     if (out) out[(size_t)sp.out * D + d] = from_float<V>((1.f - z) * n);
     if (res_n) {
-      V* rn = res_n + (size_t)sp.slot * 4 * D;
-      rn[d] = from_float<V>(msg[q]);
-      rn[D + d] = from_float<V>(r);
-      rn[2 * D + d] = from_float<V>(z);
-      rn[3 * D + d] = from_float<V>(n);
+      R* rn = res_n + (size_t)sp.slot * 4 * D;
+      rn[d] = from_float<R>(acc[q]);   // for R = V the same as msg
+      rn[D + d] = from_float<R>(r);
+      rn[2 * D + d] = from_float<R>(z);
+      rn[3 * D + d] = from_float<R>(n);
     }
   }
 }
@@ -431,16 +435,17 @@ __device__ __forceinline__ void level_slot_forward(
 // without out_index (the step), or nowhere without out (the recompute).
 // `ready`: the warp's first slot of this level, prepared before the call, or
 // null. `next`: see NextSlot; its stages have all run when this returns.
-template <int NF, class V, class Next>
+// R: the residuals' type (level_slot_forward).
+template <int NF, class V, class R, class Next>
 __device__ __forceinline__ void level_forward_block(
     const LevelFwd<V>& lv, int p0, int p1, int stride, const ExpertWeights& w,
     const ExpertVec<NF>& x, const V* hf, V* out, const int* __restrict__ out_index,
-    float* score_buf, float* v_buf, V* __restrict__ res_e, V* __restrict__ res_n,
+    float* score_buf, float* v_buf, R* __restrict__ res_e, R* __restrict__ res_n,
     float* scratch, int D, const SlotPrep<NF>* ready, Next& next) {
   for (int p = p0; p < p1; p += stride) {
     SlotPrep<NF> sp = (ready && p == p0) ? *ready : level_slot_prepare<NF>(lv, p, out_index, D);
-    level_slot_forward<NF, V>(lv, sp, w, x, next, hf, out, score_buf, v_buf, res_e, res_n,
-                              scratch + (threadIdx.x >> 5) * kBatch * Staged<NF>::DP, D);
+    level_slot_forward<NF, V, R>(lv, sp, w, x, next, hf, out, score_buf, v_buf, res_e, res_n,
+                                 scratch + (threadIdx.x >> 5) * kBatch * Staged<NF>::DP, D);
   }
   next.b();
   next.c();
@@ -481,9 +486,10 @@ __device__ __forceinline__ ExpertWeights stage_forward_weights(
 // k * n_sub on (the tables' node ids are chunk-local), writes its new rows
 // to `out` from the same offset on, and keeps its softmax scratch at k * Ep.
 // A chunk past its real levels has empty lists there, so its blocks return
-// at once.
+// at once. V: the value type of pack_lv, hf, out and the residuals.
+template <class V>
 struct StepForward {
-  const float* pack_lv;     // [R, Ep, D+2]
+  const V* pack_lv;         // [R, Ep, D+2]
   const int* lv_src;        // [R, Ep]
   const int* out_index;     // [R, Np] the slots' nodes (lv_nodes), or null: slot s -> row s
   const int* slot_rows;     // [R, Np]
@@ -495,58 +501,58 @@ struct StepForward {
   const float* b_ih;        // [T, 3D]
   const float* b_hh;        // [T, 3D]
   const float* wa_k;        // [T, D]
-  const float* hf;          // [C * n_sub, D] read
-  float* out;               // [C * n_sub, D] (hf itself on the route) or [Np, D]
+  const V* hf;              // [C * n_sub, D] read
+  V* out;                   // [C * n_sub, D] (hf itself on the route) or [Np, D]
   float* score_buf;         // [C, Ep] scratch
   float* v_buf;             // [C, Ep, D] scratch
-  float* res_e;             // [R, Ep, 3D+1] or null
-  float* res_n;             // [R, Np, 4D] or null
+  V* res_e;                 // [R, Ep, 3D+1] or null
+  V* res_n;                 // [R, Np, 4D] or null
   int row, rows;            // chunk 0's row; rows from one chunk's level to the next's
   int n_sub, ep, np, dim, num_experts;
 };
 
 // Grid: (T * nbe, chunks) blocks of kLevelThreads; block (b, k) serves
 // expert b % T of chunk k.
-template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(const StepForward p) {
+template <int NF, class V>
+__global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(const StepForward<V> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.dim, T = p.num_experts, e = blockIdx.x % T, k = blockIdx.y;
   const size_t r = p.row + (size_t)k * p.rows;
   const int* so = p.slot_off + r * (T + 1);
   const int p1 = __ldg(so + e + 1);
   if (__ldg(so + e) == p1) return;  // block-uniform
-  const LevelFwd<float> lv{p.pack_lv + r * p.ep * (D + 2), p.lv_src + r * p.ep,
-                           p.slot_rows + r * p.np, so, p.in_rows + r * p.ep,
-                           p.in_off + r * (p.np + 1)};
+  const LevelFwd<V> lv{p.pack_lv + r * p.ep * (D + 2), p.lv_src + r * p.ep,
+                       p.slot_rows + r * p.np, so, p.in_rows + r * p.ep,
+                       p.in_off + r * (p.np + 1)};
   const size_t h0 = (size_t)k * p.n_sub * D, ew = 3 * (size_t)D + 1;
   float* scratch;
   const ExpertVec<NF> x = load_expert_vec<NF>(p.b_ih, p.b_hh, p.wa_k, e, D);
   const ExpertWeights w = stage_forward_weights<NF>(smem, p.wkv_e, p.wih_e, e, &scratch);
   NoNext none;
   const int nbe = gridDim.x / T;
-  level_forward_block<NF, float>(lv, __ldg(so + e) + first_slot(blockIdx.x / T, nbe), p1,
-                          slot_stride(nbe), w, x, p.hf + h0, p.out + h0,
-                          p.out_index ? p.out_index + r * p.np : nullptr,
-                          p.score_buf + (size_t)k * p.ep, p.v_buf + (size_t)k * p.ep * D,
-                          p.res_e ? p.res_e + r * p.ep * ew : nullptr,
-                          p.res_n ? p.res_n + r * p.np * 4 * D : nullptr, scratch, D, nullptr,
-                          none);
+  level_forward_block<NF, V, V>(lv, __ldg(so + e) + first_slot(blockIdx.x / T, nbe), p1,
+                                slot_stride(nbe), w, x, p.hf + h0, p.out + h0,
+                                p.out_index ? p.out_index + r * p.np : nullptr,
+                                p.score_buf + (size_t)k * p.ep, p.v_buf + (size_t)k * p.ep * D,
+                                p.res_e ? p.res_e + r * p.ep * ew : nullptr,
+                                p.res_n ? p.res_n + r * p.np * 4 * D : nullptr, scratch, D,
+                                nullptr, none);
 }
 
 // Launches the kernel above for `chunks` chunks on stream s, with
 // chunk_blocks_per_expert blocks per expert.
-template <int NF>
-cudaError_t launch_level_forward(const StepForward& p, int chunks, cudaStream_t s) {
+template <int NF, class V>
+cudaError_t launch_level_forward(const StepForward<V>& p, int chunks, cudaStream_t s) {
   static bool configured = false;
   static int resident = 0;   // blocks the device the first call ran on holds at once
   if (!configured) {
-    cudaError_t err = resident_blocks(level_fwd_kernel<NF>, forward_smem<NF>(), &resident);
+    cudaError_t err = resident_blocks(level_fwd_kernel<NF, V>, forward_smem<NF>(), &resident);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
-  level_fwd_kernel<NF><<<dim3(p.num_experts * nbe, chunks), kLevelThreads, forward_smem<NF>(),
-                         s>>>(p);
+  level_fwd_kernel<NF, V><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
+                            forward_smem<NF>(), s>>>(p);
   return cudaGetLastError();
 }
 

@@ -24,16 +24,22 @@
 // so an in-edge costs O(D), not O(D^2).
 //
 // Values (level_common.cuh): the slot backward, the source sums and the
-// persistent sweep are templates of V, which the fused backward instantiates
-// in fp32 and bf16 and the others in fp32. With V = bf16 the residuals, the
-// carried ghf and d_pack are bf16 in memory and the values are rounded where
-// the JAX package's _level_bwd_body rounds them (level_kernel.py): dgi before
-// the dmsg product (:728), dmsg (:732), dk | dv before the dhf_src product
-// (:750; the per-edge products then do not collapse: a slot reads wk_e^T too
-// and computes each in-edge's dhf_src as the forward computes its k and v),
-// d_pack (:758), dhf_src, and a source's sum before and after it is added to
-// ghf (:774-778). dscore goes to an fp32 buffer for d_wak, as the JAX kernel
-// sums it unrounded.
+// persistent sweep are templates of the value type V (d_pack, and the
+// rounding points of the products' operands) and of R, the type of the
+// residuals and of the carried cotangent (ghf, or the step's g and d_hf).
+// Every level backward instantiates them in fp32 and in bf16: the fused
+// backward and the step route's with R = V, the giant backward with
+// R = float. With V = bf16 the values are rounded where the JAX package's
+// _level_bwd_body rounds them (level_kernel.py): dgi before the dmsg product
+// (:728), dmsg (:732), dk | dv before the dhf_src product (:750; the
+// per-edge products then do not collapse: a slot reads wk_e^T too and
+// computes each in-edge's dhf_src as the forward computes its k and v) and
+// d_pack (:758); dscore goes to an fp32 buffer for d_wak, as the JAX kernel
+// sums it unrounded. With R = V = bf16 the residuals and the carried ghf are
+// bf16 in memory, and dhf_src and a source's sum are rounded before and
+// after it is added to ghf (:774-778). With R = float (the giant backward,
+// _level_bwd_kernel_hbm, :1375-1518) the recomputed residuals, ghf, dhf_src
+// and the source sums stay fp32, unrounded.
 #pragma once
 
 #include "level_common.cuh"
@@ -103,9 +109,9 @@ __device__ __forceinline__ ExpertVecBwd<NF> load_expert_vec_bwd(
 }
 
 // Values of in-edges t0 .. t0+3, this lane's features.
-template <int NF, class V>
+template <int NF, class R>
 __device__ __forceinline__ void load_values(const LevelBwd& lv, const SlotPrepBwd<NF>& sp,
-                                            const V* __restrict__ res_e, int t0, int D,
+                                            const R* __restrict__ res_e, int t0, int D,
                                             float (&v)[kBatch][NF]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -115,7 +121,7 @@ __device__ __forceinline__ void load_values(const LevelBwd& lv, const SlotPrepBw
     if (t < sp.n) {   // warp-uniform
       j = t < 32 ? __shfl_sync(0xffffffffu, sp.j, t) : __ldg(lv.in_rows + sp.eb + t);
     }
-    const V* re = res_e + (size_t)j * (3 * D + 1) + 2 * D;
+    const R* re = res_e + (size_t)j * (3 * D + 1) + 2 * D;
 #pragma unroll
     for (int q = 0; q < NF; ++q) {
       v[u][q] = (t < sp.n && lane + 32 * q < D) ? to_float(re[lane + 32 * q]) : 0.f;
@@ -136,16 +142,16 @@ __device__ __forceinline__ void slot_bwd_prepare_a(const LevelBwd& lv, int p,
   sp.n = __ldg(lv.in_off + p + 1);   // the end of the slot's in-edges, until stage b
 }
 
-template <int NF, class V>
+template <int NF, class R>
 __device__ __forceinline__ void slot_bwd_prepare_b(const LevelBwd& lv,
-                                                   const V* __restrict__ res_n,
+                                                   const R* __restrict__ res_n,
                                                    const int* __restrict__ g_index, int D,
                                                    SlotPrepBwd<NF>& sp) {
   const int lane = threadIdx.x & 31;
   sp.n -= sp.eb;
   sp.j = lane < sp.n ? __ldg(lv.in_rows + sp.eb + lane) : 0;
   sp.g = g_index ? __ldg(g_index + sp.slot) : sp.slot;
-  const V* rn = res_n + (size_t)sp.slot * 4 * D;
+  const R* rn = res_n + (size_t)sp.slot * 4 * D;
 #pragma unroll
   for (int q = 0; q < NF; ++q) {
     const int d = lane + 32 * q;
@@ -155,17 +161,17 @@ __device__ __forceinline__ void slot_bwd_prepare_b(const LevelBwd& lv,
   }
 }
 
-template <int NF, class V>
+template <int NF, class R>
 __device__ __forceinline__ void slot_bwd_prepare_c(const LevelBwd& lv,
-                                                   const V* __restrict__ res_e, int D,
+                                                   const R* __restrict__ res_e, int D,
                                                    SlotPrepBwd<NF>& sp) {
   sp.a = (threadIdx.x & 31) < sp.n ? to_float(res_e[(size_t)sp.j * (3 * D + 1) + 3 * D]) : 0.f;
   load_values(lv, sp, res_e, 0, D, sp.v);
 }
 
-template <int NF, class V>
+template <int NF, class R>
 __device__ __forceinline__ SlotPrepBwd<NF> level_slot_bwd_prepare(
-    const LevelBwd& lv, int p, const V* __restrict__ res_e, const V* __restrict__ res_n,
+    const LevelBwd& lv, int p, const R* __restrict__ res_e, const R* __restrict__ res_n,
     const int* __restrict__ g_index, int D) {
   SlotPrepBwd<NF> sp;
   slot_bwd_prepare_a(lv, p, sp);
@@ -177,16 +183,16 @@ __device__ __forceinline__ SlotPrepBwd<NF> level_slot_bwd_prepare(
 // The slot at position p of the next (lower) level's list that a warp of the
 // persistent sweep prepares while it computes its slot of this level: the
 // forward's NextSlot for the backward.
-template <int NF, class V>
+template <int NF, class R>
 struct NextSlotBwd {
   LevelBwd lv;
-  const V* res_e;
-  const V* res_n;
+  const R* res_e;
+  const R* res_n;
   const int* g_index;
   int p, D, stage;   // stage: the next to run; 3: none (done, or no slot there)
   SlotPrepBwd<NF> sp;
-  __device__ __forceinline__ void start(const LevelBwd& level, const V* e_rows,
-                                        const V* n_rows, const int* index, int pos,
+  __device__ __forceinline__ void start(const LevelBwd& level, const R* e_rows,
+                                        const R* n_rows, const int* index, int pos,
                                         bool any, int dim) {
     lv = level;
     res_e = e_rows;
@@ -230,12 +236,13 @@ struct NoNextBwd {
 // dattn, the softmax backward, dv, dk and dhf_src. `scratch`:
 // bwd_scratch_floats<NF, V>() floats of shared memory of this warp's own
 // (DP = 32 NF). `next`: see NextSlotBwd. With V = bf16, w.a = wk_e^T and
-// `dscore_out` [Ep] receives each in-edge's dscore in fp32.
-template <int NF, class V, class Next>
+// `dscore_out` [Ep] receives each in-edge's dscore in fp32. g and the
+// residuals hold R, dhf_buf is rounded to R.
+template <int NF, class V, class R, class Next>
 __device__ __forceinline__ void level_slot_backward(
     const LevelBwd& lv, SlotPrepBwd<NF>& sp, const ExpertWeights& w,
-    const ExpertVecBwd<NF>& x, Next& next, const float* ck, const V* g,
-    const V* __restrict__ res_e,       // [Ep, 3D+1] hf_src | khf | v | attn
+    const ExpertVecBwd<NF>& x, Next& next, const float* ck, const R* g,
+    const R* __restrict__ res_e,       // [Ep, 3D+1] hf_src | khf | v | attn
     V* __restrict__ d_pack,            // [Ep, D+2]: dv | dscore written
     float* __restrict__ dkv,           // [Ep, 2D]: dk | dv, for the weight gradients
     float* __restrict__ dg,            // [Np, 6D]: dgi | dbh, for the weight gradients
@@ -252,7 +259,7 @@ __device__ __forceinline__ void level_slot_backward(
 
   // GRU backward with h = 0: h_new = (1 - z) * nw, nw = tanh(i_n + r * b_hn)
   float* o = dg + (size_t)sp.slot * 6 * D;
-  const V* g_row = g + (size_t)sp.g * D;
+  const R* g_row = g + (size_t)sp.g * D;
 #pragma unroll
   for (int q = 0; q < NF; ++q) {
     const int d = lane + 32 * q;
@@ -405,7 +412,7 @@ __device__ __forceinline__ void level_slot_backward(
         if (t0 + u >= sp.n) break;
 #pragma unroll
         for (int q = 0; q < NF; ++q) {
-          if (own[q]) dhf_buf[rows[u] * D + lane + 32 * q] = round_to<V>(acc[u][q]);
+          if (own[q]) dhf_buf[rows[u] * D + lane + 32 * q] = round_to<R>(acc[u][q]);
         }
       }
     }
@@ -415,21 +422,21 @@ __device__ __forceinline__ void level_slot_backward(
 // A warp's share of one level's slot backward: as level_forward_block. The
 // cotangent of slot s is the row of g at g_index[s] (the sweeps: ghf at the
 // slot's node) or at s without g_index (the step).
-template <int NF, class V, class Next>
+template <int NF, class V, class R, class Next>
 __device__ __forceinline__ void level_backward_block(
     const LevelBwd& lv, int p0, int p1, int stride, const ExpertWeights& w,
-    const ExpertVecBwd<NF>& x, const float* ck, const V* g,
-    const int* __restrict__ g_index, const V* __restrict__ res_e,
-    const V* __restrict__ res_n, V* __restrict__ d_pack, float* __restrict__ dkv,
+    const ExpertVecBwd<NF>& x, const float* ck, const R* g,
+    const int* __restrict__ g_index, const R* __restrict__ res_e,
+    const R* __restrict__ res_n, V* __restrict__ d_pack, float* __restrict__ dkv,
     float* __restrict__ dg, float* dhf_buf, float* dscore, float* scratch, int D,
     const SlotPrepBwd<NF>* ready, Next& next) {
   for (int p = p0; p < p1; p += stride) {
     SlotPrepBwd<NF> sp = (ready && p == p0)
                              ? *ready
-                             : level_slot_bwd_prepare<NF, V>(lv, p, res_e, res_n, g_index, D);
-    level_slot_backward<NF, V>(lv, sp, w, x, next, ck, g, res_e, d_pack, dkv, dg, dhf_buf,
-                               dscore, scratch + (threadIdx.x >> 5) * bwd_scratch_floats<NF, V>(),
-                               D);
+                             : level_slot_bwd_prepare<NF, R>(lv, p, res_e, res_n, g_index, D);
+    level_slot_backward<NF, V, R>(lv, sp, w, x, next, ck, g, res_e, d_pack, dkv, dg, dhf_buf,
+                                  dscore,
+                                  scratch + (threadIdx.x >> 5) * bwd_scratch_floats<NF, V>(), D);
   }
   next.b();
   next.c();
@@ -443,11 +450,12 @@ __device__ __forceinline__ void level_backward_block(
 // (= row) order and adds once. No atomics, the same result on every run.
 // `first_warp` / `num_warps`: this warp's number among all that share the
 // level. dhf_buf and out are read past L1 (a persistent sweep wrote them
-// itself). With V = bf16 the group's fp32 sum is rounded, added to its row
-// of out and rounded again (level_kernel.py:774-778).
-template <int NF, class V>
+// itself). With R = bf16 the group's fp32 sum is rounded, added to its row
+// of out and rounded again (level_kernel.py:774-778); with R = float both
+// are exact fp32 sums (the giant backward's, :1486-1518).
+template <int NF, class R>
 __device__ __forceinline__ void level_source_block(
-    const LevelBwd& lv, int np, V* out, const float* dhf_buf, int first_warp, int num_warps,
+    const LevelBwd& lv, int np, R* out, const float* dhf_buf, int first_warp, int num_warps,
     int D) {
   const int lane = threadIdx.x & 31;
   const int n_live = __ldg(lv.in_off + np);
@@ -497,7 +505,7 @@ __device__ __forceinline__ void level_source_block(
       const int d = lane + 32 * q;
       if (d < D) {
         out[(size_t)s * D + d] =
-            from_float<V>(load_cg(out + (size_t)s * D + d) + round_to<V>(acc[q]));
+            from_float<R>(load_cg(out + (size_t)s * D + d) + round_to<R>(acc[q]));
       }
     }
   }
@@ -559,33 +567,37 @@ __device__ __forceinline__ ExpertWeights stage_backward_weights(
 // lists and residuals (all rows' arrays are given), reads its slots'
 // cotangents from g and adds its sources' gradients into `out`, both from
 // rows k * n_sub on (the tables' node ids are chunk-local), and keeps its
-// scratch rows dkv, dg at k * scratch_rows rows of the level's width from
-// the given pointers on, dhf_buf at k * Ep rows. A chunk past its real
-// levels has empty lists there, so its blocks return at once.
+// scratch rows dkv, dg and (bf16) dscore at k * scratch_rows rows of the
+// level's width from the given pointers on, dhf_buf at k * Ep rows. A chunk
+// past its real levels has empty lists there, so its blocks return at once.
+// V: the value type of g, the residuals, d_pack and out (R = V).
+template <class V>
 struct StepBackward {
   LevelBwd lists;           // all rows': lv_src, slot_rows, slot_off, in_rows, in_off, src_rows
-  const float* g;           // [C * n_sub, D] (the carried ghf) or [Np, D]
+  const V* g;               // [C * n_sub, D] (the carried ghf) or [Np, D]
   const int* g_index;       // [R, Np] the slots' nodes (lv_nodes), or null: slot s <- row s
-  const float* res_e;       // [R, Ep, 3D+1]
-  const float* res_n;       // [R, Np, 4D]
+  const V* res_e;           // [R, Ep, 3D+1]
+  const V* res_n;           // [R, Np, 4D]
   const float* wkv_e;       // [T, 2, DP, DP]
   const float* wvt_e;       // [T, DP, DP]
   const float* wiht_e;      // [T, 3 DP, DP]
   const float* b_hh;        // [T, 3D]
   const float* wa_k;        // [T, D]
-  float* d_pack;            // [R, Ep, D+2]
+  V* d_pack;                // [R, Ep, D+2]
   float* dkv;               // chunk k's level at dkv + k * scratch_rows * Ep * 2D
   float* dg;                // chunk k's level at dg + k * scratch_rows * Np * 6D
   float* dhf_buf;           // [C, Ep, D]
-  float* out;               // [C * n_sub, D]: ghf (the route) or d_hf (the step), added into
+  V* out;                   // [C * n_sub, D]: ghf (the route) or d_hf (the step), added into
+  const float* wkt_e;       // [T, DP, DP]: wk_e transposed (bf16 only), or null
+  float* dscore;            // chunk k's level at dscore + k * scratch_rows * Ep (bf16), or null
   int row, rows, scratch_rows;
   int n_sub, ep, np, dim, num_experts;
 };
 
 // Grid: (T * nbe, chunks) blocks of kLevelThreads; block (b, k) serves
 // expert b % T of chunk k.
-template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(const StepBackward p) {
+template <int NF, class V>
+__global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(const StepBackward<V> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.dim, T = p.num_experts, e = blockIdx.x % T, k = blockIdx.y;
   const int r = p.row + k * p.rows;
@@ -595,50 +607,52 @@ __global__ void __launch_bounds__(kLevelThreads) level_bwd_slot_kernel(const Ste
   if (__ldg(lv.slot_off + e) == p1) return;  // block-uniform
   float *ck, *scratch;
   const ExpertVecBwd<NF> x = load_expert_vec_bwd<NF>(p.b_hh, p.wa_k, e, D);
-  const ExpertWeights w = stage_backward_weights<NF, float>(smem, p.wkv_e, p.wvt_e, p.wiht_e,
-                                                            nullptr, p.wa_k, e, D, &ck, &scratch);
+  const ExpertWeights w = stage_backward_weights<NF, V>(smem, p.wkv_e, p.wvt_e, p.wiht_e,
+                                                        p.wkt_e, p.wa_k, e, D, &ck, &scratch);
   NoNextBwd none;
   const int nbe = gridDim.x / T;
   const int p0 = __ldg(lv.slot_off + e) + first_slot(blockIdx.x / T, nbe);
-  level_backward_block<NF, float>(lv, p0, p1, slot_stride(nbe), w, x, ck,
-                           p.g + (size_t)k * p.n_sub * D,
-                           p.g_index ? p.g_index + (size_t)r * p.np : nullptr,
-                           p.res_e + (size_t)r * p.ep * (3 * D + 1),
-                           p.res_n + (size_t)r * p.np * 4 * D,
-                           p.d_pack + (size_t)r * p.ep * (D + 2), p.dkv + sr * p.ep * 2 * D,
-                           p.dg + sr * p.np * 6 * D, p.dhf_buf + (size_t)k * p.ep * D, nullptr,
-                           scratch, D, nullptr, none);
+  level_backward_block<NF, V, V>(lv, p0, p1, slot_stride(nbe), w, x, ck,
+                                 p.g + (size_t)k * p.n_sub * D,
+                                 p.g_index ? p.g_index + (size_t)r * p.np : nullptr,
+                                 p.res_e + (size_t)r * p.ep * (3 * D + 1),
+                                 p.res_n + (size_t)r * p.np * 4 * D,
+                                 p.d_pack + (size_t)r * p.ep * (D + 2),
+                                 p.dkv + sr * p.ep * 2 * D, p.dg + sr * p.np * 6 * D,
+                                 p.dhf_buf + (size_t)k * p.ep * D,
+                                 p.dscore ? p.dscore + sr * p.ep : nullptr, scratch, D, nullptr,
+                                 none);
 }
 
 // Grid: (any number, chunks) blocks of kLevelThreads.
-template <int NF>
-__global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(const StepBackward p) {
+template <int NF, class V>
+__global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(const StepBackward<V> p) {
   const int k = blockIdx.y, r = p.row + k * p.rows;
-  level_source_block<NF, float>(level_of(p.lists, r, p.ep, p.np, p.num_experts), p.np,
-                         p.out + (size_t)k * p.n_sub * p.dim,
-                         p.dhf_buf + (size_t)k * p.ep * p.dim,
-                         blockIdx.x * kLevelWarps + (threadIdx.x >> 5), gridDim.x * kLevelWarps,
-                         p.dim);
+  level_source_block<NF, V>(level_of(p.lists, r, p.ep, p.np, p.num_experts), p.np,
+                            p.out + (size_t)k * p.n_sub * p.dim,
+                            p.dhf_buf + (size_t)k * p.ep * p.dim,
+                            blockIdx.x * kLevelWarps + (threadIdx.x >> 5), gridDim.x * kLevelWarps,
+                            p.dim);
 }
 
 // Launches the two kernels above for `chunks` chunks on stream s (blocks per
 // expert as the forward's, launch_level_forward).
-template <int NF>
-cudaError_t launch_level_backward(const StepBackward& p, int chunks, cudaStream_t s) {
+template <int NF, class V>
+cudaError_t launch_level_backward(const StepBackward<V>& p, int chunks, cudaStream_t s) {
   static bool configured = false;
   static int resident = 0;   // blocks the device the first call ran on holds at once
   cudaError_t err = cudaSuccess;
   if (!configured) {
-    err = resident_blocks(level_bwd_slot_kernel<NF>, backward_smem<NF, float>(), &resident);
+    err = resident_blocks(level_bwd_slot_kernel<NF, V>, backward_smem<NF, V>(), &resident);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
-  level_bwd_slot_kernel<NF><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
-                              backward_smem<NF, float>(), s>>>(p);
+  level_bwd_slot_kernel<NF, V><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
+                                 backward_smem<NF, V>(), s>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  level_bwd_source_kernel<NF><<<dim3((p.ep + kLevelWarps - 1) / kLevelWarps, chunks),
-                                kLevelThreads, 0, s>>>(p);
+  level_bwd_source_kernel<NF, V><<<dim3((p.ep + kLevelWarps - 1) / kLevelWarps, chunks),
+                                   kLevelThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -650,11 +664,13 @@ cudaError_t launch_level_backward(const StepBackward& p, int chunks, cudaStream_
 // backward, level_scan_giant_bwd.cu, which passes every array from its
 // chunk's first level on).
 
-template <class V>
+// V: the value type (d_pack); R: the residuals' and ghf's (V, or float in
+// the giant backward).
+template <class V, class R>
 struct ScanBackward {
-  V* ghf;                 // [N, D] cotangent of hf, updated in place
-  const V* res_e;         // [L, Ep, 3D+1]
-  const V* res_n;         // [L, Np, 4D]
+  R* ghf;                 // [N, D] cotangent of hf, updated in place
+  const R* res_e;         // [L, Ep, 3D+1]
+  const R* res_n;         // [L, Np, 4D]
   const int* lv_nodes;    // [L, Np]
   LevelBwd lists;         // all levels': lv_src, slot_rows, slot_off, in_rows, in_off, src_rows
   const float* wkv_e;     // [T, 2, DP, DP], DP = D rounded up to 32
@@ -674,8 +690,9 @@ struct ScanBackward {
 
 // Cooperative launch: T * nbe blocks of kLevelThreads; block b serves expert
 // b % T as the (b / T)-th of its nbe blocks.
-template <int NF, class V>
-__global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const ScanBackward<V> p) {
+template <int NF, class V, class R>
+__global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(
+    const ScanBackward<V, R> p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.dim, T = p.num_experts;
   const int e = blockIdx.x % T, be = blockIdx.x / T, nbe = gridDim.x / T;
@@ -694,7 +711,7 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const Sca
     r[0] = l >= 0 ? __ldg(so + (size_t)l * (T + 1)) : 0;
     r[1] = l >= 0 ? __ldg(so + (size_t)l * (T + 1) + 1) : 0;
   };
-  auto start = [&](NextSlotBwd<NF, V>& next, int l, const int (&r)[2]) {
+  auto start = [&](NextSlotBwd<NF, R>& next, int l, const int (&r)[2]) {
     const size_t lo = l >= 0 ? l : 0;              // below level 0: an empty range
     next.start(level_of(p.lists, lo, p.ep, p.np, T), p.res_e + lo * p.ep * ew,
                p.res_n + lo * p.np * 4 * D, p.lv_nodes + lo * p.np, r[0] + first,
@@ -704,7 +721,7 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const Sca
   int cur[2], nxt[2], far[2];
   range(l, cur);
   range(l - 1, nxt);
-  NextSlotBwd<NF, V> next;
+  NextSlotBwd<NF, R> next;
   start(next, l, cur);
   next.a();
   next.b();
@@ -716,23 +733,23 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(const Sca
     start(next, l - 1, nxt);
     next.a();
     range(l - 2, far);
-    level_backward_block<NF, V>(lv, cur[0] + first, cur[1], stride, w, x, ck, p.ghf,
-                                p.lv_nodes + no, p.res_e + eo * ew, p.res_n + no * 4 * D,
-                                p.d_pack + eo * (D + 2), p.dkv + eo * 2 * D, p.dg + no * 6 * D,
-                                p.dhf_buf, p.dscore ? p.dscore + eo : nullptr, scratch, D,
-                                &ready, next);
+    level_backward_block<NF, V, R>(lv, cur[0] + first, cur[1], stride, w, x, ck, p.ghf,
+                                   p.lv_nodes + no, p.res_e + eo * ew, p.res_n + no * 4 * D,
+                                   p.d_pack + eo * (D + 2), p.dkv + eo * 2 * D,
+                                   p.dg + no * 6 * D, p.dhf_buf,
+                                   p.dscore ? p.dscore + eo : nullptr, scratch, D, &ready, next);
     cur[0] = nxt[0], cur[1] = nxt[1];
     nxt[0] = far[0], nxt[1] = far[1];
     grid_barrier(p.barrier, target += gridDim.x);
-    level_source_block<NF, V>(lv, p.np, p.ghf, p.dhf_buf,
+    level_source_block<NF, R>(lv, p.np, p.ghf, p.dhf_buf,
                            blockIdx.x * kLevelWarps + (threadIdx.x >> 5),
                            gridDim.x * kLevelWarps, D);
     if (l > 0) grid_barrier(p.barrier, target += gridDim.x);
   }
 }
 
-template <int NF, class V>
-cudaError_t launch_sweep(ScanBackward<V> p, cudaStream_t s) {
+template <int NF, class V, class R>
+cudaError_t launch_sweep(ScanBackward<V, R> p, cudaStream_t s) {
   const size_t smem = backward_smem<NF, V>();
   static bool configured = false;
   static int sms = 0, per_sm = 0;   // of the device the first call ran on
@@ -743,11 +760,11 @@ cudaError_t launch_sweep(ScanBackward<V> p, cudaStream_t s) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
     bool allowed = false;
-    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF, V>, smem, &allowed)) !=
+    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF, V, R>, smem, &allowed)) !=
         cudaSuccess) {
       return err;
     }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF, V>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF, V, R>,
                                                         kLevelThreads, smem);
     if (err != cudaSuccess) return err;
     configured = true;
@@ -759,7 +776,7 @@ cudaError_t launch_sweep(ScanBackward<V> p, cudaStream_t s) {
   if (nbe < 1) return cudaErrorCooperativeLaunchTooLarge;
   if ((err = cudaMemsetAsync(p.barrier, 0, sizeof(unsigned), s)) != cudaSuccess) return err;
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_bwd_kernel<NF, V>),
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(level_scan_bwd_kernel<NF, V, R>),
                                      dim3(p.num_experts * nbe), dim3(kLevelThreads), args, smem,
                                      s);
 }
@@ -949,13 +966,15 @@ inline size_t weight_grad_floats(int D, int T) {
 // chunks' partials into `partial` [chunks, weight_grad_floats], then their
 // pairwise sums written into `grads` or, with `accumulate`, added. Adds one
 // to *launched for each kernel it enqueues, where `launched` is not null.
-// With `bf16` res_e, res_n and d_pack hold bf16 and d_wak reads each edge's
-// fp32 dscore from `dscore` [levels, Ep] instead of d_pack.
+// With `res_bf16` res_e and res_n hold bf16 (else fp32). d_wak reads each
+// edge's fp32 dscore from `dscore` [levels, Ep] where that is given (it must
+// be where d_pack holds bf16), else from d_pack (fp32).
 cudaError_t launch_weight_grads(
     const void* res_e, const void* res_n, const void* d_pack, const float* dkv,
     const float* dg, const LevelBwd& lists, float* grads, float* partial,
     int levels, int levels_per_block, int ep, int np, int D, int T, bool accumulate,
-    cudaStream_t s, int* launched = nullptr, int bf16 = 0, const float* dscore = nullptr) {
+    cudaStream_t s, int* launched = nullptr, int res_bf16 = 0,
+    const float* dscore = nullptr) {
   if (levels < 1) return cudaSuccess;
   const int chunks = (levels + levels_per_block - 1) / levels_per_block;
   if (chunks > 1 && partial == nullptr) return cudaErrorInvalidValue;
@@ -975,17 +994,19 @@ cudaError_t launch_weight_grads(
   p.levels_per_block = levels_per_block;
   p.accumulate = accumulate && chunks == 1 ? 1 : 0;
   p.chunk_stride = chunks > 1 ? total : 0;
-  // a value array's element n (res_e, d_pack: bf16 or fp32)
-  const auto at = [&](const void* x, size_t n) {
+  // an array's element n: res_e's in its type, d_pack's in fp32
+  const auto at = [](const void* x, size_t n, int bf16) {
     return static_cast<const void*>(static_cast<const char*>(x) + n * (bf16 ? 2 : 4));
   };
   // d_wkv[:, k | v block of expert e] = hf_src^T (dk | dv)
-  p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, 1, d_wkv, 2 * T * D, D, bf16);
+  p.g[0] = gemm(res_e, 3 * D + 1, D, dkv, 2 * D, 2 * D, 1, d_wkv, 2 * T * D, D, res_bf16);
   // d_wak[e] = sum dscore * khf
-  p.g[1] = bf16 ? gemm(dscore, 1, 1, at(res_e, D), 3 * D + 1, D, 1, d_wak, T * D, D, 0, 1)
-                : gemm(at(d_pack, D), D + 2, 1, at(res_e, D), 3 * D + 1, D, 1, d_wak, T * D, D);
+  p.g[1] = dscore ? gemm(dscore, 1, 1, at(res_e, D, res_bf16), 3 * D + 1, D, 1, d_wak, T * D,
+                         D, 0, res_bf16)
+                  : gemm(at(d_pack, D, 0), D + 2, 1, at(res_e, D, res_bf16), 3 * D + 1, D, 1,
+                         d_wak, T * D, D, 0, res_bf16);
   // d_wih[:, expert e block] = msg^T dgi
-  p.g[2] = gemm(res_n, 4 * D, D, dg, 6 * D, 3 * D, 0, d_wih, 3 * T * D, 3 * D, bf16);
+  p.g[2] = gemm(res_n, 4 * D, D, dg, 6 * D, 3 * D, 0, d_wih, 3 * T * D, 3 * D, res_bf16);
   // d_bih[e] = sum dgi, d_bhh[e] = sum dbh
   p.g[3] = gemm(nullptr, 0, 1, dg, 6 * D, 3 * D, 0, d_bih, 3 * T * D, 3 * D);
   p.g[4] = gemm(nullptr, 0, 1, dg + 3 * D, 6 * D, 3 * D, 0, d_bhh, 3 * T * D, 3 * D);

@@ -1,7 +1,7 @@
-// The level recurrence one level per launch (num_rounds == 1), fp32, for
-// Hopper (sm_90a): the single-level step from an explicit hf, and the step
-// route's forward, which walks a chunked batch's level indices with one
-// launch each for all chunks.
+// The level recurrence one level per launch (num_rounds == 1), with fp32 or
+// bf16 values, for Hopper (sm_90a): the single-level step from an explicit
+// hf, and the step route's forward, which walks a chunked batch's level
+// indices with one launch each for all chunks.
 //
 // Replaces mgvae_tpu/ops/pallas/level_kernel.py::level_step_call
 // (_level_step_kernel), with and without its residual outputs, and the
@@ -42,6 +42,11 @@
 // Rows of h_new whose slot is not updated are left as the caller gave them
 // (zeroed); the residual rows of such slots, of edges that are not live and
 // of rows past a chunk's real levels are not written and never read.
+//
+// bf16 values (the JAX package's throughput mode; its step kernel runs
+// _level_body, as the fused kernel does): hf, pack, h_new and the residuals
+// are bf16 in memory and rounded where kernel 1 rounds them (level_slot.cuh,
+// R = V); the softmax scratch and every sum stay fp32.
 
 #include <cuda_runtime.h>
 
@@ -51,21 +56,26 @@ extern "C" {
 
 // One launch on `stream`. h_new [Np, D] must be zeroed by the caller. res_e
 // [Ep, 3D+1] and res_n [Np, 4D] are both given (training) or both null. The
-// lists are one level's. Returns 0, or the cudaError_t of the failed launch.
+// lists are one level's. hf, pack, h_new, res_e and res_n hold bf16 with
+// `bf16` set, else fp32. Returns 0, or the cudaError_t of the failed launch.
 int mgvae_level_step_forward(
-    const float* hf, const float* pack, const int* src, const int* slot_rows,
+    const void* hf, const void* pack, const int* src, const int* slot_rows,
     const int* slot_off, const int* in_rows, const int* in_off, const float* wkv_e,
-    const float* wih_e, const float* b_ih, const float* b_hh, const float* wa_k, float* h_new,
-    float* score_buf, float* v_buf, float* res_e, float* res_n,
-    int ep, int np, int dim, int num_experts, void* stream) {
+    const float* wih_e, const float* b_ih, const float* b_hh, const float* wa_k, void* h_new,
+    float* score_buf, float* v_buf, void* res_e, void* res_n,
+    int ep, int np, int dim, int num_experts, int bf16, void* stream) {
   if (bad_dims(ep, np, dim, num_experts) || (res_e == nullptr) != (res_n == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const StepForward p{pack, src, nullptr, slot_rows, slot_off, in_rows, in_off, wkv_e, wih_e,
-                      b_ih, b_hh, wa_k, hf, h_new, score_buf, v_buf, res_e, res_n,
-                      0, 0, 0, ep, np, dim, num_experts};
   cudaError_t err = cudaSuccess;
-  MGVAE_WITH_NF(dim, err = launch_level_forward<NF>(p, 1, static_cast<cudaStream_t>(stream)));
+  MGVAE_WITH_VALUE(bf16, {
+    const StepForward<V> p{static_cast<const V*>(pack), src, nullptr, slot_rows, slot_off,
+                           in_rows, in_off, wkv_e, wih_e, b_ih, b_hh, wa_k,
+                           static_cast<const V*>(hf), static_cast<V*>(h_new), score_buf, v_buf,
+                           static_cast<V*>(res_e), static_cast<V*>(res_n),
+                           0, 0, 0, ep, np, dim, num_experts};
+    MGVAE_WITH_NF(dim, err = launch_level_forward<NF, V>(p, 1, static_cast<cudaStream_t>(stream)));
+  });
   return static_cast<int>(err);
 }
 
@@ -75,16 +85,17 @@ int mgvae_level_step_forward(
 // D] must be zeroed by the caller; the tables (pack_lv [R, Ep, D+2], lv_src
 // [R, Ep], lv_nodes [R, Np]) and the lists are all R = chunks * rows rows'.
 // res_e [R, Ep, 3D+1] and res_n [R, Np, 4D] are both given (training) or
-// both null. score_buf [chunks, Ep] and v_buf [chunks, Ep, D] are scratch.
+// both null. hf, pack_lv, res_e and res_n hold bf16 with `bf16` set, else
+// fp32. score_buf [chunks, Ep] and v_buf [chunks, Ep, D] are fp32 scratch.
 // Adds to *launched (host memory) one for each kernel it enqueues. Returns 0,
 // or the cudaError_t of the first failed launch.
 int mgvae_level_scan_step_forward(
-    float* hf, const float* pack_lv, const int* lv_src, const int* lv_nodes,
+    void* hf, const void* pack_lv, const int* lv_src, const int* lv_nodes,
     const int* slot_rows, const int* slot_off, const int* in_rows, const int* in_off,
     const float* wkv_e, const float* wih_e, const float* b_ih, const float* b_hh,
-    const float* wa_k, float* score_buf, float* v_buf, float* res_e, float* res_n,
+    const float* wa_k, float* score_buf, float* v_buf, void* res_e, void* res_n,
     const int* levels, int* launched, int chunks, int rows, int n_sub, int ep, int np,
-    int dim, int num_experts, void* stream) {
+    int dim, int num_experts, int bf16, void* stream) {
   if (bad_dims(ep, np, dim, num_experts) || (res_e == nullptr) != (res_n == nullptr) ||
       chunks < 1 || rows < 1 || n_sub < 1 || levels == nullptr || launched == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -94,18 +105,21 @@ int mgvae_level_scan_step_forward(
     if (levels[k] < 0 || levels[k] > rows) return static_cast<int>(cudaErrorInvalidValue);
     top = levels[k] > top ? levels[k] : top;
   }
-  StepForward p{pack_lv, lv_src, lv_nodes, slot_rows, slot_off, in_rows, in_off, wkv_e, wih_e,
-                b_ih, b_hh, wa_k, hf, hf, score_buf, v_buf, res_e, res_n,
-                0, rows, n_sub, ep, np, dim, num_experts};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int l = 0; l < top; ++l) {
-    p.row = l;
-    cudaError_t err = cudaSuccess;
-    MGVAE_WITH_NF(dim, err = launch_level_forward<NF>(p, chunks, s));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ++*launched;
-  }
-  return 0;
+  cudaError_t err = cudaSuccess;
+  MGVAE_WITH_VALUE(bf16, {
+    StepForward<V> p{static_cast<const V*>(pack_lv), lv_src, lv_nodes, slot_rows, slot_off,
+                     in_rows, in_off, wkv_e, wih_e, b_ih, b_hh, wa_k,
+                     static_cast<const V*>(hf), static_cast<V*>(hf), score_buf, v_buf,
+                     static_cast<V*>(res_e), static_cast<V*>(res_n),
+                     0, rows, n_sub, ep, np, dim, num_experts};
+    for (int l = 0; l < top && err == cudaSuccess; ++l) {
+      p.row = l;
+      MGVAE_WITH_NF(dim, err = launch_level_forward<NF, V>(p, chunks, s));
+      if (err == cudaSuccess) ++*launched;
+    }
+  });
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -19,7 +19,12 @@ then kernel 4 at other chunk sizes K, in turns with the default
 giant route's level recurrence alone
 (forward and backward through its autograd Function, above what is held
 before) against hf + ghf's copy + d_pack_lv, the bytes of
-``chip_smoke.py`` phase 17's check. For each call it prints
+``chip_smoke.py`` phase 17's check.
+
+``giant bf16`` mode: kernels 3 and 4 on the giant batch with fp32 and with
+bf16 values (``compute_dtype="bfloat16"``), in turns fp32, bf16, bf16, fp32
+in one call, and the level recurrence's peak memory in both value types.
+For each call it prints
 
   * the call's time by CUDA events (mean of ``REPS`` calls) and the host's
     time to enqueue one call;
@@ -28,7 +33,7 @@ before) against hf + ghf's copy + d_pack_lv, the bytes of
     copies that the wrapper issues), their sum, and the call's remainder:
     what the card waits between and around the launches.
 
-    python -m mgvae_tpu_torch.examples.level_scan_profile [giant | bf16]
+    python -m mgvae_tpu_torch.examples.level_scan_profile [giant [bf16] | bf16]
 
 Needs one CUDA card and raises without one.
 """
@@ -160,6 +165,13 @@ def giant(dev) -> None:
                   f"call (lists built before), "
                   f"{level_kernel.giant_bwd_launch_count(n_lv, kv)} launches, scratch "
                   f"{4 * (kv * per_level + fixed) / 2**20:.2f} MiB", flush=True)
+    recurrence_peak("giant memory", args, N, n_lv, ghf)
+
+
+def recurrence_peak(tag: str, args, N: int, n_lv: int, ghf) -> None:
+    """Prints the peak device memory of the giant route's level recurrence
+    alone, forward and backward, against hf + ghf's copy + d_pack_lv (hf
+    and d_pack_lv in the value type, the copy fp32)."""
     t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS) for i, a in enumerate(args)]
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -168,10 +180,38 @@ def giant(dev) -> None:
     torch.autograd.grad(out, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    law = 2 * N * DIM * 4 + args[0].numel() * 4
-    print(f"[giant memory] level recurrence alone, forward and backward: peak {peak / 2**20:.2f} "
-          f"MiB above what was held before; hf + ghf's copy + d_pack_lv {law / 2**20:.2f} MiB; "
-          f"ratio {peak / law:.4f} (chip_smoke.py phase 17 allows 1.25)", flush=True)
+    vb = args[0].element_size()
+    law = N * DIM * (vb + 4) + args[0].numel() * vb
+    print(f"[{tag}] level recurrence alone ({args[0].dtype}), forward and backward: peak "
+          f"{peak / 2**20:.2f} MiB above what was held before; hf + ghf's copy + d_pack_lv "
+          f"{law / 2**20:.2f} MiB; ratio {peak / law:.4f} (chip_smoke.py phase 17 allows 1.25 "
+          f"in fp32)", flush=True)
+
+
+def giant_bf16(dev) -> None:
+    """Kernels 3 and 4 on the giant batch with fp32 and bf16 values, in
+    turns, and the level recurrence's peak memory in both."""
+    batch = collate([layered_circuit(np.random.default_rng(0), "mig", width=GIANT_WIDTH,
+                                     depth=GIANT_DEPTH, num_tt_pairs=512)])
+    calls = {}
+    for dtype in ("float32", "bfloat16"):
+        args, N, n_lv = scan_args(batch, dev, f"giant MIG {GIANT_WIDTH} x {GIANT_DEPTH} {dtype}",
+                                  dtype)
+        args = tuple(args)
+        with torch.no_grad():
+            hf = level_kernel._giant_forward_cuda(args, N, n_lv)
+        ghf = torch.randn(hf.shape, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(5)).to(hf.dtype)
+        calls[dtype] = (args, N, n_lv, hf, ghf)
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        args, N, n_lv, hf, ghf = calls[dtype]
+        with torch.no_grad():
+            report(f"giant forward (kernel 3) {dtype}",
+                   lambda: level_kernel._giant_forward_cuda(args, N, n_lv), GIANT_REPS)
+            report(f"giant backward (kernel 4) {dtype}",
+                   lambda: level_kernel._giant_backward_cuda(ghf, hf, args, n_lv), GIANT_REPS)
+    for dtype, (args, N, n_lv, _, ghf) in calls.items():
+        recurrence_peak(f"giant memory {dtype}", args, N, n_lv, ghf)
 
 
 def main() -> None:
@@ -185,8 +225,8 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     built = _build.build()
     print(f"card: {card}; kernels built in {built.seconds:.1f} s", flush=True)
-    if sys.argv[1:] == ["giant"]:
-        giant(dev)
+    if sys.argv[1:2] == ["giant"]:
+        giant_bf16(dev) if sys.argv[2:] == ["bf16"] else giant(dev)
         print(f"card: {card}", flush=True)
         return
     rng = np.random.default_rng(7)

@@ -18,16 +18,20 @@ The forward and the backward (a fixed random cotangent) are measured apart:
   * the peak device memory of one forward and backward above what was held
     before, beside the stacked residuals + hf + ghf's copy + d_pack_lv.
 
-    python -m mgvae_tpu_torch.examples.step_route_profile [loop]
+    python -m mgvae_tpu_torch.examples.step_route_profile [loop | bf16]
 
 ``loop``: the same for ``dg_ae.level_step_loop`` on the card, one
 ``level_step`` per (chunk, level) with the scatter in torch between the
-calls, the route's plain structure. Needs one CUDA card and raises without
-one.
+calls, the route's plain structure. ``bf16``: the route with bf16 values
+(``compute_dtype="bfloat16"``: kernels 5 and 6's bf16 instantiations), its
+timed runs in turns with fp32's (fp32, bf16, bf16, fp32) in one call, the
+profile and the peak of the bf16 route. Needs one CUDA card and raises
+without one.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import subprocess
 import sys
 import time
@@ -84,11 +88,23 @@ def _report(tag, host, dev, busy, wall, launches):
         print(f"[{tag}]   device {ms:9.3f} ms in {k:5d} launches  {name[:90]}", flush=True)
 
 
+def _scan_args(params, b, cfg):
+    """The route's 12 arguments in ``cfg``'s value type, the float ones
+    requiring grad, and hs's row count."""
+    with torch.no_grad():
+        params = dg_ae.cast_params(params, cfg)
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = [a.detach().clone() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
+    for i in level_kernel.FLOAT_ARGS:
+        args[i].requires_grad_(True)
+    return args, hs.shape[0]
+
+
 def main(argv=()) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("step_route_profile needs a CUDA card "
                            "(torch.cuda.is_available() is False)")
-    loop = "loop" in argv
+    loop, bf16 = "loop" in argv, "bf16" in argv
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -103,75 +119,79 @@ def main(argv=()) -> None:
     params, _ = dg_ae.init_params(cfg, seed=0, device=dev)
     b = dg_ae.batch_to_device(batch, dev)
     counts = dg_ae.level_counts(batch)
-    with torch.no_grad():
-        hs = dg_ae.struct_hs(params, b, cfg)
-        args = [a.detach().clone() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
-    for i in level_kernel.FLOAT_ARGS:
-        args[i].requires_grad_(True)
-    n_sub = hs.shape[0] // CHUNKS
+    dtypes = ("float32", "bfloat16") if bf16 else ("float32",)
+    cases = {d: _scan_args(params, b, dataclasses.replace(cfg, compute_dtype=d)) for d in dtypes}
+    args, N = cases[dtypes[-1]]
+    n_sub = N // CHUNKS
     route = dg_ae.level_step_loop if loop else dg_ae.level_scan_step
     name = "loop" if loop else "route"
     print(f"[{name}] card: {card}; {CIRCUITS} MIG circuits in {CHUNKS} chunks: N_sub={n_sub} "
           f"Ep={args[0].shape[1]} Np={args[4].shape[1]}, real levels {counts}; "
-          f"{'dg_ae.level_step_loop' if loop else 'dg_ae.level_scan_step'}", flush=True)
-    g = torch.randn((hs.shape[0], DIM), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(1))
-    inputs = [args[i] for i in level_kernel.FLOAT_ARGS]
+          f"{'dg_ae.level_step_loop' if loop else 'dg_ae.level_scan_step'}, values "
+          f"{' and '.join(dtypes)}", flush=True)
+    g = torch.randn((N, DIM), device=dev, generator=torch.Generator(device=dev).manual_seed(1))
 
-    def forward():
+    def forward(args):
         lists, packed = dg_ae.kernel_inputs(tuple(args))
         return route(tuple(args), counts, n_sub, lists, packed)
 
-    def backward(hf):
-        torch.autograd.grad(hf, inputs, g)
+    def backward(args, hf):
+        torch.autograd.grad(hf, [args[i] for i in level_kernel.FLOAT_ARGS], g.to(hf.dtype))
 
-    for _ in range(3):
-        backward(forward())
-    fwd_ev, bwd_ev, fwd_host, bwd_host = [], [], [], []
-    for _ in range(RUNS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.synchronize()
-        ev[0].record()
-        t0 = time.perf_counter()
-        hf = forward()
-        t1 = time.perf_counter()
-        ev[1].record()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        backward(hf)
-        t3 = time.perf_counter()
-        ev[2].record()
-        torch.cuda.synchronize()
-        fwd_ev.append(ev[0].elapsed_time(ev[1]))
-        bwd_ev.append(ev[1].elapsed_time(ev[2]))
-        fwd_host.append((t1 - t0) * 1e3)
-        bwd_host.append((t3 - t2) * 1e3)
-    mean = lambda x: sum(x) / len(x)
-    print(f"[{name}] {RUNS} runs, means: forward {mean(fwd_ev):.3f} ms by CUDA events, host "
-          f"enqueue {mean(fwd_host):.3f} ms; backward {mean(bwd_ev):.3f} ms by CUDA events "
-          f"(from the end of its forward), host enqueue {mean(bwd_host):.3f} ms; per run "
-          f"(forward, backward) ms: {[(round(a, 3), round(c, 3)) for a, c in zip(fwd_ev, bwd_ev)]}",
-          flush=True)
+    def timed(dtype):
+        args = cases[dtype][0]
+        for _ in range(3):
+            backward(args, forward(args))
+        fwd_ev, bwd_ev, fwd_host, bwd_host = [], [], [], []
+        for _ in range(RUNS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            t0 = time.perf_counter()
+            hf = forward(args)
+            t1 = time.perf_counter()
+            ev[1].record()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            backward(args, hf)
+            t3 = time.perf_counter()
+            ev[2].record()
+            torch.cuda.synchronize()
+            fwd_ev.append(ev[0].elapsed_time(ev[1]))
+            bwd_ev.append(ev[1].elapsed_time(ev[2]))
+            fwd_host.append((t1 - t0) * 1e3)
+            bwd_host.append((t3 - t2) * 1e3)
+        mean = lambda x: sum(x) / len(x)
+        print(f"[{name} {dtype}] {RUNS} runs, means: forward {mean(fwd_ev):.3f} ms by CUDA "
+              f"events, host enqueue {mean(fwd_host):.3f} ms; backward {mean(bwd_ev):.3f} ms by "
+              f"CUDA events (from the end of its forward), host enqueue {mean(bwd_host):.3f} ms; "
+              f"per run (forward, backward) ms: "
+              f"{[(round(a, 3), round(c, 3)) for a, c in zip(fwd_ev, bwd_ev)]}", flush=True)
+
+    for dtype in ((*dtypes, *dtypes[::-1]) if bf16 else dtypes):
+        timed(dtype)
 
     held = []
     level_kernel.step_launches = level_kernel.step_bwd_launches = 0
-    prof = _profiled(lambda: held.append(forward()))
+    prof = _profiled(lambda: held.append(forward(args)))
     _report(f"{name} forward", *prof, level_kernel.step_launches)
-    prof = _profiled(lambda: backward(held.pop()))
+    prof = _profiled(lambda: backward(args, held.pop()))
     _report(f"{name} backward", *prof, level_kernel.step_bwd_launches)
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    backward(forward())
+    backward(args, forward(args))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     L, ep, np_ = args[0].shape[0], args[0].shape[1], args[4].shape[1]
-    res = 4 * L * (ep * (3 * DIM + 1) + np_ * 4 * DIM)
-    law = res + 2 * 4 * hs.shape[0] * DIM + args[0].numel() * 4
-    print(f"[{name}] level recurrence alone, forward and backward: peak {peak / 2**20:.2f} MiB "
-          f"above what was held before; stacked residuals {res / 2**20:.2f} + hf + ghf's copy + "
-          f"d_pack_lv = {law / 2**20:.2f} MiB (ratio {peak / law:.3f}); {card}", flush=True)
+    vb = args[0].element_size()     # the residuals, hf, ghf's copy and d_pack_lv: the value type
+    res = vb * L * (ep * (3 * DIM + 1) + np_ * 4 * DIM)
+    law = res + 2 * vb * N * DIM + args[0].numel() * vb
+    print(f"[{name}] level recurrence alone ({args[0].dtype}), forward and backward: peak "
+          f"{peak / 2**20:.2f} MiB above what was held before; stacked residuals "
+          f"{res / 2**20:.2f} + hf + ghf's copy + d_pack_lv = {law / 2**20:.2f} MiB (ratio "
+          f"{peak / law:.3f}); {card}", flush=True)
 
 
 if __name__ == "__main__":

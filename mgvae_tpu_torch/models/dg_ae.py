@@ -69,9 +69,9 @@ for PyTorch's fp32 products on the card, the JAX default; "highest": full
 fp32, ``api.Model``'s parity mode), and with ``compute_dtype="bfloat16"``
 the fp32 master params are cast to bf16 once per forward, so that the
 activations, hs, hf and ``aux`` are bf16 and autograd carries the gradients
-back to the fp32 leaves. The fused level scan and the struct towers then run
-their bf16 kernels (bf16 values, fp32 accumulation); the giant and step
-routes raise ``NotImplementedError`` in bf16 (ROADMAP 1.6b), on every device.
+back to the fp32 leaves. The struct towers and every route of the level
+recurrence (fused, step and giant) then run their bf16 kernels (bf16 values,
+fp32 accumulation), each rounding where its JAX kernel rounds.
 """
 from __future__ import annotations
 
@@ -448,9 +448,11 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
         ``level_scan_step``;
       * C chunks that fail both: the giant scan per chunk.
 
-    In bf16 the fused scan alone is ported: a batch for the giant or the
-    step route raises ``NotImplementedError`` (ROADMAP 1.6b) before any
-    launch, on every device.
+    bf16 values take the same routes as fp32. In the last case the port
+    differs from the JAX package, which runs its XLA scan there
+    (``dg_ae.py:621``): the giant scan's bf16 rounding points are those of
+    the JAX giant kernels, not of that scan, so such a batch agrees with
+    JAX within the JAX package's bf16 bounds, not to an ulp.
 
     On the card the tables' index lists and the weights' expert-major copies
     are built here, once for all chunks and levels, and handed to every call
@@ -461,13 +463,6 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
     n_sub, L = num_nodes // C, pack_lv.shape[0] // C
     ep, np_, D = pack_lv.shape[1], lv_nodes.shape[1], pack_lv.shape[2] - 2
     fits = kernel_fits(n_sub, ep, np_, D)
-    if not fits and pack_lv.dtype != torch.float32:
-        route = "giant" if C == 1 or not step_kernel_fits(n_sub, ep, np_, D) else "step"
-        raise NotImplementedError(
-            f"compute_dtype={pack_lv.dtype}: the {route} route of the level recurrence "
-            f"(N_sub={n_sub}, Ep={ep}, Np={np_} past kernel_fits) is not ported to bf16 yet "
-            "(ROADMAP 1.6b); chunk the batch so that it takes the fused route "
-            "(data.batching.collate_fit)")
     lists, packed = kernel_inputs(args)
     if C == 1:
         scan = level_scan if fits else level_scan_giant
@@ -555,11 +550,10 @@ def level_scan_step(args: tuple, n_levels: tuple, n_sub: int, lists=None,
     padding levels too; they write zeros to the dump rows, so skipping them
     changes nothing). On the card ``ops.level_kernel.level_scan_step``: one
     launch per level index for all chunks, the new rows scattered into hf
-    inside the kernel, and as one autograd Function for training. On the
-    CPU ``level_step_loop``, its plain version. ``lists``, ``packed``:
-    ``kernel_inputs(args)``, built where the caller has none."""
-    if not args[0].is_cuda:
-        return level_step_loop(args, n_levels, n_sub)
+    inside the kernel, and as one autograd Function for training; on the
+    CPU the same function with both plain versions, so that the CPU rounds
+    where the kernels do. ``lists``, ``packed``: ``kernel_inputs(args)``,
+    built where the caller has none."""
     return level_kernel.level_scan_step(*args, n_levels=n_levels, n_sub=n_sub, lists=lists,
                                         packed=packed)
 
@@ -569,8 +563,8 @@ def level_step_loop(args: tuple, n_levels: tuple, n_sub: int, lists=None,
     """The step route as one ``level_step`` per real (chunk, level) row, each
     on its chunk's rows of hf, with the scatter hf[nodes + off] =
     where(upd, h_new, 0) in plain torch between the calls: the route's plain
-    structure, which ``level_scan_step`` takes on the CPU (on the card it
-    runs the single-level kernels, a call per row). hf is written in place:
+    structure, which ``level_scan_step`` equals (on the card it runs the
+    single-level kernels, a call per row). hf is written in place:
     ``level_step`` saves none of it."""
     (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, *weights) = args
     C = len(n_levels)

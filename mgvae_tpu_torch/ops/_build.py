@@ -109,11 +109,11 @@ def library() -> ctypes.CDLL:
     for name, pointers, ints in (("mgvae_level_lists", 10, 4),
                                  ("mgvae_level_scan_forward", 18, 6),
                                  ("mgvae_level_scan_backward", 24, 7),
-                                 ("mgvae_level_scan_giant_backward", 29, 6),
-                                 ("mgvae_level_step_forward", 17, 4),
-                                 ("mgvae_level_step_backward", 20, 4),
-                                 ("mgvae_level_scan_step_forward", 19, 7),
-                                 ("mgvae_level_scan_step_backward", 23, 8)):
+                                 ("mgvae_level_scan_giant_backward", 31, 7),
+                                 ("mgvae_level_step_forward", 17, 5),
+                                 ("mgvae_level_step_backward", 22, 5),
+                                 ("mgvae_level_scan_step_forward", 19, 8),
+                                 ("mgvae_level_scan_step_backward", 25, 9)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * pointers + [i] * ints + [p]     # ..., then the stream
         fn.restype = i

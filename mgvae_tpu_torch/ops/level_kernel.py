@@ -87,13 +87,21 @@ gradients' partials, and where the chunk has more than one level their
 sums, as the C entry counts them; ``giant_bwd_launch_count`` says how many
 that should be).
 
-Values: fp32 on every route; on the fused route also bf16 (the JAX
-package's throughput mode, ``level_kernel.py:352-356``): pack_lv, hf, the
-residuals and the backward's d_pack and carried d_hf are then bf16, rounded
-where the JAX kernels round them (``rounder``), everything else fp32, and
+Values: fp32 or bf16 on every route (the JAX package's throughput mode,
+``level_kernel.py:352-356``), all float arguments of a call in one type: in
+bf16 pack_lv, hf and the backward's d_pack are bf16, values are rounded
+where the JAX kernels round them (``rounder``), everything else is fp32, and
 the weight gradients are summed in fp32 and rounded once to the weights'
-dtype. The giant and step routes refuse bf16 values (``BF16_OPS``; ROADMAP
-1.6b). Every autograd Function saves the forward's matmul precision
+dtype. The fused and step routes (kernels 1, 2, 5, 6) round as
+``_level_body`` / ``_level_bwd_body`` do: bf16 residuals, and a bf16
+cotangent of hf carried back, one rounding per level where a level's
+sources' gradients are added into it. The giant backward (kernel 4) rounds
+as the JAX package's ``_level_bwd_kernel_hbm``: it carries the cotangent of
+hf in fp32, adds the sources' gradients unrounded, and keeps the levels'
+values it recomputes in fp32; only the products' operands and d_pack are
+rounded. On CPU tensors training goes through each route's autograd
+Function with both plain versions, in either value type, so that the CPU
+rounds where the kernels do. Every autograd Function saves the forward's matmul precision
 (``ops.precision``) and runs its backward in it.
 
 Residual layout (the port's own, unpadded): res_e [L, Ep, 3D+1] =
@@ -290,15 +298,19 @@ def select_expert(stacked: torch.Tensor, expert: torch.Tensor, num_experts: int)
 
 
 def _level_forward(hf, pk, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k,
-                   with_residuals: bool):
+                   with_residuals: bool, residual_dtype: torch.dtype | None = None):
     """One level from hf [N, D] with the math of the JAX package's
     ``_level_scan_fast`` (``mgvae_tpu/models/dg_ae.py``): src / dslot / e_n
     int64, evalid / upd bool. Returns (h_new [Np, D], 0 on the slots that
-    are not updated, res_e [Ep, 3D+1] or None, res_n [Np, 4D] or None), in
-    the value type of ``pk``. In bf16 the values are rounded where the JAX
-    package's ``_level_body`` rounds them (``level_kernel.py:418-420``:
+    are not updated, res_e [Ep, 3D+1] or None, res_n [Np, 4D] or None),
+    h_new in the value type of ``pk``, the residuals in ``residual_dtype``
+    (by default the value type). In bf16 the values are rounded where the
+    JAX package's ``_level_body`` rounds them (``level_kernel.py:418-420``:
     v * attn before the message sum; ``:427``: msg before the GRU product;
-    ``:446-462``: the residuals and h_new) and computed in fp32 between."""
+    ``:446-462``: the residuals and h_new) and computed in fp32 between;
+    with fp32 residuals they are the unrounded values, msg its sum before
+    the rounding that feeds the GRU product, as the giant backward
+    recomputes them (``:1375-1410``)."""
     vdt = pk.dtype
     rnd = rounder(vdt)
     hf, pk, wkv_hf, w_ih, b_ih, b_hh, wa_k = (
@@ -329,10 +341,12 @@ def _level_forward(hf, pk, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_h
     live = (evalid & upd[dslot])[:, None]
     res_e = torch.where(live, torch.cat([hf_src, khf, v, attn[:, None]], 1), 0.0)
     res_n = torch.where(upd[:, None], torch.cat([msg, r, z, n], 1), 0.0)
-    return h_new, res_e.detach().to(vdt), res_n.detach().to(vdt)
+    rdt = residual_dtype or vdt
+    return h_new, res_e.detach().to(rdt), res_n.detach().to(rdt)
 
 
-def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa_k):
+def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa_k,
+                    carry_dtype: torch.dtype | None = None):
     """One level's backward, written out as the JAX package's
     ``_level_bwd_body`` (``level_kernel.py:645-778``): g [Np, D] is the
     cotangent of h_new, already 0 on the slots that are not updated; evf the
@@ -341,7 +355,9 @@ def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa
     sources' gradients per edge, masked). In bf16 the values are rounded
     where ``_level_bwd_body`` rounds them: dgi before the dmsg product
     (``level_kernel.py:728``), dmsg (``:732``), dk | dv before the dhf_src
-    product (``:750``), d_pack (``:758``) and dhf_src (``:774-778``)."""
+    product (``:750``), d_pack (``:758``), and dhf_src to ``carry_dtype``,
+    the type of hf's carried cotangent (by default the value type,
+    ``:774-778``; fp32 in the giant backward, ``:1486-1518``: unrounded)."""
     vdt = pk.dtype
     rnd = rounder(vdt)
     g, res_e, res_n, wkv_hf, w_ih, b_hh, wa_k = (
@@ -382,7 +398,7 @@ def _level_backward(g, res_e, res_n, pk, dslot, evf, e_n, wkv_hf, w_ih, b_hh, wa
     dkv = torch.cat([(onehot_e[:, :, None] * dkhf[:, None, :]).reshape(ep, T * D),
                      (onehot_e[:, :, None] * dv[:, None, :]).reshape(ep, T * D)], 1)
     d_wkv = hf_src.T @ dkv
-    dhf_src = rnd((rnd(dkv) @ wkv_hf.T) * evf[:, None])         # [Ep, D]
+    dhf_src = rounder(carry_dtype or vdt)((rnd(dkv) @ wkv_hf.T) * evf[:, None])   # [Ep, D]
     d_pack = torch.zeros_like(pk)                               # no gradient for the expert column
     d_pack[:, :D] = dv
     d_pack[:, D] = dscore
@@ -447,7 +463,7 @@ def _forward_sweep(args, n_levels: tuple, n_sub: int, with_residuals: bool):
 
 def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd,
                    lv_e_n, wkv_hf, w_ih, b_hh, wa_k, n_levels: tuple, n_sub: int = 0,
-                   chunk_levels: int = 1):
+                   chunk_levels: int = 1, carry_dtype: torch.dtype | None = None):
     """The reverse sweep over levels with hf's cotangent ``ghf`` carried back
     to the sources, for tables of C = len(n_levels) chunks of L rows each
     (chunk k's real levels at rows k * L + lv, lv < n_levels[k], its nodes at
@@ -458,10 +474,11 @@ def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_n
     the weight gradients summed per chunk and the chunks' sums added to the
     totals in chunk order. Returns (d_pack [C * L, Ep, D+2], d_wkv, d_wih,
     d_bih, d_bhh, d_wak); the pack's expert column gets no gradient. In
-    bf16 ghf is carried in bf16 and d_pack is bf16; the weight gradients
-    are summed in fp32 and returned in the weights' dtypes."""
-    vdt = pack_lv.dtype
-    ghf = ghf.detach().to(vdt, copy=True)
+    bf16 d_pack is bf16 and ghf is carried in ``carry_dtype`` (by default
+    bf16: the fused and step routes; fp32 in the giant backward); the
+    weight gradients are summed in fp32 and returned in the weights'
+    dtypes."""
+    ghf = ghf.detach().to(carry_dtype or pack_lv.dtype, copy=True)
     d_pack = torch.zeros_like(pack_lv)
     sums = [torch.zeros_like(t, dtype=torch.float32) for t in (wkv_hf, w_ih, b_hh, b_hh, wa_k)]
     L = pack_lv.shape[0] // len(n_levels)
@@ -477,7 +494,7 @@ def _reverse_sweep(ghf, residuals_of, pack_lv, lv_src, lv_dslot, lv_evalid, lv_n
                 d_pack[row], *grads, dhf_src = _level_backward(
                     g, *residuals[row], pack_lv[row], lv_dslot[row].long(),
                     (lv_evalid[row] > 0).to(ghf.dtype), lv_e_n[row].long(), wkv_hf, w_ih, b_hh,
-                    wa_k)
+                    wa_k, ghf.dtype)
                 for acc, x in zip(chunk[k], grads):
                     acc += x
                 _add_sources(ghf, lv_src[row].long() + off, dhf_src)
@@ -546,17 +563,24 @@ def level_scan_giant_bwd_reference(ghf, hf, pack_lv, lv_src, lv_dslot, lv_evalid
     are final before it runs). ``chunk_levels`` None: a level at a time;
     K: in the kernel's order, the levels from the top in chunks of K, each
     chunk recomputed, swept, and its weight gradients summed and added.
-    Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh, d_wak)."""
+    Returns (d_pack [L, Ep, D+2], d_wkv, d_wih, d_bih, d_bhh, d_wak). In
+    bf16 it rounds where the JAX package's giant backward does
+    (``_level_bwd_kernel_hbm``, ``level_kernel.py:1375-1564``), not where
+    the fused one does: the recomputed values stay fp32 (only the products'
+    operands are rounded), ghf is carried in fp32 from a copy of the bf16
+    cotangent, and each level's dhf_src is added into it unrounded; d_pack
+    is bf16."""
     def recompute(lv):
         with torch.no_grad():
             _, res_e, res_n = _level_forward(
                 hf, pack_lv[lv], lv_src[lv].long(), lv_dslot[lv].long(), lv_evalid[lv] > 0,
-                lv_upd[lv] > 0, lv_e_n[lv].long(), wkv_hf, w_ih, b_ih, b_hh, wa_k, True)
+                lv_upd[lv] > 0, lv_e_n[lv].long(), wkv_hf, w_ih, b_ih, b_hh, wa_k, True,
+                residual_dtype=torch.float32)
         return res_e, res_n
 
     return _reverse_sweep(ghf, recompute, pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes,
                           lv_upd, lv_e_n, wkv_hf, w_ih, b_hh, wa_k, (num_levels,),
-                          chunk_levels=chunk_levels or 1)
+                          chunk_levels=chunk_levels or 1, carry_dtype=torch.float32)
 
 
 def giant_chunks(num_levels: int, chunk_levels: int) -> list[tuple[int, int]]:
@@ -661,12 +685,15 @@ def level_step_bwd_reference(g, res_e, res_n, pack, src, dslot, evalid, upd, e_n
     """The step backward's math: from the cotangent g [Np, D] of h_new and
     one level's residuals, (d_pack [Ep, D+2], d_wkv, d_wih, d_bih, d_bhh,
     d_wak, d_hf [num_nodes, D]); d_hf holds the sources' gradients, summed
-    per source."""
-    g = torch.where((upd > 0)[:, None], g.detach(), 0.0)
+    per source (in bf16 each source's fp32 sum rounded, as the JAX step
+    backward's, ``level_kernel.py:774-778``), in the value type; the weight
+    gradients fp32."""
+    g = torch.where((upd > 0)[:, None], g.detach().to(pack.dtype), 0.0)
     *grads, dhf_src = _level_backward(
         g, res_e, res_n, pack, dslot.long(), (evalid > 0).to(g.dtype), e_n.long(),
         wkv_hf, w_ih, b_hh, wa_k)
-    d_hf = g.new_zeros((num_nodes, g.shape[1])).index_add_(0, src.long(), dhf_src)
+    d_hf = g.new_zeros((num_nodes, g.shape[1]))
+    _add_sources(d_hf, src.long(), dhf_src)
     return (*grads, d_hf)
 
 
@@ -688,9 +715,8 @@ def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
     caller that built them already for several calls (only the kernels read
     them).
 
-    On CPU tensors in fp32 autograd differentiates the plain forward; in
-    bf16 training goes through ``_LevelScan`` with the plain versions of
-    both kernels, so that the CPU rounds where the kernels do.
+    On CPU tensors training goes through ``_LevelScan`` with the plain
+    versions of both kernels, so that the CPU rounds where the kernels do.
     """
     args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
             wkv_hf, w_ih, b_ih, b_hh, wa_k)
@@ -698,8 +724,6 @@ def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
     dev = pack_lv.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"level_scan: no kernel for device {dev}")
-    if dev.type == "cpu" and pack_lv.dtype == torch.float32:
-        return level_scan_reference(*args, num_nodes, num_levels)
     if dev.type == "cuda":
         _check_prepared("level_scan", args, lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
@@ -712,7 +736,7 @@ def level_scan(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
 
 class _LevelScan(torch.autograd.Function):
     """The forward with residuals and the backward from them: on CUDA
-    tensors the kernels, on CPU tensors (bf16 only) their plain versions.
+    tensors the kernels, on CPU tensors their plain versions.
     Counterpart of the JAX package's custom VJP ``pallas_level_scan``. The
     backward runs in the forward's matmul precision."""
 
@@ -913,33 +937,41 @@ def level_scan_giant(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_
                      packed: tuple | None = None) -> torch.Tensor:
     """Level recurrence over levels [0, num_levels) of one batch's tables at
     any size, keeping no residuals: arguments and result as ``level_scan``'s.
-    Training saves hf alone; the backward recomputes each level from it."""
+    Training saves hf alone; the backward recomputes each level from it.
+    On CPU tensors training goes through ``_LevelScanGiant`` with the plain
+    versions of both kernels, so that the CPU rounds where kernel 4 does."""
     args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
             wkv_hf, w_ih, b_ih, b_hh, wa_k)
     _check(args, num_nodes, num_levels, op="level_scan_giant")
     dev = pack_lv.device
-    if dev.type == "cpu":
-        return level_scan_giant_reference(*args, num_nodes, num_levels)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"level_scan_giant: no kernel for device {dev}")
-    _check_prepared("level_scan_giant", args, lists, packed)
+    if dev.type == "cuda":
+        _check_prepared("level_scan_giant", args, lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
         return _LevelScanGiant.apply(num_nodes, num_levels, (lists, packed), *args)
+    if dev.type == "cpu":
+        return level_scan_giant_reference(*args, num_nodes, num_levels)
     return _giant_forward_cuda(args, num_nodes, num_levels, lists=lists, packed=packed)
 
 
 class _LevelScanGiant(torch.autograd.Function):
-    """CUDA only: the giant forward kernel, which saves its result hf and no
-    residuals, and the giant backward kernels, which recompute from it.
-    Counterpart of the JAX package's custom VJP ``pallas_level_scan_hbm``.
-    The backward runs in the forward's matmul precision."""
+    """The giant forward, which saves its result hf and no residuals, and
+    the giant backward, which recomputes from it: on CUDA tensors the
+    kernels, on CPU tensors their plain versions, the backward
+    in the kernel's chunks of levels. Counterpart of the JAX package's
+    custom VJP ``pallas_level_scan_hbm``. The backward runs in the forward's
+    matmul precision."""
 
     @staticmethod
     def forward(ctx, num_nodes, num_levels, prepared, *args):
         ctx.precision = current_precision()
-        ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
-        hf = _giant_forward_cuda(args, num_nodes, num_levels, lists=ctx.lists,
-                                 packed=ctx.packed)
+        if args[0].is_cuda:
+            ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
+            hf = _giant_forward_cuda(args, num_nodes, num_levels, lists=ctx.lists,
+                                     packed=ctx.packed)
+        else:
+            hf = level_scan_giant_reference(*args, num_nodes, num_levels)
         ctx.num_levels = num_levels
         ctx.save_for_backward(*args, hf)
         return hf
@@ -948,8 +980,16 @@ class _LevelScanGiant(torch.autograd.Function):
     def backward(ctx, ghf):
         *args, hf = ctx.saved_tensors
         with matmul_precision(ctx.precision):
-            d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _giant_backward_cuda(
-                ghf, hf, tuple(args), ctx.num_levels, lists=ctx.lists, packed=ctx.packed)
+            if ghf.is_cuda:
+                grads = _giant_backward_cuda(ghf, hf, tuple(args), ctx.num_levels,
+                                             lists=ctx.lists, packed=ctx.packed)
+            else:
+                (L, ep, pw), np_ = args[0].shape, args[4].shape[1]
+                K = giant_chunk_levels(ep, np_, pw - 2, L, hf.shape[0], args[11].shape[0])
+                grads = level_scan_giant_bwd_reference(ghf, hf, *args,
+                                                       num_levels=ctx.num_levels,
+                                                       chunk_levels=K)
+        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = grads
         # (num_nodes, num_levels, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
@@ -972,7 +1012,9 @@ def _giant_backward_cuda(ghf, hf, args, num_levels: int,
     """Apart from its outputs (d_pack_lv is the only float buffer with a
     leading L axis) the working memory is ghf's copy and the scratch of one
     chunk of K levels: ``chunk_levels``, or by default
-    ``giant_chunk_levels``."""
+    ``giant_chunk_levels``. ghf's copy and the scratch are fp32 in both
+    value types (in bf16 as the JAX giant backward keeps them); d_pack
+    takes pack_lv's dtype."""
     global giant_bwd_launches
     pack_lv, lv_src, lv_nodes, b_ih, b_hh, wa_k = (args[i] for i in (0, 1, 4, 9, 10, 11))
     L, ep, _ = pack_lv.shape
@@ -982,23 +1024,29 @@ def _giant_backward_cuda(ghf, hf, args, num_levels: int,
     lib = _build.library()
     lists, packed = _prepared(args, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = bf16_flag(pack_lv)
+    b_ih, b_hh, wa_k = (t.float().contiguous() for t in (b_ih, b_hh, wa_k))
     d_pack = torch.zeros_like(pack_lv)
     n_grad = T * D * (5 * D + 7)
+    primal = [args[i].dtype for i in (7, 8, 9, 10, 11)]
     # the weight gradients are added into, chunk by chunk
     grads = torch.zeros((n_grad,), **f32)
     if num_levels == 0:
-        return (d_pack, *_weight_grads(grads, D, T))
+        return (d_pack, *_weight_grads(grads, D, T, primal))
     K = chunk_levels or giant_chunk_levels(ep, np_, D, L, hf.shape[0], T)
     K = min(K, num_levels)
-    # a contiguous working copy: autograd may hand over an expanded or shared
-    # cotangent, and the kernel adds the sources' gradients into it
+    # a contiguous fp32 working copy: autograd may hand over an expanded or
+    # shared cotangent, and the kernel adds the sources' gradients into it
     g = torch.empty((hf.shape[0], D), **f32)
     g.copy_(ghf)
     # K levels' recomputed residuals and scratch; the kernels visit live rows only
     held, scratch = _scratch(
         dev, K * ep * (3 * D + 1), K * np_ * 4 * D, K * ep * 2 * D, K * np_ * 6 * D,
         K * ep, K * ep * D, ep * D,          # res_e, res_n, dkv, dg, score_buf, v_buf, dhf_buf
-        K * n_grad if K > 1 else 1)                               # partial
+        K * n_grad if K > 1 else 1,                               # partial
+        K * ep if bf16 else 1)                                    # dscore
+    # bf16: wk_e^T for the per-edge dhf_src product, and dscore in fp32 for d_wak
+    wkt_e = packed[0][:, 0].transpose(1, 2).contiguous() if bf16 else None
     barrier = torch.empty((1,), dtype=torch.int32, device=dev)
     launched = ctypes.c_int(0)             # the kernels the C entry enqueued
     with torch.cuda.device(dev):
@@ -1006,11 +1054,12 @@ def _giant_backward_cuda(ghf, hf, args, num_levels: int,
         code = lib.mgvae_level_scan_giant_backward(
             *(t.data_ptr() for t in (g, hf, pack_lv, lv_src, lv_nodes, *lists, *packed, b_ih,
                                      b_hh, wa_k, d_pack)), *scratch[:7], grads.data_ptr(),
-            scratch[7], barrier.data_ptr(), ctypes.addressof(launched), num_levels, K, ep, np_,
-            D, T, stream)
+            scratch[7], wkt_e.data_ptr() if bf16 else None, scratch[8] if bf16 else None,
+            barrier.data_ptr(), ctypes.addressof(launched), num_levels, K, ep, np_, D, T, bf16,
+            stream)
     _build.check(lib, code, "level_scan_giant_bwd kernel launch")
     giant_bwd_launches += launched.value
-    return (d_pack, *_weight_grads(grads, D, T))
+    return (d_pack, *_weight_grads(grads, D, T, primal))
 
 
 def level_step(hf, pack, src, dslot, evalid, upd, e_n,
@@ -1018,35 +1067,39 @@ def level_step(hf, pack, src, dslot, evalid, upd, e_n,
                packed: tuple | None = None) -> torch.Tensor:
     """One level from an explicit hf.
 
-    hf [N, D] f32 (read only; a contiguous row range of a larger hf will
-    do), pack [Ep, D+2] f32: per edge [vhs | score_static | expert];
-    src / dslot / evalid [Ep] and upd / e_n [Np] int32, src indexing hf's
-    rows; the weights as ``level_scan``'s. Returns h_new [Np, D] f32 in slot
-    order, 0 where ``upd`` is 0, not scattered; differentiable with respect
-    to hf (through the source gathers), pack and the weights. ``lists``: the
-    level's row of the tables' ``level_lists`` ([1, ...]), and ``packed``: the
-    weights' ``repack_expert_major(wkv_hf, w_ih, T, backward=True)``, for a
-    caller that built them already for several calls.
+    hf [N, D] (read only; a contiguous row range of a larger hf will do),
+    pack [Ep, D+2]: per edge [vhs | score_static | expert]; src / dslot /
+    evalid [Ep] and upd / e_n [Np] int32, src indexing hf's rows; the
+    weights as ``level_scan``'s; the float arguments all fp32 or all bf16.
+    Returns h_new [Np, D] in the value type, in slot order, 0 where ``upd``
+    is 0, not scattered; differentiable with respect to hf (through the
+    source gathers), pack and the weights. ``lists``: the level's row of the
+    tables' ``level_lists`` ([1, ...]), and ``packed``: the weights'
+    ``repack_expert_major(wkv_hf, w_ih, T, backward=True)``, for a caller
+    that built them already for several calls.
 
     The JAX function's ``nodes`` argument only feeds its source windows and
-    has no counterpart here.
+    has no counterpart here. On CPU tensors training goes through
+    ``_LevelStep`` with both plain versions, as ``level_scan``'s.
     """
     args = (hf, pack, src, dslot, evalid, upd, e_n, wkv_hf, w_ih, b_ih, b_hh, wa_k)
     _check_step(args)
     dev = pack.device
-    if dev.type == "cpu":
-        return level_step_reference(*args)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"level_step: no kernel for device {dev}")
-    _check_prepared("level_step", args[1:], lists, packed)
+    if dev.type == "cuda":
+        _check_prepared("level_step", args[1:], lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in STEP_FLOAT_ARGS):
         return _LevelStep.apply((lists, packed), *args)
+    if dev.type == "cpu":
+        return level_step_reference(*args)
     return _step_forward_cuda(args, residuals=False, lists=lists, packed=packed)
 
 
 class _LevelStep(torch.autograd.Function):
-    """CUDA only: the step kernel with residuals, and its backward kernels.
-    Counterpart of the JAX package's custom VJP ``pallas_level_step``.
+    """The step with residuals, and its backward: on CUDA tensors the
+    kernels, on CPU tensors their plain versions. Counterpart of
+    the JAX package's custom VJP ``pallas_level_step``.
 
     hf itself is not saved (res_e holds the gathered source rows), only its
     row count: the caller writes the new rows into hf in place between
@@ -1056,9 +1109,12 @@ class _LevelStep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, prepared, hf, *rest):
         ctx.precision = current_precision()
-        ctx.lists, ctx.packed = _prepared(rest, *prepared, backward=True)
-        h_new, res_e, res_n = _step_forward_cuda((hf, *rest), residuals=True, lists=ctx.lists,
-                                                 packed=ctx.packed)
+        if hf.is_cuda:
+            ctx.lists, ctx.packed = _prepared(rest, *prepared, backward=True)
+            h_new, res_e, res_n = _step_forward_cuda((hf, *rest), residuals=True,
+                                                     lists=ctx.lists, packed=ctx.packed)
+        else:
+            h_new, res_e, res_n = level_step_reference(hf, *rest, with_residuals=True)
         ctx.num_nodes = hf.shape[0]
         ctx.save_for_backward(*rest, res_e, res_n)
         return h_new
@@ -1067,9 +1123,16 @@ class _LevelStep(torch.autograd.Function):
     def backward(ctx, g):
         *rest, res_e, res_n = ctx.saved_tensors
         with matmul_precision(ctx.precision):
-            grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes,
-                                        lists=ctx.lists, packed=ctx.packed)
+            if g.is_cuda:
+                grads = _step_backward_cuda(g, res_e, res_n, tuple(rest), ctx.num_nodes,
+                                            lists=ctx.lists, packed=ctx.packed)
+            else:
+                grads = level_step_bwd_reference(
+                    g, res_e, res_n, *(rest[i] for i in (0, 1, 2, 3, 4, 5, 6, 7, 9, 10)),
+                    ctx.num_nodes)
         d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak, d_hf = grads
+        d_wkv, d_wih, d_bih, d_bhh, d_wak = (
+            x.to(t.dtype) for x, t in zip((d_wkv, d_wih, d_bih, d_bhh, d_wak), rest[6:]))
         # (prepared, hf, pack, 5 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, d_hf, d_pack) + (None,) * 5 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
@@ -1082,18 +1145,19 @@ def _step_forward_cuda(args, residuals: bool, lists: LevelLists | None = None, p
     dev = pack.device
     lib = _build.library()
     lists, packed = _prepared(args[1:], lists, packed)
-    f32 = dict(dtype=torch.float32, device=dev)
-    h_new = torch.zeros((np_, D), **f32)
+    vdt = dict(dtype=pack.dtype, device=dev)       # h_new and the residuals
+    b_ih, b_hh, wa_k = (t.float().contiguous() for t in (b_ih, b_hh, wa_k))
+    h_new = torch.zeros((np_, D), **vdt)
     held, scratch = _scratch(dev, ep, ep * D)                 # score_buf, v_buf
-    res_e = torch.empty((ep, 3 * D + 1), **f32) if residuals else None
-    res_n = torch.empty((np_, 4 * D), **f32) if residuals else None
+    res_e = torch.empty((ep, 3 * D + 1), **vdt) if residuals else None
+    res_n = torch.empty((np_, 4 * D), **vdt) if residuals else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_step_forward(
             *(t.data_ptr() for t in (hf, pack, src, *lists[:4], *packed[:2], b_ih, b_hh, wa_k,
                                      h_new)), *scratch,
             res_e.data_ptr() if residuals else None,
-            res_n.data_ptr() if residuals else None, ep, np_, D, T, stream)
+            res_n.data_ptr() if residuals else None, ep, np_, D, T, bf16_flag(pack), stream)
     _build.check(lib, code, "level_step kernel launch")
     step_launches += 1
     return (h_new, res_e, res_n) if residuals else h_new
@@ -1111,17 +1175,25 @@ def _step_backward_cuda(g, res_e, res_n, rest, num_nodes: int,
     lib = _build.library()
     lists, (wkv_e, _, wvt_e, wiht_e) = _prepared(rest, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
-    g = g.contiguous()   # autograd may hand over an expanded cotangent; only read
-    d_pack = torch.zeros((ep, pw), **f32)
-    d_hf = torch.zeros((num_nodes, D), **f32)
-    held, scratch = _scratch(dev, ep * 2 * D, np_ * 6 * D, ep * D)   # dkv, dg, dhf_buf
+    vdt = dict(dtype=pack.dtype, device=dev)       # g, d_pack and d_hf
+    bf16 = bf16_flag(pack)
+    # autograd may hand over an expanded cotangent; only read
+    g = g.to(pack.dtype).contiguous()
+    b_hh, wa_k = (t.float().contiguous() for t in (b_hh, wa_k))
+    d_pack = torch.zeros((ep, pw), **vdt)
+    d_hf = torch.zeros((num_nodes, D), **vdt)
+    held, scratch = _scratch(dev, ep * 2 * D, np_ * 6 * D, ep * D,   # dkv, dg, dhf_buf
+                             ep if bf16 else 1)                      # dscore
+    # bf16: wk_e^T for the per-edge dhf_src product
+    wkt_e = wkv_e[:, 0].transpose(1, 2).contiguous() if bf16 else None
     grads = torch.empty((T * D * (5 * D + 7),), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mgvae_level_step_backward(
             *(t.data_ptr() for t in (g, res_e, res_n, src, *lists, wkv_e, wvt_e, wiht_e, b_hh,
-                                     wa_k, d_pack)), *scratch, grads.data_ptr(), d_hf.data_ptr(),
-            ep, np_, D, T, stream)
+                                     wa_k, d_pack)), *scratch[:3], grads.data_ptr(),
+            d_hf.data_ptr(), wkt_e.data_ptr() if bf16 else None, scratch[3] if bf16 else None,
+            ep, np_, D, T, bf16, stream)
     _build.check(lib, code, "level_step_bwd kernel launch")
     step_bwd_launches += 3
     return (d_pack, *_weight_grads(grads, D, T), d_hf)
@@ -1143,7 +1215,9 @@ def level_scan_step(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e
     per level index for all chunks, the new rows scattered into hf inside
     the kernel; training goes through ``_LevelScanStep``. The kernels take a
     chunk's rows past its real levels to be padding (no updated slot, so
-    empty lists), as ``collate_chunked`` pads them."""
+    empty lists), as ``collate_chunked`` pads them. On CPU tensors training
+    goes through ``_LevelScanStep`` with both plain versions, the backward
+    in the kernel's blocks of level indices."""
     args = (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n,
             wkv_hf, w_ih, b_ih, b_hh, wa_k)
     n_levels = tuple(int(n) for n in n_levels)
@@ -1156,30 +1230,36 @@ def level_scan_step(pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e
         raise ValueError(f"level_scan_step: real levels {n_levels} outside "
                          f"[0, {pack_lv.shape[0] // C}]")
     dev = pack_lv.device
-    if dev.type == "cpu":
-        return level_scan_step_reference(*args, n_levels, n_sub)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"level_scan_step: no kernel for device {dev}")
-    _check_prepared("level_scan_step", args, lists, packed)
+    if dev.type == "cuda":
+        _check_prepared("level_scan_step", args, lists, packed)
     if torch.is_grad_enabled() and any(args[i].requires_grad for i in FLOAT_ARGS):
         return _LevelScanStep.apply(n_levels, n_sub, (lists, packed), *args)
+    if dev.type == "cpu":
+        return level_scan_step_reference(*args, n_levels, n_sub)
     return _step_route_forward_cuda(args, n_levels, n_sub, residuals=False, lists=lists,
                                     packed=packed)
 
 
 class _LevelScanStep(torch.autograd.Function):
-    """CUDA only: the step route's forward with residuals, stacked over all
-    C * L rows, and its backward, which carries hf's cotangent in place over
-    the level indices. Counterpart of ``jax.vjp`` of the JAX package's
-    ``_level_scan_step``. The backward runs in the forward's matmul
-    precision."""
+    """The step route's forward with residuals, stacked over all C * L
+    rows, and its backward, which carries hf's cotangent in place over the
+    level indices: on CUDA tensors the kernels, on CPU tensors their plain
+    versions in the kernels' order. Counterpart of ``jax.vjp``
+    of the JAX package's ``_level_scan_step``. The backward runs in the
+    forward's matmul precision."""
 
     @staticmethod
     def forward(ctx, n_levels, n_sub, prepared, *args):
         ctx.precision = current_precision()
-        ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
-        hf, res_e, res_n = _step_route_forward_cuda(args, n_levels, n_sub, residuals=True,
-                                                    lists=ctx.lists, packed=ctx.packed)
+        if args[0].is_cuda:
+            ctx.lists, ctx.packed = _prepared(args, *prepared, backward=True)
+            hf, res_e, res_n = _step_route_forward_cuda(args, n_levels, n_sub, residuals=True,
+                                                        lists=ctx.lists, packed=ctx.packed)
+        else:
+            hf, res_e, res_n = level_scan_step_reference(*args, n_levels, n_sub,
+                                                         with_residuals=True)
         ctx.n_levels, ctx.n_sub = n_levels, n_sub
         ctx.save_for_backward(*args, res_e, res_n)
         return hf
@@ -1188,9 +1268,17 @@ class _LevelScanStep(torch.autograd.Function):
     def backward(ctx, ghf):
         *args, res_e, res_n = ctx.saved_tensors
         with matmul_precision(ctx.precision):
-            d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = _step_route_backward_cuda(
-                ghf, res_e, res_n, tuple(args), ctx.n_levels, ctx.n_sub, lists=ctx.lists,
-                packed=ctx.packed)
+            if ghf.is_cuda:
+                grads = _step_route_backward_cuda(ghf, res_e, res_n, tuple(args), ctx.n_levels,
+                                                  ctx.n_sub, lists=ctx.lists, packed=ctx.packed)
+            else:
+                (R, ep, pw), np_, C = args[0].shape, args[4].shape[1], len(ctx.n_levels)
+                K = step_chunk_levels(ep, np_, pw - 2, R // C, C, C * ctx.n_sub,
+                                      args[11].shape[0])
+                grads = level_scan_step_bwd_reference(
+                    ghf, res_e, res_n, *args[:9], args[10], args[11], ctx.n_levels, ctx.n_sub,
+                    chunk_levels=K)
+        d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak = grads
         # (n_levels, n_sub, prepared, pack_lv, 6 int tables, wkv_hf, w_ih, b_ih, b_hh, wa_k)
         return (None, None, None, d_pack) + (None,) * 6 + (d_wkv, d_wih, d_bih, d_bhh, d_wak)
 
@@ -1207,10 +1295,11 @@ def _step_route_forward_cuda(args, n_levels, n_sub: int, residuals: bool,
     dev = pack_lv.device
     lib = _build.library()
     lists, packed = _prepared(args, lists, packed)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hf = torch.zeros((C * n_sub, D), **f32)
-    res_e = torch.empty((R, ep, 3 * D + 1), **f32) if residuals else None
-    res_n = torch.empty((R, np_, 4 * D), **f32) if residuals else None
+    vdt = dict(dtype=pack_lv.dtype, device=dev)    # hf and the residuals
+    b_ih, b_hh, wa_k = (t.float().contiguous() for t in (b_ih, b_hh, wa_k))
+    hf = torch.zeros((C * n_sub, D), **vdt)
+    res_e = torch.empty((R, ep, 3 * D + 1), **vdt) if residuals else None
+    res_n = torch.empty((R, np_, 4 * D), **vdt) if residuals else None
     held, scratch = _scratch(dev, C * ep, C * ep * D)         # score_buf, v_buf
     levels = (ctypes.c_int * C)(*n_levels)
     launched = ctypes.c_int(0)             # the kernels the C entry enqueued
@@ -1221,7 +1310,7 @@ def _step_route_forward_cuda(args, n_levels, n_sub: int, residuals: bool,
                                      b_ih, b_hh, wa_k)), *scratch,
             res_e.data_ptr() if residuals else None, res_n.data_ptr() if residuals else None,
             ctypes.addressof(levels), ctypes.addressof(launched), C, R // C, n_sub, ep, np_, D,
-            T, stream)
+            T, bf16_flag(pack_lv), stream)
     _build.check(lib, code, "level_scan_step kernel launch")
     step_launches += launched.value
     return (hf, res_e, res_n) if residuals else hf
@@ -1242,19 +1331,26 @@ def _step_route_backward_cuda(ghf, res_e, res_n, args, n_levels, n_sub: int,
     lib = _build.library()
     lists, (wkv_e, _, wvt_e, wiht_e) = _prepared(args, lists, packed, backward=True)
     f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = bf16_flag(pack_lv)
     d_pack = torch.zeros_like(pack_lv)
     n_grad = T * D * (5 * D + 7)
+    primal = [args[i].dtype for i in (7, 8, 9, 10, 11)]
     grads = torch.zeros((n_grad,), **f32)      # added into, block by block and chunk by chunk
     top = max(n_levels)
     if top == 0:
-        return (d_pack, *_weight_grads(grads, D, T))
+        return (d_pack, *_weight_grads(grads, D, T, primal))
     K = min(chunk_levels or step_chunk_levels(ep, np_, D, R // C, C, C * n_sub, T), top)
-    # a contiguous working copy: autograd may hand over an expanded or shared
-    # cotangent, and the kernels add the sources' gradients into it
-    g = torch.empty((C * n_sub, D), **f32)
+    # a contiguous working copy in the value type: autograd may hand over an
+    # expanded or shared cotangent, and the kernels add the sources'
+    # gradients into it
+    g = torch.empty((C * n_sub, D), dtype=pack_lv.dtype, device=dev)
     g.copy_(ghf)
+    b_hh, wa_k = (t.float().contiguous() for t in (b_hh, wa_k))
     held, scratch = _scratch(dev, C * K * ep * 2 * D, C * K * np_ * 6 * D, C * ep * D,
-                             K * n_grad if K > 1 else 1)      # dkv, dg, dhf_buf, partial
+                             K * n_grad if K > 1 else 1,      # dkv, dg, dhf_buf, partial
+                             C * K * ep if bf16 else 1)       # dscore
+    # bf16: wk_e^T for the per-edge dhf_src product
+    wkt_e = wkv_e[:, 0].transpose(1, 2).contiguous() if bf16 else None
     levels = (ctypes.c_int * C)(*n_levels)
     launched = ctypes.c_int(0)             # the kernels the C entry enqueued
     with torch.cuda.device(dev):
@@ -1262,11 +1358,12 @@ def _step_route_backward_cuda(ghf, res_e, res_n, args, n_levels, n_sub: int,
         code = lib.mgvae_level_scan_step_backward(
             *(t.data_ptr() for t in (g, res_e, res_n, lv_src, lv_nodes, *lists, wkv_e, wvt_e,
                                      wiht_e, b_hh, wa_k, d_pack)), *scratch[:3],
-            grads.data_ptr(), scratch[3], ctypes.addressof(levels), ctypes.addressof(launched),
-            C, R // C, K, n_sub, ep, np_, D, T, stream)
+            grads.data_ptr(), scratch[3], wkt_e.data_ptr() if bf16 else None,
+            scratch[4] if bf16 else None, ctypes.addressof(levels), ctypes.addressof(launched),
+            C, R // C, K, n_sub, ep, np_, D, T, bf16, stream)
     _build.check(lib, code, "level_scan_step_bwd kernel launch")
     step_bwd_launches += launched.value
-    return (d_pack, *_weight_grads(grads, D, T))
+    return (d_pack, *_weight_grads(grads, D, T, primal))
 
 
 def _check_step(args) -> None:
@@ -1284,7 +1381,7 @@ def _check_step(args) -> None:
         raise ValueError(f"level_step: hf must be [N, D] with N >= 1, got {tuple(hf.shape)}; "
                          f"Ep={ep}, Np={np_}")
     i32 = torch.int32
-    vdt = _value_dtype("level_step", pack)
+    vdt = _value_dtype(pack)
     want = [((hf.shape[0], D), vdt), ((ep, pw), vdt),
             ((ep,), i32), ((ep,), i32), ((ep,), i32), ((np_,), i32), ((np_,), i32),
             ((D, 2 * T * D), vdt), ((D, 3 * T * D), vdt),
@@ -1304,7 +1401,7 @@ def _check(args, num_nodes: int, num_levels: int, op: str = "level_scan") -> Non
     L, ep, pw = pack_lv.shape
     np_ = lv_nodes.shape[-1]
     D, T = pw - 2, wa_k.shape[0]
-    vdt = _value_dtype(op, pack_lv)
+    vdt = _value_dtype(pack_lv)
     want = {
         "pack_lv": ((L, ep, pw), vdt),
         "lv_src": ((L, ep), torch.int32), "lv_dslot": ((L, ep), torch.int32),
@@ -1322,17 +1419,10 @@ def _check(args, num_nodes: int, num_levels: int, op: str = "level_scan") -> Non
         raise ValueError(f"{op}: empty node or level tables")
 
 
-# the level kernels that take bf16 values: the fused route's (kernels 1, 2)
-BF16_OPS = ("level_scan",)
-
-
-def _value_dtype(op: str, values: torch.Tensor) -> torch.dtype:
-    """The value type that ``op`` takes for its float arguments, from the
-    first of them: fp32, or bf16 where ``op`` is in ``BF16_OPS``. The giant
-    and step routes' kernels take fp32 alone until ROADMAP 1.6b."""
-    if values.dtype == torch.bfloat16 and op not in BF16_OPS:
-        raise NotImplementedError(f"{op}: bf16 values are not ported to this route yet "
-                                  "(ROADMAP 1.6b); only the fused level scan takes them")
+def _value_dtype(values: torch.Tensor) -> torch.dtype:
+    """The value type of a level op's float arguments, from the first of
+    them: bf16, else fp32 (every level op takes both; the others must
+    match)."""
     return values.dtype if values.dtype == torch.bfloat16 else torch.float32
 
 

@@ -7,8 +7,8 @@ same bf16 inputs; the whole bf16 forward against
 fp32 forward; the gradients of a bf16 loss against ``jax.grad``; one bf16
 Adam step on fp32 master params against ``make_train_step``; a bf16 DG_VAE
 step with JAX's draws; and the routing per dtype (the fused route and the
-struct kernels on plain, fit and split batches; the giant and step routes
-refused).
+struct kernels on plain, fit and split batches; the giant and step routes,
+which tests/test_torch_bf16_routes.py holds against JAX).
 
 Tolerances: every comparison holds the JAX package's own bf16 bounds
 (tests/test_pallas_kernel.py:95-114): values atol 2e-2 / rtol 1e-1 against
@@ -439,39 +439,50 @@ def test_bf16_routing_takes_the_fused_scan_and_struct_kernels(layout, chunks, mo
 
 @pytest.mark.parametrize("route", ["giant", "step"])
 def test_bf16_giant_and_step_routes_raise(route, monkeypatch):
-    """bf16 on the giant route (a plain batch past ``kernel_fits``) and on
-    the step route (chunks past it) raises NotImplementedError naming
-    ROADMAP 1.6b before any level kernel or plain version runs; fp32 takes
-    the same batch as before."""
+    """Routing per dtype past ``kernel_fits``: a plain batch goes through
+    ``level_scan_giant``, a chunked one through ``level_scan_step``, once
+    each and nothing else of the level recurrence, in bf16 as in fp32, and
+    the bf16 forward's hf is bf16 (the name is from when bf16 raised on
+    these routes)."""
     monkeypatch.setattr(P, "kernel_fits", lambda *a: False)
-    for name in ("level_scan_giant", "level_scan_step", "level_scan"):
-        monkeypatch.setattr(P, name, lambda *a, **k: pytest.fail("a level route ran"))
-    *_, pcfg16 = _configs()
-    params, _ = P.init_params(pcfg16, seed=0, device="cpu")
+    name = "level_scan_giant" if route == "giant" else "level_scan_step"
+    calls = []
+    for other in ("level_scan_giant", "level_scan_step", "level_scan"):
+        real = getattr(P, other)
+        if other == name:
+            monkeypatch.setattr(P, other, lambda *a, _real=real, **k: (calls.append(1),
+                                                                       _real(*a, **k))[1])
+        else:
+            monkeypatch.setattr(P, other, lambda *a, **k: pytest.fail("another route ran"))
     hb = _batch(11, circuits=4, layout="plain" if route == "giant" else "chunked")
-    with pytest.raises(NotImplementedError, match=rf"{route} route.*ROADMAP 1\.6b"):
-        P.forward(params, hb, pcfg16)
+    *_, pcfg16 = _configs()
+    for cfg, dtype in ((pcfg16, BF16), (P.DGConfig(**KW), torch.float32)):
+        params, _ = P.init_params(cfg, seed=0, device="cpu")
+        calls.clear()
+        hs, hf, _ = P.forward(params, hb, cfg)
+        assert hs.dtype == hf.dtype == dtype and len(calls) == 1, (dtype, calls)
+        assert torch.isfinite(hf.float()).all() and hf.abs().max() > 0
 
 
 def test_bf16_values_reaching_kernels_3_to_6_raise():
-    """The giant and step routes' functions refuse bf16 values themselves
-    (kernels 3 to 6 take fp32 alone until 1.6b); a mix of value types is
-    refused by every route."""
+    """A mix of value types is refused by every route of the level
+    recurrence and by the struct towers (the name is from when kernels 3 to
+    6 refused bf16 values themselves; they take them now)."""
     args, N, n_lv = _level_args(6)
     t16 = [torch.tensor(a).to(BF16) if i in level_kernel.FLOAT_ARGS else torch.tensor(a)
            for i, a in enumerate(args)]
-    with pytest.raises(NotImplementedError, match="1.6b"):
-        level_kernel.level_scan_giant(*t16, num_nodes=N, num_levels=n_lv)
-    with pytest.raises(NotImplementedError, match="1.6b"):
-        level_kernel.level_scan_step(*t16, n_levels=(n_lv,), n_sub=N)
-    hf = torch.zeros((N, D), dtype=BF16)
-    with pytest.raises(NotImplementedError, match="1.6b"):
-        level_kernel.level_step(hf, t16[0][0], *(t[0] for t in t16[1:4]), t16[5][0], t16[6][0],
-                                *t16[7:])
     mixed = list(t16)
     mixed[8] = mixed[8].float()
     with pytest.raises(ValueError, match="w_ih"):
         level_kernel.level_scan(*mixed, num_nodes=N, num_levels=n_lv)
+    with pytest.raises(ValueError, match="w_ih"):
+        level_kernel.level_scan_giant(*mixed, num_nodes=N, num_levels=n_lv)
+    with pytest.raises(ValueError, match="w_ih"):
+        level_kernel.level_scan_step(*mixed, n_levels=(n_lv,), n_sub=N)
+    hf = torch.zeros((N, D), dtype=torch.float32)
+    with pytest.raises(ValueError, match="hf"):
+        level_kernel.level_step(hf, t16[0][0], *(t[0] for t in t16[1:4]), t16[5][0], t16[6][0],
+                                *t16[7:])
     floats, tables, _, _ = _struct_case(11, True)
     floats[2] = floats[2].float()
     with pytest.raises(ValueError, match="w_hh"):

@@ -991,9 +991,172 @@ def test_bf16_kernels_match_plain_versions_on_card(cuda, modality, dim):
     for k, r in zip(g_k, g_r):
         assert k.dtype == torch.bfloat16
         _bf16_close(k, r)
-    # the giant and step routes' kernels take fp32 alone (ROADMAP 1.6b)
-    with pytest.raises(NotImplementedError, match="1.6b"):
-        level_kernel.level_scan_giant(*args, num_nodes=N, num_levels=n_lv)
+
+
+def _to_bf16(args, floats):
+    return tuple(a.to(torch.bfloat16) if i in floats else a for i, a in enumerate(args))
+
+
+@pytest.mark.parametrize("modality,dim", [("aig", 32), ("mig", 64), ("xag", 128), ("xmg", 96)])
+def test_bf16_giant_kernels_match_plain_versions_on_card(cuda, modality, dim):
+    """Kernels 3 and 4 with bf16 values on a layered circuit past the fused
+    gate: the giant forward equal bit for bit to kernel 1's bf16 launch
+    without residuals and within BF16_ULPS of its plain version; the giant
+    backward (fp32 ghf and recompute, kernel 4's rounding points) against
+    level_scan_giant_bwd_reference in its chunk order, each output in its
+    dtype within BF16_ULPS of its scale, twice bit for bit, with fp32's
+    launches; through the autograd Function the same."""
+    cfg = dg_ae.DGConfig(modality=modality, dim_hidden=dim, s_rounds=1, t_rounds=1,
+                         layernorm=True, matmul_precision="highest")
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    batch = collate([layered_circuit(np.random.default_rng(5), modality, width=96, depth=90,
+                                     num_tt_pairs=16)])
+    b = dg_ae.batch_to_device(batch, cuda)
+    n_lv = dg_ae.num_levels(batch)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = _to_bf16(dg_ae.level_scan_inputs(params, b, cfg, hs), level_kernel.FLOAT_ARGS)
+    N, L = hs.shape[0], args[0].shape[0]
+    assert not level_kernel.kernel_fits(N, args[0].shape[1], args[4].shape[1], dim)
+    level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+    hf_k = level_kernel._giant_forward_cuda(args, N, n_lv)
+    assert hf_k.dtype == torch.bfloat16
+    assert torch.equal(hf_k, level_kernel._forward_cuda(args, N, n_lv, residuals=False))
+    _bf16_close(hf_k, level_kernel.level_scan_giant_reference(*args, num_nodes=N,
+                                                               num_levels=n_lv))
+    ghf = torch.randn(hf_k.shape, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(3)).to(torch.bfloat16)
+    raw = [level_kernel._giant_backward_cuda(ghf, hf_k, args, n_lv) for _ in range(2)]
+    torch.cuda.synchronize()
+    k = min(level_kernel.giant_chunk_levels(args[0].shape[1], args[4].shape[1], dim, L, N,
+                                            cfg.num_experts), n_lv)
+    assert level_kernel.giant_launches == 1
+    assert level_kernel.giant_bwd_launches == 2 * level_kernel.giant_bwd_launch_count(n_lv, k)
+    assert all(torch.equal(a, c) for a, c in zip(*raw))              # no atomics
+    grads_r = level_kernel.level_scan_giant_bwd_reference(ghf, hf_k, *args, num_levels=n_lv,
+                                                          chunk_levels=k)
+    for a, r in zip(raw[0], grads_r):
+        assert a.dtype == r.dtype == torch.bfloat16
+        _bf16_close(a, r)
+    t = [a.clone().requires_grad_(i in level_kernel.FLOAT_ARGS) for i, a in enumerate(args)]
+    hf = level_kernel.level_scan_giant(*t, num_nodes=N, num_levels=n_lv)
+    auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
+    assert torch.equal(hf, hf_k) and all(torch.equal(a, c) for a, c in zip(auto, raw[0]))
+
+
+@pytest.mark.parametrize("dim,experts,chunks", [(32, 3, 2), (64, 4, 3), (128, 5, 4), (96, 4, 2)])
+def test_bf16_step_kernels_match_plain_versions_on_card(cuda, dim, experts, chunks):
+    """Kernels 5 and 6 with bf16 values: the single-level step with
+    residuals and its backward on one level's row, and the step route (a
+    launch per level index, hf and its cotangent carried in bf16) on chunks
+    of unequal real levels, against their plain bf16 versions in the
+    kernels' order; every output in its dtype within BF16_ULPS of its
+    scale, the route's launches as fp32's, twice bit for bit."""
+    from test_torch_level_lists import BUSY_LEVEL, L
+
+    args, n_levels, n = _route_tables(cuda, dim, experts, chunks, seed=13)
+    args = _to_bf16(args, level_kernel.FLOAT_ARGS)
+    row = BUSY_LEVEL                     # chunk 0's level with a slot of 40 in-edges
+    hf0 = level_kernel.level_scan_step_reference(*args, n_levels, n)[:n].contiguous()
+    step_args = (hf0, *(args[i][row] for i in (0, 1, 2, 3, 5, 6)), *args[7:])
+    h_k, re_k, rn_k = level_kernel._step_forward_cuda(step_args, residuals=True)
+    re_k, rn_k = (x.to(torch.bfloat16) for x in
+                  _written_rows(step_args[3], step_args[4], step_args[5], 1, re_k, rn_k))
+    h_r, re_r, rn_r = level_kernel.level_step_reference(*step_args, with_residuals=True)
+    for k, r in ((h_k, h_r), (re_k, re_r), (rn_k, rn_r)):
+        assert k.dtype == torch.bfloat16
+        _bf16_close(k, r)
+    g = torch.randn(h_k.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2)).to(torch.bfloat16)
+    grads_k = level_kernel._step_backward_cuda(g, re_k, rn_k, step_args[1:], n)
+    grads_r = level_kernel.level_step_bwd_reference(g, re_k, rn_k, *step_args[1:9],
+                                                    step_args[10], step_args[11], num_nodes=n)
+    for k, r in zip(grads_k, grads_r):
+        _bf16_close(k, r)
+    assert grads_k[0].dtype == grads_k[6].dtype == torch.bfloat16          # d_pack, d_hf
+
+    level_kernel.step_launches = 0
+    hf_k, re_k, rn_k = level_kernel._step_route_forward_cuda(args, n_levels, n, residuals=True)
+    torch.cuda.synchronize()
+    assert level_kernel.step_launches == max(n_levels) and hf_k.dtype == torch.bfloat16
+    written = [x.to(torch.bfloat16) for x in
+               _written_rows(args[2], args[3], args[5], chunks * L, re_k, rn_k)]
+    hf_r, re_r, rn_r = level_kernel.level_scan_step_reference(*args, n_levels, n,
+                                                              with_residuals=True)
+    for k, r in zip((hf_k, *written), (hf_r, re_r, rn_r)):
+        _bf16_close(k, r)
+    ghf = torch.randn(hf_k.shape, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(5)).to(torch.bfloat16)
+    K = 2
+    level_kernel.step_bwd_launches = 0
+    raw = [level_kernel._step_route_backward_cuda(ghf, *written, args, n_levels, n,
+                                                  chunk_levels=K) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert level_kernel.step_bwd_launches == 2 * level_kernel.step_route_launch_count(n_levels, K)
+    assert all(torch.equal(a, c) for a, c in zip(*raw))
+    grads_r = level_kernel.level_scan_step_bwd_reference(
+        ghf, *written, *args[:9], args[10], args[11], n_levels, n, chunk_levels=K)
+    for a, r in zip(raw[0], grads_r):
+        assert a.dtype == r.dtype == torch.bfloat16
+        _bf16_close(a, r)
+
+
+@pytest.mark.parametrize("route", ["giant", "step"])
+def test_bf16_giant_and_step_train_steps_on_card_match_cpu(cuda, route, monkeypatch):
+    """One bf16 train step by the giant route (a layered circuit past the
+    fused gate) and by the step route (two chunks, the fused gate patched
+    off), card against CPU: the route's launches, losses within the JAX
+    package's bf16 bounds, every fp32 master gradient within them over all
+    leaves and within BF16_LEAF of its own leaf's scale."""
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         compute_dtype="bfloat16", matmul_precision="highest")
+    rng = np.random.default_rng(12)
+    if route == "giant":
+        batch = collate([layered_circuit(rng, "mig", width=96, depth=90, num_tt_pairs=16)])
+    else:
+        batch = collate_chunked([random_circuit(rng, "mig", num_inputs=8, num_gates=60 + 20 * i)
+                                 for i in range(6)], 2)
+        monkeypatch.setattr(dg_ae, "kernel_fits", lambda *a: False)
+    gen = torch.Generator().manual_seed(3)
+    e_pad, n_pad = batch["edge_src"].shape[0], batch["gate"].shape[0]
+    valid = torch.as_tensor(np.flatnonzero(batch["node_valid"]))
+    neg = tuple(valid[torch.randint(0, len(valid), (e_pad,), generator=gen)].to(torch.int32)
+                for _ in range(2))
+    keep = [torch.rand(n_pad, cfg.dim_mlp, generator=gen) < 0.8 for _ in range(2)]
+    m_c, g_c = _one_step(cfg, batch, "cpu", neg, keep)
+    level_kernel.launches = level_kernel.bwd_launches = 0
+    level_kernel.step_launches = level_kernel.step_bwd_launches = 0
+    level_kernel.giant_launches = level_kernel.giant_bwd_launches = 0
+    m_g, g_g = _one_step(cfg, batch, cuda, neg, keep)
+    torch.cuda.synchronize()
+    counts = dg_ae.level_counts(batch)
+    ep, np_ = batch["lv_edge_src"].shape[-1], batch["lv_nodes"].shape[-1]
+    if route == "giant":
+        L = batch["lv_nodes"].shape[0]
+        K = level_kernel.giant_chunk_levels(ep, np_, 64, L, n_pad, cfg.num_experts)
+        want = (0, 0, 1, level_kernel.giant_bwd_launch_count(counts[0], min(K, counts[0])))
+        got = (level_kernel.launches, level_kernel.step_launches, level_kernel.giant_launches,
+               level_kernel.giant_bwd_launches)
+    else:
+        K = level_kernel.step_chunk_levels(ep, np_, 64, batch["lv_nodes"].shape[1], len(counts),
+                                           n_pad, cfg.num_experts)
+        want = (0, max(counts), 0,
+                level_kernel.step_route_launch_count(counts, min(K, max(counts))))
+        got = (level_kernel.launches, level_kernel.step_launches, level_kernel.giant_launches,
+               level_kernel.step_bwd_launches)
+    assert got == want, (got, want)
+    for k in ("recon_loss", "prob_loss", "func_loss"):
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 2e-2 + 1e-1 * abs(float(m_c[k])), k
+    names = _leaf_names(dg_ae.init_params(cfg, seed=4, device="cpu")[0])
+    scale = max(c.abs().max().item() for c in g_c if c is not None)
+    flat = lambda g: torch.cat([x.reshape(-1) for x in g if x is not None])
+    assert (flat(g_g) - flat(g_c)).abs().max().item() <= 0.05 * max(scale, 1.0)
+    for name, a, c in zip(names, g_g, g_c, strict=True):
+        assert (a is None) == (c is None)
+        if c is not None:
+            assert a.dtype == c.dtype == torch.float32
+            leaf = max(c.abs().max().item(), GRAD_FLOOR * scale)
+            assert (a - c).abs().max().item() <= BF16_LEAF * leaf, name
 
 
 def test_bf16_train_step_on_card_matches_cpu(cuda):

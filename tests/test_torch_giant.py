@@ -153,15 +153,19 @@ def test_giant_bwd_reference_matches_autograd_and_the_residual_backward(modality
     live = [a.clone().requires_grad_(i in FLOAT_ARGS) for i, a in enumerate(args)]
     level_kernel.giant_launches = 0
     hf_w = level_kernel.level_scan_giant(*live, num_nodes=N, num_levels=n_lv)
-    assert level_kernel.giant_launches == 0       # CPU tensors: the plain version
-    auto = torch.autograd.grad(hf_w, [live[i] for i in FLOAT_ARGS], ghf)
+    assert level_kernel.giant_launches == 0       # CPU tensors: the plain versions
+    via = torch.autograd.grad(hf_w, [live[i] for i in FLOAT_ARGS], ghf)
+    auto = torch.autograd.grad(
+        level_kernel.level_scan_giant_reference(*live, num_nodes=N, num_levels=n_lv),
+        [live[i] for i in FLOAT_ARGS], ghf)
     assert args[0].shape[0] >= n_lv + 2 and (giant[0][n_lv:] == 0).all()
     assert (giant[0][..., D + 1] == 0).all()      # the expert column
-    for g, s, a in zip(giant, saved, auto):
+    for g, s, a, v in zip(giant, saved, auto, via):
         scale = float(a.abs().max())
         assert scale > 0
         assert float((g - s).abs().max()) <= 1e-6 * scale
         assert float((g - a).abs().max()) <= 1e-5 * scale
+        assert float((v - a).abs().max()) <= 1e-5 * scale
 
 
 # ---- routing ---------------------------------------------------------------------

@@ -174,17 +174,19 @@ def test_level_scan_bwd_matches_pallas_vjp_interpret(modality):
 
 @pytest.mark.parametrize("modality", ["aig", "xmg"])
 def test_level_scan_autograd_on_cpu_matches_bwd_reference(modality):
-    """On CPU tensors ``level_scan`` is differentiated by autograd through
-    the plain forward; that must equal the written-out backward, and the
-    residuals must be zero exactly on the rows the kernels never write."""
+    """Autograd through the plain forward must equal the written-out
+    backward, which ``level_scan`` takes on CPU tensors, and the residuals
+    must be zero exactly on the rows the kernels never write."""
     cfg, params, batch = _small_batch(modality, seed=8)
     hs, _, args = _jax_inputs(cfg, params, batch)
     N, D = hs.shape[0], cfg.dim_hidden
     n_lv = int(np.asarray(batch["forward_level"]).max())
     t = _torch_args(args, grad=True)
-    hf = level_kernel.level_scan(*t, num_nodes=N, num_levels=n_lv)
+    hf = level_kernel.level_scan_reference(*t, num_nodes=N, num_levels=n_lv)
     ghf = torch.tensor(np.random.default_rng(9).normal(size=(N, D)).astype(np.float32))
     auto = torch.autograd.grad(hf, [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
+    via = torch.autograd.grad(level_kernel.level_scan(*t, num_nodes=N, num_levels=n_lv),
+                              [t[i] for i in level_kernel.FLOAT_ARGS], ghf)
 
     plain = _torch_args(args)
     hf_r, res_e, res_n = level_kernel.level_scan_reference(*plain, num_nodes=N, num_levels=n_lv,
@@ -197,6 +199,7 @@ def test_level_scan_autograd_on_cpu_matches_bwd_reference(modality):
     assert (res_e[live][:, 3 * D] > 0).all()              # attn of every live edge
     manual = level_kernel.level_scan_bwd_reference(ghf, res_e, res_n, *_bwd_args(plain),
                                                    num_levels=n_lv)
-    for a, m in zip(auto, manual):
+    for a, m, v in zip(auto, manual, via):
         scale = float(a.abs().max())
         assert float((a - m).abs().max()) <= 1e-5 * max(scale, 1e-30)
+        assert torch.equal(v, m)

@@ -103,7 +103,7 @@ def test_level_step_bwd_matches_pallas_vjp_interpret(modality):
         torch.tensor(g), res_e, res_n, *t[1:9], t[10], t[11], num_nodes=args[0].shape[0])
     manual = (d_hf, d_pack, d_wkv, d_wih, d_bih, d_bhh, d_wak)
     tg = _port_args(args, grad=True)
-    auto = torch.autograd.grad(level_kernel.level_step(*tg),
+    auto = torch.autograd.grad(level_kernel.level_step_reference(*tg),
                                [tg[i] for i in level_kernel.STEP_FLOAT_ARGS], torch.tensor(g))
     for name, m, a, j in zip(NAMES, manual, auto, grads_j):
         assert m.shape == a.shape == j.shape, name

@@ -107,8 +107,9 @@ def test_params_from_jax_raises_on_unknown_key():
 
 
 def test_unported_options_raise_not_implemented(monkeypatch):
-    """bf16 initialises (fp32 master params, as in JAX) and runs the fused
-    route; on the giant and step routes it raises (ROADMAP 1.6b)."""
+    """bf16 initialises (fp32 master params, as in JAX) and runs the fused,
+    the giant and the step routes, with hf bf16 on each; an unknown
+    compute dtype raises."""
     cfg16 = P.DGConfig(dim_hidden=8, s_rounds=1, t_rounds=1, compute_dtype="bfloat16")
     params, _ = P.init_params(cfg16, device="cpu")
     assert all(t.dtype == torch.float32 for t in jax.tree.leaves(params))
@@ -117,9 +118,9 @@ def test_unported_options_raise_not_implemented(monkeypatch):
     hs, hf, _ = P.forward(params, collate(graphs), cfg16)
     assert hs.dtype == hf.dtype == torch.bfloat16
     monkeypatch.setattr(P, "kernel_fits", lambda *a: False)
-    for batch, route in ((collate(graphs), "giant"), (collate_chunked(graphs, 2), "step")):
-        with pytest.raises(NotImplementedError, match=rf"{route} route.*1\.6b"):
-            P.forward(params, batch, cfg16)
+    for batch in (collate(graphs), collate_chunked(graphs, 2)):      # giant, step
+        hs, hf, _ = P.forward(params, batch, cfg16)
+        assert hs.dtype == hf.dtype == torch.bfloat16 and torch.isfinite(hf.float()).all()
         P.forward(params, batch, P.DGConfig(dim_hidden=8, s_rounds=1, t_rounds=1))   # fp32 runs
     with pytest.raises(ValueError, match="compute_dtype"):
         P.check_supported(P.DGConfig(compute_dtype="float16"))
@@ -159,15 +160,13 @@ def test_chunked_forward_matches_jax_both_routes(modality, route, monkeypatch):
     calls = {"scan": 0, "step": 0}
     spy = lambda name, fn: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), fn(*a, **k))[1]
     monkeypatch.setattr(P, "level_scan", spy("scan", P.level_scan))
-    monkeypatch.setattr(P, "level_step", spy("step", P.level_step))
+    monkeypatch.setattr(P, "level_scan_step", spy("step", P.level_scan_step))
     if route == "step":
         monkeypatch.setattr(JK, "kernel_fits", lambda *a: False)
         monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
     hs_k, hf_k, _ = J.forward(params, jbatch, jcfg, use_pallas=True, pallas_interpret=True)
     hs_p, hf_p, _ = P.forward(params_from_jax(_np_tree(params), device="cpu"), batch, pcfg)
-    counts = P.level_counts(batch)
-    assert calls == ({"scan": 2, "step": 0} if route == "fused"
-                     else {"scan": 0, "step": sum(counts)})
+    assert calls == ({"scan": 2, "step": 0} if route == "fused" else {"scan": 0, "step": 1})
     for hs_j, hf_j in ((hs_x, hf_x), (hs_k, hf_k)):
         _assert_embeddings_close(hs_p.numpy()[valid], hf_p.numpy()[valid],
                                  np.asarray(hs_j)[valid], np.asarray(hf_j)[valid])
@@ -198,17 +197,16 @@ def test_level_recurrence_routes_as_the_jax_package(limits, step_gate, want, mon
     if not step_gate:
         monkeypatch.setattr(P, "step_kernel_fits", lambda *a: False)
     calls = []
-    real_scan, real_step, real_giant = P.level_scan, P.level_step, P.level_scan_giant
+    real_scan, real_step, real_giant = P.level_scan, P.level_scan_step, P.level_scan_giant
     monkeypatch.setattr(P, "level_scan",
                         lambda *a, **k: (calls.append("fused"), real_scan(*a, **k))[1])
     monkeypatch.setattr(P, "level_scan_giant",
                         lambda *a, **k: (calls.append("giant"), real_giant(*a, **k))[1])
-    monkeypatch.setattr(P, "level_step",
+    monkeypatch.setattr(P, "level_scan_step",
                         lambda *a, **k: (calls.append("step"), real_step(*a, **k))[1])
     batch = mgvae_tpu_torch.collate_chunked(graphs, 2)
     _, hf, _ = P.forward(params, batch, cfg)
-    counts = P.level_counts(batch)
-    assert calls == [want] * (sum(counts) if want == "step" else 2)
+    assert calls == [want] * (1 if want == "step" else 2)
     calls.clear()
     _, hf1, _ = P.forward(params, mgvae_tpu_torch.collate(graphs), cfg)
     assert calls == (["giant"] if limits else ["fused"])

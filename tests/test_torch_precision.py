@@ -80,8 +80,9 @@ def _grads_like(args, idx):
 
 
 def _fake_level(monkeypatch, seen):
-    """The CUDA wrappers of the level Functions replaced by CPU fakes; the
-    backward ones record ``current_precision()``."""
+    """The CUDA wrappers of the level Functions, and the plain backwards
+    they take on CPU tensors, replaced by CPU fakes; the backward ones
+    record ``current_precision()``."""
     def fwd(args, *a, residuals=True, **k):
         pack, lv_nodes = args[0], args[4]
         L, ep, pw = pack.shape
@@ -120,6 +121,16 @@ def _fake_level(monkeypatch, seen):
 
     monkeypatch.setattr(level_kernel, "_step_forward_cuda", step_fwd)
     monkeypatch.setattr(level_kernel, "_step_backward_cuda", step_bwd)
+    # the giant and step Functions take their plain versions on CPU tensors
+    # too (bf16 training on the CPU): their backwards record it the same way
+    monkeypatch.setattr(level_kernel, "level_scan_giant_bwd_reference",
+                        lambda ghf, hf, *args, **k: bwd(ghf, None, None, args))
+    monkeypatch.setattr(level_kernel, "level_scan_step_bwd_reference",
+                        lambda ghf, res_e, res_n, *a, **k: bwd(ghf, res_e, res_n,
+                                                               (*a[:9], a[9], *a[9:11])))
+    monkeypatch.setattr(level_kernel, "level_step_bwd_reference",
+                        lambda g, res_e, res_n, *a: step_bwd(g, res_e, res_n,
+                                                             (*a[:8], a[8], *a[8:10]), a[10]))
 
 
 def _apply(function, args):

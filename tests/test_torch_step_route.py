@@ -4,8 +4,8 @@ large for the fused route.
 
 Its plain versions are held against the plain loop of one ``level_step``
 per (chunk, level) with the scatter in torch between the calls
-(``models.dg_ae.level_step_loop``, the route's CPU path), against autograd
-through that loop, and against ``jax.vjp`` of the JAX package's
+(``models.dg_ae.level_step_loop``, the route's plain structure), against
+autograd through the plain forward, and against ``jax.vjp`` of the JAX package's
 ``_level_scan_step`` in interpret mode (its Pallas step kernels, the pack
 lane-padded as the JAX package pads it), on chunks with unequal real
 levels; the backward at K = 1, a ragged K and K >= L level indices per
@@ -123,7 +123,7 @@ def _jax_vjp():
 def test_route_backward_reference_matches_autograd_and_jax(chunk_levels):
     """``level_scan_step_bwd_reference`` in blocks of K level indices (1; 2,
     the deeper chunk's levels not a multiple of it; past L) against autograd
-    through the plain loop and against ``jax.vjp`` of ``_level_scan_step``;
+    through the plain forward and against ``jax.vjp`` of ``_level_scan_step``;
     d_pack is 0 on the rows it does not walk, and in its expert column."""
     args, n_levels, n_sub = _case()
     L = args[0].shape[0] // 2
@@ -135,7 +135,7 @@ def test_route_backward_reference_matches_autograd_and_jax(chunk_levels):
     manual = level_kernel.level_scan_step_bwd_reference(
         ghf, res_e, res_n, *args[:9], args[10], args[11], n_levels, n_sub, chunk_levels=K)
     t = [a.clone().requires_grad_(i in FLOAT_ARGS) for i, a in enumerate(args)]
-    auto = torch.autograd.grad(P.level_scan_step(tuple(t), n_levels, n_sub),
+    auto = torch.autograd.grad(level_kernel.level_scan_step_reference(*t, n_levels, n_sub),
                                [t[i] for i in FLOAT_ARGS], ghf)
     hf_j, grads_j = _jax_vjp()
     np.testing.assert_allclose(hf.numpy(), hf_j, rtol=1e-4, atol=1e-5)

@@ -201,19 +201,19 @@ def _large_setup(layout, seed=3):
 
 def _spy_step_route(monkeypatch):
     """Send chunked batches down the step route (their chunks are too small
-    to fail ``kernel_fits`` by themselves) and count the steps."""
+    to fail ``kernel_fits`` by themselves) and count the route's calls."""
     calls = []
-    real = P.level_step
+    real = P.level_scan_step
     monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
-    monkeypatch.setattr(P, "level_step", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    monkeypatch.setattr(P, "level_scan_step", lambda *a, **k: (calls.append(1), real(*a, **k))[1])
     return calls
 
 
 @pytest.mark.parametrize("layout", ["chunked", "split"])
 def test_model_gradients_on_large_batches_match_jax(layout, monkeypatch):
     """Whole-model gradients on a chunked batch, the level recurrence by the
-    step route (the scatter between steps under autograd), and on a split
-    batch, against jax.grad."""
+    step route (its autograd Function with the plain versions), and on a
+    split batch, against jax.grad."""
     jcfg, pcfg, params, state, hb = _large_setup(layout)
     steps = _spy_step_route(monkeypatch)
     key = jax.random.PRNGKey(6)
@@ -229,8 +229,7 @@ def test_model_gradients_on_large_batches_match_jax(layout, monkeypatch):
     tot_p, (st_p, m_p) = PS.loss_and_metrics(pp, ps, hb, None, WEIGHTS, pcfg, True,
                                              neg_edges=neg, drop_keep=keep)
     tot_p.backward()
-    counts = P.level_counts(hb)
-    assert len(steps) == (sum(counts) if layout == "chunked" else 0)
+    assert len(steps) == (1 if layout == "chunked" else 0)
     np.testing.assert_allclose(tot_p.item(), float(tot_j), rtol=RTOL)
     for k in PS.METRIC_KEYS:
         np.testing.assert_allclose(float(m_p[k]), float(m_j[k]), rtol=RTOL, err_msg=k)
@@ -261,7 +260,7 @@ def test_train_step_on_chunked_batch_matches_jax_make_train_step(monkeypatch):
     p_step, p_eval = PS.make_train_step(pcfg, PS.make_optimizer(pp, lr))
     neg, keep = _jax_draws(key, hb, pcfg.dim_mlp)
     s1_p, m_p = p_step(pp, ps, hb, None, WEIGHTS, neg_edges=neg, drop_keep=keep)
-    assert len(steps) == sum(P.level_counts(hb))
+    assert len(steps) == 1
     for k in PS.METRIC_KEYS:
         np.testing.assert_allclose(float(m_p[k]), float(m_j[k]), rtol=RTOL, err_msg=k)
     for a, c in zip(_leaves(params_to_numpy(s1_p)), _leaves(s1_j)):
