@@ -108,6 +108,26 @@ Phases (any failure raises and the script exits nonzero):
      of hs, hf and the losses (each within 1e-2 * max(its scale, 1)); (e)
      bf16 on the step and giant routes, run after phase 17 on its batches
      (see there).
+  [wide] models past the kernels' width, which take the plain route (the
+     eager struct towers and dg_ae.level_scan_fast, as the JAX package takes
+     its XLA paths past its gates): round 5's configuration, MIG bs16,
+     D = 256, s/t_rounds 4, layernorm, in fp32 ("highest") and bf16, each
+     with every kernel's launch count 0: one encode (fp32 through
+     Model.encode_many) and one train step (weights [1, 4, 2, 0]) card vs
+     CPU (fp32: hs, hf within 1e-4 of their scale, each gradient leaf as
+     phase 7 holds its step; bf16: hs, hf within 2^-6 of their scale, the
+     step as [precision] (c)); one step at D = 160 on phase 12's two-chunk
+     bs64 batch card vs CPU as phase 12 holds it, no launch; for
+     information the bs16 step's medians at D = 256 in fp32 and bf16
+     beside D = 64's, in turns, a D = 256 step's own peak memory, and
+     torch.profiler over one fp32 D = 256 step.
+  [pretrained] a reference state dict (benchmarks/torch_reference's
+     ReferenceModel, torch only; MIG, D = 64, layernorm) saved as
+     {"epoch": 3, "state_dict": ...} and read by Model.load: one bs16
+     encode_many request on the card launches the struct kernel 8 times, the
+     level scan and the level lists once each, and agrees with the same file
+     on the CPU and with ReferenceModel's own forward within 1e-4;
+     load_pretrained() without weights raises FileNotFoundError.
 
  10. step kernels vs plain: for aig/mig/xag/xmg, 64 circuits collated with
      collate_chunked(graphs, 2) (per-chunk N_sub > 8192, so the chunks fail
@@ -320,6 +340,10 @@ BF16_ATOL, BF16_F32_ATOL, BF16_RTOL, BF16_GRAD = 2e-2, 3e-2, 1e-1, 0.05
 BF16_ULPS, BF16_LEAF = 2.0 ** -6, 2.0 ** -3
 TF32_DRIFT = 1e-2
 BF16_STEPS = 3
+# [wide]: round 5's D = 256 configuration (bench.py:350-366) and its weights;
+# the chunked layout at D = 160
+WIDE_DIM, WIDE_CHUNKED_DIM = 256, 160
+WIDE_WEIGHTS = [1.0, 4.0, 2.0, 0.0]
 SEED = 0
 DEVICE = "cuda"
 
@@ -1875,6 +1899,163 @@ def main() -> int:
 
     log(f"[precision] phase (a)-(d): {time.perf_counter() - t_precision:.1f} s; (e), bf16 on "
         f"the step and giant routes, follows phase 17 on their batches")
+
+    clock("[wide]")
+    # ---- [wide]: D = 256 and 160, past the kernels' width --------------------------
+    # Round 5's configuration (MIG bs16, D = 256, s/t_rounds 4, layernorm, weights
+    # [1, 4, 2, 0]) in fp32 ("highest") and bf16: the eager struct towers and
+    # dg_ae.level_scan_fast, plain torch, with every kernel's count at 0
+    t_wide = time.perf_counter()
+    wide, b16 = {}, batches[0]
+    rows_w = torch.as_tensor(b16["node_valid"])
+    for dtype in ("float32", "bfloat16"):
+        cw = dg_ae.DGConfig(modality="mig", dim_hidden=WIDE_DIM, s_rounds=ROUNDS,
+                            t_rounds=ROUNDS, layernorm=True, compute_dtype=dtype,
+                            matmul_precision="highest")
+        var_zero()
+        if dtype == "float32":    # the serving path: one Model.encode_many request
+            got = Model(modality="mig", dim_hidden=WIDE_DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                        layernorm=True, seed=SEED, device=DEVICE).encode_many(requests[0])
+            want = Model(modality="mig", dim_hidden=WIDE_DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                         layernorm=True, seed=SEED, device="cpu").encode_many(requests[0])
+            enc = [(torch.as_tensor(np.concatenate([o[i] for o in got])),
+                    torch.as_tensor(np.concatenate([o[i] for o in want]))) for i in (0, 1)]
+        else:
+            pair = []
+            for where in (DEVICE, "cpu"):
+                p_w, _ = dg_ae.init_params(cw, seed=SEED, device=where)
+                with torch.inference_mode():
+                    pair.append([t.cpu().float()[rows_w] for t in dg_ae.forward(p_w, b16, cw)[:2]])
+            enc = list(zip(*pair))
+        s_card = step_grads(cw, b16, DEVICE, WIDE_WEIGHTS)
+        sync()
+        counts = var_read()
+        tol = CPU_TOL if dtype == "float32" else BF16_ULPS
+        e_err = []
+        for name, (g, c) in zip(("hs", "hf"), enc):
+            err, sc = (g - c).abs().max().item(), c.abs().max().item()
+            e_err.append(f"{name} {err:.3e}/{sc:.3e}")
+            if not (torch.isfinite(g).all() and err <= tol * sc):
+                raise RuntimeError(f"[wide] D={WIDE_DIM} {dtype} encode card vs CPU: {name} "
+                                   f"max|d| {err} past {tol} * {sc}")
+        s_cpu = step_grads(cw, b16, "cpu", WIDE_WEIGHTS)
+        if dtype == "float32":
+            (l_g, g_g), (l_c, g_c) = s_card, s_cpu
+            g_scale = max(c.abs().max().item() for c in g_c)
+            worst = max(((a - c).abs().max().item() / (GRAD_TOL * max(
+                c.abs().max().item(), GRAD_FLOOR * g_scale)), name) for name, a, c in zip(
+                    named_leaves(dg_ae.init_params(cw, device="cpu")[0]), g_g, g_c, strict=True))
+            l_err = max(abs(a - c) / max(abs(c), 1.0) for a, c in zip(l_g, l_c))
+            step_report = (f"losses max rel|d| {l_err:.3e}; worst gradient leaf {worst[1]} at "
+                    f"{worst[0]:.3f} of {GRAD_TOL} * max(its scale, {GRAD_FLOOR} * "
+                    f"{g_scale:.3e})")
+            if not (l_err <= CPU_TOL and worst[0] <= 1.0):
+                raise RuntimeError(f"[wide] D={WIDE_DIM} fp32 step card vs CPU: {step_report}")
+        else:
+            step_report = step_held(f"wide D={WIDE_DIM} bf16 step card vs CPU", s_card, s_cpu,
+                                    BF16_ATOL)
+        wide[dtype] = counts
+        log(f"[wide] D={WIDE_DIM} {dtype} MIG bs{BATCH} (weights {WIDE_WEIGHTS}): launches "
+            f"{var_names} {counts}; encode card vs CPU max|d|/scale {', '.join(e_err)} (tol "
+            f"{tol} of the scale); one train step card vs CPU: {step_report}")
+        if counts != (0,) * 6:
+            raise RuntimeError(f"[wide] D={WIDE_DIM} {dtype}: a kernel launched {counts}")
+    if leaf_faults:
+        raise RuntimeError(f"[wide] gradient leaves past their bounds: {leaf_faults}")
+    # the chunked layout at D = 160: one step on phase 12's two-chunk bs64
+    # batch, card vs CPU (the prob term apart, SMOOTH_WEIGHTS' reason)
+    c160 = dg_ae.DGConfig(modality="mig", dim_hidden=WIDE_CHUNKED_DIM, s_rounds=ROUNDS,
+                          t_rounds=ROUNDS, layernorm=True, matmul_precision="highest")
+    chunked160 = collate_chunked(graphs, CHUNKS)
+    var_zero()
+    card_vs_cpu_step(f"wide D={WIDE_CHUNKED_DIM} chunked", chunked160, SMOOTH_WEIGHTS, c160)
+    sync()
+    counts = var_read()
+    log(f"[wide] D={WIDE_CHUNKED_DIM} collate_chunked(64 circuits, {CHUNKS}): launches "
+        f"{var_names} {counts}")
+    if counts != (0,) * 6:
+        raise RuntimeError(f"[wide] D={WIDE_CHUNKED_DIM} chunked: a kernel launched {counts}")
+    # for information: the bs16 step at D = 256 beside phase 7's D = 64 ("highest",
+    # [precision] (d)'s step), medians of 5 in turns, and a D = 256 step's own peak
+    wide_steps = {"D=64 fp32": steps_tf["highest"]}
+    for dtype in ("float32", "bfloat16"):
+        cw = dg_ae.DGConfig(modality="mig", dim_hidden=WIDE_DIM, s_rounds=ROUNDS,
+                            t_rounds=ROUNDS, layernorm=True, compute_dtype=dtype,
+                            matmul_precision="highest")
+        p_w, s_w = dg_ae.init_params(cw, seed=SEED, device=dev)
+        ts_w, _ = train_step_mod.make_train_step(cw, train_step_mod.make_optimizer(p_w, TRAIN_LR))
+        ts_w(p_w, s_w, b16, gen, WIDE_WEIGHTS)
+        wide_steps[f"D={WIDE_DIM} {dtype}"] = (ts_w, p_w, s_w)
+    wide_ms = {k: [] for k in wide_steps}
+    for k in (*wide_steps, *reversed(wide_steps)):
+        ts_w, p_w, s_w = wide_steps[k]
+        wide_ms[k].append(median_wall(lambda: ts_w(p_w, s_w, b16, gen, WIDE_WEIGHTS), 5, sync)
+                          * 1e3)
+    peaks = {}
+    for k in list(wide_steps)[1:]:
+        ts_w, p_w, s_w = wide_steps[k]
+        sync()
+        held_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ts_w(p_w, s_w, b16, gen, WIDE_WEIGHTS)
+        sync()
+        peaks[k] = (torch.cuda.max_memory_allocated() - held_bytes) / 2**30
+    log(f"[wide] card: {card}")
+    log(f"[wide] MIG bs{BATCH} train step (host batch -> Adam update, synchronised), medians of "
+        f"5 in turns: " + "; ".join(f"{k} {[round(x, 3) for x in v]} ms"
+                                    for k, v in wide_ms.items())
+        + f"; D={WIDE_DIM} / D=64 fp32 "
+        f"{statistics.median(wide_ms[f'D={WIDE_DIM} float32']) / statistics.median(wide_ms['D=64 fp32']):.3f}"
+        f"; a D={WIDE_DIM} step's own peak device memory above what the script held: "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peaks.items()))
+    ts_w, p_w, s_w = wide_steps[f"D={WIDE_DIM} float32"]
+    profile_train(torch, lambda: ts_w(p_w, s_w, b16, gen, WIDE_WEIGHTS), card,
+                  f"D={WIDE_DIM} fp32 MIG bs{BATCH} train step", steps=1, rows=12, warm=0)
+    del wide_steps
+    log(f"[wide] {time.perf_counter() - t_wide:.1f} s")
+
+    clock("[pretrained]")
+    # ---- [pretrained]: a reference .pth through Model.load ----------------------
+    # the state dict of benchmarks/torch_reference.ReferenceModel (torch only, the
+    # reference's parameter names), saved as the reference trainer saves it
+    from benchmarks.torch_reference import ReferenceModel
+
+    torch.manual_seed(SEED)
+    ref = ReferenceModel("mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                         layernorm=True).eval()
+    ref_dir = os.path.join("exp", "chip_smoke_pretrained")
+    os.makedirs(ref_dir, exist_ok=True)
+    ref_path = os.path.join(ref_dir, "reference.pth")
+    torch.save({"epoch": 3, "state_dict": ref.state_dict()}, ref_path)
+    loaded = Model(modality="mig", layernorm=True, device=DEVICE).load(ref_path)
+    loaded_cpu = Model(modality="mig", layernorm=True, device="cpu").load(ref_path)
+    var_zero()
+    out_ref = loaded.encode_many(requests[0])
+    sync()
+    counts = var_read()
+    d_ref = [max(float(np.abs(a[i] - c[i]).max()) for a, c in zip(
+        out_ref, loaded_cpu.encode_many(requests[0]))) for i in (0, 1)]
+    g0 = requests[0][0]
+    with torch.no_grad():
+        hs_t, hf_t = ref(torch.from_numpy(g0.gate).long(), torch.from_numpy(g0.edge_index),
+                         torch.from_numpy(g0.forward_level).long())
+    d_model = [float(np.abs(out_ref[0][i] - t.numpy()).max()) for i, t in enumerate((hs_t, hf_t))]
+    want = (2 * ROUNDS, 0, 1, 0, 1, 0)
+    log(f"[pretrained] {ref_path} (ReferenceModel's state dict, epoch 3) through Model.load, "
+        f"one bs{BATCH} encode_many request on the card: launches {var_names} {counts} (want "
+        f"{want}); card vs the same file on the CPU max|d| hs/hf {d_ref[0]:.3e}/{d_ref[1]:.3e}; "
+        f"its first circuit vs ReferenceModel's own forward {d_model[0]:.3e}/{d_model[1]:.3e} "
+        f"(tol {CPU_TOL})")
+    if counts != want or not max(d_ref + d_model) <= CPU_TOL:
+        raise RuntimeError("[pretrained] the loaded reference weights do not encode as on the "
+                           "CPU and in the reference model, or not through the kernels")
+    try:
+        Model(modality="mig", layernorm=True, device=DEVICE).load_pretrained()
+    except FileNotFoundError as e:
+        log(f"[pretrained] load_pretrained() without weights: FileNotFoundError ({e})")
+    else:
+        raise RuntimeError("[pretrained] load_pretrained() without weights did not raise")
+    shutil.rmtree(ref_dir)
 
     clock("phase 10")
     # ---- 10. step kernels vs plain, per modality, bs64 in two chunks -------

@@ -7,6 +7,8 @@
     prob = model.pred_prob(hf)                              # [N, 1] in [0, 1]
     loss, metrics = model.recon_loss(hs, graph.edge_index)
     model.save(path); model.load(path)                      # the port's checkpoint format
+    model.load("model_last.pth")       # also a JAX package checkpoint or a reference .pth
+    model.load_pretrained()            # mgvae_tpu_torch/pretrained/model.pth
 
 On CUDA the struct towers and the level recurrence run the hand-written
 kernels (``ops/struct_kernel``, ``ops/level_kernel``); with
@@ -20,6 +22,8 @@ after it (``ops.precision``); the CLI's trainer defaults to "default", TF32.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -30,7 +34,7 @@ from .models.dg_ae import DGConfig, init_params
 from .ops.mlp import mlp_apply
 from .ops.precision import matmul_precision
 from .train import losses
-from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checkpoint import load_weights, save_checkpoint
 
 
 class Model:
@@ -150,8 +154,22 @@ class Model:
 
     def load(self, path: str):
         """Load params and state from a checkpoint of this package (a
-        trainer's or ``save``'s), with the tolerant merge of the reference's
-        ``Model.load``. Other formats raise ValueError (ROADMAP 1.8)."""
-        _, _, self.params, self.state = load_checkpoint(path, self.params, self.state, None,
-                                                        self.device)
+        trainer's or ``save``'s), of the JAX package (its flax msgpack), or
+        a reference ``.pth`` state dict (``utils/checkpoint``), with the
+        tolerant merge of the reference's ``Model.load``: leaves the file
+        lacks (DG_VAE's heads in a DG_AE file, say) keep the model's own.
+        Other content raises ValueError."""
+        self.params, self.state = load_weights(path, self.params, self.state, self.cfg,
+                                               self.device)
         return self
+
+    def load_pretrained(self, pretrained_model_path: str = ""):
+        """``load`` of ``pretrained_model_path``, by default the package's
+        ``pretrained/model.pth`` (``mgvae_tpu/api.py:178-184``). The
+        repository ships no weights, so without a file this raises
+        FileNotFoundError naming the path."""
+        path = pretrained_model_path or os.path.join(os.path.dirname(__file__), "pretrained",
+                                                     "model.pth")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no pretrained weights at {path}")
+        return self.load(path)

@@ -21,7 +21,11 @@ yet, each with a printed note: ``--distributed`` on one device (the
 single-device path, which a 1-device mesh equals) and ``--steps_per_call``
 (one step per call). ``--matmul_precision`` goes into ``DGConfig`` as in
 ``train.py:66``: "default" (the parser's default) runs PyTorch's fp32
-products in TF32 on the card, "highest" in full fp32.
+products in TF32 on the card, "highest" in full fp32. ``--dim_hidden``
+reaches the model unchanged: past 128 (the kernels' width) the model runs
+its plain route, as the JAX package runs its XLA paths. ``--resume`` reads
+``model_last.pth`` in the port's format or the JAX package's, so a run
+started on a TPU continues here (``utils/checkpoint``).
 """
 from __future__ import annotations
 

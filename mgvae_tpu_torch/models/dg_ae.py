@@ -38,7 +38,10 @@ The forward:
      CUDA kernels on the card and their plain versions on the CPU, and
      autograd differentiates all, so the forward trains (``train/step.py``).
      On the card the index lists that the kernels read
-     (``ops.level_kernel.level_lists``) are built once per batch.
+     (``ops.level_kernel.level_lists``) are built once per batch. Past the
+     kernels' width (D > 128) every layout takes ``level_scan_fast``, plain
+     torch on every device, and the struct towers their eager version, as
+     the JAX package's width gates send such a model to its XLA paths.
 
 Batches larger than one bucket come chunked (``data.batching.collate_chunked``
 / ``collate_fit``: [C, L] level tables with chunk-local node ids) or split
@@ -454,6 +457,12 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
     the JAX giant kernels, not of that scan, so such a batch agrees with
     JAX within the JAX package's bf16 bounds, not to an ulp.
 
+    Past the kernels' width (D > ``level_kernel.MAX_DIM``, 128) every layout
+    takes ``level_scan_fast`` on every device, before any kernel or list is
+    built: each of the JAX package's kernel gates caps D at 128, and past
+    them it runs its XLA scan ``_level_scan_fast``
+    (``mgvae_tpu/models/dg_ae.py:621``).
+
     On the card the tables' index lists and the weights' expert-major copies
     are built here, once for all chunks and levels, and handed to every call
     (``kernel_inputs``).
@@ -462,6 +471,8 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
     pack_lv, lv_nodes = args[0], args[4]
     n_sub, L = num_nodes // C, pack_lv.shape[0] // C
     ep, np_, D = pack_lv.shape[1], lv_nodes.shape[1], pack_lv.shape[2] - 2
+    if D > level_kernel.MAX_DIM:
+        return level_scan_fast(args, num_nodes, n_levels)
     fits = kernel_fits(n_sub, ep, np_, D)
     lists, packed = kernel_inputs(args)
     if C == 1:
@@ -476,6 +487,52 @@ def level_recurrence(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tens
              num_levels=n_levels[k], lists=lists and lists.rows(k * L, (k + 1) * L),
              packed=packed)
         for k in range(C)])
+
+
+def level_scan_fast(args: tuple, num_nodes: int, n_levels: tuple) -> torch.Tensor:
+    """hf [num_nodes, D] from ``level_scan_inputs``' arguments in plain
+    torch, differentiable by autograd: the JAX package's XLA scan for
+    ``num_rounds == 1`` (``_level_scan_fast``, ``mgvae_tpu/models/dg_ae.py:470-556``),
+    the route of every layout past the kernels' width. Per real (chunk,
+    level) row: one gather of hf at the edges' sources, the [Ep, D] x
+    [D, 2TD] product with the hf-side key and value weights, the masked
+    segment softmax (scores masked before the exp), the message sum, and
+    the GRU with h = 0 (its hidden side is b_hh alone); the new rows are
+    written out of place, 0 where a slot is not updated. In bf16 every
+    operation rounds to bf16 as it does in that scan, which runs wholly in
+    the compute dtype; the weights enter each level as bf16 casts of fp32
+    copies, so that their cotangents are summed over rows and levels in
+    fp32 (in fp32 the casts are no-ops). The JAX scan also walks the
+    padding levels, which write zeros to the dump rows and change
+    nothing."""
+    (pack_lv, lv_src, lv_dslot, lv_evalid, lv_nodes, lv_upd, lv_e_n, *weights) = args
+    C = len(n_levels)
+    n_sub, L = num_nodes // C, pack_lv.shape[0] // C
+    D, T, dt = pack_lv.shape[2] - 2, weights[-1].shape[0], pack_lv.dtype
+    wkv_hf, w_ih, b_ih, b_hh, wa_k = (w.float() for w in weights)
+    hf = pack_lv.new_zeros((num_nodes, D))
+    for k in range(C):
+        for row in range(k * L, k * L + n_levels[k]):
+            pk, off = pack_lv[row], k * n_sub
+            src, dslot = lv_src[row].long() + off, lv_dslot[row].long()
+            nodes, e_n = lv_nodes[row].long() + off, lv_e_n[row].long()
+            e_edge = pk[:, -1].long()
+            kv_hf = hf[src] @ wkv_hf.to(dt)                          # [Ep, 2TD]
+            khf = select_expert(kv_hf[:, : T * D], e_edge, T)
+            vhf = select_expert(kv_hf[:, T * D :], e_edge, T)
+            score = pk[:, D] + (khf * wa_k[e_edge].to(dt)).sum(-1)
+            v = pk[:, :D] + vhf
+            np_ = nodes.shape[0]
+            attn = segment_softmax(score, dslot, np_, valid=lv_evalid[row] > 0)
+            msg = segment_sum(v * attn[:, None], dslot, np_)
+            gi = select_expert(msg @ w_ih.to(dt), e_n, T) + b_ih[e_n].to(dt)
+            i_r, i_z, i_n = gi.chunk(3, dim=-1)
+            h_r, h_z, h_n = b_hh[e_n].to(dt).chunk(3, dim=-1)
+            r = torch.sigmoid(i_r + h_r)
+            z = torch.sigmoid(i_z + h_z)
+            h_new = (1.0 - z) * torch.tanh(i_n + r * h_n)
+            hf = hf.index_copy(0, nodes, torch.where(lv_upd[row][:, None] > 0, h_new, 0.0))
+    return hf
 
 
 def level_loop(params, b: dict, cfg: DGConfig, hs: torch.Tensor, n_levels: tuple) -> torch.Tensor:

@@ -7,12 +7,15 @@ optionally LayerNorm; then the same again over reversed edges. Each tower
 has ONE LayerNorm instance, shared by both directions and applied after
 every half-round.
 
-When both towers run the same number of rounds and the batch carries the
-blocked tables (``fa_src`` / ``ra_src``), as in the JAX package's kernel
-route (``mgvae_tpu/models/dg_ae.py:287-289``), the towers run together
-through ``ops.struct_kernel.struct_towers``: the CUDA kernels on the card,
-their plain version on the CPU. Otherwise they run here, eagerly and one
-after the other, as in the reference model.
+When both towers run the same number of rounds, the batch carries the
+blocked tables (``fa_src`` / ``ra_src``) and the width is one the kernels
+take (D <= ``struct_kernel.MAX_DIM``), as in the JAX package's kernel route
+(``mgvae_tpu/models/dg_ae.py:287-289`` and the width term of
+``struct_kernel_fits``), the towers run together through
+``ops.struct_kernel.struct_towers``: the CUDA kernels on the card, their
+plain version on the CPU. Otherwise they run here, eagerly and one after
+the other, as in the reference model and the JAX package's XLA towers; at
+D > 128 that holds on every device.
 
 AggConv uses sum_j (W x_j + b) == W (sum_j x_j) + deg * b, so the linear
 runs once per node. The eager neighbor sum is an ``index_add_`` over the
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.init import gru_cell_apply, gru_cell_init, layernorm_apply, layernorm_init, linear_init
+from ..ops.struct_kernel import MAX_DIM as KERNEL_MAX_DIM
 from ..ops.struct_kernel import struct_towers
 
 
@@ -48,8 +52,11 @@ def direct_multigcn_init(gen: torch.Generator, dim_hidden: int, dim_feature: int
 
 
 def _neighbor_sum(state, src, dst, ev):
-    """out[v] = sum of state[u] over valid edges u -> v."""
-    return torch.zeros_like(state).index_add_(0, dst, state[src] * ev)
+    """out[v] = sum of state[u] over valid edges u -> v, summed in fp32 and
+    rounded once to the state's dtype, as the JAX package's blocked one-hot
+    products sum (a no-op in fp32)."""
+    out = torch.zeros(state.shape, dtype=torch.float32, device=state.device)
+    return out.index_add_(0, dst, (state[src] * ev).float()).to(state.dtype)
 
 
 def multigcn_apply(params, x_feat, batch, num_rounds: int, layernorm: bool) -> torch.Tensor:
@@ -60,8 +67,10 @@ def multigcn_apply(params, x_feat, batch, num_rounds: int, layernorm: bool) -> t
     state = x_feat.new_ones((n, dim))
     src, dst = batch["edge_src"], batch["edge_dst"]
     ev = batch["edge_valid"].to(x_feat.dtype)[:, None]
-    deg_in = batch["deg_in"][:, None]
-    deg_out = batch["deg_out"][:, None]
+    # the batch's degrees are f32: in bf16 a mixed product would promote the
+    # tower to f32 (the JAX package casts them likewise)
+    deg_in = batch["deg_in"].to(x_feat.dtype)[:, None]
+    deg_out = batch["deg_out"].to(x_feat.dtype)[:, None]
 
     def half_round(state, aggr_p, gru_p, nbr, deg):
         msg = nbr @ aggr_p["w"] + deg * aggr_p["b"]
@@ -81,8 +90,11 @@ def multigcn_apply(params, x_feat, batch, num_rounds: int, layernorm: bool) -> t
 
 def direct_multigcn_apply(params, x_feat, batch, s_rounds: int, t_rounds: int,
                           layernorm: bool):
-    """Both towers: returns (s, t), each [N, D]."""
-    if s_rounds == t_rounds and "fa_src" in batch and "ra_src" in batch:
+    """Both towers: returns (s, t), each [N, D]. The route is chosen from
+    the rounds, the tables and the width before any kernel is called."""
+    dim = params["source"]["aggr"]["w"].shape[1]
+    if (s_rounds == t_rounds and "fa_src" in batch and "ra_src" in batch
+            and dim <= KERNEL_MAX_DIM):
         return struct_towers(params, x_feat, batch, s_rounds, layernorm)
     s = multigcn_apply(params["source"], x_feat, batch, s_rounds, layernorm)
     t = multigcn_apply(params["target"], x_feat, batch, t_rounds, layernorm)

@@ -63,6 +63,15 @@ def gru_cell_apply(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return (1.0 - z) * n + z * h
 
 
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) rounded once to x's dtype, as XLA rounds it. torch's CPU
+    rsqrt of bf16 rounds twice outside its vectorised loop (a 0-d tensor, a
+    loop's tail), which sends one value in eight to the farther neighbour
+    (0.17578125 -> 2.375, not 2.390625); a loss that z-scores before an L1
+    kink turns that one ulp into a flipped sign. A no-op cast in fp32."""
+    return torch.rsqrt(x.float()).to(x.dtype)
+
+
 def layernorm_init(dim: int) -> dict:
     return {"w": torch.ones(dim), "b": torch.zeros(dim)}
 
@@ -72,4 +81,4 @@ def layernorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     the square root)."""
     mean = x.mean(dim=-1, keepdim=True)
     var = (x - mean).square().mean(dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * p["w"] + p["b"]
+    return (x - mean) * rsqrt(var + eps) * p["w"] + p["b"]

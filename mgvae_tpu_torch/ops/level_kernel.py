@@ -775,7 +775,8 @@ def _kernel_dims(pack_lv, wa_k):
     D, T = pack_lv.shape[-1] - 2, wa_k.shape[0]
     if D > MAX_DIM or T > MAX_EXPERTS:
         raise ValueError(f"the level kernels take D <= {MAX_DIM} and T <= "
-                         f"{MAX_EXPERTS}, got D={D}, T={T}")
+                         f"{MAX_EXPERTS}, got D={D}, T={T} (a kernel limit: wider models "
+                         f"take the plain route, models/dg_ae.level_scan_fast)")
     return D, T
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .init import linear_apply, linear_init
+from .init import linear_apply, linear_init, rsqrt
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -50,7 +50,7 @@ def batchnorm_apply(params, state, x, valid=None, train: bool = True):
     else:
         mean, var = state["mean"], state["var"]
         new_state = state
-    y = (x - mean) * torch.rsqrt(var + BN_EPS) * params["w"] + params["b"]
+    y = (x - mean) * rsqrt(var + BN_EPS) * params["w"] + params["b"]
     return y, new_state
 
 

@@ -446,7 +446,8 @@ def forward_layout(N: int, D: int) -> dict:
 
 def _kernel_dim(D: int) -> None:
     if D > MAX_DIM:
-        raise ValueError(f"struct_towers kernels take D <= {MAX_DIM}, got D={D}")
+        raise ValueError(f"struct_towers kernels take D <= {MAX_DIM}, got D={D} (a kernel "
+                         f"limit: wider models take the eager towers, models/encoder)")
 
 
 def _check(floats, tables, num_rounds: int) -> None:

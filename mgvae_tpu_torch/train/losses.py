@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.dg_ae import decode_edges, hs_decompose
+from ..ops.init import rsqrt
 from ..ops.mlp import mlp_apply
 
 EPS = 1e-15
@@ -48,7 +49,7 @@ def masked_zscore(x, valid, count):
     v = valid.to(x.dtype)
     mean = (x * v).sum() / count
     var = ((x - mean).square() * v).sum() / (count - 1.0).clamp(min=1.0)
-    return (x - mean) * torch.rsqrt(var.clamp(min=1e-30))
+    return (x - mean) * rsqrt(var.clamp(min=1e-30))
 
 
 def _count(b: dict, key: str, like: torch.Tensor) -> torch.Tensor:
@@ -168,9 +169,12 @@ def func_loss(hf, b: dict):
     valid = b["tt_valid"]
     a = torch.where(valid[:, None], hf[b["tt_pair_a"].long()], 1.0)
     c = torch.where(valid[:, None], hf[b["tt_pair_b"].long()], 1.0)
-    # torch.cosine_similarity(eps): norms clamped to eps one by one
-    na = torch.linalg.vector_norm(a, dim=-1).clamp(min=COS_EPS)
-    nc = torch.linalg.vector_norm(c, dim=-1).clamp(min=COS_EPS)
+    # torch.cosine_similarity(eps): norms clamped to eps one by one. Each norm
+    # is sqrt(sum(x * x)) as jnp.linalg.norm computes it, so that bf16 rounds
+    # the squares and their sum where the JAX package does (vector_norm
+    # rounds once, and on a pair near the L1 kink below that flips a sign)
+    na = (a * a).sum(-1).sqrt().clamp(min=COS_EPS)
+    nc = (c * c).sum(-1).sqrt().clamp(min=COS_EPS)
     emb_dis = 1.0 - (a * c).sum(-1) / (na * nc)
     count = _count(b, "n_tt", hf)
     emb_z = masked_zscore(emb_dis, valid, count)

@@ -14,7 +14,9 @@ Public surface as in the JAX package: ``Trainer(args, model_cfg, ...)``,
     tenth epoch, before the val phase; the reference epoch line;
   * the batch layout at one device: with ``fixed_dims`` a running max of the
     padded dims, and on CUDA the smallest chunk count C whose chunks pass
-    the fused level kernel's size gate (``ops/level_kernel.kernel_fits``);
+    the fused level kernel's size gate (``ops/level_kernel.kernel_fits``),
+    searched only where the level kernels run (``num_rounds == 1``, D <=
+    128; else C = 1, as the JAX trainer);
     without it ``collate_fit`` on CUDA and ``collate`` on the CPU; a forced
     split count G runs ``collate_split`` on the stratified layout.
 
@@ -50,6 +52,7 @@ from ..data.batching import (
     split_dims,
 )
 from ..models.dg_ae import DGConfig, init_params
+from ..ops.level_kernel import MAX_DIM as KERNEL_MAX_DIM
 from ..ops.level_kernel import kernel_fits
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logger import AverageMeter, Logger
@@ -195,8 +198,9 @@ class Trainer:
 
     def load(self, path: str):
         """Restore params (copied into the optimizer's own tensors), BN
-        state, Adam state, ``model_epoch`` and lr from ``path``. The rngs are
-        not restored, as in the JAX package."""
+        state, Adam state, ``model_epoch`` and lr from ``path``, a checkpoint
+        of this package or of the JAX package (``utils/checkpoint``). The rngs
+        are not restored, as in the JAX package."""
         epoch, lr, params, state = load_checkpoint(path, self.params, self.state,
                                                    self.optimizer, self.device)
         with torch.no_grad():
@@ -296,10 +300,20 @@ class Trainer:
             _running_max(dmax, shard_dims(shard, num_chunks))
         return dmax
 
+    def _chunks_searched(self) -> bool:
+        """Whether a chunk count is searched at all: on the card, for the
+        level kernels' route (``num_rounds == 1``) at a width they take. The
+        JAX trainer returns C = 1 off its kernels' backend and for
+        ``num_rounds != 1``, and past D = 128 no C passes its gate."""
+        cfg = self.model_cfg
+        return (self.device.type == "cuda" and cfg.num_rounds == 1
+                and cfg.dim_hidden <= KERNEL_MAX_DIM)
+
     def _pick_chunks(self, dataset, idx, n_steps) -> int:
         """The smallest C whose per-chunk dims on the first step pass
-        ``kernel_fits``; 1 on the CPU, whose plain path has no size gate."""
-        if self.device.type != "cuda":
+        ``kernel_fits``; 1 where no chunk count is searched (the CPU, whose
+        plain path has no size gate, ``num_rounds > 1`` and D > 128)."""
+        if not self._chunks_searched():
             return 1
         for C in CHUNK_CANDIDATES:
             if C > max(self.batch_size // 2, 1):
@@ -319,7 +333,7 @@ class Trainer:
             self._chunks = self._pick_chunks(dataset, idx, n_steps)
         C = self._chunks or 1
         grew = _running_max(self._dims_max, self._scan_dims(dataset, idx, C, range(n_steps)))
-        if grew and self.device.type == "cuda" and not kernel_fits(
+        if grew and self._chunks_searched() and not kernel_fits(
                 self._dims_max["N"], self._dims_max["EP"], self._dims_max["NP"],
                 self.model_cfg.dim_hidden):
             new_c = self._pick_chunks(dataset, idx, n_steps)

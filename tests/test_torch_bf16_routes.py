@@ -39,9 +39,8 @@ from mgvae_tpu_torch.models import dg_ae as P
 from mgvae_tpu_torch.ops import level_kernel
 from mgvae_tpu_torch.train import step as PS
 from mgvae_tpu_torch.utils.params import params_from_jax, params_to_numpy, state_from_jax
-from test_torch_bf16 import (GRAD_FLOOR, KERNEL_ULPS, LEAF_TOL, NOISE_LEAVES, VAL_ATOL, WEIGHTS,
-                             _configs, _f32, _grad_close, _kernel_path_step, _leaf_names,
-                             _leaves_close, _np, _np_leaves, _strict, _ulps_close,
+from test_torch_bf16 import (KERNEL_ULPS, VAL_ATOL, WEIGHTS, _configs, _f32, _kernel_path_step,
+                             _leaf_names, _leaves_close, _np, _np_leaves, _strict, _ulps_close,
                              _values_close)
 from test_torch_giant import _port_case
 from test_torch_level_step import _case as _step_case
@@ -367,8 +366,7 @@ def test_bf16_adam_step_on_the_step_route_matches_jax(monkeypatch):
     kernels, with the same draws: the losses within the JAX bounds, the
     gradient leaves within LEAF_TOL of their scale, and Adam's first step
     the same on every element whose two gradients are well apart from 0.
-    (Seed 13's batch misses LEAF_TOL on one leaf against JAX: see
-    ``test_bf16_gap_to_jax_at_seed_13_is_bf16_rounding``.)"""
+    (Seed 13's batch: ``test_bf16_gap_to_jax_at_seed_13_is_bf16_rounding``.)"""
     lr = 1e-3
     _kernel_path_step(monkeypatch)
     calls = _force_route(monkeypatch, "step")
@@ -427,36 +425,16 @@ def test_bf16_step_route_gradients_equal_the_fused_routes(seed, monkeypatch):
 def test_bf16_gap_to_jax_at_seed_13_is_bf16_rounding(monkeypatch):
     """Seed 13's two-chunk batch: the port's bf16 step-route gradients
     against JAX's bf16 ones (``make_train_step``'s loss on its step kernels)
-    keep the JAX package's bound over all leaves, but one leaf,
-    ``['struct']['source']['ln']['w']``, misses LEAF_TOL of its scale. The
-    witness that this is bf16's own error on that leaf and not a fault of
-    the port: on every leaf past LEAF_TOL against JAX's bf16 gradient, the
-    port's bf16 gradient is within LEAF_TOL of the fp32 gradient (JAX, fp32)
-    and no farther from it than JAX's bf16 gradient is."""
+    as ``_leaves_close`` holds them, the JAX package's bound over all leaves
+    and every leaf within LEAF_TOL of its scale. ``['struct']['source']['ln']['w']``
+    missed LEAF_TOL here, 8.8% of its scale, while the losses rounded their
+    norms and z-score rsqrt elsewhere than JAX (torch's vector_norm and CPU
+    rsqrt, ``train/losses.func_loss``); a pair near the func loss's L1 kink
+    turned that over. The port now rounds where JAX does."""
     _kernel_path_step(monkeypatch)
     calls = _force_route(monkeypatch, "step")
-    jcfg, jcfg16, pcfg16 = _configs()
+    _, jcfg16, pcfg16 = _configs()
     case = _step_batch_case(13)
-    names = _leaf_names(case[0])
-    g_j16, g_j32 = _jax_grads(case, jcfg16), _jax_grads(case, jcfg, strict=False)
-    g_p = _port_grads(case, pcfg16)
+    g_p, g_j16 = _port_grads(case, pcfg16), _jax_grads(case, jcfg16)
     assert len(calls) == 1
-    _grad_close(np.concatenate([g.reshape(-1) for g in g_p]),
-                np.concatenate([g.reshape(-1) for g in g_j16]), "seed 13, all leaves")
-    def scales(want):   # each leaf's scale, a noise leaf's floored as _leaves_close does
-        floor = GRAD_FLOOR * max(float(np.abs(w).max()) for w in want)
-        return [max(float(np.abs(w).max()), floor if n in NOISE_LEAVES else 0.0)
-                for n, w in zip(names, want)]
-
-    past = []
-    for name, p, j16, j32, s16, s32 in zip(names, g_p, g_j16, g_j32, scales(g_j16),
-                                            scales(g_j32)):
-        if float(np.abs(p - j16).max()) <= LEAF_TOL * s16:
-            continue
-        e_pj, e_p, e_j = (float(np.abs(x - y).max()) / s32
-                          for x, y in ((p, j16), (p, j32), (j16, j32)))
-        past.append(name)
-        print(f"{name}: port bf16 vs JAX bf16 {e_pj:.4f}, port bf16 vs fp32 {e_p:.4f}, "
-              f"JAX bf16 vs fp32 {e_j:.4f} of the fp32 scale")
-        assert e_p <= LEAF_TOL and e_p <= e_j, name
-    assert past == ["['struct']['source']['ln']['w']"], past
+    _leaves_close(g_p, g_j16, _leaf_names(case[0]), "seed 13")

@@ -69,14 +69,60 @@ def test_encode_on_card_matches_cpu(cuda):
 
 
 def test_kernel_rejects_unsupported_width(cuda):
-    # the struct-tower kernels run first and refuse D > 128 as the level scan does
+    """Past the kernels' width the model takes the plain route, which
+    launches no kernel; each kernel wrapper, called directly at D = 160,
+    still refuses."""
     cfg = dg_ae.DGConfig(modality="mig", dim_hidden=160, s_rounds=1, t_rounds=1,
                          matmul_precision="highest")
     params, _ = dg_ae.init_params(cfg, device=cuda)
     batch = collate([random_circuit(np.random.default_rng(0), "mig", num_inputs=4,
                                     num_gates=20)])
-    with pytest.raises(ValueError, match="D <= 128"):
-        dg_ae.forward(params, batch, cfg)
+    _zero_counts()
+    with torch.no_grad():
+        hs, hf, _ = dg_ae.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    assert _all_counts() == (0,) * 9
+    assert hs.shape == hf.shape == (batch["gate"].shape[0], 160)
+    assert torch.isfinite(hs).all() and torch.isfinite(hf).all()
+    b = dg_ae.batch_to_device(batch, cuda)
+    with torch.no_grad():
+        x = dg_ae.struct_input(b["gate"], cfg)
+        args = dg_ae.level_scan_inputs(params, b, cfg, hs)
+        n_lv, N = dg_ae.num_levels(batch), hs.shape[0]
+        calls = {
+            "struct_towers": lambda: struct_kernel.struct_towers(params["struct"], x, b, 1, False),
+            "level_scan": lambda: level_kernel.level_scan(*args, num_nodes=N, num_levels=n_lv),
+            "level_scan_giant": lambda: level_kernel.level_scan_giant(*args, num_nodes=N,
+                                                                      num_levels=n_lv),
+            "level_scan_step": lambda: level_kernel.level_scan_step(*args, n_levels=(n_lv,),
+                                                                    n_sub=N),
+            "level_step": lambda: level_kernel.level_step(hf, *(a[0] for a in args[:7]
+                                                                if a is not args[4]),
+                                                          *args[7:]),
+        }
+        for name, call in calls.items():
+            with pytest.raises(ValueError, match="D <= 128"):
+                call()
+    torch.cuda.synchronize()
+    assert _all_counts() == (0,) * 9
+
+
+def _all_counts():
+    """Every kernel's launch counter: struct forward / backward, level
+    forward / backward, lists, step forward / backward, giant forward /
+    backward."""
+    return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
+            level_kernel.bwd_launches, level_kernel.lists_launches, level_kernel.step_launches,
+            level_kernel.step_bwd_launches, level_kernel.giant_launches,
+            level_kernel.giant_bwd_launches)
+
+
+def _zero_counts():
+    for m in (level_kernel, struct_kernel):
+        m.launches = m.bwd_launches = 0
+    level_kernel.lists_launches = level_kernel.step_launches = 0
+    level_kernel.step_bwd_launches = level_kernel.giant_launches = 0
+    level_kernel.giant_bwd_launches = 0
 
 
 def _struct_case(cuda, modality, dim, layernorm=True, seed=7):
@@ -1192,3 +1238,111 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
             assert a.dtype == c.dtype == torch.float32
             leaf = max(c.abs().max().item(), GRAD_FLOOR * scale)
             assert (a - c).abs().max().item() <= BF16_LEAF * leaf, name
+
+
+# ---- wide models (D > 128: the plain route) and foreign checkpoints --------------
+
+def _wide_batch(circuits, inputs, gates, tt_pairs, seed):
+    rng = np.random.default_rng(seed)
+    return collate([random_circuit(rng, "mig", num_inputs=inputs, num_gates=gates,
+                                   num_tt_pairs=tt_pairs) for _ in range(circuits)])
+
+
+def _wide_card_vs_cpu(cuda, dtype, batch, weights):
+    """D = 256 (MIG, layernorm, 4 rounds): the encode and one train step on
+    the card against the CPU, with no kernel launched. fp32: hs / hf within
+    1e-4 of their scale, each gradient leaf within 1e-4 * max(its scale,
+    GRAD_FLOOR * the largest); bf16: hs / hf within BF16_ULPS of their
+    scale, the gradients within the JAX package's 0.05 * max(scale, 1) over
+    all leaves, and each leaf within BF16_LEAF of its own scale (floored the
+    same way), as ``[precision]`` (c) and chip_smoke.py's ``[wide]`` hold
+    them."""
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=256, s_rounds=4, t_rounds=4, layernorm=True,
+                         compute_dtype=dtype, matmul_precision="highest")
+    valid = torch.as_tensor(batch["node_valid"])
+    enc = {}
+    for dev in ("cpu", cuda):
+        params, _ = dg_ae.init_params(cfg, seed=2, device=dev)
+        _zero_counts()
+        with torch.inference_mode():
+            hs, hf, _ = dg_ae.forward(params, batch, cfg)
+        enc[str(dev)] = (hs.cpu().float()[valid], hf.cpu().float()[valid])
+    torch.cuda.synchronize()
+    assert _all_counts() == (0,) * 9
+    tol = 1e-4 if dtype == "float32" else BF16_ULPS
+    for (g, c) in zip(enc["cuda"], enc["cpu"]):
+        assert torch.isfinite(g).all() and (g - c).abs().max().item() <= tol * c.abs().max().item()
+    gen = torch.Generator().manual_seed(3)
+    neg = tuple(t.to(torch.int32) for t in torch.randint(
+        0, int(batch["n_nodes"]), (2, batch["edge_src"].shape[0]), generator=gen))
+    keep = [torch.rand(batch["gate"].shape[0], cfg.dim_mlp, generator=gen) < 0.8
+            for _ in range(2)]
+    m_c, g_c = _one_step(cfg, batch, "cpu", neg, keep, weights=weights)
+    _zero_counts()
+    m_g, g_g = _one_step(cfg, batch, cuda, neg, keep, weights=weights)
+    torch.cuda.synchronize()
+    assert _all_counts() == (0,) * 9
+    scale = max(c.abs().max().item() for c in g_c if c is not None)
+    for k in ("recon_loss", "prob_loss", "func_loss"):
+        bound = (1e-4 * max(abs(float(m_c[k])), 1.0) if dtype == "float32"
+                 else 2e-2 + 1e-1 * abs(float(m_c[k])))
+        assert abs(float(m_g[k]) - float(m_c[k])) <= bound, k
+    if dtype == "bfloat16":
+        flat = lambda g: torch.cat([x.reshape(-1) for x in g if x is not None])
+        assert (flat(g_g) - flat(g_c)).abs().max().item() <= 0.05 * max(scale, 1.0)
+    leaf_tol = 1e-4 if dtype == "float32" else BF16_LEAF
+    names = _leaf_names(dg_ae.init_params(cfg, seed=2, device="cpu")[0])
+    worst = (0.0, "")
+    for name, a, c in zip(names, g_g, g_c, strict=True):
+        assert (a is None) == (c is None)
+        if c is not None:
+            assert a.dtype == torch.float32 and torch.isfinite(a).all()
+            leaf = max(c.abs().max().item(), GRAD_FLOOR * scale)
+            err = (a - c).abs().max().item()
+            worst = max(worst, (err / (leaf_tol * leaf), name))
+            assert err <= leaf_tol * leaf, (name, err, leaf)
+    print(f"{dtype} weights {weights}: worst leaf {worst[1]} at {worst[0]:.3f} of its bound")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_encode_and_step_on_card_match_cpu(cuda, dtype):
+    """``_wide_card_vs_cpu`` on chip_smoke.py's ``[wide]`` batch (MIG bs16,
+    16 inputs, 264 gates, 64 truth-table pairs, seed 7) with round 5's
+    weights [1, 4, 2, 0]. On a bs4 batch of 80-gate circuits the bf16
+    step's ``/experts/b_hh`` came out 1.04x BF16_LEAF from the CPU's
+    (NVIDIA H100 80GB HBM3, 700 W): on a batch that small, one truth-table
+    pair or readout unit turned over at an L1 or ReLU kink moves a leaf by
+    more (``test_wide_bf16_step_on_a_small_batch_on_card``)."""
+    _wide_card_vs_cpu(cuda, dtype, _wide_batch(16, 16, 264, 64, seed=7), (1.0, 4.0, 2.0, 0.0))
+
+
+def test_wide_bf16_step_on_a_small_batch_on_card(cuda):
+    """``_wide_card_vs_cpu`` in bf16 on a bs4 batch of 80-gate circuits
+    without the prob term (weights [1, 0, 2, 0], as the CPU tests against
+    JAX): its readout's ReLU units and L1 loss are the kinks that bf16
+    rounding turns over on so small a batch."""
+    _wide_card_vs_cpu(cuda, "bfloat16", _wide_batch(4, 8, 80, 32, seed=11), (1.0, 0.0, 2.0, 0.0))
+
+
+def test_reference_pth_encodes_on_card(cuda, tmp_path):
+    """A reference ``.pth`` state dict loaded into ``Model`` on the card:
+    the encode takes the struct and fused level kernels and agrees with the
+    same file loaded on the CPU within 1e-4."""
+    from benchmarks.torch_reference import ReferenceModel
+
+    torch.manual_seed(0)
+    ref = ReferenceModel("mig", dim_hidden=64, layernorm=True)
+    path = str(tmp_path / "ref.pth")
+    torch.save({"epoch": 3, "state_dict": ref.state_dict()}, path)
+    rng = np.random.default_rng(12)
+    graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=60) for _ in range(4)]
+    out = {}
+    for dev in ("cpu", cuda):
+        m = Model(modality="mig", layernorm=True, device=dev).load(path)
+        _zero_counts()
+        out[str(dev)] = m.encode_many(graphs, batch_size=4)
+    torch.cuda.synchronize()
+    assert (struct_kernel.launches, level_kernel.launches, level_kernel.lists_launches) == (8, 1, 1)
+    for (hs_g, hf_g), (hs_c, hf_c) in zip(out["cuda"], out["cpu"], strict=True):
+        np.testing.assert_allclose(hs_g, hs_c, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(hf_g, hf_c, rtol=0, atol=1e-4)

@@ -274,16 +274,39 @@ def test_tolerant_merge_matches_jax(loaded):
 
 
 def test_jax_and_reference_checkpoints_raise_value_error(tmp_path):
+    """The JAX package's checkpoint and a reference state dict now load; a
+    reference dict missing ``hs_linear.weight`` raises KeyError naming it,
+    as the JAX package's reader does, and bytes of no known format raise
+    ValueError."""
+    from benchmarks.torch_reference import ReferenceModel
+    from mgvae_tpu.utils.torch_compat import params_from_torch_state as jparams_from_torch_state
+
     params, state = J.init_params(jax.random.PRNGKey(0), J.DGConfig(**CFG))
     jpath = str(tmp_path / "jax.pth")
     jckpt.save_checkpoint(jpath, 0, params, state, (), 0.0)
     model = mgvae_tpu_torch.Model(device="cpu", **{k: v for k, v in CFG.items()})
-    with pytest.raises(ValueError, match="msgpack.*ROADMAP 1.8"):
-        model.load(jpath)
+    model.load(jpath)
+    for a, c in zip(pstep.param_leaves(model.params), pstep.param_leaves(
+            params_from_jax(_np(params), device="cpu")), strict=True):
+        assert torch.equal(a, c)
+    sd = ReferenceModel("mig", dim_hidden=16, s_rounds=1, t_rounds=1, layernorm=True).state_dict()
     rpath = str(tmp_path / "ref.pth")
-    torch.save({"epoch": 3, "state_dict": {"w": torch.zeros(2)}}, rpath)
-    with pytest.raises(ValueError, match="no 'params' key.*ROADMAP 1.8"):
-        pckpt.load_checkpoint(rpath, model.params, model.state, None, "cpu")
+    torch.save({"epoch": 3, "state_dict": sd}, rpath)
+    model.load(rpath)
+    assert torch.equal(model.params["hs_linear"]["w"], sd["hs_linear.weight"].T)
+    del sd["hs_linear.weight"]
+    torch.save({"epoch": 3, "state_dict": sd}, rpath)
+    with pytest.raises(KeyError, match="hs_linear.weight"):
+        jparams_from_torch_state(sd, J.DGConfig(**CFG))
+    with pytest.raises(KeyError, match="hs_linear.weight"):
+        model.load(rpath)
+    upath = str(tmp_path / "unknown.pth")
+    with open(upath, "wb") as f:
+        f.write(b"\x00not a checkpoint")
+    with pytest.raises(ValueError, match="unknown format"):
+        pckpt.load_checkpoint(upath, model.params, model.state, None, "cpu")
+    with pytest.raises(ValueError, match="unknown format"):
+        model.load(upath)
 
 
 def test_model_save_load_roundtrip(tmp_path):
