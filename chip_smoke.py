@@ -236,6 +236,37 @@ Phases (any failure raises and the script exits nonzero):
      giant encode and of the giant train step with its stages;
      torch.profiler over 3 giant train steps.
 
+  [parallel] data and model parallelism (ROADMAP 1.7; ``parallel_phase``),
+     after phase 18: (a) the [trainer] configuration's epoch with
+     distributed=True under a one-rank NCCL process group (the launch
+     variables set in this process), twice, bit for bit against the
+     single-device epoch, twice (per-step losses and metrics, params,
+     BN and Adam state), with the launches of each step (the
+     single-device step's and one all-reduce) and the ms per step in
+     turns (single, dp, dp, single: the first of each kind warms cuBLAS
+     and NCCL up); (b) the within-level sharded train step at mp = 1 by the
+     dst-complete kernel route on phase 7's bs16 batch (collated with the
+     mp = 2 hint) and on the giant batch, through shard_levels_by_dst(batch,
+     1): kernel 5 once and kernel 6's three launches per real level as
+     their C entries count them, the lists once, the collectives 2 (4 *
+     s_rounds + L) + 1; each gradient leaf within 1e-4 * max(scale, 1) of the
+     single-device step's (kernels 1/2 at bs16, 3/4 on the giant batch),
+     without the prob term (SMOOTH_WEIGHTS); the ms per step of both in
+     turns and a torch.profiler table of the sharded giant step; the same
+     step at D = 256, past the kernels' width, where the route is the
+     edge-split one (plain torch, no kernel launched) against the
+     single-device step (its plain route there); kernels 5 and 6
+     on member tables (bs16 at mp = 1 and 2, the giant batch at mp = 1,
+     every real level) against level_step_reference /
+     level_step_bwd_reference (KERNEL_TOL; 1e-4 * max(scale, 1)), and a
+     pass of each over the giant member tables' levels by CUDA events
+     beside its plain version; (c) two processes sharing the card over
+     gloo (``--parallel-worker`` under ``torchrun --standalone``): dp = 2,
+     whose averaged gradients equal
+     one process averaging both shards' own, and dp = 1 x mp = 2 on the
+     bs16 batch (each member's launches; gradients against (b)'s), each
+     with its ms per step; whether this torch's gloo takes CUDA tensors.
+
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step route's
@@ -244,7 +275,10 @@ launches of one pass beside), the giant forward and backward, the four
 bf16 kernels of the fused route ([precision]; bounds with the values' bytes
 halved) and the four of the step and giant routes ([precision] (e), their
 launches from (e2) and (e3), the fp32 kernel's time in the same call as
-fp32_ms); each with
+fp32_ms; and [parallel]'s two, kernels 5 and 6 on model-parallel member
+tables: level_step_mp, level_step_bwd_mp, their launches from (b)'s two
+sharded steps, their times and bounds over one pass of the giant member
+tables' levels); each with
 its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations at their type's peak (67 TFLOP/s in fp32; the
@@ -265,6 +299,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -528,9 +563,9 @@ def trainer_phase(torch, dev, card: str) -> None:
     metrics = {"train": [], "val": []}
     make = trainer_mod.make_train_step
 
-    def counting_make(cfg, optimizer):
+    def counting_make(cfg, optimizer, **kw):
         """make_train_step whose steps record their launches and metrics."""
-        train_step, eval_step = make(cfg, optimizer)
+        train_step, eval_step = make(cfg, optimizer, **kw)
 
         def recorded(phase, fn):
             def call(*a, **kw):
@@ -726,6 +761,512 @@ def trainer_phase(torch, dev, card: str) -> None:
         + f"; on the host alone, the epoch's plan (shuffle and dims scan) {plan_ms:.3f} ms, "
         f"collate {collate_ms:.3f} ms per step")
     shutil.rmtree(root, ignore_errors=True)
+
+
+# [parallel]: data and model parallelism (ROADMAP 1.7) on the card
+PAR_TIMED = 3                  # timed steps per variant and turn; medians
+PAR_WORKER_TIMEOUT = 300       # seconds for (c)'s two processes, their start included
+PAR_DIR = os.path.join("exp", "chip_smoke_parallel")
+PAR_WIDE_DIM = 256             # (b)'s width past the kernels' (level_kernel.MAX_DIM, 128)
+PAR_KEYS = ("recon_loss", "prob_loss", "func_loss", "kl_loss", "tp", "fp", "tn", "fn",
+            "n_pred", "loss")
+PAR_CFG = dict(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+               layernorm=True, matmul_precision="highest")
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(argv: list, nprocs: int, timeout: float) -> None:
+    """Run ``argv`` (a script and its arguments) as ``nprocs`` ranks of
+    ``torchrun --standalone`` on this host; torchrun takes a free port and
+    stops every rank when one fails. Past ``timeout`` seconds it gets
+    SIGTERM, on which it stops its ranks, then SIGKILL. Raises with the end
+    of the ranks' output when they failed or ran out of time."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nprocs), *argv]
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        text, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.terminate()
+        try:
+            text, _ = p.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        raise RuntimeError(f"{nprocs} ranks of {argv} past {timeout} s:\n{text[-6000:]}")
+    if p.returncode:
+        raise RuntimeError(f"{nprocs} ranks of {argv}: exit code {p.returncode}\n{text[-6000:]}")
+
+
+def par_counts():
+    """Every kernel's launch count and the collectives', in the order of
+    PAR_NAMES."""
+    from mgvae_tpu_torch.ops import level_kernel, struct_kernel
+    from mgvae_tpu_torch.parallel import collectives
+
+    return (struct_kernel.launches, struct_kernel.bwd_launches, level_kernel.launches,
+            level_kernel.bwd_launches, level_kernel.lists_launches, level_kernel.step_launches,
+            level_kernel.step_bwd_launches, level_kernel.giant_launches,
+            level_kernel.giant_bwd_launches, collectives.launches)
+
+
+PAR_NAMES = ("(struct, struct bwd, level, level bwd, lists, step, step bwd, giant, giant bwd, "
+             "collectives)")
+
+
+def par_draws(torch, batch, seed: int):
+    """Negatives over the batch's valid rows and dropout keep masks, made on
+    the CPU from ``seed`` (phase 7's fixed_draws)."""
+    from mgvae_tpu_torch.models.dg_ae import DGConfig
+    from mgvae_tpu_torch.train import losses as losses_mod
+
+    g = torch.Generator().manual_seed(seed)
+    n_real, e_pad, n_pad = (int(batch["n_nodes"]), batch["edge_src"].shape[0],
+                            batch["gate"].shape[0])
+    neg = tuple(losses_mod.to_valid_runs(t.to(torch.int32), batch)
+                for t in torch.randint(0, n_real, (2, e_pad), generator=g))
+    dim_mlp = DGConfig(**PAR_CFG).dim_mlp
+    return neg, [torch.rand(n_pad, dim_mlp, generator=g) < 0.8 for _ in range(2)]
+
+
+def par_stepper(torch, make, cfg, batch, draws, where, weights):
+    """(run, leaves): ``run()`` takes one step of ``make(optimizer)`` (SGD at
+    lr 0, so that the params stay and every step reads the same) on the
+    batch with the draws and loss weights; the gradients are the leaves'
+    ``.grad`` after it."""
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.train.step import param_leaves
+
+    params, state = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    step = make(torch.optim.SGD(leaves, lr=0.0))
+    neg = tuple(t.to(where) for t in draws[0])
+    keep = [k.to(where) for k in draws[1]]
+    return (lambda: step(params, state, batch, None, weights, neg_edges=neg, drop_keep=keep),
+            leaves)
+
+
+def par_grads(leaves):
+    return [None if t.grad is None else t.grad.detach().clone() for t in leaves]
+
+
+def par_held(tag: str, got, want) -> float:
+    """The worst leaf's max |d| / (GRAD_TOL * max(its scale, 1)); raises past 1."""
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(got, want, strict=True)):
+        if (a is None) != (c is None):
+            raise RuntimeError(f"[parallel] {tag}: leaf {i} has a gradient on one side only")
+        if c is None:
+            continue
+        a, c = a.float().cpu(), c.float().cpu()
+        if not bool(a.isfinite().all()):
+            raise RuntimeError(f"[parallel] {tag}: non-finite gradient, leaf {i}")
+        worst = max(worst, (a - c).abs().max().item() / (GRAD_TOL * max(c.abs().max().item(),
+                                                                         1.0)))
+    if not worst <= 1.0:
+        raise RuntimeError(f"[parallel] {tag}: a gradient leaf is past {GRAD_TOL} * "
+                           f"max(scale, 1): {worst:.3f} of it")
+    return worst
+
+
+def parallel_worker(inp: str, outdir: str) -> None:
+    """[parallel] (c): one of two processes that share the card over gloo
+    (``python3 chip_smoke.py --parallel-worker <in> <out>``, started by
+    ``parallel_phase``): a dp = 2 step on its bs16 shard, then a dp = 1 x
+    mp = 2 step as member ``rank`` of the bs16 batch's dst-complete tables,
+    each once for the gradients and PAR_TIMED times for the clock."""
+    import torch
+    import torch.distributed as dist
+
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.parallel import mesh as mesh_mod
+    from mgvae_tpu_torch.parallel import sharded
+    from mgvae_tpu_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE, 0)
+    rank, world = mesh_mod.maybe_initialize_distributed(dev, backend="gloo", timeout=120)
+    # does this torch's gloo take the card's tensors for all_gather? (the
+    # collectives hand it the card's tensors)
+    x = torch.full((4,), float(rank), device=dev)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    try:
+        dist.all_gather(parts, x)
+        probe = f"yes ({[float(p[0]) for p in parts]})"
+    except (RuntimeError, ValueError) as e:
+        probe = f"no ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+    data = torch.load(inp, weights_only=False)
+    cfg = dg_ae.DGConfig(**PAR_CFG)
+    sync = torch.cuda.synchronize
+    out = {"probe": probe, "torch": torch.__version__}
+
+    dp_mesh = mesh_mod.make_mesh(world, 1)
+    run, leaves = par_stepper(
+        torch, lambda opt: step_mod.make_train_step(cfg, opt, group=dp_mesh.dp_group)[0], cfg,
+        data["dp"][rank], data["dp_draws"][rank], dev, WEIGHTS)
+    run()
+    out["dp_grads"] = par_grads(leaves)
+    out["dp_ms"] = median_wall(run, PAR_TIMED, sync) * 1e3
+
+    mp_mesh = mesh_mod.make_mesh(1, world)
+    run, leaves = par_stepper(
+        torch, lambda opt: sharded.make_sharded_train_step(cfg, opt, mp_mesh), cfg,
+        data["mp"], data["mp_draws"], dev, SMOOTH_WEIGHTS)
+    sync()
+    before = par_counts()
+    run()
+    sync()
+    out["mp_counts"] = tuple(a - b for a, b in zip(par_counts(), before))
+    out["mp_grads"] = par_grads(leaves)
+    out["mp_ms"] = median_wall(run, PAR_TIMED, sync) * 1e3
+    out["collectives_backend"] = dist.get_backend(mp_mesh.mp_group)
+    torch.save(out, os.path.join(outdir, f"{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def parallel_phase(torch, dev, card: str, env) -> dict:
+    """[parallel] (ROADMAP 1.7): (a) the [trainer] epoch data-parallel over a
+    one-rank NCCL group, bit for bit against the single-device epoch; (b)
+    the within-level sharded train step at mp = 1 by the dst-complete kernel
+    route (kernels 5 and 6 per real level) on the bs16 and the giant batch,
+    against the single-device step (kernels 1/2 and 3/4), and kernels 5 and
+    6 on member tables (mp = 1 and each member at mp = 2) against their
+    plain versions; (c) two processes sharing the card over gloo: dp = 2
+    and dp = 1 x mp = 2. ``env``: main's log, held, written_rows, step_bound,
+    requests, giant_batch and clock. Returns the numbers of the kernels line."""
+    import torch.distributed as dist
+
+    from mgvae_tpu_torch import cli, collate
+    from mgvae_tpu_torch.config import get_parse_args
+    from mgvae_tpu_torch.data.batching import shard_levels_by_dst
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.ops import level_kernel
+    from mgvae_tpu_torch.ops.precision import matmul_precision as precision_scope
+    from mgvae_tpu_torch.parallel import mesh as mesh_mod
+    from mgvae_tpu_torch.parallel import sharded
+    from mgvae_tpu_torch.train import step as step_mod
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    log, sync = env.log, torch.cuda.synchronize
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    os.makedirs(PAR_DIR)
+    step_names = ("d_pack", "d_wkv", "d_wih", "d_bih", "d_bhh", "d_wak", "d_hf")
+
+    # ---- (a) the [trainer] epoch, data-parallel over one rank (NCCL) --------
+    args = get_parse_args(TRAINER_ARGV + ["--save_dir", PAR_DIR])
+    cfg_t = cli.model_config(args)
+    train_ds, val_ds = cli.load_dataset(args)
+
+    def epoch(distributed: bool, tid: str):
+        tr = trainer_mod.Trainer(args, cfg_t, training_id=tid, save_dir=PAR_DIR,
+                                 batch_size=args.batch_size, distributed=distributed,
+                                 seed=args.seed, device=DEVICE)
+        tr.set_training_args(rc_prob_func_weight=WEIGHTS[:3], lr=TRAIN_LR)
+        rows, per_step = [], {"train": [], "val": []}
+        for phase, name in (("train", "train_step"), ("val", "eval_step")):
+            def recorded(*a, _fn=getattr(tr, name), _phase=phase, **kw):
+                before = par_counts()
+                res = _fn(*a, **kw)
+                per_step[_phase].append(tuple(x - y for x, y in zip(par_counts(), before)))
+                if _phase == "train":
+                    rows.append(torch.stack([res[1][k] for k in PAR_KEYS]))
+                return res
+            setattr(tr, name, recorded)
+        m = tr.train(1, train_ds, val_ds)
+        sync()
+        opt = [t for s in tr.optimizer.state_dict()["state"].values() for t in s.values()]
+        return {"rows": torch.stack(rows).cpu(), "per_step": per_step,
+                "ms": m["train"]["time"] * 1e3, "group": tr.group,
+                "leaves": step_mod.param_leaves(tr.params) + step_mod.param_leaves(tr.state)
+                + opt}
+
+    # four epochs in turns, single, dp, dp, single: the first of each kind
+    # warms cuBLAS and NCCL up
+    env.clock("[parallel] (a)")
+    launch_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                  "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    os.environ.update(launch_env)
+    try:
+        single = [epoch(False, "single")]
+        dp = [epoch(True, "dp"), epoch(True, "dp2")]
+        single.append(epoch(False, "single2"))
+        backend = dist.get_backend()
+        if (dp[0]["group"] is None or single[1]["group"] is not None
+                or backend != ("nccl" if dev.type == "cuda" else "gloo")):
+            raise RuntimeError(f"[parallel] (a): the data-parallel trainer did not take the "
+                               f"one-rank {backend} group, or the single-device one did")
+        same = all(torch.equal(x["rows"], single[0]["rows"])
+                   and len(x["leaves"]) == len(single[0]["leaves"])
+                   and all(torch.equal(a, c) for a, c in zip(x["leaves"], single[0]["leaves"]))
+                   for x in dp + single[1:])
+        want_train = (2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0, 0, 0, 0)
+        want_val = (2 * ROUNDS, 0, 1, 0, 1, 0, 0, 0, 0)
+        ok_counts = all(
+            s == want + (coll,)
+            for x, coll in ((dp[0], 1), (dp[1], 1), (single[0], 0), (single[1], 0))
+            for phase, want in (("train", want_train), ("val", want_val))
+            for s in x["per_step"][phase])
+        n_train = len(single[0]["per_step"]["train"])
+        log(f"[parallel] (a) the [trainer] epoch (MIG bs16, D={DIM}, rounds {ROUNDS}, "
+            f"{n_train} train + {len(single[0]['per_step']['val'])} val steps, weights "
+            f"{WEIGHTS[:3]}, lr {TRAIN_LR}) data-parallel over a one-rank {backend} group, "
+            f"twice, against the single-device epoch, twice: per-step losses and metrics, "
+            f"params, BN state and Adam state bit for bit the same: {same}; launches per train "
+            f"step {PAR_NAMES} {dp[0]['per_step']['train'][0]} (the single-device step's "
+            f"{single[0]['per_step']['train'][0]} and one all-reduce), per val step "
+            f"{dp[0]['per_step']['val'][0]}: as wanted {ok_counts}")
+        log(f"[parallel] (a) ms per train step (the trainer's epoch average; in turns single, "
+            f"dp, dp, single, the first of each kind with its warm-up): {single[0]['ms']:.3f}, "
+            f"{dp[0]['ms']:.3f}, {dp[1]['ms']:.3f}, {single[1]['ms']:.3f}; card {card}")
+        if not (same and ok_counts):
+            raise RuntimeError("[parallel] (a): the data-parallel epoch over one rank differs "
+                               "from the single-device epoch, or its launches do")
+        out = {"a_ms": [x["ms"] for x in single[:1] + dp + single[1:]]}
+        del dp, single
+
+        # ---- (b) the sharded train step at mp = 1 by the kernel route ----------
+        env.clock("[parallel] (b)")
+        mesh11 = mesh_mod.make_mesh(1, 1)
+        cfg = dg_ae.DGConfig(**PAR_CFG)
+        base = collate(env.requests[0], mp=2)        # (c)'s mp = 2 collation, one batch for both
+        bs16_draws = par_draws(torch, base, SEED + 11)
+        cases = {"bs16": (shard_levels_by_dst(base, 1), bs16_draws),
+                 "giant": (shard_levels_by_dst(env.giant_batch, 1),
+                           par_draws(torch, env.giant_batch, SEED + 12))}
+        out["mp_launches"] = [0, 0]
+        timing = {}
+        for tag, (batch, draws) in cases.items():
+            n_lv = dg_ae.num_levels(batch)
+            if sharded.route_of(batch, cfg, 1) != "kernel":
+                raise RuntimeError(f"[parallel] (b) {tag}: the batch did not select the "
+                                   "dst-complete kernel route")
+            run_mp, leaves_mp = par_stepper(
+                torch, lambda opt: sharded.make_sharded_train_step(cfg, opt, mesh11),
+                cfg, batch, draws, dev, SMOOTH_WEIGHTS)
+            run_1, leaves_1 = par_stepper(
+                torch, lambda opt: step_mod.make_train_step(cfg, opt)[0], cfg, batch, draws,
+                dev, SMOOTH_WEIGHTS)
+            sync()
+            before = par_counts()
+            run_mp()
+            sync()
+            got = tuple(a - b for a, b in zip(par_counts(), before))
+            out["mp_launches"][0] += got[5]
+            out["mp_launches"][1] += got[6]
+            g_mp = par_grads(leaves_mp)
+            run_1()
+            g_1 = par_grads(leaves_1)
+            if tag == "bs16":
+                out["bs16_grads"] = g_mp
+            worst = par_held(f"(b) {tag}", g_mp, g_1)
+            want = (0, 0, 0, 0, 1, n_lv, 3 * n_lv, 0, 0, 2 * (4 * ROUNDS + n_lv) + 1)
+            t1 = [median_wall(run_1, PAR_TIMED, sync)]
+            tm = [median_wall(run_mp, PAR_TIMED, sync), median_wall(run_mp, PAR_TIMED, sync)]
+            t1.append(median_wall(run_1, PAR_TIMED, sync))
+            timing[tag] = (t1, tm)
+            log(f"[parallel] (b) {tag} (N={batch['gate'].shape[0]}, {n_lv} real levels, member "
+                f"tables Ep_m={batch['mp_lv_edge_src'].shape[-1]} "
+                f"Np_m={batch['mp_lv_nodes'].shape[-1]}): one sharded step at mp = 1 by the "
+                f"kernel route, launches {PAR_NAMES} {got} (want {want}: kernel 5 once and "
+                f"kernel 6's three launches per real level, the struct towers plain); weights "
+                f"{SMOOTH_WEIGHTS} (SMOOTH_WEIGHTS' reason: the route sums the struct towers "
+                f"in another order); each gradient leaf against the single-device step's (kernels "
+                f"{'1/2' if tag == 'bs16' else '3/4'} and 7/8): worst {worst:.3f} of "
+                f"{GRAD_TOL} * max(scale, 1)")
+            log(f"[parallel] (b) {tag} ms per step (synchronised, medians of {PAR_TIMED}, in "
+                f"turns single, mp, mp, single): {t1[0] * 1e3:.3f}, {tm[0] * 1e3:.3f}, "
+                f"{tm[1] * 1e3:.3f}, {t1[1] * 1e3:.3f}; card {card}")
+            if got != want:
+                raise RuntimeError(f"[parallel] (b) {tag}: launches {got} != {want}")
+            if tag == "giant":
+                profile_train(torch, run_mp, card, "[parallel] (b) the sharded giant step at "
+                              "mp = 1", steps=2, rows=12, warm=0)
+            del run_mp, run_1, leaves_mp, leaves_1
+        out["timing"] = timing
+
+        # the same step at D = 256, past the kernels' width: the batch keeps its
+        # dst-complete tables and the edge-split route (plain torch) takes it
+        cfg_w = dg_ae.DGConfig(**dict(PAR_CFG, dim_hidden=PAR_WIDE_DIM))
+        batch, draws = cases["bs16"]
+        route = sharded.route_of(batch, cfg_w, 1)
+        run_mp, leaves_mp = par_stepper(
+            torch, lambda opt: sharded.make_sharded_train_step(cfg_w, opt, mesh11), cfg_w,
+            batch, draws, dev, SMOOTH_WEIGHTS)
+        run_1, leaves_1 = par_stepper(
+            torch, lambda opt: step_mod.make_train_step(cfg_w, opt)[0], cfg_w, batch, draws,
+            dev, SMOOTH_WEIGHTS)
+        sync()
+        before = par_counts()
+        run_mp()
+        sync()
+        got = tuple(a - b for a, b in zip(par_counts(), before))
+        g_mp = par_grads(leaves_mp)
+        run_1()
+        worst = par_held("(b) wide", g_mp, par_grads(leaves_1))
+        tw = (median_wall(run_1, PAR_TIMED, sync), median_wall(run_mp, PAR_TIMED, sync))
+        log(f"[parallel] (b) wide: the bs16 step at D = {PAR_WIDE_DIM} at mp = 1 by the {route} "
+            f"route (the batch's dst-complete tables kept), launches {PAR_NAMES} {got} (want "
+            f"no kernel launch); each gradient leaf against the single-device step's: worst "
+            f"{worst:.3f} of {GRAD_TOL} * max(scale, 1); ms per step (medians of {PAR_TIMED}, "
+            f"single then sharded) {tw[0] * 1e3:.3f}, {tw[1] * 1e3:.3f}; card {card}")
+        if route != "edge" or any(got[:9]):
+            raise RuntimeError(f"[parallel] (b) wide: route {route}, launches {got}: past the "
+                               "kernels' width the edge-split route launches no kernel")
+        out["wide_ms"] = tw
+        del run_mp, run_1, leaves_mp, leaves_1
+
+        env.clock("[parallel] kernels 5 and 6 on member tables")
+
+        # kernels 5 and 6 on member tables against their plain versions
+        params, _ = dg_ae.init_params(cfg, seed=SEED + 3, device=dev)
+        mp2 = shard_levels_by_dst(base, 2)
+        fwd_err, bwd_err, rep = [0.0, 0.0, 0.0], 0.0, ""
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        timed = None
+        for tag, batch, mp in (("bs16 mp=1", cases["bs16"][0], 1), ("bs16 mp=2", mp2, 2),
+                               ("giant mp=1", cases["giant"][0], 1)):
+            n_lv = dg_ae.num_levels(batch)
+            with torch.no_grad(), precision_scope("highest"):
+                hs, hf, _ = dg_ae.forward(params, batch, cfg)
+                bd = dg_ae.batch_to_device(batch, dev)
+                expert = cfg.expert_of_gate(dev)[bd["gate"].long()]
+                for m in range(mp):
+                    b = sharded.member_to_device(sharded.member_slices(batch, m, mp), dev,
+                                                 "kernel")
+                    a = sharded.member_level_inputs(params, b, cfg, hs, expert)
+                    rows = []
+                    for lv in range(n_lv):
+                        sa = (hf, a[0][lv], a[1][lv], a[2][lv], a[3][lv], a[5][lv], a[6][lv],
+                              *a[7:])
+                        out_k = level_kernel._step_forward_cuda(sa, residuals=True)
+                        out_k = (out_k[0], *env.written_rows(sa[3], sa[4], sa[5], 1, out_k[1],
+                                                             out_k[2]))
+                        out_r = level_kernel.level_step_reference(*sa, with_residuals=True)
+                        for j, (x, r) in enumerate(zip(out_k, out_r)):
+                            if not torch.isfinite(x).all():
+                                raise RuntimeError(f"[parallel] {tag}: non-finite output")
+                            fwd_err[j] = max(fwd_err[j], (x - r).abs().max().item())
+                        g = torch.randn(sa[5].shape[0], DIM, device=dev, generator=gen)
+                        grads_k = level_kernel._step_backward_cuda(g, out_k[1], out_k[2], sa[1:],
+                                                                   hf.shape[0])
+                        grads_r = level_kernel.level_step_bwd_reference(
+                            g, out_k[1], out_k[2], *sa[1:9], sa[10], sa[11],
+                            num_nodes=hf.shape[0])
+                        report, worst = env.held(f"parallel {tag}", step_names, grads_k, grads_r)
+                        if worst >= bwd_err:
+                            bwd_err, rep = worst, f"{tag} level {lv}: {report}"
+                        rows.append((sa, g))
+                    if tag.startswith("giant"):
+                        timed = (rows, a)
+        log(f"[parallel] kernels 5 and 6 on member tables (bs16 at mp = 1 and each member at "
+            f"mp = 2, the giant batch at mp = 1; every real level) against level_step_reference "
+            f"/ level_step_bwd_reference: forward max|d| h_new/res_e/res_n {fwd_err[0]:.3e}/"
+            f"{fwd_err[1]:.3e}/{fwd_err[2]:.3e} (tol {KERNEL_TOL}); backward, worst: {rep}")
+        if not max(fwd_err) <= KERNEL_TOL:
+            raise RuntimeError(f"[parallel] kernel 5 disagrees with its plain version on member "
+                               f"tables: {fwd_err}")
+        out["fwd_err"], out["bwd_err"] = max(fwd_err), bwd_err
+
+        # their times: one pass over the giant member tables' real levels, the
+        # lists and the expert-major weights built once, as the route builds them
+        rows, a = timed
+        lists, packed = dg_ae.kernel_inputs(a)
+        lrows = [type(lists)(*r) for r in zip(*(t[:, None].unbind(0) for t in lists))]
+        packed = level_kernel.repack_expert_major(a[7], a[8], cfg.num_experts, backward=True)
+        N = rows[0][0][0].shape[0]
+        with torch.no_grad():
+            res = [level_kernel._step_forward_cuda(sa, True, lrows[i], packed)
+                   for i, (sa, _) in enumerate(rows)]
+            kf = lambda: [level_kernel._step_forward_cuda(sa, True, lrows[i], packed)
+                          for i, (sa, _) in enumerate(rows)]
+            pf = lambda: [level_kernel.level_step_reference(*sa, with_residuals=True)
+                          for sa, _ in rows]
+            kb = lambda: [level_kernel._step_backward_cuda(g, r[1], r[2], sa[1:], N, lrows[i],
+                                                           packed)
+                          for i, ((sa, g), r) in enumerate(zip(rows, res))]
+            pb = lambda: [level_kernel.level_step_bwd_reference(g, r[1], r[2], *sa[1:9], sa[10],
+                                                                sa[11], num_nodes=N)
+                          for (sa, g), r in zip(rows, res)]
+            for f in (kf, pf, kb, pb):
+                f()
+            ms = {"kf": [event_ms(torch, kf, 3)], "pf": [event_ms(torch, pf, 1)],
+                  "kb": [event_ms(torch, kb, 3)], "pb": [event_ms(torch, pb, 1)]}
+            ms["pb"].append(event_ms(torch, pb, 1))
+            ms["kb"].append(event_ms(torch, kb, 3))
+            ms["pf"].append(event_ms(torch, pf, 1))
+            ms["kf"].append(event_ms(torch, kf, 3))
+        out["ms"] = {k: sum(v) / 2 for k, v in ms.items()}
+        out["levels"] = len(rows)
+
+        def summed(backward):
+            bs = [env.step_bound(sa, not backward, backward=backward) for sa, _ in rows]
+            by_b, by_o = sum(x["bytes_ms"] for x in bs), sum(x["operations_ms"] for x in bs)
+            return {"bound_ms": max(by_b, by_o), "bound_by": "bytes" if by_b >= by_o
+                    else "operations", "bytes_ms": by_b, "operations_ms": by_o}
+
+        out["bounds"] = {"level_step_mp": summed(False), "level_step_bwd_mp": summed(True)}
+        log(f"[parallel] kernels 5 and 6 on the giant member tables, one pass over its "
+            f"{len(rows)} real levels (CUDA events, in turns): forward with residuals "
+            f"{ms['kf'][0]:.3f}/{ms['kf'][1]:.3f} ms, plain {ms['pf'][0]:.3f}/{ms['pf'][1]:.3f} "
+            f"ms; backward {ms['kb'][0]:.3f}/{ms['kb'][1]:.3f} ms, plain {ms['pb'][0]:.3f}/"
+            f"{ms['pb'][1]:.3f} ms; bounds {out['bounds']['level_step_mp']['bound_ms']:.4f} / "
+            f"{out['bounds']['level_step_bwd_mp']['bound_ms']:.4f} ms; card {card}")
+        del timed, rows, res, lists, lrows, packed, a
+        dist.destroy_process_group()
+    finally:
+        for k in launch_env:
+            os.environ.pop(k, None)
+
+    # ---- (c) two processes sharing the card over gloo -----------------------
+    env.clock("[parallel] (c)")
+    dp_batches = [collate(r) for r in env.requests[:2]]
+    dp_draws = [par_draws(torch, b, SEED + 20 + d) for d, b in enumerate(dp_batches)]
+    inp = os.path.join(PAR_DIR, "parallel_in.pt")
+    torch.save({"dp": dp_batches, "dp_draws": dp_draws, "mp": mp2, "mp_draws": bs16_draws}, inp)
+    t0 = time.perf_counter()
+    torchrun([os.path.abspath(__file__), "--parallel-worker", inp, PAR_DIR], 2,
+             PAR_WORKER_TIMEOUT)
+    wall = time.perf_counter() - t0
+    res = [torch.load(os.path.join(PAR_DIR, f"{r}.pt"), weights_only=False) for r in range(2)]
+    # dp = 2 against one process computing both shards and averaging them
+    ref = []
+    for b, d in zip(dp_batches, dp_draws):
+        run, leaves = par_stepper(torch, lambda opt: step_mod.make_train_step(cfg, opt)[0], cfg,
+                                  b, d, dev, WEIGHTS)
+        run()
+        ref.append(par_grads(leaves))
+    mean = [None if a is None else (a + c) / 2 for a, c in zip(*ref)]
+    w_dp = max(par_held(f"(c) dp=2 rank {r}", x["dp_grads"], mean) for r, x in enumerate(res))
+    w_mp = max(par_held(f"(c) mp=2 member {r}", x["mp_grads"], out["bs16_grads"])
+               for r, x in enumerate(res))
+    n_lv = dg_ae.num_levels(base)
+    want = (0, 0, 0, 0, 1, n_lv, 3 * n_lv, 0, 0, 2 * (4 * ROUNDS + n_lv) + 1)
+    counts = [x["mp_counts"] for x in res]
+    log(f"[parallel] (c) two processes sharing the card over gloo ({wall:.1f} s with their "
+        f"start; torch {res[0]['torch']}; gloo takes the card's tensors for all_gather: "
+        f"{res[0]['probe']}): dp = 2, one bs16 shard "
+        f"each, averaged gradients against one process averaging both shards' own: worst "
+        f"{w_dp:.3f} of the bound; dp = 1 x mp = 2 on the bs16 batch's dst-complete tables, "
+        f"launches per member {PAR_NAMES} {counts} (want {want}), gradients against (b)'s "
+        f"bs16 step: worst {w_mp:.3f} of the bound; ms per step (medians of {PAR_TIMED}, each "
+        f"process's): dp = 2 {[round(x['dp_ms'], 3) for x in res]}, mp = 2 "
+        f"{[round(x['mp_ms'], 3) for x in res]}; card {card}")
+    if any(c != want for c in counts):
+        raise RuntimeError(f"[parallel] (c): member launches {counts} != {want}")
+    out["c"] = {"dp_ms": [x["dp_ms"] for x in res], "mp_ms": [x["mp_ms"] for x in res]}
+    shutil.rmtree(PAR_DIR)
+    del out["bs16_grads"]
+    return out
 
 
 def main() -> int:
@@ -2927,6 +3468,13 @@ def main() -> int:
         f"median of 5: {gstep_s * 1e3:.3f} ms; stages: " + "; ".join(
             f"{k} {v:.3f} ms" for k, v in gstage_ms.items()))
 
+    clock("[parallel]")
+    # ---- [parallel]: data and model parallelism (ROADMAP 1.7) --------------------
+    par = parallel_phase(torch, dev, card, types.SimpleNamespace(
+        log=log, held=held, written_rows=written_rows, step_bound=step_bound,
+        requests=requests, giant_batch=giant_batch, clock=clock))
+    bounds.update(par["bounds"])
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **more):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
@@ -2989,6 +3537,14 @@ def main() -> int:
         entry("level_step_bwd_bf16", "level_step_bwd.cu", "level_kernel.py:1706", route16[5],
               e16_step_bwd, *ms16["level_step_bwd_bf16"][:2], launches_per_pass=step_bwd_want,
               fp32_ms=sum(ms16["level_step_bwd_bf16"][2][2:4]) / 2),
+        # kernels 5 and 6 on model-parallel member tables ([parallel]): launches
+        # of (b)'s two sharded steps (bs16 and giant); times and bounds of one
+        # pass over the giant member tables' real levels
+        entry("level_step_mp", "level_step.cu", "level_kernel.py:1636", par["mp_launches"][0],
+              par["fwd_err"], par["ms"]["kf"], par["ms"]["pf"], launches_per_pass=par["levels"]),
+        entry("level_step_bwd_mp", "level_step_bwd.cu", "level_kernel.py:1706",
+              par["mp_launches"][1], par["bwd_err"], par["ms"]["kb"], par["ms"]["pb"],
+              launches_per_pass=3 * par["levels"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2999,4 +3555,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

@@ -1,15 +1,17 @@
 """mgvae_tpu_torch: the PyTorch + CUDA port of mgvae_tpu, for NVIDIA Hopper.
 
 It serves and trains the three models of the JAX package (DG_AE, DG_VAE
-and AE; ``num_rounds`` >= 1) on one card, in fp32, TF32 or bf16:
+and AE; ``num_rounds`` >= 1) on the card, in fp32, TF32 or bf16:
 ``Model.forward`` / ``encode_many`` with ``load`` / ``load_pretrained``
 (the port's checkpoints, the JAX package's msgpack ones and reference
 ``.pth`` state dicts), the parsers (``BenchParser``, ``AigParser``,
 ``NpzParser``), one training step (``train.step.make_train_step``) on
 plain, chunked and split batches and on one giant graph collated alone,
 and the reference's 3-stage training (``Trainer``, checkpoints and resume;
-``python -m mgvae_tpu_torch.train``). The numpy data layer, level statics
-and losses are PyTorch; the struct towers and the level recurrence, forward
+``python -m mgvae_tpu_torch.train``), data-parallel over one process per
+card under torchrun (``--distributed``), and the within-level
+model-parallel train step (``parallel.sharded``). The numpy data layer,
+level statics and losses are PyTorch; the struct towers and the level recurrence, forward
 and backward, are hand-written CUDA kernels: ``csrc/struct_towers*.cu``;
 ``csrc/level_scan.cu`` / ``level_scan_bwd.cu``, the fused scan of a batch or
 chunk that passes the size gate, one persistent launch per pass; for chunks
@@ -24,7 +26,7 @@ against; this package never imports jax.
 
 from .api import Model
 from .data.aiger import AigParser
-from .data.batching import collate, collate_chunked, collate_fit, collate_split
+from .data.batching import collate, collate_chunked, collate_fit, collate_shards, collate_split
 from .data.bench import BenchParser
 from .data.npz import NpzParser
 from .data.graph import MODALITY_GATES, CircuitGraph, build_graph
@@ -35,7 +37,7 @@ from .utils.seed import set_seed
 
 __all__ = [
     "Model", "DGConfig", "forward", "init_params", "collate", "collate_chunked",
-    "collate_fit", "collate_split", "random_circuit", "layered_circuit",
+    "collate_fit", "collate_shards", "collate_split", "random_circuit", "layered_circuit",
     "BenchParser", "AigParser", "build_graph", "CircuitGraph", "MODALITY_GATES", "NpzParser",
     "Trainer", "set_seed",
 ]

@@ -15,17 +15,24 @@ default) adds the variational head and the KL term (``--kl_weight``), DG_AE
 runs without them, AE swaps the struct towers for the directed GCN.
 
 Runs on the card (``cuda``) unless ``MGVAE_PLATFORM=cpu`` (the environment
-knob of ``train.py``). More than one device (ROADMAP 1.7) raises
-``NotImplementedError`` before any data is built. Accepted but not honoured
-yet, each with a printed note: ``--distributed`` on one device (the
-single-device path, which a 1-device mesh equals) and ``--steps_per_call``
-(one step per call). ``--matmul_precision`` goes into ``DGConfig`` as in
-``train.py:66``: "default" (the parser's default) runs PyTorch's fp32
-products in TF32 on the card, "highest" in full fp32. ``--dim_hidden``
-reaches the model unchanged: past 128 (the kernels' width) the model runs
-its plain route, as the JAX package runs its XLA paths. ``--resume`` reads
-``model_last.pth`` in the port's format or the JAX package's, so a run
-started on a TPU continues here (``utils/checkpoint``).
+knob of ``train.py``). Data parallelism runs one process per device:
+
+    torchrun --nproc_per_node 8 -m mgvae_tpu_torch.train --distributed ...
+
+(``examples/run_multihost.sh`` for several hosts): NCCL between the cards,
+gloo between CPU processes with ``MGVAE_PLATFORM=cpu``; every rank trains
+its shard of each step, the gradients are averaged, and rank 0 logs and
+writes the checkpoints (``train/trainer.py``). Before any data is built, a
+partial launch (``WORLD_SIZE`` without its rendezvous) raises RuntimeError,
+and ``--distributed --num_devices k`` with k other than the processes
+launched raises ValueError. Accepted but not honoured yet, with a printed
+note: ``--steps_per_call`` (one step per call). ``--matmul_precision`` goes
+into ``DGConfig`` as in ``train.py:66``: "default" (the parser's default)
+runs PyTorch's fp32 products in TF32 on the card, "highest" in full fp32.
+``--dim_hidden`` reaches the model unchanged: past 128 (the kernels' width)
+the model runs its plain route, as the JAX package runs its XLA paths.
+``--resume`` reads ``model_last.pth`` in the port's format or the JAX
+package's, so a run started on a TPU continues here (``utils/checkpoint``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ from .config import get_parse_args
 from .data.npz import NpzParser
 from .data.synthetic import random_circuit
 from .models.dg_ae import DGConfig
-from .train.trainer import Trainer, check_single_device, resolve_device
+from .parallel.mesh import local_device
+from .train.trainer import Trainer, join_launch, resolve_device
 
 STAGE_WEIGHTS = ([1.0, 0.0, 0.0], [1.0, 5.0, 0.0], [1.0, 4.0, 4.0])
 STAGE_LR, LR_STEP = 1e-4, 50
@@ -84,10 +92,9 @@ def main(argv=None) -> Trainer:
     """Run the 3 stages; returns the trainer."""
     args = get_parse_args(argv)
     cfg = model_config(args)
-    check_single_device(args.distributed, args.num_devices or None)
-    device = resolve_device("cpu" if os.environ.get("MGVAE_PLATFORM") == "cpu" else "cuda")
-    if args.distributed:
-        print("[INFO] --distributed on one device: the single-device path")
+    platform = "cpu" if os.environ.get("MGVAE_PLATFORM") == "cpu" else "cuda"
+    join_launch(args.distributed, args.num_devices or None, platform)
+    device = resolve_device(local_device(platform))
 
     print("[INFO] Parse Dataset")
     train_dataset, val_dataset = load_dataset(args)

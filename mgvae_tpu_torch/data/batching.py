@@ -14,9 +14,17 @@ Valid nodes are contiguous at the front ([0, n_nodes)); at least one padding
 node always exists and slot ``n_nodes`` is the dump for padded level-table
 entries.
 
-Not ported: the model-parallel ``mp`` hint and the in-place ``out`` buffers
-of ``collate``, ``collate_shards``, ``collate_split_step``,
-``stack_batches``, ``GroupStatsCache`` and ``shard_levels_by_dst``.
+For data and model parallelism (``parallel/``): ``collate``'s ``mp`` hint
+(N a multiple of mp * 128, the level tables' Ep of mp), ``collate_shards``
+(one shard per dp rank at common dims, stacked on a leading axis),
+``stack_batches``, ``collate_split_step`` (split shards at agreed per-group
+dims, stacked) and ``shard_levels_by_dst`` (the dst-complete member tables
+of the model-parallel kernel route), byte-identical to the JAX package's.
+
+Not ported: the in-place ``out`` buffers of ``collate`` and the native
+library behind the JAX package's ``collate_shards`` (it writes the same
+bytes), its pad-to-max branch for shards without agreed dims
+(``_pad_batch_to``), and ``GroupStatsCache``.
 """
 from __future__ import annotations
 
@@ -46,12 +54,15 @@ def bucket(x: int, minimum: int = 8) -> int:
 _DIM_KEYS = ("N", "E", "P", "L", "NP", "EP", "EBF", "EBR")
 
 
-def collate(graphs: list[CircuitGraph], dims: dict | None = None) -> dict:
+def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1) -> dict:
     """Disjoint-union + pad a list of circuits into one static-shape batch
     (a dict of numpy arrays and numpy scalars).
 
     ``dims``: optional overrides of the padded dims ('N', 'E', 'P', 'L',
-    'NP', 'EP', 'EBF', 'EBR'), so that several sub-batches share one shape."""
+    'NP', 'EP', 'EBF', 'EBR'), so that several sub-batches share one shape.
+    ``mp``: the model-parallel degree (``parallel/sharded``): N is rounded
+    up to a multiple of mp * 128 and EP to a multiple of mp, so that the
+    node blocks and the level tables' edge columns split evenly."""
     if not graphs:
         raise ValueError("collate: empty batch")
     n_graphs = len(graphs)
@@ -107,12 +118,12 @@ def collate(graphs: list[CircuitGraph], dims: dict | None = None) -> dict:
 
     # ---- padded dims ---------------------------------------------------
     dims = dims or {}
-    N = dims.get("N", _round_up(bucket(n + 1), BLOCK_D))
+    N = dims.get("N", _round_up(bucket(n + 1), BLOCK_D * mp))
     E = dims.get("E", bucket(e))
     P = dims.get("P", bucket(p))
     L = dims.get("L", bucket(max(lv_real, 1)))
     NP = dims.get("NP", bucket(max(np_real, 1)))
-    EP = dims.get("EP", bucket(max(ep_real, 1)))
+    EP = dims.get("EP", _round_up(bucket(max(ep_real, 1)), mp))
     if not (N > n and N % BLOCK_D == 0 and E >= e and P >= p and L >= lv_real
             and NP >= np_real and EP >= ep_real):
         raise ValueError(f"collate: dims {dims} too small for this batch (n={n}, e={e}, "
@@ -252,9 +263,9 @@ def _mask(k: int, size: int) -> np.ndarray:
     return m
 
 
-def natural_dims(graphs: list[CircuitGraph]) -> dict:
-    """The padded dims ``collate`` picks for these graphs."""
-    return _dims_of(collate(graphs))
+def natural_dims(graphs: list[CircuitGraph], mp: int = 1) -> dict:
+    """The padded dims ``collate(graphs, mp=mp)`` picks."""
+    return _dims_of(collate(graphs, mp=mp))
 
 
 def _dims_of(b: dict) -> dict:
@@ -557,5 +568,174 @@ def collate_split(graphs: list[CircuitGraph], num_groups: int,
     out["node_inv"] = inv
     out["groups"] = tuple(
         {k: v for k, v in gb.items() if k not in _SPLIT_FWD_DROP} for gb in gbs
+    )
+    return out
+
+
+def collate_shards(shards: list[list[CircuitGraph]], mp: int = 1,
+                   dims: dict | None = None, num_chunks: int = 1) -> dict:
+    """Collate one shard per dp rank with common padded dims and stack them
+    on a leading dp axis. ``mp`` passes the model-parallel hint to
+    ``collate``. ``dims``: explicit common dims (the trainer's running max);
+    otherwise the elementwise max of the shards' natural dims. With
+    ``num_chunks > 1`` each shard is ``collate_chunked`` into that many
+    chunks at common per-chunk dims, and the leaves stack to [dp, C, L, ...]
+    and so on; ``mp`` does not apply there, as in the JAX package."""
+    if num_chunks > 1:
+        if dims is None:
+            per = [_chunked_dims_of(collate_chunked(s, num_chunks), num_chunks) for s in shards]
+            dims = {k: max(d[k] for d in per) for k in per[0]}
+        return stack_batches([collate_chunked(s, num_chunks, dims=dims) for s in shards])
+    if dims is None:
+        pre = [natural_dims(s, mp=mp) for s in shards]
+        dims = {k: max(d[k] for d in pre) for k in _DIM_KEYS}
+    return stack_batches([collate(s, dims=dims, mp=mp) for s in shards])
+
+
+def stack_batches(batches: list[dict]) -> dict:
+    """np.stack structurally identical batch dicts leaf-wise on a leading
+    axis. Split batches stack too: the ``groups`` tuple is stacked per group
+    and key. Host-only keys that vary per member (``node_inv``) must be
+    dropped by the caller first."""
+    first = batches[0]
+    out = {}
+    for k, v in first.items():
+        if k == "groups":
+            out[k] = tuple(
+                {kk: np.stack([np.asarray(b["groups"][g][kk]) for b in batches])
+                 for kk in v[g]}
+                for g in range(len(v))
+            )
+        else:
+            out[k] = np.stack([np.asarray(b[k]) for b in batches])
+    return out
+
+
+def collate_split_step(shards: list[list[CircuitGraph]], dims: list[dict]) -> dict:
+    """The stacked [K, ...] split batch of K shards at agreed per-group dims:
+    ``stack_batches([collate_split(s, G, dims) for s in shards])`` without
+    the host-only ``node_inv``. Group position g of every shard is collated
+    at ``dims[g]`` and stacked; the global loss arrays (the groups' node
+    order, each group offset by the padded rows before it) are
+    concatenated along axis 1."""
+    G, K = len(dims), len(shards)
+    parts = [_split_partition(s, G) for s in shards]
+    gstk = [stack_batches([collate([s[i] for i in p[g]], dims=dims[g])
+                           for s, p in zip(shards, parts)])
+            for g in range(G)]
+    offs = np.concatenate([[0], np.cumsum([gb["gate"].shape[1] for gb in gstk])]).astype(np.int32)
+
+    def cat(k, off_by_node=False):
+        return np.concatenate([np.asarray(gb[k]) + offs[g] if off_by_node else np.asarray(gb[k])
+                               for g, gb in enumerate(gstk)], axis=1)
+
+    def tot(k):
+        return np.sum([gb[k] for gb in gstk], axis=0).astype(np.int32)
+
+    out = {
+        "gate": cat("gate"),
+        "node_valid": cat("node_valid"),
+        "forward_level": cat("forward_level"),
+        "prob": cat("prob"),
+        "edge_src": cat("edge_src", True),
+        "edge_dst": cat("edge_dst", True),
+        "edge_valid": cat("edge_valid"),
+        "tt_pair_a": cat("tt_pair_a", True),
+        "tt_pair_b": cat("tt_pair_b", True),
+        "tt_valid": cat("tt_valid"),
+        "tt_dis": cat("tt_dis"),
+        "n_nodes": tot("n_nodes"),
+        "n_edges": tot("n_edges"),
+        "n_tt": tot("n_tt"),
+        "n_graphs": np.array([len(s) for s in shards], np.int32),
+        "chunk_counts": np.stack([gb["n_nodes"].astype(np.int32) for gb in gstk], axis=1),
+        "chunk_offsets": np.broadcast_to(offs[:-1], (K, G)).copy(),
+    }
+    out["groups"] = tuple({k: v for k, v in gb.items() if k not in _SPLIT_FWD_DROP}
+                          for gb in gstk)
+    return out
+
+
+def shard_levels_by_dst(batch: dict, mp: int) -> dict:
+    """Re-group the level tables DST-COMPLETE across ``mp`` members, for the
+    model-parallel kernel route (``parallel/sharded.sharded_forward_kernel``).
+
+    Member m owns destination slots [m * Np_m, (m + 1) * Np_m) of every
+    level and ALL edges pointing at them, so the per-destination softmax is
+    member-local and each member runs the single-level step kernel on its
+    slice. Destination slots are renumbered member-locally; the source order
+    within a level (src-sorted) is kept.
+
+    Returns a new dict: the batch and the member tables
+      mp_lv_edge_src / mp_lv_edge_dst_slot / mp_lv_edge_valid /
+      mp_lv_edge_id                                  [L, mp, Ep_m]
+      mp_lv_nodes / mp_lv_node_valid                 [L, mp, Np_m]
+    padded as ``collate`` pads (sources and nodes -> the dump node, edge ids
+    -> the last padding edge, slots -> 0). Np_m rounds up to 8 and Ep_m to
+    128, the JAX package's alignments, kept so that the tables stay
+    byte-identical (the kernel takes any Ep). Takes a ``collate`` batch
+    ([L, ...] tables) or a ``collate_shards`` one ([dp, L, ...] tables ->
+    [dp, L, mp, ...], common Ep_m); unchunked batches only."""
+    lv_src = np.asarray(batch["lv_edge_src"])
+    stacked = lv_src.ndim == 3
+    if lv_src.ndim not in (2, 3):
+        raise ValueError("shard_levels_by_dst expects an unchunked batch")
+
+    def rows(key):
+        a = np.asarray(batch[key])
+        return a if stacked else a[None]
+
+    lv_src = rows("lv_edge_src")
+    lv_dslot = rows("lv_edge_dst_slot")
+    lv_evalid = rows("lv_edge_valid")
+    lv_eid = rows("lv_edge_id")
+    lv_nodes = rows("lv_nodes")
+    lv_nvalid = rows("lv_node_valid")
+    B, L, EP = lv_src.shape
+    NP = lv_nodes.shape[2]
+    dumps = np.asarray(batch["n_nodes"]).reshape(-1).astype(np.int64)
+    E = int(np.asarray(batch["edge_src"]).shape[-1])
+
+    np_m = _round_up(-(-NP // mp), 8)
+
+    # per-(shard, level, member) edge counts -> one common padded Ep_m
+    emember = np.where(lv_evalid, lv_dslot // np_m, -1)
+    ep_m = 0
+    for m in range(mp):
+        ep_m = max(ep_m, int((emember == m).sum(axis=2).max(initial=0)))
+    ep_m = max(_round_up(ep_m, 128), 128)
+
+    e_src = np.empty((B, L, mp, ep_m), dtype=np.int32)
+    e_src[:] = dumps[:, None, None, None]
+    e_dslot = np.zeros((B, L, mp, ep_m), dtype=np.int32)
+    e_valid = np.zeros((B, L, mp, ep_m), dtype=bool)
+    e_id = np.full((B, L, mp, ep_m), E - 1, dtype=np.int32)
+    for b in range(B):
+        for lv in range(L):
+            for m in range(mp):
+                sel = np.flatnonzero(emember[b, lv] == m)  # keeps the source order
+                k = len(sel)
+                if k == 0:
+                    continue
+                e_src[b, lv, m, :k] = lv_src[b, lv, sel]
+                e_dslot[b, lv, m, :k] = lv_dslot[b, lv, sel] - m * np_m
+                e_valid[b, lv, m, :k] = True
+                e_id[b, lv, m, :k] = lv_eid[b, lv, sel]
+
+    nodes_pad = np.empty((B, L, mp * np_m), dtype=np.int32)
+    nodes_pad[:] = dumps[:, None, None]
+    nodes_pad[:, :, :NP] = lv_nodes
+    nvalid_pad = np.zeros((B, L, mp * np_m), dtype=bool)
+    nvalid_pad[:, :, :NP] = lv_nvalid
+
+    sq = (lambda a: a) if stacked else (lambda a: a[0])
+    out = dict(batch)
+    out.update(
+        mp_lv_edge_src=sq(e_src),
+        mp_lv_edge_dst_slot=sq(e_dslot),
+        mp_lv_edge_valid=sq(e_valid),
+        mp_lv_edge_id=sq(e_id),
+        mp_lv_nodes=sq(nodes_pad.reshape(B, L, mp, np_m)),
+        mp_lv_node_valid=sq(nvalid_pad.reshape(B, L, mp, np_m)),
     )
     return out

@@ -12,17 +12,29 @@ the hand-written kernels (autograd Functions in ``ops/struct_kernel`` and
 Loss weights are [w_recon, w_prob, w_func, w_kl]; the KL term is DG_VAE's
 (``cfg.variational``) and 0 otherwise. Random draws (the variational noise,
 the negatives, the dropout masks) come from one ``torch.Generator`` in that
-order, or are passed in. Not ported: the data-parallel (mesh) path, and
-``rehydrate`` / ``rehydrate_split``, which rebuild on the device what the
-JAX package's thin host-to-device wire drops (the port sends whole batches).
+order, or are passed in.
+
+Data parallelism (``make_train_step(..., group=)``, the JAX package's mesh
+path, ``mgvae_tpu/train/step.py:158-219``): each process runs the
+single-device step on its own shard, with its own draws (the generator
+folded by its rank in the group, ``fold_generator``), and between
+``backward()`` and the optimizer step ONE all-reduce of the gradients, the
+BatchNorm running state and the metrics, each divided by the group's size:
+every rank then takes the same Adam step and reports the same metrics.
+
+Not ported: ``rehydrate`` / ``rehydrate_split``, which rebuild on the
+device what the JAX package's thin host-to-device wire drops (the port
+sends whole batches), and the K-step ``make_multi_step``.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..models import dg_ae
 from ..models.dg_ae import DGConfig
 from ..ops.precision import matmul_precision
+from ..parallel.collectives import mean_
 from .losses import func_loss, kl_loss, prob_loss, recon_loss
 
 # epoch-metric row layout, as in the JAX package
@@ -85,7 +97,23 @@ def loss_and_metrics(params, state, batch: dict, gen, weights, cfg: DGConfig, tr
                                neg_edges=neg_edges, drop_keep=drop_keep, aux=aux)
 
 
-def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer):
+def fold_generator(gen, rank: int, folded: dict):
+    """The draws of rank ``rank``: ``gen`` itself at rank 0 (so that one
+    rank draws what the single-device step draws), else a generator on
+    ``gen``'s device seeded from ``gen``'s seed and the rank, made on the
+    rank's first step and kept in ``folded``: the stream counterpart of
+    the JAX step's ``fold_in(rng, axis_index("dp"))``. None stays None
+    (the caller passes its draws)."""
+    if gen is None or rank == 0:
+        return gen
+    mine = folded.get("gen")
+    if mine is None or mine[0] is not gen:
+        seed = (gen.initial_seed() + rank * 0x9E3779B97F4A7C15) % (1 << 63)
+        mine = folded["gen"] = (gen, torch.Generator(device=gen.device).manual_seed(seed))
+    return mine[1]
+
+
+def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None):
     """Returns (train_step, eval_step).
 
     train_step(params, state, batch, gen, weights, neg_edges=None,
@@ -104,25 +132,44 @@ def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer):
     ``cfg.compute_dtype="bfloat16"`` the forward runs in bf16
     (``models/dg_ae.forward_device``) and the gradients reach the master
     params in fp32.
+
+    ``group``: a process group of data-parallel ranks (``parallel.mesh``),
+    each with its own shard in ``batch``. The train step then averages the
+    gradients, the BN running state and the metrics over the group before
+    the optimizer step, in one all-reduce; the eval step averages its
+    metrics. ``gen`` is folded by the rank (``fold_generator``);
+    ``neg_edges``, ``drop_keep`` and ``vae_eps`` are the rank's own.
+    Over a group of one rank the mean is exact: the step equals the
+    single-device step bit for bit.
     """
     dg_ae.check_supported(cfg)
+    dp = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    folded: dict = {}
 
     def train_step(params, state, batch, gen, weights, neg_edges=None, drop_keep=None,
                    vae_eps=None):
         optimizer.zero_grad(set_to_none=True)
         with matmul_precision(cfg.matmul_precision):
             total, (new_state, metrics) = loss_and_metrics(
-                params, state, batch, gen, weights, cfg, True, neg_edges=neg_edges,
-                drop_keep=drop_keep, vae_eps=vae_eps)
+                params, state, batch, fold_generator(gen, rank, folded), weights, cfg, True,
+                neg_edges=neg_edges, drop_keep=drop_keep, vae_eps=vae_eps)
             total.backward()
+        if group is not None:
+            grads = [t.grad for t in param_leaves(params) if t.grad is not None]
+            rest = param_leaves(new_state) + [metrics[k] for k in sorted(metrics)]
+            mean_([(grads + rest, dp)], group)
         optimizer.step()
         return state | new_state, metrics
 
     @torch.no_grad()
     def eval_step(params, state, batch, gen, weights, neg_edges=None, vae_eps=None):
         with matmul_precision(cfg.matmul_precision):
-            _, (_, metrics) = loss_and_metrics(params, state, batch, gen, weights, cfg, False,
-                                               neg_edges=neg_edges, vae_eps=vae_eps)
+            _, (_, metrics) = loss_and_metrics(params, state, batch,
+                                               fold_generator(gen, rank, folded), weights, cfg,
+                                               False, neg_edges=neg_edges, vae_eps=vae_eps)
+        if group is not None:
+            mean_([([metrics[k] for k in sorted(metrics)], dp)], group)
         return metrics
 
     return train_step, eval_step

@@ -1,5 +1,6 @@
-"""Training runtime on one device: the counterpart of
-``mgvae_tpu/train/trainer.py`` (the reference's trainer.py:20-278).
+"""Training runtime, on one device or data-parallel over several: the
+counterpart of ``mgvae_tpu/train/trainer.py`` (the reference's
+trainer.py:20-278).
 
 Public surface as in the JAX package: ``Trainer(args, model_cfg, ...)``,
 ``set_training_args``, ``weights``, ``train(num_epoch, train_ds, val_ds)``,
@@ -27,10 +28,25 @@ negatives, the dropout masks) come from one ``torch.Generator`` on the
 trainer's device, seeded ``seed + 1``. The epoch line carries `` |KL:``
 only when a nonzero KL was metered (DG_VAE), as in the JAX package.
 
-Not ported (ROADMAP "Not ported by design"): the data-parallel mesh
-(ROADMAP 1.7), the packed transfer, the thin wire, the K-step scan
-(``steps_per_call`` is accepted and ignored), the native stats cache, the
-split layout's pre-grown dims (they change padding only) and ``trace_dir``.
+Data parallelism: one process per device, launched by torchrun (or the
+JAX package's launch variables, ``parallel.mesh``). Under a launch of W > 1
+processes, or with ``distributed`` under a process group of one, the
+trainer runs the data-parallel step (``train.step.make_train_step(...,
+group=)``): every rank draws the same shuffle and a step takes W *
+``batch_size`` graphs, rank r's shard the r-th ``batch_size`` of them;
+every rank derives the same running-max dims (and chunk count) from every
+shard of the step, without communication, and collates only its own shard
+at those dims (split shards at the agreed per-group dims); the step
+averages the gradients, the BN running state and the metrics over the
+ranks, so every rank logs the same losses. The epoch line, the log file
+and the checkpoints are the chief's (rank 0); ``resume`` loads on every
+rank. ``distributed`` with ``num_devices`` other than W raises: the port
+runs one process per device.
+
+Not ported (ROADMAP "Not ported by design"): the packed transfer, the thin
+wire, the K-step scan (``steps_per_call`` is accepted and ignored), the
+native stats cache, the split layout's pre-grown dims (they change padding
+only) and ``trace_dir``.
 """
 from __future__ import annotations
 
@@ -41,6 +57,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batching import (
     _partition_chunks,
@@ -54,6 +71,7 @@ from ..data.batching import (
 from ..models.dg_ae import DGConfig, init_params
 from ..ops.level_kernel import MAX_DIM as KERNEL_MAX_DIM
 from ..ops.level_kernel import kernel_fits
+from ..parallel.mesh import local_device, maybe_initialize_distributed
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logger import AverageMeter, Logger
 from .step import METRIC_KEYS, make_optimizer, make_train_step, param_leaves, set_lr
@@ -73,13 +91,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_single_device(distributed: bool, num_devices) -> None:
-    """Data parallelism over more than one device is not ported."""
-    world = int(os.environ.get("WORLD_SIZE") or 1)
-    if world > 1 or (distributed and (num_devices or 1) > 1):
-        raise NotImplementedError(
-            f"training over more than one device (num_devices={num_devices}, "
-            f"WORLD_SIZE={world}) is not ported yet (ROADMAP 1.7)")
+def join_launch(distributed: bool, num_devices, device) -> tuple[int, int]:
+    """The launch checks, run before any data is built. Joins the process
+    group that the launch variables describe (``parallel.mesh``; a partial
+    launch raises RuntimeError) and returns (rank, world size). With
+    ``distributed``, ``num_devices`` other than the processes launched
+    raises ValueError: the port runs one process per device."""
+    rank, world = maybe_initialize_distributed(device)
+    if distributed and num_devices and num_devices != world:
+        raise ValueError(
+            f"--distributed over {num_devices} devices needs {num_devices} processes, one per "
+            f"device; this launch has {world}: run torchrun --nproc_per_node {num_devices} "
+            "-m mgvae_tpu_torch.train --distributed ...")
+    return rank, world
 
 
 def shard_dims(graphs, num_chunks: int) -> dict:
@@ -124,8 +148,8 @@ class Trainer:
         split: int | str = "auto",
         device="cuda",
     ):
-        check_single_device(distributed, num_devices)
-        self.device = resolve_device(device)
+        rank, world = join_launch(distributed, num_devices, device)
+        self.device = resolve_device(local_device(device))
         self.args = args
         self.model_cfg = model_cfg
         self.lr = lr
@@ -153,23 +177,34 @@ class Trainer:
         self.log_dir = os.path.join(save_dir, training_id)
         os.makedirs(self.log_dir, exist_ok=True)
         self.distributed = distributed
-        self.num_devices = 1
+        # the data-parallel group: every process of a launch of several, or
+        # with ``distributed`` the group of one that a caller set up
+        self.group = (dist.group.WORLD if dist.is_initialized() and (distributed or world > 1)
+                      else None)
+        self.num_devices = world
+        self.rank = rank
+        self.is_chief = rank == 0
 
         if params is None:
             params, state = init_params(model_cfg, seed=seed, device=self.device)
         self.params, self.state = params, state
         self.optimizer = make_optimizer(self.params, lr)
-        self.train_step, self.eval_step = make_train_step(model_cfg, self.optimizer)
+        self.train_step, self.eval_step = make_train_step(model_cfg, self.optimizer,
+                                                          group=self.group)
         self.model_epoch = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._np_rng = np.random.default_rng(seed + 2)
 
-        time_str = time.strftime("%Y-%m-%d-%H-%M")
-        self.logger = Logger(os.path.join(self.log_dir, f"log-{time_str}.txt"))
-        if int(steps_per_call) != 1:
-            print(f"[INFO] steps_per_call={steps_per_call} is not ported: one optimizer step "
-                  "per call")
-        print(f"[INFO] Training single device; device={self.device}")
+        self.logger = None
+        if self.is_chief:
+            time_str = time.strftime("%Y-%m-%d-%H-%M")
+            self.logger = Logger(os.path.join(self.log_dir, f"log-{time_str}.txt"))
+            if int(steps_per_call) != 1:
+                print(f"[INFO] steps_per_call={steps_per_call} is not ported: one optimizer "
+                      "step per call")
+            mode = ("single device" if self.group is None
+                    else f"data-parallel over {world} process(es), one device each")
+            print(f"[INFO] Training {mode}; device={self.device}")
 
     # ------------------------------------------------------------------
     def set_training_args(self, rc_prob_func_weight=(), lr: float = -1, lr_step: int = -1,
@@ -193,8 +228,11 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save(self, path: str):
-        save_checkpoint(path, self.model_epoch, self.params, self.state,
-                        self.optimizer.state_dict(), self.lr)
+        """The chief writes the checkpoint; the other ranks hold the same
+        params, BN state and Adam state."""
+        if self.is_chief:
+            save_checkpoint(path, self.model_epoch, self.params, self.state,
+                            self.optimizer.state_dict(), self.lr)
 
     def load(self, path: str):
         """Restore params (copied into the optimizer's own tensors), BN
@@ -227,8 +265,8 @@ class Trainer:
         dict per split group) and chunk count."""
         idx = np.arange(len(dataset))
         self._np_rng.shuffle(idx)
-        n_steps = len(idx) // self.batch_size
-        if n_steps == 0 and len(dataset):
+        n_steps = len(idx) // (self.batch_size * self.num_devices)
+        if n_steps == 0 and len(dataset) and self.is_chief:
             print(
                 f"[WARN] dataset of {len(dataset)} graphs yields 0 steps at "
                 f"batch_size {self.batch_size} x {self.num_devices} device(s) "
@@ -272,17 +310,20 @@ class Trainer:
         order = self._shape_sort_ids(dataset)
         strata = [s[self._np_rng.permutation(len(s))] for s in np.array_split(order, G)]
         sizes = [len(a) for a in np.array_split(np.arange(self.batch_size), G)]
-        if any(n_steps * m > len(s) for m, s in zip(sizes, strata)):
+        n_shards = n_steps * self.num_devices
+        if any(n_shards * m > len(s) for m, s in zip(sizes, strata)):
             return None
         shards = [np.concatenate([strata[g][j * sizes[g]:(j + 1) * sizes[g]] for g in range(G)])
-                  for j in range(n_steps)]
+                  for j in range(n_shards)]
         used = np.concatenate(shards) if shards else np.zeros(0, np.int64)
         rest = np.setdiff1d(order, used, assume_unique=True)
         return np.concatenate([used, rest]).astype(np.int64)
 
     def _shards(self, dataset, idx, steps):
-        bs = self.batch_size
-        return [[dataset[i] for i in idx[s * bs:(s + 1) * bs]] for s in steps]
+        """Every rank's shard of each of ``steps``: the same on every rank."""
+        bs, w = self.batch_size, self.num_devices
+        return [[dataset[i] for i in idx[j * bs:(j + 1) * bs]]
+                for s in steps for j in range(s * w, (s + 1) * w)]
 
     def _update_split_dims(self, dataset, idx, n_steps):
         """Running max of the per-group dims over this epoch's shards."""
@@ -357,7 +398,7 @@ class Trainer:
         only) PREFETCH_DEPTH steps ahead. An error in the thread is raised
         here; closing the generator early stops the thread."""
         idx, n_steps, dims, C = self._epoch_plan(dataset)
-        bs = self.batch_size
+        bs, w, r = self.batch_size, self.num_devices, self.rank
         q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         stop = threading.Event()
 
@@ -367,7 +408,8 @@ class Trainer:
                 for s in range(n_steps):
                     if stop.is_set():
                         return
-                    q.put(self._collate_step([dataset[i] for i in idx[s * bs:(s + 1) * bs]],
+                    j = s * w + r       # this rank's shard of step s
+                    q.put(self._collate_step([dataset[i] for i in idx[j * bs:(j + 1) * bs]],
                                              dims, C))
                 end = None
             except Exception as e:  # handed to the consumer, which raises it
@@ -419,7 +461,8 @@ class Trainer:
                         m = self.eval_step(self.params, self.state, batch, self._gen, weights)
                     pending.append(torch.stack([m[k] for k in METRIC_KEYS]))
                     steps_done += 1
-                    if self.log_every and steps_done - last_logged >= self.log_every:
+                    if (self.log_every and self.is_chief
+                            and steps_done - last_logged >= self.log_every):
                         last_logged = steps_done
                         mm = dict(zip(METRIC_KEYS, pending[-1].tolist()))
                         print(
@@ -456,12 +499,13 @@ class Trainer:
                 # field only when a nonzero KL was metered
                 kl_part = (" |KL: {:.4f}".format(meters["kl"].avg)
                            if meters["kl"].avg else "")
-                self.logger.write(
-                    "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
-                        phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
-                        meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
+                if self.logger is not None:
+                    self.logger.write(
+                        "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
+                            phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
+                            meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
+                        )
                     )
-                )
             self.model_epoch += 1
             if self.lr_step > 0 and self.model_epoch % self.lr_step == 0:
                 self.lr *= 0.1

@@ -96,13 +96,19 @@ def test_three_stage_recipe_and_resume(tmp_path, monkeypatch):
     assert all(torch.equal(x, y) for x, y in zip(leaves, _tensors(last["params"])))
 
 
-@pytest.mark.parametrize("argv, env, match", [
+@pytest.mark.parametrize("argv, env, exc, match", [
+    # one process asked for two devices: the port runs one process per device
     (["--type", "mig", "--model", "DG_AE", "--distributed", "--num_devices", "2"], {},
-     "ROADMAP 1.7"),
-    (["--type", "mig", "--model", "DG_AE"], {"WORLD_SIZE": "2"}, "ROADMAP 1.7"),
+     ValueError, "torchrun --nproc_per_node 2"),
+    # a launch of two without its rendezvous: fails loudly, never one silent chief
+    (["--type", "mig", "--model", "DG_AE"], {"WORLD_SIZE": "2"}, RuntimeError,
+     "partial multi-process launch"),
 ], ids=["num_devices", "world_size"])
-def test_unported_modes_raise_before_any_data(argv, env, match, monkeypatch, tmp_path):
+def test_unported_modes_raise_before_any_data(argv, env, exc, match, monkeypatch, tmp_path):
     monkeypatch.setenv("MGVAE_PLATFORM", "cpu")
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS",
+              "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
 
@@ -110,7 +116,7 @@ def test_unported_modes_raise_before_any_data(argv, env, match, monkeypatch, tmp
         raise AssertionError("data built before the check")
 
     monkeypatch.setattr(cli, "load_dataset", no_data)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         cli.main(argv + ["--save_dir", str(tmp_path)])
 
 

@@ -1346,3 +1346,148 @@ def test_reference_pth_encodes_on_card(cuda, tmp_path):
     for (hs_g, hf_g), (hs_c, hf_c) in zip(out["cuda"], out["cpu"], strict=True):
         np.testing.assert_allclose(hs_g, hs_c, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(hf_g, hf_c, rtol=0, atol=1e-4)
+
+
+@pytest.fixture
+def one_rank_nccl(cuda, monkeypatch):
+    """A one-rank NCCL process group on the card, taken down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mgvae_tpu_torch.parallel import mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    mesh.maybe_initialize_distributed("cuda", timeout=60)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dp_over_one_nccl_rank_equals_single_device_on_card(one_rank_nccl, tmp_path):
+    """The trainer with ``distributed`` under a one-rank NCCL group (its
+    all-reduce of the gradients, BN state and metrics over one rank) trains
+    two epochs bit for bit as the single-device trainer on the card."""
+    import types
+
+    from mgvae_tpu_torch.parallel import collectives
+    from mgvae_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(1)
+    ds = [random_circuit(rng, "mig", num_inputs=6, num_gates=60) for _ in range(12)]
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2,
+                         layernorm=True, matmul_precision="highest")
+    out = {}
+    for distributed in (False, True):
+        before = collectives.launches
+        tr = Trainer(types.SimpleNamespace(model="DG_AE"), cfg, training_id=str(distributed),
+                     save_dir=str(tmp_path), batch_size=4, distributed=distributed, seed=3,
+                     device="cuda")
+        assert (tr.group is not None) == distributed
+        m = tr.train(2, ds, ds[:4])
+        out[distributed] = (m, step.param_leaves(tr.params) + step.param_leaves(tr.state),
+                            collectives.launches - before)
+    # 3 train and 1 val steps an epoch: one all-reduce each
+    assert (out[False][2], out[True][2]) == (0, 8)
+    for phase in ("train", "val"):
+        for k, v in out[False][0][phase].items():
+            if k != "time":
+                assert out[True][0][phase][k] == v, (phase, k)
+    for a, c in zip(out[True][1], out[False][1], strict=True):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dim, route", [(64, "kernel"), (256, "edge")])
+def test_sharded_step_at_mp1_on_card_matches_single_device_step(one_rank_nccl, dim, route):
+    """The sharded step at mp = 1 against the single-device step, weights
+    [1, 0, 4, 0] (the prob term's readout kinks move with the order of the
+    struct sums): each gradient leaf within 1e-4 * max(its scale, 1). At
+    D = 64 the batch's dst-complete tables select the kernel route (kernels
+    5 and 6, kernel 5 once and kernel 6 three times per real level, the
+    plain sharded struct towers) against kernels 1, 2, 7 and 8; at D = 256,
+    past the kernels' width, the same batch takes the edge-split route,
+    plain torch with no kernel launched, against the single-device step's
+    plain route."""
+    from mgvae_tpu_torch.data.batching import shard_levels_by_dst
+    from mgvae_tpu_torch.parallel import mesh, sharded
+
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=dim, s_rounds=2, t_rounds=2,
+                         layernorm=True, matmul_precision="highest")
+    rng = np.random.default_rng(6)
+    batch = shard_levels_by_dst(
+        collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)]), 1)
+    gen = torch.Generator().manual_seed(3)
+    neg = tuple(t.to(torch.int32).cuda() for t in torch.randint(
+        0, int(batch["n_nodes"]), (2, batch["edge_src"].shape[0]), generator=gen))
+    keep = [(torch.rand(batch["gate"].shape[0], cfg.dim_mlp, generator=gen) < 0.8).cuda()
+            for _ in range(2)]
+    assert sharded.route_of(batch, cfg, 1) == route
+    m11 = mesh.make_mesh(1, 1)
+    grads = {}
+    for kind in ("single", "sharded"):
+        params, state = dg_ae.init_params(cfg, seed=4, device="cuda")
+        leaves = step.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        opt = torch.optim.SGD(leaves, lr=0.0)
+        fn = (step.make_train_step(cfg, opt)[0] if kind == "single"
+              else sharded.make_sharded_train_step(cfg, opt, m11))
+        _zero_counts()
+        fn(params, state, batch, None, [1.0, 0.0, 4.0, 0.0], neg_edges=neg, drop_keep=keep)
+        torch.cuda.synchronize()
+        if kind == "sharded":
+            n_lv = dg_ae.num_levels(batch) if route == "kernel" else 0
+            assert (level_kernel.step_launches, level_kernel.step_bwd_launches,
+                    level_kernel.launches, struct_kernel.launches) == (n_lv, 3 * n_lv, 0, 0)
+        grads[kind] = [None if t.grad is None else t.grad.cpu() for t in leaves]
+    for a, c in zip(grads["sharded"], grads["single"], strict=True):
+        assert (a is None) == (c is None)
+        if c is not None:
+            assert (a - c).abs().max().item() <= 1e-4 * max(c.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("mp", [1, 2, 4])
+def test_step_kernels_on_member_tables_match_plain_on_card(cuda, mp):
+    """Kernels 5 and 6 on each member's dst-complete tables
+    (``shard_levels_by_dst``), every real level: h_new and the residual rows
+    they write within 1e-4, each backward output within 1e-4 * max(scale, 1)
+    of level_step_reference / level_step_bwd_reference."""
+    from mgvae_tpu_torch.data.batching import shard_levels_by_dst
+    from mgvae_tpu_torch.parallel import sharded
+
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         matmul_precision="highest")
+    params, _ = dg_ae.init_params(cfg, seed=2, device=cuda)
+    rng = np.random.default_rng(9)
+    batch = shard_levels_by_dst(
+        collate([random_circuit(rng, "mig", num_inputs=8, num_gates=150) for _ in range(6)],
+                mp=mp), mp)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    with torch.no_grad():
+        hs, hf, _ = dg_ae.forward(params, batch, cfg)
+        expert = cfg.expert_of_gate(cuda)[dg_ae.batch_to_device(batch, cuda)["gate"].long()]
+        for m in range(mp):
+            b = sharded.member_to_device(sharded.member_slices(batch, m, mp), cuda, "kernel")
+            a = sharded.member_level_inputs(params, b, cfg, hs, expert)
+            for lv in range(dg_ae.num_levels(batch)):
+                sa = (hf, a[0][lv], a[1][lv], a[2][lv], a[3][lv], a[5][lv], a[6][lv], *a[7:])
+                h_k, re_k, rn_k = level_kernel._step_forward_cuda(sa, residuals=True)
+                h_r, re_r, rn_r = level_kernel.level_step_reference(*sa, with_residuals=True)
+                e_live, s_live = level_kernel.live_rows(sa[3], sa[4], sa[5])
+                torch.testing.assert_close(h_k, h_r, rtol=0, atol=1e-4)
+                torch.testing.assert_close(re_k[e_live], re_r[e_live], rtol=0, atol=1e-4)
+                torch.testing.assert_close(rn_k[s_live], rn_r[s_live], rtol=0, atol=1e-4)
+                g = torch.randn(sa[5].shape[0], 64, device=cuda, generator=gen)
+                re_k = torch.where(e_live[:, None], re_k, 0.0)
+                rn_k = torch.where(s_live[:, None], rn_k, 0.0)
+                got = level_kernel._step_backward_cuda(g, re_k, rn_k, sa[1:], hf.shape[0])
+                want = level_kernel.level_step_bwd_reference(g, re_k, rn_k, *sa[1:9], sa[10],
+                                                             sa[11], num_nodes=hf.shape[0])
+                for x, r in zip(got, want, strict=True):
+                    assert (x - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
