@@ -267,6 +267,35 @@ Phases (any failure raises and the script exits nonzero):
      bs16 batch (each member's launches; gradients against (b)'s), each
      with its ms per step; whether this torch's gloo takes CUDA tensors.
 
+  [balancer] the multi-task trainers and the rest of ROADMAP 1.9
+     (``balancer_phase``), after [parallel]: (a) one epoch each of
+     BalancerTrainer, GradNormTrainer and EarlyTrainer(patience=1) in
+     [trainer]'s configuration (weights [1, 4, 4], lr 1e-4): launches per
+     Balancer / GradNorm train step (8, 51, 1, 6, 1, 0, ...): one forward and
+     three backwards from its residuals, the struct backward per task and
+     the level backward for prob and func; EarlyTrainer's as the plain
+     trainer's; finite meters, the epoch lines, GradNorm's weights summing
+     to 3, model_best.pth; the ms per train step beside the plain trainer's
+     in turns and each epoch's peak memory; (b) the three per-task gradients
+     of one forward bit for bit against three separate forward + backward
+     passes with the same draws on phase 7's bs16 batch, phase 12's
+     two-chunk batch (step route) and the giant batch, launches (the
+     route's backward twice, the struct backward three times) and peak
+     memory beside one step's; one Balancer step on bs16 card vs CPU (each
+     task's gradient leaf, each scale and the weighted sum within 1e-4 *
+     max(scale, 1)) and phase 7's masked prob check; (c) the Balancer epoch
+     over a one-rank NCCL group bit for bit against the single-device epoch
+     (one all-reduce a step); (d) Trainer(trace_dir=...) over one [trainer]
+     epoch: one trace file naming the kernels of rows 1, 2, 7, 8 and the
+     lists kernel (a table of calls and device ms), the epoch's numbers bit
+     for bit an untraced epoch's; (e) the large-batch example on the card;
+     (f) the struct backward re-entered three times and the level backward
+     twice from one forward's residuals on the bs16 batch: every saved
+     tensor unchanged, a cotangent's gradients again bit for bit, each
+     within 1e-4 * max(scale, 1) of its plain version, time per backward
+     by CUDA events; (g) the [trainer] epoch's host collation with and
+     without the allocator tuning (two ``--collate-probe`` subprocesses).
+
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step route's
@@ -278,8 +307,11 @@ launches from (e2) and (e3), the fp32 kernel's time in the same call as
 fp32_ms; and [parallel]'s two, kernels 5 and 6 on model-parallel member
 tables: level_step_mp, level_step_bwd_mp, their launches from (b)'s two
 sharded steps, their times and bounds over one pass of the giant member
-tables' levels); each with
-its launches on its main path, its
+tables' levels; and [balancer]'s two, kernels 8 and 2 re-entered from one
+forward's residuals on the Balancer step: struct_towers_bwd_reentered,
+level_scan_bwd_reentered, their launches from (a)'s Balancer epoch with
+launches_per_step, their time per backward and bounds on the bs16 batch);
+each with its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations at their type's peak (67 TFLOP/s in fp32; the
 bf16 entries' products, bf16 operands with fp32 accumulation, at 989
@@ -860,21 +892,21 @@ def par_grads(leaves):
     return [None if t.grad is None else t.grad.detach().clone() for t in leaves]
 
 
-def par_held(tag: str, got, want) -> float:
+def par_held(tag: str, got, want, phase: str = "[parallel]") -> float:
     """The worst leaf's max |d| / (GRAD_TOL * max(its scale, 1)); raises past 1."""
     worst = 0.0
     for i, (a, c) in enumerate(zip(got, want, strict=True)):
         if (a is None) != (c is None):
-            raise RuntimeError(f"[parallel] {tag}: leaf {i} has a gradient on one side only")
+            raise RuntimeError(f"{phase} {tag}: leaf {i} has a gradient on one side only")
         if c is None:
             continue
         a, c = a.float().cpu(), c.float().cpu()
         if not bool(a.isfinite().all()):
-            raise RuntimeError(f"[parallel] {tag}: non-finite gradient, leaf {i}")
+            raise RuntimeError(f"{phase} {tag}: non-finite gradient, leaf {i}")
         worst = max(worst, (a - c).abs().max().item() / (GRAD_TOL * max(c.abs().max().item(),
                                                                          1.0)))
     if not worst <= 1.0:
-        raise RuntimeError(f"[parallel] {tag}: a gradient leaf is past {GRAD_TOL} * "
+        raise RuntimeError(f"{phase} {tag}: a gradient leaf is past {GRAD_TOL} * "
                            f"max(scale, 1): {worst:.3f} of it")
     return worst
 
@@ -1266,6 +1298,524 @@ def parallel_phase(torch, dev, card: str, env) -> dict:
     out["c"] = {"dp_ms": [x["dp_ms"] for x in res], "mp_ms": [x["mp_ms"] for x in res]}
     shutil.rmtree(PAR_DIR)
     del out["bs16_grads"]
+    return out
+
+
+# [balancer]: the multi-task trainers and the rest of ROADMAP 1.9 on the card
+BAL_DIR = os.path.join("exp", "chip_smoke_balancer")
+# launches per Balancer or GradNorm train step, in PAR_NAMES' order: one
+# forward (struct 2R, the fused level scan, the lists) and three backwards
+# from its residuals, the struct backward once per task (3 x (4R + 1)) and
+# the level backward for prob and func (2 x 3: recon does not reach hf)
+BAL_STEP_LAUNCHES = (2 * ROUNDS, 3 * SBWD_LAUNCHES, 1, 2 * 3, 1, 0, 0, 0, 0, 0)
+BAL_LINE = (r"^balancer\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|Prob: \d+\.\d{4} \|Func: \d+\.\d{4}"
+            r"\|Net: \d+\.\d{2}s$")
+GN_LINE = (r"^gradnorm\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|Prob: \d+\.\d{4} \|Func: \d+\.\d{4} "
+           r"\|W: \[\d+\.\d{3} \d+\.\d{3} \d+\.\d{3}\] \|Lgrad: \d+\.\d{4}\|Net: \d+\.\d{2}s$")
+# the kernels of rows 1, 2 (its sweep), 7 and 8 and the lists kernel, as the
+# capture names them
+TRACE_KERNELS = ("level_scan_kernel", "level_scan_bwd_kernel", "struct_fwd_kernel",
+                 "struct_bwd_row_kernel", "struct_grad_partial_kernel", "struct_grad_sum_kernel",
+                 "level_lists_kernel")
+TRACE_CAT = "kernel"           # the capture's category of device kernels
+# CUDA-event calls per timing of the re-entered backwards: the kernels',
+# and their plain versions' (autograd through the plain forward, ~100x slower)
+BAL_TIMED, BAL_TIMED_PLAIN = 20, 3
+
+
+def bal_separate(torch, cfg, params, state, batch, neg, keep):
+    """Each task's gradient (recon, prob, func) from a forward and a
+    backward of its own, with the given negatives and dropout masks."""
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.train import losses
+    from mgvae_tpu_torch.train.step import param_leaves
+
+    leaves = param_leaves(params)
+    out = []
+    for t in range(3):
+        b = dg_ae.batch_to_device(batch, leaves[0].device)
+        hs, hf, _ = dg_ae.forward_device(params, b, cfg, dg_ae.level_counts(batch))
+        loss = (losses.recon_loss(params, hs, b, neg_edges=neg)[0] if t == 0
+                else losses.prob_loss(params, state, hf, b, True, drop_keep=keep)[0] if t == 1
+                else losses.func_loss(hf, b))
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out.append([torch.zeros_like(x) if y is None else y for x, y in zip(leaves, g)])
+    return out
+
+
+def bal_instrument(torch, tr, attr: str, phase: str, rec: dict) -> None:
+    """Wrap the trainer's step ``attr`` so that each call records its
+    launches (``par_counts``) and its metrics under ``phase``."""
+    fn = getattr(tr, attr)
+
+    def call(*a, **kw):
+        before = par_counts()
+        res = fn(*a, **kw)
+        rec.setdefault(phase, []).append(tuple(x - y for x, y in zip(par_counts(), before)))
+        rec.setdefault("metrics", []).append(res if isinstance(res, dict) else res[-1])
+        return res
+
+    setattr(tr, attr, call)
+
+
+def collate_probe() -> None:
+    """``--collate-probe``: the [trainer] epoch's collation alone on the host
+    (its 9 bs16 train batches at the epoch's running-max dims), ms per batch
+    as the median of 5 passes, as one JSON line; the caller sets
+    MGVAE_NO_MALLOC_TUNE or not."""
+    from mgvae_tpu_torch import cli
+    from mgvae_tpu_torch.data import batching
+    from mgvae_tpu_torch.utils import hostmem
+
+    train_ds, _ = cli.load_dataset(cli.get_parse_args(TRAINER_ARGV))
+    idx = np.random.default_rng(SEED + 2).permutation(len(train_ds))
+    shards = [[train_ds[i] for i in idx[s * BATCH:(s + 1) * BATCH]]
+              for s in range(len(idx) // BATCH)]
+    dims: dict = {}
+    for s in shards:
+        for k, v in batching.natural_dims(s).items():
+            dims[k] = max(dims.get(k, 0), v)
+    passes = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for s in shards:
+            batching.collate(s, dims=dims)
+        passes.append((time.perf_counter() - t0) / len(shards) * 1e3)
+    print(json.dumps({"collate_ms": statistics.median(passes), "passes": passes,
+                      "tuned": hostmem._done, "batches": len(shards)}), flush=True)
+
+
+def balancer_phase(torch, dev, card: str, env) -> dict:
+    """[balancer] (ROADMAP 1.9): (a) one epoch each of BalancerTrainer,
+    GradNormTrainer and EarlyTrainer(patience=1) in [trainer]'s
+    configuration, with launches per step, epoch lines, task weights, ms per
+    step beside the plain trainer's in turns and the peak memory; (b) the
+    three per-task gradients of one forward bit for bit against three
+    separate passes on the bs16, bs64 C=2 (step route) and giant batches,
+    and one Balancer step card against CPU; (c) the Balancer epoch over a
+    one-rank NCCL group bit for bit against the single-device one; (d)
+    Trainer(trace_dir=) over one [trainer] epoch; (e) the large-batch
+    example; (f) the re-entered backwards (kernels 8 and 2) against their
+    plain versions, the residuals untouched, by CUDA events; (g) the host
+    collation with and without the allocator tuning. ``env``: main's log,
+    clock, held, written_rows, struct_bound, level_bound, card_vs_cpu_prob,
+    requests, chunked and giant_batch. Returns the kernels line's numbers."""
+    import glob
+
+    import torch.distributed as dist
+
+    from mgvae_tpu_torch import cli, collate
+    from mgvae_tpu_torch.config import get_parse_args
+    from mgvae_tpu_torch.examples import large_batch_training
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.ops import level_kernel, struct_kernel
+    from mgvae_tpu_torch.ops.precision import matmul_precision as precision_scope
+    from mgvae_tpu_torch.ops.struct_kernel import (struct_inputs, struct_tables,
+                                                   struct_towers_bwd_reference,
+                                                   struct_towers_reference)
+    from mgvae_tpu_torch.train import gradnorm, trainer_balancer, trainer_early_stop
+    from mgvae_tpu_torch.train import trainer_gradnorm
+    from mgvae_tpu_torch.train import step as step_mod
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    log, sync = env.log, torch.cuda.synchronize
+    shutil.rmtree(BAL_DIR, ignore_errors=True)
+    os.makedirs(BAL_DIR)
+    args = get_parse_args(TRAINER_ARGV + ["--save_dir", BAL_DIR])
+    cfg_t = cli.model_config(args)
+    train_ds, val_ds = cli.load_dataset(args)
+    out = {"bounds": {}}
+
+    def make(cls, tid, distributed=False, **kw):
+        tr = cls(args, cfg_t, training_id=tid, save_dir=BAL_DIR, batch_size=args.batch_size,
+                 distributed=distributed, seed=args.seed, device=DEVICE,
+                 rc_prob_func_weight=WEIGHTS[:3], **kw)
+        tr.set_training_args(lr=TRAIN_LR)
+        return tr
+
+    def lines_of(tr):
+        logs = [f for f in os.listdir(tr.log_dir) if f.startswith("log-")]
+        with open(os.path.join(tr.log_dir, logs[0])) as f:
+            return [ln.rstrip("\n") for ln in f if "| Epoch:" in ln]
+
+    def peak_gib(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    # ---- (a) one epoch of each trainer -------------------------------------
+    env.clock("[balancer] (a)")
+    runs = {}
+    for cls, tid, attr, kw in (
+            (trainer_balancer.BalancerTrainer, "balancer", "_bal_step", {}),
+            (trainer_gradnorm.GradNormTrainer, "gradnorm", "_gn_step", {}),
+            (trainer_early_stop.EarlyTrainer, "early", None, {"patience": 1})):
+        tr = make(cls, tid, **kw)
+        rec: dict = {}
+        if attr:
+            bal_instrument(torch, tr, attr, "train", rec)
+        else:
+            bal_instrument(torch, tr, "train_step", "train", rec)
+            bal_instrument(torch, tr, "eval_step", "val", rec)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m = tr.train(1, train_ds, val_ds)
+        sync()
+        runs[tid] = (tr, rec, m, peak_gib(base))
+    bal, gn, early = runs["balancer"], runs["gradnorm"], runs["early"]
+    w_rows = torch.stack([torch.stack([x[f"w_{t}"] for t in trainer_balancer.TASKS])
+                          for x in gn[1]["metrics"]]).cpu()
+    s_rows = torch.stack([torch.stack([x[f"scale_{t}"] for t in trainer_balancer.TASKS])
+                          for x in bal[1]["metrics"]]).cpu()
+    loss_rows = torch.stack([torch.stack([x[k] for k in ("recon_loss", "prob_loss",
+                                                          "func_loss", "loss")])
+                             for r in runs.values() for x in r[1]["metrics"]]).cpu()
+    want_early = {"train": [(2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0, 0, 0, 0, 0)],
+                  "val": [(2 * ROUNDS, 0, 1, 0, 1, 0, 0, 0, 0, 0)]}
+    got = {tid: {ph: sorted(set(r[1].get(ph, []))) for ph in ("train", "val")}
+           for tid, r in runs.items()}
+    n_steps = {tid: len(r[1]["train"]) for tid, r in runs.items()}
+    lines = {tid: lines_of(r[0]) for tid, r in runs.items()}
+    for tid, ls in lines.items():
+        for ln in ls:
+            log(f"[balancer] (a) {tid} log: {ln}")
+    meters_ok = all(math.isfinite(r[2][k]) for r in runs.values() for k in ("recon", "prob",
+                                                                             "func"))
+    weights_ok = bool(((w_rows.sum(1) - 3.0).abs() <= 1e-5).all()) and abs(
+        sum(gn[0].task_weights) - 3.0) <= 1e-5
+    best = os.path.isfile(os.path.join(early[0].log_dir, "model_best.pth"))
+    log(f"[balancer] (a) one epoch each in [trainer]'s configuration (MIG bs{BATCH}, D={DIM}, "
+        f"rounds {ROUNDS}, layernorm, highest; {n_steps['balancer']} train steps; weights "
+        f"{WEIGHTS[:3]}, lr {TRAIN_LR}): launches per train step {PAR_NAMES}: Balancer "
+        f"{got['balancer']['train']}, GradNorm {got['gradnorm']['train']} (want "
+        f"{BAL_STEP_LAUNCHES}); EarlyTrainer train {got['early']['train']}, val "
+        f"{got['early']['val']}; meters finite {meters_ok} and every step's losses "
+        f"{bool(torch.isfinite(loss_rows).all())}; Balancer scales first/last step "
+        f"{[round(x, 5) for x in s_rows[0].tolist()]} / "
+        f"{[round(x, 5) for x in s_rows[-1].tolist()]}; GradNorm weights "
+        f"{[round(x, 5) for x in gn[0].task_weights]} (each step's sum 3 within 1e-5: "
+        f"{weights_ok}); EarlyTrainer best {early[0].best_loss:.4f}, model_best.pth {best}; "
+        f"epoch peaks above what was held {bal[3]:.3f} / {gn[3]:.3f} / {early[3]:.3f} GiB")
+    if not (got["balancer"]["train"] == got["gradnorm"]["train"] == [BAL_STEP_LAUNCHES]
+            and got["early"] == want_early and n_steps["balancer"] == n_steps["gradnorm"] == 9
+            and meters_ok and bool(torch.isfinite(loss_rows).all()) and weights_ok and best
+            and re.match(BAL_LINE, lines["balancer"][0]) and len(lines["balancer"]) == 1
+            and re.match(GN_LINE, lines["gradnorm"][0]) and len(lines["gradnorm"]) == 1
+            and len(lines["early"]) == 2 and all(re.match(EPOCH_LINE, ln)
+                                                 for ln in lines["early"])):
+        raise RuntimeError("[balancer] (a): launches, meters, epoch lines, task weights or "
+                           "model_best.pth not as wanted")
+    out["launches"] = [sum(c[i] for c in bal[1]["train"]) for i in (1, 3)]
+    out["per_step"] = [BAL_STEP_LAUNCHES[1], BAL_STEP_LAUNCHES[3]]
+
+    # the trainers' ms per train step in turns (train phase alone), and peaks
+    plain_tr = make(trainer_mod.Trainer, "plain")
+    turns = []
+    for name, tr in (("plain", plain_tr), ("balancer", bal[0]), ("balancer", bal[0]),
+                     ("plain", plain_tr)):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train(1, train_ds, [])
+        sync()
+        turns.append((name, (time.perf_counter() - t0) / n_steps["balancer"] * 1e3,
+                      peak_gib(base)))
+    log(f"[balancer] (a) ms per train step, the epoch's wall time over its "
+        f"{n_steps['balancer']} steps, in turns (the plain Trainer's train phase, the "
+        f"Balancer's): " + ", ".join(f"{n} {ms:.3f}" for n, ms, _ in turns)
+        + "; peak above what was held: " + ", ".join(f"{n} {p:.3f} GiB" for n, _, p in turns)
+        + f"; card {card}")
+    out["turns"] = turns
+    del runs, bal, gn, early, plain_tr
+
+    # ---- (b) per-task gradients from one forward, bit for bit ----------------
+    env.clock("[balancer] (b)")
+    cfg = dg_ae.DGConfig(**PAR_CFG)
+    bs16 = collate(env.requests[0])
+    cases = {"bs16": bs16, "bs64 C=2": env.chunked, "giant": env.giant_batch}
+    for tag, batch in cases.items():
+        neg, keep = par_draws(torch, batch, SEED + 31)
+        neg, keep = tuple(t.to(dev) for t in neg), [k.to(dev) for k in keep]
+        params, state = dg_ae.init_params(cfg, seed=SEED + 3, device=dev)
+        leaves = step_mod.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        with precision_scope(cfg.matmul_precision):
+            # one forward and the summed loss's backward: its launches and peak
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = par_counts()
+            total, _ = step_mod.loss_and_metrics(params, state, batch, None, WEIGHTS, cfg, True,
+                                                 neg_edges=neg, drop_keep=keep)
+            torch.autograd.grad(total, leaves, allow_unused=True)
+            sync()
+            single = tuple(x - y for x, y in zip(par_counts(), before))
+            single_peak = peak_gib(base)
+            del total
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = par_counts()
+            one, _, _, _ = trainer_balancer.task_grads(cfg, params, state, batch, None,
+                                                       neg_edges=neg, drop_keep=keep)
+            sync()
+            counts = tuple(x - y for x, y in zip(par_counts(), before))
+            one_peak = peak_gib(base)
+            three = bal_separate(torch, cfg, params, state, batch, neg, keep)
+            sync()
+        same = all(torch.equal(a, c) for t in range(3) for a, c in zip(one[t], three[t]))
+        # the forward's launches as one step's; the struct backward three times
+        # (and its forward again per backward where the struct remat is on), the
+        # level recurrence's backward by its route twice
+        want = tuple(2 * ROUNDS + 3 * (x - 2 * ROUNDS) if i == 0
+                     else x * (3 if i == 1 else 2 if i in (3, 6, 8) else 1)
+                     for i, x in enumerate(single))
+        log(f"[balancer] (b) {tag}: the three per-task gradients of one forward (retain_graph) "
+            f"against three separate forward + backward passes with the same draws, "
+            f"{len(leaves)} leaves each: bit for bit {same}; launches {PAR_NAMES}: one forward "
+            f"+ three backwards {counts}, one forward + one backward {single}; peak above what "
+            f"was held: task_grads {one_peak:.3f} GiB, one step's forward and backward "
+            f"{single_peak:.3f} GiB")
+        if not (same and counts == want and any(bool(g.any()) for g in one[1])):
+            raise RuntimeError(f"[balancer] (b) {tag}: the re-entered backwards differ from "
+                               f"separate passes, or launches {counts} != {want}")
+        out.setdefault("peaks", {})[tag] = (one_peak, single_peak)
+        del one, three, params, state, leaves
+
+    # one Balancer step card against CPU: per-task gradients, scales and the
+    # weighted sum, on the bs16 batch
+    env.clock("[balancer] (b) card vs CPU")
+    neg, keep = par_draws(torch, bs16, SEED + 32)
+    side = {}
+    for where in ("cpu", DEVICE):
+        params, state = dg_ae.init_params(cfg, seed=SEED + 3, device=where)
+        leaves = step_mod.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        draws = dict(neg_edges=tuple(t.to(where) for t in neg),
+                     drop_keep=[k.to(where) for k in keep])
+        with precision_scope(cfg.matmul_precision):
+            tasks, _, _, _ = trainer_balancer.task_grads(cfg, params, state, bs16, None, **draws)
+        bal_cfg = gradnorm.BalancerConfig(weights=tuple(WEIGHTS[:3]))
+        step = trainer_balancer.make_balancer_train_step(
+            cfg, torch.optim.SGD(leaves, lr=0.0), bal_cfg)
+        _, _, m = step(params, state, gradnorm.balancer_init(bal_cfg, where), bs16, None,
+                       **draws)
+        side[where] = ([[g.cpu() for g in t] for t in tasks],
+                       torch.stack([m[f"scale_{t}"] for t in trainer_balancer.TASKS]).cpu(),
+                       [t.grad.cpu() for t in leaves])
+    worst = [par_held(f"(b) card vs CPU, {trainer_balancer.TASKS[t]} gradient",
+                      side[DEVICE][0][t], side["cpu"][0][t], "[balancer]") for t in range(3)]
+    worst.append(par_held("(b) card vs CPU, the scales", list(side[DEVICE][1]),
+                          list(side["cpu"][1]), "[balancer]"))
+    worst.append(par_held("(b) card vs CPU, the weighted sum", side[DEVICE][2], side["cpu"][2],
+                          "[balancer]"))
+    log(f"[balancer] (b) one Balancer step on bs16 card vs CPU (weights {WEIGHTS[:3]}, the "
+        f"same draws): worst leaf against {GRAD_TOL} * max(scale, 1), recon / prob / func "
+        f"gradients {worst[0]:.3f} / {worst[1]:.3f} / {worst[2]:.3f}, scales {worst[3]:.3f} "
+        f"({side[DEVICE][1].tolist()} vs {side['cpu'][1].tolist()}), the weighted sum "
+        f"{worst[4]:.3f}")
+    env.card_vs_cpu_prob("balancer", bs16)
+    del side
+
+    # ---- (c) the Balancer epoch over a one-rank NCCL group -------------------
+    env.clock("[balancer] (c)")
+    launch_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                  "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+
+    def bal_epoch(distributed, tid):
+        tr = make(trainer_balancer.BalancerTrainer, tid, distributed=distributed)
+        rec: dict = {}
+        bal_instrument(torch, tr, "_bal_step", "train", rec)
+        tr.train(1, train_ds, [])
+        sync()
+        opt = [t for s in tr.optimizer.state_dict()["state"].values() for t in s.values()]
+        rows = torch.stack([torch.stack([x[k] for k in sorted(x)]) for x in rec["metrics"]])
+        return {"rows": rows.cpu(), "counts": rec["train"], "group": tr.group,
+                "leaves": (step_mod.param_leaves(tr.params) + step_mod.param_leaves(tr.state)
+                           + opt + step_mod.param_leaves(tr.bal_state))}
+
+    os.environ.update(launch_env)
+    try:
+        single = bal_epoch(False, "bal_single")
+        dp = bal_epoch(True, "bal_dp")
+        backend = dist.get_backend()
+        same = (torch.equal(dp["rows"], single["rows"])
+                and len(dp["leaves"]) == len(single["leaves"])
+                and all(torch.equal(a, c) for a, c in zip(dp["leaves"], single["leaves"])))
+        want_dp = BAL_STEP_LAUNCHES[:-1] + (1,)
+        log(f"[balancer] (c) the Balancer epoch ({len(dp['counts'])} steps) data-parallel over "
+            f"a one-rank {backend} group against the single-device epoch: per-step losses, "
+            f"scales and metrics, params, BN state, Adam state and the Balancer's averages bit "
+            f"for bit the same: {same}; launches per step {PAR_NAMES} "
+            f"{sorted(set(dp['counts']))} (want {want_dp}: one all-reduce of the three "
+            f"gradient sets, the BN state, the losses and the metrics)")
+        if not (same and dp["group"] is not None and single["group"] is None
+                and sorted(set(dp["counts"])) == [want_dp]):
+            raise RuntimeError("[balancer] (c): the data-parallel Balancer epoch over one rank "
+                               "differs from the single-device epoch, or its launches do")
+        dist.destroy_process_group()
+    finally:
+        for k in launch_env:
+            os.environ.pop(k, None)
+    del single, dp
+
+    # ---- (d) Trainer(trace_dir=) over one [trainer] epoch ----------------------
+    env.clock("[balancer] (d)")
+    trace_dir = os.path.join(BAL_DIR, "trace")
+    side = {}
+    for tid, td in (("traced", trace_dir), ("untraced", None)):
+        tr = make(trainer_mod.Trainer, tid, trace_dir=td)
+        rec = {}
+        bal_instrument(torch, tr, "train_step", "train", rec)
+        bal_instrument(torch, tr, "eval_step", "val", rec)
+        tr.train(1, train_ds, val_ds)
+        sync()
+        rows = torch.stack([torch.stack([x[k] for k in step_mod.METRIC_KEYS])
+                            for x in rec["metrics"]]).cpu()
+        side[tid] = (rows, [t.detach().clone() for t in step_mod.param_leaves(tr.params)
+                            + step_mod.param_leaves(tr.state)])
+    same = torch.equal(side["traced"][0], side["untraced"][0]) and all(
+        torch.equal(a, c) for a, c in zip(side["traced"][1], side["untraced"][1], strict=True))
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == TRACE_CAT]
+    table = {}
+    for k in TRACE_KERNELS:
+        hits = [e for e in kern if re.search(rf"\b{k}\b", e.get("name", ""))]
+        table[k] = (len(hits), sum(float(e.get("dur", 0.0)) for e in hits) / 1e3)
+    log(f"[balancer] (d) Trainer(trace_dir=...) over one [trainer] epoch "
+        f"({len(side['traced'][0])} steps): {len(files)} trace file(s) "
+        f"({os.path.getsize(files[0]) / 2 ** 20:.1f} MiB, {len(events)} events, {len(kern)} "
+        f"device kernels); per-step losses, metrics, params and BN state bit for bit the "
+        f"untraced epoch's: {same}")
+    for k, (n, ms) in table.items():
+        log(f"[balancer] (d)   {n:6d} calls {ms:10.4f} ms device  {k}")
+    if not (same and len(files) == 1 and all(n > 0 for n, _ in table.values())):
+        raise RuntimeError("[balancer] (d): the capture is missing, misses a kernel of rows 1, "
+                           "2, 7, 8 or the lists, or tracing changed a number")
+    del side, events, kern
+
+    # ---- (e) the large-batch example --------------------------------------------
+    env.clock("[balancer] (e)")
+    before = par_counts()
+    t0 = time.perf_counter()
+    steps = large_batch_training.main(["--device", DEVICE])
+    sync()
+    wall = time.perf_counter() - t0
+    counts = tuple(x - y for x, y in zip(par_counts(), before))
+    log(f"[balancer] (e) large_batch_training.main(['--device', 'cuda']): {len(steps)} bs64 "
+        f"steps in {wall:.1f} s with collation; losses {[round(m['loss'], 4) for m in steps]}; "
+        f"launches over the steps {PAR_NAMES} {counts}")
+    if not (len(steps) == 5 and all(math.isfinite(m["loss"]) for m in steps)
+            and counts[0] == 5 * 2 * ROUNDS and counts[2] >= 5 and counts[3] == 3 * counts[2]
+            and counts[5:9] == (0, 0, 0, 0)):
+        raise RuntimeError("[balancer] (e): the large-batch example's losses or launches")
+
+    # ---- (f) the re-entered backwards against their plain versions --------------
+    env.clock("[balancer] (f)")
+    b = dg_ae.batch_to_device(bs16, dev)
+    params, _ = dg_ae.init_params(cfg, seed=SEED + 3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    with torch.no_grad():
+        sargs = [a.detach().clone() for a in struct_inputs(
+            params["struct"], dg_ae.struct_input(b["gate"], cfg), b, cfg.layernorm)]
+        tables = struct_tables(b)
+        _, sres = struct_kernel._forward_cuda(sargs, tables, ROUNDS, True, residuals=True)
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = [a.detach() for a in dg_ae.level_scan_inputs(params, b, cfg, hs)]
+    N, n_lv, n_edges = sargs[0].shape[2], dg_ae.num_levels(bs16), int(bs16["n_edges"])
+    Nn = hs.shape[0]
+    dstates = [torch.randn((2, N, DIM), device=dev, generator=gen) for _ in range(3)]
+    prepared = level_kernel._prepared(args, backward=True)
+    hf, re_k, rn_k = level_kernel._forward_cuda(args, Nn, n_lv, residuals=True,
+                                                lists=prepared[0], packed=prepared[1])
+    re_k, rn_k = env.written_rows(args[2], args[3], args[5], n_lv, re_k, rn_k)
+    ghfs = [torch.randn(hf.shape, device=dev, generator=gen) for _ in range(2)]
+    saved = [sres, re_k, rn_k, *prepared[0], *prepared[1]]
+    snap = [t.clone() for t in saved]
+    sbwd = lambda d: struct_kernel._backward_cuda(d, sres, sargs[1], sargs[2], sargs[4], tables,
+                                                  ROUNDS, True)
+    lbwd = lambda g: level_kernel._backward_cuda(g, re_k, rn_k, args, n_lv, *prepared)
+    # each cotangent in turn from the same residuals, then the first again
+    s_again = [sbwd(d) for d in dstates]
+    l_again = [lbwd(g) for g in ghfs]
+    last = (sbwd(dstates[0]), lbwd(ghfs[0]))
+    sync()
+    repeat = (all(torch.equal(a, c) for a, c in zip(last[0], s_again[0]))
+              and all(torch.equal(a, c) for a, c in zip(last[1], l_again[0]))
+              and all(torch.equal(a, c) for a, c in zip(saved, snap)))
+    s_err = l_err = 0.0
+    for d, got in zip(dstates, s_again):
+        _, w = env.held("balancer struct re-entered", ("dxi", "dwfold", "dwhh", "dbhh", "dlnw",
+                                                       "dlnb"), got,
+                        struct_towers_bwd_reference(d, sres, sargs[1], sargs[2], sargs[4],
+                                                    tables, ROUNDS, True))
+        s_err = max(s_err, w)
+    bargs = (*args[:9], args[10], args[11])
+    for g, got in zip(ghfs, l_again):
+        _, w = env.held("balancer level re-entered", ("d_pack", "d_wkv", "d_wih", "d_bih",
+                                                      "d_bhh", "d_wak"), got,
+                        level_kernel.level_scan_bwd_reference(g, re_k, rn_k, *bargs,
+                                                              num_levels=n_lv))
+        l_err = max(l_err, w)
+    for a in sargs:
+        a.requires_grad_(True)
+    for i in level_kernel.FLOAT_ARGS:
+        args[i].requires_grad_(True)
+    st_plain = struct_towers_reference(*sargs, tables, ROUNDS, True)
+    hf_plain = level_kernel.level_scan_reference(*args, num_nodes=Nn, num_levels=n_lv)
+    diff = [args[i] for i in level_kernel.FLOAT_ARGS]
+    fns = {"struct": (lambda: [sbwd(d) for d in dstates],
+                      lambda: [torch.autograd.grad(st_plain, sargs, d, retain_graph=True)
+                               for d in dstates], 3),
+           "level": (lambda: [lbwd(g) for g in ghfs],
+                     lambda: [torch.autograd.grad(hf_plain, diff, g, retain_graph=True)
+                              for g in ghfs], 2)}
+    ms = {}
+    for name, (kern, plain, n) in fns.items():
+        plain()
+        for _ in range(5):
+            kern()
+        t = [event_ms(torch, f, r) / n for f, r in ((plain, BAL_TIMED_PLAIN), (kern, BAL_TIMED),
+                                                     (kern, BAL_TIMED), (plain, BAL_TIMED_PLAIN))]
+        ms[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t)
+    out["bounds"] = {
+        "struct_towers_bwd_reentered": env.struct_bound(sargs, tables, n_edges, True,
+                                                        backward=True),
+        "level_scan_bwd_reentered": env.level_bound(args, n_lv, Nn, True, backward=True)}
+    out["err"], out["ms"] = (s_err, l_err), ms
+    log(f"[balancer] (f) the re-entered backwards on phase 7's bs16 batch ({n_lv} levels): "
+        f"one forward's residuals, lists and weight copies, then the struct backward three "
+        f"times and the level backward twice on other cotangents: the first cotangent's "
+        f"gradients again bit for bit and every saved tensor unchanged: {repeat}; max|d| "
+        f"against the plain backwards {s_err:.3e} / {l_err:.3e}; per backward by CUDA events "
+        f"(plain, kernel, kernel, plain; autograd through the plain forward): struct "
+        + "/".join(f"{x:.4f}" for x in ms["struct"][2]) + " ms, level "
+        + "/".join(f"{x:.4f}" for x in ms["level"][2]) + f" ms; bounds "
+        f"{out['bounds']['struct_towers_bwd_reentered']['bound_ms']:.5f} / "
+        f"{out['bounds']['level_scan_bwd_reentered']['bound_ms']:.5f} ms; card {card}")
+    if not repeat:
+        raise RuntimeError("[balancer] (f): a re-entered backward changed what it saved, or "
+                           "does not repeat itself")
+
+    # ---- (g) the host collation with and without the allocator tuning ----------
+    env.clock("[balancer] (g)")
+    probe = {}
+    for off in ("1", ""):
+        e = dict(os.environ)
+        e.pop("MGVAE_NO_MALLOC_TUNE", None)
+        if off:
+            e["MGVAE_NO_MALLOC_TUNE"] = off
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--collate-probe"],
+                           capture_output=True, text=True, timeout=300, env=e, check=True)
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        probe.setdefault(res["tuned"], []).append(res["collate_ms"])
+    log(f"[balancer] (g) [trainer]'s collation on the host, ms per bs16 batch (median of 5 "
+        f"passes over 9 batches, a process each, off then on): without the allocator tuning "
+        f"{probe.get(False)}, with it {probe.get(True)}")
+    shutil.rmtree(BAL_DIR, ignore_errors=True)
     return out
 
 
@@ -3475,6 +4025,14 @@ def main() -> int:
         requests=requests, giant_batch=giant_batch, clock=clock))
     bounds.update(par["bounds"])
 
+    clock("[balancer]")
+    # ---- [balancer]: the multi-task trainers and the rest of ROADMAP 1.9 ---------
+    bal = balancer_phase(torch, dev, card, types.SimpleNamespace(
+        log=log, clock=clock, held=held, written_rows=written_rows, struct_bound=struct_bound,
+        level_bound=level_bound, card_vs_cpu_prob=card_vs_cpu_prob, requests=requests,
+        chunked=chunked, giant_batch=giant_batch))
+    bounds.update(bal["bounds"])
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **more):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
@@ -3545,6 +4103,15 @@ def main() -> int:
         entry("level_step_bwd_mp", "level_step_bwd.cu", "level_kernel.py:1706",
               par["mp_launches"][1], par["bwd_err"], par["ms"]["kb"], par["ms"]["pb"],
               launches_per_pass=3 * par["levels"]),
+        # kernels 8 and 2 re-entered from one forward's residuals on the
+        # Balancer step ([balancer]): launches of (a)'s Balancer epoch; time
+        # per backward on phase 7's bs16 batch
+        entry("struct_towers_bwd_reentered", "struct_towers_bwd.cu", "struct_kernel.py:338",
+              bal["launches"][0], bal["err"][0], *bal["ms"]["struct"][:2],
+              launches_per_step=bal["per_step"][0]),
+        entry("level_scan_bwd_reentered", "level_scan_bwd.cu", "level_kernel.py:487",
+              bal["launches"][1], bal["err"][1], *bal["ms"]["level"][:2],
+              launches_per_step=bal["per_step"][1]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3557,5 +4124,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         parallel_worker(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--collate-probe"]:
+        collate_probe()
         sys.exit(0)
     sys.exit(main())

@@ -10,7 +10,10 @@ plain, chunked and split batches and on one giant graph collated alone,
 and the reference's 3-stage training (``Trainer``, checkpoints and resume;
 ``python -m mgvae_tpu_torch.train``), data-parallel over one process per
 card under torchrun (``--distributed``), and the within-level
-model-parallel train step (``parallel.sharded``). The numpy data layer,
+model-parallel train step (``parallel.sharded``), and the multi-task
+trainers (``BalancerTrainer``, ``GradNormTrainer``: three per-task
+backwards from one forward) and ``EarlyTrainer``; ``deepgate`` is the
+reference's ``import deepgate`` surface. The numpy data layer,
 level statics and losses are PyTorch; the struct towers and the level recurrence, forward
 and backward, are hand-written CUDA kernels: ``csrc/struct_towers*.cu``;
 ``csrc/level_scan.cu`` / ``level_scan_bwd.cu``, the fused scan of a batch or
@@ -26,18 +29,24 @@ against; this package never imports jax.
 
 from .api import Model
 from .data.aiger import AigParser
+from .data.dataset import Dataset
 from .data.batching import collate, collate_chunked, collate_fit, collate_shards, collate_split
 from .data.bench import BenchParser
 from .data.npz import NpzParser
 from .data.graph import MODALITY_GATES, CircuitGraph, build_graph
 from .data.synthetic import layered_circuit, random_circuit
 from .models.dg_ae import DGConfig, forward, init_params
+from .train.gradnorm import BalancerConfig, GradNormConfig
 from .train.trainer import Trainer
+from .train.trainer_balancer import BalancerTrainer
+from .train.trainer_early_stop import EarlyTrainer
+from .train.trainer_gradnorm import GradNormTrainer
 from .utils.seed import set_seed
 
 __all__ = [
     "Model", "DGConfig", "forward", "init_params", "collate", "collate_chunked",
     "collate_fit", "collate_shards", "collate_split", "random_circuit", "layered_circuit",
     "BenchParser", "AigParser", "build_graph", "CircuitGraph", "MODALITY_GATES", "NpzParser",
-    "Trainer", "set_seed",
+    "Trainer", "set_seed", "BalancerTrainer", "GradNormTrainer", "EarlyTrainer",
+    "BalancerConfig", "GradNormConfig", "Dataset",
 ]

@@ -30,7 +30,13 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.hostmem import tune_malloc
 from .graph import CircuitGraph
+
+# batch buffers are a few MB and re-allocated per step: keep them on the
+# glibc heap instead of mmap round trips (utils/hostmem), as the JAX
+# package's batching does at import
+tune_malloc()
 
 BLOCK_D = 128  # dst-block width of the blocked-CSR tables (fa_*/ra_*)
 

@@ -1,6 +1,8 @@
 """Host-side circuit graph container (numpy) + constructor.
 
-Copy of the slice of ``mgvae_tpu/data/graph.py`` that the encode path needs.
+Copy of ``mgvae_tpu/data/graph.py``'s container and constructor: the
+``CircuitGraph`` dataclass byte for byte (with the DeepGate2 extras and the
+reference's index / PI / PO / one-hot views) and ``build_graph``.
 
 Gate-id conventions:
   AIG:               {PI: 0, AND: 1, NOT: 2}
@@ -31,13 +33,18 @@ class CircuitGraph:
     """One parsed circuit. All arrays are numpy; edges are directed src->dst."""
 
     name: str
-    gate: np.ndarray            # [N] int32 gate-type ids
-    edge_index: np.ndarray      # [2, E] int64
+    gate: np.ndarray          # [N] int32 gate-type ids
+    edge_index: np.ndarray    # [2, E] int64
     forward_level: np.ndarray   # [N] int32
     backward_level: np.ndarray  # [N] int32
-    prob: np.ndarray            # [N] float32 signal probability labels
-    tt_pair_index: np.ndarray   # [2, P] int64 node pairs with truth-table labels
-    tt_dis: np.ndarray          # [P] float32 pairwise truth-table distance
+    prob: np.ndarray          # [N] float32 signal probability labels
+    tt_pair_index: np.ndarray  # [2, P] int64 node pairs with truth-table labels
+    tt_dis: np.ndarray        # [P] float32 pairwise truth-table distance/similarity
+    # DeepGate2-style extras carried by the legacy Dataset front-end
+    # (data/dataset.py; the reference's dataset.py labels): optional.
+    min_tt_dis: np.ndarray | None = None   # [P] float32
+    rc_pair_index: np.ndarray | None = None  # [2, R] int64 reconvergence pairs
+    is_rc: np.ndarray | None = None        # [R] float32 0/1 labels
 
     @property
     def num_nodes(self) -> int:
@@ -50,6 +57,36 @@ class CircuitGraph:
     @property
     def num_levels(self) -> int:
         return int(self.forward_level.max()) + 1 if self.num_nodes else 0
+
+    # API parity with OrderedData consumers (BenchParser.read_bench masks,
+    # parser.py:163-165)
+    @property
+    def forward_index(self) -> np.ndarray:
+        return np.arange(self.num_nodes, dtype=np.int64)
+
+    @property
+    def backward_index(self) -> np.ndarray:
+        return np.arange(self.num_nodes, dtype=np.int64)
+
+    @property
+    def PIs(self) -> np.ndarray:
+        return np.flatnonzero((self.forward_level == 0) & (self.backward_level != 0))
+
+    @property
+    def POs(self) -> np.ndarray:
+        return np.flatnonzero((self.backward_level == 0) & (self.forward_level != 0))
+
+    @property
+    def no_connect(self) -> np.ndarray:
+        return np.flatnonzero((self.forward_level == 0) & (self.backward_level == 0))
+
+    @property
+    def x(self) -> np.ndarray:
+        """One-hot node features, reconstructed on demand (construct_node_feature
+        parity, utils/data_utils.py:77-85)."""
+        x = np.zeros((self.num_nodes, NUM_GATE_TYPES), dtype=np.float32)
+        x[np.arange(self.num_nodes), self.gate] = 1.0
+        return x
 
 
 def build_graph(

@@ -59,3 +59,15 @@ def levelize(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
     if placed != num_nodes and (indeg > 0).any():
         raise ValueError("levelize: graph contains a cycle")
     return level
+
+
+def return_order_info(edge_index: np.ndarray, num_nodes: int):
+    """API-parity port of dag_utils.return_order_info (dag_utils.py:80-88).
+
+    Returns (forward_level, forward_index, backward_level, backward_index);
+    the index arrays are arange(num_nodes) exactly as in the reference.
+    """
+    forward_level = levelize(edge_index, num_nodes)
+    backward_level = levelize(np.stack([edge_index[1], edge_index[0]]) if edge_index.size else edge_index, num_nodes)
+    idx = np.arange(num_nodes, dtype=np.int64)
+    return forward_level, idx, backward_level, idx.copy()

@@ -43,10 +43,19 @@ and the checkpoints are the chief's (rank 0); ``resume`` loads on every
 rank. ``distributed`` with ``num_devices`` other than W raises: the port
 runs one process per device.
 
+``trace_dir``: the chief captures epoch 0 of every ``train()`` call with
+``torch.profiler`` (host and, on the card, device activity) and writes it
+into the directory as a TensorBoard / Chrome trace file
+(``*.pt.trace.json``) when the epoch ends, or when the call raises. The
+capture changes no number. The multi-task subclasses
+(``trainer_balancer``, ``trainer_gradnorm``) have their own ``train`` and
+capture nothing, as in the JAX package; ``EarlyTrainer`` runs this
+``train`` an epoch at a time.
+
 Not ported (ROADMAP "Not ported by design"): the packed transfer, the thin
 wire, the K-step scan (``steps_per_call`` is accepted and ignored), the
-native stats cache, the split layout's pre-grown dims (they change padding
-only) and ``trace_dir``.
+native stats cache and the split layout's pre-grown dims (they change
+padding only).
 """
 from __future__ import annotations
 
@@ -147,6 +156,7 @@ class Trainer:
         steps_per_call: int = 8,
         split: int | str = "auto",
         device="cuda",
+        trace_dir: str | None = None,
     ):
         rank, world = join_launch(distributed, num_devices, device)
         self.device = resolve_device(local_device(device))
@@ -173,6 +183,10 @@ class Trainer:
         # set to a list to collect (phase, step, host seconds) per step and
         # ("fetch:<phase>", steps, seconds) for the epoch's metric read-back
         self.step_times = None
+        # with a directory, the chief captures the first epoch of every
+        # train() call with torch.profiler into it (a TensorBoard / Chrome
+        # trace file), as the JAX trainer captures it with jax.profiler
+        self.trace_dir = trace_dir
 
         self.log_dir = os.path.join(save_dir, training_id)
         os.makedirs(self.log_dir, exist_ok=True)
@@ -436,81 +450,111 @@ class Trainer:
                     pass
 
     # ------------------------------------------------------------------
+    def _start_trace(self):
+        """A started torch.profiler capture of the host and (on the card) the
+        device, written into ``trace_dir`` by TensorBoard's trace handler
+        when it stops; None without ``trace_dir`` or off the chief."""
+        if not (self.trace_dir and self.is_chief):
+            return None
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.trace_dir, exist_ok=True)
+        trace = profile(activities=activities,
+                        on_trace_ready=tensorboard_trace_handler(self.trace_dir))
+        trace.start()
+        return trace
+
+    def _run_phase(self, phase: str, ds, epoch: int, num_epoch: int, weights):
+        """One phase of one epoch: its steps, its meters and its epoch line;
+        returns (meters, whether it had a step)."""
+        meters = {k: AverageMeter() for k in ("recon", "prob", "func", "kl", "acc", "tp", "fp", "tn", "fn", "time")}
+        # metrics stay on the device, one [9] row per step, read back
+        # once at the epoch's end: a read per step would wait for the
+        # device on every step of a host-bound loop
+        pending = []
+        steps_done = 0
+        last_logged = 0
+        t0 = time.time()
+        for batch in self._iter_batches(ds):
+            ts = time.perf_counter() if self.step_times is not None else 0.0
+            if phase == "train":
+                self.state, m = self.train_step(self.params, self.state, batch,
+                                                self._gen, weights)
+            else:
+                m = self.eval_step(self.params, self.state, batch, self._gen, weights)
+            pending.append(torch.stack([m[k] for k in METRIC_KEYS]))
+            steps_done += 1
+            if (self.log_every and self.is_chief
+                    and steps_done - last_logged >= self.log_every):
+                last_logged = steps_done
+                mm = dict(zip(METRIC_KEYS, pending[-1].tolist()))
+                print(
+                    f"[{phase} {self.model_epoch}] {epoch}/{num_epoch} it {steps_done} "
+                    f"|Recon: {mm['recon_loss']:.4f} |Prob: {mm['prob_loss']:.4f} "
+                    f"|Func: {mm['func_loss']:.4f}"
+                )
+            if self.step_times is not None:
+                self.step_times.append((phase, steps_done, time.perf_counter() - ts))
+        tf = time.perf_counter() if self.step_times is not None else 0.0
+        rows = (torch.stack(pending).cpu().numpy() if pending
+                else np.zeros((0, len(METRIC_KEYS)), np.float32))
+        if self.step_times is not None:
+            self.step_times.append(
+                (f"fetch:{phase}", steps_done, time.perf_counter() - tf))
+        for row in rows:
+            m = dict(zip(METRIC_KEYS, (float(x) for x in row)))
+            n_pred = max(m["n_pred"], 1.0)
+            meters["recon"].update(m["recon_loss"])
+            meters["prob"].update(m["prob_loss"])
+            meters["func"].update(m["func_loss"])
+            meters["kl"].update(m["kl_loss"])
+            meters["acc"].update((m["tp"] + m["tn"]) / n_pred)
+            meters["tp"].update(m["tp"] / n_pred)
+            meters["fp"].update(m["fp"] / n_pred)
+            meters["tn"].update(m["tn"] / n_pred)
+            meters["fn"].update(m["fn"] / n_pred)
+        meters["time"].update((time.time() - t0) / max(steps_done, 1), n=max(steps_done, 1))
+        if phase == "train" and self.model_epoch % 10 == 0:
+            self.save(os.path.join(self.log_dir, f"model_{self.model_epoch}.pth"))
+            self.save(os.path.join(self.log_dir, "model_last.pth"))
+        # reference epoch-line format (trainer.py:208-212); the KL
+        # field only when a nonzero KL was metered
+        kl_part = (" |KL: {:.4f}".format(meters["kl"].avg)
+                   if meters["kl"].avg else "")
+        if self.logger is not None:
+            self.logger.write(
+                "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
+                    phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
+                    meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
+                )
+            )
+        return meters, bool(pending)
+
     def train(self, num_epoch: int, train_dataset, val_dataset):
         weights = self.weights
         print(f"[INFO] Start training, lr = {self.lr:.6f}")
         phase_meters = {}
         meters = None
-        for epoch in range(num_epoch):
-            for phase in ("train", "val"):
-                ds = train_dataset if phase == "train" else val_dataset
-                meters = {k: AverageMeter() for k in ("recon", "prob", "func", "kl", "acc", "tp", "fp", "tn", "fn", "time")}
-                # metrics stay on the device, one [9] row per step, read back
-                # once at the epoch's end: a read per step would wait for the
-                # device on every step of a host-bound loop
-                pending = []
-                steps_done = 0
-                last_logged = 0
-                t0 = time.time()
-                for batch in self._iter_batches(ds):
-                    ts = time.perf_counter() if self.step_times is not None else 0.0
-                    if phase == "train":
-                        self.state, m = self.train_step(self.params, self.state, batch,
-                                                        self._gen, weights)
-                    else:
-                        m = self.eval_step(self.params, self.state, batch, self._gen, weights)
-                    pending.append(torch.stack([m[k] for k in METRIC_KEYS]))
-                    steps_done += 1
-                    if (self.log_every and self.is_chief
-                            and steps_done - last_logged >= self.log_every):
-                        last_logged = steps_done
-                        mm = dict(zip(METRIC_KEYS, pending[-1].tolist()))
-                        print(
-                            f"[{phase} {self.model_epoch}] {epoch}/{num_epoch} it {steps_done} "
-                            f"|Recon: {mm['recon_loss']:.4f} |Prob: {mm['prob_loss']:.4f} "
-                            f"|Func: {mm['func_loss']:.4f}"
-                        )
-                    if self.step_times is not None:
-                        self.step_times.append((phase, steps_done, time.perf_counter() - ts))
-                tf = time.perf_counter() if self.step_times is not None else 0.0
-                rows = (torch.stack(pending).cpu().numpy() if pending
-                        else np.zeros((0, len(METRIC_KEYS)), np.float32))
-                if self.step_times is not None:
-                    self.step_times.append(
-                        (f"fetch:{phase}", steps_done, time.perf_counter() - tf))
-                for row in rows:
-                    m = dict(zip(METRIC_KEYS, (float(x) for x in row)))
-                    n_pred = max(m["n_pred"], 1.0)
-                    meters["recon"].update(m["recon_loss"])
-                    meters["prob"].update(m["prob_loss"])
-                    meters["func"].update(m["func_loss"])
-                    meters["kl"].update(m["kl_loss"])
-                    meters["acc"].update((m["tp"] + m["tn"]) / n_pred)
-                    meters["tp"].update(m["tp"] / n_pred)
-                    meters["fp"].update(m["fp"] / n_pred)
-                    meters["tn"].update(m["tn"] / n_pred)
-                    meters["fn"].update(m["fn"] / n_pred)
-                meters["time"].update((time.time() - t0) / max(steps_done, 1), n=max(steps_done, 1))
-                if phase == "train" and self.model_epoch % 10 == 0:
-                    self.save(os.path.join(self.log_dir, f"model_{self.model_epoch}.pth"))
-                    self.save(os.path.join(self.log_dir, "model_last.pth"))
-                phase_meters[phase] = meters if pending else phase_meters.get(phase, meters)
-                # reference epoch-line format (trainer.py:208-212); the KL
-                # field only when a nonzero KL was metered
-                kl_part = (" |KL: {:.4f}".format(meters["kl"].avg)
-                           if meters["kl"].avg else "")
-                if self.logger is not None:
-                    self.logger.write(
-                        "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
-                            phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
-                            meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
-                        )
-                    )
-            self.model_epoch += 1
-            if self.lr_step > 0 and self.model_epoch % self.lr_step == 0:
-                self.lr *= 0.1
-                print(f"[INFO] Learning rate decay to {self.lr}")
-                set_lr(self.optimizer, self.lr)
+        trace = self._start_trace()
+        try:
+            for epoch in range(num_epoch):
+                for phase, ds in (("train", train_dataset), ("val", val_dataset)):
+                    meters, ran = self._run_phase(phase, ds, epoch, num_epoch, weights)
+                    phase_meters[phase] = meters if ran else phase_meters.get(phase, meters)
+                if trace is not None:   # capture only the first epoch of this call
+                    trace.stop()
+                    trace = None
+                self.model_epoch += 1
+                if self.lr_step > 0 and self.model_epoch % self.lr_step == 0:
+                    self.lr *= 0.1
+                    print(f"[INFO] Learning rate decay to {self.lr}")
+                    set_lr(self.optimizer, self.lr)
+        finally:
+            if trace is not None:   # an exception stops the capture too
+                trace.stop()
         if not num_epoch:
             return {}
         # last epoch's meters: val phase when it had batches, else train

@@ -1491,3 +1491,104 @@ def test_step_kernels_on_member_tables_match_plain_on_card(cuda, mp):
                                                              sa[11], num_nodes=hf.shape[0])
                 for x, r in zip(got, want, strict=True):
                     assert (x - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+
+
+# ---- the multi-task steps: backwards re-entered from one forward ----------------
+
+def _task_case(cuda, route, monkeypatch):
+    """MIG at D = 64, 2 rounds, and a batch that takes ``route``: the fused
+    scan (one plain batch), the step route (two chunks with ``kernel_fits``
+    patched to False) or the giant scan (one layered circuit past the size
+    gate)."""
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         matmul_precision="highest")
+    rng = np.random.default_rng(12)
+    if route == "giant":
+        batch = collate([layered_circuit(rng, "mig", width=512, depth=24, num_tt_pairs=256)])
+        monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 8192)
+    else:
+        graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=60 + 20 * i)
+                  for i in range(6)]
+        batch = collate_chunked(graphs, 2) if route == "step" else collate(graphs)
+        if route == "step":
+            monkeypatch.setattr(dg_ae, "kernel_fits", lambda *a: False)
+    gen = torch.Generator().manual_seed(5)
+    valid = torch.as_tensor(np.flatnonzero(batch["node_valid"]))
+    neg = tuple(valid[torch.randint(0, len(valid), (batch["edge_src"].shape[0],),
+                                    generator=gen)].to(torch.int32) for _ in range(2))
+    keep = [torch.rand(batch["gate"].shape[0], cfg.dim_mlp, generator=gen) < 0.8
+            for _ in range(2)]
+    return cfg, batch, neg, keep
+
+
+@pytest.mark.parametrize("route", ["fused", "step", "giant"])
+def test_task_grads_equal_three_passes_on_card(cuda, route, monkeypatch):
+    """The three per-task gradients of one forward (the struct backward
+    re-entered three times, the route's level backward twice, from the same
+    saved residuals) equal three separate forward + backward passes with the
+    same draws bit for bit."""
+    from mgvae_tpu_torch.train import losses, trainer_balancer
+
+    cfg, batch, neg, keep = _task_case(cuda, route, monkeypatch)
+    params, state = dg_ae.init_params(cfg, seed=4, device=cuda)
+    leaves = step.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    neg, keep = tuple(t.to(cuda) for t in neg), [k.to(cuda) for k in keep]
+    _zero_counts()
+    one, _, _, _ = trainer_balancer.task_grads(cfg, params, state, batch, None, neg_edges=neg,
+                                               drop_keep=keep)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    three = []
+    for t in range(3):
+        b = dg_ae.batch_to_device(batch, cuda)
+        hs, hf, _ = dg_ae.forward_device(params, b, cfg, dg_ae.level_counts(batch))
+        loss = (losses.recon_loss(params, hs, b, neg_edges=neg)[0] if t == 0
+                else losses.prob_loss(params, state, hf, b, True, drop_keep=keep)[0] if t == 1
+                else losses.func_loss(hf, b))
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        three.append([torch.zeros_like(x) if y is None else y for x, y in zip(leaves, g)])
+    for t in range(3):
+        assert all(torch.equal(a, c) for a, c in zip(one[t], three[t])), t
+    # _all_counts' order: struct 0 / 1, level 2 / 3, lists 4, step 5 / 6, giant 7 / 8
+    assert counts[1] == 3 * STRUCT_BWD_LAUNCHES and counts[4] == 1
+    fwd, bwd = {"fused": (2, 3), "step": (5, 6), "giant": (7, 8)}[route]
+    assert counts[fwd] > 0 and counts[bwd] > 0 and counts[bwd] % 2 == 0
+    assert sum(counts[2:4] + counts[5:]) == counts[fwd] + counts[bwd]
+
+
+def test_balancer_step_on_card_matches_cpu(cuda):
+    """One Balancer step on the card against the CPU: each task's gradient
+    leaf, each scale and the weighted sum within 1e-4 * max(its scale, 1)."""
+    from mgvae_tpu_torch.train import gradnorm, trainer_balancer
+
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+                         matmul_precision="highest")
+    rng = np.random.default_rng(6)
+    batch = collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)])
+    gen = torch.Generator().manual_seed(3)
+    neg = tuple(t.to(torch.int32) for t in torch.randint(
+        0, int(batch["n_nodes"]), (2, batch["edge_src"].shape[0]), generator=gen))
+    keep = [torch.rand(batch["gate"].shape[0], cfg.dim_mlp, generator=gen) < 0.8
+            for _ in range(2)]
+    bal_cfg = gradnorm.BalancerConfig(weights=(1.0, 4.0, 2.0))
+    out = {}
+    for dev in ("cpu", cuda):
+        params, state = dg_ae.init_params(cfg, seed=4, device=dev)
+        leaves = step.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        draws = dict(neg_edges=tuple(t.to(dev) for t in neg), drop_keep=[k.to(dev) for k in keep])
+        tasks, _, _, _ = trainer_balancer.task_grads(cfg, params, state, batch, None, **draws)
+        run = trainer_balancer.make_balancer_train_step(cfg, torch.optim.SGD(leaves, lr=0.0),
+                                                        bal_cfg)
+        _, _, m = run(params, state, gradnorm.balancer_init(bal_cfg, dev), batch, None, **draws)
+        out[str(dev)] = ([[g.cpu() for g in t] for t in tasks],
+                         [m[f"scale_{t}"].cpu() for t in trainer_balancer.TASKS],
+                         [t.grad.cpu() for t in leaves])
+    (tasks_g, scales_g, sum_g), (tasks_c, scales_c, sum_c) = out["cuda"], out["cpu"]
+    pairs = [p for t in range(3) for p in zip(tasks_g[t], tasks_c[t])]
+    pairs += list(zip(scales_g, scales_c)) + list(zip(sum_g, sum_c))
+    for a, c in pairs:
+        assert (a - c).abs().max().item() <= 1e-4 * max(c.abs().max().item(), 1.0)
