@@ -5,7 +5,8 @@
 Phases (any failure raises and the script exits nonzero):
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile csrc/*.cu with nvcc for sm_90a; print the seconds and
-     ptxas' report.
+     ptxas' report; build the native host library (native/mgvae_native.cpp,
+     g++) and fail unless it loads: every collate from phase 3 on runs on it.
   3. kernel vs plain: for aig/mig/xag/xmg, a bs16 batch of synthetic
      circuits (16 inputs, 264 gates) at D=64, s/t_rounds 4, layernorm; the
      struct-tower kernel and the level-scan kernel each against its plain
@@ -295,6 +296,21 @@ Phases (any failure raises and the script exits nonzero):
      within 1e-4 * max(scale, 1) of its plain version, time per backward
      by CUDA events; (g) the [trainer] epoch's host collation with and
      without the allocator tuning (two ``--collate-probe`` subprocesses).
+
+  [native] the native host library (ROADMAP 1.10; ``native_phase``), after
+     [balancer]: (a) the library phase 2 built with g++ from the port's copy
+     of the C++ source (its seconds, ABI 3; a library that does not load
+     fails the run there); (b) its batches against the numpy branch's, byte
+     for byte on every key, dtype and shape: bs16 per modality,
+     collate(mp=2), the 64 circuits by collate_fit, collate_chunked(2) and
+     collate_split(4), collate_shards and collate_split_step at dp = 2, and
+     the giant batch; (c) host ms, medians of 21 calls, native against
+     numpy in turns: a bs16 collate, the trainer's epoch plan (the stats
+     cache against trial collates), collate_shards of 8 bs16 shards at 1
+     and 8 threads, the giant collate; (d) [trainer]'s epoch in ms per step
+     over three epochs, native in this process against numpy in a process
+     under MGVAE_NO_NATIVE=1 (``--native-probe``), beside the bare loop,
+     every step's metrics bit for bit.
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
@@ -1819,6 +1835,289 @@ def balancer_phase(torch, dev, card: str, env) -> dict:
     return out
 
 
+# [native]: the native host library (ROADMAP 1.10) on the card's host
+NAT_REPS = 21                  # host timings: medians of this many calls
+NAT_EPOCHS = 3                 # (d)'s epochs per process
+NAT_DIR = os.path.join("exp", "chip_smoke_native")
+NAT_SHARDS = 8                 # (c)'s collate_shards: 8 bs16 shards
+NAT_PROBE_TIMEOUT = 300        # seconds for (d)'s MGVAE_NO_NATIVE=1 process
+
+
+class numpy_branch:
+    """Within the block every caller of the native library takes its numpy
+    branch (what ``get_lib`` keeps after ``MGVAE_NO_NATIVE=1``)."""
+
+    def __enter__(self):
+        from mgvae_tpu_torch import native
+
+        self.native, self.saved = native, native._lib
+        native._lib = False
+
+    def __exit__(self, *exc):
+        self.native._lib = self.saved
+
+
+def nat_differ(a: dict, b: dict, path: str = "") -> list:
+    """The keys of two batches that differ in key set, dtype, shape or a
+    byte (a split batch's groups key by key)."""
+    if set(a) != set(b):
+        return [f"{path}keys {sorted(set(a) ^ set(b))}"]
+    out = []
+    for k in sorted(a):
+        if k == "groups":
+            for g, (x, y) in enumerate(zip(a[k], b[k], strict=True)):
+                out += nat_differ(x, y, f"{path}groups/{g}/")
+            continue
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+            out.append(path + k)
+    return out
+
+
+def nat_trainer_epochs(torch) -> dict:
+    """[native] (d): [trainer]'s configuration (MIG bs16, D = 64, rounds 4,
+    176 synthetic circuits), NAT_EPOCHS epochs of its 9 train steps (no val),
+    each epoch's ms per step (its wall time over its steps, the plan, the
+    prefetch collate and the metrics' read-back included), every step's
+    metrics, then a bare train_step loop over one more epoch's collated
+    batches, three passes. The caller picks native or numpy."""
+    from mgvae_tpu_torch import cli, native
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    shutil.rmtree(NAT_DIR, ignore_errors=True)
+    args = cli.get_parse_args(TRAINER_ARGV + ["--save_dir", NAT_DIR])
+    cfg = cli.model_config(args)
+    train_ds, _ = cli.load_dataset(args)
+    tt = trainer_mod.Trainer(args, cfg, training_id="native", save_dir=NAT_DIR,
+                             batch_size=BATCH, distributed=False, seed=SEED, steps_per_call=1,
+                             device=DEVICE)
+    tt.set_training_args(rc_prob_func_weight=[1.0, 4.0, 4.0], lr=TRAIN_LR)
+    metrics, step = [], tt.train_step
+
+    def recorded(*a, **kw):
+        out = step(*a, **kw)
+        metrics.append(out[1])
+        return out
+
+    tt.train_step = recorded
+    epochs_ms = [tt.train(1, train_ds, [])["train"]["time"] * 1e3 for _ in range(NAT_EPOCHS)]
+    rows = [[float(m[k]) for k in sorted(m)] for m in metrics]
+    tt.train_step = step
+    idx, n_steps, dims, C = tt._epoch_plan(train_ds)
+    batches = [tt._collate_step([train_ds[i] for i in idx[s * BATCH:(s + 1) * BATCH]], dims, C)
+               for s in range(n_steps)]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def bare():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in batches:
+            tt.state, _ = tt.train_step(tt.params, tt.state, b, gen, tt.weights)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / len(batches) * 1e3
+
+    bare_ms = [bare() for _ in range(3)]
+    shutil.rmtree(NAT_DIR, ignore_errors=True)
+    return {"native": native.get_lib() is not None, "epochs_ms": epochs_ms, "bare_ms": bare_ms,
+            "metrics": rows, "dims": tt._dims_max, "chunks": tt._chunks, "steps": len(rows)}
+
+
+def native_probe(out: str) -> None:
+    """``--native-probe <out>``: (d)'s epochs in this process, which the
+    caller starts with MGVAE_NO_NATIVE=1; writes their numbers to ``out``."""
+    import torch
+
+    res = nat_trainer_epochs(torch)
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def native_phase(torch, dev, card: str, env) -> None:
+    """[native] (ROADMAP 1.10): (a) the library phase 2 built from the port's
+    copy, its seconds and ABI; (b) its batches against the numpy branch's,
+    byte for byte on every key, dtype and shape: bs16 per modality,
+    collate(mp=2), the bs64 layouts, collate_shards and collate_split_step
+    at dp = 2, the giant batch; (c) host ms, medians of NAT_REPS: a bs16
+    collate, the trainer's epoch plan (stats cache against trial collates),
+    collate_shards of 8 bs16 shards at 1 and 8 threads, the giant collate;
+    (d) [trainer]'s epoch in ms per step, native against numpy (a process
+    under MGVAE_NO_NATIVE=1), beside the bare loop, the per-step metrics
+    bit for bit. ``env``: main's log, clock, the native build, the 64 MIG
+    circuits and the giant graph."""
+    from mgvae_tpu_torch import cli, native, random_circuit
+    from mgvae_tpu_torch.data import batching
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    log = env.log
+    # ---- (a) the build ---------------------------------------------------------
+    env.clock("[native] (a)")
+    lib = native.get_lib()
+    if lib is None:
+        raise RuntimeError("[native] (a): the native host library did not load")
+    log(f"[native] (a) {native.library_path().name} built by g++ {' '.join(native.CXX_FLAGS)} "
+        f"from {native.SRC.name} in {env.built.seconds:.2f} s (0.00 = already built), ABI "
+        f"{lib.mg_abi_version()}; host: {os.cpu_count()} cores; card: {card}")
+
+    # ---- (b) native against numpy, byte for byte -------------------------------
+    env.clock("[native] (b)")
+    graphs = env.graphs
+    shards = [graphs[:BATCH], graphs[BATCH:2 * BATCH]]
+    split_dims = batching.split_dims(shards, GROUPS)
+
+    def layouts():
+        out = {f"bs16 {m}": lambda m=m: batching.collate(dataset(random_circuit, m, 400, BATCH))
+               for m in MODALITIES}
+        out.update({
+            "collate(mp=2)": lambda: batching.collate(graphs[:BATCH], mp=2),
+            "bs64 collate_fit": lambda: batching.collate_fit(graphs),
+            "bs64 collate_chunked(2)": lambda: batching.collate_chunked(graphs, CHUNKS),
+            "bs64 collate_split(4)": lambda: batching.collate_split(graphs, GROUPS),
+            "collate_shards dp=2": lambda: batching.collate_shards(shards),
+            "collate_split_step dp=2": lambda: batching.collate_split_step(shards, split_dims),
+            "giant": lambda: batching.collate([env.giant_graph]),
+        })
+        return out
+
+    made = {name: fn() for name, fn in layouts().items()}
+    with numpy_branch():
+        ref = {name: fn() for name, fn in layouts().items()}
+    bad = {name: nat_differ(made[name], ref[name]) for name in made}
+    bad = {k: v for k, v in bad.items() if v}
+    log(f"[native] (b) native against numpy, byte for byte on every key, dtype and shape: "
+        f"{', '.join(made)}: {'equal' if not bad else bad}; the giant batch N = "
+        f"{made['giant']['gate'].shape[0]}")
+    if bad:
+        raise RuntimeError(f"[native] (b): native and numpy batches differ: {bad}")
+
+    # ---- (c) host ms ----------------------------------------------------------
+    env.clock("[native] (c)")
+
+    def med(fn):
+        return median_wall(fn, NAT_REPS, lambda: None) * 1e3
+
+    def both(fn, fn_np=None, turns=("numpy", "native", "native", "numpy")):
+        """([native ms], [numpy ms]) of fn (fn_np on the numpy branch), in
+        turns."""
+        got = {"native": [], "numpy": []}
+        for kind in turns:
+            if kind == "native":
+                got[kind].append(med(fn))
+            else:
+                with numpy_branch():
+                    got[kind].append(med(fn_np or fn))
+        return got["native"], got["numpy"]
+
+    b16 = graphs[:BATCH]
+    c16 = both(lambda: batching.collate(b16))
+    args = cli.get_parse_args(TRAINER_ARGV + ["--save_dir", NAT_DIR])
+    cfg = cli.model_config(args)
+    train_ds, _ = cli.load_dataset(args)
+
+    def planner():
+        return trainer_mod.Trainer(args, cfg, training_id="plan", save_dir=NAT_DIR,
+                                   batch_size=BATCH, distributed=False, seed=SEED,
+                                   steps_per_call=1, device=DEVICE)
+
+    t_nat = planner()
+    t0 = time.perf_counter()
+    t_nat._epoch_plan(train_ds)          # the first plan builds the stats cache
+    first_ms = (time.perf_counter() - t0) * 1e3
+    plan_threads = {}
+    saved = os.environ.get("MGVAE_COLLATE_THREADS")
+    try:
+        for n in ("1", "8", "1", "8"):
+            os.environ["MGVAE_COLLATE_THREADS"] = n
+            plan_threads.setdefault(n, []).append(med(lambda: t_nat._epoch_plan(train_ds)))
+    finally:
+        if saved is None:
+            os.environ.pop("MGVAE_COLLATE_THREADS", None)
+        else:
+            os.environ["MGVAE_COLLATE_THREADS"] = saved
+    with numpy_branch():
+        t_np = planner()
+        t_np._epoch_plan(train_ds)
+    plan = both(lambda: t_nat._epoch_plan(train_ds), lambda: t_np._epoch_plan(train_ds))
+    if t_nat._dims_max != t_np._dims_max or t_nat._chunks != t_np._chunks:
+        raise RuntimeError(f"[native] (c): the plans' dims differ: {t_nat._dims_max} "
+                           f"{t_np._dims_max}")
+    ds8 = dataset(random_circuit, "mig", 500, NAT_SHARDS * BATCH)
+    sh8 = [ds8[i * BATCH:(i + 1) * BATCH] for i in range(NAT_SHARDS)]
+    dims8 = {k: max(d[k] for d in map(batching.natural_dims, sh8)) for k in batching._DIM_KEYS}
+    threads = {}
+    try:
+        for n in ("1", "8", "1", "8"):
+            os.environ["MGVAE_COLLATE_THREADS"] = n
+            threads.setdefault(n, []).append(med(lambda: batching.collate_shards(sh8, dims=dims8)))
+    finally:
+        if saved is None:
+            os.environ.pop("MGVAE_COLLATE_THREADS", None)
+        else:
+            os.environ["MGVAE_COLLATE_THREADS"] = saved
+    with numpy_branch():
+        sh8_np = med(lambda: batching.collate_shards(sh8, dims=dims8))
+    giant = both(lambda: batching.collate([env.giant_graph]), turns=("native", "numpy"))
+    fmt = lambda xs: "/".join(f"{x:.3f}" for x in xs)
+    log(f"[native] (c) card: {card}; host ms, medians of {NAT_REPS} calls, native a/b against "
+        f"numpy a/b in turns (numpy, native, native, numpy):")
+    log(f"[native] (c)   a bs16 MIG collate (16 x {NUM_GATES} gates): native {fmt(c16[0])}, "
+        f"numpy {fmt(c16[1])}")
+    log(f"[native] (c)   the trainer's _epoch_plan ([trainer]'s 158 train graphs, 9 bs16 "
+        f"shards: shuffle and dims scan): with the stats cache {fmt(plan[0])} (its first plan, "
+        f"the cache built, {first_ms:.3f}; mg_group_stats on 1 thread "
+        f"{fmt(plan_threads['1'])}, on 8 {fmt(plan_threads['8'])}), trial collates "
+        f"{fmt(plan[1])}; dims "
+        f"{t_nat._dims_max}, C = {t_nat._chunks}")
+    log(f"[native] (c)   collate_shards of {NAT_SHARDS} bs16 MIG shards at their common dims "
+        f"(one mg_collate_step): 1 thread {fmt(threads['1'])}, 8 threads {fmt(threads['8'])}; "
+        f"numpy {sh8_np:.3f}")
+    log(f"[native] (c)   the giant collate (N = {made['giant']['gate'].shape[0]}, "
+        f"{env.giant_graph.num_edges} edges): native {fmt(giant[0])}, numpy {fmt(giant[1])}")
+    shutil.rmtree(NAT_DIR, ignore_errors=True)
+
+    # ---- (d) the [trainer] epoch, native against numpy --------------------------
+    env.clock("[native] (d)")
+    # in this process, in turns (native, numpy, numpy, native): the timing;
+    # then numpy in a process under MGVAE_NO_NATIVE=1: the branch as a user
+    # selects it, its metrics bit for bit
+    turns = []
+    for kind in ("native", "numpy", "numpy", "native"):
+        if kind == "native":
+            turns.append(nat_trainer_epochs(torch))
+        else:
+            with numpy_branch():
+                turns.append(nat_trainer_epochs(torch))
+    nat = turns[0]
+    out = os.path.abspath(os.path.join("exp", "chip_smoke_native_probe.json"))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    e = dict(os.environ, MGVAE_NO_NATIVE="1")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--native-probe", out],
+                       capture_output=True, text=True, timeout=NAT_PROBE_TIMEOUT, env=e)
+    probe_s = time.perf_counter() - t0
+    if r.returncode:
+        raise RuntimeError(f"[native] (d): the MGVAE_NO_NATIVE=1 process failed "
+                           f"({r.returncode}):\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    with open(out) as f:
+        npy = json.load(f)
+    os.remove(out)
+    runs = turns + [npy]
+    same = all(t["metrics"] == nat["metrics"] and t["dims"] == nat["dims"] for t in runs)
+    branches = [t["native"] for t in runs] == [True, False, False, True, False]
+    log(f"[native] (d) card: {card}")
+    log(f"[native] (d) [trainer]'s epoch (MIG bs{BATCH}, D={DIM}, rounds {ROUNDS}, 9 train "
+        f"steps), ms per step over {NAT_EPOCHS} epochs, then the bare loop's three passes, in "
+        f"this process in turns: " + "; ".join(
+            f"{'native' if t['native'] else 'numpy'} {fmt(t['epochs_ms'])}, bare "
+            f"{fmt(t['bare_ms'])}" for t in turns)
+        + f"; numpy in a process under MGVAE_NO_NATIVE=1 ({probe_s:.1f} s with its start; its "
+        f"first epoch warms the process up) {fmt(npy['epochs_ms'])}, bare {fmt(npy['bare_ms'])}; "
+        f"dims {nat['dims']}; {nat['steps']} steps' metrics bit for bit in all five runs: "
+        f"{same}; each took its branch: {branches}")
+    if not (same and branches and nat["steps"] == NAT_EPOCHS * 9):
+        raise RuntimeError("[native] (d): the native and numpy epochs differ, or a run took "
+                           "the wrong branch")
+
+
 def main() -> int:
     import torch
 
@@ -1835,6 +2134,7 @@ def main() -> int:
         return 2
     from mgvae_tpu_torch import (Model, collate, collate_chunked, collate_fit, collate_split,
                                  layered_circuit, random_circuit)
+    from mgvae_tpu_torch import native
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
     from mgvae_tpu_torch.ops import mlp as mlp_mod
@@ -1942,6 +2242,12 @@ def main() -> int:
     for line in built.log.splitlines():
         log(f"[build] {line}")
     _build.library()
+    # the native host library: the data layer's collates from phase 3 on
+    native_built = native.build()
+    if native.get_lib() is None:
+        raise RuntimeError("[build] the native host library did not load on the card's host")
+    log(f"[build] {native_built.path.name} (native host library, g++): "
+        f"{native_built.seconds:.2f} s (0.00 = already built)")
 
     clock("phase 3")
     # ---- 3. kernel vs plain, per modality ---------------------------------
@@ -4033,6 +4339,11 @@ def main() -> int:
         chunked=chunked, giant_batch=giant_batch))
     bounds.update(bal["bounds"])
 
+    clock("[native]")
+    # ---- [native]: the native host library (ROADMAP 1.10) ------------------------
+    native_phase(torch, dev, card, types.SimpleNamespace(
+        log=log, clock=clock, built=native_built, graphs=graphs, giant_graph=giant_graph))
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **more):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
@@ -4127,5 +4438,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--collate-probe"]:
         collate_probe()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--native-probe"]:
+        native_probe(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

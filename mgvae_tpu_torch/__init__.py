@@ -13,8 +13,10 @@ card under torchrun (``--distributed``), and the within-level
 model-parallel train step (``parallel.sharded``), and the multi-task
 trainers (``BalancerTrainer``, ``GradNormTrainer``: three per-task
 backwards from one forward) and ``EarlyTrainer``; ``deepgate`` is the
-reference's ``import deepgate`` surface. The numpy data layer,
-level statics and losses are PyTorch; the struct towers and the level recurrence, forward
+reference's ``import deepgate`` surface. The data layer is numpy on the
+host, its tables built by the JAX package's C++ library where it loads
+(``native``, built by g++ at first use); the level statics and losses are
+PyTorch; the struct towers and the level recurrence, forward
 and backward, are hand-written CUDA kernels: ``csrc/struct_towers*.cu``;
 ``csrc/level_scan.cu`` / ``level_scan_bwd.cu``, the fused scan of a batch or
 chunk that passes the size gate, one persistent launch per pass; for chunks

@@ -1,10 +1,11 @@
 """AIGER front-end: ASCII (.aag) and binary (.aig) decoders.
 
-A copy of ``mgvae_tpu/data/aiger.py`` without its optional native decoder
-(the port has no native library). The reference shells out to the external
-C tool ``aigtoaig`` to convert binary AIGER to ASCII, then parses text
-(utils/aiger_utils.py:115-189); this decodes the binary delta/varint format
-directly in Python: no subprocess, no external binary.
+A copy of ``mgvae_tpu/data/aiger.py``. The reference shells out to the
+external C tool ``aigtoaig`` to convert binary AIGER to ASCII, then parses
+text (utils/aiger_utils.py:115-189); this decodes the binary delta/varint
+format directly: with the port's native decoder (``mgvae_tpu_torch/native``,
+the same construction) when the library loads and the gate map is AIGER's,
+else in Python. No subprocess, no external binary.
 
 Graph construction matches aig_to_xdata_bak exactly:
   * nodes: I inputs then A ands (gate map {PI:0, AND:1, NOT:2});
@@ -85,6 +86,13 @@ def aig_to_xdata(path: str, gate_to_index=GATE_TO_INDEX_AIG):
     with open(path, "rb") as f:
         data = f.read()
     if data[:3] == b"aig":
+        if gate_to_index == GATE_TO_INDEX_AIG:
+            from ..native import aig_decode_native
+
+            res = aig_decode_native(data)
+            if res is not None:
+                gates, edges = res
+                return [[k, int(g)] for k, g in enumerate(gates)], edges.T.tolist()
         i, l, o, a, outputs, ands = _decode_binary(data)
     else:
         i, l, o, a, outputs, ands = _decode_ascii(data.decode())

@@ -21,15 +21,34 @@ For data and model parallelism (``parallel/``): ``collate``'s ``mp`` hint
 dims, stacked) and ``shard_levels_by_dst`` (the dst-complete member tables
 of the model-parallel kernel route), byte-identical to the JAX package's.
 
-Not ported: the in-place ``out`` buffers of ``collate`` and the native
-library behind the JAX package's ``collate_shards`` (it writes the same
-bytes), its pad-to-max branch for shards without agreed dims
-(``_pad_batch_to``), and ``GroupStatsCache``.
+The native host library (``mgvae_tpu_torch/native``, the JAX package's C++
+source) builds the tables when it loads, as in the JAX package: ``collate``
+through ``mg_collate_stats`` / ``mg_collate_fill`` (``_collate_native``,
+also into preallocated ``out`` buffers), the dims without a collate
+(``shard_dims``, ``chunked_shard_dims``; the probes of ``collate_fit`` and
+``pick_chunks_for``), a whole step of shards into one stacked buffer in one
+threaded call (``_collate_shards_zero_copy`` -> ``mg_collate_step``; the
+path of ``collate_shards`` and ``collate_split_step``), and the dims of many
+graph groups in one threaded call (``GroupStatsCache``, the trainer's dims
+scan). Each has its numpy branch beside it, taken when the library is
+unavailable (``MGVAE_NO_NATIVE=1``), with the same bytes. Not ported: the
+JAX package's pad-to-max branch for shards without agreed dims
+(``_pad_batch_to``; it differs only in masked padding entries) and the
+stats cache's level histograms, which serve the JAX trainer's split
+pre-grow.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..native import (
+    collate_fill_native,
+    collate_stats_native,
+    collate_step_native,
+    get_lib,
+    group_stats_native,
+    num_threads,
+)
 from ..utils.hostmem import tune_malloc
 from .graph import CircuitGraph
 
@@ -60,7 +79,8 @@ def bucket(x: int, minimum: int = 8) -> int:
 _DIM_KEYS = ("N", "E", "P", "L", "NP", "EP", "EBF", "EBR")
 
 
-def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1) -> dict:
+def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1,
+            out: dict | None = None) -> dict:
     """Disjoint-union + pad a list of circuits into one static-shape batch
     (a dict of numpy arrays and numpy scalars).
 
@@ -68,7 +88,10 @@ def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1) -
     'NP', 'EP', 'EBF', 'EBR'), so that several sub-batches share one shape.
     ``mp``: the model-parallel degree (``parallel/sharded``): N is rounded
     up to a multiple of mp * 128 and EP to a multiple of mp, so that the
-    node blocks and the level tables' edge columns split evenly."""
+    node blocks and the level tables' edge columns split evenly.
+    ``out``: optional preallocated arrays of this batch's shapes, one per
+    array key, written in place (the returned dict aliases them), so that
+    a caller collates straight into views of a stacked buffer."""
     if not graphs:
         raise ValueError("collate: empty batch")
     n_graphs = len(graphs)
@@ -91,6 +114,12 @@ def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1) -
     ) if any(g.tt_pair_index.size for g in graphs) else np.zeros((2, 0), dtype=np.int64)
     tt_dis = np.concatenate([g.tt_dis for g in graphs]) if tt_pairs.size else np.zeros(0, np.float32)
     p = tt_pairs.shape[1]
+
+    # the native library's table builders: the same bytes, less host time
+    nat = _collate_native(gate, fwd, prob, graph_id, edge, tt_pairs, tt_dis,
+                          n_graphs, n, e, p, dims, mp, out=out)
+    if nat is not None:
+        return nat
 
     # ---- level-major renumbering -----------------------------------------
     # each forward level occupies a contiguous id range; ``node_perm`` maps
@@ -124,16 +153,7 @@ def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1) -
 
     # ---- padded dims ---------------------------------------------------
     dims = dims or {}
-    N = dims.get("N", _round_up(bucket(n + 1), BLOCK_D * mp))
-    E = dims.get("E", bucket(e))
-    P = dims.get("P", bucket(p))
-    L = dims.get("L", bucket(max(lv_real, 1)))
-    NP = dims.get("NP", bucket(max(np_real, 1)))
-    EP = dims.get("EP", _round_up(bucket(max(ep_real, 1)), mp))
-    if not (N > n and N % BLOCK_D == 0 and E >= e and P >= p and L >= lv_real
-            and NP >= np_real and EP >= ep_real):
-        raise ValueError(f"collate: dims {dims} too small for this batch (n={n}, e={e}, "
-                         f"p={p}, levels={lv_real}, np={np_real}, ep={ep_real})")
+    N, E, P, L, NP, EP = _padded_dims(dims, mp, n, e, p, lv_real, np_real, ep_real)
     dump = n  # first padding node
 
     perm_pad = np.arange(N, dtype=np.int32)
@@ -226,6 +246,121 @@ def collate(graphs: list[CircuitGraph], dims: dict | None = None, mp: int = 1) -
         ra_src=ra_src, ra_slot=ra_slot, ra_valid=ra_valid, ra_eid=ra_eid,
         deg_in=deg_in, deg_out=deg_out,
     )
+    if out is not None:   # the in-place contract without the library
+        for k, v in res.items():
+            if isinstance(v, np.ndarray):
+                np.copyto(out[k], v)
+                res[k] = out[k]
+    return res
+
+
+def _padded_dims(dims: dict, mp: int, n, e, p, lv_real, np_real, ep_real) -> tuple:
+    """(N, E, P, L, NP, EP): the overrides in ``dims``, else the buckets of
+    the real extents; raises when an override is too small."""
+    N = dims.get("N", _round_up(bucket(n + 1), BLOCK_D * mp))
+    E = dims.get("E", bucket(e))
+    P = dims.get("P", bucket(p))
+    L = dims.get("L", bucket(max(lv_real, 1)))
+    NP = dims.get("NP", bucket(max(np_real, 1)))
+    EP = dims.get("EP", _round_up(bucket(max(ep_real, 1)), mp))
+    if not (N > n and N % BLOCK_D == 0 and E >= e and P >= p and L >= lv_real
+            and NP >= np_real and EP >= ep_real):
+        raise ValueError(f"collate: dims {dims} too small for this batch (n={n}, e={e}, "
+                         f"p={p}, levels={lv_real}, np={np_real}, ep={ep_real})")
+    return N, E, P, L, NP, EP
+
+
+def _block_width(dims: dict, key: str, real: int) -> int:
+    """EBF / EBR: the override, else the bucket of the real extent."""
+    eb = dims.get(key)
+    if eb is None:
+        return bucket(max(real, 1))
+    if eb < real:
+        raise ValueError(f"collate: EBF/EBR override {eb} < {real}")
+    return eb
+
+
+_FILL_KEYS = {  # batch key -> collate_fill_native key
+    "node_perm": "perm", "node_inv": "inv",
+    "edge_src": "edge_src", "edge_dst": "edge_dst",
+    "lv_nodes": "lv_nodes", "lv_node_valid": "lv_node_valid",
+    "lv_edge_src": "lv_edge_src", "lv_edge_dst_slot": "lv_edge_dst_slot",
+    "lv_edge_valid": "lv_edge_valid", "lv_edge_id": "lv_edge_id",
+    "edge_lv_row": "edge_lv_row",
+    "lv_start": "lv_start",
+    "fa_src": "fa_src", "fa_slot": "fa_slot", "fa_valid": "fa_valid",
+    "ra_src": "ra_src", "ra_slot": "ra_slot", "ra_valid": "ra_valid",
+    "fa_eid": "fa_eid", "ra_eid": "ra_eid",
+    "deg_in": "deg_in", "deg_out": "deg_out",
+}
+
+
+def _pad_into(dst: np.ndarray, a: np.ndarray, fill=0) -> np.ndarray:
+    dst[: a.shape[0]] = a
+    dst[a.shape[0] :] = fill
+    return dst
+
+
+def _mask_into(dst: np.ndarray, k: int) -> np.ndarray:
+    dst[:k] = True
+    dst[k:] = False
+    return dst
+
+
+def _collate_native(gate, fwd, prob, graph_id, edge, tt_pairs, tt_dis,
+                    n_graphs, n, e, p, dims, mp, out=None):
+    """``collate``'s tables built by the native library
+    (``mg_collate_stats``, then ``mg_collate_fill``): the whole batch dict,
+    byte-identical to the numpy branch, or None when the library is
+    unavailable. ``out``: preallocated arrays (one per batch key) filled in
+    place."""
+    fwd32 = fwd.astype(np.int32, copy=False)
+    stats = collate_stats_native(fwd32, edge[0], edge[1], BLOCK_D)
+    if stats is None:
+        return None
+    lv_real, np_real, ep_real, ebf_real, ebr_real = stats
+    dims = dims or {}
+    N, E, P, L, NP, EP = _padded_dims(dims, mp, n, e, p, lv_real, np_real, ep_real)
+    EBF = _block_width(dims, "EBF", ebf_real)
+    EBR = _block_width(dims, "EBR", ebr_real)
+    t = collate_fill_native(
+        fwd32, edge[0], edge[1],
+        {"N": N, "E": E, "L": L, "NP": NP, "EP": EP, "EBF": EBF, "EBR": EBR},
+        BLOCK_D, n,
+        out={fk: out[bk] for bk, fk in _FILL_KEYS.items()} if out is not None else None,
+    )
+    perm_n = t["perm"][:n]
+    inv = t["inv"]
+    tt_a = inv[tt_pairs[0]].astype(np.int32) if p else np.zeros(0, np.int32)
+    tt_b = inv[tt_pairs[1]].astype(np.int32) if p else np.zeros(0, np.int32)
+    if out is not None:
+        res = dict(out)
+        _pad_into(res["gate"], gate[perm_n].astype(np.int32))
+        _mask_into(res["node_valid"], n)
+        _pad_into(res["forward_level"], fwd32[perm_n])
+        _pad_into(res["graph_id"], graph_id[perm_n], fill=-1)
+        _pad_into(res["prob"], prob[perm_n].astype(np.float32))
+        _mask_into(res["edge_valid"], e)
+        _pad_into(res["tt_pair_a"], tt_a)
+        _pad_into(res["tt_pair_b"], tt_b)
+        _mask_into(res["tt_valid"], p)
+        _pad_into(res["tt_dis"], tt_dis.astype(np.float32))
+    else:
+        res = {bk: t[fk] for bk, fk in _FILL_KEYS.items()}
+        res.update(
+            gate=_pad(gate[perm_n].astype(np.int32), N),
+            node_valid=_mask(n, N),
+            forward_level=_pad(fwd32[perm_n], N),
+            graph_id=_pad(graph_id[perm_n], N, fill=-1),
+            prob=_pad(prob[perm_n].astype(np.float32), N),
+            edge_valid=_mask(e, E),
+            tt_pair_a=_pad(tt_a, P),
+            tt_pair_b=_pad(tt_b, P),
+            tt_valid=_mask(p, P),
+            tt_dis=_pad(tt_dis.astype(np.float32), P),
+        )
+    res.update(n_nodes=np.int32(n), n_edges=np.int32(e), n_tt=np.int32(p),
+               n_graphs=np.int32(n_graphs))
     return res
 
 
@@ -270,8 +405,42 @@ def _mask(k: int, size: int) -> np.ndarray:
 
 
 def natural_dims(graphs: list[CircuitGraph], mp: int = 1) -> dict:
-    """The padded dims ``collate(graphs, mp=mp)`` picks."""
-    return _dims_of(collate(graphs, mp=mp))
+    """The padded dims ``collate(graphs, mp=mp)`` picks: from the native
+    stats pass (``shard_dims``), else from a trial collate."""
+    d = shard_dims(graphs, mp=mp)
+    return d if d is not None else _dims_of(collate(graphs, mp=mp))
+
+
+def shard_dims(graphs: list[CircuitGraph], mp: int = 1) -> dict | None:
+    """The padded dims ``collate`` would pick, computed without building the
+    tables (``mg_collate_stats``); None when the library is unavailable."""
+    sizes = np.array([g.num_nodes for g in graphs], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    n = int(offsets[-1])
+    fwd = np.concatenate([g.forward_level for g in graphs]).astype(np.int32)
+    edge = np.concatenate(
+        [g.edge_index + offsets[i] for i, g in enumerate(graphs)], axis=1
+    ) if any(g.num_edges for g in graphs) else np.zeros((2, 0), dtype=np.int64)
+    stats = collate_stats_native(fwd, edge[0], edge[1], BLOCK_D)
+    if stats is None:
+        return None
+    p = sum(int(g.tt_pair_index.shape[1]) if g.tt_pair_index.size else 0 for g in graphs)
+    return _bucketed(stats, n, edge.shape[1], p, mp)
+
+
+def _bucketed(stats, n: int, e: int, p: int, mp: int) -> dict:
+    """The padded dims of real extents (stats = lv, np, ep, ebf, ebr)."""
+    lv_real, np_real, ep_real, ebf_real, ebr_real = (int(x) for x in stats)
+    return {
+        "N": _round_up(bucket(n + 1), BLOCK_D * mp),
+        "E": bucket(e),
+        "P": bucket(p),
+        "L": bucket(max(lv_real, 1)),
+        "NP": bucket(max(np_real, 1)),
+        "EP": _round_up(bucket(max(ep_real, 1)), mp),
+        "EBF": bucket(max(ebf_real, 1)),
+        "EBR": bucket(max(ebr_real, 1)),
+    }
 
 
 def _dims_of(b: dict) -> dict:
@@ -285,9 +454,13 @@ def _dims_of(b: dict) -> dict:
 
 def _collate_common(groups: list[list[CircuitGraph]]) -> list[dict]:
     """Each group collated at the elementwise max of the groups' natural
-    dims: what the JAX package's ``collate(g, dims=...)`` gives after its
-    stats pass. A group whose natural dims are already the common ones is
-    not collated twice."""
+    dims, as the JAX package's stats pass gives them: from the native stats
+    pass, else from trial collates (a group whose natural dims are already
+    the common ones is not collated twice)."""
+    pre = [shard_dims(g) for g in groups]
+    if all(d is not None for d in pre):
+        dims = {k: max(d[k] for d in pre) for k in _DIM_KEYS}
+        return [collate(g, dims=dims) for g in groups]
     batches = [collate(g) for g in groups]
     pre = [_dims_of(b) for b in batches]
     dims = {k: max(d[k] for d in pre) for k in _DIM_KEYS}
@@ -324,6 +497,17 @@ def _chunked_dims_of(batch: dict, C: int) -> dict:
         "NP": batch["lv_nodes"].shape[2], "EP": batch["lv_edge_src"].shape[2],
         "EBF": batch["fa_src"].shape[1], "EBR": batch["ra_src"].shape[1],
     }
+
+
+def chunked_shard_dims(graphs: list[CircuitGraph], num_chunks: int) -> dict | None:
+    """The per-chunk dims ``collate_chunked`` uses, from the native stats
+    pass (no collate); None when the library is unavailable."""
+    if num_chunks == 1:
+        return shard_dims(graphs)
+    pre = [shard_dims([graphs[i] for i in b]) for b in _partition_chunks(graphs, num_chunks)]
+    if any(d is None for d in pre):
+        return None
+    return {k: max(d[k] for d in pre) for k in _DIM_KEYS}
 
 
 def collate_chunked(graphs: list[CircuitGraph], num_chunks: int,
@@ -464,9 +648,15 @@ def collate_fit(
     biggest = max(g.num_nodes for g in graphs)
     last = None
     for c in range(2, len(graphs) + 1):
-        # cheap lower-bound reject before paying for a collate
+        # cheap lower-bound reject before paying for a stats pass or a collate
         per = max(biggest + 1, (total + c) // c)
         if _round_up(bucket(per), BLOCK_D) > max_nodes and c < len(graphs):
+            continue
+        d = chunked_shard_dims(graphs, c)
+        if d is not None:   # the native stats pass: probe without collating
+            fits = d["N"] <= max_nodes and d["EP"] <= max_ep and d["NP"] <= max_np
+            if fits or c == len(graphs):
+                return collate_chunked(graphs, c, dims=d)
             continue
         last = collate_chunked(graphs, c)
         if (last["gate"].shape[0] // c <= max_nodes and last["lv_edge_src"].shape[2] <= max_ep
@@ -481,7 +671,9 @@ def pick_chunks_for(graphs: list[CircuitGraph], dim_hidden: int) -> int:
     from ..ops.level_kernel import kernel_fits
 
     for c in range(1, len(graphs) + 1):
-        d = _chunked_dims_of(collate_chunked(graphs, c), c) if c > 1 else natural_dims(graphs)
+        d = chunked_shard_dims(graphs, c)
+        if d is None:   # no native stats pass: trial collates
+            d = _chunked_dims_of(collate_chunked(graphs, c), c) if c > 1 else natural_dims(graphs)
         if kernel_fits(d["N"], d["EP"], d["NP"], dim_hidden):
             return c
     return 1
@@ -583,19 +775,159 @@ def collate_shards(shards: list[list[CircuitGraph]], mp: int = 1,
     """Collate one shard per dp rank with common padded dims and stack them
     on a leading dp axis. ``mp`` passes the model-parallel hint to
     ``collate``. ``dims``: explicit common dims (the trainer's running max);
-    otherwise the elementwise max of the shards' natural dims. With
-    ``num_chunks > 1`` each shard is ``collate_chunked`` into that many
-    chunks at common per-chunk dims, and the leaves stack to [dp, C, L, ...]
-    and so on; ``mp`` does not apply there, as in the JAX package."""
+    otherwise the elementwise max of the shards' natural dims. With all
+    eight dims known, every shard is collated straight into one stacked
+    buffer (``_collate_shards_zero_copy``). With ``num_chunks > 1`` each
+    shard is ``collate_chunked`` into that many chunks at common per-chunk
+    dims, and the leaves stack to [dp, C, L, ...] and so on; ``mp`` does
+    not apply there, as in the JAX package."""
     if num_chunks > 1:
         if dims is None:
-            per = [_chunked_dims_of(collate_chunked(s, num_chunks), num_chunks) for s in shards]
+            per = [chunked_shard_dims(s, num_chunks) for s in shards]
+            if any(d is None for d in per):   # no native stats pass: trial collates
+                per = [_chunked_dims_of(collate_chunked(s, num_chunks), num_chunks)
+                       for s in shards]
             dims = {k: max(d[k] for d in per) for k in per[0]}
         return stack_batches([collate_chunked(s, num_chunks, dims=dims) for s in shards])
     if dims is None:
         pre = [natural_dims(s, mp=mp) for s in shards]
         dims = {k: max(d[k] for d in pre) for k in _DIM_KEYS}
+    if all(k in dims for k in _DIM_KEYS):
+        return _collate_shards_zero_copy(shards, dims, mp)
     return stack_batches([collate(s, dims=dims, mp=mp) for s in shards])
+
+
+def stacked_batch_buffers(dp: int, dims: dict) -> dict:
+    """Uninitialised [dp, ...] buffers for ``dp`` shards collated at
+    ``dims``: the destination of ``_collate_shards_zero_copy``."""
+    N, E, P, L, NP, EP, EBF, EBR = (dims[k] for k in _DIM_KEYS)
+    nb = N // BLOCK_D
+
+    def a(shape, dt):
+        return np.empty((dp,) + shape, dt)
+
+    return {
+        "node_perm": a((N,), np.int32), "node_inv": a((N,), np.int32),
+        "gate": a((N,), np.int32), "node_valid": a((N,), bool),
+        "forward_level": a((N,), np.int32), "graph_id": a((N,), np.int32),
+        "prob": a((N,), np.float32),
+        "edge_src": a((E,), np.int32), "edge_dst": a((E,), np.int32),
+        "edge_valid": a((E,), bool),
+        "tt_pair_a": a((P,), np.int32), "tt_pair_b": a((P,), np.int32),
+        "tt_valid": a((P,), bool), "tt_dis": a((P,), np.float32),
+        "n_nodes": a((), np.int32), "n_edges": a((), np.int32),
+        "n_tt": a((), np.int32), "n_graphs": a((), np.int32),
+        "lv_nodes": a((L, NP), np.int32), "lv_node_valid": a((L, NP), bool),
+        "lv_edge_src": a((L, EP), np.int32),
+        "lv_edge_dst_slot": a((L, EP), np.int32),
+        "lv_edge_valid": a((L, EP), bool), "lv_edge_id": a((L, EP), np.int32),
+        "edge_lv_row": a((E,), np.int32),
+        "lv_start": a((L,), np.int32),
+        "fa_src": a((nb, EBF), np.int32), "fa_slot": a((nb, EBF), np.int32),
+        "fa_valid": a((nb, EBF), bool),
+        "ra_src": a((nb, EBR), np.int32), "ra_slot": a((nb, EBR), np.int32),
+        "ra_valid": a((nb, EBR), bool),
+        "fa_eid": a((nb, EBF), np.int32), "ra_eid": a((nb, EBR), np.int32),
+        "deg_in": a((N,), np.float32), "deg_out": a((N,), np.float32),
+    }
+
+
+def _concat(arrs: list, dtype) -> np.ndarray:
+    """The arrays concatenated into one C-contiguous array of ``dtype``."""
+    return np.ascontiguousarray(np.concatenate(arrs), dtype=dtype) if arrs else np.zeros(0, dtype)
+
+
+class GroupStatsCache:
+    """A dataset's per-graph arrays concatenated once, for the native
+    library's batched stats pass (``mg_group_stats``): ``group_dims`` gives
+    the padded dims of every group of graph ids in one threaded call, the
+    trainer's dims scan of a whole epoch. The cache snapshots the graphs'
+    sizes, levels and edges; build a new one when they change (the trainer
+    keys it on the dataset's identity and length)."""
+
+    def __init__(self, graphs: list[CircuitGraph]):
+        self.num_graphs = len(graphs)
+        self.n = np.array([g.num_nodes for g in graphs], np.int64)
+        self.e = np.array([g.num_edges for g in graphs], np.int64)
+        self.p = np.array(
+            [g.tt_pair_index.shape[1] if g.tt_pair_index.size else 0 for g in graphs],
+            np.int64,
+        )
+        self.node_off = np.concatenate([[0], np.cumsum(self.n)]).astype(np.int64)
+        self.edge_off = np.concatenate([[0], np.cumsum(self.e)]).astype(np.int64)
+        self.fwd_all = _concat([g.forward_level for g in graphs], np.int32)
+        self.esrc_all = _concat([g.edge_index[0] for g in graphs if g.num_edges], np.int64)
+        self.edst_all = _concat([g.edge_index[1] for g in graphs if g.num_edges], np.int64)
+        # per-graph max forward level: the split partition's first sort key
+        if len(graphs) and self.fwd_all.size:
+            self.lmax = np.maximum.reduceat(self.fwd_all, self.node_off[:-1])
+        else:
+            self.lmax = np.zeros(len(graphs), np.int32)
+
+    def group_dims(self, groups: list[np.ndarray], mp: int = 1) -> list[dict] | None:
+        """``shard_dims`` of every group of graph ids, in one native call;
+        None when the library is unavailable."""
+        ids = np.ascontiguousarray(np.concatenate([np.asarray(g) for g in groups]),
+                                   dtype=np.int64)
+        group_ptr = np.zeros(len(groups) + 1, np.int64)
+        np.cumsum([len(g) for g in groups], out=group_ptr[1:])
+        stats = group_stats_native(
+            group_ptr, ids, self.n, self.e, self.node_off, self.edge_off,
+            self.fwd_all, self.esrc_all, self.edst_all, BLOCK_D,
+            num_threads=num_threads(len(groups)),
+        )
+        if stats is None:
+            return None
+        return [_bucketed(stats[gi], int(self.n[g].sum()), int(self.e[g].sum()),
+                          int(self.p[g].sum()), mp)
+                for gi, g in enumerate(np.asarray(g) for g in groups)]
+
+
+def _collate_shards_zero_copy(shards, dims: dict, mp: int) -> dict:
+    """Every shard collated straight into one stacked [dp, ...] buffer: no
+    per-shard arrays, no stack pass. With the native library the whole step
+    is one call (``mg_collate_step``) threaded over the shards (ctypes
+    releases the GIL); otherwise each shard's ``collate`` writes into its
+    views of the buffer."""
+    big = stacked_batch_buffers(len(shards), dims)
+    if _collate_step_native(shards, dims, big) is not None:
+        return big
+    for d, s in enumerate(shards):
+        b = collate(s, dims=dims, mp=mp, out={k: big[k][d] for k in big})
+        for k in ("n_nodes", "n_edges", "n_tt", "n_graphs"):
+            big[k][d] = b[k]
+    return big
+
+
+def _collate_step_native(shards, dims: dict, big: dict):
+    """The step's graphs concatenated in shard order (each with its own node
+    ids) and handed to ``mg_collate_step``. Returns ``big``, or None when
+    the library is unavailable."""
+    if get_lib() is None:
+        return None
+    graphs = [g for s in shards for g in s]
+    shard_graphs = np.array([len(s) for s in shards], np.int64)
+    graph_nodes = np.array([g.num_nodes for g in graphs], np.int64)
+    graph_edges = np.array([g.num_edges for g in graphs], np.int64)
+    graph_tt = np.array(
+        [g.tt_pair_index.shape[1] if g.tt_pair_index.size else 0 for g in graphs], np.int64)
+    with_tt = [g for g in graphs if g.tt_pair_index.size]
+    out = collate_step_native(
+        shard_graphs, graph_nodes, graph_edges, graph_tt,
+        _concat([g.gate for g in graphs], np.int32),
+        _concat([g.forward_level for g in graphs], np.int32),
+        _concat([g.prob for g in graphs], np.float32),
+        _concat([g.edge_index[0] for g in graphs if g.num_edges], np.int64),
+        _concat([g.edge_index[1] for g in graphs if g.num_edges], np.int64),
+        _concat([g.tt_pair_index[0] for g in with_tt], np.int64),
+        _concat([g.tt_pair_index[1] for g in with_tt], np.int64),
+        _concat([g.tt_dis for g in with_tt], np.float32),
+        dims, BLOCK_D, big, num_threads=num_threads(len(shards)),
+    )
+    if out is None:
+        return None
+    big["n_graphs"][:] = shard_graphs
+    return big
 
 
 def stack_batches(batches: list[dict]) -> dict:
@@ -626,8 +958,9 @@ def collate_split_step(shards: list[list[CircuitGraph]], dims: list[dict]) -> di
     concatenated along axis 1."""
     G, K = len(dims), len(shards)
     parts = [_split_partition(s, G) for s in shards]
-    gstk = [stack_batches([collate([s[i] for i in p[g]], dims=dims[g])
-                           for s, p in zip(shards, parts)])
+    # group position g of every shard at dims[g]: one stacked collate (one
+    # native call, threaded over the shards)
+    gstk = [collate_shards([[s[i] for i in p[g]] for s, p in zip(shards, parts)], dims=dims[g])
             for g in range(G)]
     offs = np.concatenate([[0], np.cumsum([gb["gate"].shape[1] for gb in gstk])]).astype(np.int32)
 

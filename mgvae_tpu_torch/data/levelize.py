@@ -1,7 +1,8 @@
 """Topological (longest-path) levelization of circuit DAGs.
 
-numpy copy of ``mgvae_tpu/data/levelize.py`` without its C++ fast path (the
-two give identical levels). A Kahn propagation over in-degrees: O(V + E).
+A copy of ``mgvae_tpu/data/levelize.py``: the port's native library
+(``mgvae_tpu_torch/native``) when it loads, else a numpy Kahn propagation
+over in-degrees, O(V + E); the two give identical levels.
 
 A node's level is the length of the longest path from any source to it, so
 for every edge u->v ``level[u] < level[v]``: all message sources of a level
@@ -26,6 +27,11 @@ def levelize(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
     level = np.zeros(num_nodes, dtype=np.int32)
     if edge_index.size == 0:
         return level
+    from ..native import levelize_native
+
+    out = levelize_native(np.asarray(edge_index), num_nodes)
+    if out is not None:
+        return out
     src = np.asarray(edge_index[0], dtype=np.int64)
     dst = np.asarray(edge_index[1], dtype=np.int64)
     indeg = np.bincount(dst, minlength=num_nodes).astype(np.int64)

@@ -36,8 +36,15 @@ shard). Each rank passes its own dp shard (``collate(mp=...)``, and
 ``shard_levels_by_dst(batch, mp)`` for the kernel route); ``member_slices``
 says which part of it member m reads.
 
-As in the JAX package: ``num_rounds == 1`` and not variational. bf16 on
-the sharded routes is not ported yet (ROADMAP 1.11).
+As in the JAX package: ``num_rounds == 1`` and not variational.
+``compute_dtype="bfloat16"`` computes what the JAX package's sharded routes
+compute, which is fp32 (``mgvae_tpu/parallel/sharded.py:84-100, 170-190``):
+they never cast the params, as the single-device forward does; the
+``struct_input`` one-hot is made in bf16 (exact) and enters the fp32
+products promoted; each tower's initial state of ones is bf16, so its first
+neighbour sums are rounded once to bf16 (exact up to 256 in-edges); and the
+level statics, hs and hf, and kernels 5 and 6 on the member tables are
+fp32. At these shapes a bf16 step equals the fp32 one bit for bit.
 """
 from __future__ import annotations
 
@@ -82,8 +89,6 @@ def check_supported(cfg: DGConfig) -> None:
     if cfg.num_rounds != 1 or cfg.variational or cfg.struct_encoder != "multigcn":
         raise ValueError("the sharded forward takes num_rounds == 1, DG_AE's multigcn towers "
                          "and no variational head, as the JAX package's")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("bf16 on the sharded routes is not ported yet (ROADMAP 1.11)")
 
 
 def route_of(batch: dict, cfg: DGConfig, mp: int) -> str:
@@ -164,19 +169,24 @@ def sharded_struct_tower(p: dict, x_feat_l, b: dict, num_rounds: int, layernorm:
     ``x_feat_l``, the degrees and the neighbour lists (``TOWER_EDGES``) are
     the member's (``member_slices``). Returns the whole [n, D] state,
     all-gathered each half-round. The neighbour sums are ``index_add_``
-    (atomics on CUDA: their order changes from run to run)."""
+    (atomics on CUDA: their order changes from run to run), in fp32 and
+    rounded once to the state's dtype, as the JAX tower's one-hot product
+    gives them. The initial state of ones has ``x_feat_l``'s dtype, as in
+    the JAX tower; with the fp32 params every product is fp32 (a bf16
+    operand promoted, as jnp promotes it), and so is every later state."""
     m = dist.get_rank(group)
     dim = p["aggr"]["w"].shape[1]
     n_l = x_feat_l.shape[0]
     state = x_feat_l.new_ones((n, dim))
+    x_in = x_feat_l.float()
 
     def half_round(state, aggr_p, gru_p, rev):
         tag, deg = ("ra", b["deg_out"]) if rev else ("fa", b["deg_in"])
-        nbr_l = state.new_zeros((n_l, dim)).index_add_(
-            0, b[f"{tag}_dst_l"], state.index_select(0, b[f"{tag}_src_l"]))
-        msg_l = nbr_l @ aggr_p["w"] + deg.to(state.dtype)[:, None] * aggr_p["b"]
-        new_l = gru_cell_apply(gru_p, torch.cat([msg_l, x_feat_l], dim=-1),
-                               state[m * n_l:(m + 1) * n_l])
+        nbr_l = torch.zeros((n_l, dim), device=state.device).index_add_(
+            0, b[f"{tag}_dst_l"], state.index_select(0, b[f"{tag}_src_l"]).float())
+        msg_l = nbr_l.to(state.dtype).float() @ aggr_p["w"] + deg[:, None] * aggr_p["b"]
+        new_l = gru_cell_apply(gru_p, torch.cat([msg_l, x_in], dim=-1),
+                               state[m * n_l:(m + 1) * n_l].float())
         if layernorm:
             new_l = layernorm_apply(p["ln"], new_l)
         return all_gather(new_l, group)

@@ -21,9 +21,14 @@ Public surface as in the JAX package: ``Trainer(args, model_cfg, ...)``,
     without it ``collate_fit`` on CUDA and ``collate`` on the CPU; a forced
     split count G runs ``collate_split`` on the stratified layout.
 
-Collation runs in a prefetch thread (numpy only, no CUDA call); the
-host-to-device copy stays on the step's thread. Metrics stay on the device
-and are read back once per epoch. Random draws (DG_VAE's noise, the
+Collation runs in a prefetch thread (no CUDA call): through the native
+host library (``mgvae_tpu_torch/native``), whose calls release the GIL,
+else numpy; the host-to-device copy stays on the step's thread. The fixed
+dims' scan of an epoch is one threaded native call
+(``GroupStatsCache.group_dims``) against a stats cache per dataset (two
+held, by strong reference: train and val), as in the JAX trainer; without
+the library it trial-collates every shard. Both give the same dims.
+Metrics stay on the device and are read back once per epoch. Random draws (DG_VAE's noise, the
 negatives, the dropout masks) come from one ``torch.Generator`` on the
 trainer's device, seeded ``seed + 1``. The epoch line carries `` |KL:``
 only when a nonzero KL was metered (DG_VAE), as in the JAX package.
@@ -53,9 +58,8 @@ capture nothing, as in the JAX package; ``EarlyTrainer`` runs this
 ``train`` an epoch at a time.
 
 Not ported (ROADMAP "Not ported by design"): the packed transfer, the thin
-wire, the K-step scan (``steps_per_call`` is accepted and ignored), the
-native stats cache and the split layout's pre-grown dims (they change
-padding only).
+wire, the K-step scan (``steps_per_call`` is accepted and ignored) and the
+split layout's pre-grown dims (they change padding only).
 """
 from __future__ import annotations
 
@@ -69,6 +73,8 @@ import torch
 import torch.distributed as dist
 
 from ..data.batching import (
+    GroupStatsCache,
+    _partition_by_size,
     _partition_chunks,
     collate,
     collate_chunked,
@@ -76,8 +82,10 @@ from ..data.batching import (
     collate_split,
     natural_dims,
     split_dims,
+    split_groups_by_shape,
 )
 from ..models.dg_ae import DGConfig, init_params
+from ..native import get_lib
 from ..ops.level_kernel import MAX_DIM as KERNEL_MAX_DIM
 from ..ops.level_kernel import kernel_fits
 from ..parallel.mesh import local_device, maybe_initialize_distributed
@@ -180,6 +188,10 @@ class Trainer:
         self._split: int | None = None
         self._split_dims_max: list = []
         self._split_layout: str | None = None   # "stratified" | "uniform"
+        # (dataset, its length, GroupStatsCache) of the last two datasets
+        # scanned (train and val), held by strong reference: compared with
+        # ``is``, so a collected dataset's id can never serve stale stats
+        self._stats_caches: list = []
         # set to a list to collect (phase, step, host seconds) per step and
         # ("fetch:<phase>", steps, seconds) for the epoch's metric read-back
         self.step_times = None
@@ -305,9 +317,26 @@ class Trainer:
                 dims = self._update_dims_max(dataset, idx, n_steps)
         return idx, n_steps, dims, (self._chunks or 1)
 
+    def _get_stats_cache(self, dataset):
+        """The dataset's ``GroupStatsCache``, built on its first scan; None
+        when the native library is unavailable."""
+        if get_lib() is None:
+            return None
+        for ds_ref, ds_len, cache in self._stats_caches:
+            if ds_ref is dataset and ds_len == len(dataset):
+                return cache
+        cache = GroupStatsCache([dataset[i] for i in range(len(dataset))])
+        self._stats_caches.append((dataset, len(dataset), cache))
+        if len(self._stats_caches) > 2:
+            self._stats_caches.pop(0)
+        return cache
+
     def _shape_sort_ids(self, dataset) -> np.ndarray:
         """Dataset ids sorted by the split shape key (max level, edges,
         nodes): the order whose contiguous quantiles are the strata."""
+        cache = self._get_stats_cache(dataset)
+        if cache is not None:
+            return np.lexsort((cache.n, cache.e, cache.lmax))
         lmax = np.array([int(dataset[i].forward_level.max(initial=0))
                          for i in range(len(dataset))])
         e = np.array([dataset[i].num_edges for i in range(len(dataset))])
@@ -333,16 +362,34 @@ class Trainer:
         rest = np.setdiff1d(order, used, assume_unique=True)
         return np.concatenate([used, rest]).astype(np.int64)
 
-    def _shards(self, dataset, idx, steps):
-        """Every rank's shard of each of ``steps``: the same on every rank."""
+    def _shard_ids(self, idx, steps):
+        """Every rank's shard of each of ``steps``, as dataset ids: the same
+        on every rank."""
         bs, w = self.batch_size, self.num_devices
-        return [[dataset[i] for i in idx[j * bs:(j + 1) * bs]]
-                for s in steps for j in range(s * w, (s + 1) * w)]
+        return [idx[j * bs:(j + 1) * bs] for s in steps for j in range(s * w, (s + 1) * w)]
+
+    def _shards(self, dataset, idx, steps):
+        return [[dataset[i] for i in ids] for ids in self._shard_ids(idx, steps)]
+
+    def _split_scan(self, dataset, idx, n_steps) -> list:
+        """The per-group dims of this epoch's shards, maxed over the shards
+        for each group position: one native call over every (shard, group)
+        against the stats cache, else ``split_dims``' trial collates."""
+        G = self._split
+        cache = self._get_stats_cache(dataset)
+        if cache is None:
+            return split_dims(self._shards(dataset, idx, range(n_steps)), G)
+        groups = [ids[part] for ids in self._shard_ids(idx, range(n_steps))
+                  for part in split_groups_by_shape(cache.lmax[ids], cache.e[ids],
+                                                    cache.n[ids], G)]
+        dl = cache.group_dims(groups)
+        # groups were appended shard-major: position g of shard j is j * G + g
+        return [{k: max(d[k] for d in dl[g::G]) for k in dl[g]} for g in range(G)]
 
     def _update_split_dims(self, dataset, idx, n_steps):
         """Running max of the per-group dims over this epoch's shards."""
         if n_steps:
-            dl = split_dims(self._shards(dataset, idx, range(n_steps)), self._split)
+            dl = self._split_scan(dataset, idx, n_steps)
             if not self._split_dims_max:
                 self._split_dims_max = [{} for _ in dl]
             for cur, new in zip(self._split_dims_max, dl):
@@ -350,10 +397,25 @@ class Trainer:
         return [dict(d) for d in self._split_dims_max] or None
 
     def _scan_dims(self, dataset, idx, num_chunks: int, steps) -> dict:
-        dmax: dict = {}
-        for shard in self._shards(dataset, idx, steps):
-            _running_max(dmax, shard_dims(shard, num_chunks))
-        return dmax
+        """The max of the padded dims of every shard of ``steps`` (of each
+        of its chunks, for C > 1): one native call over every (shard,
+        chunk) group against the stats cache, else a trial collate each."""
+        cache = self._get_stats_cache(dataset)
+        if cache is None:
+            dmax: dict = {}
+            for shard in self._shards(dataset, idx, steps):
+                _running_max(dmax, shard_dims(shard, num_chunks))
+            return dmax
+        groups = []
+        for ids in self._shard_ids(idx, steps):
+            if num_chunks == 1:
+                groups.append(ids)
+            else:
+                groups.extend(ids[b] for b in _partition_by_size(cache.n[ids], num_chunks))
+        if not groups:
+            return {}
+        dl = cache.group_dims(groups)
+        return {k: max(d[k] for d in dl) for k in dl[0]}
 
     def _chunks_searched(self) -> bool:
         """Whether a chunk count is searched at all: on the card, for the
@@ -408,9 +470,10 @@ class Trainer:
         return collate(graphs, dims=dims)
 
     def _iter_batches(self, dataset):
-        """Host batches of one epoch, collated in a prefetch thread (numpy
-        only) PREFETCH_DEPTH steps ahead. An error in the thread is raised
-        here; closing the generator early stops the thread."""
+        """Host batches of one epoch, collated in a prefetch thread (the
+        native library or numpy, no CUDA call) PREFETCH_DEPTH steps ahead.
+        An error in the thread is raised here; closing the generator early
+        stops the thread."""
         idx, n_steps, dims, C = self._epoch_plan(dataset)
         bs, w, r = self.batch_size, self.num_devices, self.rank
         q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)

@@ -1592,3 +1592,107 @@ def test_balancer_step_on_card_matches_cpu(cuda):
     pairs += list(zip(scales_g, scales_c)) + list(zip(sum_g, sum_c))
     for a, c in pairs:
         assert (a - c).abs().max().item() <= 1e-4 * max(c.abs().max().item(), 1.0)
+
+
+# ---- the native host library on the card's host ---------------------------------
+
+def test_native_library_loads_on_the_card_host(cuda, monkeypatch):
+    """The port's library builds with g++ and loads beside the card, at ABI
+    3, and its collate is the numpy branch's byte for byte."""
+    from mgvae_tpu_torch import native
+
+    lib = native.get_lib()
+    assert lib is not None and lib.mg_abi_version() == native.ABI_VERSION == 3
+    graphs = [random_circuit(np.random.default_rng(4), "mig", num_inputs=8, num_gates=120)
+              for _ in range(8)]
+    got = collate(graphs, mp=2)
+    monkeypatch.setattr(native, "_lib", False)
+    want = collate(graphs, mp=2)
+    assert set(got) == set(want)
+    for k in want:
+        a, c = np.asarray(got[k]), np.asarray(want[k])
+        assert a.dtype == c.dtype and a.shape == c.shape and np.array_equal(a, c), k
+
+
+def test_trainer_epochs_native_equal_numpy_on_card(cuda, tmp_path, monkeypatch):
+    """Two fixed-dims trainer epochs on the card, the data layer on the
+    native library (collates and the stats-cache dims scan) against its
+    numpy branch: the same dims, per-step metrics and params bit for bit."""
+    import types
+
+    from mgvae_tpu_torch import native
+    from mgvae_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(1)
+    ds = [random_circuit(rng, "mig", num_inputs=6, num_gates=60 + 10 * (i % 4))
+          for i in range(16)]
+    cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2,
+                         layernorm=True, matmul_precision="highest")
+    out = {}
+    for kind in ("native", "numpy"):
+        if kind == "numpy":
+            monkeypatch.setattr(native, "_lib", False)
+        tr = Trainer(types.SimpleNamespace(model="DG_AE"), cfg, training_id=kind,
+                     save_dir=str(tmp_path), batch_size=4, distributed=False, seed=3,
+                     device="cuda")
+        metrics, run = [], tr.train_step
+
+        def recorded(*a, _run=run, _metrics=metrics, **k):
+            o = _run(*a, **k)
+            _metrics.append(o[1])
+            return o
+
+        tr.train_step = recorded
+        tr.train(2, ds, ds[:8])
+        out[kind] = (dict(tr._dims_max), tr._chunks, len(tr._stats_caches),
+                     [[m[k].item() for k in sorted(m)] for m in metrics],
+                     [t.detach().cpu() for t in step.param_leaves(tr.params)])
+    (d_n, c_n, caches_n, m_n, p_n), (d_p, c_p, caches_p, m_p, p_p) = out["native"], out["numpy"]
+    assert (d_n, c_n) == (d_p, c_p) and (caches_n, caches_p) == (2, 0)
+    assert m_n == m_p and len(m_n) == 2 * 4
+    for a, c in zip(p_n, p_p, strict=True):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("route", ["kernel", "edge"])
+def test_bf16_sharded_step_at_mp1_on_card_equals_fp32(one_rank_nccl, route):
+    """compute_dtype="bfloat16" on the sharded step at mp = 1 computes what
+    the JAX package's sharded routes compute, fp32: with deterministic
+    algorithms on (the towers' index_add_ is atomic otherwise) the fp32 step
+    repeats itself bit for bit, and the bf16 step equals it."""
+    from mgvae_tpu_torch.data.batching import shard_levels_by_dst
+    from mgvae_tpu_torch.parallel import mesh, sharded
+
+    rng = np.random.default_rng(6)
+    batch = shard_levels_by_dst(
+        collate([random_circuit(rng, "mig", num_inputs=8, num_gates=120) for _ in range(4)]), 1)
+    if route == "edge":
+        batch = {k: v for k, v in batch.items() if not k.startswith("mp_lv_")}
+    gen = torch.Generator().manual_seed(3)
+    neg = tuple(t.to(torch.int32).cuda() for t in torch.randint(
+        0, int(batch["n_nodes"]), (2, batch["edge_src"].shape[0]), generator=gen))
+    keep = [(torch.rand(batch["gate"].shape[0], 32, generator=gen) < 0.8).cuda()
+            for _ in range(2)]
+    m11 = mesh.make_mesh(1, 1)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for dtype in ("float32", "float32", "bfloat16"):
+            cfg = dg_ae.DGConfig(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2,
+                                 layernorm=True, matmul_precision="highest", dim_mlp=32,
+                                 compute_dtype=dtype)
+            assert sharded.route_of(batch, cfg, 1) == route
+            params, state = dg_ae.init_params(cfg, seed=4, device="cuda")
+            leaves = step.param_leaves(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            fn = sharded.make_sharded_train_step(cfg, torch.optim.SGD(leaves, lr=0.1), m11)
+            st, metrics = fn(params, state, batch, None, [1.0, 4.0, 4.0, 0.0], neg_edges=neg,
+                             drop_keep=keep)
+            runs.append([t.detach().cpu() for t in leaves + step.param_leaves(st)]
+                        + [metrics[k].cpu() for k in sorted(metrics)])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for other in runs[1:]:
+        for a, c in zip(other, runs[0], strict=True):
+            assert a.dtype == c.dtype == torch.float32 and torch.equal(a, c)

@@ -153,6 +153,7 @@ def _dims(shards, mp):
 
 
 def _run(tmp_path, mode, nprocs, inputs):
+    tmp_path.mkdir(parents=True, exist_ok=True)
     inp = tmp_path / f"{mode}.npz"
     np.savez(inp, **inputs)
     script = tmp_path / "worker.py"
@@ -228,8 +229,6 @@ def test_sharded_train_step_at_mp1_matches_single_device_step(route, dim, group_
 
 
 def test_sharded_rejects_what_it_does_not_take(group_of_one):
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
-        sharded.make_sharded_forward(P.DGConfig(**KW, compute_dtype="bfloat16"), None)
     with pytest.raises(ValueError, match="num_rounds"):
         sharded.make_sharded_forward(P.DGConfig(**KW, num_rounds=2), None)
     batch = batching.collate(_graphs(2, n_graphs=2))
@@ -261,10 +260,14 @@ def test_sharded_forwards_at_mp2_match_jax(tmp_path):
     """Both routes over 2 gloo processes == JAX's make_sharded_forward on a
     2-device mp mesh (the kernel route against the Pallas level step in
     interpret mode); hs and hf are whole and equal on both members."""
+    _forwards_at_mp2_match_jax(tmp_path, KW)
+
+
+def _forwards_at_mp2_match_jax(tmp_path, kw):
     mp = 2
     graphs = _graphs(4, n_graphs=16)
     hb = batching.shard_levels_by_dst(batching.collate(graphs, mp=mp), mp)
-    jcfg = J.DGConfig(**KW)
+    jcfg = J.DGConfig(**kw)
     params, _ = J.init_params(jax.random.PRNGKey(0), jcfg)
     mesh_j = Mesh(np.asarray(jax.devices()[:mp]), ("mp",))
     batch_j = jax.tree.map(jnp.asarray, hb)
@@ -274,7 +277,7 @@ def test_sharded_forwards_at_mp2_match_jax(tmp_path):
         "edge": make_sharded_forward(jcfg, mesh_j, batch_j)(params, batch_j),
     }
     inputs = _flat(jax.tree.map(np.asarray, params), "params/", {})
-    inputs.update(_flat(hb, "batch/", {}), cfg=json.dumps(KW))
+    inputs.update(_flat(hb, "batch/", {}), cfg=json.dumps(kw))
     outs = _run(tmp_path, "forward", mp, inputs)
     n = int(hb["n_nodes"])
     for route, (hs_j, hf_j) in want.items():
@@ -283,6 +286,7 @@ def test_sharded_forwards_at_mp2_match_jax(tmp_path):
                                        atol=1e-5, err_msg=route)
             np.testing.assert_allclose(o[f"{route}/hf"][:n], np.asarray(hf_j)[:n], rtol=0,
                                        atol=1e-4, err_msg=route)
+    return outs
 
 
 def _jax_draws(key, hb, dim_mlp):
@@ -301,11 +305,15 @@ def test_dp2_mp2_train_step_matches_jax(tmp_path):
     routes, == JAX's make_sharded_train_step on a 2 x 2 mesh of the virtual
     CPU devices (the kernel route against use_pallas=True, interpret=True):
     every rank's metrics, params and BN state."""
+    _dp2_mp2_step_matches_jax(tmp_path, KW)
+
+
+def _dp2_mp2_step_matches_jax(tmp_path, kw):
     dp, mp = 2, 2
     shards = [_graphs(10 + d) for d in range(dp)]
     hb = batching.shard_levels_by_dst(
         batching.collate_shards(shards, mp=mp, dims=_dims(shards, mp)), mp)
-    jcfg = J.DGConfig(**KW)
+    jcfg = J.DGConfig(**kw)
     params, state = J.init_params(jax.random.PRNGKey(3), jcfg)
     opt = optax.sgd(LR)
     rng = jax.random.PRNGKey(7)
@@ -319,7 +327,7 @@ def test_dp2_mp2_train_step_matches_jax(tmp_path):
 
     inputs = _flat(jax.tree.map(np.asarray, params), "params/", {})
     inputs.update(_flat(jax.tree.map(np.asarray, state), "state/", {}))
-    inputs.update(_flat(hb, "batch/", {}), cfg=json.dumps(KW), mesh=np.array([dp, mp]),
+    inputs.update(_flat(hb, "batch/", {}), cfg=json.dumps(kw), mesh=np.array([dp, mp]),
                   weights=json.dumps(WEIGHTS))
     for d in range(dp):
         neg, keep = _jax_draws(jax.random.fold_in(rng, d), {k: v[d] for k, v in hb.items()},
@@ -338,3 +346,57 @@ def test_dp2_mp2_train_step_matches_jax(tmp_path):
             assert delta < 5e-6, (route, rank, delta)
             for k, v in sj.items():
                 np.testing.assert_allclose(o[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+    return outs
+
+
+def test_bf16_sharded_routes_match_jax(tmp_path):
+    """compute_dtype="bfloat16" on both sharded routes, in gloo processes,
+    against the JAX package's bf16 sharded forward (mp = 2) and dp = 2 x
+    mp = 2 step, within the fp32 bounds above: the JAX routes never cast
+    the params, so both packages compute in fp32 there. The port's bf16
+    outputs equal its fp32 outputs bit for bit."""
+    bf16 = dict(KW, compute_dtype="bfloat16")
+    fwd16 = _forwards_at_mp2_match_jax(tmp_path / "fwd16", bf16)
+    step16 = _dp2_mp2_step_matches_jax(tmp_path / "step16", bf16)
+    fwd32 = _run(tmp_path / "fwd32", "forward", 2, _port_inputs_of(tmp_path / "fwd16"))
+    step32 = _run(tmp_path / "step32", "step", 4, _port_inputs_of(tmp_path / "step16"))
+    for got, want in ((fwd16, fwd32), (step16, step32)):
+        for a, c in zip(got, want, strict=True):
+            assert a.keys() == c.keys()
+            for k in c:
+                assert a[k].dtype == c[k].dtype and np.array_equal(a[k], c[k]), k
+
+
+def _port_inputs_of(run_dir):
+    """The inputs of an earlier worker run with its config set to fp32."""
+    (inp,) = [p for p in run_dir.glob("*.npz") if p.stem in ("forward", "step")]
+    z = dict(np.load(inp, allow_pickle=False))
+    z["cfg"] = json.dumps(dict(json.loads(str(z["cfg"])), compute_dtype="float32"))
+    return z
+
+
+@pytest.mark.parametrize("route", ["kernel", "edge"])
+def test_bf16_sharded_step_at_mp1_equals_fp32(route, group_of_one):
+    """At mp = 1 the bf16 sharded forward and step are the fp32 ones bit for
+    bit: hs, hf, every gradient, the metrics and the BN state."""
+    batch = batching.shard_levels_by_dst(batching.collate(_graphs(1)), 1)
+    if route == "edge":
+        batch = _edge_only(batch)
+    m = mesh.make_mesh(1, 1)
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = P.DGConfig(**KW, compute_dtype=dtype)
+        assert sharded.route_of(batch, cfg, 1) == route
+        params, state = P.init_params(cfg, seed=3, device="cpu")
+        hs, hf = sharded.make_sharded_forward(cfg, group_of_one)(params, batch)
+        leaves = PS.param_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        step = sharded.make_sharded_train_step(cfg, torch.optim.SGD(leaves, lr=LR), m)
+        st, metrics = step(params, state, batch, torch.Generator().manual_seed(5), WEIGHTS)
+        out.append(([hs, hf] + [t.grad for t in leaves] + PS.param_leaves(st)
+                    + [metrics[k] for k in sorted(metrics)]))
+    for a, c in zip(*out, strict=True):
+        assert (a is None) == (c is None)
+        if c is not None:
+            assert a.dtype == c.dtype == torch.float32 and torch.equal(a, c)
