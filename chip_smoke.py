@@ -312,6 +312,28 @@ Phases (any failure raises and the script exits nonzero):
      under MGVAE_NO_NATIVE=1 (``--native-probe``), beside the bare loop,
      every step's metrics bit for bit.
 
+  [multistep] the K-step calls (ROADMAP 1.14; ``multistep_phase``), last:
+     (a) MIG bs16 at K = 8 in full fp32, TF32 and bf16: two K-step train and
+     eval calls (``make_multi_step`` / ``make_multi_eval``: the first step
+     eager, one capture each, then replays) against the same steps as
+     ``train_step`` / ``eval_step`` calls, metric rows, params, Adam's state,
+     BN state and the generator's state bit for bit, launches per step, and
+     under torch.profiler the replayed kernels' device time; (b) the same on
+     bs64 C=2 (the step route, K = 4), split G=4 (K = 4) and the giant batch
+     (K = 2): graph against the same calls run eagerly bit for bit, and
+     against ``train_step``'s real-level walk (bit for bit on the split
+     layout's fused route; the step and giant backwards' blocks of levels
+     shift with the padded walk, so there the weight gradients' sums
+     reassociate); (c) [trainer]'s epoch at steps_per_call 8 against 1, in
+     turns: rows and tensors bit for bit, ms per train step (medians),
+     captures, launches per step, and one epoch of each under
+     torch.profiler (wall, device busy share, host time); (d) the 3-stage
+     CLI at 8 against 1 with an lr decay every epoch: the six epoch lines
+     equal but for their time; (e) a step that reads a loss back on the
+     host raises from its capture. [trainer], [balancer] (a), (d) and
+     [native] (d) run the grouped trainer (steps_per_call 8) and count a
+     K-step call's launches and rows per step.
+
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step route's
@@ -326,7 +348,12 @@ sharded steps, their times and bounds over one pass of the giant member
 tables' levels; and [balancer]'s two, kernels 8 and 2 re-entered from one
 forward's residuals on the Balancer step: struct_towers_bwd_reentered,
 level_scan_bwd_reentered, their launches from (a)'s Balancer epoch with
-launches_per_step, their time per backward and bounds on the bs16 batch);
+launches_per_step, their time per backward and bounds on the bs16 batch;
+and [multistep]'s four, kernels 7, 8, 1 and 2 replayed from (a)'s fp32
+graph: struct_towers_graph, struct_towers_bwd_graph, level_scan_graph,
+level_scan_bwd_graph, their launches in (a)'s graph run, max |d| of the
+run against its eager steps, device ms per train step under
+torch.profiler, the plain versions' times and bounds of the eager entries);
 each with its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations at their type's peak (67 TFLOP/s in fp32; the
@@ -626,12 +653,36 @@ def trainer_phase(torch, dev, card: str) -> None:
 
         return recorded("train", train_step), recorded("val", eval_step)
 
+    makes_multi = (trainer_mod.make_multi_step, trainer_mod.make_multi_eval)
+
+    def counting_multi(phase, make_multi):
+        """make_multi_step / make_multi_eval whose K-step calls record each
+        step's launches (the call's over K: its eager steps and replays
+        enqueue alike) and metric row."""
+        def made(*a, **kw):
+            multi = make_multi(*a, **kw)
+
+            def call(*ca, **ckw):
+                before = counts()
+                out = multi(*ca, **ckw)
+                rows = out if phase == "val" else out[1]
+                k = rows.shape[0]
+                delta = [x - y for x, y in zip(counts(), before)]
+                per_step[phase] += [tuple(x // k if x % k == 0 else -1 for x in delta)] * k
+                metrics[phase] += [dict(zip(step_mod.METRIC_KEYS, r)) for r in rows]
+                return out
+            return call
+        return made
+
     def run(argv):
         trainer_mod.make_train_step = counting_make
+        trainer_mod.make_multi_step = counting_multi("train", makes_multi[0])
+        trainer_mod.make_multi_eval = counting_multi("val", makes_multi[1])
         try:
             return cli.main(argv)
         finally:
             trainer_mod.make_train_step = make
+            trainer_mod.make_multi_step, trainer_mod.make_multi_eval = makes_multi
 
     for m in (level_kernel, struct_kernel):
         m.launches = m.bwd_launches = 0
@@ -643,7 +694,9 @@ def trainer_phase(torch, dev, card: str) -> None:
     wall = time.perf_counter() - t0
     got = {ph: sorted(set(v)) for ph, v in per_step.items()}
     log(f"[trainer] python -m mgvae_tpu_torch.train {' '.join(TRAINER_ARGV)} in-process on "
-        f"{dev}: {wall:.1f} s for 3 stages; {len(per_step['train'])} train steps and "
+        f"{dev} (steps_per_call {trainer.steps_per_call}: a group of 8 and a single step an "
+        f"epoch, the val step singly): {wall:.1f} s for 3 stages; "
+        f"{len(per_step['train'])} train steps and "
         f"{len(per_step['val'])} val steps; chunks {trainer._chunks}, dims {trainer._dims_max}; "
         f"launches per step {names}: train {got['train']}, val {got['val']}")
     want = {"train": [(2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0)], "val": [(2 * ROUNDS, 0, 1, 0, 1, 0)]}
@@ -820,6 +873,321 @@ PAR_KEYS = ("recon_loss", "prob_loss", "func_loss", "kl_loss", "tp", "fp", "tn",
             "n_pred", "loss")
 PAR_CFG = dict(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
                layernorm=True, matmul_precision="highest")
+
+
+# [multistep]: the K-step calls and the grouped trainer (ROADMAP 1.14)
+MS_K, MS_ROUTE_K, MS_GIANT_K = 8, 4, 2   # steps per call: bs16; the bs64 layouts; giant
+MS_GROUPS = 2                  # calls per run: the first warms up and captures
+MS_TURNS = 4                   # (c): epochs of each variant in turns; the first of each warms up
+MS_DIR = os.path.join("exp", "chip_smoke_multistep")
+# the kernels of rows 7, 8, 1 and 2 as the profiler names them, by entry
+MS_KERNELS = {
+    "struct_towers_graph": ("struct_fwd_kernel",),
+    "struct_towers_bwd_graph": ("struct_bwd_row_kernel", "struct_grad_partial_kernel",
+                                "struct_grad_sum_kernel"),
+    "level_scan_graph": ("level_scan_kernel",),
+    "level_scan_bwd_graph": ("level_scan_bwd_kernel", "expert_gemm_kernel",
+                             "weight_reduce_kernel"),
+}
+
+
+def ms_run(torch, cfg, sb, mode: str, groups: int = MS_GROUPS) -> dict:
+    """``groups`` K-step train calls, each followed by a K-step eval call, on
+    the stacked batch ``sb`` from fixed params: ``mode`` "graph"
+    (``make_multi_step`` / ``make_multi_eval``: the first step eager, then
+    the capture and replays), "padded" (the same calls, every step eager:
+    ``CAPTURE_WARMUP`` raised) or "eager" (K ``train_step`` / ``eval_step``
+    calls a call: the real levels). Returns the metric rows, the params,
+    Adam's state and the BN state after, the generator's state, ms per step
+    (train and eval alike, capture included) and launches per step."""
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.train import step as step_mod
+
+    params, state = dg_ae.init_params(cfg, seed=SEED + 9, device=DEVICE)
+    opt = step_mod.make_optimizer(params, TRAIN_LR)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    multi, multi_eval = step_mod.make_multi_step(cfg, opt), step_mod.make_multi_eval(cfg)
+    train_step, eval_step = step_mod.make_train_step(cfg, opt)
+    K = int(sb["gate"].shape[0])
+
+    def row(m):
+        return torch.stack([m[x] for x in step_mod.METRIC_KEYS])
+
+    warm = step_mod.CAPTURE_WARMUP
+    step_mod.CAPTURE_WARMUP = 10 ** 9 if mode == "padded" else warm
+    rows = []
+    try:
+        torch.cuda.synchronize()
+        before = step_mod.launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(groups):
+            if mode == "eager":
+                tr = []
+                for k in range(K):
+                    state, m = train_step(params, state, step_mod.step_of(sb, k), gen, WEIGHTS)
+                    tr.append(row(m))
+                rows += [torch.stack(tr), torch.stack(
+                    [row(eval_step(params, state, step_mod.step_of(sb, k), gen, WEIGHTS))
+                     for k in range(K)])]
+            else:
+                state, r = multi(params, state, sb, gen, WEIGHTS)
+                rows += [r, multi_eval(params, state, sb, gen, WEIGHTS)]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        after = step_mod.launch_counts()
+    finally:
+        step_mod.CAPTURE_WARMUP = warm
+    adam = [t for p in step_mod.param_leaves(params) for t in opt.state[p].values()]
+    return {"rows": torch.cat(rows), "gen": gen.get_state(), "ms": sec / (2 * groups * K) * 1e3,
+            "tensors": [t.detach() for t in step_mod.param_leaves(params) + adam
+                        + step_mod.param_leaves(state)],
+            "launches": {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": after[(m, n)] - before[(m, n)]
+                         for m, n in after if after[(m, n)] != before[(m, n)]},
+            "steps": 2 * groups * K, "captures": multi.captures + multi_eval.captures,
+            "call": (multi, params, state, gen, sb)}
+
+
+def ms_differ(torch, a: dict, b: dict) -> tuple:
+    """(bit for bit, max |d|) over two runs' rows, tensors and generator."""
+    pairs = [(a["rows"], b["rows"])] + list(zip(a["tensors"], b["tensors"], strict=True))
+    same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs)
+    worst = max(float((x.float() - y.float()).abs().max()) for x, y in pairs if x.numel())
+    return same and torch.equal(a["gen"], b["gen"]), worst
+
+
+def multistep_phase(torch, dev, card: str, env) -> dict:
+    """[multistep] (ROADMAP 1.14): the K-step calls on the card. (a) bs16 at
+    K = 8, graph against eager bit for bit in full fp32, TF32 and bf16,
+    train and eval, with the replayed kernels' times; (b) the same on bs64
+    C=2 (the step route, K = 4), split G=4 (K = 4) and the giant batch
+    (K = 2): graph against the same steps run eagerly bit for bit, and
+    against ``train_step``'s real-level walk; (c) the [trainer] epoch at
+    steps_per_call 8 against 1 in turns: rows and tensors bit for bit, ms
+    per train step, captures, launches, torch.profiler's busy share; (d)
+    the 3-stage CLI at 8 against 1 through an lr decay each epoch; (e) a
+    captured step made to fail raises. Returns the kernels line's entries'
+    numbers."""
+    from mgvae_tpu_torch import cli, random_circuit
+    from mgvae_tpu_torch.data import batching
+    from mgvae_tpu_torch.examples.level_scan_profile import by_name
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.train import step as step_mod
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    def cfg_of(**kw):
+        return dg_ae.DGConfig(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                              layernorm=True, **kw)
+
+    # ---- (a) bs16 at K = 8 ------------------------------------------------------
+    env.clock("[multistep] (a)")
+    graphs = dataset(random_circuit, "mig", SEED + 11, MS_K * BATCH)
+    shards = [graphs[i * BATCH:(i + 1) * BATCH] for i in range(MS_K)]
+    dims: dict = {}
+    for sh in shards:
+        for k, v in batching.natural_dims(sh).items():
+            dims[k] = max(dims.get(k, 0), v)
+    sb16 = batching.collate_shards(shards, dims=dims)
+    out = {}
+    ok = True
+    for label, extra in (("fp32 highest", dict(matmul_precision="highest")),
+                         ("TF32 default", dict(matmul_precision="default")),
+                         ("bf16", dict(compute_dtype="bfloat16", matmul_precision="default"))):
+        cfg = cfg_of(**extra)
+        g, e = ms_run(torch, cfg, sb16, "graph"), ms_run(torch, cfg, sb16, "eager")
+        same, worst = ms_differ(torch, g, e)
+        per = {k: v / g["steps"] for k, v in g["launches"].items()}
+        log(f"[multistep] (a) bs16 MIG (L = {sb16['lv_nodes'].shape[1]} padded levels), "
+            f"K = {MS_K}, {label}: {MS_GROUPS} K-step train and eval calls (graph: "
+            f"{g['captures']} captures) against {MS_GROUPS * MS_K} train_step and eval_step "
+            f"calls each: metric rows, params, Adam's state, BN state and the generator bit for "
+            f"bit {same} (max |d| {worst:.3e}); launches per step (train and eval alike) graph "
+            f"{per}, eager {({k: v / e['steps'] for k, v in e['launches'].items()})}; ms per "
+            f"step, the capture included, graph {g['ms']:.3f}, eager {e['ms']:.3f}")
+        ok &= same and g["captures"] == 2
+        if label == "fp32 highest":
+            multi, params, state, gen, sbx = g["call"]
+            names = by_name(lambda: multi(params, state, sbx, gen, WEIGHTS), 3)
+            for entry, kernels in MS_KERNELS.items():
+                hits = [(t, n) for name, (t, n) in names.items()
+                        if any(re.search(rf"\b{k}\b", name) for k in kernels)]
+                out[entry] = {"ms": sum(t for t, _ in hits) / MS_K / 1e3,
+                              "per_step": sum(n for _, n in hits) / MS_K, "err": worst}
+            log(f"[multistep] (a) card: {card}")
+            log(f"[multistep] (a) one K = {MS_K} train call of replays under torch.profiler, "
+                f"device ms per step and launches per step: "
+                + "; ".join(f"{k} {v['ms']:.4f} ms in {v['per_step']:.1f}"
+                            for k, v in out.items()))
+            out["launches"] = g["launches"]
+        del g, e
+    torch.cuda.empty_cache()
+
+    # ---- (b) the bs64 layouts and the giant batch --------------------------------
+    env.clock("[multistep] (b)")
+    big = dataset(random_circuit, "mig", SEED + 12, MS_ROUTE_K * N_CIRCUITS)
+    shards64 = [big[i * N_CIRCUITS:(i + 1) * N_CIRCUITS] for i in range(MS_ROUTE_K)]
+    layouts = (
+        ("bs64 C=2, the step route", "level_kernel.step_launches",
+         lambda: batching.collate_shards(shards64, num_chunks=CHUNKS)),
+        ("bs64 split G=4", "level_kernel.launches",
+         lambda: batching.collate_split_step(shards64, batching.split_dims(shards64, GROUPS))),
+        (f"giant ({GIANT_WIDTH} x {GIANT_DEPTH})", "level_kernel.giant_launches",
+         lambda: batching.collate_shards([[env.giant_graph]] * MS_GIANT_K)))
+    cfg = cfg_of(matmul_precision="highest")
+    for label, route, make in layouts:
+        sb = make()
+        g, p, e = (ms_run(torch, cfg, sb, mode) for mode in ("graph", "padded", "eager"))
+        same_p, worst_p = ms_differ(torch, g, p)
+        same_e, worst_e = ms_differ(torch, g, e)
+        K = int(sb["gate"].shape[0])
+        finite = bool(torch.isfinite(g["rows"]).all())
+        log(f"[multistep] (b) {label}, K = {K}: graph ({g['captures']} captures) against the "
+            f"same calls run eagerly bit for bit {same_p} (max |d| {worst_p:.3e}); against "
+            f"train_step's real-level walk bit for bit {same_e} (max |d| {worst_e:.3e}); "
+            f"{route} per step {g['launches'].get(route, 0) / g['steps']:.1f} graph, "
+            f"{e['launches'].get(route, 0) / e['steps']:.1f} eager; ms per step, the capture "
+            f"included, graph {g['ms']:.3f}, eager {e['ms']:.3f}; rows finite {finite}")
+        ok &= same_p and finite and g["captures"] == 2 and g["launches"].get(route, 0) > 0
+        if "split" in label:
+            ok &= same_e
+        del g, p, e, sb
+        torch.cuda.empty_cache()
+
+    # ---- (c) the [trainer] epoch at steps_per_call 8 against 1 -------------------
+    env.clock("[multistep] (c)")
+    shutil.rmtree(MS_DIR, ignore_errors=True)
+    args = cli.get_parse_args(TRAINER_ARGV + ["--save_dir", MS_DIR])
+    tcfg = cli.model_config(args)
+    train_ds, val_ds = cli.load_dataset(args)
+    runs = {}
+    for spc in (MS_K, 1):
+        p0, s0 = dg_ae.init_params(tcfg, seed=SEED + 5, device=DEVICE)
+        t = trainer_mod.Trainer(args, tcfg, params=p0, state=s0, training_id=f"k{spc}",
+                                save_dir=MS_DIR, batch_size=BATCH, distributed=False, seed=SEED,
+                                steps_per_call=spc, device=DEVICE)
+        t.set_training_args(rc_prob_func_weight=WEIGHTS[:3], lr=TRAIN_LR)
+        rec: dict = {}
+        runners = (t.multi_step, t.multi_eval)
+        for name, ph in (("train_step", "train"), ("eval_step", "val"),
+                         ("multi_step", "train"), ("multi_eval", "val")):
+            bal_instrument(torch, t, name, ph, rec)
+        runs[spc] = (t, rec, [], runners)
+    for turn in range(MS_TURNS):
+        for spc in ((MS_K, 1) if turn % 2 == 0 else (1, MS_K)):
+            t, _, ms, _ = runs[spc]
+            ms.append(t.train(1, train_ds, val_ds)["train"]["time"] * 1e3)
+    torch.cuda.synchronize()
+    side = {}
+    for spc, (t, rec, ms, _) in runs.items():
+        rows = torch.stack([torch.stack([x[k] for k in step_mod.METRIC_KEYS])
+                            for x in rec["metrics"]]).cpu()
+        adam = [v for p in step_mod.param_leaves(t.params) for v in t.optimizer.state[p].values()]
+        side[spc] = {"rows": rows, "gen": t._gen.get_state(),
+                     "tensors": [x.detach() for x in step_mod.param_leaves(t.params) + adam
+                                 + step_mod.param_leaves(t.state)]}
+    same_c, worst_c = ms_differ(torch, side[MS_K], side[1])
+    (_, _, msg, (g_train, g_val)), (_, _, mss, _) = runs[MS_K], runs[1]
+    launches = {spc: {ph: sorted(set(r[1].get(ph, []))) for ph in ("train", "val")}
+                for spc, r in runs.items()}
+
+    def profiled(t):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            t.train(1, train_ds, [])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_card = [x for x in prof.events() if x.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(x.time_range.elapsed_us() for x in on_card) / 1e3
+        host = sum(x.self_cpu_time_total for x in prof.key_averages()) / 1e3
+        return wall * 1e3, busy, host, len(on_card)
+
+    prof = {spc: profiled(runs[spc][0]) for spc in (MS_K, 1)}
+    n_train = 9
+    log(f"[multistep] (c) card: {card}")
+    log(f"[multistep] (c) [trainer]'s epoch (MIG bs{BATCH}, D={DIM}, rounds {ROUNDS}, highest, "
+        f"{n_train} train and 1 val step, weights {WEIGHTS[:3]}) at steps_per_call {MS_K} "
+        f"against 1, {MS_TURNS} epochs each in turns: {len(side[1]['rows'])} metric rows, "
+        f"params, Adam's state, BN state and the generator bit for bit {same_c} (max |d| "
+        f"{worst_c:.3e}); launches per step {PAR_NAMES} {launches}; captures train "
+        f"{g_train.captures} over {len(g_train.layouts)} key(s), val {g_val.captures}")
+    log(f"[multistep] (c) ms per train step (the trainer's Net time: plan, prefetch collate, "
+        f"steps and the epoch's read-back) at steps_per_call {MS_K}: "
+        f"{[round(x, 3) for x in msg]}, median after the first {statistics.median(msg[1:]):.3f}; "
+        f"at 1: {[round(x, 3) for x in mss]}, median after the first "
+        f"{statistics.median(mss[1:]):.3f}")
+    for spc, (wall, busy, host, n) in prof.items():
+        log(f"[multistep] (c) one train epoch at steps_per_call {spc} under torch.profiler: "
+            f"wall {wall / n_train:.3f} ms per step, device busy {busy / n_train:.3f} ms per "
+            f"step (share {busy / wall:.3f}), host self time of its operators "
+            f"{host / n_train:.3f} ms per step, {n / n_train:.1f} device events per step")
+    ok &= same_c and g_train.captures == 1 and launches[MS_K] == launches[1]
+    out["trainer_ms"] = (statistics.median(msg[1:]), statistics.median(mss[1:]))
+    del runs, side
+
+    # ---- (d) the 3-stage CLI at 8 against 1, an lr decay each epoch -------------
+    env.clock("[multistep] (d)")
+    lines = {}
+    lr_step = cli.LR_STEP
+    cli.LR_STEP = 1
+    try:
+        for spc in (str(MS_K), "1"):
+            save = os.path.join(MS_DIR, f"cli{spc}")
+            tr = cli.main(TRAINER_ARGV + ["--steps_per_call", spc, "--save_dir", save])
+            logs = [f for f in os.listdir(tr.log_dir) if f.startswith("log-")]
+            with open(os.path.join(tr.log_dir, logs[0])) as f:
+                lines[spc] = [re.sub(r"\|Net: .*", "", ln.rstrip("\n")) for ln in f
+                              if "| Epoch:" in ln]
+    finally:
+        cli.LR_STEP = lr_step
+    same_d = lines[str(MS_K)] == lines["1"] and len(lines["1"]) == 6
+    for ln in lines[str(MS_K)]:
+        log(f"[multistep] (d) steps_per_call {MS_K} log: {ln}")
+    log(f"[multistep] (d) the 3-stage CLI (lr_step 1: a decay after every epoch, reset by each "
+        f"stage; the weights changed twice) at steps_per_call {MS_K} against 1: six epoch "
+        f"lines equal but for their time: {same_d}")
+    ok &= same_d
+    shutil.rmtree(MS_DIR, ignore_errors=True)
+
+    # ---- (e) a captured step made to fail raises ---------------------------------
+    # last: a capture that failed may leave its stream's allocations routed to
+    # the dead graph's pool; this call's runner and stream are its own
+    env.clock("[multistep] (e)")
+    cfg = cfg_of(matmul_precision="highest")
+    params, state = dg_ae.init_params(cfg, seed=SEED, device=DEVICE)
+    opt = step_mod.make_optimizer(params, TRAIN_LR)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    multi = step_mod.make_multi_step(cfg, opt)
+    real = step_mod.func_loss
+
+    def read_back(hf, b):   # a host read, which a capture does not allow
+        loss = real(hf, b)
+        float(loss)
+        return loss
+
+    step_mod.func_loss = read_back
+    before = step_mod.launch_counts()
+    err = None
+    try:
+        multi(params, state, sb16, gen, WEIGHTS)
+    except RuntimeError as e:
+        err = e
+    finally:
+        step_mod.func_loss = real
+    after = step_mod.launch_counts()
+    # the first step ran eagerly; the failed capture's counts were taken back
+    struct = after[(step_mod.struct_kernel, "launches")] - before[(step_mod.struct_kernel,
+                                                                   "launches")]
+    log(f"[multistep] (e) a step that reads a loss back on the host, in a K = {MS_K} call: "
+        f"raised {type(err).__name__ if err else None}: {str(err)[:200]!r}; graphs captured "
+        f"{multi.captures}; struct launches {struct} (one eager step's: {2 * ROUNDS})")
+    ok &= (err is not None and "capturing" in str(err) and multi.captures == 0
+           and struct == 2 * ROUNDS)
+    if not ok:
+        raise RuntimeError("[multistep]: a graph differs from its eager steps, a grouped epoch "
+                           "from the per-step one, or a failed capture did not raise")
+    return out
 
 
 def free_port() -> int:
@@ -1016,9 +1384,11 @@ def parallel_phase(torch, dev, card: str, env) -> dict:
     train_ds, val_ds = cli.load_dataset(args)
 
     def epoch(distributed: bool, tid: str):
+        # step by step on both sides (the data-parallel trainer always is):
+        # the all-reduce's cost beside the same steps
         tr = trainer_mod.Trainer(args, cfg_t, training_id=tid, save_dir=PAR_DIR,
                                  batch_size=args.batch_size, distributed=distributed,
-                                 seed=args.seed, device=DEVICE)
+                                 seed=args.seed, steps_per_call=1, device=DEVICE)
         tr.set_training_args(rc_prob_func_weight=WEIGHTS[:3], lr=TRAIN_LR)
         rows, per_step = [], {"train": [], "val": []}
         for phase, name in (("train", "train_step"), ("val", "eval_step")):
@@ -1367,8 +1737,16 @@ def bal_instrument(torch, tr, attr: str, phase: str, rec: dict) -> None:
     def call(*a, **kw):
         before = par_counts()
         res = fn(*a, **kw)
-        rec.setdefault(phase, []).append(tuple(x - y for x, y in zip(par_counts(), before)))
-        rec.setdefault("metrics", []).append(res if isinstance(res, dict) else res[-1])
+        delta = tuple(x - y for x, y in zip(par_counts(), before))
+        out = res if isinstance(res, dict) else res[-1]
+        if isinstance(out, dict):
+            rec.setdefault(phase, []).append(delta)
+            rec.setdefault("metrics", []).append(out)
+        else:   # a K-step call's [K, 9] rows (train.step.make_multi_step)
+            from mgvae_tpu_torch.train.step import METRIC_KEYS
+            k = out.shape[0]
+            rec.setdefault(phase, []).extend([tuple(x // k for x in delta)] * k)
+            rec.setdefault("metrics", []).extend(dict(zip(METRIC_KEYS, r)) for r in out)
         return res
 
     setattr(tr, attr, call)
@@ -1468,9 +1846,10 @@ def balancer_phase(torch, dev, card: str, env) -> dict:
         rec: dict = {}
         if attr:
             bal_instrument(torch, tr, attr, "train", rec)
-        else:
-            bal_instrument(torch, tr, "train_step", "train", rec)
-            bal_instrument(torch, tr, "eval_step", "val", rec)
+        else:   # EarlyTrainer: the grouped train phase and the val step
+            for name, ph in (("train_step", "train"), ("eval_step", "val"),
+                             ("multi_step", "train"), ("multi_eval", "val")):
+                bal_instrument(torch, tr, name, ph, rec)
         sync()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1483,7 +1862,7 @@ def balancer_phase(torch, dev, card: str, env) -> dict:
     s_rows = torch.stack([torch.stack([x[f"scale_{t}"] for t in trainer_balancer.TASKS])
                           for x in bal[1]["metrics"]]).cpu()
     loss_rows = torch.stack([torch.stack([x[k] for k in ("recon_loss", "prob_loss",
-                                                          "func_loss", "loss")])
+                                                          "func_loss")])
                              for r in runs.values() for x in r[1]["metrics"]]).cpu()
     want_early = {"train": [(2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0, 0, 0, 0, 0)],
                   "val": [(2 * ROUNDS, 0, 1, 0, 1, 0, 0, 0, 0, 0)]}
@@ -1685,6 +2064,8 @@ def balancer_phase(torch, dev, card: str, env) -> dict:
         rec = {}
         bal_instrument(torch, tr, "train_step", "train", rec)
         bal_instrument(torch, tr, "eval_step", "val", rec)
+        bal_instrument(torch, tr, "multi_step", "train", rec)
+        bal_instrument(torch, tr, "multi_eval", "val", rec)
         tr.train(1, train_ds, val_ds)
         sync()
         rows = torch.stack([torch.stack([x[k] for k in step_mod.METRIC_KEYS])
@@ -1889,20 +2270,24 @@ def nat_trainer_epochs(torch) -> dict:
     cfg = cli.model_config(args)
     train_ds, _ = cli.load_dataset(args)
     tt = trainer_mod.Trainer(args, cfg, training_id="native", save_dir=NAT_DIR,
-                             batch_size=BATCH, distributed=False, seed=SEED, steps_per_call=1,
-                             device=DEVICE)
+                             batch_size=BATCH, distributed=False, seed=SEED, device=DEVICE)
     tt.set_training_args(rc_prob_func_weight=[1.0, 4.0, 4.0], lr=TRAIN_LR)
-    metrics, step = [], tt.train_step
+    metrics, step, multi = [], tt.train_step, tt.multi_step
 
     def recorded(*a, **kw):
         out = step(*a, **kw)
-        metrics.append(out[1])
+        metrics.append([float(out[1][k]) for k in trainer_mod.METRIC_KEYS])
         return out
 
-    tt.train_step = recorded
+    def recorded_group(*a, **kw):   # the grouped trainer's K-step calls
+        out = multi(*a, **kw)
+        metrics.extend(out[1].tolist())
+        return out
+
+    tt.train_step, tt.multi_step = recorded, recorded_group
     epochs_ms = [tt.train(1, train_ds, [])["train"]["time"] * 1e3 for _ in range(NAT_EPOCHS)]
-    rows = [[float(m[k]) for k in sorted(m)] for m in metrics]
-    tt.train_step = step
+    rows = metrics
+    tt.train_step, tt.multi_step = step, multi
     idx, n_steps, dims, C = tt._epoch_plan(train_ds)
     batches = [tt._collate_step([train_ds[i] for i in idx[s * BATCH:(s + 1) * BATCH]], dims, C)
                for s in range(n_steps)]
@@ -4344,6 +4729,16 @@ def main() -> int:
     native_phase(torch, dev, card, types.SimpleNamespace(
         log=log, clock=clock, built=native_built, graphs=graphs, giant_graph=giant_graph))
 
+    clock("[multistep]")
+    # ---- [multistep]: the K-step calls as CUDA graphs (ROADMAP 1.14) --------------
+    ms_out = multistep_phase(torch, dev, card, types.SimpleNamespace(
+        log=log, clock=clock, giant_graph=giant_graph))
+    for name, eager in (("struct_towers_graph", "struct_towers_residuals"),
+                        ("struct_towers_bwd_graph", "struct_towers_bwd"),
+                        ("level_scan_graph", "level_scan_residuals"),
+                        ("level_scan_bwd_graph", "level_scan_bwd")):
+        bounds[name] = bounds[eager]
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, **more):
         # library_ms: no single PyTorch call computes any of these functions
         return {"name": name, "route": "cuda", "source": f"mgvae_tpu_torch/csrc/{source}",
@@ -4423,6 +4818,27 @@ def main() -> int:
         entry("level_scan_bwd_reentered", "level_scan_bwd.cu", "level_kernel.py:487",
               bal["launches"][1], bal["err"][1], *bal["ms"]["level"][:2],
               launches_per_step=bal["per_step"][1]),
+        # kernels 7, 8, 1 and 2 replayed from the K-step call's CUDA graph
+        # ([multistep] (a), fp32): launches of (a)'s graph run (train and eval
+        # calls), max |d| of everything it made against its eager steps, and
+        # device ms per train step of the replays under torch.profiler; the
+        # plain versions' times and the bounds of the eager entries
+        entry("struct_towers_graph", "struct_towers.cu", "struct_kernel.py:175",
+              ms_out["launches"]["struct_kernel.launches"], ms_out["struct_towers_graph"]["err"],
+              ms_out["struct_towers_graph"]["ms"], srms_p,
+              launches_per_step=ms_out["struct_towers_graph"]["per_step"]),
+        entry("struct_towers_bwd_graph", "struct_towers_bwd.cu", "struct_kernel.py:338",
+              ms_out["launches"]["struct_kernel.bwd_launches"],
+              ms_out["struct_towers_bwd_graph"]["err"], ms_out["struct_towers_bwd_graph"]["ms"],
+              sbms_p, launches_per_step=ms_out["struct_towers_bwd_graph"]["per_step"]),
+        entry("level_scan_graph", "level_scan.cu", "level_kernel.py:173",
+              ms_out["launches"]["level_kernel.launches"], ms_out["level_scan_graph"]["err"],
+              ms_out["level_scan_graph"]["ms"], rms_p,
+              launches_per_step=ms_out["level_scan_graph"]["per_step"]),
+        entry("level_scan_bwd_graph", "level_scan_bwd.cu", "level_kernel.py:487",
+              ms_out["launches"]["level_kernel.bwd_launches"],
+              ms_out["level_scan_bwd_graph"]["err"], ms_out["level_scan_bwd_graph"]["ms"],
+              bms_p, launches_per_step=ms_out["level_scan_bwd_graph"]["per_step"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ and AE; ``num_rounds`` >= 1) on the card, in fp32, TF32 or bf16:
 ``.pth`` state dicts), the parsers (``BenchParser``, ``AigParser``,
 ``NpzParser``), one training step (``train.step.make_train_step``) on
 plain, chunked and split batches and on one giant graph collated alone,
-and the reference's 3-stage training (``Trainer``, checkpoints and resume;
-``python -m mgvae_tpu_torch.train``), data-parallel over one process per
+K of them in one call (``make_multi_step`` / ``make_multi_eval``: on the
+card a captured CUDA graph of the step, replayed per step), and the
+reference's 3-stage training (``Trainer``, its epochs in groups of
+``steps_per_call``, checkpoints and resume; ``python -m mgvae_tpu_torch.train``), data-parallel over one process per
 card under torchrun (``--distributed``), and the within-level
 model-parallel train step (``parallel.sharded``), and the multi-task
 trainers (``BalancerTrainer``, ``GradNormTrainer``: three per-task
@@ -39,6 +41,7 @@ from .data.graph import MODALITY_GATES, CircuitGraph, build_graph
 from .data.synthetic import layered_circuit, random_circuit
 from .models.dg_ae import DGConfig, forward, init_params
 from .train.gradnorm import BalancerConfig, GradNormConfig
+from .train.step import make_multi_eval, make_multi_step, make_train_step
 from .train.trainer import Trainer
 from .train.trainer_balancer import BalancerTrainer
 from .train.trainer_early_stop import EarlyTrainer
@@ -50,5 +53,6 @@ __all__ = [
     "collate_fit", "collate_shards", "collate_split", "random_circuit", "layered_circuit",
     "BenchParser", "AigParser", "build_graph", "CircuitGraph", "MODALITY_GATES", "NpzParser",
     "Trainer", "set_seed", "BalancerTrainer", "GradNormTrainer", "EarlyTrainer",
-    "BalancerConfig", "GradNormConfig", "Dataset",
+    "BalancerConfig", "GradNormConfig", "Dataset", "make_train_step", "make_multi_step",
+    "make_multi_eval",
 ]

@@ -25,8 +25,10 @@ its shard of each step, the gradients are averaged, and rank 0 logs and
 writes the checkpoints (``train/trainer.py``). Before any data is built, a
 partial launch (``WORLD_SIZE`` without its rendezvous) raises RuntimeError,
 and ``--distributed --num_devices k`` with k other than the processes
-launched raises ValueError. Accepted but not honoured yet, with a printed
-note: ``--steps_per_call`` (one step per call). ``--matmul_precision`` goes
+launched raises ValueError. ``--steps_per_call`` K (default 8, as
+``train.py``'s) groups each phase's steps by K (``Trainer``): on the card
+each group replays the step's captured CUDA graph, on the CPU it runs
+eagerly; 1 runs every step singly. ``--matmul_precision`` goes
 into ``DGConfig`` as in ``train.py:66``: "default" (the parser's default)
 runs PyTorch's fp32 products in TF32 on the card, "highest" in full fp32.
 ``--dim_hidden`` reaches the model unchanged: past 128 (the kernels' width)

@@ -79,6 +79,7 @@ fp32 accumulation), each rounding where its JAX kernel rounds.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -132,11 +133,19 @@ class DGConfig:
         return len(self.gate_types)
 
     def expert_of_gate(self, device) -> torch.Tensor:
-        """[NUM_GATE_TYPES] expert id of each gate id, -1 for non-expert gates."""
-        table = [-1] * NUM_GATE_TYPES
-        for i, g in enumerate(self.gate_types):
-            table[g] = i
-        return torch.tensor(table, dtype=torch.int64, device=device)
+        """[NUM_GATE_TYPES] expert id of each gate id, -1 for non-expert gates.
+        Made once per gate set and device and kept: a table built from a
+        Python list is a host-to-device copy, which a captured step
+        (``train/step.make_multi_step``) may not make."""
+        return _expert_table(self.gate_types, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _expert_table(gate_types: tuple, device: str) -> torch.Tensor:
+    table = [-1] * NUM_GATE_TYPES
+    for i, g in enumerate(gate_types):
+        table[g] = i
+    return torch.tensor(table, dtype=torch.int64, device=device)
 
 
 # The node count past which ``remat_struct=None`` turns the remat on: the JAX
@@ -260,28 +269,138 @@ LOSS_KEYS = ("node_valid", "prob", "tt_pair_a", "tt_pair_b", "tt_valid", "tt_dis
 RUN_KEYS = ("chunk_counts", "chunk_offsets")
 
 
+def device_layout(batch: dict) -> list:
+    """The host batch's arrays that the encode path and the losses read, as
+    (group, key) pairs: group None for a top-level array, g for the g-th
+    group of a split batch (which keeps its loss arrays at the top)."""
+    runs = tuple(k for k in RUN_KEYS if k in batch)
+    if "groups" in batch:
+        return ([(None, k) for k in ("edge_src", "edge_dst", "edge_valid") + LOSS_KEYS + runs]
+                + [(g, k) for g in range(len(batch["groups"])) for k in DEVICE_KEYS])
+    return [(None, k) for k in DEVICE_KEYS + LOSS_KEYS + runs]
+
+
+def _source(batch: dict, group, key: str):
+    return batch[key] if group is None else batch["groups"][group][key]
+
+
+def _nest(batch: dict, tensors: dict) -> dict:
+    """{(group, key): tensor} as a device batch: the top-level arrays, and
+    for a split batch ``"groups"``, a tuple of the groups' arrays."""
+    out = {k: t for (g, k), t in tensors.items() if g is None}
+    if "groups" in batch:
+        out["groups"] = tuple({k: t for (h, k), t in tensors.items() if h == g}
+                              for g in range(len(batch["groups"])))
+    return out
+
+
 def batch_to_device(batch: dict, device) -> dict:
     """The host batch's arrays that the encode path and the losses read, as
     tensors on ``device`` (numpy dtypes kept: int32 indices, bool masks, f32
     values; the counts become 0-d int32 tensors). A split batch keeps its
     loss arrays at the top and gets ``"groups"``: a tuple of the groups'
     encode arrays."""
-    def put(src: dict, keys) -> dict:
-        return {k: torch.as_tensor(np.asarray(src[k])).to(device, non_blocking=True)
-                for k in keys}
+    return _nest(batch, {
+        (g, k): torch.as_tensor(np.asarray(_source(batch, g, k))).to(device, non_blocking=True)
+        for g, k in device_layout(batch)})
 
-    runs = tuple(k for k in RUN_KEYS if k in batch)
-    if "groups" in batch:
-        out = put(batch, ("edge_src", "edge_dst", "edge_valid") + LOSS_KEYS + runs)
-        out["groups"] = tuple(put(g, DEVICE_KEYS) for g in batch["groups"])
-        return out
-    return put(batch, DEVICE_KEYS + LOSS_KEYS + runs)
+
+# byte alignment of each array in a StaticBatch's buffer
+STATIC_ALIGN = 256
+
+
+class StaticBatch:
+    """Device buffers that hold one step's batch at fixed addresses, for a
+    captured step (``train/step.make_multi_step``), which reads its inputs
+    where the capture found them: the arrays of ``batch_to_device``, as
+    views of one byte buffer, ``views``.
+
+    A group of K steps of this layout (a host batch with a leading step
+    axis, as ``data.batching.collate_shards`` stacks it) is first written
+    into a host staging area on the caller's thread, one numpy copy per
+    array (``stage``); each step then reaches the device buffer with ONE
+    copy of its row (``load``), enqueued on the current stream outside
+    any graph. On the card the staging area is pinned and double-buffered:
+    a group is staged into the area the previous group did not use, after
+    the copies out of it have completed (an event recorded after them),
+    so that a fill never races an in-flight copy."""
+
+    def __init__(self, batch: dict, device):
+        self.device = torch.device(device)
+        self.layout = []          # (group, key, shape, numpy dtype, byte offset, bytes)
+        at = 0
+        for g, k in device_layout(batch):
+            a = np.asarray(_source(batch, g, k))
+            self.layout.append((g, k, a.shape, a.dtype, at, a.nbytes))
+            at += -(-max(a.nbytes, 1) // STATIC_ALIGN) * STATIC_ALIGN
+        self.nbytes = at
+        self.buffer = torch.empty((at,), dtype=torch.uint8, device=self.device)
+        self.views = _nest(batch, {
+            (g, k): self.buffer[off:off + n].view(torch.from_numpy(np.empty(0, dt)).dtype)
+            .view(shape) for g, k, shape, dt, off, n in self.layout})
+        self._areas = [None, None]   # staging areas [K, nbytes] and their last copies' events
+        self._turn = 0
+
+    @staticmethod
+    def signature(batch: dict) -> tuple:
+        """What a layout is: every device array's place, shape and dtype."""
+        return tuple((g, k, np.shape(a), np.asarray(a).dtype.str)
+                     for g, k in device_layout(batch) for a in [_source(batch, g, k)])
+
+    def stage(self, sbatch: dict, steps: int) -> torch.Tensor:
+        """The K = ``steps`` rows of the stacked batch ``sbatch`` in a host
+        staging area [K, nbytes] (pinned on the card); returns it. Call
+        ``staged_loaded`` once the rows' loads are enqueued."""
+        turn = self._turn
+        self._turn = 1 - turn
+        area, done = self._areas[turn] or (None, None)
+        if done is not None:
+            done.synchronize()
+        if area is None or area.shape[0] < steps:
+            area = torch.empty((steps, self.nbytes), dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+        host = area.numpy()
+        for g, k, shape, dt, off, n in self.layout:
+            a = np.ascontiguousarray(_source(sbatch, g, k), dtype=dt)
+            if a.shape != (steps,) + shape:
+                raise ValueError(f"stage: {k} of group {g} is {a.shape}, this layout holds "
+                                 f"{(steps,) + shape}")
+            host[:steps, off:off + n] = a.reshape(steps, -1).view(np.uint8)
+        self._areas[turn] = (area, None)
+        return area[:steps]
+
+    def load(self, row: torch.Tensor) -> None:
+        """One staged step into the device buffer: one copy, on the current
+        stream."""
+        self.buffer.copy_(row, non_blocking=self.device.type == "cuda")
+
+    def staged_loaded(self) -> None:
+        """The last staged area's loads are enqueued on the current stream:
+        its next ``stage`` waits until they have run."""
+        turn = 1 - self._turn
+        if self.device.type == "cuda" and self._areas[turn] is not None:
+            done = torch.cuda.Event()
+            done.record()
+            self._areas[turn] = (self._areas[turn][0], done)
 
 
 def num_levels(batch: dict) -> int:
     """Real level count of a host batch (update levels are 1..max level):
     the deepest chunk's or group's, for a chunked or split batch."""
     return int(np.max(batch["forward_level"]))
+
+
+def table_levels(batch: dict) -> tuple:
+    """The level counts that walk every row of a batch's level tables,
+    padding levels included, in ``level_counts``' structure: the padded L
+    for each chunk, or for a split batch one such tuple per group. Shapes
+    alone fix them, so a captured step bakes them in for every batch of its
+    layout; a padding level has no valid slot and changes nothing (the JAX
+    kernels walk them all too, ``grid=(L,)``). Host or device batch."""
+    if "groups" in batch:
+        return tuple(table_levels(g) for g in batch["groups"])
+    shape = tuple(batch["lv_nodes"].shape)
+    return (shape[-2],) * (shape[0] if len(shape) == 3 else 1)
 
 
 def level_counts(batch: dict) -> tuple:
@@ -321,7 +440,10 @@ def struct_towers(params, b: dict, cfg: DGConfig):
                                      cfg.layernorm)
 
     if remat_struct(cfg, x_feat.shape[0]) and torch.is_grad_enabled():
-        return checkpoint(towers, params["struct"], use_reentrant=False)
+        # the towers draw nothing: no RNG state to stash and restore (reading
+        # the CUDA generators' state is not allowed inside a captured step)
+        return checkpoint(towers, params["struct"], use_reentrant=False,
+                          preserve_rng_state=False)
     return towers(params["struct"])
 
 

@@ -57,12 +57,28 @@ capture changes no number. The multi-task subclasses
 capture nothing, as in the JAX package; ``EarlyTrainer`` runs this
 ``train`` an epoch at a time.
 
+``steps_per_call`` K (default 8, as the JAX trainer's): each phase's
+steps run in groups of K through the K-step calls
+(``train.step.make_multi_step`` / ``make_multi_eval``), the tail step by
+step, with the JAX trainer's rules (``mgvae_tpu/train/trainer.py:722-876``):
+per step throughout when the dims are free (``fixed_dims=False``), when the
+phase has fewer than K steps, and under data parallelism. The prefetch
+thread collates a whole group in one call (``collate_shards`` of the K
+steps as shards, ``collate_split_step`` for split batches), the bytes each
+step's own collate would give. On the card each step of a group is a
+replay of the step's captured CUDA graph; on the CPU it runs eagerly. The
+metrics, the draws and every tensor come out as the per-step run's: bit
+for bit on the fused route (the trainer's layouts), and within the order
+of the weight gradients' sums on the step and giant routes (``train/step``).
+A progress line is printed when ``log_every`` steps have passed since the
+last one (a group advances K at once).
+
 Not ported (ROADMAP "Not ported by design"): the packed transfer, the thin
-wire, the K-step scan (``steps_per_call`` is accepted and ignored) and the
-split layout's pre-grown dims (they change padding only).
+wire and the split layout's pre-grown dims (they change padding only).
 """
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -79,7 +95,9 @@ from ..data.batching import (
     collate,
     collate_chunked,
     collate_fit,
+    collate_shards,
     collate_split,
+    collate_split_step,
     natural_dims,
     split_dims,
     split_groups_by_shape,
@@ -91,7 +109,8 @@ from ..ops.level_kernel import kernel_fits
 from ..parallel.mesh import local_device, maybe_initialize_distributed
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logger import AverageMeter, Logger
-from .step import METRIC_KEYS, make_optimizer, make_train_step, param_leaves, set_lr
+from .step import (METRIC_KEYS, make_multi_eval, make_multi_step, make_optimizer,
+                   make_train_step, param_leaves, set_lr)
 
 # chunk counts tried on the first step, smallest first (the JAX trainer's)
 CHUNK_CANDIDATES = (1, 2, 3, 4, 6, 8)
@@ -217,6 +236,9 @@ class Trainer:
         self.optimizer = make_optimizer(self.params, lr)
         self.train_step, self.eval_step = make_train_step(model_cfg, self.optimizer,
                                                           group=self.group)
+        self.steps_per_call = max(int(steps_per_call), 1)
+        self.multi_step = make_multi_step(model_cfg, self.optimizer)
+        self.multi_eval = make_multi_eval(model_cfg)
         self.model_epoch = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._np_rng = np.random.default_rng(seed + 2)
@@ -225,9 +247,6 @@ class Trainer:
         if self.is_chief:
             time_str = time.strftime("%Y-%m-%d-%H-%M")
             self.logger = Logger(os.path.join(self.log_dir, f"log-{time_str}.txt"))
-            if int(steps_per_call) != 1:
-                print(f"[INFO] steps_per_call={steps_per_call} is not ported: one optimizer "
-                      "step per call")
             mode = ("single device" if self.group is None
                     else f"data-parallel over {world} process(es), one device each")
             print(f"[INFO] Training {mode}; device={self.device}")
@@ -469,25 +488,21 @@ class Trainer:
             return collate_chunked(graphs, num_chunks, dims=dims)
         return collate(graphs, dims=dims)
 
-    def _iter_batches(self, dataset):
-        """Host batches of one epoch, collated in a prefetch thread (the
-        native library or numpy, no CUDA call) PREFETCH_DEPTH steps ahead.
-        An error in the thread is raised here; closing the generator early
-        stops the thread."""
-        idx, n_steps, dims, C = self._epoch_plan(dataset)
-        bs, w, r = self.batch_size, self.num_devices, self.rank
+    def _prefetch(self, items):
+        """The items of the iterable ``items`` (host batches, made in it),
+        made in a prefetch thread (the native library or numpy, no CUDA call)
+        PREFETCH_DEPTH items ahead. An error in the thread is raised here;
+        closing the generator early stops the thread."""
         q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         stop = threading.Event()
 
         def producer():
             end = RuntimeError("the prefetch thread stopped before the epoch's end")
             try:
-                for s in range(n_steps):
+                for item in items:
                     if stop.is_set():
                         return
-                    j = s * w + r       # this rank's shard of step s
-                    q.put(self._collate_step([dataset[i] for i in idx[j * bs:(j + 1) * bs]],
-                                             dims, C))
+                    q.put(item)
                 end = None
             except Exception as e:  # handed to the consumer, which raises it
                 end = e
@@ -511,6 +526,43 @@ class Trainer:
                     q.get(timeout=0.05)
                 except queue.Empty:
                     pass
+
+    def _step_graphs(self, dataset, idx, s: int) -> list:
+        """This rank's shard of step ``s``."""
+        bs, j = self.batch_size, s * self.num_devices + self.rank
+        return [dataset[i] for i in idx[j * bs:(j + 1) * bs]]
+
+    def _iter_batches(self, dataset):
+        """Host batches of one epoch, one per step, collated in the prefetch
+        thread."""
+        idx, n_steps, dims, C = self._epoch_plan(dataset)
+        return self._prefetch(self._collate_step(self._step_graphs(dataset, idx, s), dims, C)
+                              for s in range(n_steps))
+
+    def _iter_grouped(self, dataset, use_multi: bool):
+        """("group", (stacked host batch, K)) and ("single", host batch)
+        items of one epoch, collated in the prefetch thread: groups of K =
+        ``steps_per_call`` steps, each collated in one call with the K
+        steps as shards, then the tail step by step; every step singly
+        without ``use_multi``, with free dims, or when the epoch has fewer
+        than K steps (the JAX trainer's ``_iter_grouped``)."""
+        idx, n_steps, dims, C = self._epoch_plan(dataset)
+        K = self.steps_per_call
+        starts, singles = range(0), range(n_steps)
+        if use_multi and dims is not None and n_steps >= K:
+            starts = range(0, n_steps - K + 1, K)
+            singles = range(len(starts) * K, n_steps)
+
+        def make_group(s0):
+            shards = [self._step_graphs(dataset, idx, s) for s in range(s0, s0 + K)]
+            if isinstance(dims, list):   # split: per-group dims
+                return collate_split_step(shards, dims)
+            return collate_shards(shards, dims=dims, num_chunks=C)
+
+        return self._prefetch(itertools.chain(
+            (("group", (make_group(s0), K)) for s0 in starts),
+            (("single", self._collate_step(self._step_graphs(dataset, idx, s), dims, C))
+             for s in singles)))
 
     # ------------------------------------------------------------------
     def _start_trace(self):
@@ -541,19 +593,31 @@ class Trainer:
         steps_done = 0
         last_logged = 0
         t0 = time.time()
-        for batch in self._iter_batches(ds):
+        use_multi = self.steps_per_call > 1 and self.group is None
+        for kind, item in self._iter_grouped(ds, use_multi):
             ts = time.perf_counter() if self.step_times is not None else 0.0
-            if phase == "train":
-                self.state, m = self.train_step(self.params, self.state, batch,
-                                                self._gen, weights)
+            if kind == "group":
+                sbatch, k = item
+                if phase == "train":
+                    self.state, rows = self.multi_step(self.params, self.state, sbatch,
+                                                       self._gen, weights)
+                else:
+                    rows = self.multi_eval(self.params, self.state, sbatch, self._gen,
+                                           weights)
             else:
-                m = self.eval_step(self.params, self.state, batch, self._gen, weights)
-            pending.append(torch.stack([m[k] for k in METRIC_KEYS]))
-            steps_done += 1
+                k = 1
+                if phase == "train":
+                    self.state, m = self.train_step(self.params, self.state, item,
+                                                    self._gen, weights)
+                else:
+                    m = self.eval_step(self.params, self.state, item, self._gen, weights)
+                rows = torch.stack([m[key] for key in METRIC_KEYS])[None]
+            pending.append(rows)
+            steps_done += k
             if (self.log_every and self.is_chief
                     and steps_done - last_logged >= self.log_every):
                 last_logged = steps_done
-                mm = dict(zip(METRIC_KEYS, pending[-1].tolist()))
+                mm = dict(zip(METRIC_KEYS, pending[-1][-1].tolist()))
                 print(
                     f"[{phase} {self.model_epoch}] {epoch}/{num_epoch} it {steps_done} "
                     f"|Recon: {mm['recon_loss']:.4f} |Prob: {mm['prob_loss']:.4f} "
@@ -562,7 +626,7 @@ class Trainer:
             if self.step_times is not None:
                 self.step_times.append((phase, steps_done, time.perf_counter() - ts))
         tf = time.perf_counter() if self.step_times is not None else 0.0
-        rows = (torch.stack(pending).cpu().numpy() if pending
+        rows = (torch.cat(pending).cpu().numpy() if pending
                 else np.zeros((0, len(METRIC_KEYS)), np.float32))
         if self.step_times is not None:
             self.step_times.append(

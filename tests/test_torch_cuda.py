@@ -1696,3 +1696,182 @@ def test_bf16_sharded_step_at_mp1_on_card_equals_fp32(one_rank_nccl, route):
     for other in runs[1:]:
         for a, c in zip(other, runs[0], strict=True):
             assert a.dtype == c.dtype == torch.float32 and torch.equal(a, c)
+
+
+# ---- the K-step calls (train.step.make_multi_step / make_multi_eval) ----------------
+
+MS_CFG = dict(modality="mig", dim_hidden=64, s_rounds=2, t_rounds=2, layernorm=True,
+              matmul_precision="highest")
+MS_WEIGHTS = [1.0, 4.0, 4.0, 0.0]
+
+
+def _ms_group(K=4, bs=4, seed=7):
+    """A group of K bs-circuit steps stacked at their common dims."""
+    from mgvae_tpu_torch.data import batching
+
+    rng = np.random.default_rng(seed)
+    graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=100 + 10 * (i % 3))
+              for i in range(K * bs)]
+    shards = [graphs[i * bs:(i + 1) * bs] for i in range(K)]
+    dims: dict = {}
+    for sh in shards:
+        for k, v in batching.natural_dims(sh).items():
+            dims[k] = max(dims.get(k, 0), v)
+    return batching.collate_shards(shards, dims=dims)
+
+
+def _ms_run(sb, groups, grouped, lr_at=None):
+    """``groups`` K-step train and eval calls (grouped) or their K
+    train_step / eval_step calls each; ``lr_at`` (group, lr): set_lr before
+    that group. Returns every metric row, the params, Adam's state and BN
+    state after, the generator's state and the captures."""
+    cfg = dg_ae.DGConfig(**MS_CFG)
+    params, state = dg_ae.init_params(cfg, seed=1, device="cuda")
+    opt = step.make_optimizer(params, 1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    multi, multi_eval = step.make_multi_step(cfg, opt), step.make_multi_eval(cfg)
+    train_step, eval_step = step.make_train_step(cfg, opt)
+    K = sb["gate"].shape[0]
+
+    def row(m):
+        return torch.stack([m[k] for k in step.METRIC_KEYS])
+
+    rows = []
+    for g in range(groups):
+        if lr_at and g == lr_at[0]:
+            step.set_lr(opt, lr_at[1])
+        if grouped:
+            state, r = multi(params, state, sb, gen, MS_WEIGHTS)
+            rows += [r, multi_eval(params, state, sb, gen, MS_WEIGHTS)]
+            continue
+        for k in range(K):
+            state, m = train_step(params, state, step.step_of(sb, k), gen, MS_WEIGHTS)
+            rows.append(row(m)[None])
+        rows += [row(eval_step(params, state, step.step_of(sb, k), gen, MS_WEIGHTS))[None]
+                 for k in range(K)]
+    torch.cuda.synchronize()
+    adam = [t for p in step.param_leaves(params) for t in opt.state[p].values()]
+    return (torch.cat(rows), step.param_leaves(params) + adam + step.param_leaves(state),
+            gen.get_state(), multi.captures + multi_eval.captures)
+
+
+def _ms_equal(a, b):
+    return (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1], strict=True)))
+
+
+def test_multi_step_graph_equals_eager_steps_on_card(cuda):
+    """K = 4: two K-step train and eval calls (the first step of each
+    eager, then one capture each and replays) against the 16 eager steps:
+    metric rows, params, Adam's state, BN state and the generator's state
+    bit for bit; each replay counts the launches its graph holds."""
+    sb = _ms_group()
+    before = step.launch_counts()
+    graph = _ms_run(sb, 2, True)
+    mid = step.launch_counts()
+    eager = _ms_run(sb, 2, False)
+    after = step.launch_counts()
+    assert graph[3] == 2 and _ms_equal(graph, eager)
+    for m, n in (("struct", "launches"), ("struct", "bwd_launches"), ("level", "launches"),
+                 ("level", "bwd_launches"), ("level", "lists_launches")):
+        mod = struct_kernel if m == "struct" else level_kernel
+        assert mid[(mod, n)] - before[(mod, n)] == after[(mod, n)] - mid[(mod, n)] > 0, n
+
+
+def test_multi_step_lr_change_after_capture_takes_effect_on_card(cuda):
+    """set_lr between calls writes the device lr that the captured step
+    reads: three calls with the lr changed before the third equal the eager
+    steps with the same change, and differ from the calls without it."""
+    sb = _ms_group(K=2)
+    changed = _ms_run(sb, 3, True, lr_at=(2, 1e-2))
+    assert changed[3] == 2 and _ms_equal(changed, _ms_run(sb, 3, False, lr_at=(2, 1e-2)))
+    assert not _ms_equal(changed, _ms_run(sb, 3, True))
+
+
+def test_multi_step_captures_anew_after_a_loaded_state_on_card(cuda):
+    """A loaded optimizer state (new tensors, as from a checkpoint) moves
+    what the captured step read: the next call runs its first step eagerly
+    and captures again, and the calls equal the eager steps with the same
+    load, bit for bit."""
+    import copy
+
+    sb = _ms_group(K=2)
+    cfg = dg_ae.DGConfig(**MS_CFG)
+    out = []
+    for grouped in (True, False):
+        params, state = dg_ae.init_params(cfg, seed=1, device="cuda")
+        opt = step.make_optimizer(params, 1e-3)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        multi = step.make_multi_step(cfg, opt)
+        train_step, _ = step.make_train_step(cfg, opt)
+        rows = []
+        for g in range(3):
+            if g == 2:   # the state through the host, as a checkpoint brings it
+                saved = copy.deepcopy(opt.state_dict())
+                for st in saved["state"].values():
+                    for k, v in st.items():
+                        st[k] = v.cpu()
+                opt.load_state_dict(saved)
+            if grouped:
+                state, r = multi(params, state, sb, gen, MS_WEIGHTS)
+                rows.append(r)
+                continue
+            for k in range(sb["gate"].shape[0]):
+                state, m = train_step(params, state, step.step_of(sb, k), gen, MS_WEIGHTS)
+                rows.append(torch.stack([m[x] for x in step.METRIC_KEYS])[None])
+        torch.cuda.synchronize()
+        out.append((torch.cat(rows), step.param_leaves(params) + step.param_leaves(state),
+                    multi.captures))
+    assert out[0][2] == 2 and torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1], strict=True))
+
+
+def test_padded_level_walk_equals_real_walk_on_card(cuda):
+    """Kernels 1 and 2 over every row of level tables padded past the real
+    levels (what a captured step walks) against the real levels: hf and
+    every gradient bit for bit."""
+    from mgvae_tpu_torch.data import batching
+
+    cfg = dg_ae.DGConfig(**MS_CFG)
+    params, _ = dg_ae.init_params(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(8)
+    graphs = [random_circuit(rng, "mig", num_inputs=8, num_gates=150) for _ in range(4)]
+    dims = batching.natural_dims(graphs)
+    dims["L"] += 11
+    batch = collate(graphs, dims=dims)
+    b = dg_ae.batch_to_device(batch, cuda)
+    with torch.no_grad():
+        hs = dg_ae.struct_hs(params, b, cfg)
+        args = dg_ae.level_scan_inputs(params, b, cfg, hs)
+    args = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+    floats = [args[i] for i in level_kernel.FLOAT_ARGS]
+    real, L = dg_ae.level_counts(batch)[0], args[0].shape[0]
+    assert dg_ae.table_levels(batch) == (L,) and real < L
+    cot = torch.randn((hs.shape[0], hs.shape[1]), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for n in (real, L):
+        hf = level_kernel.level_scan(*args, num_nodes=hs.shape[0], num_levels=n)
+        outs.append([hf.detach()] + list(torch.autograd.grad((hf * cot.cuda()).sum(), floats)))
+    assert all(torch.equal(x, y) for x, y in zip(*outs, strict=True))
+
+
+def test_failed_capture_raises_on_card(cuda, monkeypatch):
+    """A step that cannot be captured (it reads a loss back on the host)
+    raises from the K-step call: its first step runs eagerly, the capture
+    fails, and nothing runs in the replay's place. Last in the file: the
+    failed capture's stream is the call's own."""
+    sb = _ms_group(K=2)
+    cfg = dg_ae.DGConfig(**MS_CFG)
+    params, state = dg_ae.init_params(cfg, seed=1, device="cuda")
+    multi = step.make_multi_step(cfg, step.make_optimizer(params, 1e-3))
+    real = step.func_loss
+
+    def read_back(hf, b):
+        loss = real(hf, b)
+        float(loss)
+        return loss
+
+    monkeypatch.setattr(step, "func_loss", read_back)
+    with pytest.raises(RuntimeError, match="capturing the train step"):
+        multi(params, state, sb, torch.Generator(device="cuda").manual_seed(2), MS_WEIGHTS)
+    assert multi.captures == 0
