@@ -266,7 +266,9 @@ Phases (any failure raises and the script exits nonzero):
      whose averaged gradients equal
      one process averaging both shards' own, and dp = 1 x mp = 2 on the
      bs16 batch (each member's launches; gradients against (b)'s), each
-     with its ms per step; whether this torch's gloo takes CUDA tensors.
+     with its ms per step; whether this torch's gloo takes CUDA tensors;
+     and [multistep] (f)'s gloo check (``ms_gloo_check``): the K-step call
+     refuses the gloo group, the trainer at steps_per_call 8 steps singly.
 
   [balancer] the multi-task trainers and the rest of ROADMAP 1.9
      (``balancer_phase``), after [parallel]: (a) one epoch each of
@@ -324,15 +326,37 @@ Phases (any failure raises and the script exits nonzero):
      against ``train_step``'s real-level walk (bit for bit on the split
      layout's fused route; the step and giant backwards' blocks of levels
      shift with the padded walk, so there the weight gradients' sums
-     reassociate); (c) [trainer]'s epoch at steps_per_call 8 against 1, in
+     reassociate), and fault 3.10's check: ONE bs64 C=2 step on the step
+     route as the K-step call's replayed graph against ``train_step``'s
+     real-level walk, from the same params and draws, each gradient leaf
+     within 1e-4 of its own scale (floored as phase 7 floors it); (c)
+     [trainer]'s epoch at steps_per_call 8 against 1, in
      turns: rows and tensors bit for bit, ms per train step (medians),
      captures, launches per step, and one epoch of each under
      torch.profiler (wall, device busy share, host time); (d) the 3-stage
      CLI at 8 against 1 with an lr decay every epoch: the six epoch lines
      equal but for their time; (e) a step that reads a loss back on the
-     host raises from its capture. [trainer], [balancer] (a), (d) and
-     [native] (d) run the grouped trainer (steps_per_call 8) and count a
-     K-step call's launches and rows per step.
+     host raises from its capture; (f) the K-step calls under data
+     parallelism (ROADMAP 1.15; ``multistep_dp``) over a one-rank NCCL group
+     (the launch variables set in-process): [trainer]'s epoch grouped at
+     steps_per_call 8 under the group, the single-device grouped epoch and
+     the group's per-step epoch, twice each in turns, everything bit for
+     bit, one capture for train and none for val, launches per step (8,
+     17, 1, 3, 1) and one all-reduce (the counts set to 0 before each epoch
+     and read after: every kernel of the path and the all-reduce launched),
+     ms per train step of each; one grouped data-parallel epoch under
+     torch.profiler (busy share) beside the single-device grouped one, and
+     the device events per step that the group's mean adds, by name (the
+     one-rank all-reduce's NCCL kernel or copy among them); one K = 4 call
+     of the bs64 C=2 layout on the step route (kernels 5 and 6) under the
+     group bit for bit against the same steps run eagerly under it and
+     against the single-device call; and the gloo check made in [parallel]
+     (c)'s two processes sharing the card (``ms_gloo_check``):
+     ``make_multi_step(group=)`` raises a ValueError naming NCCL before any
+     step, and a Trainer at steps_per_call 8 steps singly. [trainer],
+     [balancer] (a), (d) and [native] (d) run the grouped trainer
+     (steps_per_call 8) and count a K-step call's launches and rows per
+     step.
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
@@ -891,23 +915,25 @@ MS_KERNELS = {
 }
 
 
-def ms_run(torch, cfg, sb, mode: str, groups: int = MS_GROUPS) -> dict:
+def ms_run(torch, cfg, sb, mode: str, groups: int = MS_GROUPS, group=None) -> dict:
     """``groups`` K-step train calls, each followed by a K-step eval call, on
     the stacked batch ``sb`` from fixed params: ``mode`` "graph"
     (``make_multi_step`` / ``make_multi_eval``: the first step eager, then
     the capture and replays), "padded" (the same calls, every step eager:
     ``CAPTURE_WARMUP`` raised) or "eager" (K ``train_step`` / ``eval_step``
-    calls a call: the real levels). Returns the metric rows, the params,
-    Adam's state and the BN state after, the generator's state, ms per step
-    (train and eval alike, capture included) and launches per step."""
+    calls a call: the real levels); ``group``: a data-parallel process
+    group for every call. Returns the metric rows, the params, Adam's state
+    and the BN state after, the generator's state, ms per step (train and
+    eval alike, capture included) and launches per step."""
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.train import step as step_mod
 
     params, state = dg_ae.init_params(cfg, seed=SEED + 9, device=DEVICE)
     opt = step_mod.make_optimizer(params, TRAIN_LR)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
-    multi, multi_eval = step_mod.make_multi_step(cfg, opt), step_mod.make_multi_eval(cfg)
-    train_step, eval_step = step_mod.make_train_step(cfg, opt)
+    multi = step_mod.make_multi_step(cfg, opt, group=group)
+    multi_eval = step_mod.make_multi_eval(cfg, group=group)
+    train_step, eval_step = step_mod.make_train_step(cfg, opt, group=group)
     K = int(sb["gate"].shape[0])
 
     def row(m):
@@ -953,6 +979,77 @@ def ms_differ(torch, a: dict, b: dict) -> tuple:
     same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs)
     worst = max(float((x.float() - y.float()).abs().max()) for x, y in pairs if x.numel())
     return same and torch.equal(a["gen"], b["gen"]), worst
+
+
+def ms_one_step_grads(torch, cfg, sb) -> dict:
+    """Fault 3.10: the gradients of ONE step, the second of the stacked
+    batch ``sb`` (K = 2), as the K-step call's replayed graph (its first
+    step eager, then the capture) and as ``train_step``'s real-level walk
+    (two calls), from the same params (Adam at lr 0 keeps them) and the
+    same draws. Returns the worst leaf's max |d| over 1e-4 of its own scale
+    (floored at GRAD_FLOOR of the largest entry over all leaves, as phase 7
+    floors it), that leaf's name, the worst unfloored ratio, and the step
+    route's backward launches of each side."""
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.ops import level_kernel
+    from mgvae_tpu_torch.train import step as step_mod
+
+    grads, launches, names = {}, {}, None
+    for mode in ("graph", "real"):
+        params, state = dg_ae.init_params(cfg, seed=SEED + 9, device=DEVICE)
+        names = named_leaves(params)
+        opt = step_mod.make_optimizer(params, 0.0)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+        before = level_kernel.step_bwd_launches
+        if mode == "graph":
+            multi = step_mod.make_multi_step(cfg, opt)
+            multi(params, state, sb, gen, WEIGHTS)
+            if multi.captures != 1:
+                raise RuntimeError(f"[multistep] (b) 3.10: {multi.captures} captures, not 1")
+        else:
+            train_step, _ = step_mod.make_train_step(cfg, opt)
+            for k in range(2):
+                state, _ = train_step(params, state, step_mod.step_of(sb, k), gen, WEIGHTS)
+        torch.cuda.synchronize()
+        launches[mode] = level_kernel.step_bwd_launches - before
+        grads[mode] = [None if p.grad is None else p.grad.detach().float()
+                       for p in step_mod.param_leaves(params)]
+    scale = max(g.abs().max().item() for g in grads["real"] if g is not None)
+    worst, leaf, raw = 0.0, None, 0.0
+    for name, a, c in zip(names, grads["graph"], grads["real"], strict=True):
+        if (a is None) != (c is None):
+            raise RuntimeError(f"[multistep] (b) 3.10: {name} has a gradient on one side only")
+        if c is None:
+            continue
+        d = (a - c).abs().max().item()
+        own = c.abs().max().item()
+        ratio = d / (GRAD_TOL * max(own, GRAD_FLOOR * scale))
+        raw = max(raw, d / own if own else (0.0 if d == 0 else math.inf))
+        if not ratio <= worst:
+            worst, leaf = ratio, name
+    return {"worst": worst, "leaf": leaf, "raw": raw, "launches": launches}
+
+
+def ms_profiled(torch, t, train_ds) -> dict:
+    """One train epoch of the trainer ``t`` under torch.profiler: wall ms,
+    device busy ms, host self ms of its operators, device events, and the
+    device events by name (their counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.train(1, train_ds, [])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [x for x in prof.events() if x.device_type == torch.autograd.DeviceType.CUDA]
+    names: dict = {}
+    for x in on_card:   # the profiler names one memset "(Device)" or "(Unknown)"
+        name = re.sub(r"^Memset \(.*\)$", "Memset", x.name)
+        names[name] = names.get(name, 0) + 1
+    return {"wall": wall * 1e3, "busy": sum(x.time_range.elapsed_us() for x in on_card) / 1e3,
+            "host": sum(x.self_cpu_time_total for x in prof.key_averages()) / 1e3,
+            "events": len(on_card), "names": names}
 
 
 def multistep_phase(torch, dev, card: str, env) -> dict:
@@ -1051,6 +1148,23 @@ def multistep_phase(torch, dev, card: str, env) -> dict:
             ok &= same_e
         del g, p, e, sb
         torch.cuda.empty_cache()
+    # fault 3.10: ONE bs64 C=2 step on the step route, graph against the real walk
+    sb = batching.collate_shards(shards64[:2], num_chunks=CHUNKS)
+    real = [dg_ae.level_counts(step_mod.step_of(sb, k)) for k in range(2)]
+    f310 = ms_one_step_grads(torch, cfg, sb)
+    log(f"[multistep] (b) fault 3.10: ONE bs64 C=2 step on the step route (the second of a "
+        f"K = 2 call; real levels per chunk {real}, tables "
+        f"{dg_ae.table_levels(step_mod.step_of(sb, 1))} rows), "
+        f"the K-step call's replayed graph against train_step's real-level walk from the same "
+        f"params and draws: worst gradient leaf {f310['leaf']} at {f310['worst']:.4f} of "
+        f"{GRAD_TOL} x its own scale (floored at {GRAD_FLOOR} of the largest entry), worst "
+        f"unfloored max |d| / scale {f310['raw']:.3e}; step backward launches graph / real "
+        f"{f310['launches']['graph']} / {f310['launches']['real']}")
+    if not f310["worst"] <= 1.0 or not min(f310["launches"].values()) > 0:
+        raise RuntimeError("[multistep] (b) fault 3.10: a gradient leaf of the K-step call's "
+                           "step-route graph is past 1e-4 of its own scale against the real "
+                           "walk, or a side did not take the step route")
+    del sb
 
     # ---- (c) the [trainer] epoch at steps_per_call 8 against 1 -------------------
     env.clock("[multistep] (c)")
@@ -1089,21 +1203,7 @@ def multistep_phase(torch, dev, card: str, env) -> dict:
     launches = {spc: {ph: sorted(set(r[1].get(ph, []))) for ph in ("train", "val")}
                 for spc, r in runs.items()}
 
-    def profiled(t):
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            t.train(1, train_ds, [])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        on_card = [x for x in prof.events() if x.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(x.time_range.elapsed_us() for x in on_card) / 1e3
-        host = sum(x.self_cpu_time_total for x in prof.key_averages()) / 1e3
-        return wall * 1e3, busy, host, len(on_card)
-
-    prof = {spc: profiled(runs[spc][0]) for spc in (MS_K, 1)}
+    prof = {spc: ms_profiled(torch, runs[spc][0], train_ds) for spc in (MS_K, 1)}
     n_train = 9
     log(f"[multistep] (c) card: {card}")
     log(f"[multistep] (c) [trainer]'s epoch (MIG bs{BATCH}, D={DIM}, rounds {ROUNDS}, highest, "
@@ -1117,11 +1217,12 @@ def multistep_phase(torch, dev, card: str, env) -> dict:
         f"{[round(x, 3) for x in msg]}, median after the first {statistics.median(msg[1:]):.3f}; "
         f"at 1: {[round(x, 3) for x in mss]}, median after the first "
         f"{statistics.median(mss[1:]):.3f}")
-    for spc, (wall, busy, host, n) in prof.items():
+    for spc, pr in prof.items():
         log(f"[multistep] (c) one train epoch at steps_per_call {spc} under torch.profiler: "
-            f"wall {wall / n_train:.3f} ms per step, device busy {busy / n_train:.3f} ms per "
-            f"step (share {busy / wall:.3f}), host self time of its operators "
-            f"{host / n_train:.3f} ms per step, {n / n_train:.1f} device events per step")
+            f"wall {pr['wall'] / n_train:.3f} ms per step, device busy {pr['busy'] / n_train:.3f} "
+            f"ms per step (share {pr['busy'] / pr['wall']:.3f}), host self time of its "
+            f"operators {pr['host'] / n_train:.3f} ms per step, "
+            f"{pr['events'] / n_train:.1f} device events per step")
     ok &= same_c and g_train.captures == 1 and launches[MS_K] == launches[1]
     out["trainer_ms"] = (statistics.median(msg[1:]), statistics.median(mss[1:]))
     del runs, side
@@ -1187,7 +1288,187 @@ def multistep_phase(torch, dev, card: str, env) -> dict:
     if not ok:
         raise RuntimeError("[multistep]: a graph differs from its eager steps, a grouped epoch "
                            "from the per-step one, or a failed capture did not raise")
+    del multi, params, state, opt
+
+    multistep_dp(torch, card, env, args, tcfg, train_ds, val_ds, shards64)
     return out
+
+
+def multistep_dp(torch, card: str, env, args, tcfg, train_ds, val_ds, shards64) -> None:
+    """[multistep] (f) (ROADMAP 1.15): the K-step calls under data
+    parallelism on the card, over a one-rank NCCL group (the launch
+    variables set in-process, as [parallel] (a)). The [trainer] epoch
+    grouped (steps_per_call 8) under the group, the single-device grouped
+    epoch and the per-step epoch under the group, a new trainer of each
+    kind twice in turns, two epochs each (the first captures):
+    everything bit for bit, one capture for train and none for val,
+    launches per step; ms per train step; one grouped data-parallel epoch
+    under torch.profiler (busy share, and what the all-reduce adds by name
+    against the single-device grouped epoch); one K = 4 call of the bs64
+    C=2 layout on the step route under the group against the same steps run
+    eagerly under it and against the single-device call. [parallel] (c)'s
+    gloo processes checked the gloo refusal (``env.gloo``). Raises on any
+    failure."""
+    import torch.distributed as dist
+
+    from mgvae_tpu_torch.data import batching
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.ops import level_kernel, struct_kernel
+    from mgvae_tpu_torch.parallel import collectives
+    from mgvae_tpu_torch.parallel import mesh as mesh_mod
+    from mgvae_tpu_torch.train import step as step_mod
+    from mgvae_tpu_torch.train import trainer as trainer_mod
+
+    log = env.log
+    env.clock("[multistep] (f)")
+    t_f = time.perf_counter()
+    shutil.rmtree(MS_DIR, ignore_errors=True)
+    launch_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                  "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    os.environ.update(launch_env)
+    try:
+        mesh_mod.maybe_initialize_distributed(DEVICE, timeout=120)
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError(f"[multistep] (f): a {dist.get_backend(group)} group, not NCCL")
+
+        def epoch(kind: str, n: int):
+            distributed, spc = {"dp8": (True, MS_K), "single8": (False, MS_K),
+                                "dp1": (True, 1)}[kind]
+            p0, s0 = dg_ae.init_params(tcfg, seed=SEED + 5, device=DEVICE)
+            t = trainer_mod.Trainer(args, tcfg, params=p0, state=s0, training_id=f"{kind}_{n}",
+                                    save_dir=MS_DIR, batch_size=BATCH, distributed=distributed,
+                                    seed=SEED, steps_per_call=spc, device=DEVICE)
+            t.set_training_args(rc_prob_func_weight=WEIGHTS[:3], lr=TRAIN_LR)
+            if (t.group is not None) != distributed or t.grouped != (spc > 1):
+                raise RuntimeError(f"[multistep] (f) {kind}: group {t.group}, {t.step_mode}")
+            runners = (t.multi_step, t.multi_eval)
+            rec: dict = {}
+            for name, ph in (("train_step", "train"), ("eval_step", "val"),
+                             ("multi_step", "train"), ("multi_eval", "val")):
+                bal_instrument(torch, t, name, ph, rec)
+            # the counts from 0 just before the path, read just after; two
+            # epochs, the first with the capture, the second replaying
+            for m in (level_kernel, struct_kernel):
+                m.launches = m.bwd_launches = 0
+            level_kernel.lists_launches = level_kernel.step_launches = 0
+            level_kernel.step_bwd_launches = level_kernel.giant_launches = 0
+            level_kernel.giant_bwd_launches = collectives.launches = 0
+            ms = [t.train(1, train_ds, val_ds)["train"]["time"] * 1e3 for _ in range(2)]
+            torch.cuda.synchronize()
+            totals = par_counts()
+            adam = [v for p in step_mod.param_leaves(t.params)
+                    for v in t.optimizer.state[p].values()]
+            rows = torch.stack([torch.stack([x[k] for k in step_mod.METRIC_KEYS])
+                                for x in rec["metrics"]]).cpu()
+            return {"t": t, "ms": ms, "totals": totals, "rows": rows, "gen": t._gen.get_state(),
+                    "captures": (runners[0].captures, runners[1].captures),
+                    "per_step": {ph: sorted(set(rec.get(ph, []))) for ph in ("train", "val")},
+                    "tensors": [x.detach() for x in step_mod.param_leaves(t.params) + adam
+                                + step_mod.param_leaves(t.state)]}
+
+        order = ("dp8", "single8", "dp1", "dp1", "single8", "dp8")
+        seen: dict = {}
+        runs = []
+        for kind in order:
+            seen[kind] = seen.get(kind, 0) + 1
+            runs.append((kind, epoch(kind, seen[kind])))
+        base = runs[0][1]
+        diffs = [ms_differ(torch, base, r) for _, r in runs[1:]]
+        same = all(d[0] for d in diffs)
+        worst = max(d[1] for d in diffs)
+        want = {"train": [(2 * ROUNDS, SBWD_LAUNCHES, 1, 3, 1, 0, 0, 0, 0)],
+                "val": [(2 * ROUNDS, 0, 1, 0, 1, 0, 0, 0, 0)]}
+        ok_counts, ok_captures, ok_totals = True, True, True
+        for kind, r in runs:
+            coll = 0 if kind == "single8" else 1
+            ok_counts &= r["per_step"] == {ph: [w[0] + (coll,)] for ph, w in want.items()}
+            ok_captures &= r["captures"] == ((1, 0) if kind != "dp1" else (0, 0))
+            # every kernel of the path (rows 7, 8, 1, 2, the lists) and the
+            # all-reduce launched in the run
+            ok_totals &= min(r["totals"][:5]) > 0 and (r["totals"][9] > 0) == bool(coll)
+        dp8 = [r for kind, r in runs if kind == "dp8"]
+        log(f"[multistep] (f) card: {card}")
+        log(f"[multistep] (f) [trainer]'s epoch (MIG bs{BATCH}, D={DIM}, rounds {ROUNDS}, "
+            f"highest, 9 train and 1 val step, weights {WEIGHTS[:3]}; two epochs a trainer) "
+            f"over a one-rank "
+            f"{dist.get_backend(group)} group at steps_per_call {MS_K} (grouped), the "
+            f"single-device epoch at {MS_K} and the group's per-step epoch, in turns {order}: "
+            f"metric rows, params, Adam's state, BN state and the generator bit for bit {same} "
+            f"(max |d| {worst:.3e}); captures (train, val) "
+            f"{[(k, r['captures']) for k, r in runs]}; launches per step {PAR_NAMES} "
+            f"{dp8[0]['per_step']} (the single-device grouped step's and one all-reduce): as "
+            f"wanted {ok_counts}; counts of the grouped data-parallel epoch from 0: "
+            f"{dp8[0]['totals']}, every kernel of the path and the all-reduce launched "
+            f"{ok_totals}")
+        log(f"[multistep] (f) ms per train step (the trainer's Net time; a new trainer's "
+            f"first epoch with its capture / its second) in turns: "
+            + ", ".join(f"{k} {r['ms'][0]:.3f} / {r['ms'][1]:.3f}" for k, r in runs))
+        if not (same and ok_counts and ok_captures and ok_totals):
+            raise RuntimeError("[multistep] (f): the grouped data-parallel epoch differs from "
+                               "the single-device grouped or the per-step data-parallel epoch, "
+                               "or its captures or launches do")
+
+        # one grouped data-parallel epoch under torch.profiler, beside the
+        # single-device grouped epoch: the busy share, and what the mean adds
+        prof = {kind: ms_profiled(torch, r["t"], train_ds) for kind, r in runs[-2:]}
+        pd, ps = prof["dp8"], prof["single8"]
+        added = {k: (pd["names"].get(k, 0) - ps["names"].get(k, 0)) / 9
+                 for k in set(pd["names"]) | set(ps["names"])
+                 if pd["names"].get(k, 0) != ps["names"].get(k, 0)}
+        comm = {k: v for k, v in added.items() if re.search(r"nccl|memcpy", k, re.I)}
+        log(f"[multistep] (f) one grouped data-parallel train epoch under torch.profiler: wall "
+            f"{pd['wall'] / 9:.3f} ms per step, device busy {pd['busy'] / 9:.3f} ms per step "
+            f"(share {pd['busy'] / pd['wall']:.3f}), host self time {pd['host'] / 9:.3f} ms per "
+            f"step, {pd['events'] / 9:.1f} device events per step; the single-device grouped "
+            f"epoch: wall {ps['wall'] / 9:.3f}, busy {ps['busy'] / 9:.3f} (share "
+            f"{ps['busy'] / ps['wall']:.3f}), {ps['events'] / 9:.1f} events per step")
+        log(f"[multistep] (f) device events per train step that the group's mean adds (data "
+            f"parallel minus single device, by name): "
+            + "; ".join(f"{k[:90]} {v:+.2f}" for k, v in sorted(added.items()))
+            + f"; of them the one-rank all-reduce's (an NCCL kernel or a copy): "
+            f"{comm or 'none'}")
+        del runs, base, dp8, prof
+
+        # the step route under the group: one K = 4 call of the bs64 C=2 layout
+        cfg = dg_ae.DGConfig(modality="mig", dim_hidden=DIM, s_rounds=ROUNDS,
+                             t_rounds=ROUNDS, layernorm=True, matmul_precision="highest")
+        sb = batching.collate_shards(shards64, num_chunks=CHUNKS)
+        g = ms_run(torch, cfg, sb, "graph", groups=1, group=group)
+        p = ms_run(torch, cfg, sb, "padded", groups=1, group=group)
+        one = ms_run(torch, cfg, sb, "graph", groups=1)
+        same_p, worst_p = ms_differ(torch, g, p)
+        same_1, worst_1 = ms_differ(torch, g, one)
+        per = {k: v / g["steps"] for k, v in g["launches"].items()}
+        log(f"[multistep] (f) bs64 C=2 on the step route, one K = {MS_ROUTE_K} train and eval "
+            f"call under the group (graph: {g['captures']} captures) against the same steps "
+            f"run eagerly under it (train_step(group=)'s body over the padded walk): bit for "
+            f"bit {same_p} (max |d| {worst_p:.3e}); against the single-device call bit for bit "
+            f"{same_1} (max |d| {worst_1:.3e}); launches per step {per}; ms per step, the "
+            f"capture included, {g['ms']:.3f} under the group, {one['ms']:.3f} without")
+        if not (same_p and same_1 and g["captures"] == 2
+                and per.get("level_kernel.step_bwd_launches", 0) > 0
+                and per.get("collectives.launches") == 1):
+            raise RuntimeError("[multistep] (f): the step-route K-step call under the group "
+                               "differs from its eager steps or the single-device call, or "
+                               "its launches do")
+        del g, p, one, sb
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in launch_env:
+            os.environ.pop(k, None)
+        shutil.rmtree(MS_DIR, ignore_errors=True)
+
+    gloo = env.gloo
+    log(f"[multistep] (f) the gloo check, in [parallel] (c)'s two processes sharing the card: "
+        f"make_multi_step(group=) raised {[x['refused'][:120] for x in gloo]}, launches "
+        f"{[x['counts'] for x in gloo]}, captures {[x['captures'] for x in gloo]}; the trainer "
+        f"at steps_per_call {MS_K}: {[x['mode'] for x in gloo]}, calls "
+        f"{[x['calls'] for x in gloo]}")
+    log(f"[multistep] (f) {time.perf_counter() - t_f:.1f} s")
 
 
 def free_port() -> int:
@@ -1295,6 +1576,48 @@ def par_held(tag: str, got, want, phase: str = "[parallel]") -> float:
     return worst
 
 
+def ms_gloo_check(torch, cfg, dev, group, data: dict, outdir: str) -> dict:
+    """[multistep] (f) in one of [parallel] (c)'s gloo processes on the
+    card: ``make_multi_step(group=)`` must raise before any step runs, and
+    the trainer at steps_per_call MS_K must step singly. Returns what each
+    did: the error, the launches in the call, its captures, the trainer's
+    step mode and its calls."""
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.train import step as step_mod
+    from mgvae_tpu_torch.train.trainer import Trainer
+
+    params, state = dg_ae.init_params(cfg, seed=SEED + 3, device=dev)
+    multi = step_mod.make_multi_step(cfg, step_mod.make_optimizer(params, TRAIN_LR),
+                                     group=group)
+    before = par_counts()
+    try:
+        multi(params, state, data["ms_group"], torch.Generator(device=dev).manual_seed(SEED),
+              WEIGHTS)
+        refused = "not refused"
+    except ValueError as e:
+        refused = f"ValueError: {e}"
+    counts = tuple(a - b for a, b in zip(par_counts(), before))
+    tr = Trainer(types.SimpleNamespace(model="DG_AE"), cfg, training_id="gloo",
+                 save_dir=os.path.join(outdir, "gloo"), batch_size=2, distributed=True,
+                 seed=SEED, steps_per_call=MS_K, device=dev)
+    calls = {"group": 0, "single": 0}
+    inner_multi, inner_single = tr.multi_step, tr.train_step
+
+    def spy_multi(*a, **kw):
+        calls["group"] += 1
+        return inner_multi(*a, **kw)
+
+    def spy_single(*a, **kw):
+        calls["single"] += 1
+        return inner_single(*a, **kw)
+
+    tr.multi_step, tr.train_step = spy_multi, spy_single
+    tr.train(1, data["ms_graphs"], [])
+    torch.cuda.synchronize()
+    return {"refused": refused, "counts": counts, "captures": multi.captures,
+            "mode": tr.step_mode, "grouped": tr.grouped, "calls": calls}
+
+
 def parallel_worker(inp: str, outdir: str) -> None:
     """[parallel] (c): one of two processes that share the card over gloo
     (``python3 chip_smoke.py --parallel-worker <in> <out>``, started by
@@ -1334,6 +1657,8 @@ def parallel_worker(inp: str, outdir: str) -> None:
     out["dp_grads"] = par_grads(leaves)
     out["dp_ms"] = median_wall(run, PAR_TIMED, sync) * 1e3
 
+    out["ms_gloo"] = ms_gloo_check(torch, cfg, dev, dp_mesh.dp_group, data, outdir)
+
     mp_mesh = mesh_mod.make_mesh(1, world)
     run, leaves = par_stepper(
         torch, lambda opt: sharded.make_sharded_train_step(cfg, opt, mp_mesh), cfg,
@@ -1364,7 +1689,7 @@ def parallel_phase(torch, dev, card: str, env) -> dict:
 
     from mgvae_tpu_torch import cli, collate
     from mgvae_tpu_torch.config import get_parse_args
-    from mgvae_tpu_torch.data.batching import shard_levels_by_dst
+    from mgvae_tpu_torch.data.batching import collate_shards, shard_levels_by_dst
     from mgvae_tpu_torch.models import dg_ae
     from mgvae_tpu_torch.ops import level_kernel
     from mgvae_tpu_torch.ops.precision import matmul_precision as precision_scope
@@ -1650,7 +1975,12 @@ def parallel_phase(torch, dev, card: str, env) -> dict:
     dp_batches = [collate(r) for r in env.requests[:2]]
     dp_draws = [par_draws(torch, b, SEED + 20 + d) for d, b in enumerate(dp_batches)]
     inp = os.path.join(PAR_DIR, "parallel_in.pt")
-    torch.save({"dp": dp_batches, "dp_draws": dp_draws, "mp": mp2, "mp_draws": bs16_draws}, inp)
+    # [multistep] (f)'s gloo check: a K = 2 group of the first two requests, and
+    # 32 graphs, 8 trainer steps of 2 x bs2
+    ms_graphs = list(env.requests[0]) + list(env.requests[1])
+    torch.save({"dp": dp_batches, "dp_draws": dp_draws, "mp": mp2, "mp_draws": bs16_draws,
+                "ms_group": collate_shards([env.requests[0], env.requests[1]]),
+                "ms_graphs": ms_graphs}, inp)
     t0 = time.perf_counter()
     torchrun([os.path.abspath(__file__), "--parallel-worker", inp, PAR_DIR], 2,
              PAR_WORKER_TIMEOUT)
@@ -1681,6 +2011,18 @@ def parallel_phase(torch, dev, card: str, env) -> dict:
         f"{[round(x['mp_ms'], 3) for x in res]}; card {card}")
     if any(c != want for c in counts):
         raise RuntimeError(f"[parallel] (c): member launches {counts} != {want}")
+    gloo = [x["ms_gloo"] for x in res]
+    n_steps = len(ms_graphs) // (2 * 2)
+    log(f"[parallel] (c) [multistep] (f)'s gloo check: make_multi_step(group=) on the card "
+        f"{[x['refused'][:160] for x in gloo]}; launches in the call {PAR_NAMES} "
+        f"{[x['counts'] for x in gloo]}; the trainer at steps_per_call {MS_K}: "
+        f"{[x['mode'] for x in gloo]}, calls {[x['calls'] for x in gloo]}")
+    if not all(x["refused"].startswith("ValueError") and "NCCL" in x["refused"]
+               and not any(x["counts"]) and x["captures"] == 0 and not x["grouped"]
+               and x["calls"] == {"group": 0, "single": n_steps} for x in gloo):
+        raise RuntimeError("[parallel] (c): the K-step call did not refuse the gloo group "
+                           "before any step, or the trainer grouped its steps over gloo")
+    out["gloo"] = gloo
     out["c"] = {"dp_ms": [x["dp_ms"] for x in res], "mp_ms": [x["mp_ms"] for x in res]}
     shutil.rmtree(PAR_DIR)
     del out["bs16_grads"]
@@ -4732,7 +5074,7 @@ def main() -> int:
     clock("[multistep]")
     # ---- [multistep]: the K-step calls as CUDA graphs (ROADMAP 1.14) --------------
     ms_out = multistep_phase(torch, dev, card, types.SimpleNamespace(
-        log=log, clock=clock, giant_graph=giant_graph))
+        log=log, clock=clock, giant_graph=giant_graph, gloo=par["gloo"]))
     for name, eager in (("struct_towers_graph", "struct_towers_residuals"),
                         ("struct_towers_bwd_graph", "struct_towers_bwd"),
                         ("level_scan_graph", "level_scan_residuals"),

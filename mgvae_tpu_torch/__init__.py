@@ -11,7 +11,8 @@ K of them in one call (``make_multi_step`` / ``make_multi_eval``: on the
 card a captured CUDA graph of the step, replayed per step), and the
 reference's 3-stage training (``Trainer``, its epochs in groups of
 ``steps_per_call``, checkpoints and resume; ``python -m mgvae_tpu_torch.train``), data-parallel over one process per
-card under torchrun (``--distributed``), and the within-level
+card under torchrun (``--distributed``; grouped on one host, each replay
+holding its NCCL all-reduce), and the within-level
 model-parallel train step (``parallel.sharded``), and the multi-task
 trainers (``BalancerTrainer``, ``GradNormTrainer``: three per-task
 backwards from one forward) and ``EarlyTrainer``; ``deepgate`` is the

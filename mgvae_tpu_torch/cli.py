@@ -28,9 +28,14 @@ and ``--distributed --num_devices k`` with k other than the processes
 launched raises ValueError. ``--steps_per_call`` K (default 8, as
 ``train.py``'s) groups each phase's steps by K (``Trainer``): on the card
 each group replays the step's captured CUDA graph, on the CPU it runs
-eagerly; 1 runs every step singly. ``--matmul_precision`` goes
-into ``DGConfig`` as in ``train.py:66``: "default" (the parser's default)
-runs PyTorch's fp32 products in TF32 on the card, "highest" in full fp32.
+eagerly; 1 runs every step singly. ``--distributed`` with
+``--steps_per_call`` groups too, on a single-host launch (torchrun's
+``WORLD_SIZE`` = ``LOCAL_WORLD_SIZE``): each replay holds the step's NCCL
+all-reduce. A multi-host launch, and gloo processes sharing one card, step
+singly, as the JAX trainer steps singly across hosts.
+``--matmul_precision`` goes into ``DGConfig`` as in ``train.py:66``:
+"default" (the parser's default) runs PyTorch's fp32 products in TF32 on
+the card, "highest" in full fp32.
 ``--dim_hidden`` reaches the model unchanged: past 128 (the kernels' width)
 the model runs its plain route, as the JAX package runs its XLA paths.
 ``--resume`` reads ``model_last.pth`` in the port's format or the JAX

@@ -13,6 +13,12 @@ A launch starts when ``RANK`` or ``WORLD_SIZE`` is set, or
 none. The backend is NCCL on ``cuda:{LOCAL_RANK}``, and gloo when the
 caller asks for the CPU or names gloo (several processes sharing one card:
 NCCL refuses two ranks on one device). No backend is chosen silently.
+
+``multi_host_launch`` tells a launch over several hosts from one over one
+host, for the trainer's grouping rule (the JAX trainer groups steps only
+when ``jax.process_count() == 1``, one process over all of a host's
+devices; the port runs one process per device, so a single-host launch of
+W processes is the counterpart of that one JAX process).
 """
 from __future__ import annotations
 
@@ -60,6 +66,24 @@ def _launch_config() -> dict | None:
         local = int(env.get("LOCAL_RANK", 0))
         return {"init_method": init, "rank": rank, "world_size": world, "local_rank": local}
     return None
+
+
+def multi_host_launch() -> bool:
+    """Whether the launch variables describe processes on more than one
+    host. torchrun's (``RANK`` / ``WORLD_SIZE`` set): ``WORLD_SIZE >
+    LOCAL_WORLD_SIZE``, which torchrun sets on every rank; without
+    ``LOCAL_WORLD_SIZE`` (a launch made by hand) any ``WORLD_SIZE > 1``
+    counts, as nothing says that the processes share a host. The JAX
+    package's (``COORDINATOR_ADDRESS``, one process per host): ``NUM_PROCESSES
+    > 1``. No launch: False. The variables are read as ``_launch_config``
+    reads them, torchrun's first."""
+    env = os.environ
+    if any(n in env for n in TRIGGERS[TORCHRUN_VARS]):
+        world = int(env.get("WORLD_SIZE", 1))
+        return world > int(env.get("LOCAL_WORLD_SIZE", 1))
+    if any(n in env for n in TRIGGERS[JAX_VARS]):
+        return int(env.get("NUM_PROCESSES", 1)) > 1
+    return False
 
 
 def maybe_initialize_distributed(device="cuda", backend: str | None = None,

@@ -353,7 +353,6 @@ def make_sharded_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, mes
     shard."""
     check_supported(cfg)
     dp, mp = mesh.dp, mesh.mp
-    folded: dict = {}
 
     def train_step(params, state, batch, gen, weights, neg_edges=None, drop_keep=None):
         optimizer.zero_grad(set_to_none=True)
@@ -363,7 +362,7 @@ def make_sharded_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, mes
         with matmul_precision(cfg.matmul_precision):
             hs, hf = FORWARDS[route](params, b, cfg, dg_ae.num_levels(batch), mesh.mp_group)
             total, (new_state, metrics) = losses_from_forward(
-                params, state, b, hs, hf, fold_generator(gen, mesh.dp_rank, folded), weights,
+                params, state, b, hs, hf, fold_generator(gen, mesh.dp_rank), weights,
                 cfg, True, neg_edges=neg_edges, drop_keep=drop_keep)
             (total / mp).backward()
         grads = [t.grad for t in param_leaves(params) if t.grad is not None]

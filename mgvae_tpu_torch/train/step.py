@@ -31,6 +31,10 @@ hand-written kernels, the losses, the backward and a capturable Adam
 update, with the trainer's generator registered, so that K replays draw
 what K eager steps draw. The first step of a new layout runs eagerly, as a
 real step, before the capture. On the CPU the same steps run eagerly.
+Under a data-parallel group (``group=``, the JAX package's ``mesh=``) each
+step draws from the rank's folded generator and runs ``train_step``'s one
+all-reduce between its backward and its optimizer step; on the card that
+NCCL all-reduce is captured in the step's graph and replayed with it.
 Either way a step walks every row of its level tables (``table_levels``:
 shapes alone fix the walk), where ``train_step`` walks the real levels;
 a padding level has no valid slot, so on the fused route (kernels 1 and 2,
@@ -57,6 +61,7 @@ from ..models import dg_ae
 from ..models.dg_ae import DGConfig
 from ..ops import level_kernel, struct_kernel
 from ..ops.precision import matmul_precision
+from ..parallel import collectives
 from ..parallel.collectives import mean_
 from .losses import func_loss, kl_loss, prob_loss, recon_loss
 
@@ -158,20 +163,30 @@ def loss_and_metrics_device(params, state, b: dict, n_levels, gen, weights, cfg:
                                neg_edges=neg_edges, drop_keep=drop_keep, aux=aux)
 
 
-def fold_generator(gen, rank: int, folded: dict):
+# rank r's stream of each base generator (``fold_generator``): one per
+# (generator, rank), shared by every step function that draws from it; by
+# the base generator's id, with the generator held (torch's Generator takes
+# no weak reference), so an id is never reused while its entry lives
+_FOLDED: dict = {}
+
+
+def fold_generator(gen, rank: int):
     """The draws of rank ``rank``: ``gen`` itself at rank 0 (so that one
     rank draws what the single-device step draws), else a generator on
     ``gen``'s device seeded from ``gen``'s seed and the rank, made on the
-    rank's first step and kept in ``folded``: the stream counterpart of
-    the JAX step's ``fold_in(rng, axis_index("dp"))``. None stays None
-    (the caller passes its draws)."""
+    rank's first draw: the stream counterpart of the JAX step's
+    ``fold_in(rng, axis_index("dp"))``. The folded generator is one per
+    (``gen``, rank), kept for the life of the process: ``train_step``,
+    ``eval_step`` and the K-step calls of one trainer draw from the same
+    stream, so that a grouped epoch draws what the per-step epoch draws on
+    every rank. None stays None (the caller passes its draws)."""
     if gen is None or rank == 0:
         return gen
-    mine = folded.get("gen")
-    if mine is None or mine[0] is not gen:
+    mine = _FOLDED.setdefault(id(gen), (gen, {}))[1]
+    if rank not in mine:
         seed = (gen.initial_seed() + rank * 0x9E3779B97F4A7C15) % (1 << 63)
-        mine = folded["gen"] = (gen, torch.Generator(device=gen.device).manual_seed(seed))
-    return mine[1]
+        mine[rank] = torch.Generator(device=gen.device).manual_seed(seed)
+    return mine[rank]
 
 
 def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None):
@@ -206,14 +221,13 @@ def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None)
     dg_ae.check_supported(cfg)
     dp = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
-    folded: dict = {}
 
     def train_step(params, state, batch, gen, weights, neg_edges=None, drop_keep=None,
                    vae_eps=None):
         optimizer.zero_grad(set_to_none=True)
         with matmul_precision(cfg.matmul_precision):
             total, (new_state, metrics) = loss_and_metrics(
-                params, state, batch, fold_generator(gen, rank, folded), weights, cfg, True,
+                params, state, batch, fold_generator(gen, rank), weights, cfg, True,
                 neg_edges=neg_edges, drop_keep=drop_keep, vae_eps=vae_eps)
             total.backward()
         if group is not None:
@@ -227,7 +241,7 @@ def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None)
     def eval_step(params, state, batch, gen, weights, neg_edges=None, vae_eps=None):
         with matmul_precision(cfg.matmul_precision):
             _, (_, metrics) = loss_and_metrics(params, state, batch,
-                                               fold_generator(gen, rank, folded), weights, cfg,
+                                               fold_generator(gen, rank), weights, cfg,
                                                False, neg_edges=neg_edges, vae_eps=vae_eps)
         if group is not None:
             mean_([([metrics[k] for k in sorted(metrics)], dp)], group)
@@ -236,15 +250,16 @@ def make_train_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None)
     return train_step, eval_step
 
 
-# The launch counters of the kernels' wrappers. A capture runs no kernel:
-# the counts it made are taken back, and every replay adds what its graph
-# enqueues, so that a run's counts stay per step whether its steps ran
-# eagerly or as replays.
+# The launch counters of the kernels' wrappers and of the collectives. A
+# capture runs no kernel and no collective: the counts it made are taken
+# back, and every replay adds what its graph enqueues, so that a run's
+# counts stay per step whether its steps ran eagerly or as replays.
 LAUNCH_COUNTERS = (
     (level_kernel, ("lists_launches", "launches", "bwd_launches", "levels_walked",
                     "bwd_levels_walked", "step_launches", "step_bwd_launches",
                     "giant_launches", "giant_bwd_launches")),
     (struct_kernel, ("launches", "bwd_launches")),
+    (collectives, ("launches",)),
 )
 # eager steps of a new layout before its capture: real steps of the group,
 # which also make what the capture must find made (Adam's moments, the
@@ -306,11 +321,15 @@ class _Layout:
 class _GroupRunner:
     """The K-step call of one phase. ``body(layout, params, gen, weights,
     draws)`` runs one step on the layout's static tensors, and writes its
-    new BN state (train) and its metric row into them."""
+    new BN state (train) and its metric row into them; under a group each
+    step means its gradients, BN state and metrics over the group first."""
 
-    def __init__(self, cfg: DGConfig, phase: str, optimizer=None):
+    def __init__(self, cfg: DGConfig, phase: str, optimizer=None, group=None):
         dg_ae.check_supported(cfg)
         self.cfg, self.phase, self.optimizer = cfg, phase, optimizer
+        self.group = group
+        self.dp = 1 if group is None else dist.get_world_size(group)
+        self.rank = 0 if group is None else dist.get_rank(group)
         self.layouts: collections.OrderedDict = collections.OrderedDict()
         self.stream = None
         self.captures = 0        # graphs captured, over all layouts
@@ -338,12 +357,18 @@ class _GroupRunner:
                     params, layout.state, b, layout.levels, gen, weights, cfg, True,
                     neg_edges=neg_edges, drop_keep=drop_keep, vae_eps=vae_eps)
                 total.backward()
+            if self.group is not None:   # train_step's one mean, in its order
+                grads = [t.grad for t in param_leaves(params) if t.grad is not None]
+                rest = param_leaves(new_state) + [metrics[k] for k in sorted(metrics)]
+                mean_([(grads + rest, self.dp)], self.group)
             opt.step()
         else:
             with torch.no_grad(), matmul_precision(cfg.matmul_precision):
                 _, (new_state, metrics) = loss_and_metrics_device(
                     params, layout.state, b, layout.levels, gen, weights, cfg, False,
                     neg_edges=neg_edges, vae_eps=vae_eps)
+                if self.group is not None:
+                    mean_([([metrics[k] for k in sorted(metrics)], self.dp)], self.group)
             new_state = {}
         with torch.no_grad():
             for key, sub in new_state.items():
@@ -358,7 +383,11 @@ class _GroupRunner:
 
     def _capture(self, layout: _Layout, params, gen, weights) -> None:
         """The step as a CUDA graph on the runner's stream. The capture's
-        own counts are taken back; a capture that fails raises."""
+        own counts are taken back; a capture that fails raises. Under a
+        group the all-reduce is captured with the step: its communicator
+        was made by the eager steps before, and the capture refuses only
+        this thread's unsafe calls (the process group's watchdog thread
+        queries its own events meanwhile)."""
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError("this torch cannot register a generator with a CUDA graph "
                                "(CUDAGraph.register_generator_state): the K-step call "
@@ -368,8 +397,9 @@ class _GroupRunner:
         before = launch_counts()
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=True)
+        mode = "global" if self.group is None else "thread_local"
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=mode):
                 self._body(layout, params, gen, weights, (None, None, None))
         except Exception as e:
             raise RuntimeError(f"capturing the {self.phase} step of a K-step call failed: "
@@ -393,6 +423,13 @@ class _GroupRunner:
                              "from its generator")
         if card and gen is None:
             raise ValueError("a K-step call on the card draws from a generator: pass one")
+        if card and self.group is not None and dist.get_backend(self.group) != "nccl":
+            raise ValueError(
+                f"a K-step call on the card under a {dist.get_backend(self.group)} group: its "
+                "all-reduce is captured in the step's CUDA graph, which needs NCCL (gloo "
+                "copies the card's tensors through the host); run per step "
+                "(make_train_step(group=)) or over an NCCL group")
+        gen = fold_generator(gen, self.rank)
         first = step_of(sbatch, 0)
         key = (dg_ae.StaticBatch.signature(first), tuple(float(w) for w in weights))
         layout = self.layouts.pop(key, None) or _Layout(first, dev)
@@ -439,7 +476,7 @@ class _GroupRunner:
         return rows if self.phase == "eval" else (state | new_state, rows)
 
 
-def make_multi_step(cfg: DGConfig, optimizer: torch.optim.Optimizer):
+def make_multi_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None):
     """K optimizer steps in one call (the JAX package's ``make_multi_step``,
     ``mgvae_tpu/train/step.py:222-283``, whose one dispatched ``lax.scan``
     this takes the place of).
@@ -466,14 +503,30 @@ def make_multi_step(cfg: DGConfig, optimizer: torch.optim.Optimizer):
     ``drop_keep`` / ``vae_eps``: per-step lists of explicit draws, for the
     CPU's parity tests; the card refuses them.
 
-    On the CPU each step runs eagerly, on the same static tensors."""
-    return _GroupRunner(cfg, "train", optimizer)
+    ``group``: a process group of data-parallel ranks (the JAX package's
+    ``mesh=``), each with its own shard of every step in ``sbatch``. Each
+    step then does what ``make_train_step(group=)``'s does: it draws from
+    ``gen`` folded by the rank (``fold_generator``, the stream the rank's
+    ``train_step`` draws from) and, between the backward and the optimizer
+    step, means the gradients, the BN state and the metrics over the group
+    in one all-reduce (``parallel.collectives.mean_``), in ``train_step``'s
+    order: one rank's call is bit for bit its K ``train_step(group=)``
+    calls on the same padded walk. On the card the all-reduce is NCCL's,
+    captured inside the step's graph and replayed with it (a replay adds
+    one to ``collectives.launches``); a group of another backend (gloo,
+    which several processes sharing one card run) raises ValueError
+    before any step runs.
+
+    On the CPU each step runs eagerly, on the same static tensors (under a
+    group, over gloo)."""
+    return _GroupRunner(cfg, "train", optimizer, group)
 
 
-def make_multi_eval(cfg: DGConfig):
+def make_multi_eval(cfg: DGConfig, group=None):
     """K eval steps in one call (``mgvae_tpu/train/step.py:286-313``):
     multi_eval(params, state, sbatch, gen, weights, neg_edges=None,
     vae_eps=None) -> metrics [K, 9], each step ``eval_step``'s (no grad,
     the running statistics, no dropout), captured and replayed on the card
-    as ``make_multi_step``'s."""
-    return _GroupRunner(cfg, "eval")
+    as ``make_multi_step``'s; under ``group`` each step means its metrics
+    over the group, as ``eval_step(group=)``'s."""
+    return _GroupRunner(cfg, "eval", group=group)

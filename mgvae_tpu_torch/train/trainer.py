@@ -62,10 +62,22 @@ steps run in groups of K through the K-step calls
 (``train.step.make_multi_step`` / ``make_multi_eval``), the tail step by
 step, with the JAX trainer's rules (``mgvae_tpu/train/trainer.py:722-876``):
 per step throughout when the dims are free (``fixed_dims=False``), when the
-phase has fewer than K steps, and under data parallelism. The prefetch
-thread collates a whole group in one call (``collate_shards`` of the K
-steps as shards, ``collate_split_step`` for split batches), the bytes each
-step's own collate would give. On the card each step of a group is a
+phase has fewer than K steps, and on a multi-host launch (the JAX trainer
+groups only when ``jax.process_count() == 1``, mesh or not). The port runs
+one process per device, so a single-host launch of W processes is the
+counterpart of JAX's one process over W devices and groups; a launch is
+multi-host when torchrun's ``WORLD_SIZE`` exceeds its ``LOCAL_WORLD_SIZE``
+(any ``WORLD_SIZE > 1`` without ``LOCAL_WORLD_SIZE``), or under the JAX
+package's variables when ``NUM_PROCESSES > 1`` (one process per host;
+``parallel.mesh.multi_host_launch``). Under a process group each step of a
+group is the data-parallel step (``make_multi_step(..., group=)``): rank
+r's shard of each of the K steps, collated at the dims every rank agrees
+on, and one all-reduce a step. A gloo group on the card (processes sharing
+one card) steps singly too: the K-step call's CUDA graph holds NCCL's
+all-reduce only. ``step_mode`` says which, on the ``[INFO] Start
+training`` line. The prefetch thread collates a whole group in one call
+(``collate_shards`` of the K steps as shards, ``collate_split_step`` for
+split batches), the bytes each step's own collate would give. On the card each step of a group is a
 replay of the step's captured CUDA graph; on the CPU it runs eagerly. The
 metrics, the draws and every tensor come out as the per-step run's: bit
 for bit on the fused route (the trainer's layouts), and within the order
@@ -106,7 +118,7 @@ from ..models.dg_ae import DGConfig, init_params
 from ..native import get_lib
 from ..ops.level_kernel import MAX_DIM as KERNEL_MAX_DIM
 from ..ops.level_kernel import kernel_fits
-from ..parallel.mesh import local_device, maybe_initialize_distributed
+from ..parallel.mesh import local_device, maybe_initialize_distributed, multi_host_launch
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logger import AverageMeter, Logger
 from .step import (METRIC_KEYS, make_multi_eval, make_multi_step, make_optimizer,
@@ -237,8 +249,9 @@ class Trainer:
         self.train_step, self.eval_step = make_train_step(model_cfg, self.optimizer,
                                                           group=self.group)
         self.steps_per_call = max(int(steps_per_call), 1)
-        self.multi_step = make_multi_step(model_cfg, self.optimizer)
-        self.multi_eval = make_multi_eval(model_cfg)
+        self.multi_step = make_multi_step(model_cfg, self.optimizer, group=self.group)
+        self.multi_eval = make_multi_eval(model_cfg, group=self.group)
+        self.grouped, self.step_mode = self._step_mode()
         self.model_epoch = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._np_rng = np.random.default_rng(seed + 2)
@@ -250,6 +263,25 @@ class Trainer:
             mode = ("single device" if self.group is None
                     else f"data-parallel over {world} process(es), one device each")
             print(f"[INFO] Training {mode}; device={self.device}")
+
+    def _step_mode(self) -> tuple[bool, str]:
+        """(grouped, why): how the phases' steps run, by the JAX trainer's rule
+        (``use_multi = ... jax.process_count() == 1``,
+        ``mgvae_tpu/train/trainer.py:870``): in groups of ``steps_per_call``
+        on a single-host launch, with or without a process group; one step a
+        call on a multi-host launch (``parallel.mesh.multi_host_launch``) and
+        under a group whose all-reduce a CUDA graph cannot hold (gloo on the
+        card)."""
+        K = self.steps_per_call
+        if K == 1:
+            return False, "per step (steps_per_call 1)"
+        if self.group is not None and multi_host_launch():
+            return False, "per step: a multi-host launch, as the JAX trainer's across hosts"
+        if (self.group is not None and self.device.type == "cuda"
+                and dist.get_backend(self.group) != "nccl"):
+            return False, (f"per step: a {dist.get_backend(self.group)} group on the card (the "
+                           "K-step call's CUDA graph holds NCCL's all-reduce only)")
+        return True, f"grouped: {K} steps a call"
 
     # ------------------------------------------------------------------
     def set_training_args(self, rc_prob_func_weight=(), lr: float = -1, lr_step: int = -1,
@@ -593,8 +625,7 @@ class Trainer:
         steps_done = 0
         last_logged = 0
         t0 = time.time()
-        use_multi = self.steps_per_call > 1 and self.group is None
-        for kind, item in self._iter_grouped(ds, use_multi):
+        for kind, item in self._iter_grouped(ds, self.grouped):
             ts = time.perf_counter() if self.step_times is not None else 0.0
             if kind == "group":
                 sbatch, k = item
@@ -662,7 +693,7 @@ class Trainer:
 
     def train(self, num_epoch: int, train_dataset, val_dataset):
         weights = self.weights
-        print(f"[INFO] Start training, lr = {self.lr:.6f}")
+        print(f"[INFO] Start training, lr = {self.lr:.6f}; steps {self.step_mode}")
         phase_meters = {}
         meters = None
         trace = self._start_trace()

@@ -85,7 +85,6 @@ def make_task_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, weigh, group
     dg_ae.check_supported(cfg)
     dp = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
-    folded: dict = {}
 
     def step(params, state, aux, batch, gen, neg_edges=None, drop_keep=None, vae_eps=None):
         leaves = param_leaves(params)
@@ -93,7 +92,7 @@ def make_task_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, weigh, group
         on_ref = [i for i, t in enumerate(leaves) if id(t) in ref]
         with matmul_precision(cfg.matmul_precision):
             grads, losses, new_state, m = task_grads(
-                cfg, params, state, batch, fold_generator(gen, rank, folded),
+                cfg, params, state, batch, fold_generator(gen, rank),
                 neg_edges=neg_edges, drop_keep=drop_keep, vae_eps=vae_eps)
             losses = torch.stack(losses)
             if group is not None:

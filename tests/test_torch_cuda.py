@@ -1720,17 +1720,19 @@ def _ms_group(K=4, bs=4, seed=7):
     return batching.collate_shards(shards, dims=dims)
 
 
-def _ms_run(sb, groups, grouped, lr_at=None):
+def _ms_run(sb, groups, grouped, lr_at=None, group=None):
     """``groups`` K-step train and eval calls (grouped) or their K
     train_step / eval_step calls each; ``lr_at`` (group, lr): set_lr before
-    that group. Returns every metric row, the params, Adam's state and BN
-    state after, the generator's state and the captures."""
+    that group; ``group``: a data-parallel process group for every call.
+    Returns every metric row, the params, Adam's state and BN state after,
+    the generator's state and the captures."""
     cfg = dg_ae.DGConfig(**MS_CFG)
     params, state = dg_ae.init_params(cfg, seed=1, device="cuda")
     opt = step.make_optimizer(params, 1e-3)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    multi, multi_eval = step.make_multi_step(cfg, opt), step.make_multi_eval(cfg)
-    train_step, eval_step = step.make_train_step(cfg, opt)
+    multi = step.make_multi_step(cfg, opt, group=group)
+    multi_eval = step.make_multi_eval(cfg, group=group)
+    train_step, eval_step = step.make_train_step(cfg, opt, group=group)
     K = sb["gate"].shape[0]
 
     def row(m):
@@ -1853,6 +1855,110 @@ def test_padded_level_walk_equals_real_walk_on_card(cuda):
         hf = level_kernel.level_scan(*args, num_nodes=hs.shape[0], num_levels=n)
         outs.append([hf.detach()] + list(torch.autograd.grad((hf * cot.cuda()).sum(), floats)))
     assert all(torch.equal(x, y) for x, y in zip(*outs, strict=True))
+
+
+def test_multi_step_over_one_nccl_rank_on_card(one_rank_nccl):
+    """Under a one-rank NCCL group, two K = 4 train and eval calls (the
+    all-reduce captured in each step's graph) against their 16 eager
+    ``train_step(group=)`` / ``eval_step(group=)`` calls and against the
+    single-device K-step calls: bit for bit; each replay counts the
+    launches its graph holds, one all-reduce a step among them."""
+    from mgvae_tpu_torch.parallel import collectives
+
+    sb = _ms_group()
+    before = step.launch_counts()
+    graph = _ms_run(sb, 2, True, group=one_rank_nccl)
+    mid = step.launch_counts()
+    eager = _ms_run(sb, 2, False, group=one_rank_nccl)
+    after = step.launch_counts()
+    single = _ms_run(sb, 2, True)
+    assert graph[3] == 2 and _ms_equal(graph, eager) and _ms_equal(graph, single)
+    for mod, n in ((struct_kernel, "launches"), (struct_kernel, "bwd_launches"),
+                   (level_kernel, "launches"), (level_kernel, "bwd_launches"),
+                   (level_kernel, "lists_launches"), (collectives, "launches")):
+        assert mid[(mod, n)] - before[(mod, n)] == after[(mod, n)] - mid[(mod, n)] > 0, n
+    # 2 calls x (4 train + 4 eval steps), one all-reduce each
+    assert mid[(collectives, "launches")] - before[(collectives, "launches")] == 16
+
+
+def test_multi_step_step_route_gradients_match_real_walk_on_card(cuda, monkeypatch):
+    """Fault 3.10 decided: ONE step on the step route (chunks past the
+    patched size gate; blocks of 4 level indices from the top, which shift
+    with the padded walk) as the K-step call's replayed graph and as ``train_step``'s
+    real-level walk, from the same params (Adam at lr 0 keeps them) and
+    draws: each gradient leaf within 1e-4 of its own scale, floored at
+    GRAD_FLOOR of the largest entry over all leaves as the card-vs-CPU
+    steps floor it. The gradients after a replay are the params' ``.grad``."""
+    from mgvae_tpu_torch.data import batching
+
+    monkeypatch.setattr(level_kernel, "KERNEL_MAX_NODES", 64)
+    monkeypatch.setattr(level_kernel, "step_chunk_levels", lambda *a, **k: 4)
+    rng = np.random.default_rng(9)
+    # the second step's circuits are the smaller: its real levels sit below
+    # the group's padded L
+    shards = [[random_circuit(rng, "mig", num_inputs=8, num_gates=110 - 50 * s + 10 * i)
+               for i in range(4)] for s in range(2)]
+    sb = batching.collate_shards(shards, num_chunks=2)
+    second = step.step_of(sb, 1)
+    assert dg_ae.level_counts(second) != dg_ae.table_levels(second)
+    cfg = dg_ae.DGConfig(**MS_CFG)
+    grads = {}
+    for mode in ("graph", "real"):
+        params, state = dg_ae.init_params(cfg, seed=1, device="cuda")
+        opt = step.make_optimizer(params, 0.0)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        before = level_kernel.step_bwd_launches
+        if mode == "graph":
+            multi = step.make_multi_step(cfg, opt)
+            multi(params, state, sb, gen, MS_WEIGHTS)
+            assert multi.captures == 1
+        else:
+            train_step, _ = step.make_train_step(cfg, opt)
+            for k in range(2):
+                state, _ = train_step(params, state, step.step_of(sb, k), gen, MS_WEIGHTS)
+        torch.cuda.synchronize()
+        assert level_kernel.step_bwd_launches > before
+        grads[mode] = [None if p.grad is None else p.grad.detach().clone()
+                       for p in step.param_leaves(params)]
+    scale = max(g.abs().max().item() for g in grads["real"] if g is not None)
+    for a, c in zip(grads["graph"], grads["real"], strict=True):
+        assert (a is None) == (c is None)
+        if c is not None:
+            tol = 1e-4 * max(c.abs().max().item(), GRAD_FLOOR * scale)
+            assert (a - c).abs().max().item() <= tol
+
+
+def test_multi_step_under_gloo_on_card_raises(cuda, tmp_path):
+    """A gloo group on the card (processes sharing one card run gloo): the
+    K-step call raises a ValueError that names NCCL before any step runs
+    (no launch, the params unchanged), and the trainer at
+    ``steps_per_call`` 8 steps singly."""
+    import types
+
+    import torch.distributed as dist
+
+    from mgvae_tpu_torch.train.trainer import Trainer
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        cfg = dg_ae.DGConfig(**MS_CFG)
+        params, state = dg_ae.init_params(cfg, seed=1, device="cuda")
+        kept = [t.detach().clone() for t in step.param_leaves(params)]
+        multi = step.make_multi_step(cfg, step.make_optimizer(params, 1e-3),
+                                     group=dist.group.WORLD)
+        before = step.launch_counts()
+        with pytest.raises(ValueError, match="NCCL"):
+            multi(params, state, _ms_group(K=2), torch.Generator(device="cuda").manual_seed(2),
+                  MS_WEIGHTS)
+        assert step.launch_counts() == before and multi.captures == 0
+        assert all(torch.equal(a, b) for a, b in zip(step.param_leaves(params), kept))
+        tr = Trainer(types.SimpleNamespace(model="DG_AE"), cfg, training_id="gloo",
+                     save_dir=str(tmp_path), batch_size=4, distributed=True, seed=3,
+                     device="cuda", steps_per_call=8)
+        assert tr.group is not None and not tr.grouped and "gloo" in tr.step_mode
+    finally:
+        dist.destroy_process_group()
 
 
 def test_failed_capture_raises_on_card(cuda, monkeypatch):

@@ -371,23 +371,37 @@ def test_two_process_trainer_epoch_matches_jax_trainer(split, tmp_path, monkeypa
 def test_trainer_over_a_group_of_one_equals_single_device(tmp_path):
     """``distributed`` under a gloo group of one rank: the data-parallel step
     (its all-reduce over one rank) trains bit for bit as the single-device
-    trainer: losses, params and BN state after two epochs."""
+    trainer: losses, params and BN state after two epochs. Both group their
+    steps (``steps_per_call`` 2: a group and the tail step an epoch), the
+    group of one through ``make_multi_step(..., group=)``."""
     rng = np.random.default_rng(1)
     ds = [p_random_circuit(rng, "mig", num_inputs=6, num_gates=40) for _ in range(12)]
     cfg = P.DGConfig(modality="mig", dim_hidden=16, s_rounds=1, t_rounds=1, layernorm=True)
     args = types.SimpleNamespace(model="DG_AE")
-    single = Trainer(args, cfg, training_id="one", save_dir=str(tmp_path), batch_size=4,
-                     distributed=False, seed=3, device="cpu")
+    groups = []
+
+    def spied(tr):
+        multi = tr.multi_step
+
+        def call(params, state, sbatch, *a, **k):
+            groups.append((tr.group is not None, int(sbatch["gate"].shape[0])))
+            return multi(params, state, sbatch, *a, **k)
+        tr.multi_step = call
+        return tr
+
+    single = spied(Trainer(args, cfg, training_id="one", save_dir=str(tmp_path), batch_size=4,
+                           distributed=False, seed=3, device="cpu", steps_per_call=2))
     m_single = single.train(2, ds, ds[:4])
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
                             world_size=1)
     try:
-        dp = Trainer(args, cfg, training_id="dp", save_dir=str(tmp_path), batch_size=4,
-                     distributed=True, seed=3, device="cpu")
-        assert dp.group is not None
+        dp = spied(Trainer(args, cfg, training_id="dp", save_dir=str(tmp_path), batch_size=4,
+                           distributed=True, seed=3, device="cpu", steps_per_call=2))
+        assert dp.group is not None and dp.grouped
         m_dp = dp.train(2, ds, ds[:4])
     finally:
         dist.destroy_process_group()
+    assert groups == [(False, 2)] * 2 + [(True, 2)] * 2
     assert all(m_dp[phase][k] == m_single[phase][k] for phase in ("train", "val")
                for k in m_single[phase] if k != "time")
     for a, c in zip(PS.param_leaves(dp.params) + PS.param_leaves(dp.state),

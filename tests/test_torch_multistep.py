@@ -389,9 +389,12 @@ def test_trainer_groups_equal_single_steps(tmp_path, capsys, split):
 
 
 @pytest.mark.parametrize("rule", ["free_dims", "fewer_steps_than_k", "group_of_one"])
-def test_trainer_steps_singly_where_the_jax_trainer_does(tmp_path, rule):
+def test_trainer_steps_singly_where_the_jax_trainer_does(tmp_path, monkeypatch, rule):
     """Per step throughout with free dims, with fewer steps than K, and
-    under a (gloo) process group, as the JAX trainer's ``use_multi``."""
+    under a (gloo) process group of a multi-host launch (torchrun's
+    ``WORLD_SIZE`` past its ``LOCAL_WORLD_SIZE``), as the JAX trainer's
+    ``use_multi`` (``jax.process_count() == 1``). A single-host group
+    groups (``tests/test_torch_multistep_dp.py``)."""
     train_ds = _graphs(14, seed=1)
     kw = {"free_dims": dict(fixed_dims=False), "fewer_steps_than_k": dict(spc=8),
           "group_of_one": dict(distributed=True)}[rule]
@@ -399,9 +402,12 @@ def test_trainer_steps_singly_where_the_jax_trainer_does(tmp_path, rule):
     if rule == "group_of_one":
         dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
                                 world_size=1)
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
     try:
         t, calls = _trainer(tmp_path, rule, spc, **kw)
         assert (t.group is not None) == (rule == "group_of_one")
+        assert not t.grouped or rule != "group_of_one"
         t.train(1, train_ds, [])
     finally:
         if rule == "group_of_one":
@@ -422,8 +428,8 @@ def test_cli_honours_steps_per_call(tmp_path, monkeypatch, capsys):
     make = ptrainer.make_multi_step
     groups = []
 
-    def counting(cfg, optimizer):
-        multi = make(cfg, optimizer)
+    def counting(cfg, optimizer, group=None):
+        multi = make(cfg, optimizer, group=group)
 
         def call(params, state, sbatch, *a, **kw):
             groups.append(int(np.shape(sbatch["gate"])[0]))
