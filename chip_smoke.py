@@ -358,6 +358,19 @@ Phases (any failure raises and the script exits nonzero):
      (steps_per_call 8) and count a K-step call's launches and rows per
      step.
 
+  [multichip] the four-card dry run at one rank (ROADMAP 1.12, 1.13;
+     ``multichip_phase``): ``python -m mgvae_tpu_torch.examples.dryrun_multichip
+     --nproc 1 --phases kbde`` in a subprocess (its launcher, torchrun and one
+     NCCL rank on this card), which must exit 0 with every phase's lines:
+     (k) kernels 7, 8, 1, 2, 5, 6 against their plain versions on the rank's
+     card on the main thread, in autograd's device thread and replayed from
+     a CUDA graph; (b) the K-step calls under the group (the data-parallel
+     step's body and its all-reduce), graph against eager bit for bit, and
+     the step route; (d) a Balancer epoch; (e) the sharded step at (1, 1)
+     by both routes against the single-card step. The dry run's own lines
+     are printed. Phase (a), which the card tests' one-rank DP test covers,
+     is left to the dry run's own runs: with it the phase took 63 s.
+
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
 towers and level scan with residuals, the two backwards, the step route's
@@ -1469,6 +1482,36 @@ def multistep_dp(torch, card: str, env, args, tcfg, train_ds, val_ds, shards64) 
         f"at steps_per_call {MS_K}: {[x['mode'] for x in gloo]}, calls "
         f"{[x['calls'] for x in gloo]}")
     log(f"[multistep] (f) {time.perf_counter() - t_f:.1f} s")
+
+
+# [multichip]: the four-card dry run at one rank, its phases and time limit
+MC_PHASES = "kbde"
+MC_TIMEOUT = 300
+
+
+def multichip_phase(card: str) -> None:
+    """[multichip]: ``examples/dryrun_multichip.py`` at ``--nproc 1`` (its
+    launcher builds nothing new: the kernels are built) in a subprocess;
+    raises unless it exits 0 with a "held" line of every phase and the
+    "every phase held" line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mgvae_tpu_torch.examples.dryrun_multichip", "--nproc", "1",
+           "--phases", MC_PHASES, "--timeout", str(MC_TIMEOUT - 30)]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                       timeout=MC_TIMEOUT)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("[multichip]")]
+    for ln in lines:
+        log(ln)
+    held = {ph for ph in MC_PHASES
+            if any(ln.startswith(f"[multichip] ({ph})") and ": held on ranks [True]" in ln
+                   for ln in lines)}
+    log(f"[multichip] the dry run at --nproc 1, phases {MC_PHASES}: exit {p.returncode}, "
+        f"phases held {sorted(held)}, {time.perf_counter() - t0:.1f} s; card {card}")
+    if p.returncode or held != set(MC_PHASES) or "[multichip] (-) every phase held" not in lines:
+        raise RuntimeError(f"[multichip] the dry run failed (exit {p.returncode}):\n"
+                           f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
 
 
 def free_port() -> int:
@@ -5075,6 +5118,9 @@ def main() -> int:
     # ---- [multistep]: the K-step calls as CUDA graphs (ROADMAP 1.14) --------------
     ms_out = multistep_phase(torch, dev, card, types.SimpleNamespace(
         log=log, clock=clock, giant_graph=giant_graph, gloo=par["gloo"]))
+    clock("[multichip]")
+    # ---- [multichip]: the four-card dry run at one rank (ROADMAP 1.12, 1.13) ----
+    multichip_phase(card)
     for name, eager in (("struct_towers_graph", "struct_towers_residuals"),
                         ("struct_towers_bwd_graph", "struct_towers_bwd"),
                         ("level_scan_graph", "level_scan_residuals"),

@@ -14,6 +14,8 @@
 // kernels use kMaxDim and warp_sum (struct_common.cuh).
 #pragma once
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -197,34 +199,50 @@ __device__ __forceinline__ int first_slot(int be, int nbe) {
 }
 __device__ __forceinline__ int slot_stride(int nbe) { return nbe * kLevelWarps; }
 
-// Lets `kernel` have `bytes` of dynamic shared memory. The attribute sticks to
-// the function, so each launcher sets it on its first call only (`done`: a
-// static of the launcher's own): setting it again per launch costs the host
-// tens of microseconds, which a route of a launch per level pays per level.
-template <class Kernel>
-cudaError_t allow_shared_memory(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  *done = err == cudaSuccess;
-  return err;
-}
+// The device indices a launcher keeps a configuration for.
+constexpr int kMaxDevices = 64;
 
-// For a launcher's first call: lets `kernel` have `bytes` of dynamic shared
-// memory and gives in *blocks how many of its blocks of kLevelThreads the
-// current device holds at once.
+// What a launcher learns on its first call on a device: the device's SM count
+// and how many of its kernel's blocks of kLevelThreads one SM holds, with the
+// kernel's dynamic shared memory allowed there. A function attribute belongs
+// to the device it was set on, and a process may launch on several cards, so
+// each launcher keeps one of these per device (a static table of its own).
+// Configured once per device: setting the attribute again per launch costs the
+// host tens of microseconds, which a route of a launch per level pays per
+// level. Two threads that configure one device at once set the same values.
+struct DeviceConfig {
+  std::atomic<int> sms{0};
+  std::atomic<int> per_sm{0};   // 0: not configured on this device yet
+};
+
+// *sms and *per_sm of the current device for `kernel` with `bytes` of dynamic
+// shared memory, configured on the first call on that device.
 template <class Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t bytes, int* blocks) {
-  int device = 0, sms = 0, per_sm = 0;
-  bool allowed = false;
+cudaError_t device_config(Kernel kernel, size_t bytes, DeviceConfig (&table)[kMaxDevices],
+                          int* sms, int* per_sm) {
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  if ((err = allow_shared_memory(kernel, bytes, &allowed)) != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLevelThreads, bytes);
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceConfig& c = table[device];
+  int blocks = c.per_sm.load(std::memory_order_acquire);
+  if (blocks == 0) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) !=
+        cudaSuccess) {
+      return err;
+    }
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(bytes))) != cudaSuccess) {
+      return err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLevelThreads, bytes);
+    if (err != cudaSuccess) return err;
+    c.sms.store(n, std::memory_order_relaxed);
+    c.per_sm.store(blocks, std::memory_order_release);
+  }
+  *sms = c.sms.load(std::memory_order_relaxed);
+  *per_sm = blocks;
   return cudaSuccess;
 }
 

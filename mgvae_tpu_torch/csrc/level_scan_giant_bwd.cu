@@ -135,24 +135,10 @@ __global__ void __launch_bounds__(kLevelThreads) level_recompute_kernel(const Re
 template <int NF, class V>
 cudaError_t launch_recompute(const Recompute<V>& p, cudaStream_t s) {
   const size_t smem = forward_smem<NF>();
-  static bool configured = false;
-  static int sms = 0, per_sm = 0;   // of the device the first call ran on
-  cudaError_t err = cudaSuccess;
-  if (!configured) {
-    int device = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    bool allowed = false;
-    if ((err = allow_shared_memory(level_recompute_kernel<NF, V>, smem, &allowed)) !=
-        cudaSuccess) {
-      return err;
-    }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_recompute_kernel<NF, V>,
-                                                        kLevelThreads, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static DeviceConfig configs[kMaxDevices];
+  int sms = 0, per_sm = 0;
+  cudaError_t err = device_config(level_recompute_kernel<NF, V>, smem, configs, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
   // a warp per slot of the chunk, as many blocks as fit on the card at once
   // (the blocks need not be co-resident: no barrier)
   const long long slots = (long long)p.levels * p.np;

@@ -543,14 +543,13 @@ __global__ void __launch_bounds__(kLevelThreads) level_fwd_kernel(const StepForw
 // chunk_blocks_per_expert blocks per expert.
 template <int NF, class V>
 cudaError_t launch_level_forward(const StepForward<V>& p, int chunks, cudaStream_t s) {
-  static bool configured = false;
-  static int resident = 0;   // blocks the device the first call ran on holds at once
-  if (!configured) {
-    cudaError_t err = resident_blocks(level_fwd_kernel<NF, V>, forward_smem<NF>(), &resident);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
+  static DeviceConfig configs[kMaxDevices];
+  int sms = 0, per_sm = 0;
+  cudaError_t err = device_config(level_fwd_kernel<NF, V>, forward_smem<NF>(), configs, &sms,
+                                  &per_sm);
+  if (err != cudaSuccess) return err;
+  // blocks the device holds at once
+  const int nbe = chunk_blocks_per_expert(p.np, per_sm * sms, p.num_experts, chunks);
   level_fwd_kernel<NF, V><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
                             forward_smem<NF>(), s>>>(p);
   return cudaGetLastError();

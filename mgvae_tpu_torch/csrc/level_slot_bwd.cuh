@@ -639,15 +639,13 @@ __global__ void __launch_bounds__(kLevelThreads) level_bwd_source_kernel(const S
 // expert as the forward's, launch_level_forward).
 template <int NF, class V>
 cudaError_t launch_level_backward(const StepBackward<V>& p, int chunks, cudaStream_t s) {
-  static bool configured = false;
-  static int resident = 0;   // blocks the device the first call ran on holds at once
-  cudaError_t err = cudaSuccess;
-  if (!configured) {
-    err = resident_blocks(level_bwd_slot_kernel<NF, V>, backward_smem<NF, V>(), &resident);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const int nbe = chunk_blocks_per_expert(p.np, resident, p.num_experts, chunks);
+  static DeviceConfig configs[kMaxDevices];
+  int sms = 0, per_sm = 0;
+  cudaError_t err = device_config(level_bwd_slot_kernel<NF, V>, backward_smem<NF, V>(), configs,
+                                  &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  // blocks the device holds at once
+  const int nbe = chunk_blocks_per_expert(p.np, per_sm * sms, p.num_experts, chunks);
   level_bwd_slot_kernel<NF, V><<<dim3(p.num_experts * nbe, chunks), kLevelThreads,
                                  backward_smem<NF, V>(), s>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -751,24 +749,10 @@ __global__ void __launch_bounds__(kLevelThreads) level_scan_bwd_kernel(
 template <int NF, class V, class R>
 cudaError_t launch_sweep(ScanBackward<V, R> p, cudaStream_t s) {
   const size_t smem = backward_smem<NF, V>();
-  static bool configured = false;
-  static int sms = 0, per_sm = 0;   // of the device the first call ran on
-  cudaError_t err = cudaSuccess;
-  if (!configured) {
-    int device = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    bool allowed = false;
-    if ((err = allow_shared_memory(level_scan_bwd_kernel<NF, V, R>, smem, &allowed)) !=
-        cudaSuccess) {
-      return err;
-    }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, level_scan_bwd_kernel<NF, V, R>,
-                                                        kLevelThreads, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static DeviceConfig configs[kMaxDevices];
+  int sms = 0, per_sm = 0;
+  cudaError_t err = device_config(level_scan_bwd_kernel<NF, V, R>, smem, configs, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
   // a block per slot of a level's expert, as far as the blocks are co-resident
   // (level_scan.cu)
   int nbe = p.np;

@@ -35,6 +35,23 @@ Under a data-parallel group (``group=``, the JAX package's ``mesh=``) each
 step draws from the rank's folded generator and runs ``train_step``'s one
 all-reduce between its backward and its optimizer step; on the card that
 NCCL all-reduce is captured in the step's graph and replayed with it.
+What a captured collective over several ranks needs (NCCL 2.28, torch
+2.11): the group's communicator must exist before the capture
+(ProcessGroupNCCL makes it at the group's first collective, which no
+capture may hold; the eager warm-up step's all-reduce makes it on every
+rank); the capture refuses only its own thread's unsafe calls
+(``capture_error_mode="thread_local"``), as the process group's watchdog
+thread queries its events meanwhile; the capture runs on a stream of the
+rank's own card (the runner's: ``torch.cuda.graph``'s default capture
+stream is made once, on whichever card is current at its first use); and
+the ranks' collectives must pair up in order. Each step, eager or
+replayed, issues exactly one all-reduce of one flat fp32 buffer whose size
+the model fixes, so they pair step by step as long as every rank runs the
+same steps, as the trainer gives them; a layout recaptured after an
+eviction (``GRAPHS_KEPT``) adds no collective. On four cards of one host
+each replay enqueues one ``ncclDevKernel_AllReduce_Sum_f32_RING_LL`` and
+the replays equal the eager steps bit for bit on every rank
+(``examples/dryrun_multichip.py`` (b)).
 Either way a step walks every row of its level tables (``table_levels``:
 shapes alone fix the walk), where ``train_step`` walks the real levels;
 a padding level has no valid slot, so on the fused route (kernels 1 and 2,

@@ -1961,6 +1961,30 @@ def test_multi_step_under_gloo_on_card_raises(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("card", ["first", "last"])
+def test_kernels_on_each_card_match_plain_versions_on_card(cuda, card):
+    """Kernels 7, 8, 1, 2, 5 and 6 against their plain versions on a card
+    (``examples.dryrun_multichip.kernel_checks``: forward and backward by
+    their C entries, the backwards through autograd on its device thread,
+    and both replayed from a captured CUDA graph). "last": on cuda:0 and
+    then on the last card while cuda:0 stays the current device, which needs
+    each level kernel's launcher to configure itself per device (the shared
+    memory a kernel may take belongs to the device it was allowed on);
+    skipped with one card."""
+    from mgvae_tpu_torch.examples.dryrun_multichip import SIZES, kernel_checks
+
+    n = torch.cuda.device_count()
+    if card == "last" and n < 2:
+        pytest.skip(f"needs two cards, torch.cuda.device_count() is {n}")
+    devs = [torch.device("cuda", 0)] + ([torch.device("cuda", n - 1)] if card == "last" else [])
+    for dev in devs:
+        rows = kernel_checks(dev, SIZES["cuda"])
+        assert torch.cuda.current_device() == 0
+        assert {mode for _, mode, _, _ in rows} == {"main", "graph", "autograd"}
+        bad = [row for row in rows if not row[2] <= 1.0]
+        assert not bad, (dev, bad)
+
+
 def test_failed_capture_raises_on_card(cuda, monkeypatch):
     """A step that cannot be captured (it reads a loss back on the host)
     raises from the K-step call: its first step runs eagerly, the capture
