@@ -93,6 +93,7 @@ from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, level_lists, level_scan
 from ..ops.mlp import mlp_init
 from ..ops.precision import matmul_precision, uses_tf32
 from ..ops.segment import segment_softmax, segment_sum
+from ..utils.spans import OFF as OFF_SPANS
 from .encoder import direct_multigcn_apply, direct_multigcn_init
 from .gcn import directed_gcn_encoder_apply, directed_gcn_encoder_init
 
@@ -347,15 +348,18 @@ class StaticBatch:
         return tuple((g, k, np.shape(a), np.asarray(a).dtype.str)
                      for g, k in device_layout(batch) for a in [_source(batch, g, k)])
 
-    def stage(self, sbatch: dict, steps: int) -> torch.Tensor:
+    def stage(self, sbatch: dict, steps: int, spans=OFF_SPANS) -> torch.Tensor:
         """The K = ``steps`` rows of the stacked batch ``sbatch`` in a host
         staging area [K, nbytes] (pinned on the card); returns it. Call
-        ``staged_loaded`` once the rows' loads are enqueued."""
+        ``staged_loaded`` once the rows' loads are enqueued. ``spans`` (the
+        trainer's, ``utils/spans``) times the wait for the area's last
+        copies as ``kstep.stage_wait``."""
         turn = self._turn
         self._turn = 1 - turn
         area, done = self._areas[turn] or (None, None)
-        if done is not None:
-            done.synchronize()
+        with spans("kstep.stage_wait"):
+            if done is not None:
+                done.synchronize()
         if area is None or area.shape[0] < steps:
             area = torch.empty((steps, self.nbytes), dtype=torch.uint8,
                                pin_memory=self.device.type == "cuda")

@@ -80,6 +80,7 @@ from ..ops import level_kernel, struct_kernel
 from ..ops.precision import matmul_precision
 from ..parallel import collectives
 from ..parallel.collectives import mean_
+from ..utils import spans as spans_mod
 from .losses import func_loss, kl_loss, prob_loss, recon_loss
 
 # epoch-metric row layout, as in the JAX package
@@ -345,6 +346,8 @@ class _GroupRunner:
         dg_ae.check_supported(cfg)
         self.cfg, self.phase, self.optimizer = cfg, phase, optimizer
         self.group = group
+        # a span log (``utils/spans``): off unless a trainer hands over its own
+        self.spans = spans_mod.OFF
         self.dp = 1 if group is None else dist.get_world_size(group)
         self.rank = 0 if group is None else dist.get_rank(group)
         self.layouts: collections.OrderedDict = collections.OrderedDict()
@@ -467,7 +470,8 @@ class _GroupRunner:
                                         strict=True):
                         if dst is not src:
                             dst.copy_(src)
-            area = layout.batch.stage(sbatch, K)
+            with self.spans("kstep.stage"):
+                area = layout.batch.stage(sbatch, K, self.spans)
             if card and layout.graph is not None and layout.pins != self._pins(params, gen):
                 layout.graph, layout.eager = None, 0     # the tensors it read are gone
             rows = None
@@ -479,7 +483,8 @@ class _GroupRunner:
                     layout.eager += 1
                 else:
                     if layout.graph is None:
-                        self._capture(layout, params, gen, weights)
+                        with self.spans("kstep.capture"):   # outside the capture itself
+                            self._capture(layout, params, gen, weights)
                     layout.graph.replay()
                     _add_launches(layout.launches)
                 if rows is None:
@@ -535,7 +540,13 @@ def make_multi_step(cfg: DGConfig, optimizer: torch.optim.Optimizer, group=None)
     before any step runs.
 
     On the CPU each step runs eagerly, on the same static tensors (under a
-    group, over gloo)."""
+    group, over gloo).
+
+    ``spans`` (an attribute, ``utils/spans.OFF`` until a trainer sets its
+    own span log): times the staging (``kstep.stage``, within it the wait on
+    the card ``kstep.stage_wait``) and each capture (``kstep.capture``)
+    while the trainer has it on; none opens inside a capture or the step's
+    body."""
     return _GroupRunner(cfg, "train", optimizer, group)
 
 
@@ -545,5 +556,5 @@ def make_multi_eval(cfg: DGConfig, group=None):
     vae_eps=None) -> metrics [K, 9], each step ``eval_step``'s (no grad,
     the running statistics, no dropout), captured and replayed on the card
     as ``make_multi_step``'s; under ``group`` each step means its metrics
-    over the group, as ``eval_step(group=)``'s."""
+    over the group, as ``eval_step(group=)``'s; ``spans`` as there."""
     return _GroupRunner(cfg, "eval", group=group)

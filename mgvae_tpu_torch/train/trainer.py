@@ -57,6 +57,36 @@ capture changes no number. The multi-task subclasses
 capture nothing, as in the JAX package; ``EarlyTrainer`` runs this
 ``train`` an epoch at a time.
 
+``step_times``: the trainer's span log (``utils/spans``), off while None
+(the default: one flag test at each span site, no profiler call). Set to
+a list, each phase of ``train`` opens a ``torch.profiler.record_function``
+range around each part of its host work, on the profiler's clock, and
+appends one entry ``(name, steps done in the phase, host seconds)`` as
+each range closes, ``<phase>`` "train" or "val":
+
+  * ``trainer.plan`` -> ``plan:<phase>``: the epoch plan (the shuffle, the
+    running-max dims scan, the chunk pick), once a phase;
+  * ``trainer.prefetch_wait`` -> ``prefetch_wait:<phase>``: the step
+    thread blocked on the prefetch queue, for each item and for its end;
+    the first wait holds the thread's start and its first, un-prefetched
+    collate;
+  * ``trainer.step`` -> ``<phase>``: each K-step or single call, from its
+    start to its return, its steps done after it;
+  * ``trainer.readback`` -> ``fetch:<phase>``: the epoch's metric rows'
+    copy to the host;
+  * ``trainer.log`` -> ``log:<phase>``: the meters and the epoch line;
+  * ``trainer.save`` -> ``save:<phase>``: the chief's two checkpoints of
+    every tenth epoch (train phase);
+  * inside each K-step call: ``kstep.stage`` -> ``stage:<phase>``, the fill
+    of its pinned staging area, and within it ``kstep.stage_wait`` ->
+    ``stage_wait:<phase>``, the wait on the card for that area's last
+    copies; ``kstep.capture`` -> ``capture:<phase>``, each CUDA graph
+    captured (one where ``_GroupRunner.captures`` counts; never inside the
+    capture or the step's body).
+
+A ``trace_dir`` capture turns the same ranges on for its epoch without a
+list, so its trace file carries them. The multi-task subclasses open none.
+
 ``steps_per_call`` K (default 8, as the JAX trainer's): each phase's
 steps run in groups of K through the K-step calls
 (``train.step.make_multi_step`` / ``make_multi_eval``), the tail step by
@@ -121,6 +151,7 @@ from ..ops.level_kernel import kernel_fits
 from ..parallel.mesh import local_device, maybe_initialize_distributed, multi_host_launch
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logger import AverageMeter, Logger
+from ..utils.spans import Spans
 from .step import (METRIC_KEYS, make_multi_eval, make_multi_step, make_optimizer,
                    make_train_step, param_leaves, set_lr)
 
@@ -223,9 +254,9 @@ class Trainer:
         # scanned (train and val), held by strong reference: compared with
         # ``is``, so a collected dataset's id can never serve stale stats
         self._stats_caches: list = []
-        # set to a list to collect (phase, step, host seconds) per step and
-        # ("fetch:<phase>", steps, seconds) for the epoch's metric read-back
+        # the span log: a list turns the trainer's spans on (utils/spans)
         self.step_times = None
+        self._spans = Spans()
         # with a directory, the chief captures the first epoch of every
         # train() call with torch.profiler into it (a TensorBoard / Chrome
         # trace file), as the JAX trainer captures it with jax.profiler
@@ -251,6 +282,8 @@ class Trainer:
         self.steps_per_call = max(int(steps_per_call), 1)
         self.multi_step = make_multi_step(model_cfg, self.optimizer, group=self.group)
         self.multi_eval = make_multi_eval(model_cfg, group=self.group)
+        # the K-step calls time their staging and captures into the trainer's spans
+        self.multi_step.spans = self.multi_eval.spans = self._spans
         self.grouped, self.step_mode = self._step_mode()
         self.model_epoch = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -542,15 +575,18 @@ class Trainer:
                 q.put(end)
 
         t = threading.Thread(target=producer, daemon=True)
-        t.start()
         try:
-            while True:
+            # the first wait holds the thread's start: the thread may keep
+            # the GIL through the Python of its first collate
+            with self._spans("trainer.prefetch_wait"):
+                t.start()
                 b = q.get()
-                if b is None:
-                    break
+            while b is not None:
                 if isinstance(b, BaseException):
                     raise b
                 yield b
+                with self._spans("trainer.prefetch_wait"):
+                    b = q.get()
         finally:
             stop.set()
             while t.is_alive():  # unblock a pending put until the thread returns
@@ -578,7 +614,8 @@ class Trainer:
         steps as shards, then the tail step by step; every step singly
         without ``use_multi``, with free dims, or when the epoch has fewer
         than K steps (the JAX trainer's ``_iter_grouped``)."""
-        idx, n_steps, dims, C = self._epoch_plan(dataset)
+        with self._spans("trainer.plan"):
+            idx, n_steps, dims, C = self._epoch_plan(dataset)
         K = self.steps_per_call
         starts, singles = range(0), range(n_steps)
         if use_multi and dims is not None and n_steps >= K:
@@ -616,7 +653,9 @@ class Trainer:
 
     def _run_phase(self, phase: str, ds, epoch: int, num_epoch: int, weights):
         """One phase of one epoch: its steps, its meters and its epoch line;
-        returns (meters, whether it had a step)."""
+        returns (meters, whether it had a step). ``train`` turns the spans
+        (``utils/spans``) on for the phase, or leaves them off."""
+        spans = self._spans
         meters = {k: AverageMeter() for k in ("recon", "prob", "func", "kl", "acc", "tp", "fp", "tn", "fn", "time")}
         # metrics stay on the device, one [9] row per step, read back
         # once at the epoch's end: a read per step would wait for the
@@ -626,69 +665,67 @@ class Trainer:
         last_logged = 0
         t0 = time.time()
         for kind, item in self._iter_grouped(ds, self.grouped):
-            ts = time.perf_counter() if self.step_times is not None else 0.0
-            if kind == "group":
-                sbatch, k = item
-                if phase == "train":
-                    self.state, rows = self.multi_step(self.params, self.state, sbatch,
-                                                       self._gen, weights)
+            with spans("trainer.step"):
+                if kind == "group":
+                    sbatch, k = item
+                    if phase == "train":
+                        self.state, rows = self.multi_step(self.params, self.state, sbatch,
+                                                           self._gen, weights)
+                    else:
+                        rows = self.multi_eval(self.params, self.state, sbatch, self._gen,
+                                               weights)
                 else:
-                    rows = self.multi_eval(self.params, self.state, sbatch, self._gen,
-                                           weights)
-            else:
-                k = 1
-                if phase == "train":
-                    self.state, m = self.train_step(self.params, self.state, item,
-                                                    self._gen, weights)
-                else:
-                    m = self.eval_step(self.params, self.state, item, self._gen, weights)
-                rows = torch.stack([m[key] for key in METRIC_KEYS])[None]
-            pending.append(rows)
-            steps_done += k
-            if (self.log_every and self.is_chief
-                    and steps_done - last_logged >= self.log_every):
-                last_logged = steps_done
-                mm = dict(zip(METRIC_KEYS, pending[-1][-1].tolist()))
-                print(
-                    f"[{phase} {self.model_epoch}] {epoch}/{num_epoch} it {steps_done} "
-                    f"|Recon: {mm['recon_loss']:.4f} |Prob: {mm['prob_loss']:.4f} "
-                    f"|Func: {mm['func_loss']:.4f}"
+                    k = 1
+                    if phase == "train":
+                        self.state, m = self.train_step(self.params, self.state, item,
+                                                        self._gen, weights)
+                    else:
+                        m = self.eval_step(self.params, self.state, item, self._gen, weights)
+                    rows = torch.stack([m[key] for key in METRIC_KEYS])[None]
+                pending.append(rows)
+                steps_done += k
+                spans.steps = steps_done
+                if (self.log_every and self.is_chief
+                        and steps_done - last_logged >= self.log_every):
+                    last_logged = steps_done
+                    mm = dict(zip(METRIC_KEYS, pending[-1][-1].tolist()))
+                    print(
+                        f"[{phase} {self.model_epoch}] {epoch}/{num_epoch} it {steps_done} "
+                        f"|Recon: {mm['recon_loss']:.4f} |Prob: {mm['prob_loss']:.4f} "
+                        f"|Func: {mm['func_loss']:.4f}"
+                    )
+        with spans("trainer.readback"):
+            rows = (torch.cat(pending).cpu().numpy() if pending
+                    else np.zeros((0, len(METRIC_KEYS)), np.float32))
+        with spans("trainer.log"):
+            for row in rows:
+                m = dict(zip(METRIC_KEYS, (float(x) for x in row)))
+                n_pred = max(m["n_pred"], 1.0)
+                meters["recon"].update(m["recon_loss"])
+                meters["prob"].update(m["prob_loss"])
+                meters["func"].update(m["func_loss"])
+                meters["kl"].update(m["kl_loss"])
+                meters["acc"].update((m["tp"] + m["tn"]) / n_pred)
+                meters["tp"].update(m["tp"] / n_pred)
+                meters["fp"].update(m["fp"] / n_pred)
+                meters["tn"].update(m["tn"] / n_pred)
+                meters["fn"].update(m["fn"] / n_pred)
+            meters["time"].update((time.time() - t0) / max(steps_done, 1), n=max(steps_done, 1))
+            # reference epoch-line format (trainer.py:208-212); the KL
+            # field only when a nonzero KL was metered
+            kl_part = (" |KL: {:.4f}".format(meters["kl"].avg)
+                       if meters["kl"].avg else "")
+            if self.logger is not None:
+                self.logger.write(
+                    "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
+                        phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
+                        meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
+                    )
                 )
-            if self.step_times is not None:
-                self.step_times.append((phase, steps_done, time.perf_counter() - ts))
-        tf = time.perf_counter() if self.step_times is not None else 0.0
-        rows = (torch.cat(pending).cpu().numpy() if pending
-                else np.zeros((0, len(METRIC_KEYS)), np.float32))
-        if self.step_times is not None:
-            self.step_times.append(
-                (f"fetch:{phase}", steps_done, time.perf_counter() - tf))
-        for row in rows:
-            m = dict(zip(METRIC_KEYS, (float(x) for x in row)))
-            n_pred = max(m["n_pred"], 1.0)
-            meters["recon"].update(m["recon_loss"])
-            meters["prob"].update(m["prob_loss"])
-            meters["func"].update(m["func_loss"])
-            meters["kl"].update(m["kl_loss"])
-            meters["acc"].update((m["tp"] + m["tn"]) / n_pred)
-            meters["tp"].update(m["tp"] / n_pred)
-            meters["fp"].update(m["fp"] / n_pred)
-            meters["tn"].update(m["tn"] / n_pred)
-            meters["fn"].update(m["fn"] / n_pred)
-        meters["time"].update((time.time() - t0) / max(steps_done, 1), n=max(steps_done, 1))
-        if phase == "train" and self.model_epoch % 10 == 0:
-            self.save(os.path.join(self.log_dir, f"model_{self.model_epoch}.pth"))
-            self.save(os.path.join(self.log_dir, "model_last.pth"))
-        # reference epoch-line format (trainer.py:208-212); the KL
-        # field only when a nonzero KL was metered
-        kl_part = (" |KL: {:.4f}".format(meters["kl"].avg)
-                   if meters["kl"].avg else "")
-        if self.logger is not None:
-            self.logger.write(
-                "{}| Epoch: {:}/{:} |Recon: {:.4f} |ACC: {:.2f} |Prob: {:.4f} |Func: {:.4f}{}|Net: {:.2f}s\n".format(
-                    phase, epoch, num_epoch, meters["recon"].avg, meters["acc"].avg * 100,
-                    meters["prob"].avg, meters["func"].avg, kl_part, meters["time"].avg,
-                )
-            )
+        if phase == "train" and self.model_epoch % 10 == 0 and self.is_chief:
+            with spans("trainer.save"):
+                self.save(os.path.join(self.log_dir, f"model_{self.model_epoch}.pth"))
+                self.save(os.path.join(self.log_dir, "model_last.pth"))
         return meters, bool(pending)
 
     def train(self, num_epoch: int, train_dataset, val_dataset):
@@ -700,7 +737,8 @@ class Trainer:
         try:
             for epoch in range(num_epoch):
                 for phase, ds in (("train", train_dataset), ("val", val_dataset)):
-                    meters, ran = self._run_phase(phase, ds, epoch, num_epoch, weights)
+                    with self._spans.recording(self.step_times, phase, ranges=trace is not None):
+                        meters, ran = self._run_phase(phase, ds, epoch, num_epoch, weights)
                     phase_meters[phase] = meters if ran else phase_meters.get(phase, meters)
                 if trace is not None:   # capture only the first epoch of this call
                     trace.stop()
