@@ -370,6 +370,16 @@ Phases (any failure raises and the script exits nonzero):
      by both routes against the single-card step. The dry run's own lines
      are printed. Phase (a), which the card tests' one-rank DP test covers,
      is left to the dry run's own runs: with it the phase took 63 s.
+  [gather] the backward of the model's row gathers (``gather_phase``),
+     last: at the seven gather sites of a bs16 MIG and of the giant XMG
+     train step (the benchmark cells' batches), ``csrc/gather_rows_bwd.cu``
+     twice bit for bit and against its plain version on the CPU
+     (``index_add_`` in index order) within each row's entries x 2^-24 x
+     the sum of its terms' |values|; by CUDA events the op's backward, the
+     plain version on the card and PyTorch's index backward of the same
+     gathers; ``gather.bwd_launches`` over a K = 8 train and eval call on
+     the bs16 circuits and one eager giant train step (14 a train step,
+     none in eval).
 
 Prints a {"kernels": [...]} JSON line (one entry per kernel and path: the
 encode path's struct towers, level lists and level scan, the training path's struct
@@ -390,7 +400,12 @@ and [multistep]'s four, kernels 7, 8, 1 and 2 replayed from (a)'s fp32
 graph: struct_towers_graph, struct_towers_bwd_graph, level_scan_graph,
 level_scan_bwd_graph, their launches in (a)'s graph run, max |d| of the
 run against its eager steps, device ms per train step under
-torch.profiler, the plain versions' times and bounds of the eager entries);
+torch.profiler, the plain versions' times and bounds of the eager entries;
+and [gather]'s two, the row gathers' backward at the seven sites of the
+bs16 and the giant train step: gather_rows_bwd, gather_rows_bwd_giant,
+their launches on the main path with launches_per_step, max |d| against
+the CPU's plain version and its share of the rounding bound, the times
+summed over the sites, with PyTorch's index backward as library_ms);
 each with its launches on its main path, its
 time, its plain version's, and its bound: the larger of its bytes over
 3.35 TB/s and its operations at their type's peak (67 TFLOP/s in fp32; the
@@ -401,6 +416,7 @@ terms as bytes_ms and operations_ms), the nvidia-smi line, and as the last line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -477,7 +493,8 @@ RECOMPUTE_TOL = 1e-5
 # within BF16_ULPS (two bf16 ulps at the top of the range, no floor); a train
 # step's gradient leaves card vs CPU within BF16_LEAF of their own scale,
 # floored at GRAD_FLOOR of the largest entry over all leaves as phase 7
-# floors them. A leaf's gradient is a sum over every edge or node whose
+# floors them. The CPU side's row gathers sum a bf16 gradient in fp32 and
+# round once, as the card's kernel does (``gathers_as_on_card``). A leaf's gradient is a sum over every edge or node whose
 # terms cancel, and each term differs between the two by about a bf16 ulp
 # (the card's and the CPU's fp32 sums round to bf16 apart): the error
 # follows the terms, not the sum (the expert value bias, a sum over ~8k
@@ -525,6 +542,25 @@ def event_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def gathers_as_on_card(where):
+    """On the CPU, the row gathers' backward at the card kernels' rounding
+    points (``ops/gather.gather_rows_bwd_fp32``: a bf16 sum in fp32, rounded
+    once; fp32 bit for bit the CPU's own), for the CPU side of a step held
+    against the card's: the CPU's autograd rounds a bf16 sum at every add."""
+    from mgvae_tpu_torch.ops import gather
+
+    if str(where) != "cpu":
+        yield
+        return
+    plain = gather.gather_rows_bwd_reference
+    gather.gather_rows_bwd_reference = gather.gather_rows_bwd_fp32
+    try:
+        yield
+    finally:
+        gather.gather_rows_bwd_reference = plain
 
 
 def nbytes(*tensors) -> int:
@@ -1512,6 +1548,127 @@ def multichip_phase(card: str) -> None:
     if p.returncode or held != set(MC_PHASES) or "[multichip] (-) every phase held" not in lines:
         raise RuntimeError(f"[multichip] the dry run failed (exit {p.returncode}):\n"
                            f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+
+
+
+# [gather]: the backward of the model's row gathers (ops/gather, csrc/gather_rows_bwd.cu)
+GATHER_SITES = 7        # a train step's gather sites: examples/gather_profile.sites' first seven
+GATHER_REPS = 20        # calls a time (CUDA events)
+F32_EPS = 2.0 ** -24    # fp32's unit roundoff
+
+
+def gather_phase(torch, dev, card: str) -> list:
+    """[gather]: the backward of the model's row gathers (``ops/gather``,
+    ``csrc/gather_rows_bwd.cu``) at the seven sites of a bs16 MIG and of the
+    giant XMG train step (the benchmark cells' batches, as
+    ``examples/gather_profile`` makes them). At each site, with random
+    cotangents: the kernels' gradients (``_backward_cuda``) twice, bit for
+    bit, and against the plain version on the CPU
+    (``gather_rows_bwd_reference``: index_add_ in index order), each entry
+    within its row's entries x 2^-24 x the sum of its terms' |values| (the
+    kernels sum a row in fp32 partial sums of ``chunk_len(n)`` sorted
+    positions: another order, fp32 rounding only); by CUDA events over
+    GATHER_REPS calls the op's backward (its plan and both launches), the
+    plain version on the card (index_add_: atomics) and PyTorch's index
+    backward of the same gathers (index_put_ with accumulate: a sort and
+    ``indexing_backward_kernel``, what autograd of ``table[index]`` runs);
+    and the bound of the gradients' bytes. ``gather.bwd_launches``, set to
+    0 just before, over the main path's own calls: one K-step train call
+    and one eval call on the bs16 circuits stacked MS_K times (2 a site a
+    train step, none in eval), and one eager train step on the giant batch.
+    Returns the kernels line's two entries."""
+    from mgvae_tpu_torch.data import batching
+    from mgvae_tpu_torch.examples import gather_profile
+    from mgvae_tpu_torch.models import dg_ae
+    from mgvae_tpu_torch.ops import gather
+    from mgvae_tpu_torch.train import step as step_mod
+
+    want_per_step = 2 * GATHER_SITES
+    entries = []
+    for (tag, (modality, host_batch)), name in zip(gather_profile.batches().items(),
+                                                   ("gather_rows_bwd", "gather_rows_bwd_giant")):
+        moved = flops = 0
+        worst = worst_share = 0.0
+        same = True
+        ms = {"op": 0.0, "plain": 0.0, "library": 0.0}
+        for site, index, shapes in gather_profile.sites(modality, host_batch, dev)[:GATHER_SITES]:
+            flat, rows = index.reshape(-1), shapes[0][0]
+            gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+            grads = [torch.randn((flat.shape[0], math.prod(s[1:])), generator=gen, device=dev)
+                     for s in shapes]
+            got = gather._backward_cuda(flat, grads, rows)
+            same &= all(torch.equal(a, b)
+                        for a, b in zip(got, gather._backward_cuda(flat, grads, rows)))
+            flat_cpu, site_d = flat.cpu(), 0.0
+            count = torch.bincount(flat_cpu, minlength=rows)[:, None]
+            for g, a, w in zip(grads, got,
+                               gather.gather_rows_bwd_reference(flat_cpu, [g.cpu() for g in grads],
+                                                                rows)):
+                d = (a.cpu() - w).abs()
+                tol = count * F32_EPS * torch.zeros_like(w).index_add_(0, flat_cpu, g.cpu().abs())
+                site_d = max(site_d, float(d.max()) if d.numel() else 0.0)
+                worst_share = max(worst_share, float((d / tol.clamp(min=1e-300)).max())
+                                  if d.numel() else 0.0)
+                if not bool((d <= tol).all()):
+                    raise RuntimeError(f"[gather] {tag} {site}: the kernels' gradient is "
+                                       f"{float((d - tol).max()):.3e} past fp32 rounding of the "
+                                       f"plain version")
+            calls = {
+                "op": lambda: gather._backward_cuda(flat, grads, rows),
+                "plain": lambda: [g.new_zeros((rows, g.shape[1])).index_add_(0, flat, g)
+                                  for g in grads],
+                "library": lambda: [g.new_zeros((rows, g.shape[1])).index_put_((flat,), g,
+                                                                                accumulate=True)
+                                    for g in grads],
+            }
+            for k, fn in calls.items():
+                fn()
+                ms[k] += event_ms(torch, fn, GATHER_REPS)
+            worst = max(worst, site_d)
+            moved += gather_profile.site_bytes(index, shapes)
+            flops += flat.shape[0] * sum(g.shape[1] for g in grads)
+            log(f"[gather] {tag} {site}: {flat.shape[0]} entries, {rows} rows, longest run "
+                f"{int(count.max()) if count.numel() else 0}: max |d| vs the plain version "
+                f"{site_d:.3e}")
+        cfg = dg_ae.DGConfig(modality=modality, dim_hidden=DIM, s_rounds=ROUNDS, t_rounds=ROUNDS,
+                             layernorm=True, matmul_precision="highest")
+        params, state = dg_ae.init_params(cfg, seed=SEED + 13, device=dev)
+        opt = step_mod.make_optimizer(params, TRAIN_LR)
+        rng = torch.Generator(device=dev).manual_seed(SEED + 13)
+        if name == "gather_rows_bwd":   # the main path's K-step calls
+            sb = batching.collate_shards([gather_profile.bs16_graphs()] * MS_K)
+            multi, multi_eval = step_mod.make_multi_step(cfg, opt), step_mod.make_multi_eval(cfg)
+            gather.bwd_launches = 0
+            state, _ = multi(params, state, sb, rng, WEIGHTS)
+            multi_eval(params, state, sb, rng, WEIGHTS)
+            steps, captures = MS_K, multi.captures + multi_eval.captures
+        else:                           # one eager train step
+            train_step, _ = step_mod.make_train_step(cfg, opt)
+            gather.bwd_launches = 0
+            train_step(params, state, host_batch, rng, WEIGHTS)
+            steps, captures = 1, 0
+        torch.cuda.synchronize()
+        launches = gather.bwd_launches
+        b = bound(moved, flops)
+        log(f"[gather] {tag}, the {GATHER_SITES} sites of a train step: kernels twice bit for "
+            f"bit {same}; max |d| vs the plain version {worst:.3e}, at most {worst_share:.2e} of "
+            f"its fp32 rounding bound; CUDA events over {GATHER_REPS} calls: the op's backward "
+            f"(plan and launches) {ms['op']:.4f} ms, the plain version (index_add_) "
+            f"{ms['plain']:.4f} ms, PyTorch's index backward {ms['library']:.4f} ms; bound by "
+            f"bytes {b['bytes_ms']:.4f} ms; launches over {steps} train steps "
+            f"({captures} captures) {launches}, want {want_per_step * steps}; card {card}")
+        if not same or launches != want_per_step * steps:
+            raise RuntimeError(f"[gather] {tag}: the kernels differ between two calls ({not same})"
+                               f" or {launches} launches, not {want_per_step * steps}")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "mgvae_tpu_torch/csrc/gather_rows_bwd.cu",
+                        "replaces": "none: the backward of XLA's gather (mgvae_tpu/models/dg_ae.py)",
+                        "launches": launches, "max_abs_err": worst, "ms": ms["op"],
+                        "plain_ms": ms["plain"], **b, "library_ms": ms["library"],
+                        "launches_per_step": launches / steps, "rounding_share": worst_share})
+        del params, state, opt
+        torch.cuda.empty_cache()
+    return entries
 
 
 def free_port() -> int:
@@ -3940,7 +4097,7 @@ def main() -> int:
         leaves = train_step_mod.param_leaves(p1)
         for t in leaves:
             t.requires_grad_(True)
-        with precision_scope(c.matmul_precision):
+        with precision_scope(c.matmul_precision), gathers_as_on_card(where):
             total, (_, m1) = train_step_mod.loss_and_metrics(
                 p1, s1, batch, None, weights, c, True, neg_edges=tuple(t.to(where) for t in neg),
                 drop_keep=[k.to(where) for k in keep])
@@ -5121,6 +5278,9 @@ def main() -> int:
     clock("[multichip]")
     # ---- [multichip]: the four-card dry run at one rank (ROADMAP 1.12, 1.13) ----
     multichip_phase(card)
+    clock("[gather]")
+    # ---- [gather]: the backward of the model's row gathers ------------------------
+    gather_entries = gather_phase(torch, dev, card)
     for name, eager in (("struct_towers_graph", "struct_towers_residuals"),
                         ("struct_towers_bwd_graph", "struct_towers_bwd"),
                         ("level_scan_graph", "level_scan_residuals"),
@@ -5227,6 +5387,9 @@ def main() -> int:
               ms_out["launches"]["level_kernel.bwd_launches"],
               ms_out["level_scan_bwd_graph"]["err"], ms_out["level_scan_bwd_graph"]["ms"],
               bms_p, launches_per_step=ms_out["level_scan_bwd_graph"]["per_step"]),
+        # the row gathers' backward ([gather]): launches of the main path's
+        # calls; times summed over a train step's seven sites
+        *gather_entries,
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -78,6 +78,9 @@ SMOOTH_WEIGHTS = [1.0, 0.0, 4.0, 0.0]
 # leaves whose gradient the attention's softmax cancels: rounding noise that
 # Adam scales to up to lr a step on either side (tests/test_torch_dp.py)
 SOFTMAX_INVARIANT = ("wq", "bq", "wa_q", "ba", "bk")
+# the row gathers' backward launches of a train step on the card (ops/gather:
+# two a call; level_statics' four calls, the pack's, the positive edges' two)
+GATHER_BWD_LAUNCHES = 2 * 7
 KERNEL_TOL = 1e-4         # kernel vs plain: fp32, TF32 off, sums in another order
 GRAD_TOL, GRAD_FLOOR = 1e-4, 2e-2   # a gradient leaf against its own scale
 TRAINER_EPOCH_LINE = (r"^(train|val)\| Epoch: 0/1 \|Recon: \d+\.\d{4} \|ACC: \d+\.\d{2} "
@@ -601,7 +604,8 @@ def phase_b(r: Rank):
     if r.card:
         want_t = {"struct_kernel.launches": 2 * R, "struct_kernel.bwd_launches": 4 * R + 1,
                   "level_kernel.launches": 1, "level_kernel.bwd_launches": 3,
-                  "level_kernel.lists_launches": 1, "collectives.launches": 1}
+                  "level_kernel.lists_launches": 1, "collectives.launches": 1,
+                  "gather.bwd_launches": GATHER_BWD_LAUNCHES}
         want_e = {"struct_kernel.launches": 2 * R, "level_kernel.launches": 1,
                   "level_kernel.lists_launches": 1, "collectives.launches": 1}
         want_cap = (1, 1)
@@ -890,13 +894,18 @@ def sharded_want(r: Rank, route: str, n_lv: int) -> dict:
     all-reduce, or the edge route's max, two sums and the sums' two
     all-reduces; one mean. On the card the kernel route runs kernel 5 once
     and kernel 6's three launches per real level and member, and builds the
-    member's level lists once."""
+    member's level lists once; the row gathers' backward runs on both
+    routes (``GATHER_BWD_LAUNCHES``)."""
     R = r.s.rounds
     per_level = 2 if route == "kernel" else 5
     want = {"collectives.launches": 2 * 4 * R + per_level * n_lv + 1}
     if r.card and route == "kernel":
+        # the member's pack rows are an index_select: six gathers, not seven
         want.update({"level_kernel.step_launches": n_lv, "level_kernel.step_bwd_launches":
-                     3 * n_lv, "level_kernel.lists_launches": 1})
+                     3 * n_lv, "level_kernel.lists_launches": 1,
+                     "gather.bwd_launches": GATHER_BWD_LAUNCHES - 2})
+    elif r.card:   # no level statics: the positive edges' two gathers in the loss
+        want["gather.bwd_launches"] = 2 * 2
     return want
 
 

@@ -87,6 +87,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.graph import MODALITY_GATES, NUM_GATE_TYPES
 from ..ops import level_kernel
+from ..ops.gather import gather_rows
 from ..ops.init import gru_cell_init, linear_apply, linear_init
 from ..ops.level_kernel import (FLOAT_ARGS, kernel_fits, level_lists, level_scan,
                                 level_scan_giant, level_step, repack_expert_major, select_expert)
@@ -489,21 +490,29 @@ def struct_hs(params, b: dict, cfg: DGConfig) -> torch.Tensor:
 def level_statics(params, b: dict, cfg: DGConfig, hs: torch.Tensor, expert: torch.Tensor):
     """Per-edge statics pack [E, D+2] = [vhs | score_static | expert] and the
     hf-side key/value weights wkv_hf [D, 2TD]. An edge's expert is its
-    DESTINATION's."""
+    DESTINATION's.
+
+    The row gathers whose indices repeat in long runs go through
+    ``ops.gather.gather_rows``, whose backward sums each run across the
+    card: the experts' T-row tables (by each node's and each edge's
+    expert), and hs and aq_n by the edge lists, whose padding edges all
+    name the dump node; ``ba`` (width 1) shares bq's index."""
     D, T = cfg.dim_hidden, cfg.num_experts
     ex = params["experts"]
     src, dst = b["edge_src"], b["edge_dst"]
     e_dst = expert[dst].clamp(min=0)                        # [E]
     # per-node query score: q depends on [hs, hf = 0] only
     e_node = expert.clamp(min=0)
-    q = select_expert(hs @ ex["wq"][:D], e_node, T) + ex["bq"][e_node]
-    aq_n = (q * ex["wa_q"][e_node]).sum(-1) + ex["ba"][e_node]  # [N]
+    bq, wa_q, ba = gather_rows(e_node, ex["bq"], ex["wa_q"], ex["ba"])
+    q = select_expert(hs @ ex["wq"][:D], e_node, T) + bq
+    aq_n = (q * wa_q).sum(-1) + ba                              # [N]
     # per-edge hs-side key/value
     wkv_hs = torch.cat([ex["wk"][:D], ex["wv"][:D]], dim=1)     # [D, 2TD]
-    kv_hs = hs[src] @ wkv_hs                                    # [E, 2TD]
-    khs = select_expert(kv_hs[:, : T * D], e_dst, T) + ex["bk"][e_dst]
-    vhs = select_expert(kv_hs[:, T * D :], e_dst, T) + ex["bv"][e_dst]
-    score_static = (khs * ex["wa_k"][e_dst]).sum(-1) + aq_n[dst]
+    kv_hs = gather_rows(src, hs)[0] @ wkv_hs                    # [E, 2TD]
+    bk, bv, wa_k = gather_rows(e_dst, ex["bk"], ex["bv"], ex["wa_k"])
+    khs = select_expert(kv_hs[:, : T * D], e_dst, T) + bk
+    vhs = select_expert(kv_hs[:, T * D :], e_dst, T) + bv
+    score_static = (khs * wa_k).sum(-1) + gather_rows(dst, aq_n)[0]
     pack = torch.cat([vhs, score_static[:, None], e_dst[:, None].to(hs.dtype)], dim=1)
     wkv_hf = torch.cat([ex["wk"][D:], ex["wv"][D:]], dim=1)     # [D, 2TD]
     return pack, wkv_hf
@@ -538,7 +547,8 @@ def level_scan_inputs(params, b: dict, cfg: DGConfig, hs: torch.Tensor) -> tuple
     expert = cfg.expert_of_gate(hs.device)[b["gate"].long()]   # [N], -1: no expert
     pack, wkv_hf = level_statics(params, b, cfg, hs, expert)
     tabs, off, _ = lv_views(b)
-    pack_lv = pack[tabs["lv_edge_id"].long()]                   # [C*L, Ep, D+2]
+    # every padding slot of the tables names edge E - 1
+    (pack_lv,) = gather_rows(tabs["lv_edge_id"].long(), pack)  # [C*L, Ep, D+2]
     lv_nodes = tabs["lv_nodes"]
     e_nodes = expert[(lv_nodes + off[:, None]).long()]
     lv_upd = (tabs["lv_node_valid"] & (e_nodes >= 0)).to(torch.int32)

@@ -126,6 +126,9 @@ def library() -> ctypes.CDLL:
     fn = lib.mgvae_struct_towers_forward_layout
     fn.argtypes = [i, i, p]
     fn.restype = i
+    fn = lib.mgvae_gather_rows_backward
+    fn.argtypes = [p] * 15 + [i] * 11 + [p]
+    fn.restype = i
     lib.mgvae_cuda_error_string.argtypes = [i]
     lib.mgvae_cuda_error_string.restype = ctypes.c_char_p
     return lib

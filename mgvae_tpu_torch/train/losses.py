@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.dg_ae import decode_edges, hs_decompose
+from ..ops.gather import gather_rows
 from ..ops.init import rsqrt
 from ..ops.mlp import mlp_apply
 
@@ -106,7 +107,11 @@ def recon_loss(params, hs, b: dict, gen: torch.Generator | None = None, neg_edge
     s, t = hs_decompose(params, hs.float())
     ev = b["edge_valid"]
     e_count = _count(b, "n_edges", hs)
-    pos_logit = decode_edges(s, t, b["edge_src"], b["edge_dst"], sigmoid=False)
+    # the batch's own edges repeat in long runs (every padding edge names the
+    # dump node), so their rows go through gather_rows; the sampled
+    # negatives below repeat little and take decode_edges' plain indexing
+    (s_src,), (t_dst,) = gather_rows(b["edge_src"].long(), s), gather_rows(b["edge_dst"].long(), t)
+    pos_logit = (s_src * t_dst).sum(-1)
     pos_loss = masked_mean(log_sigmoid_loss(pos_logit, True), ev, e_count)
 
     if neg_edges is None:

@@ -76,7 +76,7 @@ import torch.distributed as dist
 
 from ..models import dg_ae
 from ..models.dg_ae import DGConfig
-from ..ops import level_kernel, struct_kernel
+from ..ops import gather, level_kernel, struct_kernel
 from ..ops.precision import matmul_precision
 from ..parallel import collectives
 from ..parallel.collectives import mean_
@@ -278,6 +278,7 @@ LAUNCH_COUNTERS = (
                     "giant_launches", "giant_bwd_launches")),
     (struct_kernel, ("launches", "bwd_launches")),
     (collectives, ("launches",)),
+    (gather, ("bwd_launches",)),
 )
 # eager steps of a new layout before its capture: real steps of the group,
 # which also make what the capture must find made (Adam's moments, the

@@ -4,8 +4,10 @@ with the same step on the CPU. Marked ``cuda``; without a card these tests
 skip. On a machine with one:
 python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import contextlib
 import ctypes
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -14,7 +16,7 @@ import torch
 from mgvae_tpu_torch import (Model, collate, collate_chunked, collate_split, layered_circuit,
                              random_circuit)
 from mgvae_tpu_torch.models import dg_ae
-from mgvae_tpu_torch.ops import _build, level_kernel, struct_kernel
+from mgvae_tpu_torch.ops import _build, gather, level_kernel, struct_kernel
 from mgvae_tpu_torch.train import step
 
 pytestmark = pytest.mark.cuda
@@ -762,6 +764,11 @@ def test_fused_kernels_on_a_three_chunk_batch_on_card(cuda, dim):
 
 
 def _one_step(cfg, batch, dev, neg, keep, seed=4, weights=(1.0, 4.0, 4.0, 0.0)):
+    """One step's metrics and gradients on ``dev``. On the CPU the row
+    gathers' backward rounds where the card's kernels round
+    (``gather.gather_rows_bwd_fp32``: a bf16 sum in fp32, rounded once;
+    fp32 bit for bit the CPU's own), so that a bf16 step card vs CPU
+    compares two paths that round at the same points."""
     params, state = dg_ae.init_params(cfg, seed=seed, device=dev)
     leaves = step.param_leaves(params)
     for t in leaves:
@@ -769,7 +776,9 @@ def _one_step(cfg, batch, dev, neg, keep, seed=4, weights=(1.0, 4.0, 4.0, 0.0)):
     total, (_, metrics) = step.loss_and_metrics(
         params, state, batch, None, list(weights), cfg, True,
         neg_edges=tuple(t.to(dev) for t in neg), drop_keep=[k.to(dev) for k in keep])
-    total.backward()
+    with (mock.patch.object(gather, "gather_rows_bwd_reference", gather.gather_rows_bwd_fp32)
+          if str(dev) == "cpu" else contextlib.nullcontext()):
+        total.backward()
     return metrics, [None if t.grad is None else t.grad.cpu() for t in leaves]
 
 
