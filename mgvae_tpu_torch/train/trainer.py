@@ -28,6 +28,18 @@ dims' scan of an epoch is one threaded native call
 (``GroupStatsCache.group_dims``) against a stats cache per dataset (two
 held, by strong reference: train and val), as in the JAX trainer; without
 the library it trial-collates every shard. Both give the same dims.
+In grouped phases (below) the thread looks ahead once its phase's items
+are made: it plans the phase that follows (val after train, the next
+epoch's train after val, across ``train`` calls), on a copy of the plan
+state with the same calls in the same order, and collates that phase's
+first item while the card runs this phase's last steps; a phase without
+steps is planned on the way to the next that has some. The next phase
+takes the plan and its state up when it was made for the same dataset and
+settings from the trainer's present plan state, else drops it and plans
+itself; ``load``, ``set_training_args`` and a phase left early drop it.
+The batches are those of planning each phase on the step's thread, bit
+for bit. The thread ends once it has looked ahead; what it made is the
+trainer's, freed with it.
 Metrics stay on the device and are read back once per epoch. Random draws (DG_VAE's noise, the
 negatives, the dropout masks) come from one ``torch.Generator`` on the
 trainer's device, seeded ``seed + 1``. The epoch line carries `` |KL:``
@@ -64,12 +76,13 @@ range around each part of its host work, on the profiler's clock, and
 appends one entry ``(name, steps done in the phase, host seconds)`` as
 each range closes, ``<phase>`` "train" or "val":
 
-  * ``trainer.plan`` -> ``plan:<phase>``: the epoch plan (the shuffle, the
-    running-max dims scan, the chunk pick), once a phase;
+  * ``trainer.plan`` -> ``plan:<phase>``: once a phase, the epoch plan
+    (the shuffle, the running-max dims scan, the chunk pick), or the wait
+    for the plan made ahead and its take-up;
   * ``trainer.prefetch_wait`` -> ``prefetch_wait:<phase>``: the step
     thread blocked on the prefetch queue, for each item and for its end;
-    the first wait holds the thread's start and its first, un-prefetched
-    collate;
+    the first wait holds the thread's start and the phase's first item:
+    the wait for the one made ahead, else its whole collate;
   * ``trainer.step`` -> ``<phase>``: each K-step or single call, from its
     start to its return, its steps done after it;
   * ``trainer.readback`` -> ``fetch:<phase>``: the epoch's metric rows'
@@ -85,7 +98,12 @@ each range closes, ``<phase>`` "train" or "val":
     capture or the step's body).
 
 A ``trace_dir`` capture turns the same ranges on for its epoch without a
-list, so its trace file carries them. The multi-task subclasses open none.
+list, so its trace file carries them. The prefetch thread's look-ahead
+opens bare ranges while the spans are on, with no entry:
+``trainer.plan_ahead`` around each plan it makes ahead and
+``trainer.collate_ahead`` around the first item's collate (a ``trace_dir``
+capture profiles every thread; a profiler that follows the step's
+thread alone does not see them). The multi-task subclasses open none.
 
 ``steps_per_call`` K (default 8, as the JAX trainer's): each phase's
 steps run in groups of K through the K-step calls
@@ -120,7 +138,8 @@ wire and the split layout's pre-grown dims (they change padding only).
 """
 from __future__ import annotations
 
-import itertools
+import copy
+import functools
 import os
 import queue
 import threading
@@ -158,6 +177,8 @@ from .step import (METRIC_KEYS, make_multi_eval, make_multi_step, make_optimizer
 # chunk counts tried on the first step, smallest first (the JAX trainer's)
 CHUNK_CANDIDATES = (1, 2, 3, 4, 6, 8)
 PREFETCH_DEPTH = 2
+# what the epoch plans draw from and grow: the look-ahead plans on a copy
+PLAN_STATE = ("_np_rng", "_dims_max", "_chunks", "_split", "_split_dims_max", "_split_layout")
 
 
 def resolve_device(device) -> torch.device:
@@ -203,6 +224,20 @@ def _running_max(cur: dict, new: dict) -> bool:
             cur[k] = v
             grew = True
     return grew
+
+
+class _Ahead:
+    """A phase planned ahead by the previous phase's prefetch thread
+    (``Trainer._look_ahead``) for ``dataset`` under ``key``. ``planned`` is
+    set once ``plan`` and ``state`` (the plan state after it) or ``error``
+    are in, with ``next``, the phase after it, where it has no steps;
+    ``made`` once ``first`` (its first item) is in too. ``dropped``, shared
+    along the chain, stops the thread making it."""
+
+    def __init__(self, dataset, key: tuple, dropped: threading.Event):
+        self.dataset, self.key, self.dropped = dataset, key, dropped
+        self.plan = self.state = self.first = self.error = self.next = None
+        self.planned, self.made = threading.Event(), threading.Event()
 
 
 class Trainer:
@@ -254,6 +289,11 @@ class Trainer:
         # scanned (train and val), held by strong reference: compared with
         # ``is``, so a collected dataset's id can never serve stale stats
         self._stats_caches: list = []
+        # the look-ahead (``_look_ahead``): the record of the next phase,
+        # planned ahead from the trainer's present plan state, or None; the
+        # phases that follow each phase of the running ``train`` call
+        self._ahead: _Ahead | None = None
+        self._upcoming: dict = {}
         # the span log: a list turns the trainer's spans on (utils/spans)
         self.step_times = None
         self._spans = Spans()
@@ -331,6 +371,7 @@ class Trainer:
             self.lr_step = lr_step
         if kl_weight is not None:
             self.kl_weight = kl_weight
+        self._drop_ahead()
 
     @property
     def weights(self) -> list:
@@ -359,6 +400,7 @@ class Trainer:
         self.model_epoch = epoch
         self.lr = lr
         set_lr(self.optimizer, lr)
+        self._drop_ahead()
         print(f"[INFO] Continue training from epoch {self.model_epoch}")
         return path
 
@@ -371,6 +413,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _epoch_plan(self, dataset):
+        """The epoch's plan made on the caller's thread (``_plan``), after
+        dropping whatever was planned ahead."""
+        self._drop_ahead()
+        return self._plan(dataset)
+
+    def _plan(self, dataset):
         """The epoch's shuffled ids, step count, dims (None, a dict, or one
         dict per split group) and chunk count."""
         idx = np.arange(len(dataset))
@@ -553,101 +601,219 @@ class Trainer:
             return collate_chunked(graphs, num_chunks, dims=dims)
         return collate(graphs, dims=dims)
 
-    def _prefetch(self, items):
-        """The items of the iterable ``items`` (host batches, made in it),
-        made in a prefetch thread (the native library or numpy, no CUDA call)
-        PREFETCH_DEPTH items ahead. An error in the thread is raised here;
-        closing the generator early stops the thread."""
+    def _prefetch(self, items, ahead=None, upcoming=(), use_multi=False):
+        """The phase's items, made by calling each of ``items`` (host
+        batches: the native library or numpy, no CUDA call) in a prefetch
+        thread PREFETCH_DEPTH items ahead; first ``ahead.first`` where the
+        previous phase's thread made the first item ahead. An error in the
+        thread is raised here; closing the generator early stops the thread.
+        With ``upcoming`` (the datasets of the phases that follow), the
+        thread then looks ahead (``_look_ahead``) from this phase's plan
+        state, on past the phase's end; the record of the first is the
+        trainer's ``_ahead`` from the start, so that the next phase finds it."""
         q: queue.Queue = queue.Queue(maxsize=PREFETCH_DEPTH)
         stop = threading.Event()
+        nxt = state = None
+        if upcoming:
+            state = self._plan_state()
+            nxt = _Ahead(upcoming[0], self._phase_key(upcoming[0], use_multi), threading.Event())
+            self._ahead = nxt
 
         def producer():
             end = RuntimeError("the prefetch thread stopped before the epoch's end")
             try:
-                for item in items:
+                for make in items:
                     if stop.is_set():
                         return
-                    q.put(item)
+                    q.put(make())
                 end = None
             except Exception as e:  # handed to the consumer, which raises it
                 end = e
             finally:
                 q.put(end)
+            if end is None and nxt is not None:
+                self._look_ahead(nxt, state, upcoming, use_multi)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="mgvae-prefetch", daemon=True)
+        done = False
         try:
             # the first wait holds the thread's start: the thread may keep
             # the GIL through the Python of its first collate
             with self._spans("trainer.prefetch_wait"):
                 t.start()
-                b = q.get()
+                if ahead is None:
+                    b = q.get()
+                else:
+                    ahead.made.wait()
+                    if ahead.error is not None:
+                        raise ahead.error
+                    b, ahead.first = ahead.first, None
             while b is not None:
                 if isinstance(b, BaseException):
                     raise b
                 yield b
                 with self._spans("trainer.prefetch_wait"):
                     b = q.get()
+            done = True
         finally:
-            stop.set()
-            while t.is_alive():  # unblock a pending put until the thread returns
-                try:
-                    q.get(timeout=0.05)
-                except queue.Empty:
-                    pass
+            if not done:    # left early or raised: nothing is planned ahead of it
+                stop.set()
+                self._drop_ahead()
+                while t.is_alive():  # unblock a pending put until the thread returns
+                    try:
+                        q.get(timeout=0.05)
+                    except queue.Empty:
+                        pass
 
     def _step_graphs(self, dataset, idx, s: int) -> list:
         """This rank's shard of step ``s``."""
         bs, j = self.batch_size, s * self.num_devices + self.rank
         return [dataset[i] for i in idx[j * bs:(j + 1) * bs]]
 
-    def _iter_batches(self, dataset):
-        """Host batches of one epoch, one per step, collated in the prefetch
-        thread."""
-        idx, n_steps, dims, C = self._epoch_plan(dataset)
-        return self._prefetch(self._collate_step(self._step_graphs(dataset, idx, s), dims, C)
-                              for s in range(n_steps))
-
-    def _iter_grouped(self, dataset, use_multi: bool):
-        """("group", (stacked host batch, K)) and ("single", host batch)
-        items of one epoch, collated in the prefetch thread: groups of K =
-        ``steps_per_call`` steps, each collated in one call with the K
-        steps as shards, then the tail step by step; every step singly
-        without ``use_multi``, with free dims, or when the epoch has fewer
-        than K steps (the JAX trainer's ``_iter_grouped``)."""
-        with self._spans("trainer.plan"):
-            idx, n_steps, dims, C = self._epoch_plan(dataset)
+    def _phase_items(self, dataset, plan, use_multi: bool) -> list:
+        """The calls that make the phase's items under ``plan``, in order:
+        ("group", (stacked host batch, K)) for each group of K =
+        ``steps_per_call`` steps, collated in one call with the K steps as
+        shards, then ("single", host batch) for each step of the tail; every
+        step singly without ``use_multi``, with free dims, or when the epoch
+        has fewer than K steps (the JAX trainer's ``_iter_grouped``)."""
+        idx, n_steps, dims, C = plan
         K = self.steps_per_call
         starts, singles = range(0), range(n_steps)
         if use_multi and dims is not None and n_steps >= K:
             starts = range(0, n_steps - K + 1, K)
             singles = range(len(starts) * K, n_steps)
 
-        def make_group(s0):
+        def group(s0):
             shards = [self._step_graphs(dataset, idx, s) for s in range(s0, s0 + K)]
             if isinstance(dims, list):   # split: per-group dims
-                return collate_split_step(shards, dims)
-            return collate_shards(shards, dims=dims, num_chunks=C)
+                return "group", (collate_split_step(shards, dims), K)
+            return "group", (collate_shards(shards, dims=dims, num_chunks=C), K)
 
-        return self._prefetch(itertools.chain(
-            (("group", (make_group(s0), K)) for s0 in starts),
-            (("single", self._collate_step(self._step_graphs(dataset, idx, s), dims, C))
-             for s in singles)))
+        def single(s):
+            return "single", self._collate_step(self._step_graphs(dataset, idx, s), dims, C)
+
+        return ([functools.partial(group, s0) for s0 in starts]
+                + [functools.partial(single, s) for s in singles])
+
+    def _iter_batches(self, dataset):
+        """Host batches of one epoch, one per step, collated in the prefetch
+        thread (the multi-task trainers' epochs; nothing is planned ahead)."""
+        for _, batch in self._iter_grouped(dataset, False):
+            yield batch
+
+    def _iter_grouped(self, dataset, use_multi: bool, upcoming=()):
+        """The items of one epoch (``_phase_items``), collated in the
+        prefetch thread. The plan, and the first item, are the ones the
+        previous phase's thread made ahead for this phase (``_take_ahead``),
+        else the plan is made here; with ``upcoming``, this phase's thread
+        then plans those phases in turn and collates the first item of the
+        first that has steps."""
+        with self._spans("trainer.plan"):
+            ahead = self._take_ahead(dataset, use_multi)
+            plan = self._epoch_plan(dataset) if ahead is None else ahead.plan
+        items = self._phase_items(dataset, plan, use_multi)
+        if ahead is not None and not items and self._ahead is not None:
+            return iter(())     # planned on the way to the next, which is being made
+        first = ahead is not None and bool(items)
+        return self._prefetch(items[first:], ahead if first else None, upcoming, use_multi)
+
+    # ------------------------------------------------------------------
+    # the look-ahead: the next phase planned and its first item collated
+    # in the prefetch thread while the card runs this phase's last steps
+    def _phase_key(self, dataset, use_multi: bool) -> tuple:
+        """What a phase's plan and items depend on besides the dataset
+        object and the plan state."""
+        return (len(dataset), use_multi, self.batch_size, self.num_devices, self.rank,
+                self.steps_per_call, self.fixed_dims, self.split_arg, self.device,
+                self.model_cfg)
+
+    def _plan_state(self) -> dict:
+        """A copy of what the epoch plans draw from and grow: the shuffle
+        stream, the running-max dims, the chunk count and the split state."""
+        return copy.deepcopy({k: getattr(self, k) for k in PLAN_STATE})
+
+    def _look_ahead(self, rec, state, upcoming, use_multi: bool):
+        """In the prefetch thread, once its phase's items are made: plan
+        the phases of ``upcoming`` in turn, from the plan state ``state``, on
+        a shallow copy of the trainer that holds it (the trainer's own is
+        untouched until the step thread takes a phase up), and collate the
+        first item of the first with steps. ``rec`` is the first's record;
+        a phase without steps links the next one's before its plan is
+        published. An error is kept in the record and raised by the phase
+        that takes it up."""
+        planner = copy.copy(self)
+        planner.__dict__.update(state)
+        for i, dataset in enumerate(upcoming):
+            nxt, items = None, ()
+            try:
+                if rec.dropped.is_set():
+                    return
+                with self._spans.range_only("trainer.plan_ahead"):
+                    rec.plan = planner._plan(dataset)
+                rec.state = planner._plan_state()
+                items = planner._phase_items(dataset, rec.plan, use_multi)
+                if not items and i + 1 < len(upcoming):
+                    nxt = rec.next = _Ahead(upcoming[i + 1],
+                                            planner._phase_key(upcoming[i + 1], use_multi),
+                                            rec.dropped)
+                rec.planned.set()
+                if items and not rec.dropped.is_set():
+                    with self._spans.range_only("trainer.collate_ahead"):
+                        rec.first = items[0]()
+            except Exception as e:  # raised on the step thread at the phase that uses it
+                rec.error = e
+            finally:
+                rec.planned.set()
+                rec.made.set()
+            if nxt is None:
+                return
+            rec = nxt
+
+    def _take_ahead(self, dataset, use_multi: bool):
+        """This phase's record when the look-ahead made it for this dataset
+        and these settings: waits for its plan, makes the plan state after
+        it the trainer's and its ``next`` the trainer's ``_ahead``. Else
+        None, with whatever was planned ahead dropped. A record is always
+        planned from the trainer's present plan state: each plan on the
+        step's thread drops it first, and only a take-up moves the state."""
+        rec = self._ahead
+        if rec is None or rec.dataset is not dataset or rec.key != self._phase_key(dataset,
+                                                                                   use_multi):
+            self._drop_ahead()
+            return None
+        rec.planned.wait()
+        self._ahead = rec.next
+        if rec.plan is None:
+            raise rec.error
+        self.__dict__.update(rec.state)
+        return rec
+
+    def _drop_ahead(self):
+        """Forget the phases planned ahead; their thread stops before its
+        next plan or collate. The trainer's plan state was never theirs."""
+        if self._ahead is not None:
+            self._ahead.dropped.set()
+            self._ahead = None
 
     # ------------------------------------------------------------------
     def _start_trace(self):
-        """A started torch.profiler capture of the host and (on the card) the
+        """A started torch.profiler capture of the host (every thread: the
+        prefetch thread's look-ahead ranges too) and, on the card, the
         device, written into ``trace_dir`` by TensorBoard's trace handler
         when it stops; None without ``trace_dir`` or off the chief."""
         if not (self.trace_dir and self.is_chief):
             return None
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+        from torch.profiler import (ProfilerActivity, _ExperimentalConfig, profile,
+                                    tensorboard_trace_handler)
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(self.trace_dir, exist_ok=True)
         trace = profile(activities=activities,
-                        on_trace_ready=tensorboard_trace_handler(self.trace_dir))
+                        on_trace_ready=tensorboard_trace_handler(self.trace_dir),
+                        experimental_config=_ExperimentalConfig(profile_all_threads=True))
         trace.start()
         return trace
 
@@ -664,7 +830,7 @@ class Trainer:
         steps_done = 0
         last_logged = 0
         t0 = time.time()
-        for kind, item in self._iter_grouped(ds, self.grouped):
+        for kind, item in self._iter_grouped(ds, self.grouped, self._upcoming.get(phase, ())):
             with spans("trainer.step"):
                 if kind == "group":
                     sbatch, k = item
@@ -733,6 +899,11 @@ class Trainer:
         print(f"[INFO] Start training, lr = {self.lr:.6f}; steps {self.step_mode}")
         phase_meters = {}
         meters = None
+        # what follows each phase, for the prefetch thread's look-ahead: val
+        # after train, the next epoch's train (this call's or the next's)
+        # after val; grouped phases only
+        self._upcoming = ({"train": (val_dataset, train_dataset),
+                           "val": (train_dataset, val_dataset)} if self.grouped else {})
         trace = self._start_trace()
         try:
             for epoch in range(num_epoch):

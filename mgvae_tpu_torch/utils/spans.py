@@ -12,7 +12,8 @@ appends ``(entry, steps done in the phase, host seconds)`` to the list.
 The entry is the name after its first dot and the phase
 (``"trainer.plan"`` in the train phase: ``"plan:train"``), but for the
 two in ``ENTRIES``: each call's is its phase, the read-back's
-``fetch:<phase>``. A range that raises appends nothing.
+``fetch:<phase>``. A range that raises appends nothing. Work on another
+thread opens a bare range (``range_only``), which appends nothing.
 """
 from __future__ import annotations
 
@@ -50,6 +51,11 @@ class Spans:
         if not self.on:
             return _OFF
         return _Span(self, name)
+
+    def range_only(self, name: str):
+        """A ``record_function`` range while the spans are on, and no entry:
+        for work off the step's thread (the trainer's look-ahead)."""
+        return torch.profiler.record_function(name) if self.on else _OFF
 
 
 class _Span:
